@@ -1,0 +1,215 @@
+// K1: the whole Jacobi-preconditioned CG solve in one launch, for a
+// lockstep batch of single-block stencil systems.
+//
+// Replaces fluidgym_tpu/ops/cg_pallas.py `_kernel` (entry `fused_cg`), the
+// TPU kernel that keeps every lane's x, r, p resident in VMEM for the whole
+// Krylov loop.  Semantics are that kernel's, lane for lane:
+//   * NORM2_NORMALIZED stopping per lane (sum r^2 <= tol^2 * n);
+//   * Jacobi preconditioning, optional warm start;
+//   * per-lane freeze: converged or stalled lanes take zero-length steps;
+//   * stall patience and return-best per lane;
+//   * one matvec per iteration; every 100th iteration spends it on A@x and
+//     replaces r by the true residual b - A x, for frozen lanes too (this
+//     can reactivate a lane);
+//   * ONE iteration counter shared by all lanes, reported for every lane;
+//   * every division guarded by tiny = 1e-30.
+// (The zero-RHS rule lives in the Python wrapper, as in the JAX package.)
+//
+// What bounds it on the H100: not bytes or flops (one RBC2D solve is ~6k
+// cells, some 100k flops per iteration, a few hundred iterations) but the
+// latency of the iteration chain: three dependent passes over the field and
+// three block-wide reductions per iteration.  The design answers that the
+// simple way: one thread block carries every lane of a solve, so the loop,
+// the dot products and the stopping test stay on the device with no host
+// round-trip and no grid-wide synchronisation; the working set (x, r, p, Av,
+// best, coefficients: ~0.3 MB per 6k-cell lane) stays in the 50 MB L2.
+// Using more SMs (clusters, distributed shared memory) is later work.
+#include "krylov.cuh"
+
+template <int ND>
+__global__ void __launch_bounds__(FG_THREADS)
+fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
+             const float* __restrict__ off, const float* __restrict__ x0,
+             float* __restrict__ x, int* __restrict__ iters_out,
+             float* __restrict__ rs_out, float* __restrict__ r,
+             float* __restrict__ p, float* __restrict__ q,
+             float* __restrict__ best, int lanes, FgGrid g, int op_per_lane,
+             float tol2, int maxiter, int stall_iters, int precondition,
+             int return_best, int warm_start) {
+  __shared__ float sh[64];
+  __shared__ float s_rz[FG_MAX_LANES], s_rs[FG_MAX_LANES];
+  __shared__ float s_best_rs[FG_MAX_LANES];
+  __shared__ float s_alpha[FG_MAX_LANES], s_beta[FG_MAX_LANES];
+  __shared__ float s_red1[FG_MAX_LANES], s_red2[FG_MAX_LANES];
+  __shared__ int s_best_it[FG_MAX_LANES], s_done[FG_MAX_LANES];
+  __shared__ int s_better[FG_MAX_LANES];
+  __shared__ int s_go;
+
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int n = g.n;
+  const int nf = 2 * ND;
+
+  // ---- init: r = b - A x0 (or b), z = M^-1 r, p = z, best = x ----------
+  for (int l = 0; l < lanes; ++l) {
+    const float* dg = diag + (size_t)l * n * op_per_lane;
+    const float* of = off + (size_t)l * nf * n * op_per_lane;
+    const size_t o = (size_t)l * n;
+    float a1 = 0.0f, a2 = 0.0f;
+    for (int c = tid; c < n; c += T) {
+      float rr, xx;
+      if (warm_start) {
+        xx = x0[o + c];
+        rr = b[o + c] - fg_matvec<ND>(dg, of, x0 + o, c, g);
+      } else {
+        xx = 0.0f;
+        rr = b[o + c];
+      }
+      const float zz = precondition ? (1.0f / dg[c]) * rr : rr;
+      x[o + c] = xx;
+      best[o + c] = xx;
+      r[o + c] = rr;
+      p[o + c] = zz;
+      a1 += rr * zz;
+      a2 += rr * rr;
+    }
+    fg_block_sum2(a1, a2, sh);
+    if (tid == 0) {
+      s_rz[l] = a1;
+      s_rs[l] = a2;
+      s_best_rs[l] = a2;
+      s_best_it[l] = 0;
+    }
+  }
+
+  int it = 0;
+  for (;;) {
+    __syncthreads();
+    if (tid == 0) {
+      int any = 0;
+      for (int l = 0; l < lanes; ++l) {
+        const int stalled = (it - s_best_it[l]) >= stall_iters;
+        any |= (s_rs[l] > tol2) && !stalled;
+        s_done[l] = (s_rs[l] <= tol2) || stalled;
+      }
+      s_go = (it < maxiter) && any;
+    }
+    __syncthreads();
+    if (!s_go) break;
+    const int recompute = ((it + 1) % 100) == 0;
+
+    // ---- pass A: q = A (recompute ? x : p), denom = <p, q> --------------
+    for (int l = 0; l < lanes; ++l) {
+      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const float* of = off + (size_t)l * nf * n * op_per_lane;
+      const size_t o = (size_t)l * n;
+      const float* src = (recompute ? x : p) + o;
+      float a1 = 0.0f, a2 = 0.0f;
+      for (int c = tid; c < n; c += T) {
+        const float av = fg_matvec<ND>(dg, of, src, c, g);
+        q[o + c] = av;
+        a1 += p[o + c] * av;
+      }
+      fg_block_sum2(a1, a2, sh);
+      if (tid == 0) s_red1[l] = a1;
+    }
+    __syncthreads();
+    for (int l = tid; l < lanes; l += T) {
+      s_alpha[l] = (s_done[l] || recompute)
+                         ? 0.0f
+                         : s_rz[l] / fg_guard(s_red1[l]);
+    }
+    __syncthreads();
+
+    // ---- pass B: x += alpha p; r update or refresh; <r,z>, <r,r> --------
+    for (int l = 0; l < lanes; ++l) {
+      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const size_t o = (size_t)l * n;
+      const float al = s_alpha[l];
+      float a1 = 0.0f, a2 = 0.0f;
+      for (int c = tid; c < n; c += T) {
+        x[o + c] = x[o + c] + al * p[o + c];
+        const float rr =
+            recompute ? b[o + c] - q[o + c] : r[o + c] - al * q[o + c];
+        r[o + c] = rr;
+        const float zz = precondition ? (1.0f / dg[c]) * rr : rr;
+        a1 += rr * zz;
+        a2 += rr * rr;
+      }
+      fg_block_sum2(a1, a2, sh);
+      if (tid == 0) {
+        s_red1[l] = a1;
+        s_red2[l] = a2;
+      }
+    }
+    __syncthreads();
+    for (int l = tid; l < lanes; l += T) {
+      const float rz_new = s_red1[l], rs_new = s_red2[l];
+      s_beta[l] = s_done[l] ? 0.0f : rz_new / fg_guard(s_rz[l]);
+      const int better = (rs_new < s_best_rs[l]) && !s_done[l];
+      s_better[l] = better;
+      if (better) {
+        s_best_rs[l] = rs_new;
+        s_best_it[l] = it + 1;
+      }
+      s_rz[l] = rz_new;
+      s_rs[l] = rs_new;
+    }
+    __syncthreads();
+
+    // ---- pass C: p = z + beta p; best = x where better ------------------
+    for (int l = 0; l < lanes; ++l) {
+      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const size_t o = (size_t)l * n;
+      const float be = s_beta[l];
+      const int keep = return_best && s_better[l];
+      for (int c = tid; c < n; c += T) {
+        const float rr = r[o + c];
+        const float zz = precondition ? (1.0f / dg[c]) * rr : rr;
+        p[o + c] = zz + be * p[o + c];
+        if (keep) best[o + c] = x[o + c];
+      }
+    }
+    ++it;
+  }
+
+  // ---- finish: return-best, per-lane stats ------------------------------
+  for (int l = 0; l < lanes; ++l) {
+    const size_t o = (size_t)l * n;
+    const int use_best = return_best && !(s_rs[l] <= tol2);
+    if (use_best) {
+      for (int c = tid; c < n; c += T) x[o + c] = best[o + c];
+    }
+    if (tid == 0) {
+      iters_out[l] = it;
+      rs_out[l] = use_best ? s_best_rs[l] : s_rs[l];
+    }
+  }
+}
+
+extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
+                           const float* x0, float* x, int* iters, float* rs,
+                           float* r, float* p, float* q, float* best,
+                           int lanes, int nz, int ny, int nx, int ndims,
+                           int op_per_lane, float tol2, int maxiter,
+                           int stall_iters, int precondition, int return_best,
+                           int warm_start, void* stream) {
+  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3))
+    return (int)cudaErrorInvalidValue;
+  FgGrid g;
+  g.nz = nz;
+  g.ny = ny;
+  g.nx = nx;
+  g.n = nz * ny * nx;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ndims == 2) {
+    fg_cg_kernel<2><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, g, op_per_lane,
+        tol2, maxiter, stall_iters, precondition, return_best, warm_start);
+  } else {
+    fg_cg_kernel<3><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, g, op_per_lane,
+        tol2, maxiter, stall_iters, precondition, return_best, warm_start);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,17 @@
+"""Environment families and registration.  This port registers
+``RBC2D-easy-v0``; the other ids of the JAX package follow slice by slice."""
+
+from fluidgym_tpu_torch.envs.fluid_env import EnvState, FluidEnv
+from fluidgym_tpu_torch.registry import register
+
+__all__ = ["EnvState", "FluidEnv"]
+
+
+def _register_rbc() -> None:
+    from fluidgym_tpu_torch.envs.rbc import RBC_2D_DEFAULT_CONFIG, RBCEnv2D
+
+    register("RBC2D-easy-v0", RBCEnv2D, RBC_2D_DEFAULT_CONFIG,
+             rayleigh_number=8e4, adaptive_cfl=0.8)
+
+
+_register_rbc()

@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the H100 (sm_90a), one module per kernel:
+
+* ``cg_cuda``: K1, the whole-solve Jacobi-PCG (counterpart of
+  ``fluidgym_tpu/ops/cg_pallas.py``);
+* ``cg_cuda_mb``: K2, the whole-solve right-Jacobi BiCGStab over the merged
+  frame (counterpart of ``fluidgym_tpu/ops/cg_pallas_mb.py``).
+
+Each module holds the kernel's wrapper (which launches the kernel for CUDA
+tensors and runs the plain PyTorch version for CPU tensors), the plain
+version itself, and a launch counter on the wrapper.  ``_build`` compiles
+``csrc/`` with ``nvcc`` at first use; importing this package builds nothing.
+"""

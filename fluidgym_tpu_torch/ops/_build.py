@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under ``fluidgym_tpu_torch/csrc/`` compile with ONE ``nvcc``
+call into a plain-C shared library (no PyTorch headers, so a build takes
+seconds, not minutes), loaded with ``ctypes``.  The library lands in
+``<repo>/build/kernels/`` under a name keyed by a hash of the sources and
+flags, so an unchanged tree never rebuilds.  Nothing happens at import: the
+first kernel launch calls ``library()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("cg.cu", "bicgstab_mb.cu")
+HEADERS = ("krylov.cuh",)
+# --fmad=false: no contraction of a*b+c, so the kernels round every product
+# and sum like the plain PyTorch versions do (only the order of the sums
+# differs); the cost is invisible next to the iteration chain's latency
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+_ARGTYPES = {
+    # b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, nz, ny, nx,
+    # ndims, op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
+    "fg_cg_solve": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
+    # lanes, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall, precond,
+    # best?, warm, stream
+    "fg_bicgstab_solve": [_P] * 15 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+}
+
+
+class _Library:
+    """The loaded library plus what its build reported."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.lib: ctypes.CDLL | None = None
+        self.path: Path | None = None
+        self.build_seconds: float | None = None  # None: reused a cached build
+        self.build_log: str = ""
+
+
+_LIB = _Library()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the card's "
+                       "machine at first use (CUDA toolkit required)")
+
+
+def _source_key() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    with _LIB._lock:
+        if _LIB.lib is not None:
+            return _LIB.lib
+        out = BUILD_DIR / f"libfluidgym_kernels_{_source_key()}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(CSRC / s) for s in SOURCES]]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _LIB.build_seconds = time.perf_counter() - t0
+            _LIB.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{_LIB.build_log}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB.lib, _LIB.path = lib, out
+        return lib
+
+
+def build_info() -> dict:
+    """Where the library is and how long its build took (None = cached)."""
+    return {"path": str(_LIB.path) if _LIB.path else None,
+            "build_seconds": _LIB.build_seconds, "log": _LIB.build_log}
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        import torch
+
+        raise RuntimeError(
+            f"{what}: CUDA launch failed with cudaError {status} "
+            f"({torch.cuda.get_device_name()})")

@@ -1,0 +1,443 @@
+"""Matrix-free finite-volume stencil operators, single-block part
+(counterpart of ``fluidgym_tpu/solver/stencil.py``).
+
+Per-block stencil **coefficient tensors** (diagonal + one coefficient per
+face) are built once per substep and applied matrix-free with shifted
+multiplies.  The numerics are the JAX package's, line for line:
+
+* advective face fluxes: central average of cell contravariant components
+  ``flux_f = 0.5 * (C_P + C_N)``, ``C_d = det * (M^-1 u)_d``;
+* implicit-Euler advection-diffusion matrix: ``diag = 1/dt + sum_f(0.5 *
+  sign_f * flux_f + visc_f)/det (+ wall terms)``, ``off_f = (0.5 * sign_f *
+  flux_f - visc_f)/det``, ``visc_f = 0.5*(alpha_P nu_P + alpha_N nu_N)``;
+* FIXED faces: matrix entry removed; Dirichlet walls add ``2 nu alpha / det``
+  to the diagonal and the matching sources to the RHS;
+* pressure matrix (sign-flipped, positive definite): ``off_f = -0.5 *
+  (alpha_P/A_P + alpha_N/A_N)``, ``diag = -sum_f off_f``, zero at FIXED faces;
+* pressure RHS ``hbyA = (u_old/dt - H u* + S)/A``; divergence from
+  contravariant face fluxes; FD velocity correction ``u = hbyA - (1/A) M^-T
+  grad_xi p`` with one-sided differences at FIXED faces.
+
+Layout invariants kept from the JAX package: the face order is
+-x,+x,-y,+y[,-z,+z], and physical axis d is array axis ``rank-1-d`` (x is the
+minor axis).  Every neighbour is a periodic roll: exact for interior cells
+and PERIODIC faces, masked by ``off = 0`` (or overwritten) at FIXED faces.
+
+Not ported yet: CONNECTED faces (multi-block halo exchange) and curvilinear
+(non-orthogonal) metrics; both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from fluidgym_tpu_torch.core.domain import (
+    BCType,
+    BlockGeom,
+    BlockState,
+    BlockTopo,
+    BoundKind,
+    DomainState,
+    DomainTopo,
+    face_axis,
+    face_sign,
+)
+
+Tensor = torch.Tensor
+BlockVec = tuple  # tuple of per-block tensors
+
+__all__ = [
+    "StencilOp",
+    "stencil_apply",
+    "stencil_off_apply",
+    "domain_apply",
+    "domain_off_apply",
+    "contravariant",
+    "build_advection_ops",
+    "advection_rhs_velocity",
+    "advection_rhs_scalar",
+    "build_pressure_ops",
+    "pressure_rhs_vec",
+    "divergence_of",
+    "pressure_gradient",
+    "correct_velocity_fd",
+    "max_computational_velocity",
+]
+
+
+@dataclass
+class StencilOp:
+    """Per-block matrix-free stencil: ``(A x)_i = diag_i x_i + sum_f off_f[i]
+    * x_{neighbor_f(i)}``.  ``off`` has shape ``(2*ndims, *spatial)`` with face
+    order -x,+x,-y,+y[,-z,+z]; coefficients are zero at prescribed faces."""
+
+    diag: Tensor
+    off: Tensor
+
+
+# ---------------------------------------------------------------------------
+# shift / slicing helpers
+# ---------------------------------------------------------------------------
+
+def _axis(rank: int, d: int) -> int:
+    """Array axis of physical axis d for an array of given rank."""
+    return rank - 1 - d
+
+
+def _roll_nbr(x: Tensor, f: int) -> Tensor:
+    """Face-f neighbour values by periodic roll (lower face -> i-1)."""
+    d = face_axis(f)
+    shift = 1 if f % 2 == 0 else -1
+    return torch.roll(x, shift, dims=_axis(x.dim(), d))
+
+
+def _face_slab(rank: int, f: int):
+    """Index tuple selecting the slab of cells adjacent to face f."""
+    d = face_axis(f)
+    idx = [slice(None)] * rank
+    idx[_axis(rank, d)] = slice(-1, None) if f % 2 else slice(0, 1)
+    return tuple(idx)
+
+
+def _slab(x: Tensor, f: int) -> Tensor:
+    return x[_face_slab(x.dim(), f)]
+
+
+def _set(x: Tensor, idx, val) -> Tensor:
+    """Functional ``x.at[idx].set(val)``."""
+    y = x.clone()
+    y[idx] = val
+    return y
+
+
+def _add(x: Tensor, idx, val) -> Tensor:
+    """Functional ``x.at[idx].add(val)``."""
+    y = x.clone()
+    y[idx] = y[idx] + val
+    return y
+
+
+def _require_single_block(topo: DomainTopo) -> None:
+    for bt in topo.blocks:
+        if any(s.kind == BoundKind.CONNECTED for s in bt.faces):
+            raise NotImplementedError(
+                "CONNECTED faces (multi-block halo exchange) are not ported yet")
+        if not bt.orthogonal:
+            raise NotImplementedError(
+                "curvilinear (non-orthogonal) blocks are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# operator application
+# ---------------------------------------------------------------------------
+
+def stencil_apply(op: StencilOp, x: Tensor, ndims: int) -> Tensor:
+    """Single-block apply (no CONNECTED faces)."""
+    out = op.diag * x
+    for f in range(2 * ndims):
+        out = out + op.off[f] * _roll_nbr(x, f)
+    return out
+
+
+def stencil_off_apply(op: StencilOp, x: Tensor, ndims: int) -> Tensor:
+    """Single-block off-diagonal apply (the reference's ``H u*``)."""
+    out = torch.zeros_like(x * op.diag)
+    for f in range(2 * ndims):
+        out = out + op.off[f] * _roll_nbr(x, f)
+    return out
+
+
+def domain_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
+                 topo: DomainTopo) -> BlockVec:
+    """Apply over all blocks (single-block topologies in this port)."""
+    _require_single_block(topo)
+    return tuple(stencil_apply(op, x, topo.ndims) for op, x in zip(ops, xs))
+
+
+def domain_off_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
+                     topo: DomainTopo) -> BlockVec:
+    _require_single_block(topo)
+    return tuple(stencil_off_apply(op, x, topo.ndims) for op, x in zip(ops, xs))
+
+
+# ---------------------------------------------------------------------------
+# metric helpers
+# ---------------------------------------------------------------------------
+
+def contravariant(u: Tensor, geom: BlockGeom, topo: BlockTopo) -> Tensor:
+    """Contravariant velocity components ``C_d = det * (M^-1 u)_d``."""
+    if not topo.orthogonal:
+        raise NotImplementedError("curvilinear blocks are not ported yet")
+    return geom.det * geom.minv_diag * u
+
+
+def computational_velocity(u: Tensor, geom: BlockGeom, topo: BlockTopo) -> Tensor:
+    """Index-space velocity ``(M^-1 u)`` used for CFL estimation."""
+    if not topo.orthogonal:
+        raise NotImplementedError("curvilinear blocks are not ported yet")
+    return geom.minv_diag * u
+
+
+def max_computational_velocity(state: DomainState, geoms: tuple[BlockGeom, ...],
+                               topo: DomainTopo) -> Tensor:
+    """Max abs component of index-space velocity over all blocks, cells and
+    FIXED bounds (a 0-d tensor on the state's device)."""
+    m = None
+    for blk, geom, btopo in zip(state.blocks, geoms, topo.blocks):
+        mb = torch.max(torch.abs(computational_velocity(blk.velocity, geom, btopo)))
+        for f, spec in enumerate(btopo.faces):
+            if spec.kind == BoundKind.FIXED and blk.faces[f].velocity is not None:
+                bvel = _slab(geom.minv_diag, f) * blk.faces[f].velocity
+                mb = torch.maximum(mb, torch.max(torch.abs(bvel)))
+        m = mb if m is None else torch.maximum(m, mb)
+    return m
+
+
+def _boundary_flux(blk: BlockState, geom: BlockGeom, btopo: BlockTopo,
+                   f: int) -> Tensor:
+    """Unsigned contravariant flux through FIXED face f (slab shape)."""
+    d = face_axis(f)
+    return _slab(geom.det * geom.minv_diag[d], f) * blk.faces[f].velocity[d]
+
+
+def _field_contravariants(fields: BlockVec, geoms, topo) -> BlockVec:
+    return tuple(contravariant(x, geom, btopo)
+                 for x, geom, btopo in zip(fields, geoms, topo.blocks))
+
+
+def _face_flux(Cs: BlockVec, state: DomainState, geoms, topo, b: int,
+               f: int) -> Tensor:
+    """Unsigned advective flux through face f of block b."""
+    d = face_axis(f)
+    C = Cs[b][d]
+    flux = 0.5 * (C + _roll_nbr(C, f))
+    spec = topo.blocks[b].faces[f]
+    if spec.kind == BoundKind.FIXED:
+        bflux = _boundary_flux(state.blocks[b], geoms[b], topo.blocks[b], f)
+        flux = _set(flux, _face_slab(flux.dim(), f), bflux)
+    return flux
+
+
+# ---------------------------------------------------------------------------
+# advection-diffusion system (prediction step)
+# ---------------------------------------------------------------------------
+
+def _block_nu(state: DomainState, b: int, nu, for_scalar: bool):
+    """Per-cell block viscosity when set (velocity only), else ``nu``."""
+    if not for_scalar and state.blocks[b].viscosity is not None:
+        return state.blocks[b].viscosity
+    return nu
+
+
+def build_advection_ops(
+    state: DomainState,
+    geoms: tuple[BlockGeom, ...],
+    topo: DomainTopo,
+    nu: Tensor,
+    dt,
+    for_scalar: bool = False,
+    scalar_channel: int = 0,
+) -> tuple[StencilOp, ...]:
+    """Implicit-Euler advection-diffusion matrix for all blocks, already
+    divided by ``det`` (central face interpolation; the JAX package's
+    optional upwind blend is not ported yet)."""
+    _require_single_block(topo)
+    ndims = topo.ndims
+    Cs = _field_contravariants(tuple(b.velocity for b in state.blocks), geoms, topo)
+    nus = tuple(_block_nu(state, b, nu, for_scalar) for b in range(len(geoms)))
+    alpha_nu = tuple(g.alpha * nus[b] for b, g in enumerate(geoms))
+
+    ops = []
+    for b, (geom, btopo) in enumerate(zip(geoms, topo.blocks)):
+        det = geom.det
+        diag = det / dt
+        offs = []
+        for f in range(2 * ndims):
+            d = face_axis(f)
+            spec = btopo.faces[f]
+            adv = (0.5 * face_sign(f)) * _face_flux(Cs, state, geoms, topo, b, f)
+            an_n = _roll_nbr(alpha_nu[b][d], f)
+            visc = 0.5 * (alpha_nu[b][d] + an_n)
+            off = adv - visc
+            diag_c = adv + visc
+            if spec.kind == BoundKind.FIXED:
+                slab = _face_slab(off.dim(), f)
+                off = _set(off, slab, 0.0)
+                bctype = (spec.scalar_types[scalar_channel] if for_scalar
+                          else spec.vel_type)
+                wall = (2.0 * alpha_nu[b][d][slab] if bctype == BCType.DIRICHLET
+                        else torch.zeros_like(geom.alpha[d][slab]))
+                diag_c = _set(diag_c, slab, wall)
+            diag = diag + diag_c
+            offs.append(off / det)
+        ops.append(StencilOp(diag=diag / det, off=torch.stack(offs, dim=0)))
+    return tuple(ops)
+
+
+def _boundary_rhs_terms(blk: BlockState, geom: BlockGeom, btopo: BlockTopo,
+                        nu, values_fn, bctype_fn,
+                        neumann_source: bool = False) -> Tensor:
+    """Boundary source accumulation for the advection RHS; returns
+    ``(C, *spatial)`` (to be divided by det)."""
+    ndims = btopo.ndims
+    out = None
+    for f in range(2 * ndims):
+        spec = btopo.faces[f]
+        if spec.kind != BoundKind.FIXED:
+            continue
+        d = face_axis(f)
+        vals = values_fn(f)  # (C, *slab)
+        bflux = _boundary_flux(blk, geom, btopo, f) * face_sign(f)
+        alpha_b = _slab(geom.alpha[d], f)
+        nu_slab = _slab(nu, f) if torch.is_tensor(nu) and nu.dim() else nu
+        term = -vals * bflux
+        if bctype_fn(f) == BCType.DIRICHLET:
+            term = term + vals * (2.0 * nu_slab) * alpha_b
+        elif neumann_source:
+            term = term + vals * nu_slab
+        if out is None:
+            out = torch.zeros(vals.shape[: -len(btopo.shape)] + btopo.shape,
+                              dtype=term.dtype, device=term.device)
+        out = _add(out, (slice(None),) * (out.dim() - len(btopo.shape))
+                   + _face_slab(len(btopo.shape), f), term)
+    if out is None:
+        out = torch.zeros((1,) + btopo.shape, dtype=geom.det.dtype,
+                          device=geom.det.device)
+    return out
+
+
+def advection_rhs_velocity(state: DomainState, geoms: tuple[BlockGeom, ...],
+                           topo: DomainTopo, nu: Tensor, dt) -> BlockVec:
+    """RHS of the velocity prediction system per block."""
+    out = []
+    for b, (blk, geom, btopo) in enumerate(zip(state.blocks, geoms, topo.blocks)):
+        bterms = _boundary_rhs_terms(
+            blk, geom, btopo, _block_nu(state, b, nu, False),
+            values_fn=lambda f, _b=blk: _b.faces[f].velocity,
+            bctype_fn=lambda f, _t=btopo: _t.faces[f].vel_type,
+        )
+        rhs = blk.velocity / dt + bterms / geom.det
+        if blk.velocity_source is not None:
+            rhs = rhs + blk.velocity_source
+        out.append(rhs)
+    return tuple(out)
+
+
+def advection_rhs_scalar(state: DomainState, geoms: tuple[BlockGeom, ...],
+                         topo: DomainTopo, kappa: Tensor, dt,
+                         channel: int) -> BlockVec:
+    """RHS of the scalar prediction system for one channel, per block."""
+    out = []
+    for blk, geom, btopo in zip(state.blocks, geoms, topo.blocks):
+        bterms = _boundary_rhs_terms(
+            blk, geom, btopo, kappa,
+            values_fn=lambda f, _b=blk: _b.faces[f].scalar[channel: channel + 1],
+            bctype_fn=lambda f, _t=btopo: _t.faces[f].scalar_types[channel],
+            neumann_source=True,
+        )
+        out.append(blk.scalar[channel] / dt + bterms[0] / geom.det)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# pressure system (corrector step)
+# ---------------------------------------------------------------------------
+
+def build_pressure_ops(adiags: BlockVec, geoms: tuple[BlockGeom, ...],
+                       topo: DomainTopo) -> tuple[StencilOp, ...]:
+    """Pressure Poisson matrix, sign-flipped (positive definite):
+    ``off_f = -0.5 * (alpha_P/A_P + alpha_N/A_N)``, ``diag = -sum_f off_f``;
+    zero (Neumann) at FIXED faces."""
+    _require_single_block(topo)
+    ndims = topo.ndims
+    ras = tuple(g.alpha / a for g, a in zip(geoms, adiags))
+    ops = []
+    for b, btopo in enumerate(topo.blocks):
+        diag = torch.zeros_like(adiags[b])
+        offs = []
+        for f in range(2 * ndims):
+            d = face_axis(f)
+            coef = 0.5 * (ras[b][d] + _roll_nbr(ras[b][d], f))
+            if btopo.faces[f].kind == BoundKind.FIXED:
+                coef = _set(coef, _face_slab(coef.dim(), f), 0.0)
+            diag = diag + coef
+            offs.append(-coef)
+        ops.append(StencilOp(diag=diag, off=torch.stack(offs, dim=0)))
+    return tuple(ops)
+
+
+def pressure_rhs_vec(state: DomainState, geoms: tuple[BlockGeom, ...],
+                     topo: DomainTopo, adv_ops: tuple[StencilOp, ...],
+                     u_star: BlockVec, nu: Tensor, dt) -> BlockVec:
+    """``hbyA = (u_old/dt - H u* + S)/A`` per block."""
+    H = domain_off_apply(adv_ops, u_star, topo)
+    out = []
+    for b, (blk, geom, btopo) in enumerate(zip(state.blocks, geoms, topo.blocks)):
+        bterms = _boundary_rhs_terms(
+            blk, geom, btopo, _block_nu(state, b, nu, False),
+            values_fn=lambda f, _b=blk: _b.faces[f].velocity,
+            bctype_fn=lambda f, _t=btopo: _t.faces[f].vel_type,
+        )
+        S = bterms / geom.det
+        if blk.velocity_source is not None:
+            S = S + blk.velocity_source
+        out.append((blk.velocity / dt - H[b] + S) / adv_ops[b].diag)
+    return tuple(out)
+
+
+def divergence_of(fields: BlockVec, state: DomainState,
+                  geoms: tuple[BlockGeom, ...], topo: DomainTopo) -> BlockVec:
+    """Divergence of a colocated vector field from contravariant face
+    fluxes; FIXED faces use the prescribed boundary velocity flux."""
+    _require_single_block(topo)
+    Cs = _field_contravariants(fields, geoms, topo)
+    out = []
+    for b, geom in enumerate(geoms):
+        div = torch.zeros_like(geom.det)
+        for f in range(2 * topo.ndims):
+            div = div + face_sign(f) * _face_flux(Cs, state, geoms, topo, b, f)
+        out.append(div)
+    return tuple(out)
+
+
+def pressure_gradient(ps: BlockVec, geoms: tuple[BlockGeom, ...],
+                      topo: DomainTopo) -> BlockVec:
+    """FD pressure gradient per block: central differences in index space,
+    one-sided at FIXED faces, mapped to physical space.  ``(d, *s)``."""
+    _require_single_block(topo)
+    out = []
+    for b, (geom, btopo) in enumerate(zip(geoms, topo.blocks)):
+        p = ps[b]
+        grads = []
+        for d in range(topo.ndims):
+            f_lo, f_hi = 2 * d, 2 * d + 1
+            val_n = _roll_nbr(p, f_lo)
+            val_p = _roll_nbr(p, f_hi)
+            fac = torch.full_like(p, 0.5)
+            if btopo.faces[f_lo].kind == BoundKind.FIXED:
+                slab = _face_slab(p.dim(), f_lo)
+                val_n = _set(val_n, slab, p[slab])
+                fac = _set(fac, slab, 1.0)
+            if btopo.faces[f_hi].kind == BoundKind.FIXED:
+                slab = _face_slab(p.dim(), f_hi)
+                val_p = _set(val_p, slab, p[slab])
+                fac = _set(fac, slab, 1.0)
+            grads.append((val_p - val_n) * fac)
+        out.append(geom.minv_diag * torch.stack(grads, dim=0))
+    return tuple(out)
+
+
+def correct_velocity_fd(hbyA: BlockVec, ps: BlockVec, adiags: BlockVec,
+                        geoms: tuple[BlockGeom, ...], topo: DomainTopo, dt,
+                        time_step_normalized: bool = False) -> BlockVec:
+    """FD velocity corrector per block: ``u = hbyA - (1/A) grad p``."""
+    grads = pressure_gradient(ps, geoms, topo)
+    out = []
+    for b in range(len(hbyA)):
+        upd = grads[b] / adiags[b]
+        if time_step_normalized:
+            upd = upd * dt
+        out.append(hbyA[b] - upd)
+    return tuple(out)

@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Where one env step of fluidgym_tpu_torch spends its time on a CUDA card.
+
+    python3 scripts/port_step_profile.py [--steps 2]
+
+Makes RBC2D-easy-v0 (the one registered env) at its registered defaults on the card, resets it (seed 0),
+takes one warm-up step, then profiles ``--steps`` steps with
+``torch.profiler`` (CPU + CUDA activities).  Prints one JSON object:
+
+* ``wall_ms_per_step``: host clock around the profiled steps, ending in a
+  device synchronise;
+* ``device_ms_per_step``: summed CUDA kernel time (self device time of the
+  kernel events); ``device_busy_share`` = device / wall;
+* ``kernel_launches_per_step`` and the top kernels by device time;
+* the card's name and power limit.
+
+Also writes the JSON to ``<--out>/port_step_profile.json``.  Needs a card;
+imports nothing of JAX or of the JAX package.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ENV_ID = "RBC2D-easy-v0"
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("port_step_profile: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from torch.profiler import ProfilerActivity, profile
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    env = fluidgym_tpu_torch.make(ENV_ID)
+    env.reset(seed=0)
+    rng = np.random.default_rng(0)
+    act = lambda: rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
+    env.step(act())
+    torch.cuda.synchronize()
+    k0 = (cg_cuda.fused_cg.launches, cg_cuda_mb.fused_bicgstab_mb.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(args.steps):
+            env.step(act())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / args.steps
+    k1 = (cg_cuda.fused_cg.launches, cg_cuda_mb.fused_bicgstab_mb.launches)
+
+    kernels = {}
+    n_launch = 0
+    for ev in prof.events():
+        dev_type = getattr(ev, "device_type", None)
+        if dev_type is None or "CUDA" not in str(dev_type):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        name = ev.name if len(ev.name) <= 80 else ev.name[:77] + "..."
+        k = kernels.setdefault(name, [0, 0.0])
+        k[0] += 1
+        k[1] += us
+        n_launch += 1
+    device_ms = sum(v[1] for v in kernels.values()) / 1e3 / args.steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    out = {
+        "env": ENV_ID,
+        "card": smi,
+        "steps": args.steps,
+        "wall_ms_per_step": wall * 1e3,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3) if wall > 0 else None,
+        "kernel_launches_per_step": n_launch / args.steps,
+        "k1_launches_per_step": (k1[0] - k0[0]) / args.steps,
+        "k2_launches_per_step": (k1[1] - k0[1]) / args.steps,
+        "top_kernels": [
+            {"name": n, "calls_per_step": c / args.steps,
+             "device_ms_per_step": us / 1e3 / args.steps}
+            for n, (c, us) in top],
+    }
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "port_step_profile.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""The port imports and runs with only the packages the card's machine has.
+
+That machine has PyTorch, numpy and the CUDA toolkit but no ``jax``,
+``gymnasium``, ``matplotlib``, ``pandas`` or ``huggingface_hub``; a
+development host with the JAX package's dependencies has them all, so a
+stray import would pass every other CPU test and die on the card.  A subprocess installs a ``sys.meta_path`` finder that
+refuses those packages (and the JAX package itself), then imports the port
+and ``chip_smoke`` and drives ``make`` / ``reset`` / ``step`` on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKER = textwrap.dedent("""
+    import sys
+
+    REFUSED = ("jax", "jaxlib", "fluidgym_tpu", "gymnasium", "matplotlib",
+               "pandas", "huggingface_hub")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in REFUSED:
+                raise ImportError(f"{name} is not on the card's machine")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    assert not [m for m in sys.modules if m.split(".")[0] in REFUSED]
+""")
+
+
+def _run(body: str) -> subprocess.CompletedProcess:
+    code = BLOCKER + textwrap.dedent(body)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_blocker_refuses():
+    out = _run("""
+        try:
+            import gymnasium
+        except ImportError as err:
+            print("refused:", err)
+    """)
+    assert out.returncode == 0, out.stderr
+    assert "refused" in out.stdout
+
+
+def test_port_and_chip_smoke_import_and_step_without_card_packages():
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        import chip_smoke  # noqa: F401  (main() not run)
+        from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb  # noqa: F401
+        env = fluidgym_tpu_torch.make(
+            "RBC2D-easy-v0", device="cpu", resolution=4, n_heaters=4,
+            load_initial_domain=False, load_domain_statistics=False,
+            randomize_initial_state=False, episode_length=3, step_length=0.1,
+            dt=0.05, local_obs_window=3)
+        obs, _ = env.reset(seed=0)
+        obs, reward, *_ , info = env.step(np.zeros((4, 1), np.float32))
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["nusselt"]))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
+def test_make_without_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; make() then runs on it")
+    out = _run("""
+        import fluidgym_tpu_torch
+        try:
+            fluidgym_tpu_torch.make("RBC2D-easy-v0", resolution=4, n_heaters=4,
+                                    load_initial_domain=False,
+                                    load_domain_statistics=False)
+        except RuntimeError as err:
+            print("raised:", err)
+        else:
+            print("ran on the CPU")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert "raised:" in out.stdout and 'device="cpu"' in out.stdout
+
+
+def test_chip_smoke_refuses_without_card(tmp_path):
+    """Without a card, or alone in a directory, chip_smoke exits non-zero
+    and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    out = _run("""
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    out = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
