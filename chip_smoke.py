@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 Phases, each printed with its elapsed seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the CUDA kernels (K1 ``csrc/cg.cu``, K2 ``csrc/bicgstab_mb.cu``)
-   with one ``nvcc`` call into ``build/kernels/``;
+2. build of the CUDA kernels (K1/K3 ``csrc/cg.cu``, K2
+   ``csrc/bicgstab_mb.cu``): one ``nvcc -c`` per source, all started
+   together, and one link into ``build/kernels/``;
 3. K1 against its plain PyTorch version on the card: the pressure system of
    the bundled RBC2D-easy snapshot at the main-path shape (1, 61, 96), then a
    4-lane run whose lanes converge at different speeds (one zero RHS) and
@@ -23,7 +24,21 @@ Phases, each printed with its elapsed seconds:
    and neither the plain versions nor ``linsolve``'s loops may run;
 6. the card against the host (the kernels against the plain versions, end
    to end): a small config for 3 steps and the full width from the bundled
-   snapshot for 1 step; observations and rewards must agree to 1e-4.
+   snapshot for 1 step; observations and rewards must agree to 1e-4;
+7. K3 (``csrc/cg.cu`` ``fg_cg_mb_solve``) against its plain version on the
+   pressure system of the bundled CylinderJet2D-easy snapshot at full width
+   (5 blocks -> 2 super-blocks, 14,232 cells): cold, warm-started from the
+   deflated guess, and a 3-lane run whose lanes converge at different
+   speeds (one zero RHS) and that passes iteration 100;
+8. K2 in merged form ("K2-mb", ``fg_bicgstab_mb_solve``) against its plain
+   version on the snapshot's velocity advection system (2 lanes);
+9. the cylinder main path: ``make("CylinderJet2D-easy-v0")`` at its
+   registered defaults, ``reset(seed=0)``, 3 steps with fixed numpy actions;
+   the counters are zeroed just before and read just after: in every step
+   K3 launches twice per substep and K2-mb once, no plain version and no
+   ``linsolve`` loop runs; drag, lift, obs and reward finite;
+10. the card against the host for the cylinder: 1 env step from the bundled
+   snapshot, no randomization; obs and reward must agree to 1e-4.
 
 Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero; there is no CPU fallback.  Imports nothing
@@ -81,27 +96,55 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def bound_ms(n_cells: int, lanes: int, ndims: int, iters: int, algo: str,
-             warm: bool, op_shared: bool) -> tuple[float, str, float]:
+             warm: bool, op_shared: bool,
+             seam_cells: int = 0) -> tuple[float, str, float]:
     """Least time for the same work on an H100 (the larger of: bytes read
     once / written once over HBM rate, and this run's fp32 operations over
     the fp32 rate), and the time if every field went through HBM once per
-    pass instead (``stream``: the working set NOT kept on chip)."""
+    pass instead (``stream``: the working set NOT kept on chip).
+    ``n_cells``: cells of a lane, summed over the super-blocks of a merged
+    plan; ``seam_cells``: cells of its seam-fixup slabs (each read once more
+    and corrected once more per matvec)."""
     nf = 2 * ndims
     op_words = (1 + nf) * n_cells * (1 if op_shared else lanes)
-    io_words = op_words + lanes * n_cells * (2 + (1 if warm else 0)) + 2 * lanes
+    io_words = (op_words + lanes * (n_cells * (2 + (1 if warm else 0))
+                                    + seam_cells) + 2 * lanes)
     t_bytes = 4 * io_words / H100_BYTES_PER_S * 1e3
     if algo == "cg":
         flops_cell = 4 * ndims + 14       # matvec, 2 axpy, precond, 3 dots, p
+        mv_per_it = 1
         stream_words = n_cells * (nf + 1 + 10)
     else:
         flops_cell = 8 * ndims + 26       # 2 matvecs, 2 precond, 5 dots, updates
+        mv_per_it = 2
         stream_words = n_cells * (2 * (nf + 1) + 22)
-    flops = float(iters) * lanes * n_cells * flops_cell
+    flops = float(iters) * lanes * (n_cells * flops_cell
+                                    + 3 * mv_per_it * seam_cells)
     t_ops = flops / H100_FP32_FLOPS * 1e3
     stream = float(iters) * lanes * 4 * stream_words / H100_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations", stream
     return t_bytes, "bytes", stream
+
+
+def count_calls(piso, linsolve):
+    """Count substeps and ``linsolve``'s plain Krylov loops by wrapping the
+    module functions the solver looks up at call time.  Returns ``(calls,
+    restore)``."""
+    calls = {"piso_substep_info": 0, "cg": 0, "bicgstab": 0}
+    originals = [(mod, name, getattr(mod, name)) for mod, name in (
+        (piso, "piso_substep_info"), (linsolve, "cg"), (linsolve, "bicgstab"))]
+    for mod, name, fn in originals:
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    return calls, restore
 
 
 def main() -> int:
@@ -187,9 +230,11 @@ def _run(dev) -> int:
         err = float((xk - xp).abs().max())
         scale = float(xp.abs().max())
         L = b.shape[0]
-        res = (b - matvec(xk)).reshape(L, -1)
+        # the true residual in float64: in float32, b - A x has a rounding
+        # floor of ~eps * |A x| per cell, above tol for these systems
+        res = (b.double() - matvec(xk.double())).reshape(L, -1)
         rmse = torch.sqrt((res * res).mean(dim=1))
-        conv = rp <= tol * tol * n
+        conv = rp <= tol * tol * b[0].numel()
         zero = (b.reshape(L, -1) == 0).all(dim=1)
         log(f"  {name}: iters kernel {ik.tolist()} plain {ip.tolist()} | "
             f"max|dx| {err:.3e} (max|x| {scale:.3e}, bar {rel_tol:g} rel) | "
@@ -305,16 +350,7 @@ def _run(dev) -> int:
         scalar_plain_ms=k2_plain_ms["temperature"])
 
     # ---- 5: the main path ------------------------------------------------------
-    # substeps and plain Krylov loops are counted by wrapping the module
-    # functions the solver looks up at call time
-    calls = {"piso_substep_info": 0, "cg": 0, "bicgstab": 0}
-    originals = [(mod, name, getattr(mod, name)) for mod, name in (
-        (piso, "piso_substep_info"), (linsolve, "cg"), (linsolve, "bicgstab"))]
-    for mod, name, fn in originals:
-        def counted(*a, _fn=fn, _name=name, **k):
-            calls[_name] += 1
-            return _fn(*a, **k)
-        setattr(mod, name, counted)
+    calls, restore = count_calls(piso, linsolve)
     cg_cuda.fused_cg.launches = 0
     cg_cuda_mb.fused_bicgstab_mb.launches = 0
     cg_cuda.fused_cg_plain.calls = 0
@@ -351,8 +387,7 @@ def _run(dev) -> int:
                 "K2": cg_cuda_mb.fused_bicgstab_mb.launches}
     plain_calls = (cg_cuda.fused_cg_plain.calls
                    + cg_cuda_mb.fused_bicgstab_plain.calls)
-    for mod, name, fn in originals:
-        setattr(mod, name, fn)
+    restore()
     check(launches["K1"] > 0 and launches["K2"] > 0,
           f"a kernel of the main path was not launched: {launches}")
     check(plain_calls == 0, f"plain versions ran {plain_calls} times on the main path")
@@ -413,14 +448,259 @@ def _run(dev) -> int:
             f"{time.perf_counter() - t:.2f}s")
         check(worst <= 1e-4, f"card and host disagree on the {label} config")
 
+    _cylinder_phases(dev, kernels, compare, piso, linsolve)
+
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    print(json.dumps({"kernels": [kernels["K1"], kernels["K2"]]}), flush=True)
+    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K2", "K2-mb",
+                                                       "K3")]}), flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
+    """Phases 7-10: K3 and K2-mb on the CylinderJet2D-easy-v0 O-grid."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.core.domain_io import load_domain
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import block_merge
+    from fluidgym_tpu_torch.solver import stencil as st
+    from fluidgym_tpu_torch.utils import data_utils
+
+    cyl_id = "CylinderJet2D-easy-v0"
+    snap = data_utils.initial_domain_dir("cylinder_2D_Re100_Res24") / "test_00"
+    topo, geoms, state = load_domain(snap, device=dev)
+    plan = block_merge.merge_plan(topo)
+    check(plan is not None and len(plan.superblocks) == 2
+          and len(plan.fixups) == 2 and plan.identity_seams,
+          "the cylinder merge plan is not 2 super-blocks with 2 identity seams")
+    n = sum(math.prod(sb.shape) for sb in plan.superblocks)
+    seam = sum(math.prod(hi - lo for K, (lo, hi) in enumerate(fx.window)
+                         if K != fx.face // 2) for fx in plan.fixups)
+    nd = topo.ndims
+    log(f"cylinder snapshot: blocks {[b.shape for b in topo.blocks]} -> "
+        f"super-blocks {[sb.shape for sb in plan.superblocks]}, {n} cells, "
+        f"{len(plan.fixups)} fixups ({seam} seam cells)")
+
+    # ---- 7: K3 vs plain on the snapshot's pressure system ----------------
+    # the main path's substep: dt 0.01 at CFL 0.8 is one substep per sim step
+    dt = torch.tensor(0.01, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    hbyA = st.pressure_rhs_vec(state, geoms, topo, adv,
+                               tuple(b.velocity for b in state.blocks),
+                               state.viscosity, dt)
+    rhs = tuple(-d for d in st.divergence_of(hbyA, state, geoms, topo))
+    mean = sum(r.sum() for r in rhs) / n
+    rhs = tuple(r - mean for r in rhs)
+    guess = piso._make_deflation_x0(p_ops, topo, torch.float32)(
+        rhs, base=tuple(b.pressure for b in state.blocks))
+    mops = block_merge.pack_ops(plan, p_ops)
+    diags, offs = tuple(m[0] for m in mops), tuple(m[1] for m in mops)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    mv3 = cg_cuda_mb._merged_mv(plan, diag, off)
+    tol_p = 1e-5
+    kw3 = dict(maxiter=5000, stall_iters=250, precondition=True,
+               return_best=True)
+
+    def k3_pair(bs, x0s, tol):
+        def kern():
+            xs, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s,
+                                             tol=tol, **kw3)
+            return (cg_cuda_mb.flatten_fields(plan, xs), inf.iterations,
+                    inf.residual ** 2 * n)
+
+        def plain():
+            return cg_cuda_mb.fused_cg_mb_plain(
+                plan, diag, off, cg_cuda_mb.flatten_fields(plan, bs),
+                None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s),
+                tol2_sum=cg_cuda.tol2_sum_f32(tol, n), **kw3)
+        return kern, plain
+
+    b1 = tuple(p.unsqueeze(0) for p in block_merge.pack_fields(plan, rhs))
+    g1 = tuple(p.unsqueeze(0) for p in block_merge.pack_fields(plan, guess))
+    flat1 = cg_cuda_mb.flatten_fields(plan, b1)
+    errs, its = [], {}
+    for label, x0s in (("cold", None), ("warm (deflated guess)", g1)):
+        kern, plain = k3_pair(b1, x0s, tol_p)
+        e, it = compare(f"K3 pressure {label} (1, {n})", kern, plain, flat1,
+                        tol_p, 1e-3, 3, mv3)
+        errs.append(e)
+        its[label] = it
+    g = torch.Generator().manual_seed(3)
+    lanes3 = [torch.randn(n, generator=g).to(dev), None, torch.zeros(n, device=dev)]
+    lanes3[1] = 1e-3 * flat1[0]
+    lanes3[0] = lanes3[0] - lanes3[0].mean()
+    flat3 = torch.stack(lanes3)
+    b3 = cg_cuda_mb.unflatten_fields(plan, flat3)
+    kern, plain = k3_pair(b3, None, 1e-7)
+    e3, it3 = compare(f"K3 3 lanes (3, {n})", kern, plain, flat3, 1e-7, 1e-3, 3,
+                      mv3)
+    check(it3 > 100, f"3-lane K3 run stopped at iteration {it3} (<= 100)")
+    errs.append(e3)
+    kern, plain = k3_pair(b1, g1, tol_p)
+    k3_ms = cuda_ms(torch, kern, 10)
+    k3_plain_ms = cuda_ms(torch, plain, 3)
+    b_3, by3, s3 = bound_ms(n, 1, nd, its["warm (deflated guess)"], "cg", True,
+                            True, seam)
+    log(f"phase 7 K3 ok: {k3_ms:.3f} ms/solve warm (plain {k3_plain_ms:.3f} ms, "
+        f"bound {b_3 * 1e3:.3f} us by {by3}, streaming {s3 * 1e3:.3f} us) at "
+        f"{its['warm (deflated guess)']} iterations (cold: {its['cold']})")
+    kernels["K3"] = dict(
+        name="K3 fused_cg_mb (Jacobi-PCG, merged frame, whole solve)",
+        route="cuda", source="fluidgym_tpu_torch/csrc/cg.cu",
+        replaces="fluidgym_tpu/ops/cg_pallas_mb.py:284", max_abs_err=max(errs),
+        ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=b_3, bound_by=by3,
+        library_ms=None, iterations=its["warm (deflated guess)"],
+        shape=f"(1, {n}) pressure, 2 super-blocks")
+
+    # ---- 8: K2-mb vs plain on the snapshot's velocity advection system -
+    amops = block_merge.pack_ops(plan, adv)
+    adiags, aoffs = tuple(m[0] for m in amops), tuple(m[1] for m in amops)
+    adiag, aoff = cg_cuda_mb.flatten_ops(plan, adiags, aoffs)
+    vel_rhs = st.advection_rhs_velocity(state, geoms, topo, state.viscosity, dt)
+
+    def pack2(fields):
+        per_c = [block_merge.pack_fields(plan, tuple(f[c] for f in fields))
+                 for c in range(2)]
+        return tuple(torch.stack([per_c[c][s_] for c in range(2)])
+                     for s_ in range(2))
+
+    bv = pack2(vel_rhs)
+    xv = pack2(tuple(b.velocity for b in state.blocks))
+    flatv = cg_cuda_mb.flatten_fields(plan, bv)
+    tol_a = 1e-5
+    kw2 = dict(maxiter=5000, stall_iters=250, precondition=True,
+               return_best=False)
+
+    def k2_call():
+        xs, inf = cg_cuda_mb.fused_bicgstab_mb(plan, adiags, aoffs, bv, xv,
+                                               tol=tol_a, **kw2)
+        return cg_cuda_mb.flatten_fields(plan, xs), inf.iterations.repeat(2), None
+
+    def k2_plain():
+        return cg_cuda_mb.fused_bicgstab_plain(
+            adiag, aoff, flatv, cg_cuda_mb.flatten_fields(plan, xv), ndims=nd,
+            plan=plan, tol2_sum=cg_cuda.tol2_sum_f32(tol_a, n), **kw2)
+
+    e2, it2 = compare(f"K2-mb velocity (2, {n})", k2_call, k2_plain, flatv,
+                      tol_a, 1e-4, 2, cg_cuda_mb._merged_mv(plan, adiag, aoff))
+    k2_ms = cuda_ms(torch, k2_call, 10)
+    k2_plain_ms = cuda_ms(torch, k2_plain, 3)
+    b_2, by2, s2 = bound_ms(n, 2, nd, it2, "bicgstab", True, True, seam)
+    log(f"phase 8 K2-mb ok: {k2_ms:.3f} ms/solve (plain {k2_plain_ms:.3f} ms, "
+        f"bound {b_2 * 1e3:.3f} us by {by2}, streaming {s2 * 1e3:.3f} us) at "
+        f"{it2} iterations")
+    kernels["K2-mb"] = dict(
+        name="K2-mb fused_bicgstab_mb (right-Jacobi BiCGStab, merged plan)",
+        route="cuda", source="fluidgym_tpu_torch/csrc/bicgstab_mb.cu",
+        replaces="fluidgym_tpu/ops/cg_pallas_mb.py:458", max_abs_err=e2,
+        ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=b_2, bound_by=by2,
+        library_ms=None, iterations=it2,
+        shape=f"(2, {n}) velocity, 2 super-blocks")
+
+    # ---- 9: the cylinder main path ---------------------------------------
+    calls, restore = count_calls(piso, linsolve)
+
+    def counts():
+        return {"K3": cg_cuda_mb.fused_cg_mb.launches,
+                "K2-mb": cg_cuda_mb.fused_bicgstab_mb.merged_launches,
+                "other": cg_cuda.fused_cg.launches
+                + cg_cuda_mb.fused_bicgstab_mb.launches,
+                "plain": cg_cuda.fused_cg_plain.calls
+                + cg_cuda_mb.fused_cg_mb_plain.calls
+                + cg_cuda_mb.fused_bicgstab_plain.calls,
+                "linsolve": calls["cg"] + calls["bicgstab"],
+                "substeps": calls["piso_substep_info"]}
+
+    cg_cuda_mb.fused_cg_mb.launches = 0
+    cg_cuda_mb.fused_bicgstab_mb.merged_launches = 0
+    cg_cuda.fused_cg.launches = 0
+    cg_cuda_mb.fused_bicgstab_mb.launches = 0
+    cg_cuda.fused_cg_plain.calls = 0
+    cg_cuda_mb.fused_cg_mb_plain.calls = 0
+    cg_cuda_mb.fused_bicgstab_plain.calls = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        env = fluidgym_tpu_torch.make(cyl_id)
+        obs, _ = env.reset(seed=0)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        reset_counts = counts()
+        nb = [b.shape for b in env._topo.blocks]
+        check(len(nb) == 5 and sum(math.prod(s_) for s_ in nb) == 14232,
+              f"the cylinder main path is not the registered width: {nb}")
+        rng = np.random.default_rng(0)
+        actions = [rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
+                   for _ in range(3)]
+        step_s, per_step, drags, lifts = [], [], [], []
+        for a in actions:
+            c0 = counts()
+            t = time.perf_counter()
+            obs, reward, term, trunc, info = env.step(a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            c1 = counts()
+            d = {k: c1[k] - c0[k] for k in c1}
+            per_step.append(d)
+            check(d["substeps"] > 0 and d["K3"] == 2 * d["substeps"]
+                  and d["K2-mb"] == d["substeps"] and d["other"] == 0,
+                  f"cylinder step launches {d}: expected K3 = 2 x substeps, "
+                  "K2-mb = substeps")
+            check(d["plain"] == 0, f"plain versions ran on the main path: {d}")
+            check(d["linsolve"] == 0, f"linsolve's loops ran on the main path: {d}")
+            for k, v in obs.items():
+                check(tuple(v.shape) == env.observation_space[k].shape,
+                      f"obs {k} shape {tuple(v.shape)}")
+                check(bool(torch.isfinite(v).all()), f"obs {k} not finite")
+            check(bool(torch.isfinite(reward).all()), "reward not finite")
+            drags.append(float(info["drag"]))
+            lifts.append(float(info["lift"]))
+            check(math.isfinite(drags[-1]) and math.isfinite(lifts[-1]),
+                  "drag/lift not finite")
+    finally:
+        restore()
+    total = counts()
+    check(total["K3"] > 0 and total["K2-mb"] > 0,
+          f"a kernel of the cylinder path was not launched: {total}")
+    check(total["plain"] == 0 and total["linsolve"] == 0,
+          f"plain loops ran on the cylinder path: {total}")
+    n_steps = len(actions)
+    sub = sum(d["substeps"] for d in per_step)
+    ms_step = 1e3 * sum(step_s) / n_steps
+    log(f"phase 9 cylinder main path ok: {cyl_id} blocks {nb} reset "
+        f"{reset_s:.2f}s ({reset_counts}), steps {[round(x, 3) for x in step_s]} s, "
+        f"{ms_step:.1f} ms/env step, {sub / n_steps:.1f} substeps/step "
+        f"({env.n_sim_steps} sim steps of dt {env.dt}), drag "
+        f"{[round(x, 5) for x in drags]}, lift {[round(x, 5) for x in lifts]}, "
+        f"per-step launches {per_step}, totals {total}")
+    for k in ("K3", "K2-mb"):
+        kernels[k]["launches"] = total[k]
+        kernels[k]["launches_per_env_step"] = sum(d[k] for d in per_step) / n_steps
+
+    # ---- 10: card against host for the cylinder --------------------------
+    t = time.perf_counter()
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        e = fluidgym_tpu_torch.make(cyl_id, device=where,
+                                    randomize_initial_state=False)
+        e.reset(seed=0)
+        o, r, *_ = e.step(np.full(e.action_space.shape, 0.4, np.float32))
+        outs[where.type] = (o, r)
+    (og, rg), (oc, rc) = outs[dev.type], outs["cpu"]
+    worst = max(float((g_.cpu() - c_).abs().max() / c_.abs().max().clamp(min=1e-30))
+                for g_, c_ in [(og[k], oc[k]) for k in og] + [(rg, rc)])
+    log(f"phase 10 cylinder full width, 1 step from the bundled snapshot, card "
+        f"vs host: worst relative obs/reward diff {worst:.2e} (bar 1e-4) in "
+        f"{time.perf_counter() - t:.2f}s")
+    check(worst <= 1e-4, "card and host disagree on the cylinder")
 
 
 if __name__ == "__main__":

@@ -302,13 +302,28 @@ class _BlockBuilder:
     ) -> None:
         """Make a face a FIXED boundary (default: no-slip wall, zero
         Dirichlet scalar).  Closing one face of a PERIODIC pair also closes
-        the partner face with a default wall.  CONNECTED faces belong to the
-        multi-block slice and are not handled here."""
+        the partner face with a default wall; closing a CONNECTED face
+        severs the seam on both sides (the neighbour's face becomes a
+        default wall too)."""
         f = self._face_index(face)
-        if self.faces[f].kind == BoundKind.CONNECTED:
-            raise NotImplementedError(
-                "closing a CONNECTED face: multi-block domains are not ported yet")
         c = self.domain.scalar_channels
+        if self.faces[f].kind == BoundKind.CONNECTED:
+            nb = self.domain._blocks[self.faces[f].connected_block]
+            nf = self.faces[f].connected_face
+            my_index = self.domain._blocks.index(self)
+            if (nb.faces[nf].kind == BoundKind.CONNECTED
+                    and nb.faces[nf].connected_block == my_index
+                    and nb.faces[nf].connected_face == f):
+                fs_n = face_shape(nb.shape, nf)
+                nb.faces[nf] = FaceSpec(
+                    kind=BoundKind.FIXED,
+                    vel_type=BCType.DIRICHLET,
+                    scalar_types=tuple(BCType.DIRICHLET for _ in range(c)),
+                )
+                nb.face_data[nf] = FaceData(
+                    velocity=np.zeros((nb.ndims, *fs_n)),
+                    scalar=np.zeros((c, *fs_n)) if c else None,
+                )
         partner = f ^ 1
         if (
             self.faces[f].kind == BoundKind.PERIODIC
@@ -401,6 +416,80 @@ class DomainBuilder:
         self.scalar_diffusivity = np.broadcast_to(
             np.asarray(diffusivity, np.float64), (self.scalar_channels,)
         ).copy()
+
+    def connect_blocks(
+        self,
+        block_a: int,
+        face_a: int | str,
+        block_b: int,
+        face_b: int | str,
+        connected_axis_a: int | str | None = None,
+        connected_axis_b: int | str | None = None,
+    ) -> None:
+        """Connect two block faces (CONNECTED on both sides).
+
+        ``connected_axis_a``: face index (or name like "-y") on block_b that
+        block_a's first tangential axis ``(face_axis+1) % ndims`` maps onto;
+        ``connected_axis_b`` likewise for the second tangential axis in 3D.
+        Defaults to the aligned (non-inverted, cyclic) mapping.  The
+        resulting ``FaceSpec.axes`` encoding is the JAX package's.
+        """
+        a = self._blocks[block_a]
+        b = self._blocks[block_b]
+        fa = a._face_index(face_a)
+        fb = b._face_index(face_b)
+        d = self.ndims
+        fa_dim, fb_dim = fa // 2, fb // 2
+
+        def _axidx(v, blk):
+            return blk._face_index(v) if v is not None else None
+
+        ca = _axidx(connected_axis_a, b)
+        cb = _axidx(connected_axis_b, b)
+        if d > 1 and ca is None:
+            ca = (((fb_dim + 1) % d) << 1)
+        if d > 2 and cb is None:
+            cb = (((fb_dim + 2) % d) << 1)
+
+        axes_a: list[int] = [fb]
+        axes_b: list[int] = [fa]
+        if d > 1:
+            axes_a.append(ca)
+            if d == 2 and (ca >> 1) != (fb_dim + 1) % d:
+                # in 2D the single tangential axis must map onto the
+                # neighbour's single tangential axis
+                raise ValueError(
+                    "invalid connection axis mapping: connected_axis_a must "
+                    "be the neighbor's tangential axis in 2D")
+            if d == 2 or (ca >> 1) == (fb_dim + 1) % d:
+                axes_b.append((((fa_dim + 1) % d) << 1) | (ca & 1))
+                swapped = False
+            else:
+                if (cb >> 1) != (fb_dim + 1) % d:
+                    raise ValueError("invalid connection axis mapping")
+                axes_b.append((((fa_dim + 2) % d) << 1) | (cb & 1))
+                swapped = True
+            if d > 2:
+                axes_a.append(cb)
+                if not swapped:
+                    axes_b.append((((fa_dim + 2) % d) << 1) | (cb & 1))
+                else:
+                    axes_b.append((((fa_dim + 1) % d) << 1) | (ca & 1))
+
+        # tangential extents must agree cell for cell
+        fs_a = face_shape(a.shape, fa)
+        fs_b = face_shape(b.shape, fb)
+        if sorted(fs_a) != sorted(fs_b):
+            raise ValueError(
+                f"connected faces have incompatible sizes: block {block_a} "
+                f"face {fa} is {fs_a}, block {block_b} face {fb} is {fs_b}")
+        a.faces[fa] = FaceSpec(kind=BoundKind.CONNECTED, connected_block=block_b,
+                               connected_face=fb, axes=tuple(axes_a))
+        b.faces[fb] = FaceSpec(kind=BoundKind.CONNECTED, connected_block=block_a,
+                               connected_face=fa, axes=tuple(axes_b))
+        # a reconnected face drops its prescribed-value arrays
+        a.face_data[fa] = FaceData()
+        b.face_data[fb] = FaceData()
 
     def build(self):
         """Produce ``(topo, geoms, state)``."""

@@ -2,14 +2,19 @@
 // over the merged super-block frame, for a lockstep batch of lanes.
 //
 // Replaces fluidgym_tpu/ops/cg_pallas_mb.py `_kernel_bicg` (entry
-// `fused_bicgstab_mb`).  This port covers the single-super-block form that
-// `block_merge.trivial_plan` gives single-block domains (no seam fixups, no
-// flip matrices); the merged multi-super-block form is later work.  Solve
+// `fused_bicgstab_mb`) in both of its forms: the single super-block of
+// `block_merge.trivial_plan` (one grid, roll-form matvec: entry
+// fg_bicgstab_solve) and the merged multi-super-block form of
+// `block_merge.merge_plan` with identity seams (one flat buffer per lane,
+// neighbour-table matvec, merged.cuh: entry fg_bicgstab_mb_solve).  Flip
+// seams (C-grid cuts) are not taken: the wrapper raises for them.  Solve
 // components (the velocity components of the joint advection solve) and
 // batch entries are lanes sharing one operator.  Semantics are the TPU
 // kernel's, lane for lane:
-//   * NORM2_NORMALIZED stopping PER LANE (sum r^2 <= tol^2 * n_lane), which
-//     is tighter than linsolve.bicgstab's joint test over all components;
+//   * NORM2_NORMALIZED stopping PER LANE (sum r^2 <= tol^2 * n_lane, n_lane
+//     the cells of all super-blocks), which is tighter than
+//     linsolve.bicgstab's joint test over all components;
+//   * every dot product joint over the super-blocks of a lane;
 //   * RIGHT Jacobi preconditioning (r stays the true residual), warm start;
 //   * per-lane freeze (alpha = omega = beta = 0, rho and rs held), stall
 //     patience, return-best; no residual refresh;
@@ -18,17 +23,18 @@
 //
 // What bounds it on the H100: the latency of the iteration chain (five
 // dependent passes, two of them stencil applies, and three block-wide
-// reductions per iteration over a ~6k-cell lane), not bytes or flops.  The
+// reductions per iteration over a 6k-14k-cell lane), not bytes or flops.  The
 // design keeps the loop, the dot products and the stopping test on the
 // device in one thread block, with no host round-trip and no grid-wide
 // synchronisation; the scratch (r/s, r_hat, p, p_hat, v, s_hat, t, best)
 // stays in L2.
 #include "krylov.cuh"
 
-template <int ND>
+template <int ND, bool TABLE>
 __global__ void __launch_bounds__(FG_THREADS)
 fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
-               const float* __restrict__ off, const float* __restrict__ x0,
+               const float* __restrict__ off, const int* __restrict__ nbr,
+             const float* __restrict__ x0,
                float* __restrict__ x, int* __restrict__ iters_out,
                float* __restrict__ rs_out, float* __restrict__ r,
                float* __restrict__ rhat, float* __restrict__ p,
@@ -62,7 +68,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
-        rr = b[o + c] - fg_matvec<ND>(dg, of, x0 + o, c, g);
+        rr = b[o + c] - fg_apply<ND, TABLE>(dg, of, nbr, x0 + o, c, g);
       } else {
         xx = 0.0f;
         rr = b[o + c];
@@ -106,7 +112,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
       for (int c = tid; c < n; c += T) {
-        const float vv = fg_matvec<ND>(dg, of, phat + o, c, g);
+        const float vv = fg_apply<ND, TABLE>(dg, of, nbr, phat + o, c, g);
         v[o + c] = vv;
         a1 += rhat[o + c] * vv;
       }
@@ -139,7 +145,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
       for (int c = tid; c < n; c += T) {
-        const float tv = fg_matvec<ND>(dg, of, shat + o, c, g);
+        const float tv = fg_apply<ND, TABLE>(dg, of, nbr, shat + o, c, g);
         t[o + c] = tv;
         a1 += tv * tv;
         a2 += tv * r[o + c];
@@ -240,13 +246,50 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
   g.n = nz * ny * nx;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndims == 2) {
-    fg_bicg_kernel<2><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
+    fg_bicg_kernel<2, false><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
+        best, lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
+        return_best, warm_start);
+  } else {
+    fg_bicg_kernel<3, false><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
+        best, lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
+        return_best, warm_start);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2 over the merged frame of a multi-block plan (S >= 2 super-blocks, seam
+// fixups): each lane is one flat buffer of n cells, the matvec goes through
+// the plan's neighbour table (merged.cuh) and every lane's dot products are
+// joint over the super-blocks.  Semantics as above.
+extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
+                                    const float* off, const int* nbr,
+                                    const float* x0, float* x, int* iters,
+                                    float* rs, float* r, float* rhat, float* p,
+                                    float* phat, float* v, float* shat,
+                                    float* t, float* best, int lanes, int n,
+                                    int ndims, int op_per_lane, float tol2,
+                                    int maxiter, int stall_iters,
+                                    int precondition, int return_best,
+                                    int warm_start, void* stream) {
+  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3) ||
+      nbr == nullptr)
+    return (int)cudaErrorInvalidValue;
+  FgGrid g;
+  g.nz = 1;
+  g.ny = 1;
+  g.nx = n;
+  g.n = n;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ndims == 2) {
+    fg_bicg_kernel<2, true><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
         lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
         return_best, warm_start);
   } else {
-    fg_bicg_kernel<3><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
+    fg_bicg_kernel<3, true><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
         lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
         return_best, warm_start);
   }

@@ -1,5 +1,8 @@
-// K1: the whole Jacobi-preconditioned CG solve in one launch, for a
-// lockstep batch of single-block stencil systems.
+// K1 (and K3): the whole Jacobi-preconditioned CG solve in one launch, for
+// a lockstep batch of stencil systems.  K1 (entry fg_cg_solve) takes one
+// block with a roll-form matvec; K3 (entry fg_cg_mb_solve, at the end of
+// this file) takes the merged super-block frame of a multi-block domain
+// through its neighbour table (merged.cuh).
 //
 // Replaces fluidgym_tpu/ops/cg_pallas.py `_kernel` (entry `fused_cg`), the
 // TPU kernel that keeps every lane's x, r, p resident in VMEM for the whole
@@ -26,10 +29,11 @@
 // Using more SMs (clusters, distributed shared memory) is later work.
 #include "krylov.cuh"
 
-template <int ND>
+template <int ND, bool TABLE>
 __global__ void __launch_bounds__(FG_THREADS)
 fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
-             const float* __restrict__ off, const float* __restrict__ x0,
+             const float* __restrict__ off, const int* __restrict__ nbr,
+             const float* __restrict__ x0,
              float* __restrict__ x, int* __restrict__ iters_out,
              float* __restrict__ rs_out, float* __restrict__ r,
              float* __restrict__ p, float* __restrict__ q,
@@ -60,7 +64,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
-        rr = b[o + c] - fg_matvec<ND>(dg, of, x0 + o, c, g);
+        rr = b[o + c] - fg_apply<ND, TABLE>(dg, of, nbr, x0 + o, c, g);
       } else {
         xx = 0.0f;
         rr = b[o + c];
@@ -106,7 +110,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const float* src = (recompute ? x : p) + o;
       float a1 = 0.0f, a2 = 0.0f;
       for (int c = tid; c < n; c += T) {
-        const float av = fg_matvec<ND>(dg, of, src, c, g);
+        const float av = fg_apply<ND, TABLE>(dg, of, nbr, src, c, g);
         q[o + c] = av;
         a1 += p[o + c] * av;
       }
@@ -203,13 +207,51 @@ extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
   g.n = nz * ny * nx;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndims == 2) {
-    fg_cg_kernel<2><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, g, op_per_lane,
-        tol2, maxiter, stall_iters, precondition, return_best, warm_start);
+    fg_cg_kernel<2, false><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, g,
+        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+        warm_start);
   } else {
-    fg_cg_kernel<3><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, g, op_per_lane,
-        tol2, maxiter, stall_iters, precondition, return_best, warm_start);
+    fg_cg_kernel<3, false><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, g,
+        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+        warm_start);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3: the same solve over the merged super-block frame of a multi-block
+// domain (replaces cg_pallas_mb.py `_kernel`, entry `fused_cg_mb`): every
+// lane is one flat buffer of n cells holding all super-blocks, the matvec
+// goes through the plan's neighbour table (merged.cuh), so every dot
+// product is joint over the super-blocks.  Semantics as K1 above.
+extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
+                              const float* off, const int* nbr,
+                              const float* x0, float* x, int* iters, float* rs,
+                              float* r, float* p, float* q, float* best,
+                              int lanes, int n, int ndims, int op_per_lane,
+                              float tol2, int maxiter, int stall_iters,
+                              int precondition, int return_best,
+                              int warm_start, void* stream) {
+  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3) ||
+      nbr == nullptr)
+    return (int)cudaErrorInvalidValue;
+  FgGrid g;
+  g.nz = 1;
+  g.ny = 1;
+  g.nx = n;
+  g.n = n;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ndims == 2) {
+    fg_cg_kernel<2, true><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, g,
+        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+        warm_start);
+  } else {
+    fg_cg_kernel<3, true><<<1, FG_THREADS, 0, s>>>(
+        b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, g,
+        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+        warm_start);
   }
   return (int)cudaGetLastError();
 }

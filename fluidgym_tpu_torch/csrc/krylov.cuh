@@ -1,5 +1,5 @@
-// Shared device helpers for the whole-solve Krylov kernels (K1 cg.cu,
-// K2 bicgstab_mb.cu): the roll-form stencil apply and block-wide sums.
+// Shared device helpers for the whole-solve Krylov kernels (K1/K3 cg.cu,
+// K2 bicgstab_mb.cu): the stencil applies and block-wide sums.
 //
 // Layout (identical to the PyTorch side): a lane's field is a contiguous
 // (nz, ny, nx) array (nz = 1 in 2D), x the minor axis; the stencil
@@ -78,4 +78,18 @@ __device__ __forceinline__ void fg_block_sum2(float& a, float& b, float* sh) {
 __device__ __forceinline__ float fg_guard(float x) {
   const float tiny = 1e-30f;
   return (fabsf(x) < tiny) ? tiny : x;
+}
+
+#include "merged.cuh"
+
+// The stencil apply of either frame: roll-form over one (nz, ny, nx) grid
+// (nbr == nullptr), or the merged frame's neighbour table.
+template <int ND, bool TABLE>
+__device__ __forceinline__ float fg_apply(const float* __restrict__ diag,
+                                          const float* __restrict__ off,
+                                          const int* __restrict__ nbr,
+                                          const float* __restrict__ v, int c,
+                                          const FgGrid& g) {
+  if (TABLE) return fg_table_matvec<ND>(diag, off, nbr, v, c, g.n);
+  return fg_matvec<ND>(diag, off, v, c, g);
 }

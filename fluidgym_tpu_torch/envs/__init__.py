@@ -1,5 +1,6 @@
 """Environment families and registration.  This port registers
-``RBC2D-easy-v0``; the other ids of the JAX package follow slice by slice."""
+``RBC2D-easy-v0`` and ``CylinderJet2D-easy-v0``; the other ids of the JAX
+package follow slice by slice."""
 
 from fluidgym_tpu_torch.envs.fluid_env import EnvState, FluidEnv
 from fluidgym_tpu_torch.registry import register
@@ -14,4 +15,13 @@ def _register_rbc() -> None:
              rayleigh_number=8e4, adaptive_cfl=0.8)
 
 
+def _register_cylinder() -> None:
+    from fluidgym_tpu_torch.envs.cylinder import (
+        CYLINDER_JET_2D_DEFAULT_CONFIG, CylinderJetEnv2D)
+
+    register("CylinderJet2D-easy-v0", CylinderJetEnv2D,
+             CYLINDER_JET_2D_DEFAULT_CONFIG, reynolds_number=100, resolution=24)
+
+
 _register_rbc()
+_register_cylinder()

@@ -1,0 +1,363 @@
+"""Base class of the cylinder flow environments, von Karman vortex street
+(counterpart of ``fluidgym_tpu/envs/cylinder/cylinder_env_base.py``, 2D).
+
+* 5-block curvilinear O-grid + wake block (``grid.py``);
+* parabolic inflow, convective outflow on the wake's +x face by a PRE hook
+  (outflow advection + flux balancing, ``solver/boundaries.py``);
+* solver preset: adaptive substeps, non-orthogonal corrections, pressure
+  tol 1e-5, FD corrector, pressure warm start with deflation,
+  ``make_divergence_free`` at initialization;
+* 151 wake/ring sensors gathered directly from the blocks;
+* drag/lift from wall-stress integration around the cylinder;
+* reward ``cd_ref - cd - lift_penalty*|cl|`` with action smoothing
+  ``c <- c + alpha*(a - c)`` per sim step;
+* domain randomization: field noise (numpy draws per block, velocity then
+  pressure) + a random number of uncontrolled steps.
+
+Not ported yet: 3D cylinders, rendering to images, the upwind blend of the
+hard tier (Re >= 500 raises).
+"""
+
+from __future__ import annotations
+
+from abc import abstractmethod
+from dataclasses import replace
+from typing import Any
+
+import numpy as np
+import torch
+
+from fluidgym_tpu_torch import spaces
+from fluidgym_tpu_torch.core.domain import DomainState
+from fluidgym_tpu_torch.envs.cylinder.grid import make_vortex_street_domain
+from fluidgym_tpu_torch.envs.fluid_env import FluidEnv
+from fluidgym_tpu_torch.envs.util.multiblock_resample import (
+    make_multiblock_plan,
+    make_multiblock_point_plan,
+)
+from fluidgym_tpu_torch.envs.util.wall_forces import WallForcesMixin
+from fluidgym_tpu_torch.solver import piso
+from fluidgym_tpu_torch.solver.boundaries import make_convective_outflow_hook
+from fluidgym_tpu_torch.solver.piso import ADAPTIVE, Hooks, SimConfig
+
+Tensor = torch.Tensor
+
+
+class CylinderEnvBase(WallForcesMixin, FluidEnv):
+    """Base class of the cylinder flow environments."""
+
+    _action_smoothing_alpha: float = 0.1
+
+    H: float = 4.1
+    L: float = 22.0
+    cylinder_diameter: float = 1.0
+    _U_mean: float = 1.0
+    cylinder_offset_y: float = 0.05
+    _n_sensors_x_y: int = 151
+    _vortex_street_refinement_base: float = 0.95
+    _metrics: list[str] = ["drag", "lift"]
+
+    def __init__(
+        self,
+        reynolds_number: float,
+        resolution: int,
+        dt: float,
+        adaptive_cfl: float,
+        step_length: float,
+        episode_length: int,
+        ndims: int,
+        lift_penalty: float,
+        use_marl: bool,
+        dtype=None,
+        load_initial_domain: bool = True,
+        load_domain_statistics: bool = True,
+        randomize_initial_state: bool = True,
+        enable_actions: bool = True,
+        differentiable: bool = False,
+        device=None,
+    ):
+        if ndims != 2:
+            raise NotImplementedError("3D cylinders are not ported yet")
+        if reynolds_number >= 500:
+            # the JAX package's hard tier blends upwind advection in
+            raise NotImplementedError(
+                "Re >= 500 needs the upwind blend of the advection matrix, "
+                "which is not ported to fluidgym_tpu_torch yet")
+        self._reynolds_number = float(reynolds_number)
+        self._circle_resolution_angular = int(resolution)
+        self._lift_penalty = float(lift_penalty)
+        self._ndims = ndims
+        self._viscosity = self._U_mean / self._reynolds_number
+
+        super().__init__(
+            dt=dt,
+            adaptive_cfl=adaptive_cfl,
+            step_length=step_length,
+            episode_length=episode_length,
+            ndims=ndims,
+            use_marl=use_marl,
+            dtype=dtype,
+            load_initial_domain=load_initial_domain,
+            load_domain_statistics=load_domain_statistics,
+            randomize_initial_state=randomize_initial_state,
+            enable_actions=enable_actions,
+            differentiable=differentiable,
+            device=device,
+        )
+        (self._left_block_idx, self._top_block_idx, self._right_block_idx,
+         self._bottom_block_idx, self._vortex_street_block_idx) = range(5)
+        self._last_control = torch.zeros(self._control_shape, dtype=self._dtype,
+                                         device=self._device)
+
+    # ------------------------------------------------------------------
+    # spaces
+    # ------------------------------------------------------------------
+    def _get_action_space(self) -> spaces.Box:
+        return spaces.Box(low=-1.0, high=1.0, shape=(1,), dtype=np.float32)
+
+    def _get_observation_space(self) -> spaces.Dict:
+        return spaces.Dict({
+            "velocity": spaces.Box(low=-np.inf, high=np.inf,
+                                   shape=(self._n_sensors_x_y, self._ndims),
+                                   dtype=np.float32),
+            "pressure": spaces.Box(low=-np.inf, high=np.inf,
+                                   shape=(self._n_sensors_x_y,),
+                                   dtype=np.float32),
+        })
+
+    @property
+    def render_shape(self) -> tuple[int, int, int]:
+        z_res = min(self._circle_resolution_angular * 4, 128)
+        return (int(z_res / self.H * self.L), z_res, z_res)
+
+    @property
+    def n_agents(self) -> int:
+        return 1
+
+    @property
+    def _control_shape(self) -> tuple[int, ...]:
+        """Shape of the smoothed control carried across sim steps."""
+        return (1,)
+
+    # ------------------------------------------------------------------
+    # domain / simulation
+    # ------------------------------------------------------------------
+    def _build_domain(self):
+        return make_vortex_street_domain(
+            ndims=self._ndims,
+            viscosity=self._viscosity,
+            domain_height=self.H,
+            domain_length=self.L,
+            cylinder_radius=self.cylinder_diameter / 2,
+            cylinder_offset_y=self.cylinder_offset_y,
+            circle_thickness=self.cylinder_diameter / 2,
+            quad_thickness_x=self.cylinder_diameter,
+            circle_resolution_angular=self._circle_resolution_angular,
+            vortex_street_refinement_base=self._vortex_street_refinement_base,
+            vortex_street_refinement_axes=("+y", "-y"),
+            dtype=self._dtype,
+            device=self._device,
+        )
+
+    def _get_domain(self):
+        dom, self._grid_info = self._build_domain()
+        return dom.build()
+
+    @property
+    def _cd_ref(self) -> float:
+        if "drag" in self._metrics_stats:
+            return self._metrics_stats["drag"].mean
+        return 0.0
+
+    def _get_prep_fn(self) -> Hooks:
+        char_vel = (self._U_mean,) + (0.0,) * (self._ndims - 1)
+        hook = make_convective_outflow_hook(
+            self._geoms, self._topo,
+            out_faces=((self._vortex_street_block_idx, 1),),  # wake "+x"
+            char_vel=char_vel, tol=5e-6)
+        return {"PRE": (hook,)}
+
+    def _get_simulation(self) -> SimConfig:
+        return SimConfig(
+            dt=self._dt,
+            substeps=ADAPTIVE,
+            adaptive_cfl=self._adaptive_cfl,
+            corrector_steps=2,
+            pressure_tol=1e-5,
+            pressure_return_best_result=True,
+            velocity_corrector="FD",
+            non_orthogonal=True,
+            differentiable=self._differentiable,
+            pressure_warm_start=True,
+            pressure_deflation=True,
+        )
+
+    def _additional_initialization(self) -> None:
+        # project the loaded/initial state to divergence free
+        self._state = piso.make_divergence_free(
+            self._state, self._geoms, self._topo, self._cfg)
+        if not hasattr(self, "_grid_info"):
+            _, self._grid_info = self._build_domain()
+        gi = self._grid_info
+        centers = [g.centers.detach().cpu().numpy() for g in self._geoms]
+        self._resample = make_multiblock_plan(
+            centers, self.render_shape[: self._ndims],
+            (gi["x_min"], gi["y_min"]), (gi["x_max"], gi["y_max"]),
+            device=self._device)
+        # the sensors gather their 151 physical points directly
+        self._sensor_sample = make_multiblock_point_plan(
+            centers, self._get_sensor_locations_2d().T, device=self._device)
+        self._prepare_drag_and_lift()
+        self._last_control = torch.zeros(self._control_shape, dtype=self._dtype,
+                                         device=self._device)
+
+    # ------------------------------------------------------------------
+    # wall geometry + forces
+    # ------------------------------------------------------------------
+    def _wall_loop_spec(self):
+        """(block, face, cell_slice, flip) around the cylinder, a
+        counter-clockwise closed loop."""
+        return [
+            (self._left_block_idx, 1, (Ellipsis, slice(None), -1), False),
+            (self._top_block_idx, 2, (Ellipsis, 0, slice(None)), False),
+            (self._right_block_idx, 0, (Ellipsis, slice(None), 0), True),
+            (self._bottom_block_idx, 3, (Ellipsis, -1, slice(None)), True),
+        ]
+
+    @property
+    def _force_scale(self) -> float:
+        return 0.5 * self._U_mean ** 2 * self.cylinder_diameter
+
+    @property
+    def _blocks_vertex_coords(self):
+        """Vertex coordinate arrays per block (rebuilt from the static grid)."""
+        if not hasattr(self, "_vertex_coords_cache"):
+            dom, _ = self._build_domain()
+            self._vertex_coords_cache = [b.coords for b in dom._blocks]
+        return self._vertex_coords_cache
+
+    # ------------------------------------------------------------------
+    # observations
+    # ------------------------------------------------------------------
+    def _get_sensor_locations_2d(self) -> np.ndarray:
+        """151 wake/ring sensor positions ``(2, 151)``."""
+        x_idx = np.arange(1.0, 5.0, 0.5)
+        y_idx = np.arange(-1.5, 1.75, 0.5)
+        gx, gy = np.meshgrid(x_idx, y_idx, indexing="ij")
+        sensors = np.stack([gx.ravel(), gy.ravel()], axis=0)
+
+        x_1 = np.arange(-0.25, 1, 0.25)
+        y_1a = np.full_like(x_1, -1.5)
+        y_1b = np.full_like(x_1, 1.5)
+        x_2 = np.concatenate([[-0.25], np.arange(0.25, 1.25, 0.25)])
+        y_2a = np.full_like(x_2, self.cylinder_diameter)
+        y_2b = np.full_like(x_2, -self.cylinder_diameter)
+        x_3 = np.full(3, 0.75)
+        y_3 = np.array([-0.5, 0, 0.5])
+        additional = np.stack([
+            np.concatenate([x_1, x_1, x_2, x_2, x_3]),
+            np.concatenate([y_1a, y_1b, y_2a, y_2b, y_3]),
+        ], axis=0)
+
+        angles = np.linspace(0, 2 * np.pi, 36)
+        c1 = np.stack([1.0 * np.cos(angles), 1.0 * np.sin(angles)], axis=0)
+        c2 = np.stack([0.625 * np.cos(angles), 0.625 * np.sin(angles)], axis=0)
+        return np.concatenate([sensors, c1, c2, additional], axis=1)
+
+    def _pure_global_obs(self, state: DomainState) -> dict[str, Tensor]:
+        """Velocity/pressure at the 151 sensors."""
+        u = self._sensor_sample(tuple(b.velocity for b in state.blocks))
+        p = self._sensor_sample(tuple(b.pressure for b in state.blocks))
+        return {"velocity": u[: self._ndims].T, "pressure": p}
+
+    def _get_global_obs(self) -> dict[str, Tensor]:
+        return self._pure_global_obs(self._state)
+
+    def get_velocity(self) -> Tensor:
+        """Velocity resampled to the uniform render grid."""
+        return self._resample(tuple(b.velocity for b in self._state.blocks))
+
+    def get_pressure(self) -> Tensor:
+        return self._resample(tuple(b.pressure for b in self._state.blocks))
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+    @abstractmethod
+    def _pure_apply_action(self, state: DomainState, control: Tensor) -> DomainState: ...
+
+    def _apply_action(self, action: Tensor) -> None:
+        self._state = self._pure_apply_action(self._state, action.to(self._dtype))
+
+    def _pure_step(self, state: DomainState, action: Tensor, last_control=None):
+        """One env step: per sim step, smooth the control toward the action,
+        apply it, advance one sim step and record drag/lift; then
+        observations and reward.  Returns ``(state, last_control, obs,
+        reward, info)``."""
+        if last_control is None:
+            last_control = self._last_control
+        alpha = self._action_smoothing_alpha
+        ctrl = last_control
+        cds, cls, infos = [], [], []
+        for _ in range(self._n_sim_steps):
+            ctrl = ctrl + alpha * (action - ctrl)
+            if self._enable_actions:
+                state = self._pure_apply_action(state, ctrl)
+            state, si = piso.single_step_info(state, self._geoms, self._topo,
+                                              self._cfg, self._hooks)
+            cd, cl = self._pure_drag_lift(state)
+            cds.append(cd)
+            cls.append(cl)
+            infos.append(si)
+        obs = self._pure_global_obs(state)
+        cd = torch.mean(torch.stack(cds))
+        cl = torch.mean(torch.stack(cls))
+        reward = self._cd_ref - cd - self._lift_penalty * torch.abs(cl)
+        info = {"drag": cd, "lift": cl}
+        info.update(piso.solver_info_dict(piso.combine_infos(infos)))
+        return state, ctrl, obs, reward, info
+
+    def _step_impl(self, action: Tensor):
+        self._state, self._last_control, obs, reward, info = self._pure_step(
+            self._state, action)
+        return obs, reward, False, info
+
+    # ------------------------------------------------------------------
+    # randomization
+    # ------------------------------------------------------------------
+    def _randomize_domain(self) -> None:
+        """Field noise (numpy draws per block: velocity, then pressure) and
+        a random number of uncontrolled steps to randomize the shedding
+        phase."""
+        strouhal = 0.3
+        period = 1 / (strouhal * self._U_mean / self.cylinder_diameter)
+        max_n = 2 * int(period / self._step_length) - 1
+        n_steps = int(self._np_rng.integers(int(0.5 * max_n), max_n)) + 1
+
+        for b in range(len(self._topo.blocks)):
+            blk = self._state.blocks[b]
+            noise_u = self._np_rng.normal(0, 1, tuple(blk.velocity.shape)) * 0.025
+            noise_p = self._np_rng.normal(0, 1, tuple(blk.pressure.shape)) * 0.025
+            u = blk.velocity + torch.as_tensor(
+                noise_u, device=self._device).to(blk.velocity.dtype)
+            p = blk.pressure + torch.as_tensor(
+                noise_p, device=self._device).to(blk.pressure.dtype)
+            self._state = self._state.replace_block(
+                b, replace(blk, velocity=u, pressure=p))
+        for _ in range(n_steps):
+            self._run_single_step()
+
+    # ------------------------------------------------------------------
+    # state / ids
+    # ------------------------------------------------------------------
+    @property
+    def initial_domain_id(self) -> str:
+        return (f"cylinder_{self._ndims}D_Re{int(self._reynolds_number)}"
+                f"_Res{self._circle_resolution_angular}")
+
+    def _get_additional_state_info(self) -> dict[str, Any]:
+        return {"last_control": self._last_control}
+
+    def _set_additional_state_info(self, info: dict[str, Any]) -> None:
+        if "last_control" in info:
+            self._last_control = info["last_control"].to(self._device)

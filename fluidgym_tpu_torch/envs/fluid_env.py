@@ -424,7 +424,7 @@ class FluidEnv(ABC, FluidEnvLike):
         so the snapshot shares them safely)."""
         return EnvState(class_name=self.__class__.__name__, domain=self._state,
                         n_steps=self._n_steps, mode=self._mode,
-                        additional_info={})
+                        additional_info=self._get_additional_state_info())
 
     def set_state(self, state: EnvState) -> None:
         """Restore a snapshot; its tensors move to the env's device."""
@@ -438,7 +438,15 @@ class FluidEnv(ABC, FluidEnvLike):
         self._state = _to_device(state.domain, self._device, self._dtype)
         self._n_steps = state.n_steps
         self._mode = state.mode
+        self._set_additional_state_info(state.additional_info)
         self._reset_called = True
+
+    def _get_additional_state_info(self) -> dict[str, Any]:
+        """Env-specific state beyond the domain (e.g. a smoothed control)."""
+        return {}
+
+    def _set_additional_state_info(self, info: dict[str, Any]) -> None:
+        pass
 
     # ------------------------------------------------------------------
     # statistics

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for the H100 (sm_90a), one module per kernel:
 
-* ``cg_cuda``: K1, the whole-solve Jacobi-PCG (counterpart of
+* ``cg_cuda``: K1, the whole-solve Jacobi-PCG on one block (counterpart of
   ``fluidgym_tpu/ops/cg_pallas.py``);
-* ``cg_cuda_mb``: K2, the whole-solve right-Jacobi BiCGStab over the merged
-  frame (counterpart of ``fluidgym_tpu/ops/cg_pallas_mb.py``).
+* ``cg_cuda_mb``: over the merged super-block frame (counterpart of
+  ``fluidgym_tpu/ops/cg_pallas_mb.py``): K2, the whole-solve right-Jacobi
+  BiCGStab (single super-block, and merged multi-super-block "K2-mb"), and
+  K3, the whole-solve Jacobi-PCG of multi-block pressure systems.
 
 Each module holds the kernel's wrapper (which launches the kernel for CUDA
 tensors and runs the plain PyTorch version for CPU tensors), the plain

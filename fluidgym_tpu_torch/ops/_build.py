@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``fluidgym_tpu_torch/csrc/`` compile with ONE ``nvcc``
-call into a plain-C shared library (no PyTorch headers, so a build takes
-seconds, not minutes), loaded with ``ctypes``.  The library lands in
+The sources under ``fluidgym_tpu_torch/csrc/`` compile into a plain-C
+shared library (no PyTorch headers, so a build takes seconds, not minutes),
+loaded with ``ctypes``: one ``nvcc -c`` per source, all started together,
+then one link.  The library lands in
 ``<repo>/build/kernels/`` under a name keyed by a hash of the sources and
 flags, so an unchanged tree never rebuilds.  Nothing happens at import: the
 first kernel launch calls ``library()``.
@@ -22,13 +23,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("cg.cu", "bicgstab_mb.cu")
-HEADERS = ("krylov.cuh",)
+HEADERS = ("krylov.cuh", "merged.cuh")
 # --fmad=false: no contraction of a*b+c, so the kernels round every product
 # and sum like the plain PyTorch versions do (only the order of the sums
 # differs); the cost is invisible next to the iteration chain's latency
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +42,13 @@ _ARGTYPES = {
     # lanes, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall, precond,
     # best?, warm, stream
     "fg_bicgstab_solve": [_P] * 15 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, n, ndims,
+    # op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
+    "fg_cg_mb_solve": [_P] * 12 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
+    # best, lanes, n, ndims, op_per_lane, tol2, maxiter, stall, precond,
+    # best?, warm, stream
+    "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
 }
 
 
@@ -87,17 +94,38 @@ def library() -> ctypes.CDLL:
         out = BUILD_DIR / f"libfluidgym_kernels_{_source_key()}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(CSRC / s) for s in SOURCES]]
+            tag = f"{os.getpid()}.tmp"
+            tmp = out.with_suffix(f".{tag}.so")
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            objs, procs = [], []
+            for src in SOURCES:
+                obj = BUILD_DIR / f"{Path(src).stem}.{tag}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+                objs.append(obj)
+            logs, failed = [], []
+            for cmd, proc in procs:
+                log, _ = proc.communicate()
+                logs.append(log)
+                if proc.returncode != 0:
+                    failed.append((cmd, proc.returncode))
+            if not failed:
+                cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                logs.append(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append((cmd, proc.returncode))
+            for obj in objs:
+                obj.unlink(missing_ok=True)
             _LIB.build_seconds = time.perf_counter() - t0
-            _LIB.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            _LIB.build_log = "".join(logs)
+            if failed:
+                cmd, rc = failed[0]
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{_LIB.build_log}")
+                    f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{_LIB.build_log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _ARGTYPES.items():

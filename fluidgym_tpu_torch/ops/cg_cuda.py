@@ -25,8 +25,8 @@ import torch
 from fluidgym_tpu_torch.ops import _build
 from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
-__all__ = ["fused_cg", "fused_cg_plain", "roll_matvec", "tol2_sum_f32", "guard",
-           "MAX_LANES"]
+__all__ = ["fused_cg", "fused_cg_plain", "cg_lockstep", "roll_matvec",
+           "tol2_sum_f32", "guard", "MAX_LANES"]
 
 _TINY = 1e-30
 MAX_LANES = 64  # FG_MAX_LANES in csrc/krylov.cuh
@@ -54,17 +54,15 @@ def guard(x):
     return torch.where(x.abs() < _TINY, torch.full_like(x, _TINY), x)
 
 
-def fused_cg_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
-                   maxiter: int, stall_iters: int, precondition: bool,
-                   return_best: bool):
-    """Plain PyTorch K1 on ``(lanes, *spatial)`` tensors (``diag``: lanes or
-    1 leading; ``off``: ``(lanes or 1, 2*ndims, *spatial)``).  Returns
-    ``(x, iterations (lanes,), residual_sum (lanes,))``."""
-    fused_cg_plain.calls += 1
+def cg_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
+                stall_iters: int, precondition: bool, return_best: bool):
+    """The lockstep Jacobi-PCG loop of K1 and K3 in plain PyTorch, on
+    ``(lanes, ...)`` tensors: ``mv`` applies the operator to such a tensor,
+    ``diag`` (broadcasting against ``b``) is its diagonal.  Returns ``(x,
+    iterations (lanes,), residual_sum (lanes,))``."""
     L = b.shape[0]
     red = lambda a: a.reshape(L, -1).sum(dim=1)
     lane = lambda s: s.reshape((L,) + (1,) * (b.dim() - 1))
-    mv = lambda v: roll_matvec(diag, off, v, ndims)
     inv_diag = 1.0 / diag if precondition else None
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
 
@@ -111,6 +109,19 @@ def fused_cg_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
         rs = torch.where(converged, rs, best_rs)
     iters = torch.full((L,), it, dtype=torch.int32, device=b.device)
     return x, iters, rs
+
+
+def fused_cg_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
+                   maxiter: int, stall_iters: int, precondition: bool,
+                   return_best: bool):
+    """Plain PyTorch K1 on ``(lanes, *spatial)`` tensors (``diag``: lanes or
+    1 leading; ``off``: ``(lanes or 1, 2*ndims, *spatial)``).  Returns
+    ``(x, iterations (lanes,), residual_sum (lanes,))``."""
+    fused_cg_plain.calls += 1
+    return cg_lockstep(lambda v: roll_matvec(diag, off, v, ndims), diag, b, x0,
+                       tol2_sum=tol2_sum, maxiter=maxiter,
+                       stall_iters=stall_iters, precondition=precondition,
+                       return_best=return_best)
 
 
 fused_cg_plain.calls = 0

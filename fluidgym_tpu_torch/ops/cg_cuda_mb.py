@@ -1,49 +1,150 @@
-"""K2: whole-solve lockstep right-Jacobi BiCGStab in the merged frame.
+"""K2 and K3: whole-solve lockstep Krylov kernels in the merged frame.
 
-Counterpart of ``fluidgym_tpu/ops/cg_pallas_mb.py`` (TPU kernel
-``_kernel_bicg``, entry ``fused_bicgstab_mb``), for the single-super-block
-plans ``block_merge.trivial_plan`` gives single-block domains.  Solve
-components (and batch entries) are lanes that share one operator; each lane
-stops on its own NORM2_NORMALIZED test (``tol^2 * n_lane``), which is
-tighter than ``linsolve.bicgstab``'s joint test over all components.
+Counterpart of ``fluidgym_tpu/ops/cg_pallas_mb.py``:
 
-* ``fused_bicgstab_mb`` is the wrapper.  For CUDA tensors it launches
-  ``csrc/bicgstab_mb.cu`` and adds one to ``fused_bicgstab_mb.launches``; for
-  CPU tensors it runs ``fused_bicgstab_plain``; any other device raises.
-* ``fused_bicgstab_plain`` is the plain PyTorch version with the same
-  lockstep semantics; ``fused_bicgstab_plain.calls`` counts its runs.
+* K3 (TPU kernel ``_kernel``, entry ``fused_cg_mb``): Jacobi-PCG over the
+  super-blocks of a ``block_merge.merge_plan``, every dot product joint over
+  the super-blocks of a lane, true-residual refresh every 100 iterations,
+  warm start, stall patience, return-best, zero-RHS short-circuit;
+* K2 (TPU kernel ``_kernel_bicg``, entry ``fused_bicgstab_mb``):
+  right-Jacobi BiCGStab, in the single-super-block form of
+  ``block_merge.trivial_plan`` (one grid, roll-form matvec) and in the
+  merged multi-super-block form ("K2-mb").
 
-Not ported yet: plans with more than one super-block (seam fixups, flip
-matrices), which raise ``NotImplementedError``.  Bound on the H100 and what
-the design does about it: see the note at the top of ``csrc/bicgstab_mb.cu``.
+Lanes are solve components (and batch entries) sharing one operator; each
+lane stops on its own NORM2_NORMALIZED test (``tol^2 * n_lane``), with one
+iteration counter shared by all lanes.
+
+On the card a multi-super-block plan is ONE flat buffer per lane (the
+super-blocks back to back), and its seam fixups live in a per-cell
+neighbour table built once per plan (``neighbor_table``; see
+``csrc/merged.cuh``).  The wrappers take per-super-block tensors in
+``block_merge.pack_ops`` / ``pack_fields`` layout and flatten them:
+
+* ``fused_cg_mb`` (K3) and ``fused_bicgstab_mb`` (K2, both forms) launch the
+  CUDA kernels for CUDA tensors (``csrc/cg.cu`` ``fg_cg_mb_solve``,
+  ``csrc/bicgstab_mb.cu``) and count each launch
+  (``fused_cg_mb.launches``; ``fused_bicgstab_mb.launches`` for the
+  single-super-block form, ``fused_bicgstab_mb.merged_launches`` for the
+  merged form).  CPU tensors run the plain versions; any other device
+  raises, and so does a plan with flip seams on the card.
+* ``fused_cg_mb_plain`` and ``fused_bicgstab_plain`` are the plain PyTorch
+  versions, with ``.calls`` counters; in the merged frame their matvec is
+  ``block_merge.merged_apply`` (rolls plus slab fixups, the TPU kernel's
+  arithmetic), independent of the neighbour table.
+
+Bound on the H100 and what the design does about it: see the notes at the
+top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
+from fluidgym_tpu_torch.core.domain import face_axis
 from fluidgym_tpu_torch.ops import _build
-from fluidgym_tpu_torch.ops.cg_cuda import (MAX_LANES, guard, roll_matvec,
-                                            tol2_sum_f32)
-from fluidgym_tpu_torch.solver.block_merge import MergePlan
+from fluidgym_tpu_torch.ops.cg_cuda import (MAX_LANES, cg_lockstep, guard,
+                                            roll_matvec, tol2_sum_f32)
+from fluidgym_tpu_torch.solver.block_merge import (MergePlan, fixup_slabs,
+                                                   merged_apply)
 from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
-__all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain"]
+__all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
+           "fused_cg_mb_plain", "neighbor_table", "flatten_fields",
+           "unflatten_fields", "flatten_ops"]
 
 
-def fused_bicgstab_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
-                         maxiter: int, stall_iters: int, precondition: bool,
-                         return_best: bool):
-    """Plain PyTorch K2 on ``(lanes, *spatial)`` tensors (``diag``/``off``
-    with a leading lane axis of 1 or ``lanes``).  Returns ``(x, iterations
-    (lanes,), residual_sum (lanes,))``."""
-    fused_bicgstab_plain.calls += 1
+# ---------------------------------------------------------------------------
+# the merged frame as one flat buffer per lane
+# ---------------------------------------------------------------------------
+
+def _sb_shapes(plan: MergePlan) -> list[tuple[int, ...]]:
+    """Array shapes of the super-blocks (major..minor, as pack_fields)."""
+    nd = plan.ndims
+    return [tuple(sb.shape[D] for D in range(nd - 1, -1, -1))
+            for sb in plan.superblocks]
+
+
+def flatten_fields(plan: MergePlan, xs) -> torch.Tensor:
+    """Per-super-block ``(L, *shape_s)`` -> one ``(L, n)`` buffer."""
+    L = xs[0].shape[0]
+    return torch.cat([x.reshape(L, -1) for x in xs], dim=1)
+
+
+def unflatten_fields(plan: MergePlan, flat: torch.Tensor):
+    """``(L, n)`` -> per-super-block ``(L, *shape_s)`` views."""
+    shapes = _sb_shapes(plan)
+    parts = torch.split(flat, [math.prod(s) for s in shapes], dim=1)
+    return tuple(p.reshape((flat.shape[0],) + s) for p, s in zip(parts, shapes))
+
+
+def flatten_ops(plan: MergePlan, diags, offs):
+    """Per-super-block ``diag (*shape_s)`` / ``off (2*ndims, *shape_s)`` ->
+    ``diag (1, n)`` and ``off (1, 2*ndims, n)``."""
+    nf = 2 * plan.ndims
+    diag = torch.cat([d.reshape(-1) for d in diags])
+    off = torch.cat([o.reshape(nf, -1) for o in offs], dim=1)
+    return diag.unsqueeze(0), off.unsqueeze(0)
+
+
+@functools.lru_cache(maxsize=16)
+def neighbor_table(plan: MergePlan, device) -> torch.Tensor:
+    """``(2*ndims, n)`` int32 on ``device``: flat index of every cell's
+    neighbour across each face in the merged frame (the circular roll of its
+    super-block, replaced on seam slabs by the source super-block's cell).
+    Built once per plan and device."""
+    nd = plan.ndims
+    shapes = _sb_shapes(plan)
+    bases = np.cumsum([0] + [math.prod(s) for s in shapes])
+    idx = [bases[s] + np.arange(math.prod(sh)).reshape(sh)
+           for s, sh in enumerate(shapes)]
+    tab = [[np.roll(ix, 1 if F % 2 == 0 else -1, axis=nd - 1 - face_axis(F))
+            for ix in idx] for F in range(2 * nd)]
+    for fx in plan.fixups:
+        slab, src_slab, _ = fixup_slabs(plan, fx)
+        src = idx[fx.src_sb][src_slab]
+        flips = tuple(nd - 1 - K for K in range(nd) if fx.flip[K])
+        if flips:
+            src = np.flip(src, axis=flips)
+        tab[fx.face][fx.sb][slab] = src
+    table = np.stack([np.concatenate([t.reshape(-1) for t in per])
+                      for per in tab]).astype(np.int32)
+    return torch.from_numpy(table).to(device)
+
+
+def _merged_mv(plan: MergePlan, diag, off):
+    """Plain merged-frame matvec on flat ``(L, n)`` tensors
+    (``block_merge.merged_apply`` on the unflattened super-blocks)."""
+    if diag.shape[0] != 1:
+        raise ValueError("merged plain versions take one shared operator")
+    nf = 2 * plan.ndims
+    dg = unflatten_fields(plan, diag)
+    of = unflatten_fields(plan, off.reshape(nf, -1))
+    mops = tuple((d[0], o) for d, o in zip(dg, of))
+
+    def mv(v):
+        return flatten_fields(plan, merged_apply(plan, mops,
+                                                 unflatten_fields(plan, v)))
+
+    return mv
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def bicgstab_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
+                      stall_iters: int, precondition: bool, return_best: bool):
+    """The lockstep right-Jacobi BiCGStab loop of K2 in plain PyTorch, on
+    ``(lanes, ...)`` tensors.  Returns ``(x, iterations (lanes,),
+    residual_sum (lanes,))``."""
     L = b.shape[0]
     red = lambda a: a.reshape(L, -1).sum(dim=1)
     lane = lambda s: s.reshape((L,) + (1,) * (b.dim() - 1))
-    mv = lambda v: roll_matvec(diag, off, v, ndims)
     inv_diag = 1.0 / diag if precondition else None
     pc = (lambda v: inv_diag * v) if precondition else (lambda v: v)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
@@ -96,17 +197,52 @@ def fused_bicgstab_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
     return x, iters, rs
 
 
+def fused_bicgstab_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
+                         maxiter: int, stall_iters: int, precondition: bool,
+                         return_best: bool, plan: MergePlan | None = None):
+    """Plain PyTorch K2.  Without ``plan`` (the single-super-block form):
+    ``(lanes, *spatial)`` tensors, ``diag``/``off`` with a leading lane axis
+    of 1 or ``lanes``.  With a multi-super-block ``plan`` (K2-mb): the flat
+    merged layout, ``b``/``x0`` ``(lanes, n)``, ``diag (1, n)``, ``off (1,
+    2*ndims, n)``.  Returns ``(x, iterations (lanes,), residual_sum
+    (lanes,))``."""
+    fused_bicgstab_plain.calls += 1
+    if plan is None:
+        mv = lambda v: roll_matvec(diag, off, v, ndims)
+    else:
+        mv = _merged_mv(plan, diag, off)
+    return bicgstab_lockstep(mv, diag, b, x0, tol2_sum=tol2_sum,
+                             maxiter=maxiter, stall_iters=stall_iters,
+                             precondition=precondition,
+                             return_best=return_best)
+
+
 fused_bicgstab_plain.calls = 0
 
 
-def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
-            precondition, return_best):
-    L = b.shape[0]
-    spatial = tuple(b.shape[1:])
+def fused_cg_mb_plain(plan: MergePlan, diag, off, b, x0, *, tol2_sum: float,
+                      maxiter: int, stall_iters: int, precondition: bool,
+                      return_best: bool):
+    """Plain PyTorch K3 on the flat merged layout (``b``/``x0`` ``(lanes,
+    n)``, ``diag (1, n)``, ``off (1, 2*ndims, n)``).  Returns ``(x,
+    iterations (lanes,), residual_sum (lanes,))``."""
+    fused_cg_mb_plain.calls += 1
+    return cg_lockstep(_merged_mv(plan, diag, off), diag, b, x0,
+                       tol2_sum=tol2_sum, maxiter=maxiter,
+                       stall_iters=stall_iters, precondition=precondition,
+                       return_best=return_best)
+
+
+fused_cg_mb_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+def _check_operands(b, diag, off, x0, L):
     if not 1 <= L <= MAX_LANES:
-        raise ValueError(f"the CUDA kernel takes 1..{MAX_LANES} lanes, got {L}")
-    if len(spatial) != ndims or ndims not in (2, 3):
-        raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
+        raise ValueError(f"the CUDA kernels take 1..{MAX_LANES} lanes, got {L}")
     dev = b.device
     for name, t in (("b", b), ("diag", diag), ("off", off), ("x0", x0)):
         if t is not None and (t.device != dev or t.dtype != torch.float32):
@@ -114,19 +250,30 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     op_per_lane = int(diag.shape[0] != 1)
     if op_per_lane and diag.shape[0] != L:
         raise ValueError("diag/off must have 1 or `lanes` leading entries")
+    return op_per_lane
+
+
+def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
+            precondition, return_best):
+    """K2, single-super-block form, on ``(lanes, *spatial)`` tensors."""
+    L = b.shape[0]
+    spatial = tuple(b.shape[1:])
+    if len(spatial) != ndims or ndims not in (2, 3):
+        raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
+    op_per_lane = _check_operands(b, diag, off, x0, L)
     b = b.contiguous()
     diag = diag.contiguous()
     off = off.contiguous()
     x0c = x0.contiguous() if x0 is not None else b
     x = torch.empty_like(b)
     scratch = [torch.empty_like(b) for _ in range(8)]
-    iters = torch.empty(L, dtype=torch.int32, device=dev)
-    rs = torch.empty(L, dtype=torch.float32, device=dev)
+    iters = torch.empty(L, dtype=torch.int32, device=b.device)
+    rs = torch.empty(L, dtype=torch.float32, device=b.device)
     nz = spatial[0] if ndims == 3 else 1
     ny, nx = spatial[-2], spatial[-1]
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
         status = lib.fg_bicgstab_solve(
             b.data_ptr(), diag.data_ptr(), off.data_ptr(), x0c.data_ptr(),
             x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
@@ -137,49 +284,143 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     return x, iters, rs
 
 
+def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
+                   maxiter, stall_iters, precondition, return_best):
+    """K3 (``algo="cg"``) or K2-mb (``"bicgstab"``) on the flat merged
+    layout: ``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``, ``off
+    (1|lanes, 2*ndims, n)``."""
+    if not plan.identity_seams:
+        raise NotImplementedError(
+            "merged plans with flip seams (C-grid cuts) have no CUDA kernel "
+            "yet")
+    ndims = plan.ndims
+    L, n = b.shape
+    if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
+        raise ValueError("b must be (lanes, n) and off (1|lanes, 2*ndims, n)")
+    op_per_lane = _check_operands(b, diag, off, x0, L)
+    nbr = neighbor_table(plan, b.device)
+    b = b.contiguous()
+    diag = diag.contiguous()
+    off = off.contiguous()
+    x0c = x0.contiguous() if x0 is not None else b
+    x = torch.empty_like(b)
+    scratch = [torch.empty_like(b) for _ in range(4 if algo == "cg" else 8)]
+    iters = torch.empty(L, dtype=torch.int32, device=b.device)
+    rs = torch.empty(L, dtype=torch.float32, device=b.device)
+    lib = _build.library()
+    entry = lib.fg_cg_mb_solve if algo == "cg" else lib.fg_bicgstab_mb_solve
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        status = entry(
+            b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
+            x0c.data_ptr(), x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
+            *[s.data_ptr() for s in scratch], L, n, ndims, op_per_lane,
+            tol2_sum, int(maxiter), int(stall_iters), int(precondition),
+            int(return_best), int(x0 is not None), stream)
+    _build.check(status, "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb")
+    return x, iters, rs
+
+
+def _device_kind(b: torch.Tensor, what: str) -> str:
+    if b.is_cuda:
+        return "cuda"
+    if b.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"{what} runs on CUDA or CPU tensors, not {b.device}")
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
+                maxiter: int = 5000, stall_iters: int = 250,
+                precondition: bool = True, return_best: bool = True):
+    """K3: whole-solve lockstep CG on a merged multi-block stencil operator.
+
+    ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
+    *spatial_s)`` (``block_merge.pack_ops`` layout); ``bs``/``x0s``:
+    per-super-block ``(*spatial_s)`` (one lane, as the JAX entry) or
+    ``(lanes, *spatial_s)``.  Returns ``(xs, SolveInfo)`` in the same
+    layout, the info per lane (scalars for one unbatched lane).  A lane whose
+    RHS is all zero over every super-block gets a zero solution."""
+    batched = bs[0].dim() == plan.ndims + 1
+    if not batched:
+        bs = tuple(b.unsqueeze(0) for b in bs)
+        x0s = None if x0s is None else tuple(x.unsqueeze(0) for x in x0s)
+    b = flatten_fields(plan, bs)
+    x0 = None if x0s is None else flatten_fields(plan, x0s)
+    diag, off = flatten_ops(plan, diags, offs)
+    L, n = b.shape
+    tol2 = tol2_sum_f32(tol, n, b.dtype)
+    kw = dict(tol2_sum=tol2, maxiter=int(maxiter), stall_iters=int(stall_iters),
+              precondition=bool(precondition), return_best=bool(return_best))
+    if _device_kind(b, "fused_cg_mb") == "cuda":
+        x, iters, rs = _launch_merged("cg", plan, diag, off, b, x0, **kw)
+        fused_cg_mb.launches += 1
+    else:
+        x, iters, rs = fused_cg_mb_plain(plan, diag, off, b, x0, **kw)
+    b_zero = (b == 0).all(dim=1)
+    x = torch.where(b_zero.unsqueeze(1), torch.zeros_like(x), x)
+    info = SolveInfo(converged=(rs <= tol2) | b_zero, iterations=iters,
+                     residual=torch.sqrt(rs / n))
+    xs = unflatten_fields(plan, x)
+    if not batched:
+        xs = tuple(x_[0] for x_ in xs)
+        info = SolveInfo(*(v[0] for v in info))
+    return xs, info
+
+
+fused_cg_mb.launches = 0
+
+
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                       tol: float, maxiter: int = 5000, stall_iters: int = 250,
                       precondition: bool = True, return_best: bool = True):
-    """Whole-solve lockstep BiCGStab on a merged stencil operator.
+    """K2: whole-solve lockstep BiCGStab on a merged stencil operator.
 
-    ``diags``/``offs``: per-super-block ``(*spatial)`` / ``(2*ndims,
-    *spatial)`` (``block_merge.pack_ops`` layout); ``bs``/``x0s``:
-    per-super-block ``(C, *spatial)`` with a leading component axis.
-    Components are independent lanes with per-component stopping.  Returns
-    ``(xs, SolveInfo)`` with the info aggregated over components
-    (converged = all, iterations = max, residual = joint RMSE)."""
-    if len(plan.superblocks) != 1 or plan.fixups:
-        raise NotImplementedError(
-            "merged multi-super-block plans (seam fixups) are not ported yet")
+    ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
+    *spatial_s)``; ``bs``/``x0s``: per-super-block ``(C, *spatial_s)`` with a
+    leading component axis.  Components are independent lanes with
+    per-component stopping.  Returns ``(xs, SolveInfo)`` with the info
+    aggregated over components (converged = all, iterations = max, residual
+    = joint RMSE)."""
     ndims = plan.ndims
-    b = bs[0]
-    x0 = None if x0s is None else x0s[0]
-    C = b.shape[0]
+    C = bs[0].shape[0]
+    single = len(plan.superblocks) == 1 and not plan.fixups
+    if single:
+        b = bs[0]
+        x0 = None if x0s is None else x0s[0]
+        diag, off = diags[0].unsqueeze(0), offs[0].unsqueeze(0)
+    else:
+        b = flatten_fields(plan, bs)
+        x0 = None if x0s is None else flatten_fields(plan, x0s)
+        diag, off = flatten_ops(plan, diags, offs)
     n_lane = math.prod(b.shape[1:])
     tol2 = tol2_sum_f32(tol, n_lane, b.dtype)
-    diag = diags[0].unsqueeze(0)
-    off = offs[0].unsqueeze(0)
-    kw = dict(ndims=ndims, tol2_sum=tol2, maxiter=int(maxiter),
-              stall_iters=int(stall_iters), precondition=bool(precondition),
-              return_best=bool(return_best))
-    if b.is_cuda:
-        x, iters, rs = _launch(diag, off, b, x0, **kw)
-        fused_bicgstab_mb.launches += 1
-    elif b.device.type == "cpu":
-        x, iters, rs = fused_bicgstab_plain(diag, off, b, x0, **kw)
+    kw = dict(tol2_sum=tol2, maxiter=int(maxiter), stall_iters=int(stall_iters),
+              precondition=bool(precondition), return_best=bool(return_best))
+    if _device_kind(b, "fused_bicgstab_mb") == "cuda":
+        if single:
+            x, iters, rs = _launch(diag, off, b, x0, ndims=ndims, **kw)
+            fused_bicgstab_mb.launches += 1
+        else:
+            x, iters, rs = _launch_merged("bicgstab", plan, diag, off, b, x0,
+                                          **kw)
+            fused_bicgstab_mb.merged_launches += 1
     else:
-        raise ValueError(
-            f"fused_bicgstab_mb runs on CUDA or CPU tensors, not {b.device}")
+        x, iters, rs = fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
+                                            plan=None if single else plan, **kw)
     # an all-zero RHS over EVERY component gives a zero solution
     b_zero = torch.all(b == 0)
     x = torch.where(b_zero, torch.zeros_like(x), x)
-    conv_c = rs <= tol2
     info = SolveInfo(
-        converged=conv_c.all() | b_zero,
+        converged=(rs <= tol2).all() | b_zero,
         iterations=iters.max(),
         residual=torch.sqrt(rs.sum() / (n_lane * C)),
     )
-    return (x,), info
+    return ((x,) if single else unflatten_fields(plan, x)), info
 
 
 fused_bicgstab_mb.launches = 0
+fused_bicgstab_mb.merged_launches = 0

@@ -3,25 +3,31 @@
 
 * ``piso_substep_info``: scalar advection solve -> velocity prediction
   solve -> ``corrector_steps`` pressure corrections with the FD velocity
-  correction, hooks at the JAX package's phase names;
+  correction, hooks at the JAX package's phase names; on curvilinear
+  domains (``non_orthogonal``) the cross-diffusion matrix terms and the
+  deferred RHS corrections (one pressure pass per corrector, the JAX
+  package's 2D setting);
+* pressure warm starts: the previous pressure (``pressure_warm_start``)
+  and/or the coarse-space deflation guess (``pressure_deflation``: per-block
+  constant + linear modes, ``W E^+ W^T``), self-gated on the device;
 * ``piso_adaptive_step_info``: CFL-driven substepping that reproduces the
   JAX ``lax.while_loop`` (same ``eps`` cut-off, ``max_substeps``, substep
   count and dt sequence).  The loop runs on the host and reads the
   remaining time once per substep -- the one host sync per substep;
 * ``single_step_info`` / ``single_step`` and ``make_divergence_free``.
 
-Solves dispatch as in the JAX package's non-differentiable ``_solve``:
-single-block scalar stencils go to the whole-solve kernels (K1 ``fused_cg``
-for the SPD pressure system, K2 ``fused_bicgstab_mb`` over ``trivial_plan``
-for the advection systems); anything else takes the plain loops of
-``linsolve``.  The gate is about validity only (one block, no CONNECTED
-face, a scalar stencil); the TPU's VMEM budget has no meaning here.  On the
-card a system the gate rejects raises: the plain loops run on CPU tensors
-only.
+Solves dispatch as in the JAX package's non-differentiable ``_solve``, to
+the whole-solve kernels: single-block scalar stencils to K1 ``fused_cg``
+(pressure) and K2 ``fused_bicgstab_mb`` over ``trivial_plan`` (advection);
+multi-block topologies with an identity-seam ``merge_plan`` to K3
+``fused_cg_mb`` and K2 in its merged form.  Anything else takes the plain
+loops of ``linsolve``, on CPU tensors only: on the card a system no kernel
+takes raises.
 
-Not ported yet: the differentiable path and non-orthogonal corrections
-(``SimConfig`` raises ``NotImplementedError`` for them), and the JAX
-package's opt-in solver levers (no ``SimConfig`` field yet).
+Not ported yet: the differentiable path, the upwind blend, extra inner
+non-orthogonal pressure passes (3D), the full-mode non-orthogonal pressure
+solve and the JAX package's other opt-in solver levers (no ``SimConfig``
+field for them).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from fluidgym_tpu_torch.core.domain import (
     DomainState,
     DomainTopo,
 )
-from fluidgym_tpu_torch.solver import linsolve
+from fluidgym_tpu_torch.solver import block_merge, linsolve, nonortho
 from fluidgym_tpu_torch.solver import stencil as st
 
 Tensor = torch.Tensor
@@ -101,10 +107,7 @@ def solver_info_dict(si: StepInfo) -> dict[str, Tensor]:
 @dataclass(frozen=True)
 class SimConfig:
     """Static solver configuration: the fields of the JAX ``SimConfig`` that
-    this port's main path reads, with the same defaults.  The JAX package's
-    other levers (deflation, coarse/multigrid preconditioners, pressure
-    extrapolation and warm start, BiCGStab or full-mode pressure, upwind
-    blending, refinement) are not ported yet and have no field here."""
+    this port's main paths read, with the same defaults."""
 
     dt: float = 1.0
     substeps: int = 1  # ADAPTIVE (-1) or a positive count
@@ -123,7 +126,9 @@ class SimConfig:
     max_substeps: int = 1000
     differentiable: bool = True
     pressure_precondition: bool = True
+    pressure_deflation: bool = False
     warm_start: bool = True
+    pressure_warm_start: bool = False
     pressure_stall_iters: int = 250
 
     def __post_init__(self):
@@ -134,10 +139,6 @@ class SimConfig:
             raise NotImplementedError(
                 "SimConfig.differentiable: the differentiable path is not "
                 "ported to fluidgym_tpu_torch yet")
-        if self.non_orthogonal:
-            raise NotImplementedError(
-                "SimConfig.non_orthogonal: non-orthogonal corrections are "
-                "not ported to fluidgym_tpu_torch yet")
 
 
 def _run_hooks(hooks: Hooks | None, name: str, state: DomainState, **kw) -> DomainState:
@@ -155,10 +156,10 @@ def _run_hooks(hooks: Hooks | None, name: str, state: DomainState, **kw) -> Doma
 # ---------------------------------------------------------------------------
 
 def _kernel_operand_ok(ops, topo: DomainTopo) -> bool:
-    """Dispatch gate of the whole-solve kernels (K1 ``ops.cg_cuda.fused_cg``
-    and K2 ``ops.cg_cuda_mb.fused_bicgstab_mb``): one block, no CONNECTED
-    face, and a scalar (not channel-shaped) stencil.  The kernels' wrappers
-    check dtype and device themselves."""
+    """Gate of the single-block kernels (K1 ``ops.cg_cuda.fused_cg`` and K2
+    over ``trivial_plan``): one block, no CONNECTED face, and a scalar (not
+    channel-shaped) stencil.  The kernels' wrappers check dtype and device
+    themselves."""
     if len(topo.blocks) != 1:
         return False
     if any(f.kind == BoundKind.CONNECTED for f in topo.blocks[0].faces):
@@ -166,14 +167,26 @@ def _kernel_operand_ok(ops, topo: DomainTopo) -> bool:
     return ops[0].diag.dim() == topo.ndims
 
 
-def _fused_bicg_mb_solve(ops, b, topo: DomainTopo, *, tol, maxiter,
+def _merged_plan(ops, topo: DomainTopo):
+    """Gate of the merged kernels (K3 ``ops.cg_cuda_mb.fused_cg_mb`` and K2
+    in merged form): a scalar stencil over a multi-block topology whose
+    ``merge_plan`` exists and has identity seams (flip-seam plans are the
+    JAX package's opt-in, as its ``"auto"`` mode).  Returns the plan or
+    None."""
+    if len(topo.blocks) < 2 or ops[0].diag.dim() != topo.ndims:
+        return None
+    plan = block_merge.merge_plan(topo)
+    if plan is None or not plan.identity_seams:
+        return None
+    return plan
+
+
+def _fused_bicg_mb_solve(mplan, ops, b, topo: DomainTopo, *, tol, maxiter,
                          stall_iters, precondition, return_best, x0):
     """Pack (optionally component-leading) block fields into the merged
-    frame of the trivial single-super-block plan, run K2, and unpack."""
+    frame of ``mplan``, run K2, and unpack."""
     from fluidgym_tpu_torch.ops import cg_cuda_mb
-    from fluidgym_tpu_torch.solver import block_merge
 
-    mplan = block_merge.trivial_plan(topo)
     nblocks = len(topo.blocks)
     S = len(mplan.superblocks)
     chan = b[0].dim() - topo.ndims  # 0 (scalar) or 1 (components)
@@ -206,7 +219,8 @@ def _fused_bicg_mb_solve(ops, b, topo: DomainTopo, *, tol, maxiter,
 def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
            x0=None, precondition=False, stall_iters=250):
     """Non-differentiable global linear solve over all blocks: CG for the
-    SPD pressure system (``symmetric``), else BiCGStab.  Returns ``(x,
+    SPD pressure system (``symmetric``), else BiCGStab.  ``x0``: the initial
+    guess (a warm start or the deflation guess).  Returns ``(x,
     SolveInfo)``."""
 
     def mv(xs):
@@ -221,37 +235,121 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
         def precond_fn(rs):
             return tuple(d * r for d, r in zip(inv_diag, rs))
 
-    usable = _kernel_operand_ok(ops, topo)
-    if b[0].is_cuda and not usable:
+    single = _kernel_operand_ok(ops, topo)
+    mplan = None if single else _merged_plan(ops, topo)
+    if b[0].is_cuda and not single and mplan is None:
         raise NotImplementedError(
-            "no CUDA kernel for this system yet (multi-block, CONNECTED faces "
+            "no CUDA kernel for this system (no identity-seam merge plan, "
             "or a channel-shaped stencil); the plain Krylov loops run on CPU "
             "tensors only")
+    kw = dict(tol=tol_resolved, maxiter=maxiter, stall_iters=stall_iters,
+              precondition=precondition, return_best=return_best)
     if symmetric:
-        if usable:
+        if single:
             from fluidgym_tpu_torch.ops import cg_cuda
 
             x1, inf = cg_cuda.fused_cg(
                 ops[0].diag, ops[0].off, b[0].unsqueeze(0),
                 None if x0 is None else x0[0].unsqueeze(0),
-                ndims=topo.ndims, tol=tol_resolved, maxiter=maxiter,
-                stall_iters=stall_iters, precondition=precondition,
-                return_best=return_best)
+                ndims=topo.ndims, **kw)
             return (x1[0],), linsolve.SolveInfo(
                 converged=inf.converged[0], iterations=inf.iterations[0],
                 residual=inf.residual[0])
+        if mplan is not None:
+            from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+            mops = block_merge.pack_ops(mplan, ops)
+            xs, inf = cg_cuda_mb.fused_cg_mb(
+                mplan, tuple(m[0] for m in mops), tuple(m[1] for m in mops),
+                block_merge.pack_fields(mplan, b),
+                x0s=None if x0 is None else block_merge.pack_fields(mplan, x0),
+                **kw)
+            return block_merge.unpack_fields(mplan, xs), inf
         return linsolve.cg(mv, b, x0=x0, tol=tol, maxiter=maxiter,
                            return_best=return_best, precond=precond_fn,
                            stall_iters=stall_iters)
 
-    if usable:
+    if single or mplan is not None:
         return _fused_bicg_mb_solve(
-            ops, b, topo, tol=tol_resolved, maxiter=maxiter,
-            stall_iters=stall_iters, precondition=precondition,
-            return_best=return_best, x0=x0)
+            block_merge.trivial_plan(topo) if single else mplan, ops, b, topo,
+            x0=x0, **kw)
     return linsolve.bicgstab(mv, b, x0=x0, tol=tol, maxiter=maxiter,
                              return_best=return_best, stall_iters=stall_iters,
                              precond=precond_fn)
+
+
+# ---------------------------------------------------------------------------
+# coarse-space deflation of the pressure warm start
+# ---------------------------------------------------------------------------
+
+def _deflation_basis(topo: DomainTopo, dtype, device) -> list[Tensor]:
+    """Per-block [constant, per-axis linear ramp] deflation vectors:
+    ``W[b]`` is ``(k, *block_shape)`` with ``k = nblocks * (ndims + 1)``
+    columns (fewer where an axis is periodic), each supported on one
+    block."""
+    nblocks = len(topo.blocks)
+    cols: list[tuple[Tensor, ...]] = []
+    for b, bt in enumerate(topo.blocks):
+        shp = bt.shape
+        nd = len(shp)
+        modes = [torch.ones(shp, dtype=dtype, device=device)]
+        for ax in range(nd):
+            # a ramp is discontinuous across a periodic seam: no such mode
+            if bt.faces[2 * (nd - 1 - ax)].kind == BoundKind.PERIODIC:
+                continue
+            ramp = torch.linspace(-1.0, 1.0, shp[ax], dtype=dtype, device=device)
+            modes.append(ramp.reshape((1,) * ax + (-1,) + (1,) * (nd - 1 - ax))
+                         .expand(shp))
+        for m in modes:
+            cols.append(tuple(
+                m if bb == b else torch.zeros(topo.blocks[bb].shape,
+                                              dtype=dtype, device=device)
+                for bb in range(nblocks)))
+    return [torch.stack([c[b] for c in cols]) for b in range(nblocks)]
+
+
+def _make_coarse_solver(p_ops, topo: DomainTopo, dtype):
+    """Coarse-space solve ``r -> W E^+ W^T r`` over the deflation basis;
+    ``E = W^T A W`` from the k basis columns applied as one batch."""
+    device = p_ops[0].diag.device
+    Wstack = _deflation_basis(topo, dtype, device)
+    k = Wstack[0].shape[0]
+    AW = st.domain_apply(p_ops, tuple(Wstack), topo)  # leading axis: columns
+    E = sum(w.reshape(k, -1) @ aw.reshape(k, -1).T for w, aw in zip(Wstack, AW))
+    # the global constant lies in the operator nullspace -> E is singular;
+    # normalize symmetrically and pseudo-invert
+    d = 1.0 / torch.sqrt(torch.abs(torch.diagonal(E)) + 1e-30)
+    En_inv = torch.linalg.pinv(E * d[:, None] * d[None, :], rtol=1e-5)
+    Wflat = [w.reshape(k, -1) for w in Wstack]
+
+    def coarse(r):
+        rhs_c = sum(w @ rr.reshape(-1) for w, rr in zip(Wflat, r))
+        c = d * (En_inv @ (d * rhs_c))
+        return tuple((c @ w).reshape(rr.shape) for w, rr in zip(Wflat, r))
+
+    return coarse
+
+
+def _make_deflation_x0(p_ops, topo: DomainTopo, dtype):
+    """``x0_fn(b, base=None)`` for the pressure solves of one substep:
+    without ``base`` the coarse solution ``W E^+ W^T b``; with ``base`` the
+    coarse-corrected guess ``base + W E^+ W^T (b - A base)``, self-gated:
+    the base is used only when ``||b - A base|| <= ||b||`` (a device-side
+    ``torch.where``, no host sync), else the pure coarse start."""
+    coarse = _make_coarse_solver(p_ops, topo, dtype)
+
+    def x0_fn(b, base=None):
+        if base is None:
+            return coarse(b)
+        Abase = st.domain_apply(p_ops, base, topo)
+        rb = tuple(bb - ab for bb, ab in zip(b, Abase))
+        use_base = (sum(torch.sum(r * r) for r in rb)
+                    <= sum(torch.sum(bb * bb) for bb in b))
+        sel = tuple(torch.where(use_base, ba, torch.zeros_like(ba)) for ba in base)
+        r = tuple(torch.where(use_base, rr, bb) for rr, bb in zip(rb, b))
+        return tuple(ss + cc for ss, cc in zip(sel, coarse(r)))
+
+    return x0_fn
 
 
 def _global_mean(xs) -> Tensor:
@@ -277,6 +375,17 @@ def _advect_scalars(state: DomainState, geoms, topo: DomainTopo,
         ops = st.build_advection_ops(state, geoms, topo, kappa, dt,
                                      for_scalar=True, scalar_channel=c)
         rhs = st.advection_rhs_scalar(state, geoms, topo, kappa, dt, c)
+        if cfg.non_orthogonal:
+            ones = tuple(torch.ones_like(g.det) for g in geoms)
+            ops = nonortho.apply_matrix_terms(
+                ops, geoms, topo, tuple(o * kappa for o in ones),
+                det_divide=True, field="scalar", scalar_channel=c)
+            S = nonortho.deferred_rhs(
+                tuple(blk.scalar[c] for blk in state.blocks), geoms, topo,
+                ones, field="scalar",
+                bval_fn=lambda b, f, _c=c: state.blocks[b].faces[f].scalar[_c],
+                scalar_channel=c)
+            rhs = tuple(r - s * kappa / g.det for r, s, g in zip(rhs, S, geoms))
         res, s_info = _solve(
             ops, rhs, topo,
             tol=cfg.advection_tol, maxiter=cfg.advection_maxiter,
@@ -315,6 +424,22 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     nu = state.viscosity
     adv_ops = st.build_advection_ops(state, geoms, topo, nu, dt)
     vel_rhs = st.advection_rhs_velocity(state, geoms, topo, nu, dt)
+    if cfg.non_orthogonal:
+        # per-cell viscosity reaches the cross-diffusion terms too
+        nus = tuple(torch.ones_like(g.det) * st._block_nu(state, b, nu, False)
+                    for b, g in enumerate(geoms))
+        adv_ops = nonortho.apply_matrix_terms(
+            adv_ops, geoms, topo, nus, det_divide=True, field="velocity")
+        # deferred correction per velocity component, from the pre-step field
+        S_comps = [nonortho.deferred_rhs(
+            tuple(blk.velocity[d] for blk in state.blocks), geoms, topo, nus,
+            field="velocity",
+            bval_fn=lambda b, f, _d=d: state.blocks[b].faces[f].velocity[_d],
+            boundary_visc=nu) for d in range(topo.ndims)]
+        vel_rhs = tuple(
+            vel_rhs[b] - torch.stack([S_comps[d][b] for d in range(topo.ndims)],
+                                     dim=0) / geoms[b].det
+            for b in range(nblocks))
     state = _run_hooks(hooks, "POST_VELOCITY_SETUP", state, time_step=dt)
     u_star, v_info = _solve(
         adv_ops, vel_rhs, topo,
@@ -327,26 +452,37 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
         advection_converged=info.advection_converged & v_info.converged)
 
     # ---- corrector loop --------------------------------------------------
+    # the pressure matrix stays orthogonal (exactly SPD); all non-orthogonal
+    # pressure coupling is deferred to the RHS (flux form)
     adiags = tuple(op.diag for op in adv_ops)
     p_ops = st.build_pressure_ops(adiags, geoms, topo)
+    inv_a = tuple(1.0 / a for a in adiags)
     pressures = tuple(blk.pressure for blk in state.blocks)
+    defl = (_make_deflation_x0(p_ops, topo, dtype) if cfg.pressure_deflation
+            else None)
     for _corrector in range(cfg.corrector_steps):
         hbyA = st.pressure_rhs_vec(state, geoms, topo, adv_ops, u_star, nu, dt)
         div = st.divergence_of(hbyA, state, geoms, topo)
+        if cfg.non_orthogonal:
+            # deferred pressure correction from the previous iterate
+            Sp = nonortho.deferred_rhs_flux(pressures, geoms, topo, inv_a)
+            div = tuple(d + sp for d, sp in zip(div, Sp))
         if cfg.pressure_time_step_normalized:
             div = tuple(d / dt for d in div)
-        # p_ops is the sign-flipped (positive definite) Poisson operator;
-        # every pressure solve starts cold, as in the JAX package's default
+        # p_ops is the sign-flipped (positive definite) Poisson operator
         rhs_p = tuple(-d for d in div)
         if cfg.normalize_pressure_result:
             # solvability projection for the singular all-Neumann system
             rhs_mean = _global_mean(rhs_p)
             rhs_p = tuple(r - rhs_mean for r in rhs_p)
+        base = pressures if cfg.pressure_warm_start else None
+        guess = defl(rhs_p, base=base) if defl is not None else base
         pressures, p_info = _solve(
             p_ops, rhs_p, topo,
             tol=cfg.pressure_tol, maxiter=cfg.pressure_maxiter,
             symmetric=True,
             return_best=cfg.pressure_return_best_result,
+            x0=guess,
             precondition=cfg.pressure_precondition,
             stall_iters=cfg.pressure_stall_iters,
         )
@@ -444,9 +580,12 @@ def make_divergence_free(state: DomainState, geoms: tuple[BlockGeom, ...],
                          iterations: int | None = None, maxiter: int = 1000,
                          hooks: Hooks | None = None) -> DomainState:
     """Pressure-project the current velocity to divergence free (A=1, dt=1,
-    hbyA = velocity); orthogonal configs take one projection by default."""
+    hbyA = velocity).  On curvilinear configs each projection takes two
+    inner passes: the deferred non-orthogonal pressure coupling enters the
+    RHS from the previous pass's pressure (cold-started solves)."""
     if iterations is None:
         iterations = 1
+    n_inner = 2 if cfg.non_orthogonal else 1
     nblocks = len(topo.blocks)
     blk0 = state.blocks[0].velocity
     one = torch.tensor(1.0, dtype=blk0.dtype, device=blk0.device)
@@ -455,21 +594,28 @@ def make_divergence_free(state: DomainState, geoms: tuple[BlockGeom, ...],
     for _ in range(iterations):
         state = _run_hooks(hooks, "PRE", state, time_step=one)
         hbyA = tuple(blk.velocity for blk in state.blocks)
-        div = st.divergence_of(hbyA, state, geoms, topo)
-        rhs_p = tuple(-d for d in div)
-        if cfg.normalize_pressure_result:
-            rhs_mean = _global_mean(rhs_p)
-            rhs_p = tuple(r - rhs_mean for r in rhs_p)
-        pressures, _info = _solve(
-            p_ops, rhs_p, topo,
-            tol=cfg.pressure_tol, maxiter=maxiter,
-            symmetric=True,
-            return_best=cfg.pressure_return_best_result,
-            precondition=cfg.pressure_precondition,
-        )
-        if cfg.normalize_pressure_result:
-            mean = _global_mean(pressures)
-            pressures = tuple(p - mean for p in pressures)
+        div0 = st.divergence_of(hbyA, state, geoms, topo)
+        proj_p = tuple(torch.zeros_like(blk.pressure) for blk in state.blocks)
+        for _inner in range(n_inner):
+            div = div0
+            if cfg.non_orthogonal:
+                Sp = nonortho.deferred_rhs_flux(proj_p, geoms, topo, adiags)
+                div = tuple(d + sp for d, sp in zip(div0, Sp))
+            rhs_p = tuple(-d for d in div)
+            if cfg.normalize_pressure_result:
+                rhs_mean = _global_mean(rhs_p)
+                rhs_p = tuple(r - rhs_mean for r in rhs_p)
+            pressures, _info = _solve(
+                p_ops, rhs_p, topo,
+                tol=cfg.pressure_tol, maxiter=maxiter,
+                symmetric=True,
+                return_best=cfg.pressure_return_best_result,
+                precondition=cfg.pressure_precondition,
+            )
+            if cfg.normalize_pressure_result:
+                mean = _global_mean(pressures)
+                pressures = tuple(p - mean for p in pressures)
+            proj_p = pressures
         vel = st.correct_velocity_fd(
             hbyA, pressures, adiags, geoms, topo, one,
             time_step_normalized=cfg.pressure_time_step_normalized)

@@ -22,9 +22,14 @@ Layout invariants kept from the JAX package: the face order is
 -x,+x,-y,+y[,-z,+z], and physical axis d is array axis ``rank-1-d`` (x is the
 minor axis).  Every neighbour is a periodic roll: exact for interior cells
 and PERIODIC faces, masked by ``off = 0`` (or overwritten) at FIXED faces.
+At CONNECTED faces the rolled boundary layer is overwritten by a halo slab
+gathered from the neighbour block and remapped into this block's axis
+frame (``FaceSpec.axes``: transposes and flips); contravariant fluxes
+across a same-side connection change sign.  Curvilinear blocks carry the
+full inverse metric ``minv (*s, d, d)``.
 
-Not ported yet: CONNECTED faces (multi-block halo exchange) and curvilinear
-(non-orthogonal) metrics; both raise ``NotImplementedError``.
+Not ported: the JAX package's optional upwind blend of the advection matrix
+and its opt-in fused stencil kernel (off by default there).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from fluidgym_tpu_torch.core.domain import (
     BoundKind,
     DomainState,
     DomainTopo,
+    FaceSpec,
     face_axis,
     face_sign,
 )
@@ -64,6 +70,7 @@ __all__ = [
     "pressure_gradient",
     "correct_velocity_fd",
     "max_computational_velocity",
+    "velocity_divergence",
 ]
 
 
@@ -119,14 +126,59 @@ def _add(x: Tensor, idx, val) -> Tensor:
     return y
 
 
-def _require_single_block(topo: DomainTopo) -> None:
-    for bt in topo.blocks:
-        if any(s.kind == BoundKind.CONNECTED for s in bt.faces):
-            raise NotImplementedError(
-                "CONNECTED faces (multi-block halo exchange) are not ported yet")
-        if not bt.orthogonal:
-            raise NotImplementedError(
-                "curvilinear (non-orthogonal) blocks are not ported yet")
+def _slab_trailing(x: Tensor, f: int, n_trailing: int) -> Tensor:
+    """Face slab of a tensor whose LAST ``n_trailing`` axes are non-spatial
+    (e.g. ``minv (*s, d, d)``)."""
+    rank = x.dim() - n_trailing
+    idx = [slice(None)] * x.dim()
+    ax = rank - 1 - face_axis(f)
+    idx[ax] = slice(-1, None) if f % 2 else slice(0, 1)
+    return x[tuple(idx)]
+
+
+def _halo(other: Tensor, spec: FaceSpec, f: int, ndims: int) -> Tensor:
+    """The neighbour block's boundary slab for this block's face ``f``,
+    remapped into this block's axis frame.  ``other`` may carry leading
+    channel axes; the result is shaped like this block's face slab."""
+    if not spec.axes:
+        raise ValueError("CONNECTED face is missing its axes mapping")
+    rank = other.dim()
+    a0, up0 = spec.axes[0] >> 1, spec.axes[0] & 1
+    idx = [slice(None)] * rank
+    idx[_axis(rank, a0)] = slice(-1, None) if up0 else slice(0, 1)
+    slab = other[tuple(idx)]
+
+    d = face_axis(f)
+    src_for_my = {d: a0}
+    for i in range(1, ndims):
+        k = (d + i) % ndims
+        ai, upi = spec.axes[i] >> 1, spec.axes[i] & 1
+        if upi:
+            slab = torch.flip(slab, dims=(_axis(rank, ai),))
+        src_for_my[k] = ai
+    perm = list(range(rank))
+    for k, a in src_for_my.items():
+        perm[_axis(rank, k)] = _axis(rank, a)
+    return slab.permute(perm)
+
+
+def _neighbor_field(xs: BlockVec, b: int, f: int, topo: DomainTopo) -> Tensor:
+    """Neighbour values of ``xs[b]`` across face f, with the CONNECTED halo."""
+    nbr = _roll_nbr(xs[b], f)
+    spec = topo.blocks[b].faces[f]
+    if spec.kind == BoundKind.CONNECTED:
+        vals = _halo(xs[spec.connected_block], spec, f, topo.ndims)
+        nbr = _set(nbr, _face_slab(nbr.dim(), f), vals)
+    return nbr
+
+
+def _halo_axis_component(per_axis: BlockVec, spec: FaceSpec, f: int,
+                         ndims: int) -> Tensor:
+    """Halo of an axis-indexed quantity (e.g. alpha ``(d, *s)``) taken along
+    the neighbour's face-normal axis (this face's axis maps to
+    ``axes[0] >> 1`` there)."""
+    a0 = spec.axes[0] >> 1
+    return _halo(per_axis[spec.connected_block][a0], spec, f, ndims)
 
 
 # ---------------------------------------------------------------------------
@@ -151,15 +203,26 @@ def stencil_off_apply(op: StencilOp, x: Tensor, ndims: int) -> Tensor:
 
 def domain_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
                  topo: DomainTopo) -> BlockVec:
-    """Apply over all blocks (single-block topologies in this port)."""
-    _require_single_block(topo)
-    return tuple(stencil_apply(op, x, topo.ndims) for op, x in zip(ops, xs))
+    """Multi-block apply with halo exchange at CONNECTED faces."""
+    out = []
+    for b, (op, x) in enumerate(zip(ops, xs)):
+        y = op.diag * x
+        for f in range(2 * topo.ndims):
+            y = y + op.off[f] * _neighbor_field(xs, b, f, topo)
+        out.append(y)
+    return tuple(out)
 
 
 def domain_off_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
                      topo: DomainTopo) -> BlockVec:
-    _require_single_block(topo)
-    return tuple(stencil_off_apply(op, x, topo.ndims) for op, x in zip(ops, xs))
+    """Off-diagonal part of ``domain_apply`` (the reference's ``H u*``)."""
+    out = []
+    for b, (op, x) in enumerate(zip(ops, xs)):
+        y = torch.zeros_like(x * op.diag)
+        for f in range(2 * topo.ndims):
+            y = y + op.off[f] * _neighbor_field(xs, b, f, topo)
+        out.append(y)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -168,16 +231,16 @@ def domain_off_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
 
 def contravariant(u: Tensor, geom: BlockGeom, topo: BlockTopo) -> Tensor:
     """Contravariant velocity components ``C_d = det * (M^-1 u)_d``."""
-    if not topo.orthogonal:
-        raise NotImplementedError("curvilinear blocks are not ported yet")
-    return geom.det * geom.minv_diag * u
+    if topo.orthogonal:
+        return geom.det * geom.minv_diag * u
+    return geom.det * torch.einsum("...ki,i...->k...", geom.minv, u)
 
 
 def computational_velocity(u: Tensor, geom: BlockGeom, topo: BlockTopo) -> Tensor:
     """Index-space velocity ``(M^-1 u)`` used for CFL estimation."""
-    if not topo.orthogonal:
-        raise NotImplementedError("curvilinear blocks are not ported yet")
-    return geom.minv_diag * u
+    if topo.orthogonal:
+        return geom.minv_diag * u
+    return torch.einsum("...ki,i...->k...", geom.minv, u)
 
 
 def max_computational_velocity(state: DomainState, geoms: tuple[BlockGeom, ...],
@@ -189,7 +252,12 @@ def max_computational_velocity(state: DomainState, geoms: tuple[BlockGeom, ...],
         mb = torch.max(torch.abs(computational_velocity(blk.velocity, geom, btopo)))
         for f, spec in enumerate(btopo.faces):
             if spec.kind == BoundKind.FIXED and blk.faces[f].velocity is not None:
-                bvel = _slab(geom.minv_diag, f) * blk.faces[f].velocity
+                if btopo.orthogonal:
+                    bvel = _slab(geom.minv_diag, f) * blk.faces[f].velocity
+                else:
+                    bvel = torch.einsum("...ki,i...->k...",
+                                        _slab_trailing(geom.minv, f, 2),
+                                        blk.faces[f].velocity)
                 mb = torch.maximum(mb, torch.max(torch.abs(bvel)))
         m = mb if m is None else torch.maximum(m, mb)
     return m
@@ -199,7 +267,11 @@ def _boundary_flux(blk: BlockState, geom: BlockGeom, btopo: BlockTopo,
                    f: int) -> Tensor:
     """Unsigned contravariant flux through FIXED face f (slab shape)."""
     d = face_axis(f)
-    return _slab(geom.det * geom.minv_diag[d], f) * blk.faces[f].velocity[d]
+    bvel = blk.faces[f].velocity  # (ndims, *slab)
+    if btopo.orthogonal:
+        return _slab(geom.det * geom.minv_diag[d], f) * bvel[d]
+    minv_row = _slab_trailing(geom.minv, f, 2)[..., d, :]  # (*slab, i)
+    return _slab(geom.det, f) * torch.einsum("...i,i...->...", minv_row, bvel)
 
 
 def _field_contravariants(fields: BlockVec, geoms, topo) -> BlockVec:
@@ -217,6 +289,13 @@ def _face_flux(Cs: BlockVec, state: DomainState, geoms, topo, b: int,
     if spec.kind == BoundKind.FIXED:
         bflux = _boundary_flux(state.blocks[b], geoms[b], topo.blocks[b], f)
         flux = _set(flux, _face_slab(flux.dim(), f), bflux)
+    elif spec.kind == BoundKind.CONNECTED:
+        velN = _halo_axis_component(Cs, spec, f, topo.ndims)
+        if (spec.axes[0] & 1) == (f & 1):
+            # same-side connection: the neighbour's flux direction inverts
+            velN = -velN
+        slab = _face_slab(flux.dim(), f)
+        flux = _set(flux, slab, 0.5 * (C[slab] + velN))
     return flux
 
 
@@ -243,7 +322,6 @@ def build_advection_ops(
     """Implicit-Euler advection-diffusion matrix for all blocks, already
     divided by ``det`` (central face interpolation; the JAX package's
     optional upwind blend is not ported yet)."""
-    _require_single_block(topo)
     ndims = topo.ndims
     Cs = _field_contravariants(tuple(b.velocity for b in state.blocks), geoms, topo)
     nus = tuple(_block_nu(state, b, nu, for_scalar) for b in range(len(geoms)))
@@ -259,6 +337,9 @@ def build_advection_ops(
             spec = btopo.faces[f]
             adv = (0.5 * face_sign(f)) * _face_flux(Cs, state, geoms, topo, b, f)
             an_n = _roll_nbr(alpha_nu[b][d], f)
+            if spec.kind == BoundKind.CONNECTED:
+                halo_a = _halo_axis_component(alpha_nu, spec, f, ndims)
+                an_n = _set(an_n, _face_slab(an_n.dim(), f), halo_a)
             visc = 0.5 * (alpha_nu[b][d] + an_n)
             off = adv - visc
             diag_c = adv + visc
@@ -350,7 +431,6 @@ def build_pressure_ops(adiags: BlockVec, geoms: tuple[BlockGeom, ...],
     """Pressure Poisson matrix, sign-flipped (positive definite):
     ``off_f = -0.5 * (alpha_P/A_P + alpha_N/A_N)``, ``diag = -sum_f off_f``;
     zero (Neumann) at FIXED faces."""
-    _require_single_block(topo)
     ndims = topo.ndims
     ras = tuple(g.alpha / a for g, a in zip(geoms, adiags))
     ops = []
@@ -359,8 +439,13 @@ def build_pressure_ops(adiags: BlockVec, geoms: tuple[BlockGeom, ...],
         offs = []
         for f in range(2 * ndims):
             d = face_axis(f)
-            coef = 0.5 * (ras[b][d] + _roll_nbr(ras[b][d], f))
-            if btopo.faces[f].kind == BoundKind.FIXED:
+            spec = btopo.faces[f]
+            ra_n = _roll_nbr(ras[b][d], f)
+            if spec.kind == BoundKind.CONNECTED:
+                halo_ra = _halo_axis_component(ras, spec, f, ndims)
+                ra_n = _set(ra_n, _face_slab(ra_n.dim(), f), halo_ra)
+            coef = 0.5 * (ras[b][d] + ra_n)
+            if spec.kind == BoundKind.FIXED:
                 coef = _set(coef, _face_slab(coef.dim(), f), 0.0)
             diag = diag + coef
             offs.append(-coef)
@@ -391,7 +476,6 @@ def divergence_of(fields: BlockVec, state: DomainState,
                   geoms: tuple[BlockGeom, ...], topo: DomainTopo) -> BlockVec:
     """Divergence of a colocated vector field from contravariant face
     fluxes; FIXED faces use the prescribed boundary velocity flux."""
-    _require_single_block(topo)
     Cs = _field_contravariants(fields, geoms, topo)
     out = []
     for b, geom in enumerate(geoms):
@@ -402,19 +486,25 @@ def divergence_of(fields: BlockVec, state: DomainState,
     return tuple(out)
 
 
+def velocity_divergence(state: DomainState, geoms, topo) -> BlockVec:
+    """Divergence of the current velocity (diagnostic)."""
+    return divergence_of(tuple(b.velocity for b in state.blocks), state,
+                         geoms, topo)
+
+
 def pressure_gradient(ps: BlockVec, geoms: tuple[BlockGeom, ...],
                       topo: DomainTopo) -> BlockVec:
     """FD pressure gradient per block: central differences in index space,
-    one-sided at FIXED faces, mapped to physical space.  ``(d, *s)``."""
-    _require_single_block(topo)
+    one-sided at FIXED faces, CONNECTED/PERIODIC neighbours resolved, mapped
+    to physical space with ``M^-T``.  ``(d, *s)``."""
     out = []
     for b, (geom, btopo) in enumerate(zip(geoms, topo.blocks)):
         p = ps[b]
         grads = []
         for d in range(topo.ndims):
             f_lo, f_hi = 2 * d, 2 * d + 1
-            val_n = _roll_nbr(p, f_lo)
-            val_p = _roll_nbr(p, f_hi)
+            val_n = _neighbor_field(ps, b, f_lo, topo)
+            val_p = _neighbor_field(ps, b, f_hi, topo)
             fac = torch.full_like(p, 0.5)
             if btopo.faces[f_lo].kind == BoundKind.FIXED:
                 slab = _face_slab(p.dim(), f_lo)
@@ -425,7 +515,11 @@ def pressure_gradient(ps: BlockVec, geoms: tuple[BlockGeom, ...],
                 val_p = _set(val_p, slab, p[slab])
                 fac = _set(fac, slab, 1.0)
             grads.append((val_p - val_n) * fac)
-        out.append(geom.minv_diag * torch.stack(grads, dim=0))
+        g = torch.stack(grads, dim=0)  # index-space gradient (d, *s)
+        if btopo.orthogonal:
+            out.append(geom.minv_diag * g)
+        else:
+            out.append(torch.einsum("...ki,k...->i...", geom.minv, g))
     return tuple(out)
 
 

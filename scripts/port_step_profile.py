@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Where one env step of fluidgym_tpu_torch spends its time on a CUDA card.
 
-    python3 scripts/port_step_profile.py [--steps 2]
+    python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
 
-Makes RBC2D-easy-v0 (the one registered env) at its registered defaults on the card, resets it (seed 0),
-takes one warm-up step, then profiles ``--steps`` steps with
-``torch.profiler`` (CPU + CUDA activities).  Prints one JSON object:
+Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
+defaults on the card, resets it (seed 0), takes one warm-up step, then
+profiles ``--steps`` steps with ``torch.profiler`` (CPU + CUDA activities).
+Prints one JSON object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise;
 * ``device_ms_per_step``: summed CUDA kernel time (self device time of the
   kernel events); ``device_busy_share`` = device / wall;
 * ``kernel_launches_per_step`` and the top kernels by device time;
+* per kernel of the port (K1, K2, K2-mb, K3): launches per step, counted by
+  the wrappers, and device ms per step (the profiler's kernel events of
+  that instantiation: ``fg_cg_kernel<ND, false>`` is K1, ``<ND, true>`` K3,
+  ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb);
 * the card's name and power limit.
 
-Also writes the JSON to ``<--out>/port_step_profile.json``.  Needs a card;
+Also writes the JSON to ``<--out>/port_step_profile_<env>.json``.  Needs a card;
 imports nothing of JAX or of the JAX package.
 """
 
@@ -25,7 +30,16 @@ import subprocess
 import sys
 import time
 
-ENV_ID = "RBC2D-easy-v0"
+
+
+def _port_kernel(name: str) -> str | None:
+    """K1/K2/K2-mb/K3 for a profiler kernel name, else None."""
+    table = "true" in name.split("(")[0]
+    if "fg_cg_kernel" in name:
+        return "K3" if table else "K1"
+    if "fg_bicg_kernel" in name:
+        return "K2-mb" if table else "K2"
+    return None
 
 
 def main() -> int:
@@ -33,6 +47,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--env", default="RBC2D-easy-v0")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -47,22 +62,29 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    env = fluidgym_tpu_torch.make(ENV_ID)
+    env = fluidgym_tpu_torch.make(args.env)
     env.reset(seed=0)
     rng = np.random.default_rng(0)
     act = lambda: rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
     env.step(act())
     torch.cuda.synchronize()
-    k0 = (cg_cuda.fused_cg.launches, cg_cuda_mb.fused_bicgstab_mb.launches)
+    def counts():
+        return {"K1": cg_cuda.fused_cg.launches,
+                "K2": cg_cuda_mb.fused_bicgstab_mb.launches,
+                "K2-mb": cg_cuda_mb.fused_bicgstab_mb.merged_launches,
+                "K3": cg_cuda_mb.fused_cg_mb.launches}
+
+    k0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(args.steps):
             env.step(act())
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / args.steps
-    k1 = (cg_cuda.fused_cg.launches, cg_cuda_mb.fused_bicgstab_mb.launches)
+    k1 = counts()
 
     kernels = {}
+    port_us = {k: 0.0 for k in k0}
     n_launch = 0
     for ev in prof.events():
         dev_type = getattr(ev, "device_type", None)
@@ -71,6 +93,9 @@ def main() -> int:
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
+        which = _port_kernel(ev.name)
+        if which is not None:
+            port_us[which] += us
         name = ev.name if len(ev.name) <= 80 else ev.name[:77] + "..."
         k = kernels.setdefault(name, [0, 0.0])
         k[0] += 1
@@ -79,22 +104,25 @@ def main() -> int:
     device_ms = sum(v[1] for v in kernels.values()) / 1e3 / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
     out = {
-        "env": ENV_ID,
+        "env": args.env,
         "card": smi,
         "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / (wall * 1e3) if wall > 0 else None,
         "kernel_launches_per_step": n_launch / args.steps,
-        "k1_launches_per_step": (k1[0] - k0[0]) / args.steps,
-        "k2_launches_per_step": (k1[1] - k0[1]) / args.steps,
+        "port_kernels": {
+            k: {"launches_per_step": (k1[k] - k0[k]) / args.steps,
+                "device_ms_per_step": port_us[k] / 1e3 / args.steps}
+            for k in k0},
         "top_kernels": [
             {"name": n, "calls_per_step": c / args.steps,
              "device_ms_per_step": us / 1e3 / args.steps}
             for n, (c, us) in top],
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "port_step_profile.json"), "w") as fh:
+    with open(os.path.join(args.out, f"port_step_profile_{args.env}.json"),
+              "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))
     return 0

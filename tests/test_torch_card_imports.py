@@ -82,6 +82,34 @@ def test_port_and_chip_smoke_import_and_step_without_card_packages():
     assert "OK" in out.stdout
 
 
+def test_cylinder_imports_and_steps_without_card_packages():
+    """The second registered id: the multi-block cylinder (scipy's KD-tree
+    for the sensor plan is on the card's machine and is imported inside the
+    function that needs it)."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        env = fluidgym_tpu_torch.make(
+            "CylinderJet2D-easy-v0", device="cpu", resolution=8,
+            load_initial_domain=False, load_domain_statistics=False,
+            randomize_initial_state=False, step_length=0.01, dt=0.01)
+        obs, _ = env.reset(seed=0)
+        obs, reward, *_ , info = env.step(np.full((1,), 0.5, np.float32))
+        assert obs["velocity"].shape == (151, 2)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 def test_make_without_device_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card; make() then runs on it")

@@ -1,0 +1,119 @@
+"""CylinderJet2D-easy-v0 end to end: the port against the JAX package at
+resolution 16 (5 blocks, 2 super-blocks), 3 env steps of 2 sim steps with
+fixed actions after ``reset(seed=0)``.
+
+Bar: obs, reward, drag and lift <= 1e-4 relative.
+
+* In float64 (both packages; JAX under a scoped ``jax.enable_x64``) every
+  quantity is held to the bar from ``reset(seed=0)`` on (measured: <= 1.2e-11).
+* In float32, the solver's own rounding decides the pressure at the
+  impulsive start: the initial projection ends unconverged after its 1000
+  iterations and the first step's pressure solves take ~1300 iterations,
+  and the JAX package's float32 pressure obs are 1.2e-4..6.5e-4 off its own
+  float64 run there.  The float32 test therefore starts both packages from
+  ONE numpy state (the JAX package's after reset) and holds velocity obs,
+  reward, drag and lift to the bar at every step (measured <= 3.2e-5).
+
+Also: a seeded randomized reset draws the same noise in the same order and
+takes the same number of uncontrolled steps.
+"""
+
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import fluidgym_tpu
+import fluidgym_tpu_torch
+from fluidgym_tpu_torch.core.domain import domain_state_from_numpy
+from torch_port_helpers import CYL_KW
+
+torch.set_num_threads(1)
+BAR = 1e-4
+ACTIONS = (0.5, -0.3, 0.8)
+ID = "CylinderJet2D-easy-v0"
+
+
+def _rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _steps(env):
+    out = []
+    for a in ACTIONS:
+        obs, reward, _, _, info = env.step(np.array([a], np.float32))
+        out.append(dict(velocity=_np(obs["velocity"]), pressure=_np(obs["pressure"]),
+                        reward=_np(reward), drag=_np(info["drag"]),
+                        lift=_np(info["lift"]),
+                        converged=bool(np.asarray(info["pressure_converged"]))))
+    return out
+
+
+def test_steps_match_jax_float64():
+    with jax.enable_x64(True):
+        jenv = fluidgym_tpu.make(ID, dtype=jnp.float64, **CYL_KW)
+        jo, _ = jenv.reset(seed=0)
+        tenv = fluidgym_tpu_torch.make(ID, device="cpu", dtype=torch.float64,
+                                       **CYL_KW)
+        to, _ = tenv.reset(seed=0)
+        for k in ("velocity", "pressure"):
+            assert _rel(_np(to[k]), jo[k]) <= BAR, ("reset", k)
+        js, ts = _steps(jenv), _steps(tenv)
+    assert tenv._state.blocks[0].velocity.dtype == torch.float64
+    for i, (j, t) in enumerate(zip(js, ts)):
+        for k in ("velocity", "pressure", "reward", "drag", "lift"):
+            assert _rel(t[k], j[k]) <= BAR, (i, k, _rel(t[k], j[k]))
+        assert t["converged"] and j["converged"]
+
+
+def test_steps_match_jax_float32_from_one_state():
+    jenv = fluidgym_tpu.make(ID, **CYL_KW)
+    jenv.reset(seed=0)
+    tenv = fluidgym_tpu_torch.make(ID, device="cpu", **CYL_KW)
+    tenv.reset(seed=0)
+    tenv._state = domain_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jenv._state))
+    js, ts = _steps(jenv), _steps(tenv)
+    for i, (j, t) in enumerate(zip(js, ts)):
+        assert t["velocity"].shape == (151, 2) and t["pressure"].shape == (151,)
+        for k in ("velocity", "reward", "drag", "lift"):
+            assert _rel(t[k], j[k]) <= BAR, (i, k, _rel(t[k], j[k]))
+        assert all(np.isfinite(t[k]).all() for k in ("velocity", "pressure"))
+
+
+def test_seeded_randomized_reset_matches_jax():
+    """``_randomize_domain`` from one state and one seed: the same noise
+    (numpy draws per block, velocity then pressure) and the same number of
+    uncontrolled steps (counted; the steps themselves are the solver's,
+    compared above)."""
+    kw = {**CYL_KW, "step_length": 0.25}
+    jenv = fluidgym_tpu.make(ID, **kw)
+    jenv.reset(seed=0)
+    tenv = fluidgym_tpu_torch.make(ID, device="cpu", **kw)
+    tenv.reset(seed=0)
+    tenv._state = domain_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jenv._state))
+    counts = {"jax": 0, "port": 0}
+
+    def counter(name):
+        def step():
+            counts[name] += 1
+        return step
+
+    jenv._run_single_step = counter("jax")
+    tenv._run_single_step = counter("port")
+    jenv.seed(7)
+    tenv.seed(7)
+    jenv._randomize_domain()
+    tenv._randomize_domain()
+    assert counts["port"] == counts["jax"] > 0
+    for jb, tb in zip(jenv._state.blocks, tenv._state.blocks):
+        assert _rel(_np(tb.velocity), jb.velocity) <= 1e-6
+        assert _rel(_np(tb.pressure), jb.pressure) <= 1e-6

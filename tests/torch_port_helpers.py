@@ -65,3 +65,14 @@ def assert_rel(a, b, rtol, what=""):
     scale = max(np.abs(b).max(), 1e-30)
     err = np.abs(a - b).max()
     assert err <= rtol * scale, f"{what}: max|diff| {err:.3e} > {rtol:g} * {scale:.3e}"
+
+#: small CylinderJet2D config: resolution 16 (5 blocks, 2 super-blocks),
+#: two sim steps of dt 0.01 per env step, no dataset files
+CYL_KW = dict(
+    resolution=16,
+    load_initial_domain=False,
+    load_domain_statistics=False,
+    randomize_initial_state=False,
+    step_length=0.02,
+    dt=0.01,
+)
