@@ -38,7 +38,22 @@ Phases, each printed with its elapsed seconds:
    K3 launches twice per substep and K2-mb once, no plain version and no
    ``linsolve`` loop runs; drag, lift, obs and reward finite;
 10. the card against the host for the cylinder: 1 env step from the bundled
-   snapshot, no randomization; obs and reward must agree to 1e-4.
+   snapshot, no randomization; obs and reward must agree to 1e-4;
+11. K3 and K2-mb in their flip-seam form ("K3-flip", "K2-mb-flip": the
+   Airfoil2D C-grid, 6 blocks -> 3 super-blocks whose wake cut is a
+   reflected seam, 73,456 cells) against their plain versions on the
+   pressure and velocity advection systems of the bundled Airfoil2D-easy
+   ``train_00`` snapshot at full width: K3 cold and warm from the deflated
+   guess, K2-mb with 2 lanes; the same iteration counts;
+12. the airfoil main path: ``make("Airfoil2D-easy-v0")`` at its registered
+   defaults (no randomization), ``reset(seed=0)``, 3 steps with fixed numpy
+   actions; in every step K3-flip launches twice per substep and K2-mb-flip
+   once, no other kernel form, no plain version and no ``linsolve`` loop;
+   obs, reward, drag and lift finite;
+13. the card against the host for the airfoil: 1 sim step (``step_length =
+   dt``) from the bundled snapshot; the velocity obs and the reward must
+   agree to 1e-4, the pressure obs to 1e-3 (float32 decides it only to
+   ~1e-4 here; see ``MERGED_CASES``).
 
 Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero; there is no CPU fallback.  Imports nothing
@@ -448,12 +463,13 @@ def _run(dev) -> int:
             f"{time.perf_counter() - t:.2f}s")
         check(worst <= 1e-4, f"card and host disagree on the {label} config")
 
-    _cylinder_phases(dev, kernels, compare, piso, linsolve)
+    for case in MERGED_CASES:
+        _merged_phases(dev, kernels, compare, piso, linsolve, case)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K2", "K2-mb",
-                                                       "K3")]}), flush=True)
+    print(json.dumps({"kernels": [kernels[k] for k in (
+        "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip")]}), flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -461,8 +477,42 @@ def _run(dev) -> int:
     return 0
 
 
-def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
-    """Phases 7-10: K3 and K2-mb on the CylinderJet2D-easy-v0 O-grid."""
+#: the merged-frame main paths: phases 7-10 (the cylinder's identity seams)
+#: and 11-13 (the airfoil's C-grid, whose wake cut is a reflected seam)
+MERGED_CASES = (
+    dict(env_id="CylinderJet2D-easy-v0", snapshot=("cylinder_2D_Re100_Res24",
+                                                   "test_00"),
+         phases=(7, 8, 9, 10), plan=(2, 2, 0), cells=(5, 14232),
+         k3="K3", k3_count="launches", k2="K2-mb", k2_count="merged_launches",
+         k3_form="", k2_form="", dt=0.01, tol_p=1e-5, k3_it_tol=3,
+         k2_it_tol=2, lanes3=True, plain_reps=3, make_kw={},
+         host_kw=dict(randomize_initial_state=False), host_pressure_bar=1e-4),
+    dict(env_id="Airfoil2D-easy-v0", snapshot=("airfoil_2D_Re1000", "train_00"),
+         phases=(11, 11, 12, 13), plan=(3, 6, 2), cells=(6, 73456),
+         k3="K3-flip", k3_count="flip_launches", k2="K2-mb-flip",
+         k2_count="merged_flip_launches", k3_form=" with reflected seams",
+         k2_form=" with reflected seams", dt=0.05, tol_p=1e-7, k3_it_tol=0,
+         k2_it_tol=0, lanes3=False, plain_reps=1,
+         make_kw=dict(randomize_initial_state=False),
+         # one sim step; reward = cl/cd without the statistics' cl_cd_ref,
+         # whose difference of near-equal numbers would amplify rounding
+         host_kw=dict(randomize_initial_state=False,
+                      load_domain_statistics=False, step_length=0.05,
+                      dt=0.05),
+         # a float32 airfoil pressure obs is decided by rounding at ~1e-4
+         # (substeps of ~0.003 put O(u/dt) terms into the divergence that
+         # cancel): on the host alone, 1 vs 8 threads moves it 2e-5 (7e-5
+         # at tol 1e-8) and float32 vs float64 8.9e-5..1.1e-4, and the JAX
+         # package's own float32 runs are 6.6e-5..3.8e-3 off its float64
+         # run; 1e-3 still catches a wrong seam, which moves it O(1)
+         host_pressure_bar=1e-3),
+)
+
+
+def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
+    """K3 and K2-mb of one merged plan against their plain versions on the
+    systems of a bundled snapshot at full width, the main path of its id
+    with launch counts per form, and the card against the host."""
     import numpy as np
     import torch
 
@@ -473,24 +523,30 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
     from fluidgym_tpu_torch.solver import stencil as st
     from fluidgym_tpu_torch.utils import data_utils
 
-    cyl_id = "CylinderJet2D-easy-v0"
-    snap = data_utils.initial_domain_dir("cylinder_2D_Re100_Res24") / "test_00"
-    topo, geoms, state = load_domain(snap, device=dev)
+    env_id, k3n, k2n = case["env_id"], case["k3"], case["k2"]
+    ph3, ph2, ph_main, ph_host = case["phases"]
+    data_id, split = case["snapshot"]
+    topo, geoms, state = load_domain(
+        data_utils.initial_domain_dir(data_id) / split, device=dev)
     plan = block_merge.merge_plan(topo)
-    check(plan is not None and len(plan.superblocks) == 2
-          and len(plan.fixups) == 2 and plan.identity_seams,
-          "the cylinder merge plan is not 2 super-blocks with 2 identity seams")
+    n_flip = sum(any(fx.flip) for fx in plan.fixups)
+    check((len(plan.superblocks), len(plan.fixups), n_flip) == case["plan"],
+          f"the {env_id} merge plan is not (super-blocks, fixups, flips) = "
+          f"{case['plan']}")
     n = sum(math.prod(sb.shape) for sb in plan.superblocks)
     seam = sum(math.prod(hi - lo for K, (lo, hi) in enumerate(fx.window)
                          if K != fx.face // 2) for fx in plan.fixups)
     nd = topo.ndims
-    log(f"cylinder snapshot: blocks {[b.shape for b in topo.blocks]} -> "
+    S = len(plan.superblocks)
+    log(f"{env_id} snapshot: blocks {[b.shape for b in topo.blocks]} -> "
         f"super-blocks {[sb.shape for sb in plan.superblocks]}, {n} cells, "
-        f"{len(plan.fixups)} fixups ({seam} seam cells)")
+        f"{len(plan.fixups)} fixups ({n_flip} flips, {seam} seam cells)")
 
-    # ---- 7: K3 vs plain on the snapshot's pressure system ----------------
-    # the main path's substep: dt 0.01 at CFL 0.8 is one substep per sim step
-    dt = torch.tensor(0.01, device=dev)
+    # ---- K3 vs plain on the snapshot's pressure system --------------------
+    # one substep of the main path: the sim step cut to CFL 0.8
+    cfg = piso.SimConfig(dt=case["dt"], adaptive_cfl=0.8, differentiable=False)
+    dt = piso._cfl_ts(state, geoms, topo, cfg,
+                      torch.tensor(case["dt"], device=dev))
     adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
     p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
     hbyA = st.pressure_rhs_vec(state, geoms, topo, adv,
@@ -505,7 +561,7 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
     diags, offs = tuple(m[0] for m in mops), tuple(m[1] for m in mops)
     diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
     mv3 = cg_cuda_mb._merged_mv(plan, diag, off)
-    tol_p = 1e-5
+    tol_p = case["tol_p"]  # the env's pressure tolerance
     kw3 = dict(maxiter=5000, stall_iters=250, precondition=True,
                return_best=True)
 
@@ -529,38 +585,44 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
     errs, its = [], {}
     for label, x0s in (("cold", None), ("warm (deflated guess)", g1)):
         kern, plain = k3_pair(b1, x0s, tol_p)
-        e, it = compare(f"K3 pressure {label} (1, {n})", kern, plain, flat1,
-                        tol_p, 1e-3, 3, mv3)
+        e, it = compare(f"{k3n} pressure {label} (1, {n})", kern, plain, flat1,
+                        tol_p, 1e-3, case["k3_it_tol"], mv3)
         errs.append(e)
         its[label] = it
-    g = torch.Generator().manual_seed(3)
-    lanes3 = [torch.randn(n, generator=g).to(dev), None, torch.zeros(n, device=dev)]
-    lanes3[1] = 1e-3 * flat1[0]
-    lanes3[0] = lanes3[0] - lanes3[0].mean()
-    flat3 = torch.stack(lanes3)
-    b3 = cg_cuda_mb.unflatten_fields(plan, flat3)
-    kern, plain = k3_pair(b3, None, 1e-7)
-    e3, it3 = compare(f"K3 3 lanes (3, {n})", kern, plain, flat3, 1e-7, 1e-3, 3,
-                      mv3)
-    check(it3 > 100, f"3-lane K3 run stopped at iteration {it3} (<= 100)")
-    errs.append(e3)
+    if case["lanes3"]:
+        # 3 lanes: different RHS scales and content, one zero RHS, tight tol
+        # so the lockstep loop passes iteration 100 (true-residual refresh)
+        g = torch.Generator().manual_seed(3)
+        lanes3 = [torch.randn(n, generator=g).to(dev), 1e-3 * flat1[0],
+                  torch.zeros(n, device=dev)]
+        lanes3[0] = lanes3[0] - lanes3[0].mean()
+        flat3 = torch.stack(lanes3)
+        kern, plain = k3_pair(cg_cuda_mb.unflatten_fields(plan, flat3), None,
+                              1e-7)
+        e3, it3 = compare(f"{k3n} 3 lanes (3, {n})", kern, plain, flat3, 1e-7,
+                          1e-3, case["k3_it_tol"], mv3)
+        check(it3 > 100, f"3-lane {k3n} run stopped at iteration {it3} (<= 100)")
+        errs.append(e3)
     kern, plain = k3_pair(b1, g1, tol_p)
     k3_ms = cuda_ms(torch, kern, 10)
-    k3_plain_ms = cuda_ms(torch, plain, 3)
-    b_3, by3, s3 = bound_ms(n, 1, nd, its["warm (deflated guess)"], "cg", True,
-                            True, seam)
-    log(f"phase 7 K3 ok: {k3_ms:.3f} ms/solve warm (plain {k3_plain_ms:.3f} ms, "
-        f"bound {b_3 * 1e3:.3f} us by {by3}, streaming {s3 * 1e3:.3f} us) at "
-        f"{its['warm (deflated guess)']} iterations (cold: {its['cold']})")
-    kernels["K3"] = dict(
-        name="K3 fused_cg_mb (Jacobi-PCG, merged frame, whole solve)",
+    k3_plain_ms = cuda_ms(torch, plain, case["plain_reps"])
+    warm_it = its["warm (deflated guess)"]
+    b_3, by3, s3 = bound_ms(n, 1, nd, warm_it, "cg", True, True, seam)
+    log(f"phase {ph3} {k3n} ok: {k3_ms:.3f} ms/solve warm (plain "
+        f"{k3_plain_ms:.3f} ms, bound {b_3 * 1e3:.3f} us by {by3}, streaming "
+        f"{s3 * 1e3:.3f} us) at {warm_it} iterations (cold: {its['cold']}), "
+        f"{k3_ms * 1e3 / max(warm_it, 1):.1f} us/iteration, substep dt "
+        f"{float(dt):.5f}")
+    kernels[k3n] = dict(
+        name=f"{k3n} fused_cg_mb (Jacobi-PCG, merged frame{case['k3_form']}, "
+             "whole solve)",
         route="cuda", source="fluidgym_tpu_torch/csrc/cg.cu",
         replaces="fluidgym_tpu/ops/cg_pallas_mb.py:284", max_abs_err=max(errs),
         ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=b_3, bound_by=by3,
-        library_ms=None, iterations=its["warm (deflated guess)"],
-        shape=f"(1, {n}) pressure, 2 super-blocks")
+        library_ms=None, iterations=warm_it, cold_iterations=its["cold"],
+        shape=f"(1, {n}) pressure, {S} super-blocks, {n_flip} flip seams")
 
-    # ---- 8: K2-mb vs plain on the snapshot's velocity advection system -
+    # ---- K2-mb vs plain on the snapshot's velocity advection system -------
     amops = block_merge.pack_ops(plan, adv)
     adiags, aoffs = tuple(m[0] for m in amops), tuple(m[1] for m in amops)
     adiag, aoff = cg_cuda_mb.flatten_ops(plan, adiags, aoffs)
@@ -570,11 +632,13 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
         per_c = [block_merge.pack_fields(plan, tuple(f[c] for f in fields))
                  for c in range(2)]
         return tuple(torch.stack([per_c[c][s_] for c in range(2)])
-                     for s_ in range(2))
+                     for s_ in range(S))
 
     bv = pack2(vel_rhs)
     xv = pack2(tuple(b.velocity for b in state.blocks))
     flatv = cg_cuda_mb.flatten_fields(plan, bv)
+    # the float64 true residual of a float32 solution has a floor of
+    # ~eps * |A x| (diag ~ 1/dt): 1.4e-5 on the airfoil, next to 2 * tol
     tol_a = 1e-5
     kw2 = dict(maxiter=5000, stall_iters=250, precondition=True,
                return_best=False)
@@ -589,58 +653,61 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
             adiag, aoff, flatv, cg_cuda_mb.flatten_fields(plan, xv), ndims=nd,
             plan=plan, tol2_sum=cg_cuda.tol2_sum_f32(tol_a, n), **kw2)
 
-    e2, it2 = compare(f"K2-mb velocity (2, {n})", k2_call, k2_plain, flatv,
-                      tol_a, 1e-4, 2, cg_cuda_mb._merged_mv(plan, adiag, aoff))
+    e2, it2 = compare(f"{k2n} velocity (2, {n})", k2_call, k2_plain, flatv,
+                      tol_a, 1e-4, case["k2_it_tol"],
+                      cg_cuda_mb._merged_mv(plan, adiag, aoff))
     k2_ms = cuda_ms(torch, k2_call, 10)
-    k2_plain_ms = cuda_ms(torch, k2_plain, 3)
+    k2_plain_ms = cuda_ms(torch, k2_plain, case["plain_reps"])
     b_2, by2, s2 = bound_ms(n, 2, nd, it2, "bicgstab", True, True, seam)
-    log(f"phase 8 K2-mb ok: {k2_ms:.3f} ms/solve (plain {k2_plain_ms:.3f} ms, "
-        f"bound {b_2 * 1e3:.3f} us by {by2}, streaming {s2 * 1e3:.3f} us) at "
-        f"{it2} iterations")
-    kernels["K2-mb"] = dict(
-        name="K2-mb fused_bicgstab_mb (right-Jacobi BiCGStab, merged plan)",
+    log(f"phase {ph2} {k2n} ok: {k2_ms:.3f} ms/solve (plain {k2_plain_ms:.3f} "
+        f"ms, bound {b_2 * 1e3:.3f} us by {by2}, streaming {s2 * 1e3:.3f} us) "
+        f"at {it2} iterations")
+    kernels[k2n] = dict(
+        name=f"{k2n} fused_bicgstab_mb (right-Jacobi BiCGStab, merged "
+             f"plan{case['k2_form']})",
         route="cuda", source="fluidgym_tpu_torch/csrc/bicgstab_mb.cu",
         replaces="fluidgym_tpu/ops/cg_pallas_mb.py:458", max_abs_err=e2,
         ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=b_2, bound_by=by2,
         library_ms=None, iterations=it2,
-        shape=f"(2, {n}) velocity, 2 super-blocks")
+        shape=f"(2, {n}) velocity, {S} super-blocks, {n_flip} flip seams")
 
-    # ---- 9: the cylinder main path ---------------------------------------
+    # ---- the main path -------------------------------------------------------
     calls, restore = count_calls(piso, linsolve)
+    k3w, k2w = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    forms = ((k3w, "launches"), (k3w, "flip_launches"), (k2w, "launches"),
+             (k2w, "merged_launches"), (k2w, "merged_flip_launches"),
+             (cg_cuda.fused_cg, "launches"))
+    plains = (cg_cuda.fused_cg_plain, cg_cuda_mb.fused_cg_mb_plain,
+              cg_cuda_mb.fused_bicgstab_plain)
 
     def counts():
-        return {"K3": cg_cuda_mb.fused_cg_mb.launches,
-                "K2-mb": cg_cuda_mb.fused_bicgstab_mb.merged_launches,
-                "other": cg_cuda.fused_cg.launches
-                + cg_cuda_mb.fused_bicgstab_mb.launches,
-                "plain": cg_cuda.fused_cg_plain.calls
-                + cg_cuda_mb.fused_cg_mb_plain.calls
-                + cg_cuda_mb.fused_bicgstab_plain.calls,
-                "linsolve": calls["cg"] + calls["bicgstab"],
-                "substeps": calls["piso_substep_info"]}
+        out = {k3n: getattr(k3w, case["k3_count"]),
+               k2n: getattr(k2w, case["k2_count"])}
+        out["other"] = sum(getattr(w, a) for w, a in forms) - out[k3n] - out[k2n]
+        out["plain"] = sum(f.calls for f in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["substeps"] = calls["piso_substep_info"]
+        return out
 
-    cg_cuda_mb.fused_cg_mb.launches = 0
-    cg_cuda_mb.fused_bicgstab_mb.merged_launches = 0
-    cg_cuda.fused_cg.launches = 0
-    cg_cuda_mb.fused_bicgstab_mb.launches = 0
-    cg_cuda.fused_cg_plain.calls = 0
-    cg_cuda_mb.fused_cg_mb_plain.calls = 0
-    cg_cuda_mb.fused_bicgstab_plain.calls = 0
+    for w, a in forms:
+        setattr(w, a, 0)
+    for f in plains:
+        f.calls = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     try:
-        env = fluidgym_tpu_torch.make(cyl_id)
+        env = fluidgym_tpu_torch.make(env_id, **case["make_kw"])
         obs, _ = env.reset(seed=0)
         torch.cuda.synchronize()
         reset_s = time.perf_counter() - t
         reset_counts = counts()
         nb = [b.shape for b in env._topo.blocks]
-        check(len(nb) == 5 and sum(math.prod(s_) for s_ in nb) == 14232,
-              f"the cylinder main path is not the registered width: {nb}")
+        check((len(nb), sum(math.prod(s_) for s_ in nb)) == case["cells"],
+              f"the {env_id} main path is not the registered width: {nb}")
         rng = np.random.default_rng(0)
         actions = [rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
                    for _ in range(3)]
-        step_s, per_step, drags, lifts = [], [], [], []
+        step_s, per_step, drags, lifts, p_its = [], [], [], [], []
         for a in actions:
             c0 = counts()
             t = time.perf_counter()
@@ -650,10 +717,10 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
             c1 = counts()
             d = {k: c1[k] - c0[k] for k in c1}
             per_step.append(d)
-            check(d["substeps"] > 0 and d["K3"] == 2 * d["substeps"]
-                  and d["K2-mb"] == d["substeps"] and d["other"] == 0,
-                  f"cylinder step launches {d}: expected K3 = 2 x substeps, "
-                  "K2-mb = substeps")
+            check(d["substeps"] > 0 and d[k3n] == 2 * d["substeps"]
+                  and d[k2n] == d["substeps"] and d["other"] == 0,
+                  f"{env_id} step launches {d}: expected {k3n} = 2 x "
+                  f"substeps, {k2n} = substeps, no other kernel form")
             check(d["plain"] == 0, f"plain versions ran on the main path: {d}")
             check(d["linsolve"] == 0, f"linsolve's loops ran on the main path: {d}")
             for k, v in obs.items():
@@ -663,44 +730,50 @@ def _cylinder_phases(dev, kernels, compare, piso, linsolve) -> None:
             check(bool(torch.isfinite(reward).all()), "reward not finite")
             drags.append(float(info["drag"]))
             lifts.append(float(info["lift"]))
+            p_its.append(int(info["pressure_iterations"]))
             check(math.isfinite(drags[-1]) and math.isfinite(lifts[-1]),
                   "drag/lift not finite")
     finally:
         restore()
     total = counts()
-    check(total["K3"] > 0 and total["K2-mb"] > 0,
-          f"a kernel of the cylinder path was not launched: {total}")
-    check(total["plain"] == 0 and total["linsolve"] == 0,
-          f"plain loops ran on the cylinder path: {total}")
+    check(total[k3n] > 0 and total[k2n] > 0,
+          f"a kernel of the {env_id} path was not launched: {total}")
+    check(total["plain"] == 0 and total["linsolve"] == 0 and total["other"] == 0,
+          f"another solver ran on the {env_id} path: {total}")
     n_steps = len(actions)
     sub = sum(d["substeps"] for d in per_step)
     ms_step = 1e3 * sum(step_s) / n_steps
-    log(f"phase 9 cylinder main path ok: {cyl_id} blocks {nb} reset "
+    log(f"phase {ph_main} main path ok: {env_id} blocks {nb} reset "
         f"{reset_s:.2f}s ({reset_counts}), steps {[round(x, 3) for x in step_s]} s, "
         f"{ms_step:.1f} ms/env step, {sub / n_steps:.1f} substeps/step "
-        f"({env.n_sim_steps} sim steps of dt {env.dt}), drag "
-        f"{[round(x, 5) for x in drags]}, lift {[round(x, 5) for x in lifts]}, "
-        f"per-step launches {per_step}, totals {total}")
-    for k in ("K3", "K2-mb"):
+        f"({env.n_sim_steps} sim steps of dt {env.dt}), pressure iterations "
+        f"per step {p_its}, drag {[round(x, 5) for x in drags]}, lift "
+        f"{[round(x, 5) for x in lifts]}, per-step launches {per_step}, "
+        f"totals {total}")
+    for k in (k3n, k2n):
         kernels[k]["launches"] = total[k]
         kernels[k]["launches_per_env_step"] = sum(d[k] for d in per_step) / n_steps
+        kernels[k]["ms_per_env_step"] = ms_step
 
-    # ---- 10: card against host for the cylinder --------------------------
+    # ---- the card against the host ---------------------------------------
     t = time.perf_counter()
     outs = {}
     for where in (dev, torch.device("cpu")):
-        e = fluidgym_tpu_torch.make(cyl_id, device=where,
-                                    randomize_initial_state=False)
+        e = fluidgym_tpu_torch.make(env_id, device=where, **case["host_kw"])
         e.reset(seed=0)
-        o, r, *_ = e.step(np.full(e.action_space.shape, 0.4, np.float32))
-        outs[where.type] = (o, r)
-    (og, rg), (oc, rc) = outs[dev.type], outs["cpu"]
-    worst = max(float((g_.cpu() - c_).abs().max() / c_.abs().max().clamp(min=1e-30))
-                for g_, c_ in [(og[k], oc[k]) for k in og] + [(rg, rc)])
-    log(f"phase 10 cylinder full width, 1 step from the bundled snapshot, card "
-        f"vs host: worst relative obs/reward diff {worst:.2e} (bar 1e-4) in "
+        a = np.linspace(0.4, -0.4, e.action_space.shape[0]).astype(np.float32)
+        o, r, *_ = e.step(a)
+        outs[where.type] = dict(o, reward=r)
+    og, oc = outs[dev.type], outs["cpu"]
+    diffs = {k: float((og[k].cpu() - oc[k]).abs().max()
+                      / oc[k].abs().max().clamp(min=1e-30)) for k in og}
+    p_bar = case["host_pressure_bar"]
+    log(f"phase {ph_host} {env_id} full width, 1 step from the bundled "
+        f"snapshot ({e.n_sim_steps} sim steps), card vs host: relative diffs "
+        f"{diffs} (bar 1e-4; pressure obs {p_bar:g}) in "
         f"{time.perf_counter() - t:.2f}s")
-    check(worst <= 1e-4, "card and host disagree on the cylinder")
+    check(all(v <= (p_bar if k == "pressure" else 1e-4) for k, v in diffs.items()),
+          f"card and host disagree on {env_id}")
 
 
 if __name__ == "__main__":

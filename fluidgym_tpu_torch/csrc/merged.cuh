@@ -8,12 +8,16 @@
 // roll stencil (cg_pallas_mb.py `_mb_matvec_into`).  On the card the frame
 // is ONE flat buffer per lane: the super-blocks back to back (cells total
 // n), and the seams live in a per-cell neighbour table built once per plan
-// on the host (ops/cg_cuda_mb.py `merged_layout`):
+// on the host (ops/cg_cuda_mb.py `neighbor_table`):
 //
 //   nbr[f * n + c] = flat index of cell c's neighbour across face f
 //
 // = the circular roll inside c's super-block, replaced on a seam slab by the
-// matching cell of the source super-block.  So a seam costs nothing extra
+// matching cell of the source super-block.  A flip seam (the reflected wake
+// cut of an airfoil C-grid, cg_pallas_mb.py `_mb_matvec_into` :230-247, an
+// anti-diagonal matmul on the TPU) is the same replacement with the source
+// slab reversed along the seam, done once when the table is built; the
+// kernels have no flip-specific code.  So a seam costs nothing extra
 // per iteration, every dot product over the flat buffer is joint over the
 // super-blocks, and the matvec is one gather per face.  The table holds
 // 2*ndims int32 per cell (the cylinder: 4 x 14,232 x 4 B = 228 KB), read

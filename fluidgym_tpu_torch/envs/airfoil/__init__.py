@@ -1,0 +1,9 @@
+"""NACA 0012 airfoil environments (2D in this port)."""
+
+from fluidgym_tpu_torch.envs.airfoil.airfoil_env_2d import (
+    AIRFOIL_2D_DEFAULT_CONFIG,
+    AirfoilEnv2D,
+)
+from fluidgym_tpu_torch.envs.airfoil.airfoil_env_base import AirfoilEnvBase
+
+__all__ = ["AIRFOIL_2D_DEFAULT_CONFIG", "AirfoilEnv2D", "AirfoilEnvBase"]

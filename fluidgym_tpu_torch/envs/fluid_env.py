@@ -26,7 +26,9 @@ import torch
 
 from fluidgym_tpu_torch import spaces
 from fluidgym_tpu_torch.config import config as fluidgym_config
-from fluidgym_tpu_torch.core.domain import BlockGeom, DomainState, DomainTopo
+from fluidgym_tpu_torch.core.domain import (BlockGeom, DomainState, DomainTopo,
+                                            domain_state_from_numpy,
+                                            domain_state_to_numpy)
 from fluidgym_tpu_torch.core.domain_io import load_domain
 from fluidgym_tpu_torch.device import resolve_device
 from fluidgym_tpu_torch.solver.piso import Hooks, SimConfig, single_step
@@ -460,6 +462,34 @@ class FluidEnv(ABC, FluidEnvLike):
                 "Domain statistics not found for %s; metrics will use defaults.",
                 self.initial_domain_id)
             self._metrics_stats = {}
+
+
+def env_state_from_numpy(tree, device=None, dtype=None) -> EnvState:
+    """Build a port ``EnvState`` from any object with the JAX ``EnvState``
+    field names and array-like leaves (e.g. a JAX env's ``get_state()``):
+    the domain through ``domain_state_from_numpy``, array entries of
+    ``additional_info`` (such as ``last_control``) as tensors.  ``device``
+    defaults to the CPU; ``set_state`` moves the state to the env's
+    device."""
+    device = torch.device("cpu" if device is None else device)
+    dtype = dtype or fluidgym_config.dtype
+    info = {k: (torch.as_tensor(np.array(v, copy=True), device=device).to(dtype)
+                if hasattr(v, "shape") else v)
+            for k, v in tree.additional_info.items()}
+    return EnvState(class_name=tree.class_name,
+                    domain=domain_state_from_numpy(tree.domain, device, dtype),
+                    n_steps=int(tree.n_steps), mode=EnvMode(tree.mode.value),
+                    additional_info=info)
+
+
+def env_state_to_numpy(state: EnvState) -> EnvState:
+    """The inverse of ``env_state_from_numpy``: the same structure with
+    numpy leaves (host copies)."""
+    info = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in state.additional_info.items()}
+    return EnvState(class_name=state.class_name,
+                    domain=domain_state_to_numpy(state.domain),
+                    n_steps=state.n_steps, mode=state.mode, additional_info=info)
 
 
 def _to_device(state: DomainState, device, dtype) -> DomainState:

@@ -23,11 +23,13 @@ neighbour table built once per plan (``neighbor_table``; see
 
 * ``fused_cg_mb`` (K3) and ``fused_bicgstab_mb`` (K2, both forms) launch the
   CUDA kernels for CUDA tensors (``csrc/cg.cu`` ``fg_cg_mb_solve``,
-  ``csrc/bicgstab_mb.cu``) and count each launch
-  (``fused_cg_mb.launches``; ``fused_bicgstab_mb.launches`` for the
-  single-super-block form, ``fused_bicgstab_mb.merged_launches`` for the
-  merged form).  CPU tensors run the plain versions; any other device
-  raises, and so does a plan with flip seams on the card.
+  ``csrc/bicgstab_mb.cu``) and count each launch, per form:
+  ``fused_cg_mb.launches`` (identity seams) and ``.flip_launches`` (a plan
+  with flip seams, the reflected C-grid cut); ``fused_bicgstab_mb.launches``
+  (single super-block), ``.merged_launches`` and ``.merged_flip_launches``.
+  CPU tensors run the plain versions; any other device raises.  A flip seam
+  needs nothing of its own in the kernels: the neighbour table reverses the
+  source slab once, when it is built.
 * ``fused_cg_mb_plain`` and ``fused_bicgstab_plain`` are the plain PyTorch
   versions, with ``.calls`` counters; in the merged frame their matvec is
   ``block_merge.merged_apply`` (rolls plus slab fixups, the TPU kernel's
@@ -104,8 +106,15 @@ def neighbor_table(plan: MergePlan, device) -> torch.Tensor:
            for s, sh in enumerate(shapes)]
     tab = [[np.roll(ix, 1 if F % 2 == 0 else -1, axis=nd - 1 - face_axis(F))
             for ix in idx] for F in range(2 * nd)]
+    # merged_apply ADDS each fixup's delta where the table REPLACES the
+    # neighbour: the two agree only if no two fixups write one entry
+    written = [[np.zeros(sh, bool) for sh in shapes] for _ in range(2 * nd)]
     for fx in plan.fixups:
         slab, src_slab, _ = fixup_slabs(plan, fx)
+        if written[fx.face][fx.sb][slab].any():
+            raise ValueError(
+                f"seam fixups overlap on super-block {fx.sb}, face {fx.face}")
+        written[fx.face][fx.sb][slab] = True
         src = idx[fx.src_sb][src_slab]
         flips = tuple(nd - 1 - K for K in range(nd) if fx.flip[K])
         if flips:
@@ -289,10 +298,6 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     """K3 (``algo="cg"``) or K2-mb (``"bicgstab"``) on the flat merged
     layout: ``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``, ``off
     (1|lanes, 2*ndims, n)``."""
-    if not plan.identity_seams:
-        raise NotImplementedError(
-            "merged plans with flip seams (C-grid cuts) have no CUDA kernel "
-            "yet")
     ndims = plan.ndims
     L, n = b.shape
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
@@ -357,7 +362,10 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
               precondition=bool(precondition), return_best=bool(return_best))
     if _device_kind(b, "fused_cg_mb") == "cuda":
         x, iters, rs = _launch_merged("cg", plan, diag, off, b, x0, **kw)
-        fused_cg_mb.launches += 1
+        if plan.identity_seams:
+            fused_cg_mb.launches += 1
+        else:
+            fused_cg_mb.flip_launches += 1
     else:
         x, iters, rs = fused_cg_mb_plain(plan, diag, off, b, x0, **kw)
     b_zero = (b == 0).all(dim=1)
@@ -372,6 +380,7 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
 
 
 fused_cg_mb.launches = 0
+fused_cg_mb.flip_launches = 0
 
 
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
@@ -407,7 +416,10 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
         else:
             x, iters, rs = _launch_merged("bicgstab", plan, diag, off, b, x0,
                                           **kw)
-            fused_bicgstab_mb.merged_launches += 1
+            if plan.identity_seams:
+                fused_bicgstab_mb.merged_launches += 1
+            else:
+                fused_bicgstab_mb.merged_flip_launches += 1
     else:
         x, iters, rs = fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
                                             plan=None if single else plan, **kw)
@@ -424,3 +436,4 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 
 fused_bicgstab_mb.launches = 0
 fused_bicgstab_mb.merged_launches = 0
+fused_bicgstab_mb.merged_flip_launches = 0

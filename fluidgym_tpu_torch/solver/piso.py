@@ -19,10 +19,10 @@
 Solves dispatch as in the JAX package's non-differentiable ``_solve``, to
 the whole-solve kernels: single-block scalar stencils to K1 ``fused_cg``
 (pressure) and K2 ``fused_bicgstab_mb`` over ``trivial_plan`` (advection);
-multi-block topologies with an identity-seam ``merge_plan`` to K3
-``fused_cg_mb`` and K2 in its merged form.  Anything else takes the plain
-loops of ``linsolve``, on CPU tensors only: on the card a system no kernel
-takes raises.
+multi-block topologies with a ``merge_plan`` (identity or flip seams) to
+K3 ``fused_cg_mb`` and K2 in its merged form.  Anything else takes the
+plain loops of ``linsolve``, on CPU tensors only: on the card a system no
+kernel takes raises.
 
 Not ported yet: the differentiable path, the upwind blend, extra inner
 non-orthogonal pressure passes (3D), the full-mode non-orthogonal pressure
@@ -170,15 +170,18 @@ def _kernel_operand_ok(ops, topo: DomainTopo) -> bool:
 def _merged_plan(ops, topo: DomainTopo):
     """Gate of the merged kernels (K3 ``ops.cg_cuda_mb.fused_cg_mb`` and K2
     in merged form): a scalar stencil over a multi-block topology whose
-    ``merge_plan`` exists and has identity seams (flip-seam plans are the
-    JAX package's opt-in, as its ``"auto"`` mode).  Returns the plan or
-    None."""
+    ``merge_plan`` exists, with identity or flip (reflected, C-grid) seams.
+    Returns the plan or None.
+
+    Deliberate difference: the JAX package's default ``"auto"`` mode
+    declines flip-seam plans (``_fused_cg_mb_plan``/``_fused_bicg_mb_plan``)
+    and solves them with ``linsolve`` over the blocks.  Here every main-path
+    solve on the card goes through a kernel, so flip plans take K3 and K2 in
+    merged form too.  The merged operator is an exact permutation of the
+    blockwise one, so the iterates agree up to rounding."""
     if len(topo.blocks) < 2 or ops[0].diag.dim() != topo.ndims:
         return None
-    plan = block_merge.merge_plan(topo)
-    if plan is None or not plan.identity_seams:
-        return None
-    return plan
+    return block_merge.merge_plan(topo)
 
 
 def _fused_bicg_mb_solve(mplan, ops, b, topo: DomainTopo, *, tol, maxiter,
@@ -239,8 +242,8 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
     mplan = None if single else _merged_plan(ops, topo)
     if b[0].is_cuda and not single and mplan is None:
         raise NotImplementedError(
-            "no CUDA kernel for this system (no identity-seam merge plan, "
-            "or a channel-shaped stencil); the plain Krylov loops run on CPU "
+            "no CUDA kernel for this system (no merge plan, or a "
+            "channel-shaped stencil); the plain Krylov loops run on CPU "
             "tensors only")
     kw = dict(tol=tol_resolved, maxiter=maxiter, stall_iters=stall_iters,
               precondition=precondition, return_best=return_best)

@@ -13,10 +13,13 @@ Prints one JSON object:
 * ``device_ms_per_step``: summed CUDA kernel time (self device time of the
   kernel events); ``device_busy_share`` = device / wall;
 * ``kernel_launches_per_step`` and the top kernels by device time;
-* per kernel of the port (K1, K2, K2-mb, K3): launches per step, counted by
-  the wrappers, and device ms per step (the profiler's kernel events of
-  that instantiation: ``fg_cg_kernel<ND, false>`` is K1, ``<ND, true>`` K3,
-  ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb);
+* per kernel of the port (K1, K2, K2-mb, K3, and the flip-seam forms
+  K2-mb-flip, K3-flip): launches per step, counted by the wrappers, and
+  device ms per step (the profiler's kernel events of that instantiation:
+  ``fg_cg_kernel<ND, false>`` is K1, ``<ND, true>`` K3 in either seam form,
+  ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb in either form; a
+  flip form's device time is reported under its template's entry, which
+  for an id with flip seams holds only the flip form);
 * the card's name and power limit.
 
 Also writes the JSON to ``<--out>/port_step_profile_<env>.json``.  Needs a card;
@@ -72,7 +75,9 @@ def main() -> int:
         return {"K1": cg_cuda.fused_cg.launches,
                 "K2": cg_cuda_mb.fused_bicgstab_mb.launches,
                 "K2-mb": cg_cuda_mb.fused_bicgstab_mb.merged_launches,
-                "K3": cg_cuda_mb.fused_cg_mb.launches}
+                "K3": cg_cuda_mb.fused_cg_mb.launches,
+                "K2-mb-flip": cg_cuda_mb.fused_bicgstab_mb.merged_flip_launches,
+                "K3-flip": cg_cuda_mb.fused_cg_mb.flip_launches}
 
     k0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -84,7 +89,7 @@ def main() -> int:
     k1 = counts()
 
     kernels = {}
-    port_us = {k: 0.0 for k in k0}
+    port_us = {k: 0.0 for k in ("K1", "K2", "K2-mb", "K3")}
     n_launch = 0
     for ev in prof.events():
         dev_type = getattr(ev, "device_type", None)
@@ -113,7 +118,7 @@ def main() -> int:
         "kernel_launches_per_step": n_launch / args.steps,
         "port_kernels": {
             k: {"launches_per_step": (k1[k] - k0[k]) / args.steps,
-                "device_ms_per_step": port_us[k] / 1e3 / args.steps}
+                "device_ms_per_step": port_us.get(k, 0.0) / 1e3 / args.steps}
             for k in k0},
         "top_kernels": [
             {"name": n, "calls_per_step": c / args.steps,

@@ -110,6 +110,33 @@ def test_cylinder_imports_and_steps_without_card_packages():
     assert "OK" in out.stdout
 
 
+def test_airfoil_imports_and_steps_without_card_packages():
+    """The third registered id: the airfoil C-grid, whose mask is the port's
+    own point-in-polygon test (matplotlib is refused here), stepped from
+    the bundled snapshot through the flip-seam plan's plain solvers."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        env = fluidgym_tpu_torch.make(
+            "Airfoil2D-easy-v0", device="cpu", randomize_initial_state=False,
+            step_length=0.05, dt=0.05)
+        obs, _ = env.reset(seed=0)
+        obs, reward, *_ , info = env.step(np.array([1.0, -0.5, -0.5], np.float32))
+        assert obs["velocity"].shape == (209, 2)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 def test_make_without_device_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card; make() then runs on it")

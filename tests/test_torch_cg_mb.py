@@ -3,7 +3,8 @@ PyTorch versions (``fluidgym_tpu_torch.ops.cg_cuda_mb``) against the TPU
 kernels ``fluidgym_tpu.ops.cg_pallas_mb.fused_cg_mb`` /
 ``fused_bicgstab_mb`` in interpret mode, on the pressure and velocity
 advection systems of a CylinderJet2D state at resolution 16 (2
-super-blocks, 2 seam fixups).
+super-blocks, 2 seam fixups) and of the Airfoil2D C-grid at its registered
+width (3 super-blocks, 6 fixups, 2 of them the reflected wake cut).
 
 Bars (Krylov solves, as for K1/K2): both converge, iteration counts within
 3 (K3) / 2 (K2), ``max|dx| <= 2e-4 max|x|`` (K3) / ``1e-4 max|x|`` (K2).
@@ -271,7 +272,8 @@ def _k2_pair(sy, warm, zero=False):
 
     def pack(pkg, plan, per_comp, conv, stack):
         per = [pkg.pack_fields(plan, tuple(conv(x) for x in c)) for c in per_comp]
-        return tuple(stack([per[c][s] for c in range(2)]) for s in range(2))
+        return tuple(stack([per[c][s] for c in range(2)])
+                     for s in range(len(plan.superblocks)))
 
     jb = pack(jbm, jplan, comps, jnp.asarray, jnp.stack)
     tb = pack(tbm, tplan, comps, torch.from_numpy, torch.stack)
@@ -302,3 +304,53 @@ def test_k2_merged_plain_zero_rhs(systems):
     (xj, ij), (xt, it) = _k2_pair(systems, False, zero=True)
     assert bool(it.converged) and bool(ij.converged)
     assert all((x == 0).all() for x in xt)
+
+
+# ---------------------------------------------------------------------------
+# the flip-seam (C-grid) plan of Airfoil2D: 3 super-blocks, 6 fixups, 2 of
+# them the reflected wake cut
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def airfoil():
+    """Pressure and velocity advection systems of the Airfoil2D-easy-v0
+    domain as built (uniform inflow state), by each package from the same
+    numpy state."""
+    from fluidgym_tpu.envs.airfoil.grid import make_airfoil_domain as jgrid
+    from fluidgym_tpu_torch.envs.airfoil.grid import make_airfoil_domain as tgrid
+
+    kw = dict(ndims=2, H=1.4, L=4.5, vel_in=0.3, attack_angle_deg=10.0,
+              viscosity=3e-4, tail_grow_mul=1.01)
+    jt, jg, js = jgrid(res_z=0, **kw)[0].build()
+    tt, tg, _ = tgrid(**kw)[0].build()
+    ts = domain_state_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    dj, dt_ = jnp.asarray(0.05, jnp.float32), torch.tensor(0.05)
+    jadv = jst.build_advection_ops(js, jg, jt, js.viscosity, dj)
+    tadv = tst.build_advection_ops(ts, tg, tt, ts.viscosity, dt_)
+    jp = jst.build_pressure_ops(tuple(o.diag for o in jadv), jg, jt)
+    tp = tst.build_pressure_ops(tuple(o.diag for o in tadv), tg, tt)
+    sy = dict(jt=jt, tt=tt, jplan=jbm.merge_plan(jt), tplan=tbm.merge_plan(tt),
+              jadv=jadv, tadv=tadv, jp=jp, tp=tp, js=js, ts=ts)
+    assert len(sy["tplan"].superblocks) == 3 and not sy["tplan"].identity_seams
+    return sy
+
+
+def test_k3_flip_plain_matches_kernel(airfoil):
+    """Twin of ``tests/test_cg_pallas_mb.py:184``: K3's plain version on the
+    C-grid plan against ``fused_cg_mb(..., interpret=True)``: both converge,
+    iterations within 3, max|dx| <= 2e-4 max|x|."""
+    b = _in_range(airfoil, _rhs(airfoil["tt"], 31))
+    j, t = _k3_pair(airfoil, b, maxiter=4000)
+    _assert_k3(j, t, "airfoil cold")
+
+
+def test_k2_flip_plain_matches_kernel(airfoil):
+    """K2 in merged form on the C-grid plan (2 velocity lanes, warm from the
+    state's velocity) against ``fused_bicgstab_mb(..., interpret=True)``:
+    both converge, iterations within 2, max|dx| <= 1e-4 max|x|."""
+    (xj, ij), (xt, it) = _k2_pair(airfoil, True)
+    assert bool(ij.converged) and bool(it.converged)
+    assert abs(int(it.iterations) - int(ij.iterations)) <= 2, (ij, it)
+    scale = max(np.abs(x).max() for x in xj)
+    err = max(np.abs(a - b).max() for a, b in zip(xt, xj))
+    assert err <= 1e-4 * scale, (err, scale)

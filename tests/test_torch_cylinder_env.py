@@ -27,7 +27,8 @@ import torch
 import fluidgym_tpu
 import fluidgym_tpu_torch
 from fluidgym_tpu_torch.core.domain import domain_state_from_numpy
-from torch_port_helpers import CYL_KW
+from fluidgym_tpu_torch.envs.fluid_env import env_state_to_numpy
+from torch_port_helpers import CYL_KW, jax_domain_state
 
 torch.set_num_threads(1)
 BAR = 1e-4
@@ -45,9 +46,9 @@ def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _steps(env):
+def _steps(env, n=len(ACTIONS)):
     out = []
-    for a in ACTIONS:
+    for a in ACTIONS[:n]:
         obs, reward, _, _, info = env.step(np.array([a], np.float32))
         out.append(dict(velocity=_np(obs["velocity"]), pressure=_np(obs["pressure"]),
                         reward=_np(reward), drag=_np(info["drag"]),
@@ -117,3 +118,31 @@ def test_seeded_randomized_reset_matches_jax():
     for jb, tb in zip(jenv._state.blocks, tenv._state.blocks):
         assert _rel(_np(tb.velocity), jb.velocity) <= 1e-6
         assert _rel(_np(tb.pressure), jb.pressure) <= 1e-6
+
+
+def test_full_width_float32_step_from_test_00():
+    """One env step (25 sim steps) at the registered width from the bundled
+    ``test_00``, the port in float32 from ONE numpy state (its own after
+    ``reset``), held with the pressure obs against the JAX package run in
+    float64 from that same state.  (Measured by
+    ``scripts/port_float32_gap.py``: the port's float32 pressure obs is
+    9.2e-6 off the float64 run and 2.4e-6 off the JAX package's float32 run,
+    which is 1.0e-5 off its float64 run.)"""
+    kw = dict(randomize_initial_state=False, load_domain_statistics=False,
+              episode_length=2)
+    tenv = fluidgym_tpu_torch.make(ID, device="cpu", **kw)
+    tenv.test()
+    tenv.reset(seed=0)
+    host = env_state_to_numpy(tenv.get_state())
+    with jax.enable_x64(True):
+        jenv = fluidgym_tpu.make(ID, dtype=jnp.float64, **kw)
+        jenv.test()
+        jenv.reset(seed=0)
+        jenv._state = jax_domain_state(host.domain, np.float64)
+        jenv._last_control = jnp.asarray(host.additional_info["last_control"],
+                                         jnp.float64)
+        js = _steps(jenv, 1)
+    ts = _steps(tenv, 1)
+    assert sum(int(np.prod(b.shape)) for b in tenv._topo.blocks) == 14232
+    for k in ("velocity", "pressure", "reward", "drag", "lift"):
+        assert _rel(ts[0][k], js[0][k]) <= BAR, (k, _rel(ts[0][k], js[0][k]))

@@ -216,18 +216,98 @@ def test_k2_merged_kernel_matches_plain(warm):
                xp.cpu().numpy(), 1e-4)
 
 
-def test_merged_flip_plan_raises_on_card():
-    """A merge plan with flip seams (C-grid cuts) has no kernel: it raises."""
-    from dataclasses import replace
+def _airfoil_systems(dev):
+    """Pressure and velocity advection systems of the bundled Airfoil2D
+    ``train_00`` snapshot at full width, in the merged frame (3
+    super-blocks, 6 fixups, 2 of them the reflected wake cut)."""
+    from fluidgym_tpu_torch.core.domain_io import load_domain
+    from fluidgym_tpu_torch.solver import stencil as st
+    from fluidgym_tpu_torch.utils import data_utils
 
+    topo, geoms, state = load_domain(
+        data_utils.initial_domain_dir("airfoil_2D_Re1000") / "train_00",
+        device=dev)
+    plan = block_merge.merge_plan(topo)
+    assert len(plan.superblocks) == 3 and not plan.identity_seams
+    dt = torch.tensor(0.01, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    return topo, state, plan, adv, p_ops
+
+
+@pytest.mark.parametrize("algo", ["cg", "bicgstab"])
+def test_merged_flip_plan_raises_on_card(algo):
+    """A merge plan with flip seams (the airfoil's C-grid cut) once raised on
+    the card; its kernels (K3, and K2 in merged form) now launch and match
+    their plain versions, counted as the flip forms."""
     dev = require_cuda()
-    topo, state, plan, _, p_ops = _cylinder_systems(dev)
-    diags, offs = _packed(plan, p_ops)
-    flip = replace(plan, fixups=tuple(replace(f, flip=(False, True))
-                                      for f in plan.fixups))
-    bs = tuple(torch.ones_like(d) for d in diags)
-    with pytest.raises(NotImplementedError):
-        cg_cuda_mb.fused_cg_mb(flip, diags, offs, bs, tol=1e-5)
+    topo, state, plan, adv, p_ops = _airfoil_systems(dev)
+    S = len(plan.superblocks)
+    g = torch.Generator().manual_seed(5)
+    if algo == "cg":
+        diags, offs = _packed(plan, p_ops)
+        xs = tuple(torch.randn((1,) + tuple(d.shape), generator=g).to(dev)
+                   for d in diags)
+        bs = block_merge.merged_apply(plan, tuple(zip(diags, offs)), xs)
+        x0s, C, tol, it_tol, rel = None, 1, 1e-6, 3, 1e-3
+        counter = (cg_cuda_mb.fused_cg_mb, "flip_launches")
+        kw = dict(maxiter=3000, stall_iters=250, precondition=True,
+                  return_best=True)
+    else:
+        diags, offs = _packed(plan, adv)
+        vel = [b.velocity for b in state.blocks]
+        per_c = [block_merge.pack_fields(plan, tuple(v[c] for v in vel))
+                 for c in range(2)]
+        x0s = tuple(torch.stack([per_c[c][s] for c in range(2)])
+                    for s in range(S))
+        bs = tuple(x * 100.0 for x in x0s)
+        C, tol, it_tol, rel = 2, 1e-6, 2, 1e-4
+        counter = (cg_cuda_mb.fused_bicgstab_mb, "merged_flip_launches")
+        kw = dict(maxiter=2000, stall_iters=250, precondition=True,
+                  return_best=False)
+    fn = cg_cuda_mb.fused_cg_mb if algo == "cg" else cg_cuda_mb.fused_bicgstab_mb
+    before = getattr(*counter)
+    identity = (cg_cuda_mb.fused_cg_mb.launches,
+                cg_cuda_mb.fused_bicgstab_mb.merged_launches)
+    xk, ik = fn(plan, diags, offs, bs, x0s, tol=tol, **kw)
+    assert getattr(*counter) == before + 1
+    assert identity == (cg_cuda_mb.fused_cg_mb.launches,
+                        cg_cuda_mb.fused_bicgstab_mb.merged_launches)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
+    tol2 = cg_cuda.tol2_sum_f32(tol, b.shape[1])
+    if algo == "cg":
+        xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(plan, diag, off, b, x0,
+                                                  tol2_sum=tol2, **kw)
+    else:
+        xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(
+            diag, off, b, x0, ndims=2, plan=plan, tol2_sum=tol2, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.as_tensor(ik.converged).all())
+    assert abs(int(torch.as_tensor(ik.iterations).max()) - int(ip.max())) <= it_tol
+    assert_rel(cg_cuda_mb.flatten_fields(plan, xk).cpu().numpy(),
+               xp.cpu().numpy(), rel)
+
+
+def test_airfoil_step_on_card_goes_through_kernels():
+    require_cuda()
+    f = cg_cuda_mb.fused_cg_mb
+    k2 = cg_cuda_mb.fused_bicgstab_mb
+    before = (f.flip_launches, k2.merged_flip_launches)
+    plain = (cg_cuda_mb.fused_cg_mb_plain.calls
+             + cg_cuda_mb.fused_bicgstab_plain.calls)
+    env = fluidgym_tpu_torch.make(
+        "Airfoil2D-easy-v0", randomize_initial_state=False,
+        load_domain_statistics=False, step_length=0.05, dt=0.05)
+    env.reset(seed=0)
+    obs, reward, *_, info = env.step(np.array([1.0, -0.5, -0.5], np.float32))
+    assert f.flip_launches > before[0] and k2.merged_flip_launches > before[1]
+    assert (cg_cuda_mb.fused_cg_mb_plain.calls
+            + cg_cuda_mb.fused_bicgstab_plain.calls) == plain
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(reward)) and np.isfinite(float(info["drag"]))
+    assert bool(info["pressure_converged"])
 
 
 def test_cylinder_step_on_card_goes_through_kernels():

@@ -76,3 +76,24 @@ CYL_KW = dict(
     step_length=0.02,
     dt=0.01,
 )
+
+
+def jax_domain_state(host, dtype=np.float32):
+    """A JAX package ``DomainState`` from a port state with numpy leaves
+    (``domain_state_to_numpy``), every array cast to ``dtype``.  Imports JAX
+    here, so the card-only tests, which import this module, stay JAX-free."""
+    import jax.numpy as jnp
+
+    from fluidgym_tpu.core import domain as jdom
+
+    f = lambda a: None if a is None else jnp.asarray(np.asarray(a, dtype))
+    blocks = tuple(
+        jdom.BlockState(
+            velocity=f(b.velocity), pressure=f(b.pressure), scalar=f(b.scalar),
+            velocity_source=f(b.velocity_source),
+            faces=tuple(jdom.FaceData(velocity=f(fd.velocity), scalar=f(fd.scalar))
+                        for fd in b.faces),
+            viscosity=f(b.viscosity))
+        for b in host.blocks)
+    return jdom.DomainState(blocks=blocks, viscosity=f(host.viscosity),
+                            scalar_diffusivity=f(host.scalar_diffusivity))
