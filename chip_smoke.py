@@ -8,9 +8,9 @@ Run from the repository root with no arguments:
 Phases, each printed with its elapsed seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the CUDA kernels (K1/K3 ``csrc/cg.cu``, K2
-   ``csrc/bicgstab_mb.cu``): one ``nvcc -c`` per source, all started
-   together, and one link into ``build/kernels/``;
+2. build of the CUDA kernels (K1/K3/K3-coarse ``csrc/cg.cu``, K2
+   ``csrc/bicgstab_mb.cu``, K4 ``csrc/stencil.cu``): one ``nvcc -c`` per
+   source, all started together, and one link into ``build/kernels/``;
 3. K1 against its plain PyTorch version on the card: the pressure system of
    the bundled RBC2D-easy snapshot at the main-path shape (1, 61, 96), then a
    4-lane run whose lanes converge at different speeds (one zero RHS) and
@@ -53,13 +53,38 @@ Phases, each printed with its elapsed seconds:
 13. the card against the host for the airfoil: 1 sim step (``step_length =
    dt``) from the bundled snapshot; the velocity obs and the reward must
    agree to 1e-4, the pressure obs to 1e-3 (float32 decides it only to
-   ~1e-4 here; see ``MERGED_CASES``).
+   ~1e-4 here; see ``MERGED_CASES``);
+14. K4 (``csrc/stencil.cu``, the fused 2D stencil apply) against its plain
+   version on every block of the two snapshots' pressure operators, scalar
+   and in the deflation setup's column form (15 / 18 columns): max|dy|
+   (bar 1e-6 relative; it is bit-equal when the rounding matches), us per
+   launch, the bound;
+15. K3-coarse (``csrc/cg.cu`` ``fg_cg_mb_coarse_solve``, the strip-coarse
+   two-level preconditioner of ``solver/coarse_strips.py``, K = 34 strips)
+   against its plain version on the cylinder's full-width pressure system:
+   cold, warm from the deflated guess and a 3-lane run past iteration 100;
+   the same converged flags, iterations within 2; the Jacobi-only K3
+   iterations on the same systems beside them;
+16. K3-coarse-flip likewise on the airfoil's system (K = 59);
+17. the slice's main path: ``make`` of each merged id at its registered
+   defaults, ``reset(seed=0)``, then ``SimConfig.pressure_coarse_strips``
+   and the K4 switch on; 3 cylinder steps and 1 airfoil step with phases
+   9 and 12's actions; in every step K3-coarse(-flip) launches twice per
+   substep, K2-mb(-flip) once, K4 once per block per ``domain_apply`` (15
+   per cylinder substep, 18 per airfoil substep), and no other kernel form,
+   plain version or ``linsolve`` loop; ms and pressure iterations per env
+   step beside phases 9 and 12's;
+18. the card against the host for the cylinder with the strips and K4 on:
+   1 env step at full width from the bundled snapshot; obs and reward to
+   1e-3 (with the strips a float32 step is rounding-decided at ~1e-4; see
+   ``_strips_card_vs_host``).
 
 Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero; there is no CPU fallback.  Imports nothing
 of JAX or of the JAX package.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -111,17 +136,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def bound_ms(n_cells: int, lanes: int, ndims: int, iters: int, algo: str,
-             warm: bool, op_shared: bool,
-             seam_cells: int = 0) -> tuple[float, str, float]:
+             warm: bool, op_shared: bool, seam_cells: int = 0,
+             coarse_K: int = 0) -> tuple[float, str, float]:
     """Least time for the same work on an H100 (the larger of: bytes read
     once / written once over HBM rate, and this run's fp32 operations over
     the fp32 rate), and the time if every field went through HBM once per
     pass instead (``stream``: the working set NOT kept on chip).
     ``n_cells``: cells of a lane, summed over the super-blocks of a merged
     plan; ``seam_cells``: cells of its seam-fixup slabs (each read once more
-    and corrected once more per matvec)."""
+    and corrected once more per matvec); ``coarse_K``: strips of K3-coarse
+    (its K x K inverse and per-strip cell lists read once; per iteration a
+    restriction add and a prolongation add per cell and a K x K product)."""
     nf = 2 * ndims
     op_words = (1 + nf) * n_cells * (1 if op_shared else lanes)
+    if coarse_K:
+        op_words += coarse_K * coarse_K + 2 * n_cells + coarse_K + 1
     io_words = (op_words + lanes * (n_cells * (2 + (1 if warm else 0))
                                     + seam_cells) + 2 * lanes)
     t_bytes = 4 * io_words / H100_BYTES_PER_S * 1e3
@@ -133,8 +162,11 @@ def bound_ms(n_cells: int, lanes: int, ndims: int, iters: int, algo: str,
         flops_cell = 8 * ndims + 26       # 2 matvecs, 2 precond, 5 dots, updates
         mv_per_it = 2
         stream_words = n_cells * (2 * (nf + 1) + 22)
+    if coarse_K:
+        flops_cell += 2
     flops = float(iters) * lanes * (n_cells * flops_cell
-                                    + 3 * mv_per_it * seam_cells)
+                                    + 3 * mv_per_it * seam_cells
+                                    + 2 * coarse_K * coarse_K)
     t_ops = flops / H100_FP32_FLOPS * 1e3
     stream = float(iters) * lanes * 4 * stream_words / H100_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
@@ -466,10 +498,17 @@ def _run(dev) -> int:
     for case in MERGED_CASES:
         _merged_phases(dev, kernels, compare, piso, linsolve, case)
 
+    _k4_phase(dev, kernels, piso)
+    for case in MERGED_CASES:
+        _coarse_phase(dev, kernels, compare, piso, case)
+    _strips_main_path(dev, kernels, piso, linsolve)
+    _strips_card_vs_host(dev, piso)
+
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in (
-        "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip")]}), flush=True)
+        "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip", "K4", "K3-coarse",
+        "K3-coarse-flip")]}), flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -484,12 +523,16 @@ MERGED_CASES = (
                                                    "test_00"),
          phases=(7, 8, 9, 10), plan=(2, 2, 0), cells=(5, 14232),
          k3="K3", k3_count="launches", k2="K2-mb", k2_count="merged_launches",
+         k3c="K3-coarse", k3c_count="coarse_launches", coarse_phase=15,
+         k3c_lanes_tol=3e-7, k3c_steps=3,
          k3_form="", k2_form="", dt=0.01, tol_p=1e-5, k3_it_tol=3,
          k2_it_tol=2, lanes3=True, plain_reps=3, make_kw={},
          host_kw=dict(randomize_initial_state=False), host_pressure_bar=1e-4),
     dict(env_id="Airfoil2D-easy-v0", snapshot=("airfoil_2D_Re1000", "train_00"),
          phases=(11, 11, 12, 13), plan=(3, 6, 2), cells=(6, 73456),
          k3="K3-flip", k3_count="flip_launches", k2="K2-mb-flip",
+         k3c="K3-coarse-flip", k3c_count="coarse_flip_launches",
+         coarse_phase=16, k3c_lanes_tol=None, k3c_steps=1,
          k2_count="merged_flip_launches", k3_form=" with reflected seams",
          k2_form=" with reflected seams", dt=0.05, tol_p=1e-7, k3_it_tol=0,
          k2_it_tol=0, lanes3=False, plain_reps=1,
@@ -509,41 +552,29 @@ MERGED_CASES = (
 )
 
 
-def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
-    """K3 and K2-mb of one merged plan against their plain versions on the
-    systems of a bundled snapshot at full width, the main path of its id
-    with launch counts per form, and the card against the host."""
-    import numpy as np
+def _snapshot_system(dev, piso, case) -> dict:
+    """The bundled snapshot of a merged case and the pressure system of one
+    main-path substep (the sim step cut to CFL 0.8): operators, the
+    mean-free RHS and the deflated warm start from the snapshot's
+    pressure."""
     import torch
 
-    import fluidgym_tpu_torch
     from fluidgym_tpu_torch.core.domain_io import load_domain
-    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
     from fluidgym_tpu_torch.solver import block_merge
     from fluidgym_tpu_torch.solver import stencil as st
     from fluidgym_tpu_torch.utils import data_utils
 
-    env_id, k3n, k2n = case["env_id"], case["k3"], case["k2"]
-    ph3, ph2, ph_main, ph_host = case["phases"]
     data_id, split = case["snapshot"]
     topo, geoms, state = load_domain(
         data_utils.initial_domain_dir(data_id) / split, device=dev)
     plan = block_merge.merge_plan(topo)
     n_flip = sum(any(fx.flip) for fx in plan.fixups)
     check((len(plan.superblocks), len(plan.fixups), n_flip) == case["plan"],
-          f"the {env_id} merge plan is not (super-blocks, fixups, flips) = "
-          f"{case['plan']}")
+          f"the {case['env_id']} merge plan is not (super-blocks, fixups, "
+          f"flips) = {case['plan']}")
     n = sum(math.prod(sb.shape) for sb in plan.superblocks)
     seam = sum(math.prod(hi - lo for K, (lo, hi) in enumerate(fx.window)
                          if K != fx.face // 2) for fx in plan.fixups)
-    nd = topo.ndims
-    S = len(plan.superblocks)
-    log(f"{env_id} snapshot: blocks {[b.shape for b in topo.blocks]} -> "
-        f"super-blocks {[sb.shape for sb in plan.superblocks]}, {n} cells, "
-        f"{len(plan.fixups)} fixups ({n_flip} flips, {seam} seam cells)")
-
-    # ---- K3 vs plain on the snapshot's pressure system --------------------
-    # one substep of the main path: the sim step cut to CFL 0.8
     cfg = piso.SimConfig(dt=case["dt"], adaptive_cfl=0.8, differentiable=False)
     dt = piso._cfl_ts(state, geoms, topo, cfg,
                       torch.tensor(case["dt"], device=dev))
@@ -557,6 +588,37 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
     rhs = tuple(r - mean for r in rhs)
     guess = piso._make_deflation_x0(p_ops, topo, torch.float32)(
         rhs, base=tuple(b.pressure for b in state.blocks))
+    return dict(topo=topo, geoms=geoms, state=state, plan=plan, n=n, seam=seam,
+                dt=dt, adv=adv, p_ops=p_ops, rhs=rhs, guess=guess)
+
+
+def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
+    """K3 and K2-mb of one merged plan against their plain versions on the
+    systems of a bundled snapshot at full width, the main path of its id
+    with launch counts per form, and the card against the host."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import block_merge
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    env_id, k3n, k2n = case["env_id"], case["k3"], case["k2"]
+    ph3, ph2, ph_main, ph_host = case["phases"]
+    sy = _snapshot_system(dev, piso, case)
+    topo, geoms, state, plan, n, seam = (
+        sy[k] for k in ("topo", "geoms", "state", "plan", "n", "seam"))
+    dt, adv, p_ops, rhs, guess = (sy[k] for k in ("dt", "adv", "p_ops", "rhs",
+                                                  "guess"))
+    n_flip = sum(any(fx.flip) for fx in plan.fixups)
+    nd = topo.ndims
+    S = len(plan.superblocks)
+    log(f"{env_id} snapshot: blocks {[b.shape for b in topo.blocks]} -> "
+        f"super-blocks {[sb.shape for sb in plan.superblocks]}, {n} cells, "
+        f"{len(plan.fixups)} fixups ({n_flip} flips, {seam} seam cells)")
+
+    # ---- K3 vs plain on the snapshot's pressure system --------------------
     mops = block_merge.pack_ops(plan, p_ops)
     diags, offs = tuple(m[0] for m in mops), tuple(m[1] for m in mops)
     diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
@@ -754,6 +816,9 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
         kernels[k]["launches"] = total[k]
         kernels[k]["launches_per_env_step"] = sum(d[k] for d in per_step) / n_steps
         kernels[k]["ms_per_env_step"] = ms_step
+    kernels[k3n]["step_ms"] = [1e3 * x for x in step_s]
+    kernels[k3n]["pressure_iterations_per_step"] = p_its
+    kernels[k3n]["substeps_per_step"] = [d["substeps"] for d in per_step]
 
     # ---- the card against the host ---------------------------------------
     t = time.perf_counter()
@@ -774,6 +839,353 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
         f"{time.perf_counter() - t:.2f}s")
     check(all(v <= (p_bar if k == "pressure" else 1e-4) for k, v in diffs.items()),
           f"card and host disagree on {env_id}")
+
+
+def k4_bound_ms(ny: int, nx: int, cols: int) -> tuple[float, str]:
+    """Least time of one K4 launch on an H100: diag and 4 off read once,
+    x and the 4 halo layers read and y written once per column; 9 fp32
+    operations per output cell."""
+    n = ny * nx
+    t_bytes = 4 * (5 * n + cols * (2 * n + 2 * (ny + nx))) / H100_BYTES_PER_S * 1e3
+    t_ops = 9.0 * cols * n / H100_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _k4_phase(dev, kernels, piso) -> None:
+    """Phase 14: K4 against its plain version on every block of the two
+    snapshots' pressure operators, as the main path calls it: scalar
+    fields (the warm-start gate, twice per substep) and the deflation
+    basis in column form (the coarse setup, once per substep)."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import stencil_cuda
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    rows, worst, worst_abs, exact = {}, 0.0, 0.0, True
+    for case in MERGED_CASES:
+        sy = _snapshot_system(dev, piso, case)
+        topo, p_ops = sy["topo"], sy["p_ops"]
+        g = torch.Generator().manual_seed(14)
+        scalar = tuple(torch.randn(tuple(o.diag.shape), generator=g).to(dev)
+                       for o in p_ops)
+        columns = tuple(piso._deflation_basis(topo, torch.float32, dev))
+        for form, xs in (("scalar", scalar), ("columns", columns)):
+            halos = [tuple(st._halo_layer(xs, b, f, topo).contiguous()
+                           for f in range(4)) for b in range(len(xs))]
+
+            def run(fn, xs=xs, halos=halos):
+                return [fn(o.diag, o.off, x, h)
+                        for o, x, h in zip(p_ops, xs, halos)]
+
+            yk = run(stencil_cuda.stencil_apply)
+            yp = run(stencil_cuda.stencil_apply_plain)
+            torch.cuda.synchronize()
+            for a, b in zip(yk, yp):
+                d = float((a - b).abs().max())
+                worst_abs = max(worst_abs, d)
+                worst = max(worst, d / max(float(b.abs().max()), 1e-30))
+                exact = exact and bool(torch.equal(a, b))
+            nb = len(xs)
+            cols = 1 if form == "scalar" else xs[0].shape[0]
+            bounds = [k4_bound_ms(*o.diag.shape, cols) for o in p_ops]
+            rows[(case["env_id"], form)] = dict(
+                ms=cuda_ms(torch, lambda: run(stencil_cuda.stencil_apply), 50) / nb,
+                plain_ms=cuda_ms(torch, lambda: run(stencil_cuda.stencil_apply_plain),
+                                 20) / nb,
+                bound_ms=sum(b for b, _ in bounds) / nb, bound_by=bounds[0][1],
+                cols=cols)
+            r = rows[(case["env_id"], form)]
+            log(f"  K4 {case['env_id']} {form} ({nb} blocks, {cols} column(s)): "
+                f"{r['ms'] * 1e3:.2f} us/launch (plain {r['plain_ms'] * 1e3:.2f} "
+                f"us, bound {r['bound_ms'] * 1e3:.4f} us by {r['bound_by']})")
+    log(f"phase 14 K4 ok: max|dy| {worst_abs:.3e} ({worst:.2e} of max|y|, bar "
+        f"1e-6 relative), bit-equal to the plain version: {exact}")
+    check(worst <= 1e-6, f"K4 differs from its plain version by {worst:.3e}")
+    # one cylinder substep: per block 1 column-form and 2 scalar launches
+    cyl = MERGED_CASES[0]["env_id"]
+    mix = lambda key: (rows[(cyl, "columns")][key]
+                       + 2 * rows[(cyl, "scalar")][key]) / 3
+    kernels["K4"] = dict(
+        name="K4 stencil_apply (fused 2D stencil apply of one block)",
+        route="cuda", source="fluidgym_tpu_torch/csrc/stencil.cu",
+        replaces="fluidgym_tpu/ops/stencil_pallas.py:77", max_abs_err=worst_abs,
+        bit_equal=exact, ms=mix("ms"), plain_ms=mix("plain_ms"),
+        bound_ms=mix("bound_ms"), bound_by=rows[(cyl, "scalar")]["bound_by"],
+        library_ms=None,
+        shape="per launch, mean over one cylinder substep's mix",
+        forms={f"{k[0]} {k[1]}": v for k, v in rows.items()})
+
+
+def _coarse_phase(dev, kernels, compare, piso, case) -> None:
+    """Phases 15-16: K3-coarse (identity seams, the cylinder) and
+    K3-coarse-flip (the airfoil) against their plain versions on the
+    snapshot's full-width pressure system: cold, warm from the deflated
+    guess and (cylinder) a 3-lane run past iteration 100; the same
+    converged flags and iterations within 2.  Also the Jacobi-only K3
+    iterations on the same systems."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import block_merge, coarse_strips
+
+    name, ph = case["k3c"], case["coarse_phase"]
+    sy = _snapshot_system(dev, piso, case)
+    plan, n, seam, rhs, guess = (sy[k] for k in ("plan", "n", "seam", "rhs",
+                                                  "guess"))
+    sp = coarse_strips.strip_plan(plan)
+    mops = block_merge.pack_ops(plan, sy["p_ops"])
+    diags, offs = tuple(m[0] for m in mops), tuple(m[1] for m in mops)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    einv = coarse_strips.coarse_inverse(plan, sp, mops)[None]
+    mv = cg_cuda_mb._merged_mv(plan, diag, off)
+    kw = dict(maxiter=5000, stall_iters=250, precondition=True, return_best=True)
+    flat = lambda xs: None if xs is None else cg_cuda_mb.flatten_fields(plan, xs)
+
+    def pair(bs, x0s, tol, flags):
+        def kern():
+            xs, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, tol=tol,
+                                             coarse_strips=True, **kw)
+            flags["kernel"] = inf.converged.reshape(-1).cpu()
+            return flat(xs), inf.iterations, inf.residual ** 2 * n
+
+        def plain():
+            x, it, rs = cg_cuda_mb.fused_cg_mb_plain(
+                plan, diag, off, flat(bs), flat(x0s),
+                tol2_sum=cg_cuda.tol2_sum_f32(tol, n), coarse=(sp, einv), **kw)
+            zero = (flat(bs) == 0).all(dim=1)
+            flags["plain"] = ((rs <= cg_cuda.tol2_sum_f32(tol, n)) | zero).cpu()
+            return x, it, rs
+
+        def jacobi():
+            _, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, tol=tol,
+                                            **kw)
+            return int(inf.iterations.max())
+        return kern, plain, jacobi
+
+    b1 = tuple(p.unsqueeze(0) for p in block_merge.pack_fields(plan, rhs))
+    g1 = tuple(p.unsqueeze(0) for p in block_merge.pack_fields(plan, guess))
+    runs = [("cold", b1, None, case["tol_p"]),
+            ("warm (deflated guess)", b1, g1, case["tol_p"])]
+    if case["k3c_lanes_tol"]:
+        # 3 lanes: different RHS scales and content, one zero RHS, tolerance
+        # tight enough to pass the iteration-100 true-residual refresh; the
+        # first lane is A x for a random x (a mean-free random RHS sits at
+        # float32's floor for 3e-7: there the strips stall where Jacobi
+        # alone needs 361 iterations)
+        g = torch.Generator().manual_seed(3)
+        flat1 = flat(b1)
+        lane0 = mv(torch.randn((1, n), generator=g).to(dev))[0]
+        flat3 = torch.stack([lane0, 1e-3 * flat1[0], torch.zeros(n, device=dev)])
+        runs.append(("3 lanes", cg_cuda_mb.unflatten_fields(plan, flat3), None,
+                     case["k3c_lanes_tol"]))
+    errs, its, jac = [], {}, {}
+    for label, bs, x0s, tol in runs:
+        flags = {}
+        kern, plain, jacobi = pair(bs, x0s, tol, flags)
+        e, it = compare(f"{name} {label} ({bs[0].shape[0]}, {n})", kern, plain,
+                        flat(bs), tol, 1e-3, 2, mv)
+        check(torch.equal(flags["kernel"], flags["plain"]),
+              f"{name} {label}: converged flags {flags}")
+        errs.append(e)
+        its[label] = it
+        jac[label] = jacobi()
+        if label == "3 lanes":
+            check(it > 100, f"3-lane {name} run stopped at iteration {it} (<= 100)")
+    kern, plain, _ = pair(b1, g1, case["tol_p"], {})
+    ms = cuda_ms(torch, kern, 10)
+    plain_ms = cuda_ms(torch, plain, case["plain_reps"])
+    # the wrapper's two parts: the coarse inverse from the operator (every
+    # call, as in the JAX package) and the kernel launch itself
+    einv_ms = cuda_ms(torch, lambda: coarse_strips.coarse_inverse(plan, sp, mops), 10)
+    tol2 = cg_cuda.tol2_sum_f32(case["tol_p"], n)
+    launch = lambda coarse: cuda_ms(torch, lambda: cg_cuda_mb._launch_merged(
+        "cg", plan, diag, off, flat(b1), flat(g1), tol2_sum=tol2,
+        coarse=coarse, **kw), 10)
+    launch_ms, jacobi_launch_ms = launch((sp, einv)), launch(None)
+    warm_it = its["warm (deflated guess)"]
+    b, by, stream = bound_ms(n, 1, 2, warm_it, "cg", True, True, seam, sp.K)
+    log(f"phase {ph} {name} ok: {ms:.3f} ms/solve warm (plain {plain_ms:.3f} ms, "
+        f"bound {b * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us) at "
+        f"{warm_it} iterations: coarse inverse {einv_ms:.3f} ms + launch "
+        f"{launch_ms:.3f} ms = {launch_ms * 1e3 / max(warm_it, 1):.1f} "
+        f"us/iteration (Jacobi-only K3 launch on the same warm system "
+        f"{jacobi_launch_ms:.3f} ms = "
+        f"{jacobi_launch_ms * 1e3 / max(jac['warm (deflated guess)'], 1):.1f} "
+        f"us/iteration); K = {sp.K} strips; iterations with strips {its}, "
+        f"Jacobi-only K3 on the same systems {jac}")
+    kernels[name] = dict(
+        name=f"{name} fused_cg_mb(coarse_strips=True) (strip-coarse two-level "
+             f"PCG, merged frame{case['k3_form']}, whole solve)",
+        route="cuda", source="fluidgym_tpu_torch/csrc/cg.cu",
+        replaces="fluidgym_tpu/ops/cg_pallas_mb.py:284", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+        coarse_inverse_ms=einv_ms, launch_ms=launch_ms,
+        jacobi_launch_ms=jacobi_launch_ms,
+        iterations=warm_it, iterations_by_run=its, jacobi_iterations=jac,
+        K=sp.K, shape=f"(1, {n}) pressure, K = {sp.K}")
+
+
+def _counters():
+    """Every launch counter and plain-version call counter of the port, as
+    ``(object, attribute)`` pairs."""
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb, stencil_cuda
+
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    launches = [(k3, "launches"), (k3, "flip_launches"), (k3, "coarse_launches"),
+                (k3, "coarse_flip_launches"), (k2, "launches"),
+                (k2, "merged_launches"), (k2, "merged_flip_launches"),
+                (cg_cuda.fused_cg, "launches"),
+                (stencil_cuda.stencil_apply, "launches")]
+    plains = [(f, "calls") for f in (
+        cg_cuda.fused_cg_plain, cg_cuda_mb.fused_cg_mb_plain,
+        cg_cuda_mb.fused_bicgstab_plain, stencil_cuda.stencil_apply_plain)]
+    return launches, plains
+
+
+def _strips_main_path(dev, kernels, piso, linsolve) -> None:
+    """Phase 17: the slice's main path: ``make`` at the registered defaults,
+    ``reset(seed=0)``, then the strips (``SimConfig.pressure_coarse_strips``)
+    and K4 switched on; 3 steps of the cylinder and 1 of the airfoil with
+    phases 9 and 12's actions.  In every step K3-coarse(-flip) launches
+    exactly twice per substep, K2-mb(-flip) once, K4 once per block per
+    ``domain_apply`` (the deflation setup and the two warm-start gates), and
+    no other kernel form, plain version or ``linsolve`` loop runs."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb, stencil_cuda
+
+    launches, plains = _counters()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    k4 = stencil_cuda.stencil_apply
+    k4_total = 0
+    for case in MERGED_CASES:
+        env_id, name = case["env_id"], case["k3c"]
+        watched = {name: (k3, case["k3c_count"]), case["k2"]: (k2, case["k2_count"]),
+                   "K4": (k4, "launches")}
+        calls, restore = count_calls(piso, linsolve)
+
+        def counts():
+            out = {k: getattr(*v) for k, v in watched.items()}
+            out["other"] = sum(getattr(*c) for c in launches) - sum(out.values())
+            out["plain"] = sum(getattr(*c) for c in plains)
+            out["linsolve"] = calls["cg"] + calls["bicgstab"]
+            out["substeps"] = calls["piso_substep_info"]
+            return out
+
+        for c in launches + plains:
+            setattr(*c, 0)
+        torch.cuda.synchronize()
+        try:
+            env = fluidgym_tpu_torch.make(env_id, **case["make_kw"])
+            env.reset(seed=0)
+            env._cfg = dataclasses.replace(env._cfg, pressure_coarse_strips=True)
+            stencil_cuda.set_stencil_kernel(True)
+            cfg = env._cfg
+            check(cfg.pressure_deflation and cfg.pressure_warm_start,
+                  f"{env_id}: K4's count assumes deflation and warm start")
+            k4_per_sub = len(env._topo.blocks) * (1 + cfg.corrector_steps)
+            rng = np.random.default_rng(0)
+            actions = [rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
+                       for _ in range(3)][:case["k3c_steps"]]
+            step_s, per_step, p_its, drags = [], [], [], []
+            for a in actions:
+                c0 = counts()
+                t = time.perf_counter()
+                obs, reward, term, trunc, info = env.step(a)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                d = {k: v - c0[k] for k, v in counts().items()}
+                per_step.append(d)
+                sub = d["substeps"]
+                expect = {name: cfg.corrector_steps * sub, case["k2"]: sub,
+                          "K4": k4_per_sub * sub, "other": 0, "plain": 0,
+                          "linsolve": 0}
+                check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+                      f"{env_id} step with strips + K4: launches {d}, expected "
+                      f"{expect}")
+                for k, v in obs.items():
+                    check(tuple(v.shape) == env.observation_space[k].shape,
+                          f"obs {k} shape {tuple(v.shape)}")
+                    check(bool(torch.isfinite(v).all()), f"obs {k} not finite")
+                check(bool(torch.isfinite(reward).all()), "reward not finite")
+                drags.append(float(info["drag"]))
+                p_its.append(int(info["pressure_iterations"]))
+                check(math.isfinite(drags[-1]) and math.isfinite(float(info["lift"])),
+                      "drag/lift not finite")
+        finally:
+            stencil_cuda.set_stencil_kernel(False)
+            restore()
+        total = counts()
+        ms_step = 1e3 * sum(step_s) / len(step_s)
+        ref = kernels[case["k3"]]
+        n = len(actions)
+        ref_ms = sum(ref["step_ms"][:n]) / n
+        ref_its = ref["pressure_iterations_per_step"][:n]
+        subs = [d["substeps"] for d in per_step]
+        log(f"phase 17 main path with strips + K4 ok: {env_id} steps "
+            f"{[round(x, 3) for x in step_s]} s, {ms_step:.1f} ms/env step (phase "
+            f"{case['phases'][2]}, Jacobi-only, same actions: {ref_ms:.1f}), "
+            f"substeps {subs} (phase {case['phases'][2]}: "
+            f"{ref['substeps_per_step'][:n]}), pressure iterations per step "
+            f"{p_its} (phase {case['phases'][2]}: {ref_its}), drag "
+            f"{[round(x, 5) for x in drags]}, per-step launches {per_step}, "
+            f"totals {total}, K4 {k4_per_sub} per substep")
+        kernels[name].update(
+            launches=total[name], launches_per_env_step=total[name] / n,
+            ms_per_env_step=ms_step, jacobi_ms_per_env_step=ref_ms,
+            pressure_iterations_per_step=p_its,
+            jacobi_pressure_iterations_per_step=ref_its, substeps_per_step=subs)
+        k4_total += total["K4"]
+        kernels["K4"][f"launches_per_env_step {env_id}"] = total["K4"] / n
+    kernels["K4"]["launches"] = k4_total
+
+
+def _strips_card_vs_host(dev, piso) -> None:
+    """Phase 18: the card against the host for the cylinder with the strips
+    and K4 on: 1 env step (25 sim steps) at full width from the bundled
+    snapshot; obs and reward to 1e-3.
+
+    With the strips on, this float32 step is decided by rounding at ~1e-4:
+    on the host alone, 1 against 8 threads moves the pressure obs 1.5e-4,
+    the velocity obs 1.2e-4 and the reward 4.8e-4 and the step's pressure
+    iterations from 820 to 811 (4.8e-6, 2.2e-7, 6.1e-7 and no change with
+    Jacobi alone; ``scripts/port_strips_rounding.py``), so the card is held
+    to the host at 1e-3, as phase 13 holds the airfoil's pressure obs.
+    Phases 15-16 hold the kernel itself to its plain version."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb, stencil_cuda
+
+    case = MERGED_CASES[0]
+    t = time.perf_counter()
+    outs = {}
+    before = cg_cuda_mb.fused_cg_mb.coarse_launches
+    stencil_cuda.set_stencil_kernel(True)
+    try:
+        for where in (dev, torch.device("cpu")):
+            e = fluidgym_tpu_torch.make(case["env_id"], device=where,
+                                        **case["host_kw"])
+            e.reset(seed=0)
+            e._cfg = dataclasses.replace(e._cfg, pressure_coarse_strips=True)
+            a = np.linspace(0.4, -0.4, e.action_space.shape[0]).astype(np.float32)
+            o, r, *_ = e.step(a)
+            outs[where.type] = dict(o, reward=r)
+    finally:
+        stencil_cuda.set_stencil_kernel(False)
+    check(cg_cuda_mb.fused_cg_mb.coarse_launches > before,
+          "phase 18's card run did not launch K3-coarse")
+    og, oc = outs[dev.type], outs["cpu"]
+    diffs = {k: float((og[k].cpu() - oc[k]).abs().max()
+                      / oc[k].abs().max().clamp(min=1e-30)) for k in og}
+    log(f"phase 18 {case['env_id']} with strips + K4, full width, 1 step from "
+        f"the bundled snapshot ({e.n_sim_steps} sim steps), card vs host: "
+        f"relative diffs {diffs} (bar 1e-3) in {time.perf_counter() - t:.2f}s")
+    check(all(v <= 1e-3 for v in diffs.values()),
+          f"card and host disagree with strips + K4 on {case['env_id']}")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("cg.cu", "bicgstab_mb.cu")
+SOURCES = ("cg.cu", "bicgstab_mb.cu", "stencil.cu")
 HEADERS = ("krylov.cuh", "merged.cuh")
 # --fmad=false: no contraction of a*b+c, so the kernels round every product
 # and sum like the plain PyTorch versions do (only the order of the sums
@@ -49,6 +49,12 @@ _ARGTYPES = {
     # best, lanes, n, ndims, op_per_lane, tol2, maxiter, stall, precond,
     # best?, warm, stream
     "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, einv_t, strip_ptr,
+    # strip_cells, cidx, lanes, n, ndims, op_per_lane, K, tol2, maxiter,
+    # stall, precond, best?, warm, stream
+    "fg_cg_mb_coarse_solve": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # diag, off, x, hxm, hxp, hym, hyp, y, k, ny, nx, stream
+    "fg_stencil2d_apply": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 

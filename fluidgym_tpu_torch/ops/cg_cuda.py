@@ -55,15 +55,21 @@ def guard(x):
 
 
 def cg_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
-                stall_iters: int, precondition: bool, return_best: bool):
+                stall_iters: int, precondition: bool, return_best: bool,
+                precond=None):
     """The lockstep Jacobi-PCG loop of K1 and K3 in plain PyTorch, on
     ``(lanes, ...)`` tensors: ``mv`` applies the operator to such a tensor,
-    ``diag`` (broadcasting against ``b``) is its diagonal.  Returns ``(x,
-    iterations (lanes,), residual_sum (lanes,))``."""
+    ``diag`` (broadcasting against ``b``) is its diagonal.  ``precond``, when
+    given, replaces the Jacobi step ``z = r / diag`` (K3's strip-coarse
+    arm); it runs at init and after every residual update, the refresh
+    iteration included.  Returns ``(x, iterations (lanes,), residual_sum
+    (lanes,))``."""
     L = b.shape[0]
     red = lambda a: a.reshape(L, -1).sum(dim=1)
     lane = lambda s: s.reshape((L,) + (1,) * (b.dim() - 1))
-    inv_diag = 1.0 / diag if precondition else None
+    if precond is None:
+        inv_diag = 1.0 / diag if precondition else None
+        precond = (lambda v: inv_diag * v) if precondition else (lambda v: v)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
 
     if x0 is not None:
@@ -72,7 +78,7 @@ def cg_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
     else:
         x = torch.zeros_like(b)
         r = b
-    z = inv_diag * r if precondition else r
+    z = precond(r)
     p = z
     best = x
     rz = red(r * z)
@@ -91,7 +97,7 @@ def cg_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
         alpha = torch.where(done | recompute, zero, rz / guard(denom))
         x = x + lane(alpha) * p
         r = b - Av if recompute else r - lane(alpha) * Av
-        z = inv_diag * r if precondition else r
+        z = precond(r)
         rz_new = red(r * z)
         rs_new = red(r * r)
         beta = torch.where(done, zero, rz_new / guard(rz))

@@ -30,10 +30,20 @@ neighbour table built once per plan (``neighbor_table``; see
   CPU tensors run the plain versions; any other device raises.  A flip seam
   needs nothing of its own in the kernels: the neighbour table reverses the
   source slab once, when it is built.
+* ``fused_cg_mb(..., coarse_strips=True)`` is K3-coarse (TPU kernel
+  ``_kernel`` with ``coarse=``): the strip-coarse two-level preconditioner
+  of ``solver/coarse_strips.py`` inside the solve (``csrc/cg.cu``
+  ``fg_cg_mb_coarse_solve``), counted as ``fused_cg_mb.coarse_launches``
+  (identity seams) and ``.coarse_flip_launches`` (flip seams).  ``Einv`` is
+  computed from the operator on every call, as in the JAX package; the
+  kernel restricts through per-strip cell lists (``strip_lists``, built once
+  per plan).
 * ``fused_cg_mb_plain`` and ``fused_bicgstab_plain`` are the plain PyTorch
   versions, with ``.calls`` counters; in the merged frame their matvec is
   ``block_merge.merged_apply`` (rolls plus slab fixups, the TPU kernel's
-  arithmetic), independent of the neighbour table.
+  arithmetic), independent of the neighbour table, and the coarse term of
+  ``fused_cg_mb_plain(..., coarse=...)`` is ``coarse_strips.restrict`` /
+  ``prolong``, independent of the cell lists.
 
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
@@ -51,25 +61,19 @@ from fluidgym_tpu_torch.core.domain import face_axis
 from fluidgym_tpu_torch.ops import _build
 from fluidgym_tpu_torch.ops.cg_cuda import (MAX_LANES, cg_lockstep, guard,
                                             roll_matvec, tol2_sum_f32)
+from fluidgym_tpu_torch.solver import coarse_strips as cs
 from fluidgym_tpu_torch.solver.block_merge import (MergePlan, fixup_slabs,
                                                    merged_apply)
 from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
 __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
-           "fused_cg_mb_plain", "neighbor_table", "flatten_fields",
-           "unflatten_fields", "flatten_ops"]
+           "fused_cg_mb_plain", "neighbor_table", "strip_lists",
+           "flatten_fields", "unflatten_fields", "flatten_ops"]
 
 
 # ---------------------------------------------------------------------------
 # the merged frame as one flat buffer per lane
 # ---------------------------------------------------------------------------
-
-def _sb_shapes(plan: MergePlan) -> list[tuple[int, ...]]:
-    """Array shapes of the super-blocks (major..minor, as pack_fields)."""
-    nd = plan.ndims
-    return [tuple(sb.shape[D] for D in range(nd - 1, -1, -1))
-            for sb in plan.superblocks]
-
 
 def flatten_fields(plan: MergePlan, xs) -> torch.Tensor:
     """Per-super-block ``(L, *shape_s)`` -> one ``(L, n)`` buffer."""
@@ -79,7 +83,7 @@ def flatten_fields(plan: MergePlan, xs) -> torch.Tensor:
 
 def unflatten_fields(plan: MergePlan, flat: torch.Tensor):
     """``(L, n)`` -> per-super-block ``(L, *shape_s)`` views."""
-    shapes = _sb_shapes(plan)
+    shapes = cs.sb_array_shapes(plan)
     parts = torch.split(flat, [math.prod(s) for s in shapes], dim=1)
     return tuple(p.reshape((flat.shape[0],) + s) for p, s in zip(parts, shapes))
 
@@ -100,7 +104,7 @@ def neighbor_table(plan: MergePlan, device) -> torch.Tensor:
     super-block, replaced on seam slabs by the source super-block's cell).
     Built once per plan and device."""
     nd = plan.ndims
-    shapes = _sb_shapes(plan)
+    shapes = cs.sb_array_shapes(plan)
     bases = np.cumsum([0] + [math.prod(s) for s in shapes])
     idx = [bases[s] + np.arange(math.prod(sh)).reshape(sh)
            for s, sh in enumerate(shapes)]
@@ -123,6 +127,46 @@ def neighbor_table(plan: MergePlan, device) -> torch.Tensor:
     table = np.stack([np.concatenate([t.reshape(-1) for t in per])
                       for per in tab]).astype(np.int32)
     return torch.from_numpy(table).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def strip_lists(plan: MergePlan, device):
+    """K3-coarse's view of ``cs.strip_plan(plan)`` on ``device``,
+    built once per plan: ``(strip_ptr (K+1,), strip_cells, cidx (n,))``
+    int32, the strips' flat cell indices in CSR form (ascending within a
+    strip) and every cell's strip (-1 in a super-block without a space)."""
+    sp = cs.strip_plan(plan)
+    shapes = cs.sb_array_shapes(plan)
+    bases = np.cumsum([0] + [math.prod(s) for s in shapes])
+    cidx = np.full(int(bases[-1]), -1, np.int64)
+    cells, ptr = [], [0]
+    for space in sp.spaces:
+        sh = shapes[space.sb]
+        idx = bases[space.sb] + np.arange(math.prod(sh)).reshape(sh)
+        sid = np.minimum(np.arange(sh[space.axis]) // space.width, space.n - 1)
+        for i in range(space.n):
+            sel = idx[sid == i] if space.axis == 0 else idx[:, sid == i]
+            c = np.sort(sel.reshape(-1))
+            cells.append(c)
+            ptr.append(ptr[-1] + len(c))
+            cidx[c] = space.offset + i
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                 for a in (np.asarray(ptr), np.concatenate(cells), cidx))
+
+
+def _coarse_precond(plan: MergePlan, sp, einv, diag, precondition: bool):
+    """``z = D^-1 r + W Einv W^T r`` on flat ``(lanes, n)`` residuals
+    (``einv``: ``(1|lanes, K, K)``), through ``coarse_strips.restrict`` /
+    ``prolong``: the TPU kernel's ``apply_precond``."""
+    inv_diag = 1.0 / diag if precondition else None
+
+    def precond(r):
+        z = inv_diag * r if precondition else r
+        rc = cs.restrict(plan, sp, unflatten_fields(plan, r))
+        xc = (einv @ rc.unsqueeze(-1)).squeeze(-1)
+        return z + flatten_fields(plan, cs.prolong(plan, sp, xc))
+
+    return precond
 
 
 def _merged_mv(plan: MergePlan, diag, off):
@@ -231,15 +275,18 @@ fused_bicgstab_plain.calls = 0
 
 def fused_cg_mb_plain(plan: MergePlan, diag, off, b, x0, *, tol2_sum: float,
                       maxiter: int, stall_iters: int, precondition: bool,
-                      return_best: bool):
+                      return_best: bool, coarse=None):
     """Plain PyTorch K3 on the flat merged layout (``b``/``x0`` ``(lanes,
-    n)``, ``diag (1, n)``, ``off (1, 2*ndims, n)``).  Returns ``(x,
-    iterations (lanes,), residual_sum (lanes,))``."""
+    n)``, ``diag (1, n)``, ``off (1, 2*ndims, n)``); with ``coarse = (sp,
+    einv)`` (a ``coarse_strips.StripPlan`` and ``(1|lanes, K, K)``) K3-coarse.
+    Returns ``(x, iterations (lanes,), residual_sum (lanes,))``."""
     fused_cg_mb_plain.calls += 1
+    precond = (None if coarse is None
+               else _coarse_precond(plan, *coarse, diag, precondition))
     return cg_lockstep(_merged_mv(plan, diag, off), diag, b, x0,
                        tol2_sum=tol2_sum, maxiter=maxiter,
                        stall_iters=stall_iters, precondition=precondition,
-                       return_best=return_best)
+                       return_best=return_best, precond=precond)
 
 
 fused_cg_mb_plain.calls = 0
@@ -294,10 +341,12 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
 
 
 def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
-                   maxiter, stall_iters, precondition, return_best):
-    """K3 (``algo="cg"``) or K2-mb (``"bicgstab"``) on the flat merged
-    layout: ``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``, ``off
-    (1|lanes, 2*ndims, n)``."""
+                   maxiter, stall_iters, precondition, return_best,
+                   coarse=None):
+    """K3 (``algo="cg"``; K3-coarse with ``coarse = (sp, einv)``) or K2-mb
+    (``"bicgstab"``) on the flat merged layout: ``b``/``x0`` ``(lanes, n)``,
+    ``diag (1|lanes, n)``, ``off (1|lanes, 2*ndims, n)``, ``einv (1|lanes,
+    K, K)`` like ``diag``."""
     ndims = plan.ndims
     L, n = b.shape
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
@@ -313,15 +362,27 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     iters = torch.empty(L, dtype=torch.int32, device=b.device)
     rs = torch.empty(L, dtype=torch.float32, device=b.device)
     lib = _build.library()
-    entry = lib.fg_cg_mb_solve if algo == "cg" else lib.fg_bicgstab_mb_solve
+    head = (b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
+            x0c.data_ptr(), x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
+            *[s.data_ptr() for s in scratch])
+    tail = (tol2_sum, int(maxiter), int(stall_iters), int(precondition),
+            int(return_best), int(x0 is not None))
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        status = entry(
-            b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
-            x0c.data_ptr(), x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
-            *[s.data_ptr() for s in scratch], L, n, ndims, op_per_lane,
-            tol2_sum, int(maxiter), int(stall_iters), int(precondition),
-            int(return_best), int(x0 is not None), stream)
+        if coarse is not None:
+            sp, einv = coarse
+            if (einv.shape != (diag.shape[0], sp.K, sp.K) or einv.device != b.device
+                    or einv.dtype != torch.float32):
+                raise ValueError("einv must be float32 (1|lanes, K, K) like diag")
+            einv_t = einv.transpose(-1, -2).contiguous()
+            lists = strip_lists(plan, b.device)
+            status = lib.fg_cg_mb_coarse_solve(
+                *head, einv_t.data_ptr(), *[t.data_ptr() for t in lists],
+                L, n, ndims, op_per_lane, sp.K, *tail, stream)
+        else:
+            entry = (lib.fg_cg_mb_solve if algo == "cg"
+                     else lib.fg_bicgstab_mb_solve)
+            status = entry(*head, L, n, ndims, op_per_lane, *tail, stream)
     _build.check(status, "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb")
     return x, iters, rs
 
@@ -340,15 +401,19 @@ def _device_kind(b: torch.Tensor, what: str) -> str:
 
 def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
                 maxiter: int = 5000, stall_iters: int = 250,
-                precondition: bool = True, return_best: bool = True):
+                precondition: bool = True, return_best: bool = True,
+                coarse_strips: bool = False):
     """K3: whole-solve lockstep CG on a merged multi-block stencil operator.
 
     ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
     *spatial_s)`` (``block_merge.pack_ops`` layout); ``bs``/``x0s``:
     per-super-block ``(*spatial_s)`` (one lane, as the JAX entry) or
-    ``(lanes, *spatial_s)``.  Returns ``(xs, SolveInfo)`` in the same
-    layout, the info per lane (scalars for one unbatched lane).  A lane whose
-    RHS is all zero over every super-block gets a zero solution."""
+    ``(lanes, *spatial_s)``.  ``coarse_strips``: add the strip-coarse
+    correction to the preconditioner (K3-coarse); a plan without strip
+    spaces (3D) keeps Jacobi alone, as in the JAX package.  Returns ``(xs,
+    SolveInfo)`` in the same layout, the info per lane (scalars for one
+    unbatched lane).  A lane whose RHS is all zero over every super-block
+    gets a zero solution."""
     batched = bs[0].dim() == plan.ndims + 1
     if not batched:
         bs = tuple(b.unsqueeze(0) for b in bs)
@@ -358,14 +423,24 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     diag, off = flatten_ops(plan, diags, offs)
     L, n = b.shape
     tol2 = tol2_sum_f32(tol, n, b.dtype)
+    sp = cs.strip_plan(plan) if coarse_strips else None
+    coarse = None
+    if sp is not None:
+        einv = cs.coarse_inverse(plan, sp, tuple(zip(diags, offs)))
+        coarse = (sp, einv.unsqueeze(0))
     kw = dict(tol2_sum=tol2, maxiter=int(maxiter), stall_iters=int(stall_iters),
-              precondition=bool(precondition), return_best=bool(return_best))
+              precondition=bool(precondition), return_best=bool(return_best),
+              coarse=coarse)
     if _device_kind(b, "fused_cg_mb") == "cuda":
         x, iters, rs = _launch_merged("cg", plan, diag, off, b, x0, **kw)
-        if plan.identity_seams:
+        if coarse is None and plan.identity_seams:
             fused_cg_mb.launches += 1
-        else:
+        elif coarse is None:
             fused_cg_mb.flip_launches += 1
+        elif plan.identity_seams:
+            fused_cg_mb.coarse_launches += 1
+        else:
+            fused_cg_mb.coarse_flip_launches += 1
     else:
         x, iters, rs = fused_cg_mb_plain(plan, diag, off, b, x0, **kw)
     b_zero = (b == 0).all(dim=1)
@@ -381,6 +456,8 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
 
 fused_cg_mb.launches = 0
 fused_cg_mb.flip_launches = 0
+fused_cg_mb.coarse_launches = 0
+fused_cg_mb.coarse_flip_launches = 0
 
 
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,

@@ -24,10 +24,11 @@ K3 ``fused_cg_mb`` and K2 in its merged form.  Anything else takes the
 plain loops of ``linsolve``, on CPU tensors only: on the card a system no
 kernel takes raises.
 
-Not ported yet: the differentiable path, the upwind blend, extra inner
-non-orthogonal pressure passes (3D), the full-mode non-orthogonal pressure
-solve and the JAX package's other opt-in solver levers (no ``SimConfig``
-field for them).
+Opt-in levers ported: ``pressure_coarse_strips`` (the strip-coarse
+preconditioner inside K3).  Not ported yet: the differentiable path, the
+upwind blend, extra inner non-orthogonal pressure passes (3D), the
+full-mode non-orthogonal pressure solve and the JAX package's other opt-in
+solver levers (no ``SimConfig`` field for them).
 """
 
 from __future__ import annotations
@@ -130,6 +131,10 @@ class SimConfig:
     warm_start: bool = True
     pressure_warm_start: bool = False
     pressure_stall_iters: int = 250
+    # the strip-coarse correction inside the merged pressure kernel
+    # (K3-coarse, solver/coarse_strips.py); only solves routed through the
+    # merged kernel take it, others ignore it (as in the JAX package)
+    pressure_coarse_strips: bool = False
 
     def __post_init__(self):
         if self.velocity_corrector not in ("FD",):
@@ -220,10 +225,12 @@ def _fused_bicg_mb_solve(mplan, ops, b, topo: DomainTopo, *, tol, maxiter,
 
 
 def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
-           x0=None, precondition=False, stall_iters=250):
+           x0=None, precondition=False, stall_iters=250, coarse_strips=False):
     """Non-differentiable global linear solve over all blocks: CG for the
     SPD pressure system (``symmetric``), else BiCGStab.  ``x0``: the initial
-    guess (a warm start or the deflation guess).  Returns ``(x,
+    guess (a warm start or the deflation guess).  ``coarse_strips``: the
+    strip-coarse preconditioner, on the merged pressure kernel only (K3-coarse;
+    K1 takes none, as the JAX package's ``fused_cg``).  Returns ``(x,
     SolveInfo)``."""
 
     def mv(xs):
@@ -266,7 +273,7 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
                 mplan, tuple(m[0] for m in mops), tuple(m[1] for m in mops),
                 block_merge.pack_fields(mplan, b),
                 x0s=None if x0 is None else block_merge.pack_fields(mplan, x0),
-                **kw)
+                coarse_strips=coarse_strips, **kw)
             return block_merge.unpack_fields(mplan, xs), inf
         return linsolve.cg(mv, b, x0=x0, tol=tol, maxiter=maxiter,
                            return_best=return_best, precond=precond_fn,
@@ -488,6 +495,7 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
             x0=guess,
             precondition=cfg.pressure_precondition,
             stall_iters=cfg.pressure_stall_iters,
+            coarse_strips=cfg.pressure_coarse_strips,
         )
         info = info._replace(
             pressure_converged=info.pressure_converged & p_info.converged,
@@ -614,6 +622,7 @@ def make_divergence_free(state: DomainState, geoms: tuple[BlockGeom, ...],
                 symmetric=True,
                 return_best=cfg.pressure_return_best_result,
                 precondition=cfg.pressure_precondition,
+                coarse_strips=cfg.pressure_coarse_strips,
             )
             if cfg.normalize_pressure_result:
                 mean = _global_mean(pressures)

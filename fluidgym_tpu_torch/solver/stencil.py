@@ -28,8 +28,9 @@ frame (``FaceSpec.axes``: transposes and flips); contravariant fluxes
 across a same-side connection change sign.  Curvilinear blocks carry the
 full inverse metric ``minv (*s, d, d)``.
 
-Not ported: the JAX package's optional upwind blend of the advection matrix
-and its opt-in fused stencil kernel (off by default there).
+The JAX package's opt-in fused stencil kernel is K4
+(``ops/stencil_cuda.py``), behind the same default-off switch.  Not ported:
+the optional upwind blend of the advection matrix.
 """
 
 from __future__ import annotations
@@ -201,9 +202,40 @@ def stencil_off_apply(op: StencilOp, x: Tensor, ndims: int) -> Tensor:
     return out
 
 
+def _halo_layer(xs: BlockVec, b: int, f: int, topo: DomainTopo) -> Tensor:
+    """Boundary-neighbour layer of nbr_f(x): the CONNECTED halo slab, or the
+    wrapped opposite layer (PERIODIC; FIXED layers are masked by off = 0)."""
+    spec = topo.blocks[b].faces[f]
+    if spec.kind == BoundKind.CONNECTED:
+        return _halo(xs[spec.connected_block], spec, f, topo.ndims)
+    return _slab(xs[b], f ^ 1)
+
+
 def domain_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
                  topo: DomainTopo) -> BlockVec:
-    """Multi-block apply with halo exchange at CONNECTED faces."""
+    """Multi-block apply with halo exchange at CONNECTED faces.
+
+    With ``ops.stencil_cuda.set_stencil_kernel(True)``, a 2D apply of scalar
+    stencils (``diag (ny, nx)``) to fields of at most one leading axis goes
+    through K4, one launch per block, after gathering the four halo layers.
+    The JAX package gates its kernel on ``all(x.ndim == 2)``: scalar fields,
+    and under its vmap over the deflation columns each column.  Here the
+    columns are written out as a leading axis of ``(k, ny, nx)``, which K4
+    takes as k columns of the shared stencil; on the card's main path those
+    (the deflation setup) and the scalar warm-start gates are the only
+    callers.  The one apply with a leading velocity-component axis is the
+    matvec of ``linsolve``'s loops, which run on CPU tensors only: there the
+    column form computes the roll formulation's numbers bit for bit."""
+    from fluidgym_tpu_torch.ops import stencil_cuda
+
+    if (stencil_cuda.stencil_kernel_enabled() and topo.ndims == 2
+            and all(op.diag.dim() == 2 for op in ops)
+            and all(x.dim() in (2, 3) for x in xs)):
+        return tuple(
+            stencil_cuda.stencil_apply(
+                op.diag, op.off, x,
+                tuple(_halo_layer(xs, b, f, topo) for f in range(4)))
+            for b, (op, x) in enumerate(zip(ops, xs)))
     out = []
     for b, (op, x) in enumerate(zip(ops, xs)):
         y = op.diag * x

@@ -2,24 +2,30 @@
 """Where one env step of fluidgym_tpu_torch spends its time on a CUDA card.
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
+        [--strips] [--k4]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
-defaults on the card, resets it (seed 0), takes one warm-up step, then
-profiles ``--steps`` steps with ``torch.profiler`` (CPU + CUDA activities).
-Prints one JSON object:
+defaults on the card, resets it (seed 0), switches on the strip-coarse
+pressure preconditioner (``--strips``: ``SimConfig.pressure_coarse_strips``)
+and the fused stencil apply (``--k4``) if asked, takes one warm-up step,
+then profiles ``--steps`` steps with ``torch.profiler`` (CPU + CUDA
+activities).  Prints one JSON object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise;
 * ``device_ms_per_step``: summed CUDA kernel time (self device time of the
   kernel events); ``device_busy_share`` = device / wall;
 * ``kernel_launches_per_step`` and the top kernels by device time;
-* per kernel of the port (K1, K2, K2-mb, K3, and the flip-seam forms
-  K2-mb-flip, K3-flip): launches per step, counted by the wrappers, and
-  device ms per step (the profiler's kernel events of that instantiation:
-  ``fg_cg_kernel<ND, false>`` is K1, ``<ND, true>`` K3 in either seam form,
-  ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb in either form; a
-  flip form's device time is reported under its template's entry, which
-  for an id with flip seams holds only the flip form);
+* per kernel of the port (K1, K2, K2-mb, K3, K3-coarse, K4, and the
+  flip-seam forms K2-mb-flip, K3-flip, K3-coarse-flip): launches per step,
+  counted by the wrappers, and device ms per step (the profiler's kernel
+  events of that instantiation: ``fg_cg_kernel<ND, false, false>`` is K1,
+  ``<ND, true, false>`` K3 and ``<ND, true, true>`` K3-coarse in either
+  seam form, ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb in
+  either form, ``fg_stencil2d_kernel`` K4; a flip form's device time is
+  reported under its template's entry, which for an id with flip seams
+  holds only the flip form);
+* the host operators with the most self CPU time per step;
 * the card's name and power limit.
 
 Also writes the JSON to ``<--out>/port_step_profile_<env>.json``.  Needs a card;
@@ -36,12 +42,17 @@ import time
 
 
 def _port_kernel(name: str) -> str | None:
-    """K1/K2/K2-mb/K3 for a profiler kernel name, else None."""
-    table = "true" in name.split("(")[0]
+    """K1/K2/K2-mb/K3/K3-coarse/K4 for a profiler kernel name, else None."""
+    head = name.split("(")[0]
+    args = head[head.find("<") + 1:head.rfind(">")].replace(" ", "").split(",")
     if "fg_cg_kernel" in name:
-        return "K3" if table else "K1"
+        if args[1:] == ["true", "true"]:
+            return "K3-coarse"
+        return "K3" if args[1:2] == ["true"] else "K1"
     if "fg_bicg_kernel" in name:
-        return "K2-mb" if table else "K2"
+        return "K2-mb" if args[1:2] == ["true"] else "K2"
+    if "fg_stencil2d_kernel" in name:
+        return "K4"
     return None
 
 
@@ -53,13 +64,17 @@ def main() -> int:
     ap.add_argument("--env", default="RBC2D-easy-v0")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--strips", action="store_true")
+    ap.add_argument("--k4", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import fluidgym_tpu_torch
-    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    import dataclasses
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb, stencil_cuda
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(
@@ -67,6 +82,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     env = fluidgym_tpu_torch.make(args.env)
     env.reset(seed=0)
+    env._cfg = dataclasses.replace(env._cfg, pressure_coarse_strips=args.strips)
+    stencil_cuda.set_stencil_kernel(args.k4)
     rng = np.random.default_rng(0)
     act = lambda: rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
     env.step(act())
@@ -77,7 +94,10 @@ def main() -> int:
                 "K2-mb": cg_cuda_mb.fused_bicgstab_mb.merged_launches,
                 "K3": cg_cuda_mb.fused_cg_mb.launches,
                 "K2-mb-flip": cg_cuda_mb.fused_bicgstab_mb.merged_flip_launches,
-                "K3-flip": cg_cuda_mb.fused_cg_mb.flip_launches}
+                "K3-flip": cg_cuda_mb.fused_cg_mb.flip_launches,
+                "K3-coarse": cg_cuda_mb.fused_cg_mb.coarse_launches,
+                "K3-coarse-flip": cg_cuda_mb.fused_cg_mb.coarse_flip_launches,
+                "K4": stencil_cuda.stencil_apply.launches}
 
     k0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -89,7 +109,7 @@ def main() -> int:
     k1 = counts()
 
     kernels = {}
-    port_us = {k: 0.0 for k in ("K1", "K2", "K2-mb", "K3")}
+    port_us = {k: 0.0 for k in ("K1", "K2", "K2-mb", "K3", "K3-coarse", "K4")}
     n_launch = 0
     for ev in prof.events():
         dev_type = getattr(ev, "device_type", None)
@@ -108,8 +128,9 @@ def main() -> int:
         n_launch += 1
     device_ms = sum(v[1] for v in kernels.values()) / 1e3 / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
     out = {
-        "env": args.env,
+        "env": args.env, "strips": args.strips, "k4": args.k4,
         "card": smi,
         "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
@@ -124,9 +145,14 @@ def main() -> int:
             {"name": n, "calls_per_step": c / args.steps,
              "device_ms_per_step": us / 1e3 / args.steps}
             for n, (c, us) in top],
+        "top_host_ops": [
+            {"name": e.key[:80], "calls_per_step": e.count / args.steps,
+             "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / args.steps}
+            for e in host],
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"port_step_profile_{args.env}.json"),
+    tag = "".join(("_strips" if args.strips else "", "_k4" if args.k4 else ""))
+    with open(os.path.join(args.out, f"port_step_profile_{args.env}{tag}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))

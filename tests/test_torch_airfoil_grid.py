@@ -26,6 +26,7 @@ from fluidgym_tpu_torch.core.domain import BoundKind, DomainBuilder
 from fluidgym_tpu_torch.envs.airfoil.grid import make_airfoil_domain as tgrid
 from fluidgym_tpu_torch.ops import cg_cuda_mb
 from fluidgym_tpu_torch.solver import block_merge as tbm
+from fluidgym_tpu_torch.solver import coarse_strips
 from fluidgym_tpu_torch.solver import stencil as tst
 from torch_port_helpers import assert_rel
 
@@ -84,8 +85,8 @@ def test_merge_plan_matches_jax(doms):
     tp, jp = tbm.merge_plan(topo), jbm.merge_plan(jd.build()[0])
     assert tp is not None and jp is not None
     assert _plan_tuple(tp) == _plan_tuple(jp)
-    assert [s for s in cg_cuda_mb._sb_shapes(tp)] == [(11, 166), (377, 95),
-                                                     (377, 95)]
+    assert [s for s in coarse_strips.sb_array_shapes(tp)] == [
+        (11, 166), (377, 95), (377, 95)]
     assert len(tp.fixups) == 6 and not tp.identity_seams
     cut = [f for f in tp.fixups if any(f.flip)]
     assert len(cut) == 2

@@ -63,6 +63,8 @@ def test_port_and_chip_smoke_import_and_step_without_card_packages():
         import fluidgym_tpu_torch
         import chip_smoke  # noqa: F401  (main() not run)
         from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb  # noqa: F401
+        from fluidgym_tpu_torch.ops import stencil_cuda  # noqa: F401
+        from fluidgym_tpu_torch.solver import coarse_strips  # noqa: F401
         env = fluidgym_tpu_torch.make(
             "RBC2D-easy-v0", device="cpu", resolution=4, n_heaters=4,
             load_initial_domain=False, load_domain_statistics=False,

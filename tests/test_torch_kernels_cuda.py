@@ -9,6 +9,11 @@ it runs without the repository's conftest:
 Bar: iteration counts within 3 (K2: 2 for the merged form), ``max|dx| <=
 1e-3 max|x|`` (K2 merged: 1e-4) (the kernel sums
 its dot products in another order than PyTorch), zero-RHS lanes exactly 0.
+K3-coarse: the same converged flags and iterations within 3, as K3 (the
+kernel's restriction sums each strip in another order than the plain
+version's too).
+K4: within 1e-6 of max|y| (it rounds like the plain version, in the same
+order).
 """
 
 import numpy as np
@@ -19,7 +24,7 @@ import fluidgym_tpu_torch
 from fluidgym_tpu_torch.core.domain import DomainBuilder
 from fluidgym_tpu_torch.core import geometry
 from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
-from fluidgym_tpu_torch.solver import block_merge, piso
+from fluidgym_tpu_torch.solver import block_merge, coarse_strips, piso
 from fluidgym_tpu_torch.solver.stencil import StencilOp
 from torch_port_helpers import (SMALL_RBC_KW, assert_rel, nonsym_stencil,
                                 require_cuda, spd_stencil)
@@ -236,10 +241,10 @@ def _airfoil_systems(dev):
 
 
 @pytest.mark.parametrize("algo", ["cg", "bicgstab"])
-def test_merged_flip_plan_raises_on_card(algo):
-    """A merge plan with flip seams (the airfoil's C-grid cut) once raised on
-    the card; its kernels (K3, and K2 in merged form) now launch and match
-    their plain versions, counted as the flip forms."""
+def test_merged_flip_plan_kernel_matches_plain(algo):
+    """A merge plan with flip seams (the airfoil's C-grid cut): its kernels
+    (K3, and K2 in merged form) launch, count as the flip forms and match
+    their plain versions."""
     dev = require_cuda()
     topo, state, plan, adv, p_ops = _airfoil_systems(dev)
     S = len(plan.superblocks)
@@ -328,3 +333,92 @@ def test_cylinder_step_on_card_goes_through_kernels():
             + cg_cuda_mb.fused_bicgstab_plain.calls) == plain
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["drag"]))
+
+
+# ---------------------------------------------------------------------------
+# K3-coarse (strip-coarse PCG, identity and flip seams) and K4 (stencil)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case,lanes,warm", [
+    ("cylinder", 1, False), ("cylinder", 1, True), ("cylinder", 3, False),
+    ("airfoil", 1, False)])
+def test_k3_coarse_kernel_matches_plain(case, lanes, warm):
+    dev = require_cuda()
+    systems = _cylinder_systems if case == "cylinder" else _airfoil_systems
+    topo, state, plan, _, p_ops = systems(dev)
+    diags, offs = _packed(plan, p_ops)
+    g = torch.Generator().manual_seed(11 + lanes)
+    xs = tuple(torch.randn((lanes,) + tuple(d.shape), generator=g).to(dev)
+               for d in diags)
+    bs = block_merge.merged_apply(plan, tuple(zip(diags, offs)), xs)
+    if lanes == 3:
+        bs = tuple(torch.stack([b[0], 1e-3 * b[1], 0 * b[2]]) for b in bs)
+    x0s = (tuple(x + 0.01 * torch.randn(x.shape, generator=g).to(dev) for x in xs)
+           if warm else None)
+    # 3 lanes: tight enough to pass the iteration-100 refresh (169 at 3e-7)
+    tol = 3e-7 if lanes == 3 else 1e-6
+    kw = dict(maxiter=3000, stall_iters=250, precondition=True, return_best=True)
+    attr = "coarse_launches" if plan.identity_seams else "coarse_flip_launches"
+    before = getattr(cg_cuda_mb.fused_cg_mb, attr)
+    jacobi = (cg_cuda_mb.fused_cg_mb.launches, cg_cuda_mb.fused_cg_mb.flip_launches)
+    xk, ik = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, tol=tol,
+                                    coarse_strips=True, **kw)
+    assert getattr(cg_cuda_mb.fused_cg_mb, attr) == before + 1
+    assert jacobi == (cg_cuda_mb.fused_cg_mb.launches,
+                      cg_cuda_mb.fused_cg_mb.flip_launches)
+    sp = coarse_strips.strip_plan(plan)
+    einv = coarse_strips.coarse_inverse(plan, sp, tuple(zip(diags, offs)))
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(
+        plan, diag, off, b, None if x0s is None else
+        cg_cuda_mb.flatten_fields(plan, x0s),
+        tol2_sum=cg_cuda.tol2_sum_f32(tol, b.shape[1]), coarse=(sp, einv[None]),
+        **kw)
+    torch.cuda.synchronize()
+    conv_k = torch.as_tensor(ik.converged).reshape(-1)
+    zero = (b == 0).all(dim=1)
+    conv_p = (rp <= cg_cuda.tol2_sum_f32(tol, b.shape[1])) | zero
+    assert torch.equal(conv_k.cpu(), conv_p.cpu())
+    assert abs(int(torch.as_tensor(ik.iterations).max()) - int(ip.max())) <= 3
+    xk = cg_cuda_mb.flatten_fields(plan, xk)
+    if lanes == 3:
+        assert bool((xk[2] == 0).all())
+        assert int(ik.iterations[0]) > 100
+
+
+@pytest.mark.parametrize("case,cols", [("cylinder", 1), ("cylinder", 15),
+                                       ("airfoil", 1), ("airfoil", 18)])
+def test_k4_kernel_matches_plain(case, cols):
+    """K4 on every block of the snapshot's pressure operator, scalar and in
+    the deflation setup's column form, against its plain version on the
+    same CUDA tensors; and ``domain_apply`` with the switch on against the
+    roll formulation."""
+    from fluidgym_tpu_torch.ops import stencil_cuda
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    dev = require_cuda()
+    systems = _cylinder_systems if case == "cylinder" else _airfoil_systems
+    topo, _, _, _, p_ops = systems(dev)
+    g = torch.Generator().manual_seed(cols)
+    lead = () if cols == 1 else (cols,)
+    xs = tuple(torch.randn(lead + tuple(o.diag.shape), generator=g).to(dev)
+               for o in p_ops)
+    launches = stencil_cuda.stencil_apply.launches
+    plain = stencil_cuda.stencil_apply_plain.calls
+    for b, (op, x) in enumerate(zip(p_ops, xs)):
+        halos = tuple(st._halo_layer(xs, b, f, topo) for f in range(4))
+        yk = stencil_cuda.stencil_apply(op.diag, op.off, x, halos)
+        yp = stencil_cuda.stencil_apply_plain(op.diag, op.off, x, halos)
+        assert_rel(yk.cpu().numpy(), yp.cpu().numpy(), 1e-6, f"block {b}")
+    ref = st.domain_apply(p_ops, xs, topo)
+    stencil_cuda.set_stencil_kernel(True)
+    try:
+        out = st.domain_apply(p_ops, xs, topo)
+    finally:
+        stencil_cuda.set_stencil_kernel(False)
+    torch.cuda.synchronize()
+    for a, r in zip(out, ref):
+        assert_rel(a.cpu().numpy(), r.cpu().numpy(), 1e-6, "domain_apply")
+    assert stencil_cuda.stencil_apply.launches == launches + 2 * len(p_ops)
+    assert stencil_cuda.stencil_apply_plain.calls == plain + len(p_ops)
