@@ -77,7 +77,23 @@ Phases, each printed with its elapsed seconds:
 18. the card against the host for the cylinder with the strips and K4 on:
    1 env step at full width from the bundled snapshot; obs and reward to
    1e-3 (with the strips a float32 step is rounding-decided at ~1e-4; see
-   ``_strips_card_vs_host``).
+   ``_strips_card_vs_host``);
+19. the chunk grid: K1, K2, K3, K2-mb, K3-flip and K3-coarse at 130 lanes
+   with one operator per lane, in chunks of 33 (4 blocks in one launch)
+   against their plain versions in the same chunks (the same converged
+   flags, iterations and x within each form's bar, a zero lane exactly 0,
+   the CG forms past iteration 100); the vmapped wrapper equal to its raw
+   launch; ms per solve at 1, 64 and 130 lanes and the bound of the batch;
+20. the batched main path: ``BatchedFluidEnv("RBC2D-easy-v0", 64)`` at its
+   registered defaults, ``reset(seed=0)``, 3 steps with seeded numpy
+   actions; counters zeroed just before and read just after: in every step
+   K1 launches exactly 2 and K2 2 per lockstep round, whatever the batch,
+   and no other kernel form, plain version, ``linsolve`` loop or vmap
+   per-lane fallback runs; lanes 0 and 63 against single envs reset from
+   the same seeds (see ``BATCH_CASES`` for the bars);
+21. the same for ``CylinderJet2D-easy-v0``, 2 steps: K3 2 and K2-mb 1 per
+   round;
+22. batched env-steps/s beside the single env's, measured in the same run.
 
 Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero; there is no CPU fallback.  Imports nothing
@@ -91,6 +107,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, SXM data sheet
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, SXM data sheet
@@ -330,7 +347,7 @@ def _run(dev) -> int:
     err4, it4 = compare(
         "K1 4 lanes (4,61,96)",
         lambda: (lambda x, inf: (x, inf.iterations, inf.residual ** 2 * n))(
-            *cg_cuda.fused_cg(po.diag, po.off, b4, tol=tol4, **kw1)),
+            *cg_cuda.fused_cg(po.diag, po.off, b4, tol=tol4, chunk=4, **kw1)),
         lambda: cg_cuda.fused_cg_plain(po.diag[None], po.off[None], b4, None,
                                        tol2_sum=tol24, **kw1),
         b4, tol4, 1e-3, 3, mv_p)
@@ -504,11 +521,21 @@ def _run(dev) -> int:
     _strips_main_path(dev, kernels, piso, linsolve)
     _strips_card_vs_host(dev, piso)
 
+    with warnings.catch_warnings():
+        # vmap's per-lane fallback must not hide anywhere in the batch phases
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        _chunk_phase(dev, kernels, piso, dict(po=po, adv=adv_ops[0], topo=topo))
+        results = [_batched_phase(dev, kernels, piso, linsolve, case)
+                   for case in BATCH_CASES]
+    _throughput_phase(kernels, results)
+    log(f"phase 22 summary {json.dumps(kernels.pop('batched'))}")
+
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip", "K4", "K3-coarse",
-        "K3-coarse-flip")]}), flush=True)
+        "K3-coarse-flip", "K1 lanes", "K2 lanes", "K3 lanes", "K2-mb lanes")]}),
+        flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -630,7 +657,8 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
     def k3_pair(bs, x0s, tol):
         def kern():
             xs, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s,
-                                             tol=tol, **kw3)
+                                             tol=tol, chunk=bs[0].shape[0],
+                                             **kw3)
             return (cg_cuda_mb.flatten_fields(plan, xs), inf.iterations,
                     inf.residual ** 2 * n)
 
@@ -944,7 +972,8 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
     def pair(bs, x0s, tol, flags):
         def kern():
             xs, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, tol=tol,
-                                             coarse_strips=True, **kw)
+                                             coarse_strips=True,
+                                             chunk=bs[0].shape[0], **kw)
             flags["kernel"] = inf.converged.reshape(-1).cpu()
             return flat(xs), inf.iterations, inf.residual ** 2 * n
 
@@ -958,7 +987,7 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
 
         def jacobi():
             _, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, tol=tol,
-                                            **kw)
+                                            chunk=bs[0].shape[0], **kw)
             return int(inf.iterations.max())
         return kern, plain, jacobi
 
@@ -1000,7 +1029,7 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
     tol2 = cg_cuda.tol2_sum_f32(case["tol_p"], n)
     launch = lambda coarse: cuda_ms(torch, lambda: cg_cuda_mb._launch_merged(
         "cg", plan, diag, off, flat(b1), flat(g1), tol2_sum=tol2,
-        coarse=coarse, **kw), 10)
+        coarse=coarse, chunk=1, **kw), 10)
     launch_ms, jacobi_launch_ms = launch((sp, einv)), launch(None)
     warm_it = its["warm (deflated guess)"]
     b, by, stream = bound_ms(n, 1, 2, warm_it, "cg", True, True, seam, sp.K)
@@ -1186,6 +1215,410 @@ def _strips_card_vs_host(dev, piso) -> None:
         f"relative diffs {diffs} (bar 1e-3) in {time.perf_counter() - t:.2f}s")
     check(all(v <= 1e-3 for v in diffs.values()),
           f"card and host disagree with strips + K4 on {case['env_id']}")
+
+
+# ---------------------------------------------------------------------------
+# phases 19-22: the chunk grid and the batched env
+# ---------------------------------------------------------------------------
+
+#: lanes and forced chunk of phase 19: 4 blocks of 33, 33, 33 and 31 lanes
+CHUNK_LANES, CHUNK_FORCED = 130, 33
+
+
+def _lane_forms(dev, piso, rbc) -> list:
+    """Phase 19's systems, one per kernel form, at CHUNK_LANES lanes with
+    one operator per lane (the main-path operator scaled by 0.5..2, as a
+    batch of envs brings): ``A_l x_l`` for random ``x_l`` scaled 1e-3..1,
+    lane 2 zero.  Each form: ``launch(L, chunk)`` / ``plain(L, chunk)`` on
+    the first L lanes -> ``(x, iterations, residual_sum)``, and
+    ``vmapped(chunk)``: the wrapper under ``torch.func.vmap`` over the
+    lanes' systems (envs of C lanes each) -> x of every lane."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import block_merge, coarse_strips
+
+    L = CHUNK_LANES
+    g = torch.Generator().manual_seed(19)
+    scale = torch.logspace(-3, 0, L, device=dev)
+    scale[2] = 0.0
+    lane = lambda v, t: v.reshape((-1,) + (1,) * (t.dim() - 1))
+    forms = []
+
+    def add(name, algo, C, diag0, off0, plan, tol, coarse=False):
+        """``diag0``/``off0``: one env's operator, spatial (single block) or
+        flat ``(n,)`` / ``(nf, n)`` (merged ``plan``)."""
+        E = L // C
+        s_env = torch.linspace(0.5, 2.0, E, device=dev)
+        s = s_env.repeat_interleave(C)
+        diag = diag0.unsqueeze(0) * lane(s, diag0.unsqueeze(0))
+        off = off0.unsqueeze(0) * lane(s, off0.unsqueeze(0))
+        nd = 2
+        x = torch.randn(tuple(diag.shape), generator=g).to(dev)
+        if plan is None:
+            ax = cg_cuda.roll_matvec(diag, off, x, nd)
+            n = math.prod(diag0.shape)
+        else:
+            ax = cg_cuda_mb._merged_mv(plan, diag, off)(x)
+            n = diag0.shape[0]
+        # the checks' lanes span scales 1e-3..1 (different speeds, lane 2
+        # zero); the timings' lanes are all A x (equal difficulty, so that
+        # 1, 64 and 130 lanes do the same work per lane)
+        b, b_time = ax * lane(scale, x), ax
+        tol2 = cg_cuda.tol2_sum_f32(tol, n)
+        kw = dict(tol2_sum=tol2, maxiter=5000, stall_iters=250,
+                  precondition=True, return_best=algo == "cg")
+        sp = coarse_strips.strip_plan(plan) if coarse else None
+        nf = off0.shape[0]
+
+        def per_sb(t):  # flat (L, [nf,] n) -> per-super-block (L, [nf,] *s)
+            if t.dim() == 2:
+                return cg_cuda_mb.unflatten_fields(plan, t)
+            return tuple(u.reshape((t.shape[0], nf) + tuple(u.shape[1:]))
+                         for u in cg_cuda_mb.unflatten_fields(
+                             plan, t.reshape(t.shape[0] * nf, -1)))
+
+        einv = None
+        if coarse:
+            einv = torch.func.vmap(lambda d, o: coarse_strips.coarse_inverse(
+                plan, sp, tuple(zip(d, o))))(per_sb(diag), per_sb(off))
+
+        def chunk_of(Ln, chunk):
+            return cg_cuda.default_chunk(Ln, dev) if chunk is None else chunk
+
+        def launch(Ln, chunk=None, rhs=b):
+            c = chunk_of(Ln, chunk)
+            a = (diag[:Ln], off[:Ln], rhs[:Ln], None)
+            if plan is None and algo == "cg":
+                return cg_cuda._launch(*a, ndims=nd, chunk=c, **kw)
+            if plan is None:
+                return cg_cuda_mb._launch(*a, ndims=nd, chunk=c, **kw)
+            cz = None if einv is None else (sp, einv[:Ln])
+            return cg_cuda_mb._launch_merged(algo, plan, *a, chunk=c,
+                                             coarse=cz, **kw)
+
+        def plain(Ln, chunk=None, rhs=b):
+            c = chunk_of(Ln, chunk)
+            a = (diag[:Ln], off[:Ln], rhs[:Ln], None)
+            if plan is None and algo == "cg":
+                return cg_cuda.fused_cg_plain(*a, ndims=nd, chunk=c, **kw)
+            if plan is None or algo == "bicgstab":
+                return cg_cuda_mb.fused_bicgstab_plain(*a, ndims=nd, plan=plan,
+                                                       chunk=c, **kw)
+            cz = None if einv is None else (sp, einv[:Ln])
+            return cg_cuda_mb.fused_cg_mb_plain(plan, *a, coarse=cz, chunk=c,
+                                                **kw)
+
+        wkw = dict(tol=tol, maxiter=5000, stall_iters=250, precondition=True,
+                   return_best=algo == "cg")
+
+        def vmapped(chunk=None):
+            de, oe = diag[::C], off[::C]
+            be = b.reshape((E, C) + tuple(b.shape[1:]))
+            if plan is None and algo == "cg":
+                f = lambda d, o, bb: cg_cuda.fused_cg(d, o, bb, ndims=nd,
+                                                      chunk=chunk, **wkw)[0]
+                return torch.func.vmap(f)(de, oe, be).reshape(b.shape)
+            if plan is None:
+                tp = block_merge.trivial_plan(rbc["topo"])
+                f = lambda d, o, bb: cg_cuda_mb.fused_bicgstab_mb(
+                    tp, (d,), (o,), (bb,), chunk=chunk, **wkw)[0][0]
+                return torch.func.vmap(f)(de, oe, be).reshape(b.shape)
+            if algo == "cg":
+                f = lambda d, o, bb: cg_cuda_mb.fused_cg_mb(
+                    plan, d, o, tuple(t[0] for t in bb), chunk=chunk,
+                    coarse_strips=coarse, **wkw)[0]
+            else:
+                f = lambda d, o, bb: cg_cuda_mb.fused_bicgstab_mb(
+                    plan, d, o, bb, chunk=chunk, **wkw)[0]
+            xs = torch.func.vmap(f)(per_sb(de), per_sb(oe),
+                                    tuple(t.reshape((E, C) + tuple(t.shape[1:]))
+                                          for t in per_sb(b)))
+            # (E, [C,] *s) per super-block -> (L, n)
+            return cg_cuda_mb.flatten_fields(
+                plan, tuple(t.reshape((L,) + tuple(t.shape[1 + (C > 1):]))
+                            for t in xs))
+
+        forms.append(dict(name=name, algo=algo, C=C, n=n, tol2=tol2, b=b,
+                          b_time=b_time,
+                          launch=launch, plain=plain, vmapped=vmapped,
+                          seam=0 if plan is None else _seam_cells(plan),
+                          coarse_K=sp.K if coarse else 0))
+
+    po, adv = rbc["po"], rbc["adv"]
+    add("K1", "cg", 1, po.diag, po.off, None, 1e-7)
+    add("K2", "bicgstab", 2, adv.diag, adv.off, None, 1e-6)
+    for case, name, algo, C, tol, coarse in (
+            (MERGED_CASES[0], "K3", "cg", 1, 1e-6, False),
+            (MERGED_CASES[0], "K2-mb", "bicgstab", 2, 1e-6, False),
+            (MERGED_CASES[1], "K3-flip", "cg", 1, 1e-6, False),
+            (MERGED_CASES[0], "K3-coarse", "cg", 1, 1e-6, True)):
+        sy = _snapshot_system(dev, piso, case)
+        plan = sy["plan"]
+        ops = sy["p_ops"] if algo == "cg" else sy["adv"]
+        mops = block_merge.pack_ops(plan, ops)
+        d1, o1 = cg_cuda_mb.flatten_ops(plan, tuple(m[0] for m in mops),
+                                        tuple(m[1] for m in mops))
+        add(name, algo, C, d1[0], o1[0], plan, tol, coarse)
+    return forms
+
+
+def _seam_cells(plan) -> int:
+    return sum(math.prod(hi - lo for K, (lo, hi) in enumerate(fx.window)
+                         if K != fx.face // 2) for fx in plan.fixups)
+
+
+def _chunk_phase(dev, kernels, piso, rbc) -> None:
+    """Phase 19: the chunk grid.  Every kernel form at 130 lanes with one
+    operator per lane, in chunks of 33 (4 blocks, the last ragged), against
+    its plain version in the same chunks: the same converged flags,
+    iterations per lane within the form's bar (CG 3, BiCGStab 2; K3-coarse
+    10, see ``tests/test_torch_kernels_cuda.py``), x within the form's bar
+    (1e-3 relative, BiCGStab 1e-4), the zero lane exactly 0, the CG forms
+    past iteration 100.  The wrapper under ``torch.func.vmap`` equals the
+    raw launch bit for bit (one launch for the batch).  ms per solve at 1,
+    64 and 130 lanes of equal difficulty at the card's default chunk, the
+    plain version on the 64 lanes in one lockstep loop, and the bound of
+    the 64-lane batch (this run's per-lane iterations)."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda
+
+    t0 = time.perf_counter()
+    L = CHUNK_LANES
+    for f in _lane_forms(dev, piso, rbc):
+        name, cg = f["name"], f["algo"] == "cg"
+        xk, ik, rk = f["launch"](L, CHUNK_FORCED)
+        xp, ip, rp = f["plain"](L, CHUNK_FORCED)
+        torch.cuda.synchronize()
+        zero = (f["b"].reshape(L, -1) == 0).all(dim=1)
+        ck, cp = (rk <= f["tol2"]) | zero, (rp <= f["tol2"]) | zero
+        it_bar = (10 if f["coarse_K"] else 3) if cg else 2
+        rel_bar = 1e-3 if cg else 1e-4
+        err = float((xk - xp).abs().max())
+        scale = float(xp.abs().max())
+        dit = int((ik - ip).abs().max())
+        log(f"  {name} x{L} in chunks of {CHUNK_FORCED}: iterations per chunk "
+            f"{ik[::CHUNK_FORCED].tolist()} (plain {ip[::CHUNK_FORCED].tolist()}), "
+            f"converged {int(ck.sum())}/{L} (plain {int(cp.sum())}), max|dx| "
+            f"{err:.3e} ({err / max(scale, 1e-30):.2e} of max|x|, bar {rel_bar:g})")
+        check(torch.equal(ck, cp), f"{name} x{L}: converged flags differ")
+        check(dit <= it_bar, f"{name} x{L}: iterations differ by {dit} > {it_bar}")
+        check(err <= rel_bar * max(scale, 1e-30), f"{name} x{L}: solutions differ")
+        check(bool(torch.isfinite(xk).all()), f"{name} x{L}: non-finite")
+        check(bool((xk[2] == 0).all()), f"{name} x{L}: the zero lane is not 0")
+        if cg:
+            check(int(ik.max()) > 100, f"{name} x{L}: no lane passed iteration 100")
+        x_def = f["launch"](L)[0]
+        check(torch.equal(f["vmapped"](), x_def),
+              f"{name}: the vmapped wrapper differs from its launch")
+        bt = f["b_time"]
+        ms = {Ln: cuda_ms(torch, lambda Ln=Ln: f["launch"](Ln, rhs=bt), 5)
+              for Ln in (1, 64, L)}
+        plain_ms = cuda_ms(torch, lambda: f["plain"](64, 64, rhs=bt), 1)
+        it64 = f["launch"](64, rhs=bt)[1].float()
+        bnd, by, _ = bound_ms(f["n"], 64, 2, float(it64.mean()), f["algo"],
+                              False, False, f["seam"], f["coarse_K"])
+        log(f"  {name}: ms per solve at default chunk {cg_cuda.default_chunk(L, dev)} "
+            f"(130 lanes) / {cg_cuda.default_chunk(64, dev)} (64): 1 lane "
+            f"{ms[1]:.3f}, 64 lanes {ms[64]:.3f}, 130 lanes {ms[L]:.3f} "
+            f"(64 lanes: plain in one lockstep loop {plain_ms:.1f} ms, bound "
+            f"{bnd * 1e3:.1f} us by {by} at {float(it64.mean()):.1f} mean "
+            f"iterations per lane, max {int(it64.max())})")
+        chunk_numbers = dict(ms_1_lane=ms[1], ms_64_lanes=ms[64],
+                             ms_130_lanes=ms[L], plain_64_lanes_ms=plain_ms,
+                             bound_64_lanes_ms=bnd, max_abs_err_130_lanes=err)
+        if name in ("K3-flip", "K3-coarse"):
+            # not on a batched path yet: the numbers join the form's entry
+            kernels[name].update(chunk_numbers)
+            continue
+        kernels[f"{name} lanes"] = dict(
+            name=f"{name} lane folding and chunking (LaneFold vmap rule, "
+                 "chunk grid of lockstep blocks)",
+            route="cuda", source="fluidgym_tpu_torch/csrc/"
+            + ("cg.cu" if cg else "bicgstab_mb.cu"),
+            replaces=("fluidgym_tpu/ops/cg_pallas.py:232" if name == "K1"
+                      else "fluidgym_tpu/ops/cg_pallas_mb.py:602"),
+            launches=0, max_abs_err=err, ms=ms[64], plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=None, ms_1_lane=ms[1],
+            ms_130_lanes=ms[L], lanes=64, mean_iterations=float(it64.mean()))
+    log(f"phase 19 chunk grid ok: 6 forms x {L} lanes in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+#: the batched main paths: phase 20 (RBC) and 21 (the cylinder)
+BATCH_CASES = (
+    # RBC from a randomized reset (noise, then 1-2 time units of burn-in):
+    # its float32 step is decided by rounding at ~1e-4..3e-4 in the obs
+    # (117 pressure iterations per solve, past the refresh), as the single
+    # env's own card-vs-host difference from the same state shows in the
+    # same run; the batch's reductions round differently from the single
+    # env's, so lanes are held to 1e-3 in the obs.  The reward nu_ref - Nu
+    # is a difference of near-equal numbers: its error is held against Nu.
+    dict(env_id="RBC2D-easy-v0", phase=20, steps=3, metric="nusselt",
+         obs_bar=1e-3, reward_bar=1e-4,
+         per_round={"K1": ("fused_cg", "launches", 2),
+                    "K2": ("fused_bicgstab_mb", "launches", 2)}),
+    dict(env_id="CylinderJet2D-easy-v0", phase=21, steps=2, metric="drag",
+         obs_bar=1e-4, reward_bar=1e-4,
+         per_round={"K3": ("fused_cg_mb", "launches", 2),
+                    "K2-mb": ("fused_bicgstab_mb", "merged_launches", 1)}),
+)
+BATCH = 64
+
+
+def _batched_phase(dev, kernels, piso, linsolve, case) -> dict:
+    """Phases 20-21: ``BatchedFluidEnv(env_id, 64)`` at its registered full
+    width, ``reset(seed=0)``, a few steps with seeded numpy actions.  The
+    counters are zeroed just before and read just after; in every step each
+    kernel of the path launches exactly its count per lockstep round (a
+    vmapped substep), whatever B is; no other kernel form, no plain
+    version, no ``linsolve`` loop and no vmap per-lane fallback (an error
+    inside ``piso.strict_vmap``).  Lanes 0 and 63 against single envs
+    reset from the same seeds and stepped with the same actions: obs and
+    reward to 1e-4."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.parallel import BatchedFluidEnv
+
+    env_id, ph = case["env_id"], case["phase"]
+    mods = {"fused_cg": cg_cuda.fused_cg, "fused_cg_mb": cg_cuda_mb.fused_cg_mb,
+            "fused_bicgstab_mb": cg_cuda_mb.fused_bicgstab_mb}
+    watched = {k: (mods[w], a) for k, (w, a, _) in case["per_round"].items()}
+    launches, plains = _counters()
+    calls, restore = count_calls(piso, linsolve)
+
+    def counts():
+        out = {k: getattr(*v) for k, v in watched.items()}
+        out["other"] = sum(getattr(*c) for c in launches) - sum(out.values())
+        out["plain"] = sum(getattr(*c) for c in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["rounds"] = calls["piso_substep_info"]
+        return out
+
+    for c in launches + plains:
+        setattr(*c, 0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        benv = BatchedFluidEnv(env_id, BATCH)
+        obs, _ = benv.reset(seed=0)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        rng = np.random.default_rng(case["phase"])
+        acts = [rng.uniform(-1, 1, (BATCH,) + tuple(benv.action_space.shape))
+                .astype(np.float32) for _ in range(case["steps"])]
+        step_s, per_step, outs, p_its, unconverged = [], [], [], [], []
+        for a in acts:
+            c0 = counts()
+            t = time.perf_counter()
+            obs, rew, term, trunc, info = benv.step(a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            d = {k: v - c0[k] for k, v in counts().items()}
+            per_step.append(d)
+            expect = {k: n * d["rounds"] for k, (_, _, n) in case["per_round"].items()}
+            check(d["rounds"] > 0 and all(d[k] == v for k, v in expect.items())
+                  and d["other"] == 0 and d["plain"] == 0 and d["linsolve"] == 0,
+                  f"{env_id} x{BATCH} step launches {d}, expected {expect} and "
+                  "no other kernel form, plain version or linsolve loop")
+            for k, v in obs.items():
+                check(tuple(v.shape) == (BATCH,) + benv.observation_space[k].shape,
+                      f"obs {k} shape {tuple(v.shape)}")
+                check(bool(torch.isfinite(v).all()), f"obs {k} not finite")
+            check(tuple(rew.shape) == (BATCH,) and bool(torch.isfinite(rew).all()),
+                  "rewards not finite")
+            check(not bool(term.any()), f"{env_id}: a lane diverged")
+            unconverged.append(int((~info["pressure_converged"]).sum()))
+            outs.append((obs, rew, info[case["metric"]]))
+            p_its.append(info["pressure_iterations"].tolist())
+    finally:
+        restore()
+    total = counts()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def diffs(o, r, m, ob, rb, mb, out):
+        """Per-key worst relative obs diffs; the reward's against its
+        metric's scale (the quantity it is made of)."""
+        for k in o:
+            out[k] = max(out.get(k, 0.0), rel(ob[k].to(o[k].device), o[k]))
+        scale = max(float(r.abs().max()), float(m.abs().max()))
+        out["reward"] = max(out.get("reward", 0.0),
+                            float((rb.to(r.device) - r).abs().max()) / scale)
+
+    # lanes 0 and 63 against single envs from the same seeds, and (the
+    # scale of this state's rounding) lane 0's single env on the card
+    # against the host from the same state
+    t = time.perf_counter()
+    worst, host, single_s, its = {}, {}, [], []
+    for l in (0, BATCH - 1):
+        env = fluidgym_tpu_torch.make(env_id)
+        env.reset(seed=l)
+        if l == 0:
+            twin = fluidgym_tpu_torch.make(env_id, device="cpu")
+            twin.reset(seed=0, randomize=False)
+            twin.set_state(env.get_state())
+        for i, a in enumerate(acts):
+            ts = time.perf_counter()
+            o, r, _, _, inf = env.step(a[l])
+            torch.cuda.synchronize()
+            single_s.append(time.perf_counter() - ts)
+            ob, rb, mb = outs[i]
+            diffs(o, r.reshape(()), inf[case["metric"]],
+                  {k: v[l] for k, v in ob.items()}, rb[l], mb[l], worst)
+            its.append((int(inf["pressure_iterations"]), p_its[i][l]))
+            if l == 0:
+                oh, rh, _, _, ih = twin.step(a[0])
+                diffs(oh, rh.reshape(()), ih[case["metric"]], o,
+                      r.reshape(()), inf[case["metric"]], host)
+    bars = {k: case["reward_bar" if k == "reward" else "obs_bar"] for k in worst}
+    check(all(worst[k] <= bars[k] for k in worst),
+          f"{env_id}: batched lanes and single envs differ by {worst} "
+          f"(bars {bars})")
+    rounds = [d["rounds"] for d in per_step]
+    ms_step = 1e3 * sum(step_s) / len(step_s)
+    single_ms = 1e3 * sum(single_s) / len(single_s)
+    log(f"phase {ph} batched main path ok: BatchedFluidEnv({env_id!r}, {BATCH}) "
+        f"blocks {[b.shape for b in benv.env._topo.blocks]}, reset {reset_s:.1f}s, "
+        f"steps {[round(x, 3) for x in step_s]} s ({ms_step:.1f} ms/step), "
+        f"lockstep rounds per step {rounds}, per-step launches {per_step}, "
+        f"per round { {k: n for k, (_, _, n) in case['per_round'].items()} }, "
+        f"totals "
+        f"{total}; lanes with an unconverged pressure solve per step "
+        f"{unconverged}; lanes 0 and {BATCH - 1} vs single envs from the same "
+        f"seeds: worst relative diffs {worst} (bars {bars}), pressure "
+        f"iterations (single, batched lane) {its}; lane 0's single env, card "
+        f"vs host from the same state: {host}; single env {single_ms:.1f} "
+        f"ms/step in {time.perf_counter() - t:.1f}s")
+    for k in case["per_round"]:
+        entry = kernels[f"{k} lanes"]
+        entry["launches"] = total[k]
+        entry["launches_per_env_step"] = (sum(d[k] for d in per_step)
+                                          / len(per_step) / BATCH)
+        entry["launches_per_round"] = case["per_round"][k][2]
+        entry["batched_env"] = env_id
+    return dict(env_id=env_id, ms_step=ms_step, single_ms=single_ms,
+                rounds=rounds, pressure_iterations=p_its)
+
+
+def _throughput_phase(kernels, results) -> None:
+    """Phase 22: batched env-steps/s beside B x the single env's ms per step
+    (the same run, the same card, the same actions)."""
+    for r in results:
+        batched = BATCH / (r["ms_step"] / 1e3)
+        single = 1e3 / r["single_ms"]
+        log(f"phase 22 {r['env_id']}: batch {BATCH}: {batched:.1f} env-steps/s "
+            f"({r['ms_step']:.1f} ms per batched step); single env "
+            f"{single:.2f} env-steps/s ({r['single_ms']:.1f} ms/step, x{BATCH} = "
+            f"{BATCH * r['single_ms']:.0f} ms); ratio {batched / single:.1f}")
+        kernels.setdefault("batched", {})[r["env_id"]] = dict(
+            env_steps_per_s=batched, ms_per_batched_step=r["ms_step"],
+            single_env_ms_per_step=r["single_ms"], rounds_per_step=r["rounds"])
 
 
 if __name__ == "__main__":

@@ -47,6 +47,9 @@ __all__ = [
     "DomainBuilder",
     "domain_state_from_numpy",
     "domain_state_to_numpy",
+    "map_state",
+    "state_leaves",
+    "state_from_leaves",
     "face_axis",
     "face_is_upper",
     "face_sign",
@@ -185,6 +188,48 @@ class DomainState:
 
 
 # ---------------------------------------------------------------------------
+# a flat view of the state (what torch.func.vmap maps over)
+# ---------------------------------------------------------------------------
+
+def map_state(state: DomainState, fn) -> DomainState:
+    """``state`` with every tensor ``t`` replaced by ``fn(t)``; ``None``
+    fields stay ``None``.  Tensors are visited in one fixed order: per
+    block velocity, pressure, scalar, velocity_source, viscosity, then its
+    faces' velocity and scalar; then the domain's viscosity and scalar
+    diffusivity."""
+    f = lambda t: None if t is None else fn(t)
+    blocks = []
+    for b in state.blocks:
+        fields = [f(b.velocity), f(b.pressure), f(b.scalar),
+                  f(b.velocity_source), f(b.viscosity)]
+        faces = tuple(FaceData(velocity=f(fd.velocity), scalar=f(fd.scalar))
+                      for fd in b.faces)
+        blocks.append(BlockState(velocity=fields[0], pressure=fields[1],
+                                 scalar=fields[2], velocity_source=fields[3],
+                                 faces=faces, viscosity=fields[4]))
+    return DomainState(blocks=tuple(blocks), viscosity=f(state.viscosity),
+                       scalar_diffusivity=f(state.scalar_diffusivity))
+
+
+def state_leaves(state: DomainState) -> list[Tensor]:
+    """The state's tensors in ``map_state`` order, ``None`` fields left out.
+    The static topology is not part of the state."""
+    out: list[Tensor] = []
+    map_state(state, lambda t: out.append(t) or t)
+    return out
+
+
+def state_from_leaves(like: DomainState, leaves) -> DomainState:
+    """The inverse of ``state_leaves``: a state with ``like``'s structure
+    (which fields are ``None``) holding ``leaves``."""
+    it = iter(leaves)
+    state = map_state(like, lambda _: next(it))
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the state has tensors")
+    return state
+
+
+# ---------------------------------------------------------------------------
 # carrying a state across packages
 # ---------------------------------------------------------------------------
 
@@ -229,21 +274,7 @@ def domain_state_from_numpy(tree, device=None, dtype=None) -> DomainState:
 def domain_state_to_numpy(state: DomainState) -> DomainState:
     """The inverse of ``domain_state_from_numpy``: the same structure with
     numpy leaves (host copies)."""
-    blocks = tuple(
-        BlockState(
-            velocity=_to_numpy(b.velocity),
-            pressure=_to_numpy(b.pressure),
-            scalar=_to_numpy(b.scalar),
-            velocity_source=_to_numpy(b.velocity_source),
-            faces=tuple(FaceData(velocity=_to_numpy(fd.velocity),
-                                 scalar=_to_numpy(fd.scalar))
-                        for fd in b.faces),
-            viscosity=_to_numpy(b.viscosity),
-        )
-        for b in state.blocks
-    )
-    return DomainState(blocks=blocks, viscosity=_to_numpy(state.viscosity),
-                       scalar_diffusivity=_to_numpy(state.scalar_diffusivity))
+    return map_state(state, _to_numpy)
 
 
 # ---------------------------------------------------------------------------

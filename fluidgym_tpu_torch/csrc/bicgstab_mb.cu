@@ -18,29 +18,30 @@
 //   * RIGHT Jacobi preconditioning (r stays the true residual), warm start;
 //   * per-lane freeze (alpha = omega = beta = 0, rho and rs held), stall
 //     patience, return-best; no residual refresh;
-//   * ONE iteration counter shared by all lanes;
+//   * ONE iteration counter shared by the lanes of a lockstep chunk (one
+//     thread block each, krylov.cuh fg_chunk), all chunks in one launch;
 //   * every division guarded by tiny = 1e-30.
 //
 // What bounds it on the H100: the latency of the iteration chain (five
 // dependent passes, two of them stencil applies, and three block-wide
 // reductions per iteration over a 6k-14k-cell lane), not bytes or flops.  The
-// design keeps the loop, the dot products and the stopping test on the
-// device in one thread block, with no host round-trip and no grid-wide
-// synchronisation; the scratch (r/s, r_hat, p, p_hat, v, s_hat, t, best)
-// stays in L2.
+// design keeps the loop, the dot products and the stopping test of a chunk
+// on the device in one thread block, with no host round-trip and no
+// grid-wide synchronisation; the scratch (r/s, r_hat, p, p_hat, v, s_hat,
+// t, best) stays in L2.
 #include "krylov.cuh"
 
 template <int ND, bool TABLE>
 __global__ void __launch_bounds__(FG_THREADS)
 fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                const float* __restrict__ off, const int* __restrict__ nbr,
-             const float* __restrict__ x0,
+               const float* __restrict__ x0,
                float* __restrict__ x, int* __restrict__ iters_out,
                float* __restrict__ rs_out, float* __restrict__ r,
                float* __restrict__ rhat, float* __restrict__ p,
                float* __restrict__ phat, float* __restrict__ v,
                float* __restrict__ shat, float* __restrict__ t,
-               float* __restrict__ best, int lanes, FgGrid g,
+               float* __restrict__ best, int lanes, int chunk, FgGrid g,
                int op_per_lane, float tol2, int maxiter, int stall_iters,
                int precondition, int return_best, int warm_start) {
   __shared__ float sh[64];
@@ -57,6 +58,25 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   const int T = blockDim.x;
   const int n = g.n;
   const int nf = 2 * ND;
+
+  // this block's chunk of lanes (krylov.cuh fg_chunk)
+  const int l0 = fg_chunk(lanes, chunk);
+  const size_t lo = (size_t)l0 * n;
+  b += lo;
+  x0 += lo;
+  x += lo;
+  r += lo;
+  rhat += lo;
+  p += lo;
+  phat += lo;
+  v += lo;
+  shat += lo;
+  t += lo;
+  best += lo;
+  diag += lo * op_per_lane;
+  off += lo * nf * op_per_lane;
+  iters_out += l0;
+  rs_out += l0;
 
   // ---- init: r = r_hat = p = b - A x0 (or b); best = x ------------------
   for (int l = 0; l < lanes; ++l) {
@@ -98,7 +118,8 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       for (int l = 0; l < lanes; ++l) {
         const int stalled = (it - s_best_it[l]) >= stall_iters;
         any |= (s_rs[l] > tol2) && !stalled;
-        s_done[l] = (s_rs[l] <= tol2) || stalled;
+        // a NaN residual counts as frozen: it never holds its chunk
+        s_done[l] = !(s_rs[l] > tol2) || stalled;
       }
       s_go = (it < maxiter) && any;
     }
@@ -232,12 +253,14 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
                                  const float* off, const float* x0, float* x,
                                  int* iters, float* rs, float* r, float* rhat,
                                  float* p, float* phat, float* v, float* shat,
-                                 float* t, float* best, int lanes, int nz,
-                                 int ny, int nx, int ndims, int op_per_lane,
+                                 float* t, float* best, int lanes, int chunk,
+                                 int nz, int ny, int nx, int ndims,
+                                 int op_per_lane,
                                  float tol2, int maxiter, int stall_iters,
                                  int precondition, int return_best,
                                  int warm_start, void* stream) {
-  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3))
+  const int blocks = fg_chunk_blocks(lanes, chunk);
+  if (blocks == 0 || (ndims != 2 && ndims != 3))
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = nz;
@@ -246,15 +269,15 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
   g.n = nz * ny * nx;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndims == 2) {
-    fg_bicg_kernel<2, false><<<1, FG_THREADS, 0, s>>>(
+    fg_bicg_kernel<2, false><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-        best, lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
-        return_best, warm_start);
+        best, lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters,
+        precondition, return_best, warm_start);
   } else {
-    fg_bicg_kernel<3, false><<<1, FG_THREADS, 0, s>>>(
+    fg_bicg_kernel<3, false><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-        best, lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
-        return_best, warm_start);
+        best, lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters,
+        precondition, return_best, warm_start);
   }
   return (int)cudaGetLastError();
 }
@@ -268,13 +291,14 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
                                     const float* x0, float* x, int* iters,
                                     float* rs, float* r, float* rhat, float* p,
                                     float* phat, float* v, float* shat,
-                                    float* t, float* best, int lanes, int n,
-                                    int ndims, int op_per_lane, float tol2,
+                                    float* t, float* best, int lanes,
+                                    int chunk, int n, int ndims,
+                                    int op_per_lane, float tol2,
                                     int maxiter, int stall_iters,
                                     int precondition, int return_best,
                                     int warm_start, void* stream) {
-  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3) ||
-      nbr == nullptr)
+  const int blocks = fg_chunk_blocks(lanes, chunk);
+  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr)
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = 1;
@@ -283,14 +307,14 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
   g.n = n;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndims == 2) {
-    fg_bicg_kernel<2, true><<<1, FG_THREADS, 0, s>>>(
+    fg_bicg_kernel<2, true><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
-        lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
+        lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
         return_best, warm_start);
   } else {
-    fg_bicg_kernel<3, true><<<1, FG_THREADS, 0, s>>>(
+    fg_bicg_kernel<3, true><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
-        lanes, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
+        lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
         return_best, warm_start);
   }
   return (int)cudaGetLastError();

@@ -14,7 +14,8 @@
 //   * one matvec per iteration; every 100th iteration spends it on A@x and
 //     replaces r by the true residual b - A x, for frozen lanes too (this
 //     can reactivate a lane);
-//   * ONE iteration counter shared by all lanes, reported for every lane;
+//   * ONE iteration counter shared by the lanes of a lockstep chunk,
+//     reported for every lane of it;
 //   * every division guarded by tiny = 1e-30.
 // (The zero-RHS rule lives in the Python wrapper, as in the JAX package.)
 //
@@ -22,11 +23,15 @@
 // cells, some 100k flops per iteration, a few hundred iterations) but the
 // latency of the iteration chain: three dependent passes over the field and
 // three block-wide reductions per iteration.  The design answers that the
-// simple way: one thread block carries every lane of a solve, so the loop,
-// the dot products and the stopping test stay on the device with no host
-// round-trip and no grid-wide synchronisation; the working set (x, r, p, Av,
-// best, coefficients: ~0.3 MB per 6k-cell lane) stays in the 50 MB L2.
-// Using more SMs (clusters, distributed shared memory) is later work.
+// simple way: one thread block carries a lockstep chunk of lanes, so the
+// loop, the dot products and the stopping test stay on the device with no
+// host round-trip and no grid-wide synchronisation; the working set (x, r,
+// p, Av, best, coefficients: ~0.3 MB per 6k-cell lane) stays in the 50 MB
+// L2.  A batch of lanes is one launch of a grid of chunks
+// (krylov.cuh fg_chunk; the TPU ran its chunks one after another, lax.map
+// in cg_pallas.py `_lane_solver`): with one lane per block, a batch of up
+// to 132 lanes runs side by side on the SMs and costs its slowest lane.
+// One lane on more SMs (clusters, distributed shared memory) is later work.
 //
 // K3-coarse (entry fg_cg_mb_coarse_solve, the COARSE arm of the template):
 // replaces the strip-coarse form of cg_pallas_mb.py `_kernel` (`coarse=`,
@@ -116,9 +121,9 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              float* __restrict__ x, int* __restrict__ iters_out,
              float* __restrict__ rs_out, float* __restrict__ r,
              float* __restrict__ p, float* __restrict__ q,
-             float* __restrict__ best, int lanes, FgGrid g, int op_per_lane,
-             float tol2, int maxiter, int stall_iters, int precondition,
-             int return_best, int warm_start, FgCoarse cz) {
+             float* __restrict__ best, int lanes, int chunk, FgGrid g,
+             int op_per_lane, float tol2, int maxiter, int stall_iters,
+             int precondition, int return_best, int warm_start, FgCoarse cz) {
   __shared__ float sh[64];
   __shared__ float s_rc[COARSE ? FG_MAX_K : 1], s_xc[COARSE ? FG_MAX_K : 1];
   __shared__ float s_rz[FG_MAX_LANES], s_rs[FG_MAX_LANES];
@@ -133,6 +138,22 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   const int T = blockDim.x;
   const int n = g.n;
   const int nf = 2 * ND;
+
+  // this block's chunk of lanes: every per-lane pointer starts at its first
+  const int l0 = fg_chunk(lanes, chunk);
+  const size_t lo = (size_t)l0 * n;
+  b += lo;
+  x0 += lo;
+  x += lo;
+  r += lo;
+  p += lo;
+  q += lo;
+  best += lo;
+  diag += lo * op_per_lane;
+  off += lo * nf * op_per_lane;
+  iters_out += l0;
+  rs_out += l0;
+  if (COARSE) cz.einv_t += (size_t)l0 * cz.K * cz.K * cz.per_lane;
 
   // ---- init: r = b - A x0 (or b), z = M^-1 r, p = z, best = x ----------
   for (int l = 0; l < lanes; ++l) {
@@ -182,7 +203,8 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       for (int l = 0; l < lanes; ++l) {
         const int stalled = (it - s_best_it[l]) >= stall_iters;
         any |= (s_rs[l] > tol2) && !stalled;
-        s_done[l] = (s_rs[l] <= tol2) || stalled;
+        // a NaN residual counts as frozen: it never holds its chunk
+        s_done[l] = !(s_rs[l] > tol2) || stalled;
       }
       s_go = (it < maxiter) && any;
     }
@@ -297,11 +319,12 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
                            const float* x0, float* x, int* iters, float* rs,
                            float* r, float* p, float* q, float* best,
-                           int lanes, int nz, int ny, int nx, int ndims,
-                           int op_per_lane, float tol2, int maxiter,
+                           int lanes, int chunk, int nz, int ny, int nx,
+                           int ndims, int op_per_lane, float tol2, int maxiter,
                            int stall_iters, int precondition, int return_best,
                            int warm_start, void* stream) {
-  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3))
+  const int blocks = fg_chunk_blocks(lanes, chunk);
+  if (blocks == 0 || (ndims != 2 && ndims != 3))
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = nz;
@@ -310,14 +333,14 @@ extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
   g.n = nz * ny * nx;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndims == 2) {
-    fg_cg_kernel<2, false, false><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, g,
-        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+    fg_cg_kernel<2, false, false><<<blocks, FG_THREADS, 0, s>>>(
+        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
+        g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
         warm_start, FgCoarse{});
   } else {
-    fg_cg_kernel<3, false, false><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, g,
-        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+    fg_cg_kernel<3, false, false><<<blocks, FG_THREADS, 0, s>>>(
+        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
+        g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
         warm_start, FgCoarse{});
   }
   return (int)cudaGetLastError();
@@ -332,12 +355,12 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
                               const float* off, const int* nbr,
                               const float* x0, float* x, int* iters, float* rs,
                               float* r, float* p, float* q, float* best,
-                              int lanes, int n, int ndims, int op_per_lane,
-                              float tol2, int maxiter, int stall_iters,
-                              int precondition, int return_best,
-                              int warm_start, void* stream) {
-  if (lanes < 1 || lanes > FG_MAX_LANES || (ndims != 2 && ndims != 3) ||
-      nbr == nullptr)
+                              int lanes, int chunk, int n, int ndims,
+                              int op_per_lane, float tol2, int maxiter,
+                              int stall_iters, int precondition,
+                              int return_best, int warm_start, void* stream) {
+  const int blocks = fg_chunk_blocks(lanes, chunk);
+  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr)
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = 1;
@@ -346,14 +369,14 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
   g.n = n;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndims == 2) {
-    fg_cg_kernel<2, true, false><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, g,
-        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+    fg_cg_kernel<2, true, false><<<blocks, FG_THREADS, 0, s>>>(
+        b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
+        g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
         warm_start, FgCoarse{});
   } else {
-    fg_cg_kernel<3, true, false><<<1, FG_THREADS, 0, s>>>(
-        b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, g,
-        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+    fg_cg_kernel<3, true, false><<<blocks, FG_THREADS, 0, s>>>(
+        b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
+        g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
         warm_start, FgCoarse{});
   }
   return (int)cudaGetLastError();
@@ -366,11 +389,11 @@ extern "C" int fg_cg_mb_coarse_solve(
     const float* b, const float* diag, const float* off, const int* nbr,
     const float* x0, float* x, int* iters, float* rs, float* r, float* p,
     float* q, float* best, const float* einv_t, const int* strip_ptr,
-    const int* strip_cells, const int* cidx, int lanes, int n, int ndims,
-    int op_per_lane, int K, float tol2, int maxiter, int stall_iters,
+    const int* strip_cells, const int* cidx, int lanes, int chunk, int n,
+    int ndims, int op_per_lane, int K, float tol2, int maxiter, int stall_iters,
     int precondition, int return_best, int warm_start, void* stream) {
-  if (lanes < 1 || lanes > FG_MAX_LANES || ndims != 2 || nbr == nullptr ||
-      K < 1 || K > FG_MAX_K)
+  const int blocks = fg_chunk_blocks(lanes, chunk);
+  if (blocks == 0 || ndims != 2 || nbr == nullptr || K < 1 || K > FG_MAX_K)
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = 1;
@@ -384,8 +407,8 @@ extern "C" int fg_cg_mb_coarse_solve(
   cz.cidx = cidx;
   cz.K = K;
   cz.per_lane = op_per_lane;
-  fg_cg_kernel<2, true, true><<<1, FG_THREADS, 0, (cudaStream_t)stream>>>(
-      b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, g,
+  fg_cg_kernel<2, true, true><<<blocks, FG_THREADS, 0, (cudaStream_t)stream>>>(
+      b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g,
       op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
       warm_start, cz);
   return (int)cudaGetLastError();

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 
 #define FG_THREADS 1024
+// lanes of one thread block (one lockstep chunk); a solve takes any number
+// of lanes, spread over a grid of ceil(lanes / chunk) blocks
 #define FG_MAX_LANES 64
 
 struct FgGrid {
@@ -73,6 +75,25 @@ __device__ __forceinline__ void fg_block_sum2(float& a, float& b, float* sh) {
   b = (lane < nwarps) ? sh[32 + lane] : 0.0f;
   a = fg_warp_sum(a);
   b = fg_warp_sum(b);
+}
+
+// The chunk grid: block b solves lanes [b * chunk, min(lanes, (b + 1) *
+// chunk)) as its own lockstep group, with its own loop, iteration counter
+// and per-lane scalars.  Per-lane freeze keeps a lane's x independent of its
+// chunk mates, so this computes what the TPU's sequential chunks (lax.map)
+// compute, lane for lane, with the chunks side by side on the SMs.  Returns
+// the first lane of this block and sets `lanes` to the block's lane count.
+__device__ __forceinline__ int fg_chunk(int& lanes, int chunk) {
+  const int l0 = blockIdx.x * chunk;
+  lanes = min(chunk, lanes - l0);
+  return l0;
+}
+
+// Launch shape of a solve over `lanes` lanes in chunks of `chunk`: the
+// number of blocks, or 0 when the arguments are out of range.
+inline int fg_chunk_blocks(int lanes, int chunk) {
+  if (lanes < 1 || chunk < 1 || chunk > FG_MAX_LANES) return 0;
+  return (lanes + chunk - 1) / chunk;
 }
 
 __device__ __forceinline__ float fg_guard(float x) {

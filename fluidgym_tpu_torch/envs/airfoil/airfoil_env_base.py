@@ -26,7 +26,6 @@ the aggregation coarse space of the pressure solve; they raise).
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any
 
 import numpy as np
 import torch
@@ -42,6 +41,7 @@ from fluidgym_tpu_torch.envs.util.multiblock_resample import (
     make_multiblock_point_plan,
 )
 from fluidgym_tpu_torch.envs.util.profiles import get_jet_profile
+from fluidgym_tpu_torch.envs.util.smoothed_control import SmoothedControlMixin
 from fluidgym_tpu_torch.envs.util.wall_forces import WallForcesMixin
 from fluidgym_tpu_torch.solver import piso
 from fluidgym_tpu_torch.solver.boundaries import (balance_boundary_fluxes,
@@ -74,10 +74,8 @@ def points_in_polygon(polygon: np.ndarray, points: np.ndarray) -> np.ndarray:
     return inside
 
 
-class AirfoilEnvBase(WallForcesMixin, FluidEnv):
+class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     """Base class of the airfoil flow environments."""
-
-    _action_smoothing_alpha: float = 0.1
 
     _n_jets: int = 3
     U_mean: float = 0.3
@@ -390,38 +388,8 @@ class AirfoilEnvBase(WallForcesMixin, FluidEnv):
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
-    def _pure_step(self, state: DomainState, action: Tensor, last_control=None):
-        """One env step: per sim step, smooth the control toward the action,
-        apply it, advance one sim step and record drag/lift; then
-        observations and reward.  Returns ``(state, last_control, obs,
-        reward, info)``."""
-        if last_control is None:
-            last_control = self._last_control
-        alpha = self._action_smoothing_alpha
-        ctrl = last_control
-        cds, cls, infos = [], [], []
-        for _ in range(self._n_sim_steps):
-            ctrl = ctrl + alpha * (action - ctrl)
-            if self._enable_actions:
-                state = self._pure_apply_action(state, ctrl)
-            state, si = piso.single_step_info(state, self._geoms, self._topo,
-                                              self._cfg, self._hooks)
-            cd, cl = self._pure_drag_lift(state)
-            cds.append(cd)
-            cls.append(cl)
-            infos.append(si)
-        obs = self._pure_global_obs(state)
-        cd = torch.mean(torch.stack(cds))
-        cl = torch.mean(torch.stack(cls))
-        reward = (cl / cd) - self._cl_cd_ref
-        info = {"drag": cd, "lift": cl}
-        info.update(piso.solver_info_dict(piso.combine_infos(infos)))
-        return state, ctrl, obs, reward, info
-
-    def _step_impl(self, action: Tensor):
-        self._state, self._last_control, obs, reward, info = self._pure_step(
-            self._state, action)
-        return obs, reward, False, info
+    def _reward(self, cd: Tensor, cl: Tensor) -> Tensor:
+        return (cl / cd) - self._cl_cd_ref
 
     # ------------------------------------------------------------------
     # randomization
@@ -455,10 +423,3 @@ class AirfoilEnvBase(WallForcesMixin, FluidEnv):
     def id(self) -> str:
         return f"Airfoil{self._ndims}D_Re{int(self._reynolds_number)}"
 
-    def _get_additional_state_info(self) -> dict[str, Any]:
-        return {"last_control": self._last_control}
-
-    def _set_additional_state_info(self, info: dict[str, Any]) -> None:
-        if "last_control" in info:
-            self._last_control = torch.as_tensor(
-                info["last_control"], device=self._device).to(self._dtype)

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from abc import abstractmethod
 from dataclasses import replace
-from typing import Any
 
 import numpy as np
 import torch
@@ -35,6 +34,7 @@ from fluidgym_tpu_torch.envs.util.multiblock_resample import (
     make_multiblock_plan,
     make_multiblock_point_plan,
 )
+from fluidgym_tpu_torch.envs.util.smoothed_control import SmoothedControlMixin
 from fluidgym_tpu_torch.envs.util.wall_forces import WallForcesMixin
 from fluidgym_tpu_torch.solver import piso
 from fluidgym_tpu_torch.solver.boundaries import make_convective_outflow_hook
@@ -43,10 +43,8 @@ from fluidgym_tpu_torch.solver.piso import ADAPTIVE, Hooks, SimConfig
 Tensor = torch.Tensor
 
 
-class CylinderEnvBase(WallForcesMixin, FluidEnv):
+class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     """Base class of the cylinder flow environments."""
-
-    _action_smoothing_alpha: float = 0.1
 
     H: float = 4.1
     L: float = 22.0
@@ -289,38 +287,8 @@ class CylinderEnvBase(WallForcesMixin, FluidEnv):
     def _apply_action(self, action: Tensor) -> None:
         self._state = self._pure_apply_action(self._state, action.to(self._dtype))
 
-    def _pure_step(self, state: DomainState, action: Tensor, last_control=None):
-        """One env step: per sim step, smooth the control toward the action,
-        apply it, advance one sim step and record drag/lift; then
-        observations and reward.  Returns ``(state, last_control, obs,
-        reward, info)``."""
-        if last_control is None:
-            last_control = self._last_control
-        alpha = self._action_smoothing_alpha
-        ctrl = last_control
-        cds, cls, infos = [], [], []
-        for _ in range(self._n_sim_steps):
-            ctrl = ctrl + alpha * (action - ctrl)
-            if self._enable_actions:
-                state = self._pure_apply_action(state, ctrl)
-            state, si = piso.single_step_info(state, self._geoms, self._topo,
-                                              self._cfg, self._hooks)
-            cd, cl = self._pure_drag_lift(state)
-            cds.append(cd)
-            cls.append(cl)
-            infos.append(si)
-        obs = self._pure_global_obs(state)
-        cd = torch.mean(torch.stack(cds))
-        cl = torch.mean(torch.stack(cls))
-        reward = self._cd_ref - cd - self._lift_penalty * torch.abs(cl)
-        info = {"drag": cd, "lift": cl}
-        info.update(piso.solver_info_dict(piso.combine_infos(infos)))
-        return state, ctrl, obs, reward, info
-
-    def _step_impl(self, action: Tensor):
-        self._state, self._last_control, obs, reward, info = self._pure_step(
-            self._state, action)
-        return obs, reward, False, info
+    def _reward(self, cd: Tensor, cl: Tensor) -> Tensor:
+        return self._cd_ref - cd - self._lift_penalty * torch.abs(cl)
 
     # ------------------------------------------------------------------
     # randomization
@@ -354,10 +322,3 @@ class CylinderEnvBase(WallForcesMixin, FluidEnv):
     def initial_domain_id(self) -> str:
         return (f"cylinder_{self._ndims}D_Re{int(self._reynolds_number)}"
                 f"_Res{self._circle_resolution_angular}")
-
-    def _get_additional_state_info(self) -> dict[str, Any]:
-        return {"last_control": self._last_control}
-
-    def _set_additional_state_info(self, info: dict[str, Any]) -> None:
-        if "last_control" in info:
-            self._last_control = info["last_control"].to(self._device)

@@ -2,10 +2,13 @@
 ``fluidgym_tpu/envs/fluid_env.py``).
 
 The env holds a ``DomainState`` of tensors on its ``device`` and advances it
-with the PISO solver; one env step is ``_pure_step(state, action) -> (state,
-obs, reward, info)``.  RNG: a numpy ``Generator`` for host-side decisions
-(the same draws as the JAX package from the same seed) and a
-``torch.Generator`` for ``sample_action``.
+with the PISO solver; one env step is ``_pure_step(carry, action) ->
+(carry, obs, reward, info)`` over the carry of ``_pure_carry`` (a tuple led
+by the ``DomainState``).  The step is composed of per-env pure pieces around
+the simulation (``_compose_step``), which the single env runs directly and
+``parallel.BatchedFluidEnv`` runs under ``torch.func.vmap``.  RNG: a numpy
+``Generator`` for host-side decisions (the same draws as the JAX package
+from the same seed) and a ``torch.Generator`` for ``sample_action``.
 
 Environment surface: ``reset/step/seed/sample_action/get_state/set_state/
 train/val/test``, Dict observation spaces, SARL/MARL dispatch, truncation at
@@ -28,9 +31,10 @@ from fluidgym_tpu_torch import spaces
 from fluidgym_tpu_torch.config import config as fluidgym_config
 from fluidgym_tpu_torch.core.domain import (BlockGeom, DomainState, DomainTopo,
                                             domain_state_from_numpy,
-                                            domain_state_to_numpy)
+                                            domain_state_to_numpy, map_state)
 from fluidgym_tpu_torch.core.domain_io import load_domain
 from fluidgym_tpu_torch.device import resolve_device
+from fluidgym_tpu_torch.solver import piso
 from fluidgym_tpu_torch.solver.piso import Hooks, SimConfig, single_step
 from fluidgym_tpu_torch.types import EnvMode, FluidEnvLike
 from fluidgym_tpu_torch.utils import data_utils
@@ -176,12 +180,6 @@ class FluidEnv(ABC, FluidEnvLike):
     @abstractmethod
     def _randomize_domain(self) -> None: ...
 
-    @abstractmethod
-    def _step_impl(self, action: Tensor): ...
-
-    def _step_marl_impl(self, action: Tensor):
-        raise NotImplementedError
-
     # ------------------------------------------------------------------
     # properties
     # ------------------------------------------------------------------
@@ -305,9 +303,83 @@ class FluidEnv(ABC, FluidEnvLike):
         self._state = single_step(self._state, self._geoms, self._topo,
                                   self._cfg, self._hooks)
 
-    def _pure_step(self, state: DomainState, action: Tensor):
-        """Env step: ``(state, action) -> (state, obs, reward, info)``."""
+    # ------------------------------------------------------------------
+    # pure-step protocol (counterpart of the JAX package's ``_pure_step`` /
+    # ``_pure_carry``): an env step is
+    #   carry = _pure_begin(carry, action)
+    #   n_sim_steps times: carry = _pure_pre_sim(carry, action);
+    #                      advance carry[0] one sim step;
+    #                      record = _pure_record(carry)
+    #   obs, reward, info = _pure_end(carry, records)   (MARL: _pure_end_marl)
+    # Each piece is per env and pure, so the batched env runs the same
+    # pieces under torch.func.vmap; only the sim step differs.
+    # ------------------------------------------------------------------
+    def _pure_carry(self) -> tuple:
+        """What the pure step threads through: ``(DomainState, *extra)``."""
+        return (self._state,)
+
+    def _set_pure_carry(self, carry: tuple) -> None:
+        self._state = carry[0]
+
+    def _pure_begin(self, carry: tuple, action: Tensor) -> tuple:
+        return carry
+
+    def _pure_pre_sim(self, carry: tuple, action: Tensor) -> tuple:
+        return carry
+
+    def _pure_record(self, carry: tuple) -> tuple:
+        return ()
+
+    def _pure_end(self, carry: tuple, records: list):
+        """``(obs, reward, info)`` after the sim steps."""
         raise NotImplementedError
+
+    def _pure_end_marl(self, carry: tuple, records: list):
+        raise NotImplementedError
+
+    def _compose_step(self, carry: tuple, action: Tensor, *, marl: bool = False,
+                      lift=None, sim=None):
+        """One env step from the pieces.  ``lift(piece)`` wraps each piece
+        (identity for one env; a ``torch.func.vmap`` for a batch) and
+        ``sim(state) -> (state, StepInfo)`` advances one sim step
+        (``piso.single_step_info`` by default).  Returns ``(carry, obs,
+        reward, info)``, with the solver entries merged into ``info``."""
+        lift = lift or (lambda piece: piece)
+        if sim is None:
+            def sim(state):
+                return piso.single_step_info(state, self._geoms, self._topo,
+                                             self._cfg, self._hooks)
+        carry = lift(self._pure_begin)(carry, action)
+        records, infos = [], []
+        for _ in range(self._n_sim_steps):
+            carry = lift(self._pure_pre_sim)(carry, action)
+            state, si = sim(carry[0])
+            carry = (state,) + tuple(carry[1:])
+            records.append(lift(self._pure_record)(carry))
+            infos.append(si)
+        end = self._pure_end_marl if marl else self._pure_end
+        obs, reward, info = lift(end)(carry, records)
+        info = dict(info)
+        info.update(piso.solver_info_dict(piso.combine_infos(infos)))
+        return carry, obs, reward, info
+
+    def _pure_step(self, carry: tuple, action: Tensor):
+        """Env step: ``(carry, action) -> (carry, obs, reward, info)``."""
+        return self._compose_step(carry, action)
+
+    def _pure_step_marl(self, carry: tuple, actions: Tensor):
+        return self._compose_step(carry, actions, marl=True)
+
+    def _step_impl(self, action: Tensor):
+        carry, obs, reward, info = self._pure_step(self._pure_carry(), action)
+        self._set_pure_carry(carry)
+        return obs, reward, False, info
+
+    def _step_marl_impl(self, actions: Tensor):
+        carry, obs, rewards, info = self._pure_step_marl(self._pure_carry(),
+                                                         actions)
+        self._set_pure_carry(carry)
+        return obs, rewards, False, info
 
     # ------------------------------------------------------------------
     # initial state
@@ -325,6 +397,17 @@ class FluidEnv(ABC, FluidEnvLike):
         path = (data_utils.initial_domain_dir(self.initial_domain_id)
                 / f"{mode.value}_{idx:02d}")
         return load_domain(path, dtype=self._dtype, device=self._device)
+
+    def load_initial_domain(self, mode: EnvMode, idx: int) -> None:
+        """Load one bundled initial domain snapshot as the current state,
+        with no randomization; the episode restarts."""
+        self._topo, self._geoms, self._state = self._load_initial_domain(
+            EnvMode(mode), idx)
+        self._hooks = self._get_prep_fn()
+        self._cfg = self._get_simulation()
+        self._additional_initialization()
+        self._reset_called = True
+        self._n_steps = 0
 
     def _set_initial_state(self, randomize: bool | None = None) -> None:
         """(Re)build topo/geoms/state (+ sim config) for a new episode."""
@@ -493,15 +576,4 @@ def env_state_to_numpy(state: EnvState) -> EnvState:
 
 
 def _to_device(state: DomainState, device, dtype) -> DomainState:
-    from dataclasses import replace
-
-    conv = lambda t: None if t is None else t.to(device=device, dtype=dtype)
-    blocks = tuple(
-        replace(b, velocity=conv(b.velocity), pressure=conv(b.pressure),
-                scalar=conv(b.scalar), velocity_source=conv(b.velocity_source),
-                viscosity=conv(b.viscosity),
-                faces=tuple(replace(fd, velocity=conv(fd.velocity),
-                                    scalar=conv(fd.scalar)) for fd in b.faces))
-        for b in state.blocks)
-    return DomainState(blocks=blocks, viscosity=conv(state.viscosity),
-                       scalar_diffusivity=conv(state.scalar_diffusivity))
+    return map_state(state, lambda t: t.to(device=device, dtype=dtype))

@@ -25,7 +25,6 @@ from fluidgym_tpu_torch.core import geometry as geo
 from fluidgym_tpu_torch.core.domain import DomainBuilder, DomainState
 from fluidgym_tpu_torch.envs.fluid_env import FluidEnv
 from fluidgym_tpu_torch.envs.util.resample import make_rectilinear_plan
-from fluidgym_tpu_torch.solver import piso
 from fluidgym_tpu_torch.solver.piso import ADAPTIVE, Hooks, SimConfig
 
 Tensor = torch.Tensor
@@ -290,26 +289,22 @@ class RBCEnvBase(FluidEnv):
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
-    def _pure_step(self, state: DomainState, action: Tensor):
-        """Apply control, run n_sim_steps of adaptive PISO, compute Nusselt,
-        observations and reward."""
-        if self._enable_actions:
-            state = self._pure_apply_action(state, action)
-        infos = []
-        for _ in range(self._n_sim_steps):
-            state, si = piso.single_step_info(state, self._geoms, self._topo,
-                                              self._cfg, self._hooks)
-            infos.append(si)
-        nu = self._pure_nusselt(state)
-        obs = self._pure_global_obs(state)
-        reward = self.nu_ref - nu
-        info = {"nusselt": nu[0]}
-        info.update(piso.solver_info_dict(piso.combine_infos(infos)))
-        return state, obs, reward, info
+    def _pure_begin(self, carry: tuple, action: Tensor) -> tuple:
+        """Set the heater profile from the action (once per env step)."""
+        if not self._enable_actions:
+            return carry
+        return (self._pure_apply_action(carry[0], action),)
 
-    def _pure_step_marl(self, state: DomainState, actions: Tensor):
-        state, _, global_reward, info = self._pure_step(state, actions)
-        local_obs = self._pure_local_obs(state)
+    def _pure_end(self, carry: tuple, records: list):
+        """Nusselt number, observations and reward after the sim steps."""
+        state = carry[0]
+        nu = self._pure_nusselt(state)
+        return (self._pure_global_obs(state), self.nu_ref - nu,
+                {"nusselt": nu[0]})
+
+    def _pure_end_marl(self, carry: tuple, records: list):
+        _, global_reward, info = self._pure_end(carry, records)
+        state = carry[0]
         if self._local_reward_weight > 0:
             local_rewards = self._pure_local_rewards(state)
         else:
@@ -317,18 +312,13 @@ class RBCEnvBase(FluidEnv):
                                         device=self._device)
         agent_rewards = (self._local_reward_weight * local_rewards
                          + (1 - self._local_reward_weight) * global_reward)
-        info["global_reward"] = global_reward
-        return state, local_obs, agent_rewards, info
-
-    def _step_impl(self, action: Tensor):
-        self._state, obs, reward, info = self._pure_step(self._state, action)
-        return obs, reward, False, info
+        return (self._pure_local_obs(state), agent_rewards,
+                dict(info, global_reward=global_reward))
 
     def _step_marl_impl(self, actions: Tensor):
         if self._local_reward_weight is None:
             raise ValueError("local_reward_weight must be set for multi-agent step.")
-        self._state, obs, rewards, info = self._pure_step_marl(self._state, actions)
-        return obs, rewards, False, info
+        return super()._step_marl_impl(actions)
 
     # ------------------------------------------------------------------
     # identifiers

@@ -12,6 +12,8 @@
 
 Each module holds the kernel's wrapper (which launches the kernel for CUDA
 tensors and runs the plain PyTorch version for CPU tensors), the plain
-version itself, and a launch counter on the wrapper.  ``_build`` compiles
+version itself, and a launch counter on the wrapper.  The Krylov wrappers
+take any number of lanes (one launch of a grid of lockstep chunks) and fold
+a ``torch.func.vmap`` batch onto them (``cg_cuda.LaneFold``).  ``_build`` compiles
 ``csrc/`` with ``nvcc`` at first use; importing this package builds nothing.
 """

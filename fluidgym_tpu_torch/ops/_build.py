@@ -35,24 +35,25 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _ARGTYPES = {
-    # b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, nz, ny, nx,
-    # ndims, op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
-    "fg_cg_solve": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, chunk, nz, ny,
+    # nx, ndims, op_per_lane, tol2, maxiter, stall, precond, best?, warm,
+    # stream
+    "fg_cg_solve": [_P] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
     # b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
-    # lanes, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall, precond,
-    # best?, warm, stream
-    "fg_bicgstab_solve": [_P] * 15 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
-    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, n, ndims,
-    # op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
-    "fg_cg_mb_solve": [_P] * 12 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+    # lanes, chunk, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall,
+    # precond, best?, warm, stream
+    "fg_bicgstab_solve": [_P] * 15 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, n,
+    # ndims, op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
+    "fg_cg_mb_solve": [_P] * 12 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-    # best, lanes, n, ndims, op_per_lane, tol2, maxiter, stall, precond,
-    # best?, warm, stream
-    "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+    # best, lanes, chunk, n, ndims, op_per_lane, tol2, maxiter, stall,
+    # precond, best?, warm, stream
+    "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, einv_t, strip_ptr,
-    # strip_cells, cidx, lanes, n, ndims, op_per_lane, K, tol2, maxiter,
-    # stall, precond, best?, warm, stream
-    "fg_cg_mb_coarse_solve": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # strip_cells, cidx, lanes, chunk, n, ndims, op_per_lane, K, tol2,
+    # maxiter, stall, precond, best?, warm, stream
+    "fg_cg_mb_coarse_solve": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # diag, off, x, hxm, hxp, hym, hyp, y, k, ny, nx, stream
     "fg_stencil2d_apply": [_P] * 8 + [_I] * 3 + [_P],
 }

@@ -11,9 +11,11 @@ Counterpart of ``fluidgym_tpu/ops/cg_pallas_mb.py``:
   ``block_merge.trivial_plan`` (one grid, roll-form matvec) and in the
   merged multi-super-block form ("K2-mb").
 
-Lanes are solve components (and batch entries) sharing one operator; each
+Lanes are solve components sharing one operator, and the envs of a
+``torch.func.vmap`` batch (``cg_cuda.LaneFold``: one operator per env); each
 lane stops on its own NORM2_NORMALIZED test (``tol^2 * n_lane``), with one
-iteration counter shared by all lanes.
+iteration counter shared by the lanes of a lockstep chunk (``chunk``, as in
+``cg_cuda``).
 
 On the card a multi-super-block plan is ONE flat buffer per lane (the
 super-blocks back to back), and its seam fixups live in a per-cell
@@ -59,8 +61,11 @@ import torch
 
 from fluidgym_tpu_torch.core.domain import face_axis
 from fluidgym_tpu_torch.ops import _build
-from fluidgym_tpu_torch.ops.cg_cuda import (MAX_LANES, cg_lockstep, guard,
-                                            roll_matvec, tol2_sum_f32)
+from fluidgym_tpu_torch.ops.cg_cuda import (LaneFold, cg_lockstep,
+                                            check_chunk, default_chunk,
+                                            device_kind, guard,
+                                            lockstep_chunks, roll_matvec,
+                                            tol2_sum_f32)
 from fluidgym_tpu_torch.solver import coarse_strips as cs
 from fluidgym_tpu_torch.solver.block_merge import (MergePlan, fixup_slabs,
                                                    merged_apply)
@@ -171,13 +176,17 @@ def _coarse_precond(plan: MergePlan, sp, einv, diag, precondition: bool):
 
 def _merged_mv(plan: MergePlan, diag, off):
     """Plain merged-frame matvec on flat ``(L, n)`` tensors
-    (``block_merge.merged_apply`` on the unflattened super-blocks)."""
-    if diag.shape[0] != 1:
-        raise ValueError("merged plain versions take one shared operator")
+    (``block_merge.merged_apply`` on the unflattened super-blocks), for one
+    shared operator (``diag (1, n)``, ``off (1, 2*ndims, n)``) or one per
+    lane (leading axis L)."""
     nf = 2 * plan.ndims
+    L = diag.shape[0]
     dg = unflatten_fields(plan, diag)
-    of = unflatten_fields(plan, off.reshape(nf, -1))
-    mops = tuple((d[0], o) for d, o in zip(dg, of))
+    of = [o.reshape((L, nf) + tuple(o.shape[1:])).movedim(1, 0)
+          for o in unflatten_fields(plan, off.reshape(L * nf, -1))]
+    if L == 1:
+        dg, of = [d[0] for d in dg], [o[:, 0] for o in of]
+    mops = tuple(zip(dg, of))
 
     def mv(v):
         return flatten_fields(plan, merged_apply(plan, mops,
@@ -220,7 +229,8 @@ def bicgstab_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
         stalled = (it - best_it) >= stall_iters
         if not bool(((rs > tol2_sum) & ~stalled).any()):
             break
-        done = (rs <= tol2_sum) | stalled
+        # a NaN residual counts as frozen (it never holds the chunk either)
+        done = ~(rs > tol2_sum) | stalled
         p_hat = pc(p)
         v = mv(p_hat)
         alpha = torch.where(done, zero, rho / guard(red(r_hat * v)))
@@ -252,22 +262,26 @@ def bicgstab_lockstep(mv, diag, b, x0, *, tol2_sum: float, maxiter: int,
 
 def fused_bicgstab_plain(diag, off, b, x0, *, ndims: int, tol2_sum: float,
                          maxiter: int, stall_iters: int, precondition: bool,
-                         return_best: bool, plan: MergePlan | None = None):
+                         return_best: bool, plan: MergePlan | None = None,
+                         chunk: int | None = None):
     """Plain PyTorch K2.  Without ``plan`` (the single-super-block form):
     ``(lanes, *spatial)`` tensors, ``diag``/``off`` with a leading lane axis
     of 1 or ``lanes``.  With a multi-super-block ``plan`` (K2-mb): the flat
-    merged layout, ``b``/``x0`` ``(lanes, n)``, ``diag (1, n)``, ``off (1,
-    2*ndims, n)``.  Returns ``(x, iterations (lanes,), residual_sum
+    merged layout, ``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``, ``off
+    (1|lanes, 2*ndims, n)``.  Lockstep chunks of ``chunk`` lanes (one chunk
+    when None).  Returns ``(x, iterations (lanes,), residual_sum
     (lanes,))``."""
     fused_bicgstab_plain.calls += 1
-    if plan is None:
-        mv = lambda v: roll_matvec(diag, off, v, ndims)
-    else:
-        mv = _merged_mv(plan, diag, off)
-    return bicgstab_lockstep(mv, diag, b, x0, tol2_sum=tol2_sum,
-                             maxiter=maxiter, stall_iters=stall_iters,
-                             precondition=precondition,
-                             return_best=return_best)
+
+    def solve(b, x0, d, o):
+        mv = (_merged_mv(plan, d, o) if plan is not None
+              else lambda v: roll_matvec(d, o, v, ndims))
+        return bicgstab_lockstep(mv, d, b, x0, tol2_sum=tol2_sum,
+                                 maxiter=maxiter, stall_iters=stall_iters,
+                                 precondition=precondition,
+                                 return_best=return_best)
+
+    return lockstep_chunks(solve, chunk, b, x0, diag, off)
 
 
 fused_bicgstab_plain.calls = 0
@@ -275,18 +289,26 @@ fused_bicgstab_plain.calls = 0
 
 def fused_cg_mb_plain(plan: MergePlan, diag, off, b, x0, *, tol2_sum: float,
                       maxiter: int, stall_iters: int, precondition: bool,
-                      return_best: bool, coarse=None):
+                      return_best: bool, coarse=None,
+                      chunk: int | None = None):
     """Plain PyTorch K3 on the flat merged layout (``b``/``x0`` ``(lanes,
-    n)``, ``diag (1, n)``, ``off (1, 2*ndims, n)``); with ``coarse = (sp,
-    einv)`` (a ``coarse_strips.StripPlan`` and ``(1|lanes, K, K)``) K3-coarse.
-    Returns ``(x, iterations (lanes,), residual_sum (lanes,))``."""
+    n)``, ``diag (1|lanes, n)``, ``off (1|lanes, 2*ndims, n)``); with
+    ``coarse = (sp, einv)`` (a ``coarse_strips.StripPlan`` and ``(1|lanes,
+    K, K)`` like ``diag``) K3-coarse.  Lockstep chunks of ``chunk`` lanes
+    (one chunk when None).  Returns ``(x, iterations (lanes,), residual_sum
+    (lanes,))``."""
     fused_cg_mb_plain.calls += 1
-    precond = (None if coarse is None
-               else _coarse_precond(plan, *coarse, diag, precondition))
-    return cg_lockstep(_merged_mv(plan, diag, off), diag, b, x0,
-                       tol2_sum=tol2_sum, maxiter=maxiter,
-                       stall_iters=stall_iters, precondition=precondition,
-                       return_best=return_best, precond=precond)
+    sp, einv = coarse if coarse is not None else (None, None)
+
+    def solve(b, x0, d, o, e):
+        precond = (None if e is None
+                   else _coarse_precond(plan, sp, e, d, precondition))
+        return cg_lockstep(_merged_mv(plan, d, o), d, b, x0, tol2_sum=tol2_sum,
+                           maxiter=maxiter, stall_iters=stall_iters,
+                           precondition=precondition, return_best=return_best,
+                           precond=precond)
+
+    return lockstep_chunks(solve, chunk, b, x0, diag, off, einv)
 
 
 fused_cg_mb_plain.calls = 0
@@ -296,9 +318,8 @@ fused_cg_mb_plain.calls = 0
 # launches
 # ---------------------------------------------------------------------------
 
-def _check_operands(b, diag, off, x0, L):
-    if not 1 <= L <= MAX_LANES:
-        raise ValueError(f"the CUDA kernels take 1..{MAX_LANES} lanes, got {L}")
+def _check_operands(b, diag, off, x0, L, chunk):
+    check_chunk(L, chunk)
     dev = b.device
     for name, t in (("b", b), ("diag", diag), ("off", off), ("x0", x0)):
         if t is not None and (t.device != dev or t.dtype != torch.float32):
@@ -310,13 +331,13 @@ def _check_operands(b, diag, off, x0, L):
 
 
 def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
-            precondition, return_best):
+            precondition, return_best, chunk):
     """K2, single-super-block form, on ``(lanes, *spatial)`` tensors."""
     L = b.shape[0]
     spatial = tuple(b.shape[1:])
     if len(spatial) != ndims or ndims not in (2, 3):
         raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
-    op_per_lane = _check_operands(b, diag, off, x0, L)
+    op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
     b = b.contiguous()
     diag = diag.contiguous()
     off = off.contiguous()
@@ -333,7 +354,7 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
         status = lib.fg_bicgstab_solve(
             b.data_ptr(), diag.data_ptr(), off.data_ptr(), x0c.data_ptr(),
             x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
-            *[s.data_ptr() for s in scratch], L, nz, ny, nx, ndims,
+            *[s.data_ptr() for s in scratch], L, chunk, nz, ny, nx, ndims,
             op_per_lane, tol2_sum, int(maxiter), int(stall_iters),
             int(precondition), int(return_best), int(x0 is not None), stream)
     _build.check(status, "fused_bicgstab_mb")
@@ -341,7 +362,7 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
 
 
 def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
-                   maxiter, stall_iters, precondition, return_best,
+                   maxiter, stall_iters, precondition, return_best, chunk,
                    coarse=None):
     """K3 (``algo="cg"``; K3-coarse with ``coarse = (sp, einv)``) or K2-mb
     (``"bicgstab"``) on the flat merged layout: ``b``/``x0`` ``(lanes, n)``,
@@ -351,7 +372,7 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     L, n = b.shape
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
         raise ValueError("b must be (lanes, n) and off (1|lanes, 2*ndims, n)")
-    op_per_lane = _check_operands(b, diag, off, x0, L)
+    op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
     nbr = neighbor_table(plan, b.device)
     b = b.contiguous()
     diag = diag.contiguous()
@@ -378,21 +399,14 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
             lists = strip_lists(plan, b.device)
             status = lib.fg_cg_mb_coarse_solve(
                 *head, einv_t.data_ptr(), *[t.data_ptr() for t in lists],
-                L, n, ndims, op_per_lane, sp.K, *tail, stream)
+                L, chunk, n, ndims, op_per_lane, sp.K, *tail, stream)
         else:
             entry = (lib.fg_cg_mb_solve if algo == "cg"
                      else lib.fg_bicgstab_mb_solve)
-            status = entry(*head, L, n, ndims, op_per_lane, *tail, stream)
+            status = entry(*head, L, chunk, n, ndims, op_per_lane, *tail,
+                           stream)
     _build.check(status, "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb")
     return x, iters, rs
-
-
-def _device_kind(b: torch.Tensor, what: str) -> str:
-    if b.is_cuda:
-        return "cuda"
-    if b.device.type == "cpu":
-        return "cpu"
-    raise ValueError(f"{what} runs on CUDA or CPU tensors, not {b.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +416,7 @@ def _device_kind(b: torch.Tensor, what: str) -> str:
 def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
                 maxiter: int = 5000, stall_iters: int = 250,
                 precondition: bool = True, return_best: bool = True,
-                coarse_strips: bool = False):
+                coarse_strips: bool = False, chunk: int | None = None):
     """K3: whole-solve lockstep CG on a merged multi-block stencil operator.
 
     ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
@@ -410,10 +424,12 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     per-super-block ``(*spatial_s)`` (one lane, as the JAX entry) or
     ``(lanes, *spatial_s)``.  ``coarse_strips``: add the strip-coarse
     correction to the preconditioner (K3-coarse); a plan without strip
-    spaces (3D) keeps Jacobi alone, as in the JAX package.  Returns ``(xs,
+    spaces (3D) keeps Jacobi alone, as in the JAX package.  ``chunk``:
+    lanes per lockstep chunk (``default_chunk`` when None).  Returns ``(xs,
     SolveInfo)`` in the same layout, the info per lane (scalars for one
     unbatched lane).  A lane whose RHS is all zero over every super-block
-    gets a zero solution."""
+    gets a zero solution.  Under ``torch.func.vmap`` the batch folds onto
+    the lanes (``cg_cuda.LaneFold``)."""
     batched = bs[0].dim() == plan.ndims + 1
     if not batched:
         bs = tuple(b.unsqueeze(0) for b in bs)
@@ -424,15 +440,20 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     L, n = b.shape
     tol2 = tol2_sum_f32(tol, n, b.dtype)
     sp = cs.strip_plan(plan) if coarse_strips else None
-    coarse = None
+    einv = None
     if sp is not None:
-        einv = cs.coarse_inverse(plan, sp, tuple(zip(diags, offs)))
-        coarse = (sp, einv.unsqueeze(0))
+        einv = cs.coarse_inverse(plan, sp, tuple(zip(diags, offs))).unsqueeze(0)
     kw = dict(tol2_sum=tol2, maxiter=int(maxiter), stall_iters=int(stall_iters),
-              precondition=bool(precondition), return_best=bool(return_best),
-              coarse=coarse)
-    if _device_kind(b, "fused_cg_mb") == "cuda":
-        x, iters, rs = _launch_merged("cg", plan, diag, off, b, x0, **kw)
+              precondition=bool(precondition), return_best=bool(return_best))
+
+    def solve(b, x0, diag, off, einv):
+        c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
+        coarse = None if einv is None else (sp, einv)
+        if device_kind(b, "fused_cg_mb") == "cpu":
+            return fused_cg_mb_plain(plan, diag, off, b, x0, coarse=coarse,
+                                     chunk=c, **kw)
+        out = _launch_merged("cg", plan, diag, off, b, x0, coarse=coarse,
+                             chunk=c, **kw)
         if coarse is None and plan.identity_seams:
             fused_cg_mb.launches += 1
         elif coarse is None:
@@ -441,8 +462,9 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
             fused_cg_mb.coarse_launches += 1
         else:
             fused_cg_mb.coarse_flip_launches += 1
-    else:
-        x, iters, rs = fused_cg_mb_plain(plan, diag, off, b, x0, **kw)
+        return out
+
+    x, iters, rs = LaneFold.apply(solve, 2, b, x0, diag, off, einv)
     b_zero = (b == 0).all(dim=1)
     x = torch.where(b_zero.unsqueeze(1), torch.zeros_like(x), x)
     info = SolveInfo(converged=(rs <= tol2) | b_zero, iterations=iters,
@@ -462,15 +484,19 @@ fused_cg_mb.coarse_flip_launches = 0
 
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                       tol: float, maxiter: int = 5000, stall_iters: int = 250,
-                      precondition: bool = True, return_best: bool = True):
+                      precondition: bool = True, return_best: bool = True,
+                      chunk: int | None = None):
     """K2: whole-solve lockstep BiCGStab on a merged stencil operator.
 
     ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
     *spatial_s)``; ``bs``/``x0s``: per-super-block ``(C, *spatial_s)`` with a
     leading component axis.  Components are independent lanes with
-    per-component stopping.  Returns ``(xs, SolveInfo)`` with the info
-    aggregated over components (converged = all, iterations = max, residual
-    = joint RMSE)."""
+    per-component stopping, in lockstep chunks of ``chunk`` lanes
+    (``default_chunk`` when None).  Returns ``(xs, SolveInfo)`` with the
+    info aggregated over components (converged = all, iterations = max,
+    residual = joint RMSE).  Under ``torch.func.vmap`` the batch folds onto
+    the lanes (``cg_cuda.LaneFold``): B envs of C components are B*C
+    lanes."""
     ndims = plan.ndims
     C = bs[0].shape[0]
     single = len(plan.superblocks) == 1 and not plan.fixups
@@ -486,20 +512,26 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
     tol2 = tol2_sum_f32(tol, n_lane, b.dtype)
     kw = dict(tol2_sum=tol2, maxiter=int(maxiter), stall_iters=int(stall_iters),
               precondition=bool(precondition), return_best=bool(return_best))
-    if _device_kind(b, "fused_bicgstab_mb") == "cuda":
+
+    def solve(b, x0, diag, off):
+        c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
+        if device_kind(b, "fused_bicgstab_mb") == "cpu":
+            return fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
+                                        plan=None if single else plan,
+                                        chunk=c, **kw)
         if single:
-            x, iters, rs = _launch(diag, off, b, x0, ndims=ndims, **kw)
+            out = _launch(diag, off, b, x0, ndims=ndims, chunk=c, **kw)
             fused_bicgstab_mb.launches += 1
         else:
-            x, iters, rs = _launch_merged("bicgstab", plan, diag, off, b, x0,
-                                          **kw)
+            out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
+                                 **kw)
             if plan.identity_seams:
                 fused_bicgstab_mb.merged_launches += 1
             else:
                 fused_bicgstab_mb.merged_flip_launches += 1
-    else:
-        x, iters, rs = fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
-                                            plan=None if single else plan, **kw)
+        return out
+
+    x, iters, rs = LaneFold.apply(solve, 2, b, x0, diag, off)
     # an all-zero RHS over EVERY component gives a zero solution
     b_zero = torch.all(b == 0)
     x = torch.where(b_zero, torch.zeros_like(x), x)

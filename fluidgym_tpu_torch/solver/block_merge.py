@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from fluidgym_tpu_torch.core.domain import BoundKind, DomainTopo, face_axis
+from fluidgym_tpu_torch.solver.stencil import set_region
 
 __all__ = ["Placement", "SuperBlockPlan", "SeamFixup", "MergePlan",
            "merge_plan", "trivial_plan", "pack_fields", "unpack_fields",
@@ -379,7 +380,7 @@ def _pack_one(plan: MergePlan, sb: SuperBlockPlan, fields) -> torch.Tensor:
     buf = torch.zeros(_sb_array_shape(plan, sb), dtype=parts[0].dtype,
                       device=parts[0].device)
     for part, pl in zip(parts, sb.members):
-        buf[_member_slices(pl, nd)] = part
+        buf = set_region(buf, _member_slices(pl, nd), part)
     return buf
 
 
@@ -447,7 +448,8 @@ def fixup_slabs(plan: MergePlan, fx: SeamFixup):
 def merged_apply(plan: MergePlan, merged_ops, ys) -> tuple[torch.Tensor, ...]:
     """Matvec in the merged frame: per-super-block roll stencil plus the
     residual-seam fixups.  ``ys``: per-super-block tensors ``(..., *spatial)``
-    (leading lane axes broadcast against the spatial ``merged_ops``); equals
+    (leading lane axes broadcast against ``merged_ops``, whose ``diag`` may
+    carry the same leading axes, and ``off`` after its face axis); equals
     ``stencil.domain_apply`` composed with pack/unpack."""
     nd = plan.ndims
     out = []
@@ -464,7 +466,7 @@ def merged_apply(plan: MergePlan, merged_ops, ys) -> tuple[torch.Tensor, ...]:
         flips = tuple(-1 - K for K in range(nd) if fx.flip[K])
         if flips:
             src = torch.flip(src, dims=flips)
-        delta = merged_ops[fx.sb][1][fx.face][slab] * (
+        delta = merged_ops[fx.sb][1][fx.face][(Ellipsis,) + slab] * (
             src - ys[fx.sb][(Ellipsis,) + wrap_slab])
         y = out[fx.sb].clone()
         y[(Ellipsis,) + slab] = y[(Ellipsis,) + slab] + delta

@@ -197,11 +197,14 @@ def _seam_pairs(plan: MergePlan, sp: StripPlan):
 
 @functools.lru_cache(maxsize=16)
 def _seam_scatter(plan: MergePlan, sp: StripPlan, device):
-    """The seam part of E as one static linear map: ``E.view(-1)[idx] +=
-    G @ cat(off slabs)``, with ``idx`` the distinct flat (row, col) entries
-    and ``G`` the float64 +-1 matrix that sums each slab cell into them (a
-    deterministic sum, where a scatter-add would race).  Returns ``(slabs,
-    idx, G)`` with ``slabs`` the ``(sb, face, slab)`` to read, or None."""
+    """The seam part of E as one static linear map: ``E.view(-1) += S @ (G @
+    cat(off slabs))``, with ``G`` the float64 +-1 matrix that sums each slab
+    cell into the distinct flat (row, col) entries it touches (a
+    deterministic sum, where a scatter-add would race) and ``S`` the 0/1
+    matrix that places those entries in the flat ``(K*K,)`` E (an exact,
+    out-of-place scatter, so the assembly maps under ``torch.func.vmap``).
+    Returns ``(slabs, S, G)`` with ``slabs`` the ``(sb, face, slab)`` to
+    read, or None."""
     K = sp.K
     slabs, flat_rows, flat_cols, signs = [], [], [], []
     m = 0
@@ -225,7 +228,9 @@ def _seam_scatter(plan: MergePlan, sp: StripPlan, device):
     idx, inv = np.unique(flat, return_inverse=True)
     G = np.zeros((len(idx), m), np.float64)
     np.add.at(G, (inv, np.concatenate(flat_cols)), np.concatenate(signs))
-    return (tuple(slabs), torch.from_numpy(idx).to(device),
+    S = np.zeros((K * K, len(idx)), np.float64)
+    S[idx, np.arange(len(idx))] = 1.0
+    return (tuple(slabs), torch.from_numpy(S).to(device),
             torch.from_numpy(G).to(device))
 
 
@@ -261,13 +266,16 @@ def _assemble_E64(plan: MergePlan, sp: StripPlan, merged_ops) -> torch.Tensor:
             # the source indicator is P shifted by +1
             P_src = torch.roll(P, 1 if f % 2 == 0 else -1, dims=1)
             Eb = Eb + (P * m[None, :]) @ P_src.T
-        E[s.offset:s.offset + s.n, s.offset:s.offset + s.n] += Eb
+        # E's diagonal block of this space (the spaces are disjoint), out
+        # of place so that the assembly maps under torch.func.vmap
+        lo, hi = s.offset, K - s.offset - s.n
+        E = E + torch.nn.functional.pad(Eb, (lo, hi, lo, hi))
     seam = _seam_scatter(plan, sp, device)
     if seam is not None:
-        slabs, idx, G = seam
+        slabs, S, G = seam
         vals = torch.cat([merged_ops[sb][1][face][slab].reshape(-1)
                           for sb, face, slab in slabs]).to(f64)
-        E.view(-1)[idx] += G @ vals
+        E = E + (S @ (G @ vals)).reshape(K, K)
     return E
 
 

@@ -14,7 +14,13 @@
   JAX ``lax.while_loop`` (same ``eps`` cut-off, ``max_substeps``, substep
   count and dt sequence).  The loop runs on the host and reads the
   remaining time once per substep -- the one host sync per substep;
-* ``single_step_info`` / ``single_step`` and ``make_divergence_free``.
+* ``single_step_info`` / ``single_step`` and ``make_divergence_free``;
+* ``batched_step_info``: one sim step of a batch of states (a leading
+  batch axis on every tensor of the state), the counterpart of ``jax.vmap``
+  over ``single_step_info``: the substep runs under ``torch.func.vmap``
+  (every solve folds the batch onto its kernel's lanes), and the adaptive
+  loop runs outside it over per-lane ``remaining`` and substep counts, with
+  one host sync per lockstep round.
 
 Solves dispatch as in the JAX package's non-differentiable ``_solve``, to
 the whole-solve kernels: single-block scalar stencils to K1 ``fused_cg``
@@ -33,6 +39,8 @@ solver levers (no ``SimConfig`` field for them).
 
 from __future__ import annotations
 
+import contextlib
+import warnings
 from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple
 
@@ -43,6 +51,8 @@ from fluidgym_tpu_torch.core.domain import (
     BoundKind,
     DomainState,
     DomainTopo,
+    state_from_leaves,
+    state_leaves,
 )
 from fluidgym_tpu_torch.solver import block_merge, linsolve, nonortho
 from fluidgym_tpu_torch.solver import stencil as st
@@ -51,8 +61,9 @@ Tensor = torch.Tensor
 
 __all__ = ["SimConfig", "Hooks", "StepInfo", "ADAPTIVE",
            "piso_substep_info", "piso_adaptive_step_info",
-           "single_step", "single_step_info", "make_divergence_free",
-           "combine_infos", "solver_info_dict"]
+           "single_step", "single_step_info", "batched_step_info",
+           "strict_vmap", "make_divergence_free", "combine_infos",
+           "solver_info_dict"]
 
 Hooks = dict[str, tuple[Callable[..., DomainState], ...]]
 
@@ -584,6 +595,78 @@ def single_step_info(state: DomainState, geoms: tuple[BlockGeom, ...],
 
 def single_step(state, geoms, topo, cfg, hooks=None) -> DomainState:
     return single_step_info(state, geoms, topo, cfg, hooks)[0]
+
+
+@contextlib.contextmanager
+def strict_vmap():
+    """Within: ``torch.func.vmap``'s per-lane fallback for an op without a
+    batching rule (which it announces with a "performance drop" warning)
+    raises instead, so a batched step never quietly loops over its lanes."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        yield
+
+
+def _lane_where(active: Tensor, new: Tensor, old: Tensor) -> Tensor:
+    """Per lane of the leading batch axis: ``new`` where ``active``, else
+    ``old``."""
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def batched_step_info(state: DomainState, geoms: tuple[BlockGeom, ...],
+                      topo: DomainTopo, cfg: SimConfig,
+                      hooks: Hooks | None = None):
+    """One env-level simulation step of length ``cfg.dt`` for a batch of
+    states: every tensor of ``state`` carries a leading batch axis of B
+    lanes.  Returns the new batched state and a ``StepInfo`` of ``(B,)``
+    tensors.
+
+    The substep runs under ``torch.func.vmap``, so each solve folds the
+    batch onto the lanes of its kernel (one launch per solve for all B).
+    With adaptive substeps the loop is the semantics of ``jax.vmap`` over
+    ``piso_adaptive_step_info``'s ``lax.while_loop``, run on the host over
+    per-lane ``remaining`` and substep counts: while any lane is active (one
+    host sync per lockstep round), every lane takes its CFL substep, then
+    finished lanes keep their state and info (``where(active, new,
+    old)``).  Each lane gets the dt sequence its single env would."""
+    leaves = state_leaves(state)
+    blk0 = state.blocks[0].velocity
+    B, dtype, device = blk0.shape[0], blk0.dtype, blk0.device
+
+    def substep(lv, ts):
+        s, si = piso_substep_info(state_from_leaves(state, lv), geoms, topo,
+                                  cfg, ts, hooks)
+        return state_leaves(s), si
+
+    def cfl(lv, remaining):
+        return _cfl_ts(state_from_leaves(state, lv), geoms, topo, cfg, remaining)
+
+    vsub = torch.func.vmap(substep)
+    dt = torch.full((B,), cfg.dt, dtype=dtype, device=device)
+    info = StepInfo(*(v.expand(B).clone()
+                      for v in _info_identity(dtype, device)))
+    with strict_vmap():
+        if cfg.substeps != ADAPTIVE:
+            for _ in range(cfg.substeps):
+                leaves, si = vsub(leaves, dt / cfg.substeps)
+                info = _info_merge(info, si)
+            return state_from_leaves(state, leaves), info
+        vcfl = torch.func.vmap(cfl)
+        eps = 1e-6 * dt
+        remaining = dt
+        it = torch.zeros(B, dtype=torch.int32, device=device)
+        while True:
+            active = (remaining > eps) & (it < cfg.max_substeps)
+            if not bool(active.any()):
+                break
+            ts = vcfl(leaves, remaining)
+            new, si = vsub(leaves, ts)
+            leaves = [_lane_where(active, n, o) for n, o in zip(new, leaves)]
+            remaining = torch.where(active, remaining - ts, remaining)
+            info = StepInfo(*(torch.where(active, m, o) for m, o in
+                              zip(_info_merge(info, si), info)))
+            it = it + active.to(it.dtype)
+    return state_from_leaves(state, leaves), info
 
 
 def make_divergence_free(state: DomainState, geoms: tuple[BlockGeom, ...],

@@ -113,18 +113,37 @@ def _slab(x: Tensor, f: int) -> Tensor:
     return x[_face_slab(x.dim(), f)]
 
 
-def _set(x: Tensor, idx, val) -> Tensor:
-    """Functional ``x.at[idx].set(val)``."""
-    y = x.clone()
-    y[idx] = val
-    return y
+def set_region(x: Tensor, idx, val) -> Tensor:
+    """Functional ``x.at[idx].set(val)`` for an index of unit-step slices
+    (optionally led by ``Ellipsis``), out of place: nested
+    ``torch.slice_scatter``, one per cut axis, so that a batched ``val`` may
+    land in an unbatched ``x`` under ``torch.func.vmap``.  The values are
+    copied exactly, as an in-place write would."""
+    idx = tuple(idx)
+    if idx and idx[0] is Ellipsis:
+        idx = (slice(None),) * (x.dim() - len(idx) + 1) + idx[1:]
+    src = (val.to(x.dtype) if torch.is_tensor(val)
+           else torch.tensor(val, dtype=x.dtype, device=x.device))
+    src = src.expand(x[idx].shape)
+    cut = [d for d, sl in enumerate(idx) if sl != slice(None)]
+    if not cut:
+        return src.clone()
+    d = cut[0]
+    start, end, step = idx[d].indices(x.shape[d])
+    if step != 1:
+        raise ValueError(f"set_region takes unit-step slices, got {idx}")
+    if len(cut) > 1:
+        inner = idx[:d] + (slice(None),) + idx[d + 1:]
+        src = set_region(x.narrow(d, start, end - start), inner, src)
+    return torch.slice_scatter(x, src, d, start, end)
+
+
+_set = set_region
 
 
 def _add(x: Tensor, idx, val) -> Tensor:
-    """Functional ``x.at[idx].add(val)``."""
-    y = x.clone()
-    y[idx] = y[idx] + val
-    return y
+    """Functional ``x.at[idx].add(val)``, out of place like ``set_region``."""
+    return set_region(x, idx, x[idx] + val)
 
 
 def _slab_trailing(x: Tensor, f: int, n_trailing: int) -> Tensor:

@@ -2,23 +2,29 @@
 """Where one env step of fluidgym_tpu_torch spends its time on a CUDA card.
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
-        [--strips] [--k4]
+        [--strips] [--k4] [--batch N]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
 pressure preconditioner (``--strips``: ``SimConfig.pressure_coarse_strips``)
 and the fused stencil apply (``--k4``) if asked, takes one warm-up step,
 then profiles ``--steps`` steps with ``torch.profiler`` (CPU + CUDA
-activities).  Prints one JSON object:
+activities).  With ``--batch N`` it steps a ``parallel.BatchedFluidEnv`` of
+N envs instead (seeds 0..N-1, random actions), one batched step being one
+"step" below; a substep is then a lockstep round of the batch.  Prints one
+JSON object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
-  device synchronise;
+  device synchronise (``env_steps_per_s``: envs x steps over that time);
+* ``substeps_per_step``: calls of ``piso.piso_substep_info`` (a single
+  env's substeps, or a batch's lockstep rounds: one vmapped call each);
 * ``device_ms_per_step``: summed CUDA kernel time (self device time of the
   kernel events); ``device_busy_share`` = device / wall;
 * ``kernel_launches_per_step`` and the top kernels by device time;
 * per kernel of the port (K1, K2, K2-mb, K3, K3-coarse, K4, and the
-  flip-seam forms K2-mb-flip, K3-flip, K3-coarse-flip): launches per step,
-  counted by the wrappers, and device ms per step (the profiler's kernel
+  flip-seam forms K2-mb-flip, K3-flip, K3-coarse-flip): launches per step
+  and per substep, counted by the wrappers, and device ms per step (the
+  profiler's kernel
   events of that instantiation: ``fg_cg_kernel<ND, false, false>`` is K1,
   ``<ND, true, false>`` K3 and ``<ND, true, true>`` K3-coarse in either
   seam form, ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb in
@@ -66,7 +72,12 @@ def main() -> int:
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--strips", action="store_true")
     ap.add_argument("--k4", action="store_true")
+    ap.add_argument("--batch", type=int, default=0)
     args = ap.parse_args()
+    if args.batch and args.strips:
+        print("port_step_profile: the batched path runs without the strips",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("port_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -75,19 +86,38 @@ def main() -> int:
     import dataclasses
 
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb, stencil_cuda
+    from fluidgym_tpu_torch.solver import piso
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    env = fluidgym_tpu_torch.make(args.env)
-    env.reset(seed=0)
-    env._cfg = dataclasses.replace(env._cfg, pressure_coarse_strips=args.strips)
+    if args.batch:
+        from fluidgym_tpu_torch.parallel import BatchedFluidEnv
+
+        stepper = BatchedFluidEnv(args.env, args.batch)
+        stepper.reset(seed=0)
+        env = stepper.env
+        shape = (args.batch,) + tuple(env.action_space.shape)
+    else:
+        env = stepper = fluidgym_tpu_torch.make(args.env)
+        env.reset(seed=0)
+        env._cfg = dataclasses.replace(env._cfg,
+                                       pressure_coarse_strips=args.strips)
+        shape = env.action_space.shape
     stencil_cuda.set_stencil_kernel(args.k4)
     rng = np.random.default_rng(0)
-    act = lambda: rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
-    env.step(act())
+    act = lambda: rng.uniform(-1, 1, shape).astype(np.float32)
+    stepper.step(act())
     torch.cuda.synchronize()
+    substeps = [0]
+    substep = piso.piso_substep_info
+
+    def counted(*a, **k):
+        substeps[0] += 1
+        return substep(*a, **k)
+
+    piso.piso_substep_info = counted
     def counts():
         return {"K1": cg_cuda.fused_cg.launches,
                 "K2": cg_cuda_mb.fused_bicgstab_mb.launches,
@@ -103,10 +133,12 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(args.steps):
-            env.step(act())
+            stepper.step(act())
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / args.steps
     k1 = counts()
+    piso.piso_substep_info = substep
+    subs = substeps[0] / args.steps
 
     kernels = {}
     port_us = {k: 0.0 for k in ("K1", "K2", "K2-mb", "K3", "K3-coarse", "K4")}
@@ -131,14 +163,19 @@ def main() -> int:
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
     out = {
         "env": args.env, "strips": args.strips, "k4": args.k4,
+        "batch": args.batch or None,
         "card": smi,
         "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
+        "env_steps_per_s": max(args.batch, 1) / wall if wall > 0 else None,
+        "substeps_per_step": subs,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / (wall * 1e3) if wall > 0 else None,
         "kernel_launches_per_step": n_launch / args.steps,
         "port_kernels": {
             k: {"launches_per_step": (k1[k] - k0[k]) / args.steps,
+                "launches_per_substep": (k1[k] - k0[k]) / args.steps
+                / max(subs, 1),
                 "device_ms_per_step": port_us.get(k, 0.0) / 1e3 / args.steps}
             for k in k0},
         "top_kernels": [
@@ -151,7 +188,8 @@ def main() -> int:
             for e in host],
     }
     os.makedirs(args.out, exist_ok=True)
-    tag = "".join(("_strips" if args.strips else "", "_k4" if args.k4 else ""))
+    tag = "".join(("_strips" if args.strips else "", "_k4" if args.k4 else "",
+                   f"_batch{args.batch}" if args.batch else ""))
     with open(os.path.join(args.out, f"port_step_profile_{args.env}{tag}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)

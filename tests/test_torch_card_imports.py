@@ -139,6 +139,33 @@ def test_airfoil_imports_and_steps_without_card_packages():
     assert "OK" in out.stdout
 
 
+def test_batched_env_imports_and_steps_without_card_packages():
+    """Slice 5: ``parallel.BatchedFluidEnv`` (torch.func.vmap over the env's
+    pieces, the lane-folding solves) needs none of the refused packages."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from fluidgym_tpu_torch.parallel import BatchedFluidEnv
+        benv = BatchedFluidEnv(
+            "RBC2D-easy-v0", 2, device="cpu", resolution=4, n_heaters=4,
+            load_initial_domain=False, load_domain_statistics=False,
+            randomize_initial_state=False, episode_length=3, step_length=0.1,
+            dt=0.05, local_obs_window=3)
+        obs, _ = benv.reset(seed=0)
+        obs, rew, term, trunc, info = benv.step(np.zeros((2, 4, 1), np.float32))
+        assert rew.shape == (2,) and bool(torch.isfinite(rew).all())
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 def test_make_without_device_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card; make() then runs on it")

@@ -44,7 +44,8 @@ def _jax_lanes(diag, off, B, ndims, tol, x0=None, **kw):
 
 
 def _port_lanes(diag, off, B, ndims, tol, x0=None, **kw):
-    kw = {**KW, **kw}
+    # chunk = every lane: one lockstep loop, as the Pallas kernel runs them
+    kw = {**KW, "chunk": B.shape[0], **kw}
     x, info = cg_cuda.fused_cg(
         torch.from_numpy(diag), torch.from_numpy(off), torch.from_numpy(B),
         None if x0 is None else torch.from_numpy(x0), ndims=ndims, tol=tol,

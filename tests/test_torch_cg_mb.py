@@ -240,7 +240,8 @@ def test_k3_plain_lanes_past_refresh(systems):
               for l in lanes]
     tb = tuple(torch.stack([p[s] for p in packed]) for s in range(2))
     kw = dict(maxiter=3000, stall_iters=250, precondition=True, return_best=True)
-    xt, it = cg_cuda_mb.fused_cg_mb(tplan, td, to, tb, tol=1e-6, **kw)
+    # chunk=3: the three lanes in one lockstep loop, as the Pallas kernel
+    xt, it = cg_cuda_mb.fused_cg_mb(tplan, td, to, tb, tol=1e-6, chunk=3, **kw)
 
     def one(*bs):
         return cg_pallas_mb.fused_cg_mb(jplan, jd, jo, bs, tol=1e-6,

@@ -9,6 +9,12 @@ it runs without the repository's conftest:
 Bar: iteration counts within 3 (K2: 2 for the merged form), ``max|dx| <=
 1e-3 max|x|`` (K2 merged: 1e-4) (the kernel sums
 its dot products in another order than PyTorch), zero-RHS lanes exactly 0.
+Multi-lane checks of one lockstep loop pass ``chunk=lanes`` (one block).
+The chunk grid: every entry at 130 lanes, folded from a ``torch.func.vmap``
+batch with one operator per lane, in chunks of 33 (4 blocks, the last one
+ragged) against the plain version in the same chunks; and at the card's
+default chunk (1 lane per block at 130 lanes), every lane bit-equal to a
+1-lane launch of its system (K3-coarse: with the Einv the batch computed).
 K3-coarse: the same converged flags and iterations within 3, as K3 (the
 kernel's restriction sums each strip in another order than the plain
 version's too).
@@ -54,7 +60,8 @@ def test_k1_kernel_matches_plain(L, shift, tol):
     kw = dict(ndims=2, maxiter=2000, stall_iters=250, precondition=True,
               return_best=True)
     launches = cg_cuda.fused_cg.launches
-    x, info = cg_cuda.fused_cg(diag, off, B, tol=tol, **kw)
+    # chunk=L: every lane in one block, one lockstep loop
+    x, info = cg_cuda.fused_cg(diag, off, B, tol=tol, chunk=L, **kw)
     assert cg_cuda.fused_cg.launches == launches + 1
     xp, ip, rp = cg_cuda.fused_cg_plain(diag[None], off[None], B, None,
                                         tol2_sum=cg_cuda.tol2_sum_f32(tol, n), **kw)
@@ -174,7 +181,8 @@ def test_k3_kernel_matches_plain(lanes, warm):
     kw = dict(tol=1e-6, maxiter=3000, stall_iters=250, precondition=True,
               return_best=True)
     launches = cg_cuda_mb.fused_cg_mb.launches
-    xk, ik = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, **kw)
+    xk, ik = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, chunk=lanes,
+                                    **kw)
     assert cg_cuda_mb.fused_cg_mb.launches == launches + 1
     b = cg_cuda_mb.flatten_fields(plan, bs)
     diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
@@ -362,7 +370,7 @@ def test_k3_coarse_kernel_matches_plain(case, lanes, warm):
     before = getattr(cg_cuda_mb.fused_cg_mb, attr)
     jacobi = (cg_cuda_mb.fused_cg_mb.launches, cg_cuda_mb.fused_cg_mb.flip_launches)
     xk, ik = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, tol=tol,
-                                    coarse_strips=True, **kw)
+                                    coarse_strips=True, chunk=lanes, **kw)
     assert getattr(cg_cuda_mb.fused_cg_mb, attr) == before + 1
     assert jacobi == (cg_cuda_mb.fused_cg_mb.launches,
                       cg_cuda_mb.fused_cg_mb.flip_launches)
@@ -422,3 +430,225 @@ def test_k4_kernel_matches_plain(case, cols):
         assert_rel(a.cpu().numpy(), r.cpu().numpy(), 1e-6, "domain_apply")
     assert stencil_cuda.stencil_apply.launches == launches + 2 * len(p_ops)
     assert stencil_cuda.stencil_apply_plain.calls == plain + len(p_ops)
+
+
+# ---------------------------------------------------------------------------
+# the chunk grid: 130 lanes of a vmapped batch, one launch
+# ---------------------------------------------------------------------------
+
+LANES, CHUNK = 130, 33
+
+
+def _lane_scales(dev, L):
+    """One positive operator scale per lane (a per-lane operator that stays
+    SPD / diagonally dominant)."""
+    return torch.linspace(0.5, 2.0, L, device=dev)
+
+
+def _lane_rhs(xs, L):
+    """L right-hand sides from random fields: scales 1e-3..1 and lane 2
+    zero (it must come back exactly 0)."""
+    scale = torch.logspace(-3, 0, L, device=xs[0].device)
+    scale[2] = 0.0
+    return tuple(x * scale.reshape((L,) + (1,) * (x.dim() - 1)) for x in xs)
+
+
+def _chunk_case(form, dev):
+    """``(wrapper(chunk) -> (x (L, n), iterations (L,)), plain(chunk) -> (x,
+    iterations), single(l) -> x (n,), counter, attr, it_tol, rel)`` for one
+    kernel form; the wrapper runs under ``torch.func.vmap`` over LANES
+    systems with one operator each."""
+    L = LANES
+    s = _lane_scales(dev, L)
+    lane = lambda t: s.reshape((L,) + (1,) * t.dim())
+    g = torch.Generator().manual_seed(130)
+    if form in ("K1", "K2"):
+        n = SHAPE[0] * SHAPE[1]
+        stencil = spd_stencil if form == "K1" else nonsym_stencil
+        d0, o0 = (torch.from_numpy(a).to(dev) for a in stencil(SHAPE, 2, 3))
+        C = 1 if form == "K1" else 2
+        E = L // C
+        diag, off = d0 * lane(d0), o0 * lane(o0)
+        xs = _lane_rhs((torch.randn((L,) + SHAPE, generator=g).to(dev),), L)[0]
+        b = cg_cuda.roll_matvec(diag, off, xs, 2)
+        tol, kw = (1e-6, dict(maxiter=3000, stall_iters=250, precondition=True,
+                              return_best=form == "K1"))
+        tol2 = cg_cuda.tol2_sum_f32(tol, n)
+        if form == "K1":
+            def wrapper(chunk):
+                f = lambda d, o, bb: cg_cuda.fused_cg(d, o, bb[None], ndims=2,
+                                                      tol=tol, chunk=chunk, **kw)
+                x, info = torch.func.vmap(f)(diag, off, b)
+                return x[:, 0], info.iterations[:, 0], info.converged[:, 0]
+
+            def single(l):
+                return cg_cuda.fused_cg(diag[l], off[l], b[l:l + 1], ndims=2,
+                                        tol=tol, **kw)[0][0]
+
+            def plain(chunk):
+                x, it, rs = cg_cuda.fused_cg_plain(diag, off, b, None, ndims=2,
+                                                   tol2_sum=tol2, chunk=chunk,
+                                                   **kw)
+                return x, it, _converged(b, rs, tol2)
+            return wrapper, plain, single, cg_cuda.fused_cg, "launches", 3, 1e-3
+        plan = block_merge.trivial_plan(_single_block_topo())
+        # E envs of C = 2 components: component lanes share their env's operator
+        de, oe = diag[::C], off[::C]
+        be = b.reshape((E, C) + SHAPE)
+
+        def wrapper(chunk):
+            f = lambda d, o, bb: cg_cuda_mb.fused_bicgstab_mb(
+                plan, (d,), (o,), (bb,), tol=tol, chunk=chunk, **kw)
+            xs_, info = torch.func.vmap(f)(de, oe, be)
+            return xs_[0].reshape((L,) + SHAPE), None, info.converged.all()
+
+        def single(l):
+            e, c = divmod(l, C)
+            return cg_cuda_mb.fused_bicgstab_mb(
+                plan, (de[e],), (oe[e],), (be[e, c:c + 1],), tol=tol,
+                **kw)[0][0][0]
+
+        def plain(chunk):
+            x, it, rs = cg_cuda_mb.fused_bicgstab_plain(
+                de.repeat_interleave(C, 0), oe.repeat_interleave(C, 0), b,
+                None, ndims=2, tol2_sum=tol2, chunk=chunk, **kw)
+            return x, None, _converged(b, rs, tol2).all()
+        return (wrapper, plain, single, cg_cuda_mb.fused_bicgstab_mb,
+                "launches", 2, 1e-4)
+    systems = _airfoil_systems if form == "K3-flip" else _cylinder_systems
+    topo, state, plan, adv, p_ops = systems(dev)
+    diags, offs = _packed(plan, adv if form == "K2-mb" else p_ops)
+    d1, o1 = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    n = d1.shape[1]
+    if form == "K2-mb":
+        C, E = 2, L // 2
+        scale = s[::2]
+    else:
+        C, E, scale = 1, L, s
+    dl = tuple(d * scale.reshape((E,) + (1,) * d.dim()) for d in diags)
+    ol = tuple(o * scale.reshape((E,) + (1,) * o.dim()) for o in offs)
+    xr = tuple(torch.randn((L,) + tuple(d.shape), generator=g).to(dev)
+               for d in diags)
+    xr = _lane_rhs(xr, L)
+    lane_ops = [tuple(zip((d.repeat_interleave(C, 0)[l] for d in dl),
+                          (o.repeat_interleave(C, 0)[l] for o in ol)))
+                for l in range(L)]
+    b_flat = torch.stack([
+        cg_cuda_mb.flatten_fields(plan, block_merge.merged_apply(
+            plan, lane_ops[l], tuple(x[l:l + 1] for x in xr)))[0]
+        for l in range(L)])
+    bs = cg_cuda_mb.unflatten_fields(plan, b_flat)
+    coarse = form == "K3-coarse"
+    tol = 1e-6
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    kw = dict(maxiter=3000, stall_iters=250, precondition=True,
+              return_best=form != "K2-mb")
+    dflat = torch.cat([d.reshape(E, -1) for d in dl], 1).repeat_interleave(C, 0)
+    oflat = torch.cat([o.reshape(E, o.shape[1], -1) for o in ol],
+                      2).repeat_interleave(C, 0)
+    if form == "K2-mb":
+        be = tuple(x.reshape((E, C) + tuple(x.shape[1:])) for x in bs)
+
+        def wrapper(chunk):
+            f = lambda d, o, bb: cg_cuda_mb.fused_bicgstab_mb(
+                plan, d, o, bb, tol=tol, chunk=chunk, **kw)
+            xs_, info = torch.func.vmap(f)(dl, ol, be)
+            return cg_cuda_mb.flatten_fields(
+                plan, tuple(x.reshape((L,) + tuple(x.shape[2:])) for x in xs_)
+            ), None, info.converged.all()
+
+        def single(l):
+            e, c = divmod(l, C)
+            xs_, _ = cg_cuda_mb.fused_bicgstab_mb(
+                plan, tuple(d[e] for d in dl), tuple(o[e] for o in ol),
+                tuple(x[e, c:c + 1] for x in be), tol=tol, **kw)
+            return cg_cuda_mb.flatten_fields(plan, xs_)[0]
+
+        def plain(chunk):
+            x, it, rs = cg_cuda_mb.fused_bicgstab_plain(
+                dflat, oflat, b_flat, None, ndims=2, plan=plan, tol2_sum=tol2,
+                chunk=chunk, **kw)
+            return x, None, _converged(b_flat, rs, tol2).all()
+        return (wrapper, plain, single, cg_cuda_mb.fused_bicgstab_mb,
+                "merged_launches", 2, 1e-4)
+
+    def wrapper(chunk):
+        f = lambda d, o, bb: cg_cuda_mb.fused_cg_mb(
+            plan, d, o, bb, tol=tol, chunk=chunk, coarse_strips=coarse, **kw)
+        xs_, info = torch.func.vmap(f)(dl, ol, bs)
+        return (cg_cuda_mb.flatten_fields(plan, xs_), info.iterations,
+                info.converged)
+
+    def single(l):
+        if coarse:
+            # a 1-lane launch with the lane's own Einv as the batch computed
+            # it (a batched float64 inverse may round differently)
+            return cg_cuda_mb._launch_merged(
+                "cg", plan, dflat[l:l + 1], oflat[l:l + 1], b_flat[l:l + 1],
+                None, tol2_sum=tol2, chunk=1, coarse=(sp, einv_b[l:l + 1]),
+                **kw)[0][0]
+        xs_, _ = cg_cuda_mb.fused_cg_mb(
+            plan, tuple(d[l] for d in dl), tuple(o[l] for o in ol),
+            tuple(x[l:l + 1] for x in bs), tol=tol, **kw)
+        return cg_cuda_mb.flatten_fields(plan, xs_)[0]
+
+    if coarse:
+        sp = coarse_strips.strip_plan(plan)
+        einv_b = torch.func.vmap(lambda d, o: coarse_strips.coarse_inverse(
+            plan, sp, tuple(zip(d, o))))(dl, ol)
+
+    def plain(chunk):
+        cz = (sp, einv_b) if coarse else None
+        x, it, rs = cg_cuda_mb.fused_cg_mb_plain(
+            plan, dflat, oflat, b_flat, None, tol2_sum=tol2, coarse=cz,
+            chunk=chunk, **kw)
+        return x, it, _converged(b_flat, rs, tol2)
+    attr = {"K3": "launches", "K3-flip": "flip_launches",
+            "K3-coarse": "coarse_launches"}[form]
+    # K3-coarse: a chunk's count is the max over its 33 lanes, and the
+    # strip-coarse preconditioner's convergence tail is decided by float32
+    # rounding (kernel 156 vs plain 164 in the last chunk, both converged)
+    it_tol = 10 if coarse else 3
+    return wrapper, plain, single, cg_cuda_mb.fused_cg_mb, attr, it_tol, 1e-3
+
+
+def _converged(b, rs, tol2):
+    """Per-lane converged flags as the wrappers report them."""
+    return (rs <= tol2) | (b.reshape(b.shape[0], -1) == 0).all(dim=1)
+
+
+def _single_block_topo():
+    dom = DomainBuilder(ndims=2, viscosity=0.01)
+    dom.create_block(geometry.make_uniform_grid((SHAPE[1], SHAPE[0]),
+                                                (0, 0), (1.0, 1.0)))
+    return dom.build()[0]
+
+
+@pytest.mark.parametrize("form", ["K1", "K2", "K2-mb", "K3", "K3-flip",
+                                  "K3-coarse"])
+def test_chunk_grid_130_lanes(form):
+    """130 lanes of a vmapped batch in one launch: chunks of 33 against the
+    plain version in the same chunks (the same converged flags, iterations
+    per lane within the bar, solutions within the bar, the zero lane exactly
+    0); at the default chunk every lane bit-equal to a 1-lane launch of its
+    own system."""
+    dev = require_cuda()
+    wrapper, plain, single, counter, attr, it_tol, rel = _chunk_case(form, dev)
+    before = getattr(counter, attr)
+    xk, ik, ck = wrapper(CHUNK)
+    assert getattr(counter, attr) == before + 1
+    xp, ip, cp = plain(CHUNK)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xk).all())
+    assert bool((xk[2] == 0).all())
+    assert torch.equal(ck.cpu(), cp.cpu())
+    if ik is not None:
+        assert (ik.cpu() - ip.cpu()).abs().max() <= it_tol
+        # one shared counter per chunk
+        for c0 in range(0, LANES, CHUNK):
+            assert len(set(ik[c0:c0 + CHUNK].tolist())) == 1
+    assert_rel(xk.cpu().numpy(), xp.cpu().numpy(), rel, form)
+    x1 = wrapper(None)[0]
+    assert getattr(counter, attr) == before + 2
+    for l in range(LANES):
+        assert torch.equal(x1[l], single(l)), f"{form} lane {l}"
