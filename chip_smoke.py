@@ -76,8 +76,8 @@ Phases, each printed with its elapsed seconds:
    step beside phases 9 and 12's;
 18. the card against the host for the cylinder with the strips and K4 on:
    1 env step at full width from the bundled snapshot; obs and reward to
-   1e-3 (with the strips a float32 step is rounding-decided at ~1e-4; see
-   ``_strips_card_vs_host``);
+   1e-3, the card's solves as the cluster rule picks them (with the strips
+   a float32 step is rounding-decided; see ``_strips_card_vs_host``);
 19. the chunk grid: K1, K2, K3, K2-mb, K3-flip and K3-coarse at 130 lanes
    with one operator per lane, in chunks of 33 (4 blocks in one launch)
    against their plain versions in the same chunks (the same converged
@@ -93,9 +93,22 @@ Phases, each printed with its elapsed seconds:
    the same seeds (see ``BATCH_CASES`` for the bars);
 21. the same for ``CylinderJet2D-easy-v0``, 2 steps: K3 2 and K2-mb 1 per
    round;
-22. batched env-steps/s beside the single env's, measured in the same run.
+22. batched env-steps/s beside the single env's, measured in the same run;
+23. the cluster arm of K3 and K2-mb (one lane over a thread-block cluster,
+   ``csrc/krylov.cuh``): K3, K3-flip, K2-mb and K2-mb-flip at their
+   main-path shapes (phases 7, 8 and 11's systems) for C = 1 and every
+   cluster size the card holds for their lanes, in turns on one card:
+   against the plain version (the same converged flags, iterations within
+   3, x within phases 7, 8 and 11's bars), two runs bit-equal, C = 1
+   through the wrapper bit-equal to the chunk grid's raw launch; ms per
+   wrapper call and per raw launch (preallocated buffers), us per
+   iteration, the C that ``default_cluster`` picks and
+   ``cudaOccupancyMaxActiveClusters`` per C.
 
-Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
+main path to the cluster arm (``.cluster_launches`` equal to the form
+counts).  Then a ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": ...}``.
 Any failed check exits non-zero; there is no CPU fallback.  Imports nothing
 of JAX or of the JAX package.
 """
@@ -529,6 +542,8 @@ def _run(dev) -> int:
                    for case in BATCH_CASES]
     _throughput_phase(kernels, results)
     log(f"phase 22 summary {json.dumps(kernels.pop('batched'))}")
+    for case in MERGED_CASES:
+        _cluster_phase(dev, kernels, piso, case)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -774,12 +789,13 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
         out = {k3n: getattr(k3w, case["k3_count"]),
                k2n: getattr(k2w, case["k2_count"])}
         out["other"] = sum(getattr(w, a) for w, a in forms) - out[k3n] - out[k2n]
+        out["cluster"] = k3w.cluster_launches + k2w.cluster_launches
         out["plain"] = sum(f.calls for f in plains)
         out["linsolve"] = calls["cg"] + calls["bicgstab"]
         out["substeps"] = calls["piso_substep_info"]
         return out
 
-    for w, a in forms:
+    for w, a in forms + ((k3w, "cluster_launches"), (k2w, "cluster_launches")):
         setattr(w, a, 0)
     for f in plains:
         f.calls = 0
@@ -813,6 +829,10 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
                   f"substeps, {k2n} = substeps, no other kernel form")
             check(d["plain"] == 0, f"plain versions ran on the main path: {d}")
             check(d["linsolve"] == 0, f"linsolve's loops ran on the main path: {d}")
+            # the single env's solves take the cluster arm, every one
+            check(d["cluster"] == d[k3n] + d[k2n],
+                  f"{env_id} step launches {d}: not every {k3n} / {k2n} "
+                  "launch took the cluster arm")
             for k, v in obs.items():
                 check(tuple(v.shape) == env.observation_space[k].shape,
                       f"obs {k} shape {tuple(v.shape)}")
@@ -830,6 +850,8 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
           f"a kernel of the {env_id} path was not launched: {total}")
     check(total["plain"] == 0 and total["linsolve"] == 0 and total["other"] == 0,
           f"another solver ran on the {env_id} path: {total}")
+    check(total["cluster"] == total[k3n] + total[k2n],
+          f"not every {env_id} solve took the cluster arm: {total}")
     n_steps = len(actions)
     sub = sum(d["substeps"] for d in per_step)
     ms_step = 1e3 * sum(step_s) / n_steps
@@ -842,6 +864,7 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
         f"totals {total}")
     for k in (k3n, k2n):
         kernels[k]["launches"] = total[k]
+        kernels[k]["cluster_launches"] = total[k]
         kernels[k]["launches_per_env_step"] = sum(d[k] for d in per_step) / n_steps
         kernels[k]["ms_per_env_step"] = ms_step
     kernels[k3n]["step_ms"] = [1e3 * x for x in step_s]
@@ -1174,15 +1197,18 @@ def _strips_main_path(dev, kernels, piso, linsolve) -> None:
 def _strips_card_vs_host(dev, piso) -> None:
     """Phase 18: the card against the host for the cylinder with the strips
     and K4 on: 1 env step (25 sim steps) at full width from the bundled
-    snapshot; obs and reward to 1e-3.
+    snapshot, the card's solves as the rule picks them (K2-mb on the
+    cluster arm); obs and reward to 1e-3.
 
-    With the strips on, this float32 step is decided by rounding at ~1e-4:
-    on the host alone, 1 against 8 threads moves the pressure obs 1.5e-4,
-    the velocity obs 1.2e-4 and the reward 4.8e-4 and the step's pressure
+    With the strips on, this float32 step is decided by rounding: on the
+    host alone, 1 against 8 threads moves the pressure obs 1.5e-4, the
+    velocity obs 1.2e-4 and the reward 4.8e-4 and the step's pressure
     iterations from 820 to 811 (4.8e-6, 2.2e-7, 6.1e-7 and no change with
-    Jacobi alone; ``scripts/port_strips_rounding.py``), so the card is held
-    to the host at 1e-3, as phase 13 holds the airfoil's pressure obs.
-    Phases 15-16 hold the kernel itself to its plain version."""
+    Jacobi alone), and 1 against 4 threads moves the pressure obs 1.98e-3
+    (``scripts/port_strips_rounding.py``; ROADMAP Queue 3).  The cluster
+    arm's sums are the one-block form's, bit for bit, so the card's step
+    is the chunk grid's whatever C the rule picks.  Phases 15-16 hold the
+    kernel itself to its plain version."""
     import numpy as np
     import torch
 
@@ -1193,6 +1219,7 @@ def _strips_card_vs_host(dev, piso) -> None:
     t = time.perf_counter()
     outs = {}
     before = cg_cuda_mb.fused_cg_mb.coarse_launches
+    cluster_before = cg_cuda_mb.fused_bicgstab_mb.cluster_launches
     stencil_cuda.set_stencil_kernel(True)
     try:
         for where in (dev, torch.device("cpu")):
@@ -1207,12 +1234,15 @@ def _strips_card_vs_host(dev, piso) -> None:
         stencil_cuda.set_stencil_kernel(False)
     check(cg_cuda_mb.fused_cg_mb.coarse_launches > before,
           "phase 18's card run did not launch K3-coarse")
+    check(cg_cuda_mb.fused_bicgstab_mb.cluster_launches > cluster_before,
+          "phase 18's card run did not take the cluster arm")
     og, oc = outs[dev.type], outs["cpu"]
     diffs = {k: float((og[k].cpu() - oc[k]).abs().max()
                       / oc[k].abs().max().clamp(min=1e-30)) for k in og}
     log(f"phase 18 {case['env_id']} with strips + K4, full width, 1 step from "
-        f"the bundled snapshot ({e.n_sim_steps} sim steps), card vs host: "
-        f"relative diffs {diffs} (bar 1e-3) in {time.perf_counter() - t:.2f}s")
+        f"the bundled snapshot ({e.n_sim_steps} sim steps), card (cluster "
+        f"rule) vs host: relative diffs {diffs} (bar 1e-3) in "
+        f"{time.perf_counter() - t:.2f}s")
     check(all(v <= 1e-3 for v in diffs.values()),
           f"card and host disagree with strips + K4 on {case['env_id']}")
 
@@ -1619,6 +1649,139 @@ def _throughput_phase(kernels, results) -> None:
         kernels.setdefault("batched", {})[r["env_id"]] = dict(
             env_steps_per_s=batched, ms_per_batched_step=r["ms_step"],
             single_env_ms_per_step=r["single_ms"], rounds_per_step=r["rounds"])
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the cluster arm of K3 and K2-mb
+# ---------------------------------------------------------------------------
+
+def _cluster_phase(dev, kernels, piso, case) -> None:
+    """Phase 23, for one merged case: K3 (warm from the deflated guess, as
+    the main path solves it) and K2-mb (the 2-lane velocity system) at the
+    main-path shapes, for C = 1 and every cluster size whose clusters the
+    card holds for the lanes, in turns.  Each C against the plain version
+    (the same converged flags, iterations within 3, x within the phase's
+    bar), run twice bit for bit; C = 1 through the wrapper bit-equal to the
+    chunk grid's raw launch; every C bit-equal to C = 1 (x, iterations,
+    residual).  ms per wrapper call and per raw launch on preallocated
+    buffers, us per iteration, the rule's C and the card's occupancy per C;
+    the rule's C no slower per raw launch than C = 1."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import block_merge
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    t0 = time.perf_counter()
+    sy = _snapshot_system(dev, piso, case)
+    plan, n = sy["plan"], sy["n"]
+    nd = plan.ndims
+    nf = 2 * nd
+    flat = lambda xs: cg_cuda_mb.flatten_fields(plan, xs)
+    per_sb = lambda t: cg_cuda_mb.unflatten_fields(plan, t)
+
+    def ops_of(ops):
+        m = block_merge.pack_ops(plan, ops)
+        return cg_cuda_mb.flatten_ops(plan, tuple(a[0] for a in m),
+                                      tuple(a[1] for a in m))
+
+    pd, po = ops_of(sy["p_ops"])
+    ad, ao = ops_of(sy["adv"])
+    pb = flat(tuple(p.unsqueeze(0) for p in block_merge.pack_fields(plan, sy["rhs"])))
+    px = flat(tuple(p.unsqueeze(0) for p in block_merge.pack_fields(plan, sy["guess"])))
+    state = sy["state"]
+    vel_rhs = st.advection_rhs_velocity(state, sy["geoms"], sy["topo"],
+                                        state.viscosity, sy["dt"])
+
+    def pack2(fields):
+        per_c = [flat(tuple(p.unsqueeze(0) for p in block_merge.pack_fields(
+            plan, tuple(f[c] for f in fields)))) for c in range(2)]
+        return torch.cat(per_c)
+
+    vb = pack2(vel_rhs)
+    vx = pack2(tuple(b.velocity for b in state.blocks))
+    forms = ((case["k3"], "cg", pd, po, pb, px, case["tol_p"], 1e-3),
+             (case["k2"], "bicgstab", ad, ao, vb, vx, 1e-5, 1e-4))
+    for name, algo, diag, off, b, x0, tol, rel_bar in forms:
+        cg = algo == "cg"
+        L = b.shape[0]
+        tol2 = cg_cuda.tol2_sum_f32(tol, n)
+        kw = dict(tol2_sum=tol2, maxiter=5000, stall_iters=250,
+                  precondition=True, return_best=cg)
+        occ = {C: cg_cuda_mb.max_active_clusters(algo, nd, C, n, dev)
+               for C in cg_cuda_mb.CLUSTER_SIZES if cg_cuda_mb.rows_fit(n, C, nd)}
+        rule = cg_cuda_mb.default_cluster(L, n, nd, 1, dev, algo)
+        sizes = [1] + [C for C in sorted(occ) if occ[C] >= L]
+        if cg:
+            xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(plan, diag, off, b, x0, **kw)
+        else:
+            xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(diag, off, b, x0,
+                                                         ndims=nd, plan=plan, **kw)
+        flags_p = (rp <= tol2).cpu()
+        scale = float(xp.abs().max())
+        wdiags = per_sb(diag)
+        woffs = tuple(t.reshape((nf,) + tuple(t.shape[1:]))
+                      for t in per_sb(off.reshape(nf, n)))
+        wdiags = tuple(t[0] for t in wdiags)
+
+        def wrapper(C):
+            fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
+            xs, _ = fn(plan, wdiags, woffs, per_sb(b), per_sb(x0), tol=tol,
+                       maxiter=5000, stall_iters=250, precondition=True,
+                       return_best=cg, cluster=C)
+            return xs
+
+        rows = {}
+        for C in sizes:
+            launch = cg_cuda_mb.merged_launcher(algo, plan, diag, off, b, x0,
+                                                chunk=1, cluster=C, **kw)
+            x1, i1, r1 = (t.clone() for t in launch())
+            x2, i2, r2 = (t.clone() for t in launch())
+            torch.cuda.synchronize()
+            same = torch.equal(x1, x2) and torch.equal(i1, i2) and torch.equal(r1, r2)
+            check(same, f"{name} C={C}: two runs differ")
+            err = float((x1 - xp).abs().max())
+            dit = int((i1.long() - ip.long()).abs().max())
+            flags = (r1 <= tol2).cpu()
+            check(torch.equal(flags, flags_p),
+                  f"{name} C={C}: converged {flags.tolist()} vs plain {flags_p.tolist()}")
+            check(dit <= 3, f"{name} C={C}: iterations {i1.tolist()} vs plain "
+                            f"{ip.tolist()}")
+            check(err <= rel_bar * max(scale, 1e-30),
+                  f"{name} C={C}: max|dx| {err:.3e} > {rel_bar:g} of {scale:.3e}")
+            check(bool(torch.isfinite(x1).all()), f"{name} C={C}: non-finite")
+            if C == 1:
+                check(torch.equal(flat(wrapper(1)), x1),
+                      f"{name}: cluster=1 through the wrapper differs from the "
+                      "chunk grid's raw launch")
+                ref1 = (x1, i1, r1)
+            else:
+                check(all(torch.equal(u, v) for u, v in zip((x1, i1, r1), ref1)),
+                      f"{name} C={C}: not bit-equal to C=1")
+            its = int(i1.max())
+            raw_ms = cuda_ms(torch, launch, 10)
+            ms = cuda_ms(torch, lambda C=C: wrapper(C), 10)
+            rows[C] = dict(iterations=its, raw_ms=raw_ms, ms=ms,
+                           us_per_it=raw_ms * 1e3 / max(its, 1),
+                           max_abs_err=err)
+            log(f"  {name} ({L}, {n}) C={C}: {ms:.3f} ms/call, raw launch "
+                f"{raw_ms:.3f} ms = {rows[C]['us_per_it']:.2f} us/iteration at "
+                f"{its} iterations (plain {int(ip.max())}), max|dx| {err:.3e} "
+                f"({err / max(scale, 1e-30):.2e} of max|x|), two runs "
+                f"bit-equal{'' if C == 1 else ', bit-equal to C=1'}")
+        log(f"phase 23 {name}: rule picks C={rule} (occupancy per C "
+            f"{occ}, sizes run {sizes}); at C={rule} {rows[rule]['raw_ms']:.3f} "
+            f"ms per raw launch against {rows[1]['raw_ms']:.3f} at C=1 "
+            f"({rows[1]['raw_ms'] / rows[rule]['raw_ms']:.2f}x)")
+        check(rows[rule]["raw_ms"] <= rows[1]["raw_ms"],
+              f"{name}: the rule's C={rule} is slower per raw launch than C=1")
+        kernels[name].update(
+            cluster=rule, us_per_it=rows[rule]["us_per_it"],
+            raw_ms=rows[rule]["raw_ms"], raw_ms_cluster_1=rows[1]["raw_ms"],
+            ms_cluster_1=rows[1]["ms"], us_per_it_cluster_1=rows[1]["us_per_it"],
+            occupancy={str(C): v for C, v in occ.items()},
+            by_cluster={str(C): r for C, r in rows.items()})
+    log(f"phase 23 {case['env_id']} done in {time.perf_counter() - t0:.1f}s")
 
 
 if __name__ == "__main__":

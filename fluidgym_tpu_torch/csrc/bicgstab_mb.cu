@@ -6,10 +6,11 @@
 // `block_merge.trivial_plan` (one grid, roll-form matvec: entry
 // fg_bicgstab_solve) and the merged multi-super-block form of
 // `block_merge.merge_plan` with identity seams (one flat buffer per lane,
-// neighbour-table matvec, merged.cuh: entry fg_bicgstab_mb_solve).  Flip
-// seams (C-grid cuts) are not taken: the wrapper raises for them.  Solve
-// components (the velocity components of the joint advection solve) and
-// batch entries are lanes sharing one operator.  Semantics are the TPU
+// neighbour-table matvec, merged.cuh: entry fg_bicgstab_mb_solve), whose
+// seams may be flip seams (the reflected C-grid cut): the neighbour table
+// carries them, so the body is the same.  Solve components (the velocity
+// components of the joint advection solve) and batch entries are lanes
+// sharing one operator.  Semantics are the TPU
 // kernel's, lane for lane:
 //   * NORM2_NORMALIZED stopping PER LANE (sum r^2 <= tol^2 * n_lane, n_lane
 //     the cells of all super-blocks), which is tighter than
@@ -23,15 +24,24 @@
 //   * every division guarded by tiny = 1e-30.
 //
 // What bounds it on the H100: the latency of the iteration chain (five
-// dependent passes, two of them stencil applies, and three block-wide
-// reductions per iteration over a 6k-14k-cell lane), not bytes or flops.  The
-// design keeps the loop, the dot products and the stopping test of a chunk
-// on the device in one thread block, with no host round-trip and no
-// grid-wide synchronisation; the scratch (r/s, r_hat, p, p_hat, v, s_hat,
-// t, best) stays in L2.
+// dependent passes, two of them stencil applies, and three reductions per
+// iteration), not bytes or flops.  The design keeps the loop, the dot
+// products and the stopping test of a chunk on the device, with no host
+// round-trip; the scratch (r/s, r_hat, p, p_hat, v, s_hat, t, best) stays
+// in L2.  In the chunk grid (cluster = 1) one thread block carries a chunk
+// of lanes, so one lane runs on one SM: 1.3 ms for a 7-iteration airfoil
+// velocity solve whose passes would stream through HBM in ~40 us.  The
+// cluster arm (merged form, cluster = C in 2, 4, 8, 16, one lane per
+// cluster) spreads a lane over C SMs as K3's does (see cg.cu): each block
+// owns a range and keeps its operator rows in shared memory, and every sum
+// is the one-block form's, bit for bit (krylov.cuh fg_lane_sum2), so the
+// arm computes what a one-lane launch of the chunk grid computes.  Cluster
+// barriers (release/acquire) close the init and pass 5 (pass 1 gathers
+// p_hat) and pass 2 (pass 3 gathers s_hat); with two per sum that is eight
+// per iteration.
 #include "krylov.cuh"
 
-template <int ND, bool TABLE>
+template <int ND, bool TABLE, bool CLUSTER = false>
 __global__ void __launch_bounds__(FG_THREADS)
 fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                const float* __restrict__ off, const int* __restrict__ nbr,
@@ -44,6 +54,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                float* __restrict__ best, int lanes, int chunk, FgGrid g,
                int op_per_lane, float tol2, int maxiter, int stall_iters,
                int precondition, int return_best, int warm_start) {
+  static_assert(!CLUSTER || TABLE, "cluster arm: K2-mb only");
   __shared__ float sh[64];
   __shared__ float s_rho[FG_MAX_LANES], s_rs[FG_MAX_LANES];
   __shared__ float s_best_rs[FG_MAX_LANES];
@@ -53,14 +64,18 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   __shared__ int s_best_it[FG_MAX_LANES], s_done[FG_MAX_LANES];
   __shared__ int s_better[FG_MAX_LANES];
   __shared__ int s_go;
+  __shared__ float2 s_chain[CLUSTER ? FG_THREADS / 2 : 1];  // fg_lane_sum2
+  extern __shared__ __align__(16) float s_rows[];  // staged operator rows
 
   const int tid = threadIdx.x;
   const int T = blockDim.x;
   const int n = g.n;
   const int nf = 2 * ND;
 
-  // this block's chunk of lanes (krylov.cuh fg_chunk)
-  const int l0 = fg_chunk(lanes, chunk);
+  // this block's lanes and cells (krylov.cuh fg_block_cells)
+  int c0, c1;
+  const int l0 = fg_block_cells<CLUSTER>(lanes, chunk, n, c0, c1);
+  const bool lead = tid == 0 && c0 == 0;  // writes the lane stats (rank 0)
   const size_t lo = (size_t)l0 * n;
   b += lo;
   x0 += lo;
@@ -78,17 +93,32 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   iters_out += l0;
   rs_out += l0;
 
+  FgRows staged{};
+  float* s_terms = nullptr;  // fg_lane_sum2's chain terms (cluster arm)
+  if constexpr (CLUSTER) {
+    staged = fg_stage_rows<ND>(diag, off, nbr, n, c0, c1, c1 - c0, s_rows);
+    s_terms = fg_chain_buf(
+        s_rows, n, (int)cooperative_groups::this_cluster().num_blocks(), ND);
+    __syncthreads();
+  }
+  // the operator rows of lane l
+  auto rows = [&](int l) {
+    if constexpr (CLUSTER) return staged;
+    else
+      return FgRows{diag + (size_t)l * n * op_per_lane,
+                    off + (size_t)l * nf * n * op_per_lane, nbr, n, 0};
+  };
+
   // ---- init: r = r_hat = p = b - A x0 (or b); best = x ------------------
   for (int l = 0; l < lanes; ++l) {
-    const float* dg = diag + (size_t)l * n * op_per_lane;
-    const float* of = off + (size_t)l * nf * n * op_per_lane;
+    const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    for (int c = tid; c < n; c += T) {
+    for (int c = c0 + tid; c < c1; c += T) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
-        rr = b[o + c] - fg_apply<ND, TABLE>(dg, of, nbr, x0 + o, c, g);
+        rr = b[o + c] - fg_apply<ND, TABLE>(R, x0 + o, c, g);
       } else {
         xx = 0.0f;
         rr = b[o + c];
@@ -98,10 +128,15 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       r[o + c] = rr;
       rhat[o + c] = rr;
       p[o + c] = rr;
-      phat[o + c] = precondition ? (1.0f / dg[c]) * rr : rr;
+      phat[o + c] = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
       a1 += rr * rr;
     }
-    fg_block_sum2(a1, a2, sh);
+    fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
+                          [&](int c, float& u, float& w) {
+                            const float rr = __ldcg(r + o + c);
+                            u = rr * rr;
+                            w = 0.0f;
+                          });
     if (tid == 0) {
       s_rho[l] = a1;
       s_rs[l] = a1;
@@ -112,7 +147,11 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
   int it = 0;
   for (;;) {
-    __syncthreads();
+    // the cluster arm: publishes p_hat before pass 1 gathers it
+    if constexpr (CLUSTER)
+      fg_cluster_sync();
+    else
+      __syncthreads();
     if (tid == 0) {
       int any = 0;
       for (int l = 0; l < lanes; ++l) {
@@ -128,16 +167,19 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
     // ---- pass 1: v = A p_hat, denom = <r_hat, v> -------------------------
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
-      const float* of = off + (size_t)l * nf * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = tid; c < n; c += T) {
-        const float vv = fg_apply<ND, TABLE>(dg, of, nbr, phat + o, c, g);
+      for (int c = c0 + tid; c < c1; c += T) {
+        const float vv = fg_apply<ND, TABLE>(R, phat + o, c, g);
         v[o + c] = vv;
         a1 += rhat[o + c] * vv;
       }
-      fg_block_sum2(a1, a2, sh);
+      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
+                            [&](int c, float& u, float& w) {
+                              u = __ldcg(rhat + o + c) * __ldcg(v + o + c);
+                              w = 0.0f;
+                            });
       if (tid == 0) s_red1[l] = a1;
     }
     __syncthreads();
@@ -148,30 +190,38 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
     // ---- pass 2: s = r - alpha v (kept in r), s_hat = M^-1 s -------------
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
-      for (int c = tid; c < n; c += T) {
+      for (int c = c0 + tid; c < c1; c += T) {
         const float ss = r[o + c] - al * v[o + c];
         r[o + c] = ss;
-        shat[o + c] = precondition ? (1.0f / dg[c]) * ss : ss;
+        shat[o + c] = precondition ? (1.0f / R.dg[c - R.base]) * ss : ss;
       }
     }
-    __syncthreads();
+    // the cluster arm: publishes s_hat before pass 3 gathers it
+    if constexpr (CLUSTER)
+      fg_cluster_sync();
+    else
+      __syncthreads();
 
     // ---- pass 3: t = A s_hat, <t, t>, <t, s> ------------------------------
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
-      const float* of = off + (size_t)l * nf * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = tid; c < n; c += T) {
-        const float tv = fg_apply<ND, TABLE>(dg, of, nbr, shat + o, c, g);
+      for (int c = c0 + tid; c < c1; c += T) {
+        const float tv = fg_apply<ND, TABLE>(R, shat + o, c, g);
         t[o + c] = tv;
         a1 += tv * tv;
         a2 += tv * r[o + c];
       }
-      fg_block_sum2(a1, a2, sh);
+      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
+                            [&](int c, float& u, float& w) {
+                              const float tv = __ldcg(t + o + c);
+                              u = tv * tv;
+                              w = tv * __ldcg(r + o + c);
+                            });
       if (tid == 0) {
         s_red1[l] = a1;
         s_red2[l] = a2;
@@ -188,14 +238,19 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l], om = s_omega[l];
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = tid; c < n; c += T) {
+      for (int c = c0 + tid; c < c1; c += T) {
         x[o + c] = x[o + c] + al * phat[o + c] + om * shat[o + c];
         const float rr = r[o + c] - om * t[o + c];
         r[o + c] = rr;
         a1 += rhat[o + c] * rr;
         a2 += rr * rr;
       }
-      fg_block_sum2(a1, a2, sh);
+      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
+                            [&](int c, float& u, float& w) {
+                              const float rr = __ldcg(r + o + c);
+                              u = __ldcg(rhat + o + c) * rr;
+                              w = rr * rr;
+                            });
       if (tid == 0) {
         s_red1[l] = a1;
         s_red2[l] = a2;
@@ -222,14 +277,14 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
     // ---- pass 5: p = r + beta (p - omega v); p_hat; best -----------------
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       const float be = s_beta[l], om = s_omega[l];
       const int keep = return_best && s_better[l];
-      for (int c = tid; c < n; c += T) {
+      for (int c = c0 + tid; c < c1; c += T) {
         const float pp = r[o + c] + be * (p[o + c] - om * v[o + c]);
         p[o + c] = pp;
-        phat[o + c] = precondition ? (1.0f / dg[c]) * pp : pp;
+        phat[o + c] = precondition ? (1.0f / R.dg[c - R.base]) * pp : pp;
         if (keep) best[o + c] = x[o + c];
       }
     }
@@ -240,13 +295,15 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const size_t o = (size_t)l * n;
     const int use_best = return_best && !(s_rs[l] <= tol2);
     if (use_best) {
-      for (int c = tid; c < n; c += T) x[o + c] = best[o + c];
+      for (int c = c0 + tid; c < c1; c += T) x[o + c] = best[o + c];
     }
-    if (tid == 0) {
+    if (lead) {
       iters_out[l] = it;
       rs_out[l] = use_best ? s_best_rs[l] : s_rs[l];
     }
   }
+  // no block leaves while another may still read its shared memory
+  if constexpr (CLUSTER) fg_cluster_sync();
 }
 
 extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
@@ -283,22 +340,32 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
 }
 
 // K2 over the merged frame of a multi-block plan (S >= 2 super-blocks, seam
-// fixups): each lane is one flat buffer of n cells, the matvec goes through
-// the plan's neighbour table (merged.cuh) and every lane's dot products are
-// joint over the super-blocks.  Semantics as above.
+// fixups, identity or flip): each lane is one flat buffer of n cells, the
+// matvec goes through the plan's neighbour table (merged.cuh) and every
+// lane's dot products are joint over the super-blocks.  Semantics as above.
+// `cluster` as in cg.cu fg_cg_mb_solve: 1 is the chunk grid, C in 2, 4, 8,
+// 16 (chunk 1) the cluster arm.
+using FgBicgKernel = decltype(&fg_bicg_kernel<2, true>);
+
+static FgBicgKernel fg_bicg_cluster_kernel(int ndims) {
+  return ndims == 2 ? fg_bicg_kernel<2, true, true>
+                    : fg_bicg_kernel<3, true, true>;
+}
+
 extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
                                     const float* off, const int* nbr,
                                     const float* x0, float* x, int* iters,
                                     float* rs, float* r, float* rhat, float* p,
                                     float* phat, float* v, float* shat,
                                     float* t, float* best, int lanes,
-                                    int chunk, int n, int ndims,
-                                    int op_per_lane, float tol2,
+                                    int chunk, int cluster, int n,
+                                    int ndims, int op_per_lane, float tol2,
                                     int maxiter, int stall_iters,
                                     int precondition, int return_best,
                                     int warm_start, void* stream) {
   const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr)
+  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr ||
+      !fg_cluster_ok(cluster, chunk))
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = 1;
@@ -306,6 +373,14 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
   g.nx = n;
   g.n = n;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster > 1) {
+    return (int)fg_launch_clusters(
+        fg_bicg_cluster_kernel(ndims), lanes, cluster,
+        fg_stage_bytes(n, cluster, ndims), s, b,
+        diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
+        lanes, 1, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
+        return_best, warm_start);
+  }
   if (ndims == 2) {
     fg_bicg_kernel<2, true><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
@@ -318,4 +393,14 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
         return_best, warm_start);
   }
   return (int)cudaGetLastError();
+}
+
+// How many C-block clusters of K2-mb's cluster arm the card holds at once,
+// into *out (as fg_cg_mb_cluster_occupancy).
+extern "C" int fg_bicgstab_mb_cluster_occupancy(int ndims, int cluster,
+                                                int n, int* out) {
+  if ((ndims != 2 && ndims != 3) || cluster < 2 || !fg_cluster_ok(cluster, 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_max_clusters(fg_bicg_cluster_kernel(ndims), cluster,
+                              fg_stage_bytes(n, cluster, ndims), out);
 }

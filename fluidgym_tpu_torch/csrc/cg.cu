@@ -31,7 +31,38 @@
 // (krylov.cuh fg_chunk; the TPU ran its chunks one after another, lax.map
 // in cg_pallas.py `_lane_solver`): with one lane per block, a batch of up
 // to 132 lanes runs side by side on the SMs and costs its slowest lane.
-// One lane on more SMs (clusters, distributed shared memory) is later work.
+//
+// The cluster arm of K3 (template CLUSTER; entry fg_cg_mb_solve with
+// cluster = C in 2, 4, 8, 16): one block per lane bounds a single solve by
+// what one SM of 132 pulls through its dependent gathers: ~130-150 us per
+// iteration at the airfoil's 73,456 cells, where the same work streamed
+// through HBM once per pass takes ~1.3 us.  So a lane is spread over a
+// thread-block cluster of C blocks, one per SM (krylov.cuh):
+//   * block r owns a contiguous range of the flat buffer (fg_block_cells)
+//     and keeps each pass's arithmetic and per-cell order;
+//   * it stages its range's diag, off and neighbour rows in shared memory
+//     once per solve (fg_stage_rows), so a matvec reads only the gathered
+//     vector from L2; a size whose rows do not fit is refused.  Plain loads
+//     do it: each thread stages the rows it later reads, so no copy engine
+//     or mbarrier is needed, and the copy is one pass against three per
+//     iteration (a TMA bulk copy would also need the off / nbr face planes
+//     16-B aligned, which a flat buffer of n cells does not give);
+//   * a dot product is the one-block form's sum, bit for bit
+//     (fg_lane_sum2): the blocks form its per-thread chains again from the
+//     vectors in L2, each block a share of them, and every block runs the
+//     same tree over all of them.  So the arm computes exactly what a
+//     one-lane launch of the chunk grid computes (x, iterations, residual),
+//     at any C, run after run;
+//   * the barrier that closes pass C (and the init) is a cluster barrier
+//     with release/acquire semantics (fg_cluster_sync): pass A gathers p
+//     (x on a refresh) across ranges.  That and two per sum make five
+//     cluster barriers per iteration;
+//   * the kernel ends on a cluster barrier: no block leaves while another
+//     may still read its shared memory.
+// C = 1 is the chunk grid above, unchanged.  ops/cg_cuda_mb.py
+// `default_cluster` picks C from the card's own occupancy answer
+// (fg_cg_mb_cluster_occupancy).  The COARSE arm has no cluster form: its
+// restriction sums whole strips across ranges.
 //
 // K3-coarse (entry fg_cg_mb_coarse_solve, the COARSE arm of the template):
 // replaces the strip-coarse form of cg_pallas_mb.py `_kernel` (`coarse=`,
@@ -113,7 +144,7 @@ __device__ __forceinline__ void fg_coarse_precond(
   fg_block_sum2(a1, a2, sh);
 }
 
-template <int ND, bool TABLE, bool COARSE>
+template <int ND, bool TABLE, bool COARSE, bool CLUSTER = false>
 __global__ void __launch_bounds__(FG_THREADS)
 fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              const float* __restrict__ off, const int* __restrict__ nbr,
@@ -124,6 +155,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              float* __restrict__ best, int lanes, int chunk, FgGrid g,
              int op_per_lane, float tol2, int maxiter, int stall_iters,
              int precondition, int return_best, int warm_start, FgCoarse cz) {
+  static_assert(!CLUSTER || (TABLE && !COARSE), "cluster arm: K3 only");
   __shared__ float sh[64];
   __shared__ float s_rc[COARSE ? FG_MAX_K : 1], s_xc[COARSE ? FG_MAX_K : 1];
   __shared__ float s_rz[FG_MAX_LANES], s_rs[FG_MAX_LANES];
@@ -133,14 +165,19 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   __shared__ int s_best_it[FG_MAX_LANES], s_done[FG_MAX_LANES];
   __shared__ int s_better[FG_MAX_LANES];
   __shared__ int s_go;
+  __shared__ float2 s_chain[CLUSTER ? FG_THREADS / 2 : 1];  // fg_lane_sum2
+  extern __shared__ __align__(16) float s_rows[];  // staged operator rows
 
   const int tid = threadIdx.x;
   const int T = blockDim.x;
   const int n = g.n;
   const int nf = 2 * ND;
 
-  // this block's chunk of lanes: every per-lane pointer starts at its first
-  const int l0 = fg_chunk(lanes, chunk);
+  // this block's lanes and cells: a chunk of whole lanes, or one lane's
+  // range in the cluster arm (krylov.cuh fg_block_cells)
+  int c0, c1;
+  const int l0 = fg_block_cells<CLUSTER>(lanes, chunk, n, c0, c1);
+  const bool lead = tid == 0 && c0 == 0;  // writes the lane stats (rank 0)
   const size_t lo = (size_t)l0 * n;
   b += lo;
   x0 += lo;
@@ -155,17 +192,34 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   rs_out += l0;
   if (COARSE) cz.einv_t += (size_t)l0 * cz.K * cz.K * cz.per_lane;
 
+  FgRows staged{};
+  float* s_terms = nullptr;  // fg_lane_sum2's chain terms (cluster arm)
+  if constexpr (CLUSTER) {
+    staged = fg_stage_rows<ND>(diag, off, nbr, n, c0, c1, c1 - c0, s_rows);
+    s_terms = fg_chain_buf(
+        s_rows, n, (int)cooperative_groups::this_cluster().num_blocks(), ND);
+    __syncthreads();
+  }
+  // the operator rows of lane l
+  auto rows = [&](int l) {
+    if constexpr (CLUSTER) return staged;
+    else
+      return FgRows{diag + (size_t)l * n * op_per_lane,
+                    off + (size_t)l * nf * n * op_per_lane, nbr, n, 0};
+  };
+  // lane l's diag in global memory (the cluster arm's sums read every cell)
+  auto gdiag = [&](int l) { return diag + (size_t)l * n * op_per_lane; };
+
   // ---- init: r = b - A x0 (or b), z = M^-1 r, p = z, best = x ----------
   for (int l = 0; l < lanes; ++l) {
-    const float* dg = diag + (size_t)l * n * op_per_lane;
-    const float* of = off + (size_t)l * nf * n * op_per_lane;
+    const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    for (int c = tid; c < n; c += T) {
+    for (int c = c0 + tid; c < c1; c += T) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
-        rr = b[o + c] - fg_apply<ND, TABLE>(dg, of, nbr, x0 + o, c, g);
+        rr = b[o + c] - fg_apply<ND, TABLE>(R, x0 + o, c, g);
       } else {
         xx = 0.0f;
         rr = b[o + c];
@@ -174,7 +228,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       best[o + c] = xx;
       r[o + c] = rr;
       if (!COARSE) {
-        const float zz = precondition ? (1.0f / dg[c]) * rr : rr;
+        const float zz = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
         p[o + c] = zz;
         a1 += rr * zz;
         a2 += rr * rr;
@@ -182,10 +236,16 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     }
     if (COARSE) {
       __syncthreads();  // r of this lane is complete
-      fg_coarse_precond(r + o, dg, p + o, n, cz, l, precondition, s_rc, s_xc,
-                        sh, a1, a2);
+      fg_coarse_precond(r + o, R.dg, p + o, n, cz, l, precondition, s_rc,
+                        s_xc, sh, a1, a2);
     } else {
-      fg_block_sum2(a1, a2, sh);
+      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
+                            [&](int c, float& u, float& w) {
+                              const float rr = __ldcg(r + o + c);
+                              const float zz = __ldcg(p + o + c);
+                              u = rr * zz;
+                              w = rr * rr;
+                            });
     }
     if (tid == 0) {
       s_rz[l] = a1;
@@ -197,7 +257,11 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
   int it = 0;
   for (;;) {
-    __syncthreads();
+    // the cluster arm: publishes p (x) before pass A gathers it across ranges
+    if constexpr (CLUSTER)
+      fg_cluster_sync();
+    else
+      __syncthreads();
     if (tid == 0) {
       int any = 0;
       for (int l = 0; l < lanes; ++l) {
@@ -214,17 +278,20 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
     // ---- pass A: q = A (recompute ? x : p), denom = <p, q> --------------
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
-      const float* of = off + (size_t)l * nf * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       const float* src = (recompute ? x : p) + o;
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = tid; c < n; c += T) {
-        const float av = fg_apply<ND, TABLE>(dg, of, nbr, src, c, g);
+      for (int c = c0 + tid; c < c1; c += T) {
+        const float av = fg_apply<ND, TABLE>(R, src, c, g);
         q[o + c] = av;
         a1 += p[o + c] * av;
       }
-      fg_block_sum2(a1, a2, sh);
+      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
+                            [&](int c, float& u, float& w) {
+                              u = __ldcg(p + o + c) * __ldcg(q + o + c);
+                              w = 0.0f;
+                            });
       if (tid == 0) s_red1[l] = a1;
     }
     __syncthreads();
@@ -239,27 +306,35 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     // (COARSE: the pass stops at r; z = M^-1 r goes to q, free until the
     // next matvec, and the sums come from fg_coarse_precond)
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = tid; c < n; c += T) {
+      for (int c = c0 + tid; c < c1; c += T) {
         x[o + c] = x[o + c] + al * p[o + c];
         const float rr =
             recompute ? b[o + c] - q[o + c] : r[o + c] - al * q[o + c];
         r[o + c] = rr;
         if (!COARSE) {
-          const float zz = precondition ? (1.0f / dg[c]) * rr : rr;
+          const float zz =
+              precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
           a1 += rr * zz;
           a2 += rr * rr;
         }
       }
       if (COARSE) {
         __syncthreads();  // r of this lane is complete
-        fg_coarse_precond(r + o, dg, q + o, n, cz, l, precondition, s_rc,
+        fg_coarse_precond(r + o, R.dg, q + o, n, cz, l, precondition, s_rc,
                           s_xc, sh, a1, a2);
       } else {
-        fg_block_sum2(a1, a2, sh);
+        const float* dg = gdiag(l);
+        fg_lane_sum2<CLUSTER>(
+            a1, a2, sh, s_chain, s_terms, n, [&](int c, float& u, float& w) {
+              const float rr = __ldcg(r + o + c);
+              const float zz = precondition ? (1.0f / __ldcg(dg + c)) * rr : rr;
+              u = rr * zz;
+              w = rr * rr;
+            });
       }
       if (tid == 0) {
         s_red1[l] = a1;
@@ -283,17 +358,17 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
     // ---- pass C: p = z + beta p; best = x where better ------------------
     for (int l = 0; l < lanes; ++l) {
-      const float* dg = diag + (size_t)l * n * op_per_lane;
+      const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       const float be = s_beta[l];
       const int keep = return_best && s_better[l];
-      for (int c = tid; c < n; c += T) {
+      for (int c = c0 + tid; c < c1; c += T) {
         float zz;
         if (COARSE) {
           zz = q[o + c];
         } else {
           const float rr = r[o + c];
-          zz = precondition ? (1.0f / dg[c]) * rr : rr;
+          zz = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
         }
         p[o + c] = zz + be * p[o + c];
         if (keep) best[o + c] = x[o + c];
@@ -307,13 +382,15 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const size_t o = (size_t)l * n;
     const int use_best = return_best && !(s_rs[l] <= tol2);
     if (use_best) {
-      for (int c = tid; c < n; c += T) x[o + c] = best[o + c];
+      for (int c = c0 + tid; c < c1; c += T) x[o + c] = best[o + c];
     }
-    if (tid == 0) {
+    if (lead) {
       iters_out[l] = it;
       rs_out[l] = use_best ? s_best_rs[l] : s_rs[l];
     }
   }
+  // no block leaves while another may still read its shared memory
+  if constexpr (CLUSTER) fg_cluster_sync();
 }
 
 extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
@@ -351,16 +428,27 @@ extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
 // lane is one flat buffer of n cells holding all super-blocks, the matvec
 // goes through the plan's neighbour table (merged.cuh), so every dot
 // product is joint over the super-blocks.  Semantics as K1 above.
+// `cluster` = 1: the chunk grid, one block per chunk of lanes; `cluster` =
+// C in 2, 4, 8, 16 (chunk 1): the cluster arm, one lane over C blocks
+// (lanes * C blocks), each block's operator rows in shared memory (a size
+// whose rows do not fit is refused: cudaFuncSetAttribute fails).
+using FgCgKernel = decltype(&fg_cg_kernel<2, true, false>);
+
+static FgCgKernel fg_cg_cluster_kernel(int ndims) {
+  return ndims == 2 ? fg_cg_kernel<2, true, false, true>
+                    : fg_cg_kernel<3, true, false, true>;
+}
+
 extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
                               const float* off, const int* nbr,
                               const float* x0, float* x, int* iters, float* rs,
                               float* r, float* p, float* q, float* best,
-                              int lanes, int chunk, int n, int ndims,
-                              int op_per_lane, float tol2, int maxiter,
-                              int stall_iters, int precondition,
+                              int lanes, int chunk, int cluster, int n, int ndims, int op_per_lane, float tol2,
+                              int maxiter, int stall_iters, int precondition,
                               int return_best, int warm_start, void* stream) {
   const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr)
+  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr ||
+      !fg_cluster_ok(cluster, chunk))
     return (int)cudaErrorInvalidValue;
   FgGrid g;
   g.nz = 1;
@@ -368,6 +456,14 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
   g.nx = n;
   g.n = n;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster > 1) {
+    return (int)fg_launch_clusters(
+        fg_cg_cluster_kernel(ndims), lanes, cluster,
+        fg_stage_bytes(n, cluster, ndims), s, b, diag,
+        off, nbr, x0, x, iters, rs, r, p, q, best, lanes, 1, g, op_per_lane,
+        tol2, maxiter, stall_iters, precondition, return_best, warm_start,
+        FgCoarse{});
+  }
   if (ndims == 2) {
     fg_cg_kernel<2, true, false><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
@@ -380,6 +476,16 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
         warm_start, FgCoarse{});
   }
   return (int)cudaGetLastError();
+}
+
+// How many C-block clusters of K3's cluster arm (ndims, over n cells) the
+// card holds at once, into *out: the cluster rule's occupancy.
+extern "C" int fg_cg_mb_cluster_occupancy(int ndims, int cluster, int n,
+                                          int* out) {
+  if ((ndims != 2 && ndims != 3) || cluster < 2 || !fg_cluster_ok(cluster, 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_max_clusters(fg_cg_cluster_kernel(ndims), cluster,
+                              fg_stage_bytes(n, cluster, ndims), out);
 }
 
 // K3-coarse: K3 with the strip-coarse preconditioner (see the note at the

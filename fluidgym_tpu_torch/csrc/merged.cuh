@@ -21,20 +21,26 @@
 // per iteration, every dot product over the flat buffer is joint over the
 // super-blocks, and the matvec is one gather per face.  The table holds
 // 2*ndims int32 per cell (the cylinder: 4 x 14,232 x 4 B = 228 KB), read
-// from L2 like the coefficients.
+// from L2 like the coefficients, or from shared memory in the cluster arm,
+// where each block stages the rows of its own range once per solve.
 #pragma once
 
 #include <cuda_runtime.h>
 
 // (A v)_c = diag_c v_c + sum_f off_f,c v_nbr_f(c), summed in face order.
+// The operator rows are read at row i of arrays with face stride `stride`:
+// i = c, stride = n for the lane's rows in global memory, or a block's rows
+// staged in shared memory (krylov.cuh fg_stage_rows).
 template <int ND>
 __device__ __forceinline__ float fg_table_matvec(const float* __restrict__ diag,
                                                  const float* __restrict__ off,
                                                  const int* __restrict__ nbr,
+                                                 int stride,
                                                  const float* __restrict__ v,
-                                                 int c, int n) {
-  float y = diag[c] * v[c];
+                                                 int c, int i) {
+  float y = diag[i] * v[c];
 #pragma unroll
-  for (int f = 0; f < 2 * ND; ++f) y = y + off[f * n + c] * v[nbr[f * n + c]];
+  for (int f = 0; f < 2 * ND; ++f)
+    y = y + off[f * stride + i] * v[nbr[f * stride + i]];
   return y;
 }

@@ -43,13 +43,17 @@ _ARGTYPES = {
     # lanes, chunk, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall,
     # precond, best?, warm, stream
     "fg_bicgstab_solve": [_P] * 15 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
-    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, n,
-    # ndims, op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
-    "fg_cg_mb_solve": [_P] * 12 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
+    # cluster, n, ndims, op_per_lane, tol2, maxiter, stall, precond, best?,
+    # warm, stream
+    "fg_cg_mb_solve": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-    # best, lanes, chunk, n, ndims, op_per_lane, tol2, maxiter, stall,
-    # precond, best?, warm, stream
-    "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # best, lanes, chunk, cluster, n, ndims, op_per_lane, tol2, maxiter,
+    # stall, precond, best?, warm, stream
+    "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # ndims, cluster, n, out (int*)
+    "fg_cg_mb_cluster_occupancy": [_I] * 3 + [_P],
+    "fg_bicgstab_mb_cluster_occupancy": [_I] * 3 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, einv_t, strip_ptr,
     # strip_cells, cidx, lanes, chunk, n, ndims, op_per_lane, K, tol2,
     # maxiter, stall, precond, best?, warm, stream

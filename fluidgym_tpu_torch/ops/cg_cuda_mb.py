@@ -47,12 +47,29 @@ neighbour table built once per plan (``neighbor_table``; see
   ``fused_cg_mb_plain(..., coarse=...)`` is ``coarse_strips.restrict`` /
   ``prolong``, independent of the cell lists.
 
+The cluster arm (K3 and K2-mb, both seam forms): a lane can be spread over
+a thread-block cluster of C blocks (C in 2, 4, 8, 16), one per SM, each
+owning a contiguous range of the flat buffer (``cluster_ranges``) with its
+operator rows in shared memory (``stage_bytes``; a C whose rows do not fit
+is refused).  Its sums are the one-block form's, bit for bit, so it
+computes what a one-lane launch of the chunk grid computes.
+``default_cluster`` picks C by shape from the card's own occupancy answer
+(``max_active_clusters``); C = 1 is the chunk grid, unchanged, and stays
+the shape of a batch with more lanes than the card holds clusters.
+``cluster=`` on ``fused_cg_mb`` / ``fused_bicgstab_mb`` forces C, as
+``chunk=`` forces the chunk; ``pinned_cluster`` pins the rule's answer
+inside a ``with`` block (an A/B of the two arms on the main path).  Every
+launch still counts as its form; ``.cluster_launches`` on each wrapper
+counts those with C > 1.
+
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
 import math
 
@@ -73,7 +90,9 @@ from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
 __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "fused_cg_mb_plain", "neighbor_table", "strip_lists",
-           "flatten_fields", "unflatten_fields", "flatten_ops"]
+           "flatten_fields", "unflatten_fields", "flatten_ops",
+           "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
+           "max_active_clusters", "rows_fit", "CLUSTER_SIZES"]
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +212,118 @@ def _merged_mv(plan: MergePlan, diag, off):
                                                  unflatten_fields(plan, v)))
 
     return mv
+
+
+# ---------------------------------------------------------------------------
+# the cluster arm: the partition and the rule that picks C
+# ---------------------------------------------------------------------------
+
+#: cluster sizes of the merged-frame kernels' cluster arm, largest first
+#: (C = 1 is the chunk grid)
+CLUSTER_SIZES = (16, 8, 4, 2)
+#: shared memory one block may opt into on the H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+#: room kept for the kernels' static shared arrays (~7.2 KB today)
+SMEM_STATIC = 8_192
+#: the rule keeps at least one cell per thread of a 1024-thread block
+MIN_CELLS_PER_BLOCK = 1024
+
+_PINNED: int | None = None
+
+
+def _cluster_seg(n: int, C: int) -> int:
+    return -(-(-(-n // C)) // 32) * 32
+
+
+def cluster_ranges(n: int, C: int) -> list[tuple[int, int]]:
+    """The cells ``[c0, c1)`` that each block of a C-block cluster owns in a
+    lane of ``n`` cells: contiguous, ``ceil(n / C)`` rounded up to 32 per
+    block, cut at ``n`` (``csrc/krylov.cuh`` ``fg_cluster_seg``)."""
+    seg = _cluster_seg(n, C)
+    return [(min(n, r * seg), min(n, (r + 1) * seg)) for r in range(C)]
+
+
+def stage_bytes(n: int, C: int, ndims: int) -> int:
+    """Dynamic shared memory of one block in the cluster arm: the operator
+    rows of its range (diag, ``2*ndims`` off and ``2*ndims`` int32
+    neighbours per cell), then two floats for each cell of its 1024 / C
+    sum chains (``fg_stage_bytes``)."""
+    chains = 2 * (1024 // C) * -(-n // 1024)
+    return (_cluster_seg(n, C) * (1 + 4 * ndims) + chains) * 4
+
+
+def rows_fit(n: int, C: int, ndims: int) -> bool:
+    """Whether a block's operator rows fit in its shared memory at C."""
+    return stage_bytes(n, C, ndims) <= SMEM_PER_BLOCK - SMEM_STATIC
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(algo: str, ndims: int, C: int, n: int,
+                        device: torch.device) -> int:
+    """How many C-block clusters of the cluster arm of ``algo`` (``"cg"``:
+    K3, ``"bicgstab"``: K2-mb) over ``n``-cell lanes the card holds at once:
+    ``cudaOccupancyMaxActiveClusters`` (C's rows must fit, ``rows_fit``)."""
+    lib = _build.library()
+    entry = (lib.fg_cg_mb_cluster_occupancy if algo == "cg"
+             else lib.fg_bicgstab_mb_cluster_occupancy)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = entry(ndims, C, n, ctypes.addressof(out))
+    _build.check(status, f"{algo} cluster occupancy at C = {C}")
+    return out.value
+
+
+def default_cluster(lanes: int, n: int, ndims: int, chunk: int, device,
+                    algo: str = "cg") -> int:
+    """Blocks per lane of a merged-frame solve of ``lanes`` lanes of ``n``
+    cells: the largest C in ``CLUSTER_SIZES`` with one lane per cluster
+    (``chunk == 1``), every lane's cluster co-resident on the card
+    (``max_active_clusters >= lanes``), a block's operator rows in its
+    shared memory (``stage_bytes``), and at least ``MIN_CELLS_PER_BLOCK``
+    cells per block; else 1 (the chunk grid), as on the CPU.  A dispatch by
+    shape: 1 stays the shape of a batch with more lanes than the card holds
+    clusters.  ``pinned_cluster`` overrides it."""
+    if torch.device(device).type != "cuda" or chunk != 1:
+        return 1
+    if _PINNED is not None:
+        return _PINNED
+    for C in CLUSTER_SIZES:
+        if n < MIN_CELLS_PER_BLOCK * C or not rows_fit(n, C, ndims):
+            continue
+        if max_active_clusters(algo, ndims, C, n,
+                               torch.device(device)) >= lanes:
+            return C
+    return 1
+
+
+@contextlib.contextmanager
+def pinned_cluster(C: int | None):
+    """Inside the ``with`` block ``default_cluster`` answers C for the
+    card's one-lane-per-cluster solves (None: the rule), and afterwards
+    what it answered before: an A/B of the cluster arm against the chunk
+    grid on the main path, which picks C itself."""
+    if C is not None and C not in (1,) + CLUSTER_SIZES:
+        raise ValueError(f"cluster must be 1 or one of {CLUSTER_SIZES}, got {C}")
+    global _PINNED
+    before, _PINNED = _PINNED, C
+    try:
+        yield
+    finally:
+        _PINNED = before
+
+
+def check_cluster(cluster: int, chunk: int, arm_ok: bool = True) -> None:
+    """The kernels take C = 1, or C in ``CLUSTER_SIZES`` with chunk 1 on a
+    form that has the cluster arm (``arm_ok``)."""
+    if cluster not in (1,) + CLUSTER_SIZES:
+        raise ValueError(f"cluster must be 1 or one of {CLUSTER_SIZES}, "
+                         f"got {cluster}")
+    if cluster > 1 and chunk != 1:
+        raise ValueError(f"the cluster arm takes one lane per cluster "
+                         f"(chunk 1), got chunk {chunk}")
+    if cluster > 1 and not arm_ok:
+        raise ValueError("this kernel form has no cluster arm (K2 over the "
+                         "trivial plan and K3-coarse take cluster 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -361,18 +492,33 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     return x, iters, rs
 
 
-def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
-                   maxiter, stall_iters, precondition, return_best, chunk,
-                   coarse=None):
+def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, **kw):
     """K3 (``algo="cg"``; K3-coarse with ``coarse = (sp, einv)``) or K2-mb
-    (``"bicgstab"``) on the flat merged layout: ``b``/``x0`` ``(lanes, n)``,
-    ``diag (1|lanes, n)``, ``off (1|lanes, 2*ndims, n)``, ``einv (1|lanes,
-    K, K)`` like ``diag``."""
+    (``"bicgstab"``) on the flat merged layout: one launch of
+    ``merged_launcher``.  Returns ``(x, iterations, residual_sum)``."""
+    return merged_launcher(algo, plan, diag, off, b, x0, **kw)()
+
+
+def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
+                    maxiter, stall_iters, precondition, return_best, chunk,
+                    coarse=None, cluster: int = 1):
+    """Check and lay out the operands of K3 / K3-coarse / K2-mb on the flat
+    merged layout (``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``,
+    ``off (1|lanes, 2*ndims, n)``, ``einv (1|lanes, K, K)`` like ``diag``),
+    allocate the outputs and scratch once, and return ``launch()``: one
+    kernel launch on the current stream into those buffers, returning ``(x,
+    iterations, residual_sum)`` (the same tensors on every call; a timing
+    loop of raw launches).  ``cluster``: blocks per lane (1: the chunk
+    grid; C > 1: the cluster arm, chunk 1, whose rows must fit)."""
     ndims = plan.ndims
     L, n = b.shape
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
         raise ValueError("b must be (lanes, n) and off (1|lanes, 2*ndims, n)")
     op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
+    check_cluster(cluster, chunk, coarse is None)
+    if cluster > 1 and not rows_fit(n, cluster, ndims):
+        raise ValueError(f"a block's operator rows ({stage_bytes(n, cluster, ndims)}"
+                         f" B) do not fit in shared memory at cluster {cluster}")
     nbr = neighbor_table(plan, b.device)
     b = b.contiguous()
     diag = diag.contiguous()
@@ -383,30 +529,33 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     iters = torch.empty(L, dtype=torch.int32, device=b.device)
     rs = torch.empty(L, dtype=torch.float32, device=b.device)
     lib = _build.library()
-    head = (b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
-            x0c.data_ptr(), x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
-            *[s.data_ptr() for s in scratch])
+    # the closure holds every buffer it hands the kernel by pointer
+    bufs = (b, diag, off, nbr, x0c, x, iters, rs, *scratch)
     tail = (tol2_sum, int(maxiter), int(stall_iters), int(precondition),
             int(return_best), int(x0 is not None))
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        if coarse is not None:
-            sp, einv = coarse
-            if (einv.shape != (diag.shape[0], sp.K, sp.K) or einv.device != b.device
-                    or einv.dtype != torch.float32):
-                raise ValueError("einv must be float32 (1|lanes, K, K) like diag")
-            einv_t = einv.transpose(-1, -2).contiguous()
-            lists = strip_lists(plan, b.device)
-            status = lib.fg_cg_mb_coarse_solve(
-                *head, einv_t.data_ptr(), *[t.data_ptr() for t in lists],
-                L, chunk, n, ndims, op_per_lane, sp.K, *tail, stream)
-        else:
-            entry = (lib.fg_cg_mb_solve if algo == "cg"
-                     else lib.fg_bicgstab_mb_solve)
-            status = entry(*head, L, chunk, n, ndims, op_per_lane, *tail,
-                           stream)
-    _build.check(status, "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb")
-    return x, iters, rs
+    if coarse is not None:
+        sp, einv = coarse
+        if (einv.shape != (diag.shape[0], sp.K, sp.K) or einv.device != b.device
+                or einv.dtype != torch.float32):
+            raise ValueError("einv must be float32 (1|lanes, K, K) like diag")
+        bufs += (einv.transpose(-1, -2).contiguous(),
+                 *strip_lists(plan, b.device))
+        shape = (L, chunk, n, ndims, op_per_lane, sp.K)
+        entry = lib.fg_cg_mb_coarse_solve
+    else:
+        shape = (L, chunk, cluster, n, ndims, op_per_lane)
+        entry = (lib.fg_cg_mb_solve if algo == "cg"
+                 else lib.fg_bicgstab_mb_solve)
+    what = "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb"
+
+    def launch():
+        with torch.cuda.device(b.device):
+            status = entry(*[t.data_ptr() for t in bufs], *shape, *tail,
+                           torch.cuda.current_stream(b.device).cuda_stream)
+        _build.check(status, what)
+        return x, iters, rs
+
+    return launch
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +565,8 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
 def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
                 maxiter: int = 5000, stall_iters: int = 250,
                 precondition: bool = True, return_best: bool = True,
-                coarse_strips: bool = False, chunk: int | None = None):
+                coarse_strips: bool = False, chunk: int | None = None,
+                cluster: int | None = None):
     """K3: whole-solve lockstep CG on a merged multi-block stencil operator.
 
     ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
@@ -425,11 +575,14 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     ``(lanes, *spatial_s)``.  ``coarse_strips``: add the strip-coarse
     correction to the preconditioner (K3-coarse); a plan without strip
     spaces (3D) keeps Jacobi alone, as in the JAX package.  ``chunk``:
-    lanes per lockstep chunk (``default_chunk`` when None).  Returns ``(xs,
-    SolveInfo)`` in the same layout, the info per lane (scalars for one
-    unbatched lane).  A lane whose RHS is all zero over every super-block
-    gets a zero solution.  Under ``torch.func.vmap`` the batch folds onto
+    lanes per lockstep chunk (``default_chunk`` when None).  ``cluster``:
+    blocks per lane on the card (``default_cluster`` when None; K3-coarse
+    takes 1).  Returns ``(xs, SolveInfo)`` in the same layout, the info per
+    lane (scalars for one unbatched lane).  A lane whose RHS is all zero
+    over every super-block gets a zero solution.  Under ``torch.func.vmap`` the batch folds onto
     the lanes (``cg_cuda.LaneFold``)."""
+    if cluster is not None:  # before the coarse inverse is built
+        check_cluster(cluster, 1 if chunk is None else chunk, not coarse_strips)
     batched = bs[0].dim() == plan.ndims + 1
     if not batched:
         bs = tuple(b.unsqueeze(0) for b in bs)
@@ -449,11 +602,18 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     def solve(b, x0, diag, off, einv):
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
         coarse = None if einv is None else (sp, einv)
+        cl = cluster
+        if cl is None:
+            cl = 1 if coarse else default_cluster(b.shape[0], n, plan.ndims,
+                                                  c, b.device)
+        check_cluster(cl, c, coarse is None)
         if device_kind(b, "fused_cg_mb") == "cpu":
             return fused_cg_mb_plain(plan, diag, off, b, x0, coarse=coarse,
                                      chunk=c, **kw)
         out = _launch_merged("cg", plan, diag, off, b, x0, coarse=coarse,
-                             chunk=c, **kw)
+                             chunk=c, cluster=cl, **kw)
+        if cl > 1:
+            fused_cg_mb.cluster_launches += 1
         if coarse is None and plan.identity_seams:
             fused_cg_mb.launches += 1
         elif coarse is None:
@@ -480,20 +640,23 @@ fused_cg_mb.launches = 0
 fused_cg_mb.flip_launches = 0
 fused_cg_mb.coarse_launches = 0
 fused_cg_mb.coarse_flip_launches = 0
+fused_cg_mb.cluster_launches = 0
 
 
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                       tol: float, maxiter: int = 5000, stall_iters: int = 250,
                       precondition: bool = True, return_best: bool = True,
-                      chunk: int | None = None):
+                      chunk: int | None = None, cluster: int | None = None):
     """K2: whole-solve lockstep BiCGStab on a merged stencil operator.
 
     ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
     *spatial_s)``; ``bs``/``x0s``: per-super-block ``(C, *spatial_s)`` with a
     leading component axis.  Components are independent lanes with
     per-component stopping, in lockstep chunks of ``chunk`` lanes
-    (``default_chunk`` when None).  Returns ``(xs, SolveInfo)`` with the
-    info aggregated over components (converged = all, iterations = max,
+    (``default_chunk`` when None), ``cluster`` blocks per lane on the card
+    (``default_cluster`` when None; the single-super-block form takes 1).
+    Returns ``(xs, SolveInfo)`` with the info aggregated over components
+    (converged = all, iterations = max,
     residual = joint RMSE).  Under ``torch.func.vmap`` the batch folds onto
     the lanes (``cg_cuda.LaneFold``): B envs of C components are B*C
     lanes."""
@@ -515,6 +678,11 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 
     def solve(b, x0, diag, off):
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
+        cl = cluster
+        if cl is None:
+            cl = 1 if single else default_cluster(b.shape[0], n_lane, ndims, c,
+                                                  b.device, "bicgstab")
+        check_cluster(cl, c, not single)
         if device_kind(b, "fused_bicgstab_mb") == "cpu":
             return fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
                                         plan=None if single else plan,
@@ -524,7 +692,9 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
             fused_bicgstab_mb.launches += 1
         else:
             out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
-                                 **kw)
+                                 cluster=cl, **kw)
+            if cl > 1:
+                fused_bicgstab_mb.cluster_launches += 1
             if plan.identity_seams:
                 fused_bicgstab_mb.merged_launches += 1
             else:
@@ -546,3 +716,4 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 fused_bicgstab_mb.launches = 0
 fused_bicgstab_mb.merged_launches = 0
 fused_bicgstab_mb.merged_flip_launches = 0
+fused_bicgstab_mb.cluster_launches = 0

@@ -2,7 +2,7 @@
 """Where one env step of fluidgym_tpu_torch spends its time on a CUDA card.
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
-        [--strips] [--k4] [--batch N]
+        [--strips] [--k4] [--batch N] [--cluster C]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
@@ -11,8 +11,10 @@ and the fused stencil apply (``--k4``) if asked, takes one warm-up step,
 then profiles ``--steps`` steps with ``torch.profiler`` (CPU + CUDA
 activities).  With ``--batch N`` it steps a ``parallel.BatchedFluidEnv`` of
 N envs instead (seeds 0..N-1, random actions), one batched step being one
-"step" below; a substep is then a lockstep round of the batch.  Prints one
-JSON object:
+"step" below; a substep is then a lockstep round of the batch.  ``--cluster
+C`` pins the merged kernels' cluster rule to C (``cg_cuda_mb.pinned_cluster``;
+1: one block per lane) for an A/B of device time.  Prints one JSON
+object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise (``env_steps_per_s``: envs x steps over that time);
@@ -26,9 +28,11 @@ JSON object:
   and per substep, counted by the wrappers, and device ms per step (the
   profiler's kernel
   events of that instantiation: ``fg_cg_kernel<ND, false, false>`` is K1,
-  ``<ND, true, false>`` K3 and ``<ND, true, true>`` K3-coarse in either
-  seam form, ``fg_bicg_kernel<ND, false>`` K2, ``<ND, true>`` K2-mb in
-  either form, ``fg_stencil2d_kernel`` K4; a flip form's device time is
+  ``<ND, true, false, ...>`` K3 and ``<ND, true, true, ...>`` K3-coarse in
+  either seam form, ``fg_bicg_kernel<ND, false, ...>`` K2, ``<ND, true,
+  ...>`` K2-mb in either form, the cluster arm's instances (template
+  arguments CLUSTER, STAGE) under their form, ``fg_stencil2d_kernel`` K4;
+  a flip form's device time is
   reported under its template's entry, which for an id with flip seams
   holds only the flip form);
 * the host operators with the most self CPU time per step;
@@ -52,7 +56,8 @@ def _port_kernel(name: str) -> str | None:
     head = name.split("(")[0]
     args = head[head.find("<") + 1:head.rfind(">")].replace(" ", "").split(",")
     if "fg_cg_kernel" in name:
-        if args[1:] == ["true", "true"]:
+        # <ND, TABLE, COARSE[, CLUSTER]>: the cluster arm counts as K3
+        if args[1:3] == ["true", "true"]:
             return "K3-coarse"
         return "K3" if args[1:2] == ["true"] else "K1"
     if "fg_bicg_kernel" in name:
@@ -63,7 +68,6 @@ def _port_kernel(name: str) -> str | None:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     ap = argparse.ArgumentParser()
@@ -73,6 +77,7 @@ def main() -> int:
     ap.add_argument("--strips", action="store_true")
     ap.add_argument("--k4", action="store_true")
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--cluster", type=int, default=None)
     args = ap.parse_args()
     if args.batch and args.strips:
         print("port_step_profile: the batched path runs without the strips",
@@ -82,12 +87,23 @@ def main() -> int:
         print("port_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    with cg_cuda_mb.pinned_cluster(args.cluster):
+        return _profile(args)
+
+
+def _profile(args) -> int:
+    """The profiled run of ``main`` (the cluster rule pinned as asked)."""
     import dataclasses
 
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import fluidgym_tpu_torch
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb, stencil_cuda
     from fluidgym_tpu_torch.solver import piso
-    from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -163,7 +179,7 @@ def main() -> int:
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
     out = {
         "env": args.env, "strips": args.strips, "k4": args.k4,
-        "batch": args.batch or None,
+        "batch": args.batch or None, "cluster_pin": args.cluster,
         "card": smi,
         "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
@@ -189,7 +205,8 @@ def main() -> int:
     }
     os.makedirs(args.out, exist_ok=True)
     tag = "".join(("_strips" if args.strips else "", "_k4" if args.k4 else "",
-                   f"_batch{args.batch}" if args.batch else ""))
+                   f"_batch{args.batch}" if args.batch else "",
+                   "" if args.cluster is None else f"_cluster{args.cluster}"))
     with open(os.path.join(args.out, f"port_step_profile_{args.env}{tag}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)

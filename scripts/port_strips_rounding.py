@@ -14,6 +14,16 @@ Two measurements, printed as one JSON object:
   constant mode projected out), and with the JAX package's form of the
   coarse inverse (``(E + eps I)^-1`` unprojected): iterations, converged,
   final residual.
+* ``sensitivity``: the cylinder's system above solved twice per arm
+  (Jacobi, the strips, the strips with eps_rel 1e-2), the second time
+  with its RHS perturbed by 1e-7 relative: how far each arm carries that
+  into its solution (``_sensitivity``);
+* ``iterates``: the same pair of solves stopped after k = 10, 20, ..., 80
+  iterations: how the two runs' iterates part as the iterations go
+  (``_iterates``);
+* ``spectrum``: the strips' coarse matrix E on both ids' systems: K, its
+  mean diagonal, lowest and largest eigenvalues, and the overlap of its
+  lowest eigenvector with ``1_K`` (``_spectrum``);
 * ``threads``: one CylinderJet2D-easy-v0 env step (25 sim steps) from the
   bundled training snapshot (``reset(seed=0)`` without randomization, the
   state of ``chip_smoke.py`` phases 10 and 18) under the action 0.4, with
@@ -92,6 +102,101 @@ def _solves():
     return out
 
 
+def _perturbed_cylinder():
+    """The cylinder's pressure system of ``_system``, its RHS ``b`` and ``b``
+    perturbed by 1e-7 relative (seeded normal noise), the env's tol2 and
+    the arms (Jacobi, the strips, the strips with eps_rel 1e-2)."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import coarse_strips as cs
+
+    torch.set_num_threads(1)
+    plan, mops, bs, n = _system("CylinderJet2D-easy-v0",
+                                "cylinder_2D_Re100_Res24", "test_00", 0.01)
+    sp = cs.strip_plan(plan)
+    diag, off = cg_cuda_mb.flatten_ops(plan, tuple(m[0] for m in mops),
+                                       tuple(m[1] for m in mops))
+    b = cg_cuda_mb.flatten_fields(plan, tuple(x[None] for x in bs))
+    g = torch.Generator().manual_seed(0)
+    bp = b * (1 + 1e-7 * torch.randn(b.shape, generator=g))
+    arms = {"jacobi": None,
+            "strips": (sp, cs.coarse_inverse(plan, sp, mops)[None]),
+            "strips_eps_1e-2": (sp, cs.coarse_inverse(plan, sp, mops,
+                                                      eps_rel=1e-2)[None])}
+    return plan, diag, off, b, bp, cg_cuda.tol2_sum_f32(1e-5, n), arms
+
+
+def _rel_diff(xa, xb):
+    xa, xb = xa - xa.mean(), xb - xb.mean()
+    return float((xa - xb).abs().max() / xa.abs().max())
+
+
+def _sensitivity():
+    """How far each arm carries a 1e-7 relative perturbation of the RHS
+    into its solution (``_perturbed_cylinder``), cold, at the env's
+    tolerance: the largest difference of the two mean-free solutions
+    relative to max|x|, and both iteration counts.  ``strips_eps_1e-2``:
+    the strips with a 1e4 x larger regularisation of the coarse inverse."""
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    plan, diag, off, b, bp, tol2, arms = _perturbed_cylinder()
+    out = {}
+    for arm, coarse in arms.items():
+        xs, its = [], []
+        for rhs in (b, bp):
+            x, it, _ = cg_cuda_mb.fused_cg_mb_plain(
+                plan, diag, off, rhs, None, tol2_sum=tol2, maxiter=5000,
+                stall_iters=250, precondition=True, return_best=True,
+                coarse=coarse)
+            xs.append(x)
+            its.append(int(it[0]))
+        out[arm] = {"x_rel_diff": _rel_diff(*xs), "iterations": its}
+    return out
+
+
+def _iterates():
+    """Where the two solves of ``_sensitivity`` part: after k iterations
+    (no stopping test, no return-best) the largest difference of their
+    mean-free iterates relative to max|x|, per arm."""
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    plan, diag, off, b, bp, _, arms = _perturbed_cylinder()
+    out = {}
+    for arm, coarse in arms.items():
+        out[arm] = {}
+        for k in (10, 20, 30, 40, 50, 60, 70, 80):
+            xs = [cg_cuda_mb.fused_cg_mb_plain(
+                plan, diag, off, rhs, None, tol2_sum=0.0, maxiter=k,
+                stall_iters=250, precondition=True, return_best=False,
+                coarse=coarse)[0] for rhs in (b, bp)]
+            out[arm][k] = _rel_diff(*xs)
+    return out
+
+
+def _spectrum():
+    """The coarse matrix E of the strips on each id's pressure system of
+    ``_system``: its K, mean diagonal (trace / K), lowest eigenvalues and
+    largest one, and how far its lowest eigenvector is from ``1_K``."""
+    import torch
+
+    from fluidgym_tpu_torch.solver import coarse_strips as cs
+
+    out = {}
+    for env_id, data, split, dt0 in (
+            ("CylinderJet2D-easy-v0", "cylinder_2D_Re100_Res24", "test_00", 0.01),
+            ("Airfoil2D-easy-v0", "airfoil_2D_Re1000", "train_00", 0.05)):
+        plan, mops, _, _ = _system(env_id, data, split, dt0)
+        sp = cs.strip_plan(plan)
+        ev, vec = torch.linalg.eigh(cs._assemble_E64(plan, sp, mops))
+        out[env_id] = {"K": sp.K, "mean_diagonal": float(ev.sum() / sp.K),
+                       "lowest": [float(v) for v in ev[:4]],
+                       "largest": float(ev[-1]),
+                       "lowest_vector_dot_ones": float(abs(vec[:, 0].sum())
+                                                       / sp.K ** 0.5)}
+    return out
+
+
 def _threads(n_threads):
     import numpy as np
     import torch
@@ -122,6 +227,8 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     print(json.dumps({"device": "cpu", "solves": _solves(),
+                      "sensitivity": _sensitivity(), "iterates": _iterates(),
+                      "spectrum": _spectrum(),
                       "threads": {"n": args.threads, **_threads(args.threads)}}))
     return 0
 

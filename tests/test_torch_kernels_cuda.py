@@ -20,6 +20,14 @@ kernel's restriction sums each strip in another order than the plain
 version's too).
 K4: within 1e-6 of max|y| (it rounds like the plain version, in the same
 order).
+The cluster arm of K3 / K2-mb (one lane over C blocks): at every C in 2, 4,
+8, 16 that the card holds for the lanes, on the cylinder's and the
+airfoil's full-width pressure and velocity systems, cold and warm, past the
+iteration-100 refresh and on the cylinder's impulsive start (maxiter 5000):
+the same converged flags as the plain version, iterations within 3, x
+within the bars above; two runs bit-equal; C = 1 through the wrapper
+bit-equal to the chunk grid's raw launch, and every C bit-equal to C = 1
+(its sums are the one-block form's).
 """
 
 import numpy as np
@@ -652,3 +660,127 @@ def test_chunk_grid_130_lanes(form):
     assert getattr(counter, attr) == before + 2
     for l in range(LANES):
         assert torch.equal(x1[l], single(l)), f"{form} lane {l}"
+
+
+# ---------------------------------------------------------------------------
+# the cluster arm of K3 and K2-mb: one lane over a thread-block cluster
+# ---------------------------------------------------------------------------
+
+def _impulsive_start_system(dev):
+    """The pressure system of the cylinder's first substep from a uniform
+    flow (the impulsive start, whose cold solves run hundreds to thousands
+    of iterations), at full width."""
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    env = fluidgym_tpu_torch.make(
+        "CylinderJet2D-easy-v0", load_initial_domain=False,
+        load_domain_statistics=False, randomize_initial_state=False)
+    env.reset(seed=0)
+    state, geoms, topo = env._state, env._geoms, env._topo
+    dt = torch.tensor(float(env.dt), device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    hbyA = st.pressure_rhs_vec(state, geoms, topo, adv,
+                               tuple(b.velocity for b in state.blocks),
+                               state.viscosity, dt)
+    rhs = tuple(-d for d in st.divergence_of(hbyA, state, geoms, topo))
+    plan = block_merge.merge_plan(topo)
+    return plan, p_ops, block_merge.pack_fields(plan, rhs)
+
+
+def _cluster_case(case, dev):
+    """``(plan, diags, offs, bs, x0s, algo, tol, maxiter, it_past, rel)``
+    for one cluster-arm case on a full-width system."""
+    system, algo, start = case
+    if system == "impulsive":
+        plan, p_ops, rhs = _impulsive_start_system(dev)
+        diags, offs = _packed(plan, p_ops)
+        n = sum(d.numel() for d in diags)
+        mean = sum(r.sum() for r in rhs) / n
+        bs = tuple((r - mean).unsqueeze(0) for r in rhs)
+        return plan, diags, offs, bs, None, "cg", 1e-5, 5000, 100, 1e-3
+    systems = _cylinder_systems if system == "cylinder" else _airfoil_systems
+    topo, state, plan, adv, p_ops = systems(dev)
+    g = torch.Generator().manual_seed(23)
+    if algo == "cg":
+        diags, offs = _packed(plan, p_ops)
+        xs = tuple(torch.randn((1,) + tuple(d.shape), generator=g).to(dev)
+                   for d in diags)
+        bs = block_merge.merged_apply(plan, tuple(zip(diags, offs)), xs)
+        x0s = (tuple(x + 0.01 * torch.randn(x.shape, generator=g).to(dev)
+                     for x in xs) if start == "warm" else None)
+        # "refresh": tight enough to pass the iteration-100 true-residual
+        # refresh, which gathers x across the blocks' ranges
+        tol, past = (1e-7, 100) if start == "refresh" else (1e-6, 0)
+        return plan, diags, offs, bs, x0s, "cg", tol, 3000, past, 1e-3
+    diags, offs = _packed(plan, adv)
+    vel = [b.velocity for b in state.blocks]
+    S = len(plan.superblocks)
+    per_c = [block_merge.pack_fields(plan, tuple(v[c] for v in vel))
+             for c in range(2)]
+    x0s = tuple(torch.stack([per_c[c][s] for c in range(2)]) for s in range(S))
+    bs = tuple(x * 100.0 for x in x0s)
+    return (plan, diags, offs, bs, x0s if start == "warm" else None,
+            "bicgstab", 1e-6, 2000, 0, 1e-4)
+
+
+@pytest.mark.parametrize("case", [
+    ("cylinder", "cg", "cold"), ("cylinder", "cg", "warm"),
+    ("cylinder", "cg", "refresh"), ("cylinder", "bicgstab", "cold"),
+    ("cylinder", "bicgstab", "warm"), ("airfoil", "cg", "cold"),
+    ("airfoil", "cg", "warm"), ("airfoil", "bicgstab", "warm"),
+    ("impulsive", "cg", "cold")], ids=lambda c: "-".join(c))
+def test_cluster_arm_matches_plain(case):
+    """K3 / K2-mb (both seam forms) at every cluster size the card holds
+    for the lanes, against the plain version; two runs bit-equal; C = 1
+    through the wrapper bit-equal to the chunk grid's raw launch, and every
+    C bit-equal to C = 1 (x, iterations, converged)."""
+    dev = require_cuda()
+    plan, diags, offs, bs, x0s, algo, tol, maxiter, past, rel = _cluster_case(
+        case, dev)
+    cg = algo == "cg"
+    fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
+    kw = dict(maxiter=maxiter, stall_iters=250, precondition=True,
+              return_best=cg)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    L, n = b.shape
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    if cg:
+        xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(plan, diag, off, b, x0,
+                                                  tol2_sum=tol2, **kw)
+    else:
+        xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(
+            diag, off, b, x0, ndims=2, plan=plan, tol2_sum=tol2, **kw)
+    conv_p = (rp <= tol2).cpu()
+    assert int(ip.max()) > past
+    raw = cg_cuda_mb._launch_merged(algo, plan, diag, off, b, x0,
+                                    tol2_sum=tol2, chunk=1, cluster=1, **kw)
+    x_raw = raw[0].clone()
+    taken = [C for C in cg_cuda_mb.CLUSTER_SIZES
+             if cg_cuda_mb.rows_fit(n, C, 2)
+             and cg_cuda_mb.max_active_clusters(algo, 2, C, n, dev) >= L]
+    assert taken, "the card holds no cluster of any size"
+    for C in [1] + taken:
+        before = fn.cluster_launches
+        runs = [fn(plan, diags, offs, bs, x0s, tol=tol, cluster=C, **kw)
+                for _ in range(2)]
+        assert fn.cluster_launches == before + (2 if C > 1 else 0)
+        (xs1, info1), (xs2, info2) = runs
+        x1 = cg_cuda_mb.flatten_fields(plan, xs1)
+        x2 = cg_cuda_mb.flatten_fields(plan, xs2)
+        torch.cuda.synchronize()
+        assert torch.equal(x1, x2), f"C={C}: two runs differ"
+        it1 = torch.as_tensor(info1.iterations).reshape(-1)
+        assert torch.equal(it1, torch.as_tensor(info2.iterations).reshape(-1))
+        conv = torch.as_tensor(info1.converged).reshape(-1).cpu()
+        assert torch.equal(conv, conv_p if cg else conv_p.all().reshape(1)), C
+        assert abs(int(it1.max()) - int(ip.max())) <= 3, (C, it1, ip)
+        assert_rel(x1.cpu().numpy(), xp.cpu().numpy(), rel, f"C={C}")
+        if C == 1:
+            assert torch.equal(x1, x_raw)
+            x_c1, it_c1, conv_c1 = x1, it1, conv
+        else:
+            assert torch.equal(x1, x_c1), f"C={C}: x differs from C = 1"
+            assert torch.equal(it1, it_c1) and torch.equal(conv, conv_c1), C
