@@ -14,14 +14,19 @@ Phases, each printed with its elapsed seconds:
 3. K1 against its plain PyTorch version on the card: the pressure system of
    the bundled RBC2D-easy snapshot at the main-path shape (1, 61, 96), then a
    4-lane run whose lanes converge at different speeds (one zero RHS) and
-   that passes iteration 100;
+   that passes iteration 100; then the main-path solve in both arms, in
+   turns (the chunk grid, the resident arm, the resident arm, the chunk
+   grid): ms per raw launch on preallocated buffers, us per iteration, ms
+   per wrapper call with the arm pinned;
 4. K2 against its plain version: the snapshot's temperature (1 lane) and
-   velocity (2 lanes) advection systems;
+   velocity (2 lanes) advection systems, then both arms in turns as in 3;
 5. the main path: ``make("RBC2D-easy-v0")`` at its registered full width,
    ``reset(seed=0)``, 3 steps with fixed numpy actions; the kernels' launch
    counters are zeroed just before and read just after: every substep must
    launch K1 once per pressure corrector and K2 once per advection solve,
-   and neither the plain versions nor ``linsolve``'s loops may run;
+   every one of them on the resident arm (``.resident_launches`` equal to
+   ``.launches``), and neither the plain versions nor ``linsolve``'s loops
+   may run;
 6. the card against the host (the kernels against the plain versions, end
    to end): a small config for 3 steps and the full width from the bundled
    snapshot for 1 step; observations and rewards must agree to 1e-4;
@@ -84,11 +89,14 @@ Phases, each printed with its elapsed seconds:
    flags, iterations and x within each form's bar, a zero lane exactly 0,
    the CG forms past iteration 100); the vmapped wrapper equal to its raw
    launch; ms per solve at 1, 64 and 130 lanes and the bound of the batch;
+   K1 and K2 also in both arms at 1, 64 and 130 lanes, one lane per block,
+   in turns (ms per raw launch);
 20. the batched main path: ``BatchedFluidEnv("RBC2D-easy-v0", 64)`` at its
    registered defaults, ``reset(seed=0)``, 3 steps with seeded numpy
    actions; counters zeroed just before and read just after: in every step
    K1 launches exactly 2 and K2 2 per lockstep round, whatever the batch,
-   and no other kernel form, plain version, ``linsolve`` loop or vmap
+   every one on the resident arm, and no other kernel form, plain
+   version, ``linsolve`` loop or vmap
    per-lane fallback runs; lanes 0 and 63 against single envs reset from
    the same seeds (see ``BATCH_CASES`` for the bars);
 21. the same for ``CylinderJet2D-easy-v0``, 2 steps: K3 2 and K2-mb 1 per
@@ -103,7 +111,13 @@ Phases, each printed with its elapsed seconds:
    through the wrapper bit-equal to the chunk grid's raw launch; ms per
    wrapper call and per raw launch (preallocated buffers), us per
    iteration, the C that ``default_cluster`` picks and
-   ``cudaOccupancyMaxActiveClusters`` per C.
+   ``cudaOccupancyMaxActiveClusters`` per C;
+24. the resident arm of K1 and K2 (one lane per block, the lane's operator
+   rows and four vectors in shared memory, ``csrc/krylov.cuh``): on the
+   main path's solves of phases 3-4 and phase 19's 64 and 130 lanes it
+   must return the chunk grid's x, iterations and residual bit for bit,
+   twice, and per raw launch (phases 3, 4 and 19) be no slower than the
+   chunk grid at 1 and 64 lanes.
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -163,6 +177,27 @@ def cuda_ms(torch, fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def arm_times(torch, cg_cuda, launcher, wrapper, reps: int = 10) -> dict:
+    """K1 / K2 (roll form) in its two arms, in turns (the chunk grid, the
+    resident arm, the resident arm, the chunk grid) on one card:
+    ``launcher(resident)`` gives a raw launch on preallocated buffers,
+    ``wrapper()`` one wrapper call (the arm pinned with
+    ``cg_cuda.pinned_resident``).  Returns the mean ms per raw launch and
+    per wrapper call of each arm, the iterations and us per iteration."""
+    launches = {arm: launcher(arm) for arm in (False, True)}
+    raw = {False: 0.0, True: 0.0}
+    wrap = {False: 0.0, True: 0.0}
+    for arm in (False, True, True, False):
+        raw[arm] += cuda_ms(torch, launches[arm], reps) / 2
+        with cg_cuda.pinned_resident(arm):
+            wrap[arm] += cuda_ms(torch, wrapper, reps) / 2
+    its = int(launches[True]()[1].max())
+    return dict(iterations=its, raw_ms=raw[True], raw_ms_global=raw[False],
+                ms=wrap[True], ms_global=wrap[False],
+                us_per_it=raw[True] * 1e3 / max(its, 1),
+                us_per_it_global=raw[False] * 1e3 / max(its, 1))
 
 
 def bound_ms(n_cells: int, lanes: int, ndims: int, iters: int, algo: str,
@@ -365,18 +400,29 @@ def _run(dev) -> int:
                                        tol2_sum=tol24, **kw1),
         b4, tol4, 1e-3, 3, mv_p)
     check(it4 > 100, f"4-lane K1 run stopped at iteration {it4} (<= 100)")
+    k1_arm = "resident" if cg_cuda.default_resident(1, n, nd, 1, dev) else "global"
+    k1 = arm_times(torch, cg_cuda, lambda arm: cg_cuda.launcher(
+        po.diag[None], po.off[None], p_rhs, None, chunk=1, resident=arm,
+        tol2_sum=tol2, **kw1), k1_call)
     k1_ms = cuda_ms(torch, lambda: k1_call(), 10)
     k1_plain_ms = cuda_ms(torch, lambda: k1_plain(), 3)
     b1, by1, s1 = bound_ms(n, 1, nd, it1, "cg", False, True)
     log(f"phase 3 K1 ok: {k1_ms:.3f} ms/solve (plain {k1_plain_ms:.3f} ms, "
         f"bound {b1 * 1e3:.3f} us by {by1}, streaming {s1 * 1e3:.3f} us) at "
-        f"{it1} iterations")
+        f"{it1} iterations; the rule's arm {k1_arm}; in turns, raw launch "
+        f"resident {k1['raw_ms']:.3f} ms = {k1['us_per_it']:.2f} us/iteration, "
+        f"chunk grid {k1['raw_ms_global']:.3f} ms = "
+        f"{k1['us_per_it_global']:.2f} us/iteration "
+        f"({k1['raw_ms_global'] / k1['raw_ms']:.2f}x); per wrapper call "
+        f"{k1['ms']:.3f} / {k1['ms_global']:.3f} ms")
     kernels["K1"] = dict(
         name="K1 fused_cg (Jacobi-PCG, whole solve)", route="cuda",
         source="fluidgym_tpu_torch/csrc/cg.cu",
         replaces="fluidgym_tpu/ops/cg_pallas.py:143", max_abs_err=max(err1, err4),
         ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=b1, bound_by=by1,
-        library_ms=None, iterations=it1)
+        library_ms=None, iterations=it1, arm=k1_arm, raw_ms=k1["raw_ms"],
+        us_per_it=k1["us_per_it"], raw_ms_global=k1["raw_ms_global"],
+        ms_global=k1["ms_global"], in_turns=k1)
 
     # ---- 4: K2 vs plain ------------------------------------------------------
     plan = block_merge.trivial_plan(topo)
@@ -389,7 +435,7 @@ def _run(dev) -> int:
                return_best=False)
     tol_a = 1e-5
     tol2a = cg_cuda.tol2_sum_f32(tol_a, n)
-    k2_err, k2_ms, k2_plain_ms, k2_it = 0.0, {}, {}, {}
+    k2_err, k2_ms, k2_plain_ms, k2_it, k2_arms = 0.0, {}, {}, {}, {}
     for name, ops, b, x0 in (
             ("temperature", sc_ops[0], sc_rhs, state.blocks[0].scalar),
             ("velocity", adv_ops[0], vel_rhs, state.blocks[0].velocity)):
@@ -411,8 +457,17 @@ def _run(dev) -> int:
         k2_it[name] = it
         k2_ms[name] = cuda_ms(torch, k2_call, 10)
         k2_plain_ms[name] = cuda_ms(torch, k2_plain, 3)
+        k2_arms[name] = a = arm_times(
+            torch, cg_cuda, lambda arm, o=ops, b=b, x0=x0: cg_cuda_mb.launcher(
+                o.diag[None], o.off[None], b, x0, ndims=nd, chunk=1,
+                resident=arm, tol2_sum=tol2a, **kw2), k2_call)
         log(f"  K2 {name}: {k2_ms[name]:.3f} ms/solve (plain "
-            f"{k2_plain_ms[name]:.3f} ms) at {it} iterations")
+            f"{k2_plain_ms[name]:.3f} ms) at {it} iterations; in turns, raw "
+            f"launch resident {a['raw_ms']:.3f} ms = {a['us_per_it']:.2f} "
+            f"us/iteration, chunk grid {a['raw_ms_global']:.3f} ms = "
+            f"{a['us_per_it_global']:.2f} us/iteration "
+            f"({a['raw_ms_global'] / a['raw_ms']:.2f}x); per wrapper call "
+            f"{a['ms']:.3f} / {a['ms_global']:.3f} ms")
     b2, by2, s2 = bound_ms(n, 2, nd, k2_it["velocity"], "bicgstab", True, True)
     log(f"phase 4 K2 ok: velocity bound {b2 * 1e3:.3f} us by {by2}, "
         f"streaming {s2 * 1e3:.3f} us")
@@ -424,12 +479,37 @@ def _run(dev) -> int:
         bound_by=by2, library_ms=None, iterations=k2_it["velocity"],
         shape="(2, 61, 96) velocity",
         scalar_ms=k2_ms["temperature"],
-        scalar_plain_ms=k2_plain_ms["temperature"])
+        scalar_plain_ms=k2_plain_ms["temperature"],
+        arm="resident" if cg_cuda.default_resident(2, n, nd, 1, dev) else "global",
+        raw_ms=k2_arms["velocity"]["raw_ms"],
+        us_per_it=k2_arms["velocity"]["us_per_it"],
+        raw_ms_global=k2_arms["velocity"]["raw_ms_global"],
+        ms_global=k2_arms["velocity"]["ms_global"],
+        in_turns=k2_arms["velocity"], scalar_in_turns=k2_arms["temperature"])
+
+    # phase 24's main-path systems, each as launcher(arm) at one lane per block
+    res_systems = [
+        ("K1 pressure (1, 61, 96)", lambda arm: cg_cuda.launcher(
+            po.diag[None], po.off[None], p_rhs, None, chunk=1, resident=arm,
+            tol2_sum=tol2, **kw1)),
+        ("K1 4 lanes past the refresh", lambda arm: cg_cuda.launcher(
+            po.diag[None], po.off[None], b4, None, chunk=1, resident=arm,
+            tol2_sum=tol24, **kw1))]
+    for name, ops, b, x0 in (
+            ("temperature", sc_ops[0], sc_rhs, state.blocks[0].scalar),
+            ("velocity", adv_ops[0], vel_rhs, state.blocks[0].velocity)):
+        res_systems.append((
+            f"K2 {name} {tuple(b.shape)} warm",
+            lambda arm, o=ops, b=b, x0=x0: cg_cuda_mb.launcher(
+                o.diag[None], o.off[None], b, x0, ndims=nd, chunk=1,
+                resident=arm, tol2_sum=tol2a, **kw2)))
 
     # ---- 5: the main path ------------------------------------------------------
     calls, restore = count_calls(piso, linsolve)
     cg_cuda.fused_cg.launches = 0
     cg_cuda_mb.fused_bicgstab_mb.launches = 0
+    cg_cuda.fused_cg.resident_launches = 0
+    cg_cuda_mb.fused_bicgstab_mb.resident_launches = 0
     cg_cuda.fused_cg_plain.calls = 0
     cg_cuda_mb.fused_bicgstab_plain.calls = 0
     torch.cuda.synchronize()
@@ -462,9 +542,14 @@ def _run(dev) -> int:
         check(bool(info["pressure_converged"]), "a pressure solve did not converge")
     launches = {"K1": cg_cuda.fused_cg.launches,
                 "K2": cg_cuda_mb.fused_bicgstab_mb.launches}
+    resident = {"K1": cg_cuda.fused_cg.resident_launches,
+                "K2": cg_cuda_mb.fused_bicgstab_mb.resident_launches}
     plain_calls = (cg_cuda.fused_cg_plain.calls
                    + cg_cuda_mb.fused_bicgstab_plain.calls)
     restore()
+    check(resident == launches,
+          f"not every K1 / K2 launch took the resident arm: {resident} of "
+          f"{launches}")
     check(launches["K1"] > 0 and launches["K2"] > 0,
           f"a kernel of the main path was not launched: {launches}")
     check(plain_calls == 0, f"plain versions ran {plain_calls} times on the main path")
@@ -487,7 +572,8 @@ def _run(dev) -> int:
         f"{ms_step:.1f} ms/env step, {substeps:.1f} substeps/step "
         f"({env.n_sim_steps} sim steps of dt {env.dt}), Nusselt "
         f"{[round(v, 5) for v in nus]}, launches {launches} (reset "
-        f"{reset_launches}), plain calls {plain_calls}, linsolve calls "
+        f"{reset_launches}; on the resident arm {resident}), plain calls "
+        f"{plain_calls}, linsolve calls "
         f"{calls['cg'] + calls['bicgstab']}; per solve K1 {k1_ms:.3f} ms vs plain "
         f"{k1_plain_ms:.3f} ms, K2 {k2_ms['velocity']:.3f} ms vs plain "
         f"{k2_plain_ms['velocity']:.3f} ms")
@@ -537,13 +623,18 @@ def _run(dev) -> int:
     with warnings.catch_warnings():
         # vmap's per-lane fallback must not hide anywhere in the batch phases
         warnings.filterwarnings("error", message=".*performance drop.*")
-        _chunk_phase(dev, kernels, piso, dict(po=po, adv=adv_ops[0], topo=topo))
+        roll = _chunk_phase(dev, kernels, piso,
+                            dict(po=po, adv=adv_ops[0], topo=topo))
         results = [_batched_phase(dev, kernels, piso, linsolve, case)
                    for case in BATCH_CASES]
     _throughput_phase(kernels, results)
     log(f"phase 22 summary {json.dumps(kernels.pop('batched'))}")
     for case in MERGED_CASES:
         _cluster_phase(dev, kernels, piso, case)
+    for name, f in roll.items():
+        res_systems += [(f"{name} {Ln} lanes", lambda arm, f=f, Ln=Ln:
+                         f["roll_launcher"](Ln, arm)) for Ln in (64, CHUNK_LANES)]
+    _resident_phase(kernels, res_systems)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1316,13 +1407,20 @@ def _lane_forms(dev, piso, rbc) -> list:
         def chunk_of(Ln, chunk):
             return cg_cuda.default_chunk(Ln, dev) if chunk is None else chunk
 
+        def roll_launcher(Ln, resident, rhs=b, chunk=1):
+            """K1 / K2: one launch on preallocated buffers, in either arm."""
+            mod = cg_cuda if algo == "cg" else cg_cuda_mb
+            return mod.launcher(diag[:Ln], off[:Ln], rhs[:Ln], None, ndims=nd,
+                                chunk=chunk, resident=resident, **kw)
+
         def launch(Ln, chunk=None, rhs=b):
+            """One launch at the card's default chunk (and, for K1 / K2,
+            the resident rule's arm), or at a forced chunk."""
             c = chunk_of(Ln, chunk)
-            a = (diag[:Ln], off[:Ln], rhs[:Ln], None)
-            if plan is None and algo == "cg":
-                return cg_cuda._launch(*a, ndims=nd, chunk=c, **kw)
             if plan is None:
-                return cg_cuda_mb._launch(*a, ndims=nd, chunk=c, **kw)
+                res = cg_cuda.default_resident(Ln, n, nd, c, dev)
+                return roll_launcher(Ln, res, rhs, c)()
+            a = (diag[:Ln], off[:Ln], rhs[:Ln], None)
             cz = None if einv is None else (sp, einv[:Ln])
             return cg_cuda_mb._launch_merged(algo, plan, *a, chunk=c,
                                              coarse=cz, **kw)
@@ -1370,7 +1468,7 @@ def _lane_forms(dev, piso, rbc) -> list:
                             for t in xs))
 
         forms.append(dict(name=name, algo=algo, C=C, n=n, tol2=tol2, b=b,
-                          b_time=b_time,
+                          b_time=b_time, roll_launcher=roll_launcher,
                           launch=launch, plain=plain, vmapped=vmapped,
                           seam=0 if plan is None else _seam_cells(plan),
                           coarse_K=sp.K if coarse else 0))
@@ -1398,7 +1496,7 @@ def _seam_cells(plan) -> int:
                          if K != fx.face // 2) for fx in plan.fixups)
 
 
-def _chunk_phase(dev, kernels, piso, rbc) -> None:
+def _chunk_phase(dev, kernels, piso, rbc) -> dict:
     """Phase 19: the chunk grid.  Every kernel form at 130 lanes with one
     operator per lane, in chunks of 33 (4 blocks, the last ragged), against
     its plain version in the same chunks: the same converged flags,
@@ -1409,13 +1507,18 @@ def _chunk_phase(dev, kernels, piso, rbc) -> None:
     raw launch bit for bit (one launch for the batch).  ms per solve at 1,
     64 and 130 lanes of equal difficulty at the card's default chunk, the
     plain version on the 64 lanes in one lockstep loop, and the bound of
-    the 64-lane batch (this run's per-lane iterations)."""
+    the 64-lane batch (this run's per-lane iterations).  K1 and K2 also in
+    both arms at 1, 64 and 130 lanes (one lane per block), in turns: ms per
+    raw launch on preallocated buffers of the resident arm and of the chunk
+    grid.  Returns the K1 and K2 forms (phase 24 holds their arms bit for
+    bit)."""
     import torch
 
     from fluidgym_tpu_torch.ops import cg_cuda
 
     t0 = time.perf_counter()
     L = CHUNK_LANES
+    roll = {}
     for f in _lane_forms(dev, piso, rbc):
         name, cg = f["name"], f["algo"] == "cg"
         xk, ik, rk = f["launch"](L, CHUNK_FORCED)
@@ -1445,6 +1548,22 @@ def _chunk_phase(dev, kernels, piso, rbc) -> None:
         bt = f["b_time"]
         ms = {Ln: cuda_ms(torch, lambda Ln=Ln: f["launch"](Ln, rhs=bt), 5)
               for Ln in (1, 64, L)}
+        arms = {}
+        if name in ("K1", "K2"):
+            roll[name] = f
+            for Ln in (1, 64, L):
+                ls = {arm: f["roll_launcher"](Ln, arm, bt) for arm in (False, True)}
+                t = {False: 0.0, True: 0.0}
+                for arm in (False, True, True, False):
+                    t[arm] += cuda_ms(torch, ls[arm], 5) / 2
+                arms[Ln] = dict(resident=t[True], chunk_grid=t[False])
+            log(f"  {name}: ms per raw launch (one lane per block, in turns), "
+                "resident / chunk grid: " + ", ".join(
+                    f"{Ln} lanes {a['resident']:.3f} / {a['chunk_grid']:.3f}"
+                    for Ln, a in arms.items())
+                + f"; 64 lanes cost {arms[64]['resident'] / arms[1]['resident']:.2f}"
+                f"x one lane resident, {arms[64]['chunk_grid'] / arms[1]['chunk_grid']:.2f}"
+                "x on the chunk grid")
         plain_ms = cuda_ms(torch, lambda: f["plain"](64, 64, rhs=bt), 1)
         it64 = f["launch"](64, rhs=bt)[1].float()
         bnd, by, _ = bound_ms(f["n"], 64, 2, float(it64.mean()), f["algo"],
@@ -1462,6 +1581,14 @@ def _chunk_phase(dev, kernels, piso, rbc) -> None:
             # not on a batched path yet: the numbers join the form's entry
             kernels[name].update(chunk_numbers)
             continue
+        by_arm = {} if not arms else dict(
+            raw_ms_1_lane=arms[1]["resident"], raw_ms_64_lanes=arms[64]["resident"],
+            raw_ms_130_lanes=arms[L]["resident"],
+            raw_ms_global_1_lane=arms[1]["chunk_grid"],
+            raw_ms_global_64_lanes=arms[64]["chunk_grid"],
+            raw_ms_global_130_lanes=arms[L]["chunk_grid"],
+            arm="resident" if cg_cuda.default_resident(64, f["n"], 2, 1, dev)
+            else "global")
         kernels[f"{name} lanes"] = dict(
             name=f"{name} lane folding and chunking (LaneFold vmap rule, "
                  "chunk grid of lockstep blocks)",
@@ -1471,9 +1598,11 @@ def _chunk_phase(dev, kernels, piso, rbc) -> None:
                       else "fluidgym_tpu/ops/cg_pallas_mb.py:602"),
             launches=0, max_abs_err=err, ms=ms[64], plain_ms=plain_ms,
             bound_ms=bnd, bound_by=by, library_ms=None, ms_1_lane=ms[1],
-            ms_130_lanes=ms[L], lanes=64, mean_iterations=float(it64.mean()))
+            ms_130_lanes=ms[L], lanes=64, mean_iterations=float(it64.mean()),
+            **by_arm)
     log(f"phase 19 chunk grid ok: 6 forms x {L} lanes in "
         f"{time.perf_counter() - t0:.1f}s")
+    return roll
 
 
 #: the batched main paths: phase 20 (RBC) and 21 (the cylinder)
@@ -1488,7 +1617,9 @@ BATCH_CASES = (
     dict(env_id="RBC2D-easy-v0", phase=20, steps=3, metric="nusselt",
          obs_bar=1e-3, reward_bar=1e-4,
          per_round={"K1": ("fused_cg", "launches", 2),
-                    "K2": ("fused_bicgstab_mb", "launches", 2)}),
+                    "K2": ("fused_bicgstab_mb", "launches", 2)},
+         # every launch on the resident arm (one lane per block)
+         resident=("K1", "K2")),
     dict(env_id="CylinderJet2D-easy-v0", phase=21, steps=2, metric="drag",
          obs_bar=1e-4, reward_bar=1e-4,
          per_round={"K3": ("fused_cg_mb", "launches", 2),
@@ -1527,10 +1658,14 @@ def _batched_phase(dev, kernels, piso, linsolve, case) -> dict:
         out["plain"] = sum(getattr(*c) for c in plains)
         out["linsolve"] = calls["cg"] + calls["bicgstab"]
         out["rounds"] = calls["piso_substep_info"]
+        for k in case.get("resident", ()):
+            out[f"{k} resident"] = watched[k][0].resident_launches
         return out
 
     for c in launches + plains:
         setattr(*c, 0)
+    for k in case.get("resident", ()):
+        watched[k][0].resident_launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     try:
@@ -1555,6 +1690,8 @@ def _batched_phase(dev, kernels, piso, linsolve, case) -> dict:
                   and d["other"] == 0 and d["plain"] == 0 and d["linsolve"] == 0,
                   f"{env_id} x{BATCH} step launches {d}, expected {expect} and "
                   "no other kernel form, plain version or linsolve loop")
+            check(all(d[f"{k} resident"] == d[k] for k in case.get("resident", ())),
+                  f"{env_id} x{BATCH}: not every launch took the resident arm: {d}")
             for k, v in obs.items():
                 check(tuple(v.shape) == (BATCH,) + benv.observation_space[k].shape,
                       f"obs {k} shape {tuple(v.shape)}")
@@ -1632,6 +1769,8 @@ def _batched_phase(dev, kernels, piso, linsolve, case) -> dict:
                                           / len(per_step) / BATCH)
         entry["launches_per_round"] = case["per_round"][k][2]
         entry["batched_env"] = env_id
+        if k in case.get("resident", ()):
+            entry["resident_launches"] = total[f"{k} resident"]
     return dict(env_id=env_id, ms_step=ms_step, single_ms=single_ms,
                 rounds=rounds, pressure_iterations=p_its)
 
@@ -1782,6 +1921,55 @@ def _cluster_phase(dev, kernels, piso, case) -> None:
             occupancy={str(C): v for C, v in occ.items()},
             by_cluster={str(C): r for C, r in rows.items()})
     log(f"phase 23 {case['env_id']} done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the resident arm of K1 and K2
+# ---------------------------------------------------------------------------
+
+def _resident_phase(kernels, systems) -> None:
+    """Phase 24: the resident arm of K1 and K2 (one lane per block, its rows
+    and four vectors in shared memory) against the chunk grid.  On every
+    system (``(name, launcher(arm))``: the main path's solves of phases 3
+    and 4, and phase 19's 64 and 130 lanes) the arm returns the chunk
+    grid's x, iterations and residual bit for bit, twice.  Per raw launch
+    (phases 3, 4 and 19, in turns on this card) it is no slower than the
+    chunk grid at 1 and 64 lanes."""
+    import torch
+
+    t0 = time.perf_counter()
+    for name, launcher in systems:
+        runs = [tuple(t.clone() for t in launcher(arm)())
+                for arm in (False, True, True)]
+        torch.cuda.synchronize()
+        same = lambda u, v: all(torch.equal(a, c) for a, c in zip(u, v))
+        check(same(runs[1], runs[2]), f"{name}: two runs of the resident arm differ")
+        check(same(runs[1], runs[0]),
+              f"{name}: the resident arm differs from the chunk grid")
+        log(f"  {name}: resident arm bit-equal to the chunk grid, iterations "
+            f"{sorted(set(runs[1][1].tolist()))}")
+    k1, k2, l1, l2 = (kernels[k] for k in ("K1", "K2", "K1 lanes", "K2 lanes"))
+    pairs = {
+        "K1 pressure, 1 lane (phase 3)": (k1["raw_ms"], k1["raw_ms_global"]),
+        "K2 velocity, 2 lanes (phase 4)": (k2["raw_ms"], k2["raw_ms_global"]),
+        "K2 temperature, 1 lane (phase 4)": (k2["scalar_in_turns"]["raw_ms"],
+                                             k2["scalar_in_turns"]["raw_ms_global"]),
+        "K1, 1 lane (phase 19)": (l1["raw_ms_1_lane"], l1["raw_ms_global_1_lane"]),
+        "K1, 64 lanes (phase 19)": (l1["raw_ms_64_lanes"],
+                                    l1["raw_ms_global_64_lanes"]),
+        "K2, 1 lane (phase 19)": (l2["raw_ms_1_lane"], l2["raw_ms_global_1_lane"]),
+        "K2, 64 lanes (phase 19)": (l2["raw_ms_64_lanes"],
+                                    l2["raw_ms_global_64_lanes"])}
+    for what, (res, grid) in pairs.items():
+        log(f"  {what}: resident {res:.4f} ms per raw launch, chunk grid "
+            f"{grid:.4f} ({grid / res:.2f}x)")
+        check(res <= grid, f"{what}: the resident arm is slower per raw launch "
+                           f"than the chunk grid ({res:.4f} > {grid:.4f} ms)")
+    for e in (k1, k2, l1, l2):
+        e["resident_bit_equal"] = True
+    log(f"phase 24 resident arm ok: {len(systems)} systems bit-equal to the "
+        f"chunk grid, no slower per raw launch at 1 and 64 lanes, in "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 if __name__ == "__main__":

@@ -39,10 +39,24 @@
 // barriers (release/acquire) close the init and pass 5 (pass 1 gathers
 // p_hat) and pass 2 (pass 3 gathers s_hat); with two per sum that is eight
 // per iteration.
+//
+// The resident arm (trivial plan, template RESIDENT; entry
+// fg_bicgstab_solve with resident = 1, chunk 1), as K1's (see cg.cu): the
+// chunk grid's one SM is bound by its traffic through L2, and an RBC2D
+// lane fits one SM.  The block stages its lane's diag and off rows
+// (117 KB) and keeps four of the eight vectors in shared memory (94 KB):
+// the two a matvec gathers (p_hat, s_hat) and the two own-cell vectors
+// read most (r: six accesses per cell-iteration; v: three).  x, r_hat, p,
+// t and best stay in global memory (L2).  The arithmetic and the sums are
+// the chunk grid's, so it returns the same bits.  (Unlike K1's arm it
+// divides by diag on every pass: with its eight vectors' pointers live,
+// 1 / diag in registers did not fit 64 registers without spills.)  As in
+// cg.cu, thread 0 updates a lane's scalars right after the lane's sum.
 #include "krylov.cuh"
 
-template <int ND, bool TABLE, bool CLUSTER = false>
-__global__ void __launch_bounds__(FG_THREADS)
+// one 1024-thread block per SM: see fg_cg_kernel's launch bounds
+template <int ND, bool TABLE, bool CLUSTER = false, bool RESIDENT = false>
+__global__ void __launch_bounds__(FG_THREADS, 1)
 fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                const float* __restrict__ off, const int* __restrict__ nbr,
                const float* __restrict__ x0,
@@ -55,15 +69,15 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                int op_per_lane, float tol2, int maxiter, int stall_iters,
                int precondition, int return_best, int warm_start) {
   static_assert(!CLUSTER || TABLE, "cluster arm: K2-mb only");
+  static_assert(!RESIDENT || (ND == 2 && !TABLE && !CLUSTER),
+                "resident arm: K2 over the trivial plan, in 2D only");
   __shared__ float sh[64];
   __shared__ float s_rho[FG_MAX_LANES], s_rs[FG_MAX_LANES];
   __shared__ float s_best_rs[FG_MAX_LANES];
   __shared__ float s_alpha[FG_MAX_LANES], s_omega[FG_MAX_LANES];
   __shared__ float s_beta[FG_MAX_LANES];
-  __shared__ float s_red1[FG_MAX_LANES], s_red2[FG_MAX_LANES];
   __shared__ int s_best_it[FG_MAX_LANES], s_done[FG_MAX_LANES];
   __shared__ int s_better[FG_MAX_LANES];
-  __shared__ int s_go;
   __shared__ float2 s_chain[CLUSTER ? FG_THREADS / 2 : 1];  // fg_lane_sum2
   extern __shared__ __align__(16) float s_rows[];  // staged operator rows
 
@@ -101,9 +115,21 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
         s_rows, n, (int)cooperative_groups::this_cluster().num_blocks(), ND);
     __syncthreads();
   }
+  // the resident arm (one lane, chunk 1): the lane's rows, the two gathered
+  // vectors p_hat and s_hat, and r and v (the own-cell vectors read most)
+  // in shared memory for the whole solve
+  if constexpr (RESIDENT) {
+    staged = fg_stage_rows<ND, false>(diag, off, nullptr, n, 0, n, n, s_rows);
+    float* w = fg_resident_vecs(s_rows, n, ND);
+    phat = w;
+    shat = w + n;
+    r = w + 2 * n;
+    v = w + 3 * n;
+    __syncthreads();
+  }
   // the operator rows of lane l
   auto rows = [&](int l) {
-    if constexpr (CLUSTER) return staged;
+    if constexpr (CLUSTER || RESIDENT) return staged;
     else
       return FgRows{diag + (size_t)l * n * op_per_lane,
                     off + (size_t)l * nf * n * op_per_lane, nbr, n, 0};
@@ -152,18 +178,17 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       fg_cluster_sync();
     else
       __syncthreads();
-    if (tid == 0) {
-      int any = 0;
-      for (int l = 0; l < lanes; ++l) {
-        const int stalled = (it - s_best_it[l]) >= stall_iters;
-        any |= (s_rs[l] > tol2) && !stalled;
-        // a NaN residual counts as frozen: it never holds its chunk
-        s_done[l] = !(s_rs[l] > tol2) || stalled;
-      }
-      s_go = (it < maxiter) && any;
+    // every thread reads the lanes' state and takes the same branch; thread
+    // 0, which alone computes the lanes' scalars, keeps which are frozen
+    // (as in cg.cu)
+    int any = 0;
+    for (int l = 0; l < lanes; ++l) {
+      const int stalled = (it - s_best_it[l]) >= stall_iters;
+      any |= (s_rs[l] > tol2) && !stalled;
+      // a NaN residual counts as frozen: it never holds its chunk
+      if (tid == 0) s_done[l] = !(s_rs[l] > tol2) || stalled;
     }
-    __syncthreads();
-    if (!s_go) break;
+    if (!(it < maxiter && any)) break;
 
     // ---- pass 1: v = A p_hat, denom = <r_hat, v> -------------------------
     for (int l = 0; l < lanes; ++l) {
@@ -180,11 +205,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                               u = __ldcg(rhat + o + c) * __ldcg(v + o + c);
                               w = 0.0f;
                             });
-      if (tid == 0) s_red1[l] = a1;
-    }
-    __syncthreads();
-    for (int l = tid; l < lanes; l += T) {
-      s_alpha[l] = s_done[l] ? 0.0f : s_rho[l] / fg_guard(s_red1[l]);
+      if (tid == 0) s_alpha[l] = s_done[l] ? 0.0f : s_rho[l] / fg_guard(a1);
     }
     __syncthreads();
 
@@ -222,14 +243,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                               u = tv * tv;
                               w = tv * __ldcg(r + o + c);
                             });
-      if (tid == 0) {
-        s_red1[l] = a1;
-        s_red2[l] = a2;
-      }
-    }
-    __syncthreads();
-    for (int l = tid; l < lanes; l += T) {
-      s_omega[l] = s_done[l] ? 0.0f : s_red2[l] / fg_guard(s_red1[l]);
+      if (tid == 0) s_omega[l] = s_done[l] ? 0.0f : a2 / fg_guard(a1);
     }
     __syncthreads();
 
@@ -252,26 +266,21 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                               w = rr * rr;
                             });
       if (tid == 0) {
-        s_red1[l] = a1;
-        s_red2[l] = a2;
+        const int done = s_done[l];
+        const float rho_new = done ? s_rho[l] : a1;
+        const float rs_new = done ? s_rs[l] : a2;
+        s_beta[l] = done ? 0.0f
+                         : (rho_new / fg_guard(s_rho[l])) *
+                               (s_alpha[l] / fg_guard(s_omega[l]));
+        const int better = (rs_new < s_best_rs[l]) && !done;
+        s_better[l] = better;
+        if (better) {
+          s_best_rs[l] = rs_new;
+          s_best_it[l] = it + 1;
+        }
+        s_rho[l] = rho_new;
+        s_rs[l] = rs_new;
       }
-    }
-    __syncthreads();
-    for (int l = tid; l < lanes; l += T) {
-      const int done = s_done[l];
-      const float rho_new = done ? s_rho[l] : s_red1[l];
-      const float rs_new = done ? s_rs[l] : s_red2[l];
-      s_beta[l] = done ? 0.0f
-                       : (rho_new / fg_guard(s_rho[l])) *
-                             (s_alpha[l] / fg_guard(s_omega[l]));
-      const int better = (rs_new < s_best_rs[l]) && !done;
-      s_better[l] = better;
-      if (better) {
-        s_best_rs[l] = rs_new;
-        s_best_it[l] = it + 1;
-      }
-      s_rho[l] = rho_new;
-      s_rs[l] = rs_new;
     }
     __syncthreads();
 
@@ -306,37 +315,39 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   if constexpr (CLUSTER) fg_cluster_sync();
 }
 
+// K2's entry over the trivial plan (one grid, roll-form matvec).
+// `resident` = 1 (chunk 1): the resident arm, one lane per block with its
+// rows and four vectors in shared memory (krylov.cuh); a lane whose bytes
+// do not fit is refused.  0: the chunk grid.
+using FgBicgKernel = decltype(&fg_bicg_kernel<2, true>);
+
+static FgBicgKernel fg_bicg_roll_kernel(int ndims, int resident) {
+  if (ndims == 3) return fg_bicg_kernel<3, false>;
+  return resident ? fg_bicg_kernel<2, false, false, true>
+                  : fg_bicg_kernel<2, false>;
+}
+
 extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
                                  const float* off, const float* x0, float* x,
                                  int* iters, float* rs, float* r, float* rhat,
                                  float* p, float* phat, float* v, float* shat,
                                  float* t, float* best, int lanes, int chunk,
-                                 int nz, int ny, int nx, int ndims,
-                                 int op_per_lane,
-                                 float tol2, int maxiter, int stall_iters,
+                                 int resident, int nz, int ny, int nx,
+                                 int ndims, int op_per_lane, float tol2,
+                                 int maxiter, int stall_iters,
                                  int precondition, int return_best,
                                  int warm_start, void* stream) {
   const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || (ndims != 2 && ndims != 3))
+  const FgGrid g = fg_grid(nz, ny, nx);
+  if (blocks == 0 || (ndims != 2 && ndims != 3) ||
+      (resident && !fg_resident_ok(g.n, ndims, chunk)))
     return (int)cudaErrorInvalidValue;
-  FgGrid g;
-  g.nz = nz;
-  g.ny = ny;
-  g.nx = nx;
-  g.n = nz * ny * nx;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (ndims == 2) {
-    fg_bicg_kernel<2, false><<<blocks, FG_THREADS, 0, s>>>(
-        b, diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-        best, lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters,
-        precondition, return_best, warm_start);
-  } else {
-    fg_bicg_kernel<3, false><<<blocks, FG_THREADS, 0, s>>>(
-        b, diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-        best, lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters,
-        precondition, return_best, warm_start);
-  }
-  return (int)cudaGetLastError();
+  return (int)fg_launch_smem(
+      fg_bicg_roll_kernel(ndims, resident), blocks,
+      resident ? fg_resident_bytes(g.n, ndims) : 0, (cudaStream_t)stream, b,
+      diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
+      best, lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters,
+      precondition, return_best, warm_start);
 }
 
 // K2 over the merged frame of a multi-block plan (S >= 2 super-blocks, seam
@@ -345,8 +356,6 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
 // lane's dot products are joint over the super-blocks.  Semantics as above.
 // `cluster` as in cg.cu fg_cg_mb_solve: 1 is the chunk grid, C in 2, 4, 8,
 // 16 (chunk 1) the cluster arm.
-using FgBicgKernel = decltype(&fg_bicg_kernel<2, true>);
-
 static FgBicgKernel fg_bicg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_bicg_kernel<2, true, true>
                     : fg_bicg_kernel<3, true, true>;
@@ -367,11 +376,7 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
   if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr ||
       !fg_cluster_ok(cluster, chunk))
     return (int)cudaErrorInvalidValue;
-  FgGrid g;
-  g.nz = 1;
-  g.ny = 1;
-  g.nx = n;
-  g.n = n;
+  const FgGrid g = fg_grid(1, 1, n);
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster > 1) {
     return (int)fg_launch_clusters(

@@ -32,6 +32,32 @@
 // in cg_pallas.py `_lane_solver`): with one lane per block, a batch of up
 // to 132 lanes runs side by side on the SMs and costs its slowest lane.
 //
+// The resident arm of K1 (template RESIDENT; entry fg_cg_solve with
+// resident = 1, chunk 1, 2D).  An RBC2D lane (5,856 cells) fits one SM
+// whole, as the TPU kernel keeps x, r, p in VMEM: at init the block stages
+// its lane's diag and off rows (117 KB) and keeps x, r, p, q (94 KB) in
+// shared memory for the whole solve (krylov.cuh fg_resident_vecs), so a
+// pass touches global memory only for b (init and refresh) and best.  On
+// the H100 that alone took an RBC solve from 8.2 to 6.2 us per iteration
+// (scripts/port_resident_ab.py --rev): the one-block form was bound less
+// by its L2 traffic than by instruction issue and barriers.  So the arm
+// also unrolls each thread's (at most 7) cells and keeps 1 / diag of them
+// in registers, divided once per solve where the chunk grid divides twice
+// per cell-iteration (fg_cells): 4.4 us per iteration; and every roll
+// form's matvec divides its cell index by multiply-and-shift (krylov.cuh
+// fg_div), which took the chunk grid from 10.2 to 8.2.  The thread -> cell
+// map, the per-cell arithmetic and the sums are the chunk grid's, so the
+// arm returns its x, iterations and residual bit for bit; no cluster
+// barrier, no new reduction order.  ops/cg_cuda.py `default_resident`
+// picks it by shape (chunk 1, a 2D lane whose bytes fit 227 KB less the
+// static reserve); a lane that does not fit (RBC2D-wide's 11,712 cells,
+// RBC3D) takes the chunk grid.
+//
+// In every form thread 0 updates a lane's scalars (alpha; beta, the best
+// residual) right after the lane's sum, and every thread reads the lanes'
+// state at the top of the loop to decide whether to go on: one barrier per
+// pass besides the sums', where a second pass over the lanes needed two.
+//
 // The cluster arm of K3 (template CLUSTER; entry fg_cg_mb_solve with
 // cluster = C in 2, 4, 8, 16): one block per lane bounds a single solve by
 // what one SM of 132 pulls through its dependent gathers: ~130-150 us per
@@ -144,8 +170,12 @@ __device__ __forceinline__ void fg_coarse_precond(
   fg_block_sum2(a1, a2, sh);
 }
 
-template <int ND, bool TABLE, bool COARSE, bool CLUSTER = false>
-__global__ void __launch_bounds__(FG_THREADS)
+// One 1024-thread block per SM (the second launch bound): without it ptxas
+// cut the resident arm to 32 registers, with spills, to fit two blocks of
+// whose dynamic shared memory it knows nothing.
+template <int ND, bool TABLE, bool COARSE, bool CLUSTER = false,
+          bool RESIDENT = false>
+__global__ void __launch_bounds__(FG_THREADS, 1)
 fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              const float* __restrict__ off, const int* __restrict__ nbr,
              const float* __restrict__ x0,
@@ -156,15 +186,15 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              int op_per_lane, float tol2, int maxiter, int stall_iters,
              int precondition, int return_best, int warm_start, FgCoarse cz) {
   static_assert(!CLUSTER || (TABLE && !COARSE), "cluster arm: K3 only");
+  static_assert(!RESIDENT || (ND == 2 && !TABLE && !COARSE && !CLUSTER),
+                "resident arm: K1 in 2D only");
   __shared__ float sh[64];
   __shared__ float s_rc[COARSE ? FG_MAX_K : 1], s_xc[COARSE ? FG_MAX_K : 1];
   __shared__ float s_rz[FG_MAX_LANES], s_rs[FG_MAX_LANES];
   __shared__ float s_best_rs[FG_MAX_LANES];
   __shared__ float s_alpha[FG_MAX_LANES], s_beta[FG_MAX_LANES];
-  __shared__ float s_red1[FG_MAX_LANES], s_red2[FG_MAX_LANES];
   __shared__ int s_best_it[FG_MAX_LANES], s_done[FG_MAX_LANES];
   __shared__ int s_better[FG_MAX_LANES];
-  __shared__ int s_go;
   __shared__ float2 s_chain[CLUSTER ? FG_THREADS / 2 : 1];  // fg_lane_sum2
   extern __shared__ __align__(16) float s_rows[];  // staged operator rows
 
@@ -200,12 +230,33 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
         s_rows, n, (int)cooperative_groups::this_cluster().num_blocks(), ND);
     __syncthreads();
   }
+  // the resident arm (one lane, chunk 1): the lane's rows and x, r, p, q
+  // in shared memory for the whole solve; x goes out to x_out at the end
+  float* const x_out = x;
+  if constexpr (RESIDENT) {
+    staged = fg_stage_rows<ND, false>(diag, off, nullptr, n, 0, n, n, s_rows);
+    float* w = fg_resident_vecs(s_rows, n, ND);
+    x = w;
+    r = w + n;
+    p = w + 2 * n;
+    q = w + 3 * n;
+    __syncthreads();
+  }
   // the operator rows of lane l
   auto rows = [&](int l) {
-    if constexpr (CLUSTER) return staged;
+    if constexpr (CLUSTER || RESIDENT) return staged;
     else
       return FgRows{diag + (size_t)l * n * op_per_lane,
                     off + (size_t)l * nf * n * op_per_lane, nbr, n, 0};
+  };
+  // 1 / diag of cell c, this thread's k-th: divided here, or in the
+  // resident arm kept from one division per solve (the same bits)
+  float dinv[RESIDENT ? FG_RESIDENT_CELLS : 1];
+  if constexpr (RESIDENT)
+    fg_cells<true>(0, n, [&](int c, int k) { dinv[k] = 1.0f / staged.dg[c]; });
+  auto inv_dg = [&](const FgRows& R, int c, int k) {
+    if constexpr (RESIDENT) return dinv[k];
+    else return 1.0f / R.dg[c - R.base];
   };
   // lane l's diag in global memory (the cluster arm's sums read every cell)
   auto gdiag = [&](int l) { return diag + (size_t)l * n * op_per_lane; };
@@ -215,7 +266,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    for (int c = c0 + tid; c < c1; c += T) {
+    fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
@@ -228,12 +279,12 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       best[o + c] = xx;
       r[o + c] = rr;
       if (!COARSE) {
-        const float zz = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
+        const float zz = precondition ? inv_dg(R, c, k) * rr : rr;
         p[o + c] = zz;
         a1 += rr * zz;
         a2 += rr * rr;
       }
-    }
+    });
     if (COARSE) {
       __syncthreads();  // r of this lane is complete
       fg_coarse_precond(r + o, R.dg, p + o, n, cz, l, precondition, s_rc,
@@ -262,18 +313,17 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       fg_cluster_sync();
     else
       __syncthreads();
-    if (tid == 0) {
-      int any = 0;
-      for (int l = 0; l < lanes; ++l) {
-        const int stalled = (it - s_best_it[l]) >= stall_iters;
-        any |= (s_rs[l] > tol2) && !stalled;
-        // a NaN residual counts as frozen: it never holds its chunk
-        s_done[l] = !(s_rs[l] > tol2) || stalled;
-      }
-      s_go = (it < maxiter) && any;
+    // every thread reads the lanes' state (last written before pass C's
+    // barrier) and takes the same branch; thread 0, which alone computes
+    // the lanes' scalars, keeps which lanes are frozen
+    int any = 0;
+    for (int l = 0; l < lanes; ++l) {
+      const int stalled = (it - s_best_it[l]) >= stall_iters;
+      any |= (s_rs[l] > tol2) && !stalled;
+      // a NaN residual counts as frozen: it never holds its chunk
+      if (tid == 0) s_done[l] = !(s_rs[l] > tol2) || stalled;
     }
-    __syncthreads();
-    if (!s_go) break;
+    if (!(it < maxiter && any)) break;
     const int recompute = ((it + 1) % 100) == 0;
 
     // ---- pass A: q = A (recompute ? x : p), denom = <p, q> --------------
@@ -282,23 +332,18 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float* src = (recompute ? x : p) + o;
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = c0 + tid; c < c1; c += T) {
+      fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
         const float av = fg_apply<ND, TABLE>(R, src, c, g);
         q[o + c] = av;
         a1 += p[o + c] * av;
-      }
+      });
       fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
                             [&](int c, float& u, float& w) {
                               u = __ldcg(p + o + c) * __ldcg(q + o + c);
                               w = 0.0f;
                             });
-      if (tid == 0) s_red1[l] = a1;
-    }
-    __syncthreads();
-    for (int l = tid; l < lanes; l += T) {
-      s_alpha[l] = (s_done[l] || recompute)
-                         ? 0.0f
-                         : s_rz[l] / fg_guard(s_red1[l]);
+      if (tid == 0)
+        s_alpha[l] = (s_done[l] || recompute) ? 0.0f : s_rz[l] / fg_guard(a1);
     }
     __syncthreads();
 
@@ -310,18 +355,18 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = c0 + tid; c < c1; c += T) {
+      fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
         x[o + c] = x[o + c] + al * p[o + c];
         const float rr =
             recompute ? b[o + c] - q[o + c] : r[o + c] - al * q[o + c];
         r[o + c] = rr;
         if (!COARSE) {
           const float zz =
-              precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
+              precondition ? inv_dg(R, c, k) * rr : rr;
           a1 += rr * zz;
           a2 += rr * rr;
         }
-      }
+      });
       if (COARSE) {
         __syncthreads();  // r of this lane is complete
         fg_coarse_precond(r + o, R.dg, q + o, n, cz, l, precondition, s_rc,
@@ -337,22 +382,17 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
             });
       }
       if (tid == 0) {
-        s_red1[l] = a1;
-        s_red2[l] = a2;
+        const float rz_new = a1, rs_new = a2;
+        s_beta[l] = s_done[l] ? 0.0f : rz_new / fg_guard(s_rz[l]);
+        const int better = (rs_new < s_best_rs[l]) && !s_done[l];
+        s_better[l] = better;
+        if (better) {
+          s_best_rs[l] = rs_new;
+          s_best_it[l] = it + 1;
+        }
+        s_rz[l] = rz_new;
+        s_rs[l] = rs_new;
       }
-    }
-    __syncthreads();
-    for (int l = tid; l < lanes; l += T) {
-      const float rz_new = s_red1[l], rs_new = s_red2[l];
-      s_beta[l] = s_done[l] ? 0.0f : rz_new / fg_guard(s_rz[l]);
-      const int better = (rs_new < s_best_rs[l]) && !s_done[l];
-      s_better[l] = better;
-      if (better) {
-        s_best_rs[l] = rs_new;
-        s_best_it[l] = it + 1;
-      }
-      s_rz[l] = rz_new;
-      s_rs[l] = rs_new;
     }
     __syncthreads();
 
@@ -362,17 +402,17 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float be = s_beta[l];
       const int keep = return_best && s_better[l];
-      for (int c = c0 + tid; c < c1; c += T) {
+      fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
         float zz;
         if (COARSE) {
           zz = q[o + c];
         } else {
           const float rr = r[o + c];
-          zz = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
+          zz = precondition ? inv_dg(R, c, k) * rr : rr;
         }
         p[o + c] = zz + be * p[o + c];
         if (keep) best[o + c] = x[o + c];
-      }
+      });
     }
     ++it;
   }
@@ -381,8 +421,9 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   for (int l = 0; l < lanes; ++l) {
     const size_t o = (size_t)l * n;
     const int use_best = return_best && !(s_rs[l] <= tol2);
-    if (use_best) {
-      for (int c = c0 + tid; c < c1; c += T) x[o + c] = best[o + c];
+    if (RESIDENT || use_best) {
+      for (int c = c0 + tid; c < c1; c += T)
+        x_out[o + c] = use_best ? best[o + c] : x[o + c];
     }
     if (lead) {
       iters_out[l] = it;
@@ -393,34 +434,35 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   if constexpr (CLUSTER) fg_cluster_sync();
 }
 
+// K1's entry.  `resident` = 1 (chunk 1): the resident arm, one lane per
+// block with its rows and four vectors in shared memory (krylov.cuh); a
+// lane whose bytes do not fit is refused.  0: the chunk grid.
+using FgCgKernel = decltype(&fg_cg_kernel<2, true, false>);
+
+static FgCgKernel fg_cg_roll_kernel(int ndims, int resident) {
+  if (ndims == 3) return fg_cg_kernel<3, false, false>;
+  return resident ? fg_cg_kernel<2, false, false, false, true>
+                  : fg_cg_kernel<2, false, false>;
+}
+
 extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
                            const float* x0, float* x, int* iters, float* rs,
                            float* r, float* p, float* q, float* best,
-                           int lanes, int chunk, int nz, int ny, int nx,
-                           int ndims, int op_per_lane, float tol2, int maxiter,
-                           int stall_iters, int precondition, int return_best,
-                           int warm_start, void* stream) {
+                           int lanes, int chunk, int resident, int nz, int ny,
+                           int nx, int ndims, int op_per_lane, float tol2,
+                           int maxiter, int stall_iters, int precondition,
+                           int return_best, int warm_start, void* stream) {
   const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || (ndims != 2 && ndims != 3))
+  const FgGrid g = fg_grid(nz, ny, nx);
+  if (blocks == 0 || (ndims != 2 && ndims != 3) ||
+      (resident && !fg_resident_ok(g.n, ndims, chunk)))
     return (int)cudaErrorInvalidValue;
-  FgGrid g;
-  g.nz = nz;
-  g.ny = ny;
-  g.nx = nx;
-  g.n = nz * ny * nx;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (ndims == 2) {
-    fg_cg_kernel<2, false, false><<<blocks, FG_THREADS, 0, s>>>(
-        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
-        g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-        warm_start, FgCoarse{});
-  } else {
-    fg_cg_kernel<3, false, false><<<blocks, FG_THREADS, 0, s>>>(
-        b, diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
-        g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-        warm_start, FgCoarse{});
-  }
-  return (int)cudaGetLastError();
+  return (int)fg_launch_smem(
+      fg_cg_roll_kernel(ndims, resident), blocks,
+      resident ? fg_resident_bytes(g.n, ndims) : 0, (cudaStream_t)stream, b,
+      diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g,
+      op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+      warm_start, FgCoarse{});
 }
 
 // K3: the same solve over the merged super-block frame of a multi-block
@@ -432,8 +474,6 @@ extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
 // C in 2, 4, 8, 16 (chunk 1): the cluster arm, one lane over C blocks
 // (lanes * C blocks), each block's operator rows in shared memory (a size
 // whose rows do not fit is refused: cudaFuncSetAttribute fails).
-using FgCgKernel = decltype(&fg_cg_kernel<2, true, false>);
-
 static FgCgKernel fg_cg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_cg_kernel<2, true, false, true>
                     : fg_cg_kernel<3, true, false, true>;
@@ -450,11 +490,7 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
   if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr ||
       !fg_cluster_ok(cluster, chunk))
     return (int)cudaErrorInvalidValue;
-  FgGrid g;
-  g.nz = 1;
-  g.ny = 1;
-  g.nx = n;
-  g.n = n;
+  const FgGrid g = fg_grid(1, 1, n);
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster > 1) {
     return (int)fg_launch_clusters(
@@ -501,11 +537,7 @@ extern "C" int fg_cg_mb_coarse_solve(
   const int blocks = fg_chunk_blocks(lanes, chunk);
   if (blocks == 0 || ndims != 2 || nbr == nullptr || K < 1 || K > FG_MAX_K)
     return (int)cudaErrorInvalidValue;
-  FgGrid g;
-  g.nz = 1;
-  g.ny = 1;
-  g.nx = n;
-  g.n = n;
+  const FgGrid g = fg_grid(1, 1, n);
   FgCoarse cz;
   cz.einv_t = einv_t;
   cz.strip_ptr = strip_ptr;

@@ -1,6 +1,8 @@
 // Shared device helpers for the whole-solve Krylov kernels (K1/K3 cg.cu,
-// K2 bicgstab_mb.cu): the stencil applies, block-wide sums, and the cluster
-// arm of the merged-frame forms (one lane over a thread-block cluster).
+// K2 bicgstab_mb.cu): the stencil applies, block-wide sums, the cluster
+// arm of the merged-frame forms (one lane over a thread-block cluster) and
+// the resident arm of the roll forms (one lane in one block's shared
+// memory).
 //
 // Layout (identical to the PyTorch side): a lane's field is a contiguous
 // (nz, ny, nx) array (nz = 1 in 2D), x the minor axis; the stencil
@@ -19,9 +21,40 @@
 // of lanes, spread over a grid of ceil(lanes / chunk) blocks
 #define FG_MAX_LANES 64
 
+// A grid of nz x ny x nx cells (n in all), with the numbers that divide a
+// cell index by nx and a row index by ny (fg_div; set by fg_grid).
 struct FgGrid {
   int nz, ny, nx, n;
+  unsigned mx, my;
+  int sx, sy;
 };
+
+// floor(a / d) for 0 <= a < 2^30, with (m, s) from fg_magic(d): one wide
+// multiply and a shift where an integer division costs ~20 instructions
+// (the matvec's index arithmetic bounds the roll form's passes).  Exact:
+// m = floor(2^s / d) + 1 with s = 30 + ceil(log2 d) gives a m / 2^s = a / d
+// + e with 0 < e < 1 / d (tests/test_torch_resident_rule.py checks it).
+__host__ __device__ __forceinline__ int fg_div(int a, unsigned m, int s) {
+  return (int)(((unsigned long long)(unsigned)a * m) >> s);
+}
+
+inline void fg_magic(int d, unsigned* m, int* s) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  *s = 30 + l;
+  *m = (unsigned)((1ULL << *s) / (unsigned long long)d + 1);
+}
+
+inline FgGrid fg_grid(int nz, int ny, int nx) {
+  FgGrid g;
+  g.nz = nz;
+  g.ny = ny;
+  g.nx = nx;
+  g.n = nz * ny * nx;
+  fg_magic(nx, &g.mx, &g.sx);
+  fg_magic(ny, &g.my, &g.sy);
+  return g;
+}
 
 // (A v)_c = diag_c v_c + sum_f off_f,c v_nbr_f(c), summed in face order as
 // the PyTorch version does.
@@ -31,9 +64,10 @@ __device__ __forceinline__ float fg_matvec(const float* __restrict__ diag,
                                            const float* __restrict__ v,
                                            int c, const FgGrid& g) {
   const int nx = g.nx, ny = g.ny, n = g.n;
-  const int i = c % nx;
-  const int j = (c / nx) % ny;
-  const int k = c / (nx * ny);
+  const int q = fg_div(c, g.mx, g.sx);  // c / nx
+  const int i = c - q * nx;
+  const int k = fg_div(q, g.my, g.sy);  // c / (nx * ny)
+  const int j = q - k * ny;
   const int row = c - i;
   const int plane = k * nx * ny;
   const int im = (i == 0) ? nx - 1 : i - 1;
@@ -270,10 +304,11 @@ __device__ __forceinline__ int fg_block_cells(int& lanes, int chunk, int n,
   }
 }
 
-// Stage the operator rows of cells [c0, c1) (diag, off and the neighbour
-// table of the lane) into dynamic shared memory, once per solve, and return
-// them as FgRows; the caller's next barrier completes the copy.
-template <int ND>
+// Stage the operator rows of cells [c0, c1) (diag, off and, in the merged
+// frame (TABLE), the neighbour table of the lane) into dynamic shared
+// memory, once per solve, and return them as FgRows; the caller's next
+// barrier completes the copy.
+template <int ND, bool TABLE = true>
 __device__ __forceinline__ FgRows fg_stage_rows(const float* __restrict__ dg,
                                                 const float* __restrict__ of,
                                                 const int* __restrict__ nb,
@@ -282,16 +317,91 @@ __device__ __forceinline__ FgRows fg_stage_rows(const float* __restrict__ dg,
   constexpr int nf = 2 * ND;
   float* s_dg = smem;
   float* s_of = s_dg + seg;
-  int* s_nb = reinterpret_cast<int*>(s_of + nf * seg);
+  int* s_nb = TABLE ? reinterpret_cast<int*>(s_of + nf * seg) : nullptr;
   for (int i = threadIdx.x; i < c1 - c0; i += blockDim.x) {
     s_dg[i] = dg[c0 + i];
 #pragma unroll
     for (int f = 0; f < nf; ++f) {
       s_of[f * seg + i] = of[(size_t)f * n + c0 + i];
-      s_nb[f * seg + i] = nb[(size_t)f * n + c0 + i];
+      if constexpr (TABLE) s_nb[f * seg + i] = nb[(size_t)f * n + c0 + i];
     }
   }
   return FgRows{s_dg, s_of, s_nb, seg, c0};
+}
+
+// ---------------------------------------------------------------------------
+// The resident arm: one roll-form lane in one block's shared memory
+// ---------------------------------------------------------------------------
+//
+// K1 and K2 over one 2D grid, one lane per block (chunk 1): at
+// init the block stages its lane's diag and off rows in dynamic shared
+// memory (fg_stage_rows with no table, stride n) and keeps FG_RESIDENT_VECS
+// of the lane's vectors there for the whole solve (fg_resident_vecs): every
+// vector a matvec gathers, and the own-cell vectors read most often.  The
+// rest (b, x0, best; K2's x, r_hat, p, t) stays in global memory.  K1's
+// threads also keep 1 / diag of their own cells in registers (fg_cells),
+// divided once per solve where the chunk grid divides on every pass.  The
+// thread -> cell map, the per-cell arithmetic and the sums are the
+// one-block form's, so the arm returns that form's x, iterations and
+// residual bit for bit.  A lane whose bytes do not fit is refused.
+#define FG_RESIDENT_VECS 4
+// cells per thread the resident arm takes (n <= 7,168; the bytes that fit
+// one block admit at most 6,229 in 2D)
+#define FG_RESIDENT_CELLS 7
+
+// dynamic shared memory of the resident arm over an n-cell lane: the rows
+// (diag, 2*nd off), then FG_RESIDENT_VECS vectors of n floats
+// (ops/cg_cuda.py `resident_bytes` mirrors it)
+__host__ __device__ inline size_t fg_resident_bytes(int n, int nd) {
+  return (size_t)n * (1 + 2 * nd + FG_RESIDENT_VECS) * 4;
+}
+
+// whether the resident arm takes a lane of n cells: 2D, one lane per block,
+// at most FG_RESIDENT_CELLS cells per thread (its bytes are checked when
+// the launch asks for them)
+inline bool fg_resident_ok(int n, int nd, int chunk) {
+  return nd == 2 && chunk == 1 && n <= FG_RESIDENT_CELLS * FG_THREADS;
+}
+
+// the first of the resident vectors, after the staged rows; vector k starts
+// k * n floats further
+__device__ __forceinline__ float* fg_resident_vecs(float* smem, int n,
+                                                   int nd) {
+  return smem + (size_t)n * (1 + 2 * nd);
+}
+
+// The cells of [c0, c1) this thread visits, c = c0 + tid + k T for k = 0,
+// 1, ... (the order of its sum chain): in the resident arm (UNROLLED, at
+// most FG_RESIDENT_CELLS cells) a loop the compiler unrolls, so values kept
+// per cell live in registers indexed by k; else the plain loop (k unused).
+template <bool UNROLLED, typename F>
+__device__ __forceinline__ void fg_cells(int c0, int c1, F&& f) {
+  const int t = threadIdx.x;
+  if constexpr (UNROLLED) {
+#pragma unroll
+    for (int k = 0; k < FG_RESIDENT_CELLS; ++k) {
+      const int c = c0 + t + k * FG_THREADS;
+      if (c < c1) f(c, k);
+    }
+  } else {
+    for (int c = c0 + t; c < c1; c += blockDim.x) f(c, 0);
+  }
+}
+
+// Launch `kernel` on a grid of `blocks` blocks with `smem` bytes of dynamic
+// shared memory (the opt-in above 48 KB).  A size the card refuses returns
+// its error; nothing falls back to another arm.
+template <typename... P, typename... A>
+static cudaError_t fg_launch_smem(void (*kernel)(P...), int blocks,
+                                  size_t smem, cudaStream_t s, A&&... args) {
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks, FG_THREADS, smem, s>>>(std::forward<A>(args)...);
+  return cudaGetLastError();
 }
 
 // Set `fn`'s attributes for clusters of C blocks with `smem` bytes of

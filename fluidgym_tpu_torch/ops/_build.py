@@ -35,14 +35,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _ARGTYPES = {
-    # b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, chunk, nz, ny,
-    # nx, ndims, op_per_lane, tol2, maxiter, stall, precond, best?, warm,
-    # stream
-    "fg_cg_solve": [_P] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
-    # b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
-    # lanes, chunk, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall,
+    # b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, chunk,
+    # resident, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall,
     # precond, best?, warm, stream
-    "fg_bicgstab_solve": [_P] * 15 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    "fg_cg_solve": [_P] * 11 + [_I] * 8 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
+    # lanes, chunk, resident, nz, ny, nx, ndims, op_per_lane, tol2, maxiter,
+    # stall, precond, best?, warm, stream
+    "fg_bicgstab_solve": [_P] * 15 + [_I] * 8 + [_F] + [_I] * 5 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
     # cluster, n, ndims, op_per_lane, tol2, maxiter, stall, precond, best?,
     # warm, stream

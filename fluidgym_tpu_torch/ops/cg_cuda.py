@@ -23,12 +23,22 @@ one after another.  Per-lane freeze makes a lane's solution independent of
 its chunk mates up to a frozen lane reactivated by the refresh; the shared
 iteration count is the chunk's.
 
+The resident arm (K1 here, K2 over the trivial plan in ``cg_cuda_mb``):
+with one lane per block (``chunk == 1``) a lane small enough for one SM
+(an RBC2D lane: 5,856 cells) keeps its operator rows and four vectors in
+the block's shared memory for the whole solve (``resident_bytes``), with
+the chunk grid's arithmetic and sums, so it returns the same bits.
+``default_resident`` picks it by shape; ``pinned_resident`` pins the
+answer inside a ``with`` block (tests and A/B scripts);
+``fused_cg.resident_launches`` counts the launches that took it.
+
 Bound on the H100 and what the design does about it: see the note at the
 top of ``csrc/cg.cu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -39,10 +49,20 @@ from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
 __all__ = ["fused_cg", "fused_cg_plain", "cg_lockstep", "roll_matvec",
            "tol2_sum_f32", "guard", "MAX_LANES", "LaneFold", "default_chunk",
-           "lockstep_chunks"]
+           "lockstep_chunks", "default_resident", "pinned_resident",
+           "resident_bytes", "resident_fits", "launcher"]
 
 _TINY = 1e-30
 MAX_LANES = 64  # FG_MAX_LANES in csrc/krylov.cuh: lanes of one thread block
+#: shared memory one block may opt into on the H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+#: room kept for the kernels' static shared arrays (at most 6.5 KB today)
+SMEM_STATIC = 8_192
+#: a lane's vectors the resident arm keeps in shared memory
+#: (FG_RESIDENT_VECS in csrc/krylov.cuh)
+RESIDENT_VECS = 4
+
+_PINNED_RESIDENT: bool | None = None
 
 
 def default_chunk(lanes: int, device) -> int:
@@ -61,6 +81,64 @@ def default_chunk(lanes: int, device) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def resident_bytes(n: int, ndims: int) -> int:
+    """Dynamic shared memory of the resident arm over an ``n``-cell lane:
+    its diag and ``2*ndims`` off rows, then ``RESIDENT_VECS`` vectors
+    (``csrc/krylov.cuh`` ``fg_resident_bytes``)."""
+    return n * (1 + 2 * ndims + RESIDENT_VECS) * 4
+
+
+def resident_fits(n: int, ndims: int) -> bool:
+    """Whether the resident arm takes a lane: 2D (no 3D id's lane fits one
+    SM), its bytes within one block's shared memory less the room kept for
+    the static arrays (``csrc/krylov.cuh`` ``fg_resident_ok``)."""
+    return ndims == 2 and resident_bytes(n, ndims) <= SMEM_PER_BLOCK - SMEM_STATIC
+
+
+def default_resident(lanes: int, n: int, ndims: int, chunk: int,
+                     device) -> bool:
+    """Whether a roll-form solve (K1, or K2 over the trivial plan) of
+    ``lanes`` lanes of ``n`` cells takes the resident arm: on the card,
+    with one lane per block (``chunk == 1``, batches up to the SM count),
+    for a 2D lane whose bytes fit (``resident_fits``); else the chunk grid,
+    as on the CPU.  A dispatch by shape: nothing falls back on a failed launch.
+    ``pinned_resident`` overrides it where the arm can run (the card,
+    chunk 1)."""
+    if torch.device(device).type != "cuda" or chunk != 1 or lanes < 1:
+        return False
+    if _PINNED_RESIDENT is not None:
+        return _PINNED_RESIDENT
+    return resident_fits(n, ndims)
+
+
+@contextlib.contextmanager
+def pinned_resident(arm: bool | None):
+    """Inside the ``with`` block ``default_resident`` answers ``arm`` (True:
+    the resident arm, False: the chunk grid, None: the rule) for the card's
+    one-lane-per-block roll-form solves, and afterwards what it answered
+    before: an A/B of the two arms on the main path.  A pinned True on a
+    lane that does not fit raises at its launch."""
+    if arm is not None and not isinstance(arm, bool):
+        raise ValueError(f"arm must be True, False or None, got {arm!r}")
+    global _PINNED_RESIDENT
+    before, _PINNED_RESIDENT = _PINNED_RESIDENT, arm
+    try:
+        yield
+    finally:
+        _PINNED_RESIDENT = before
+
+
+def check_resident(resident: bool, chunk: int, n: int, ndims: int) -> None:
+    """The resident arm takes one lane per block, whose bytes must fit."""
+    if resident and chunk != 1:
+        raise ValueError(f"the resident arm takes one lane per block "
+                         f"(chunk 1), got chunk {chunk}")
+    if resident and not resident_fits(n, ndims):
+        raise ValueError(f"the resident arm takes 2D lanes whose bytes fit one "
+                         f"block's shared memory, not {ndims}D with "
+                         f"{resident_bytes(n, ndims)} B")
 
 
 def lockstep_chunks(solve, chunk: int | None, b, x0, *ops):
@@ -258,13 +336,25 @@ def check_chunk(lanes: int, chunk: int) -> None:
                          f"1..{MAX_LANES}, got {lanes} lanes, chunk {chunk}")
 
 
-def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
-            precondition, return_best, chunk):
+def _launch(diag, off, b, x0, **kw):
+    """One K1 launch (``launcher``): ``(x, iterations, residual_sum)``."""
+    return launcher(diag, off, b, x0, **kw)()
+
+
+def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
+             precondition, return_best, chunk, resident=False):
+    """Check and lay out K1's operands (``(lanes, *spatial)``; ``diag`` /
+    ``off`` with a leading axis of 1 or lanes), allocate the outputs and
+    scratch once, and return ``launch()``: one kernel launch on the current
+    stream into those buffers, returning ``(x, iterations, residual_sum)``
+    (the same tensors on every call; a timing loop of raw launches).
+    ``resident``: the resident arm (chunk 1, a 2D lane whose bytes fit)."""
     L = b.shape[0]
     spatial = tuple(b.shape[1:])
     check_chunk(L, chunk)
     if len(spatial) != ndims or ndims not in (2, 3):
         raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
+    check_resident(resident, chunk, math.prod(spatial), ndims)
     dev = b.device
     for name, t in (("diag", diag), ("off", off), ("x0", x0)):
         if t is not None and (t.device != dev or t.dtype != torch.float32):
@@ -285,16 +375,21 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     nz = spatial[0] if ndims == 3 else 1
     ny, nx = spatial[-2], spatial[-1]
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.fg_cg_solve(
-            b.data_ptr(), diag.data_ptr(), off.data_ptr(), x0c.data_ptr(),
-            x.data_ptr(), iters.data_ptr(), rs.data_ptr(), r.data_ptr(),
-            p.data_ptr(), q.data_ptr(), best.data_ptr(), L, chunk, nz, ny, nx,
-            ndims, op_per_lane, tol2_sum, int(maxiter), int(stall_iters),
-            int(precondition), int(return_best), int(x0 is not None), stream)
-    _build.check(status, "fused_cg")
-    return x, iters, rs
+    # the closure holds every buffer it hands the kernel by pointer
+    bufs = (b, diag, off, x0c, x, iters, rs, r, p, q, best)
+    args = (L, chunk, int(resident), nz, ny, nx, ndims, op_per_lane, tol2_sum,
+            int(maxiter), int(stall_iters), int(precondition),
+            int(return_best), int(x0 is not None))
+
+    def launch():
+        with torch.cuda.device(dev):
+            status = lib.fg_cg_solve(
+                *[t.data_ptr() for t in bufs], *args,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(status, "fused_cg")
+        return x, iters, rs
+
+    return launch
 
 
 def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
@@ -306,7 +401,9 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
     ``b``/``x0``: ``(lanes, *spatial)``.  ``diag``: ``(*spatial)`` shared by
     the lanes, or ``(lanes, *spatial)``; ``off`` likewise with a
     ``2*ndims`` face axis after the lane axis.  ``chunk``: lanes per
-    lockstep chunk (``default_chunk`` when None).  Returns ``(x,
+    lockstep chunk (``default_chunk`` when None); with one lane per block
+    the card takes the resident arm where a lane fits
+    (``default_resident``).  Returns ``(x,
     SolveInfo)`` with per-lane ``(lanes,)`` info; the iteration count is the
     lane's chunk's.  A lane whose RHS is all zero gets a zero solution.
     Under ``torch.func.vmap`` the batch folds onto the lanes (``LaneFold``)."""
@@ -324,8 +421,10 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
         if device_kind(b, "fused_cg") == "cpu":
             return fused_cg_plain(diag, off, b, x0, chunk=c, **kw)
-        out = _launch(diag, off, b, x0, chunk=c, **kw)
+        res = default_resident(b.shape[0], n, ndims, c, b.device)
+        out = _launch(diag, off, b, x0, chunk=c, resident=res, **kw)
         fused_cg.launches += 1
+        fused_cg.resident_launches += int(res)
         return out
 
     x, iters, rs = LaneFold.apply(solve, 2, b, x0, diag, off)
@@ -337,3 +436,4 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
 
 
 fused_cg.launches = 0
+fused_cg.resident_launches = 0

@@ -62,6 +62,10 @@ inside a ``with`` block (an A/B of the two arms on the main path).  Every
 launch still counts as its form; ``.cluster_launches`` on each wrapper
 counts those with C > 1.
 
+K2 over the trivial plan takes ``cg_cuda``'s resident arm at one lane per
+block where a lane fits (``cg_cuda.default_resident``; its launches count
+in ``fused_bicgstab_mb.resident_launches`` too).
+
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
 """
@@ -78,8 +82,10 @@ import torch
 
 from fluidgym_tpu_torch.core.domain import face_axis
 from fluidgym_tpu_torch.ops import _build
-from fluidgym_tpu_torch.ops.cg_cuda import (LaneFold, cg_lockstep,
-                                            check_chunk, default_chunk,
+from fluidgym_tpu_torch.ops.cg_cuda import (SMEM_PER_BLOCK, SMEM_STATIC,
+                                            LaneFold, cg_lockstep,
+                                            check_chunk, check_resident,
+                                            default_chunk, default_resident,
                                             device_kind, guard,
                                             lockstep_chunks, roll_matvec,
                                             tol2_sum_f32)
@@ -221,10 +227,6 @@ def _merged_mv(plan: MergePlan, diag, off):
 #: cluster sizes of the merged-frame kernels' cluster arm, largest first
 #: (C = 1 is the chunk grid)
 CLUSTER_SIZES = (16, 8, 4, 2)
-#: shared memory one block may opt into on the H100 (227 KB)
-SMEM_PER_BLOCK = 232_448
-#: room kept for the kernels' static shared arrays (~7.2 KB today)
-SMEM_STATIC = 8_192
 #: the rule keeps at least one cell per thread of a 1024-thread block
 MIN_CELLS_PER_BLOCK = 1024
 
@@ -461,14 +463,25 @@ def _check_operands(b, diag, off, x0, L, chunk):
     return op_per_lane
 
 
-def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
-            precondition, return_best, chunk):
-    """K2, single-super-block form, on ``(lanes, *spatial)`` tensors."""
+def _launch(diag, off, b, x0, **kw):
+    """One K2 launch over the trivial plan (``launcher``): ``(x,
+    iterations, residual_sum)``."""
+    return launcher(diag, off, b, x0, **kw)()
+
+
+def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
+             precondition, return_best, chunk, resident=False):
+    """K2, single-super-block form, on ``(lanes, *spatial)`` tensors: check
+    and lay out the operands, allocate the outputs and scratch once, and
+    return ``launch()``, one kernel launch into those buffers returning
+    ``(x, iterations, residual_sum)`` (as ``cg_cuda.launcher``).
+    ``resident``: the resident arm (chunk 1, a 2D lane whose bytes fit)."""
     L = b.shape[0]
     spatial = tuple(b.shape[1:])
     if len(spatial) != ndims or ndims not in (2, 3):
         raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
     op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
+    check_resident(resident, chunk, math.prod(spatial), ndims)
     b = b.contiguous()
     diag = diag.contiguous()
     off = off.contiguous()
@@ -480,16 +493,21 @@ def _launch(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     nz = spatial[0] if ndims == 3 else 1
     ny, nx = spatial[-2], spatial[-1]
     lib = _build.library()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        status = lib.fg_bicgstab_solve(
-            b.data_ptr(), diag.data_ptr(), off.data_ptr(), x0c.data_ptr(),
-            x.data_ptr(), iters.data_ptr(), rs.data_ptr(),
-            *[s.data_ptr() for s in scratch], L, chunk, nz, ny, nx, ndims,
-            op_per_lane, tol2_sum, int(maxiter), int(stall_iters),
-            int(precondition), int(return_best), int(x0 is not None), stream)
-    _build.check(status, "fused_bicgstab_mb")
-    return x, iters, rs
+    # the closure holds every buffer it hands the kernel by pointer
+    bufs = (b, diag, off, x0c, x, iters, rs, *scratch)
+    args = (L, chunk, int(resident), nz, ny, nx, ndims, op_per_lane, tol2_sum,
+            int(maxiter), int(stall_iters), int(precondition),
+            int(return_best), int(x0 is not None))
+
+    def launch():
+        with torch.cuda.device(b.device):
+            status = lib.fg_bicgstab_solve(
+                *[t.data_ptr() for t in bufs], *args,
+                torch.cuda.current_stream(b.device).cuda_stream)
+        _build.check(status, "fused_bicgstab_mb")
+        return x, iters, rs
+
+    return launch
 
 
 def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, **kw):
@@ -654,7 +672,9 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
     leading component axis.  Components are independent lanes with
     per-component stopping, in lockstep chunks of ``chunk`` lanes
     (``default_chunk`` when None), ``cluster`` blocks per lane on the card
-    (``default_cluster`` when None; the single-super-block form takes 1).
+    (``default_cluster`` when None; the single-super-block form takes 1,
+    and at one lane per block the resident arm where a lane fits,
+    ``cg_cuda.default_resident``).
     Returns ``(xs, SolveInfo)`` with the info aggregated over components
     (converged = all, iterations = max,
     residual = joint RMSE).  Under ``torch.func.vmap`` the batch folds onto
@@ -688,8 +708,11 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                                         plan=None if single else plan,
                                         chunk=c, **kw)
         if single:
-            out = _launch(diag, off, b, x0, ndims=ndims, chunk=c, **kw)
+            res = default_resident(b.shape[0], n_lane, ndims, c, b.device)
+            out = _launch(diag, off, b, x0, ndims=ndims, chunk=c,
+                          resident=res, **kw)
             fused_bicgstab_mb.launches += 1
+            fused_bicgstab_mb.resident_launches += int(res)
         else:
             out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
                                  cluster=cl, **kw)
@@ -717,3 +740,4 @@ fused_bicgstab_mb.launches = 0
 fused_bicgstab_mb.merged_launches = 0
 fused_bicgstab_mb.merged_flip_launches = 0
 fused_bicgstab_mb.cluster_launches = 0
+fused_bicgstab_mb.resident_launches = 0

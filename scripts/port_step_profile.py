@@ -2,7 +2,7 @@
 """Where one env step of fluidgym_tpu_torch spends its time on a CUDA card.
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
-        [--strips] [--k4] [--batch N] [--cluster C]
+        [--strips] [--k4] [--batch N] [--cluster C] [--resident 0|1]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
@@ -13,7 +13,9 @@ activities).  With ``--batch N`` it steps a ``parallel.BatchedFluidEnv`` of
 N envs instead (seeds 0..N-1, random actions), one batched step being one
 "step" below; a substep is then a lockstep round of the batch.  ``--cluster
 C`` pins the merged kernels' cluster rule to C (``cg_cuda_mb.pinned_cluster``;
-1: one block per lane) for an A/B of device time.  Prints one JSON
+1: one block per lane) for an A/B of device time; ``--resident 0|1`` pins
+K1's and K2's resident rule (``cg_cuda.pinned_resident``: 1 the resident
+arm, 0 the chunk grid) likewise.  Prints one JSON
 object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
@@ -31,7 +33,8 @@ object:
   ``<ND, true, false, ...>`` K3 and ``<ND, true, true, ...>`` K3-coarse in
   either seam form, ``fg_bicg_kernel<ND, false, ...>`` K2, ``<ND, true,
   ...>`` K2-mb in either form, the cluster arm's instances (template
-  arguments CLUSTER, STAGE) under their form, ``fg_stencil2d_kernel`` K4;
+  argument CLUSTER) under their form, the resident arm's (RESIDENT) under
+  K1 / K2, ``fg_stencil2d_kernel`` K4;
   a flip form's device time is
   reported under its template's entry, which for an id with flip seams
   holds only the flip form);
@@ -56,7 +59,8 @@ def _port_kernel(name: str) -> str | None:
     head = name.split("(")[0]
     args = head[head.find("<") + 1:head.rfind(">")].replace(" ", "").split(",")
     if "fg_cg_kernel" in name:
-        # <ND, TABLE, COARSE[, CLUSTER]>: the cluster arm counts as K3
+        # <ND, TABLE, COARSE[, CLUSTER, RESIDENT]>: the cluster arm counts as
+        # K3, the resident arm as K1
         if args[1:3] == ["true", "true"]:
             return "K3-coarse"
         return "K3" if args[1:2] == ["true"] else "K1"
@@ -78,6 +82,7 @@ def main() -> int:
     ap.add_argument("--k4", action="store_true")
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--cluster", type=int, default=None)
+    ap.add_argument("--resident", type=int, choices=(0, 1), default=None)
     args = ap.parse_args()
     if args.batch and args.strips:
         print("port_step_profile: the batched path runs without the strips",
@@ -87,14 +92,16 @@ def main() -> int:
         print("port_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from fluidgym_tpu_torch.ops import cg_cuda_mb
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
 
-    with cg_cuda_mb.pinned_cluster(args.cluster):
+    arm = None if args.resident is None else bool(args.resident)
+    with cg_cuda_mb.pinned_cluster(args.cluster), cg_cuda.pinned_resident(arm):
         return _profile(args)
 
 
 def _profile(args) -> int:
-    """The profiled run of ``main`` (the cluster rule pinned as asked)."""
+    """The profiled run of ``main`` (the cluster and resident rules pinned
+    as asked)."""
     import dataclasses
 
     import numpy as np
@@ -143,7 +150,9 @@ def _profile(args) -> int:
                 "K3-flip": cg_cuda_mb.fused_cg_mb.flip_launches,
                 "K3-coarse": cg_cuda_mb.fused_cg_mb.coarse_launches,
                 "K3-coarse-flip": cg_cuda_mb.fused_cg_mb.coarse_flip_launches,
-                "K4": stencil_cuda.stencil_apply.launches}
+                "K4": stencil_cuda.stencil_apply.launches,
+                "K1 resident": cg_cuda.fused_cg.resident_launches,
+                "K2 resident": cg_cuda_mb.fused_bicgstab_mb.resident_launches}
 
     k0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -180,6 +189,7 @@ def _profile(args) -> int:
     out = {
         "env": args.env, "strips": args.strips, "k4": args.k4,
         "batch": args.batch or None, "cluster_pin": args.cluster,
+        "resident_pin": args.resident,
         "card": smi,
         "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
@@ -193,7 +203,10 @@ def _profile(args) -> int:
                 "launches_per_substep": (k1[k] - k0[k]) / args.steps
                 / max(subs, 1),
                 "device_ms_per_step": port_us.get(k, 0.0) / 1e3 / args.steps}
-            for k in k0},
+            for k in k0 if "resident" not in k},
+        "resident_launches_per_step": {
+            k.split()[0]: (k1[k] - k0[k]) / args.steps
+            for k in k0 if "resident" in k},
         "top_kernels": [
             {"name": n, "calls_per_step": c / args.steps,
              "device_ms_per_step": us / 1e3 / args.steps}
@@ -206,7 +219,8 @@ def _profile(args) -> int:
     os.makedirs(args.out, exist_ok=True)
     tag = "".join(("_strips" if args.strips else "", "_k4" if args.k4 else "",
                    f"_batch{args.batch}" if args.batch else "",
-                   "" if args.cluster is None else f"_cluster{args.cluster}"))
+                   "" if args.cluster is None else f"_cluster{args.cluster}",
+                   "" if args.resident is None else f"_resident{args.resident}"))
     with open(os.path.join(args.out, f"port_step_profile_{args.env}{tag}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)

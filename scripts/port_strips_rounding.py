@@ -2,9 +2,10 @@
 """How float32 rounding plays on the strip-coarse pressure preconditioner
 (K3-coarse) of fluidgym_tpu_torch, on the host.
 
-    python3 scripts/port_strips_rounding.py [--threads 8]
+    python3 scripts/port_strips_rounding.py [PART ...] [--threads 8]
 
-Two measurements, printed as one JSON object:
+Measurements, printed as one JSON object (PART picks some of them by name;
+all when none is given):
 
 * ``solves``: the pressure system of one main-path substep of the bundled
   CylinderJet2D-easy-v0 (``test_00``) and Airfoil2D-easy-v0 (``train_00``)
@@ -17,7 +18,10 @@ Two measurements, printed as one JSON object:
 * ``sensitivity``: the cylinder's system above solved twice per arm
   (Jacobi, the strips, the strips with eps_rel 1e-2), the second time
   with its RHS perturbed by 1e-7 relative: how far each arm carries that
-  into its solution (``_sensitivity``);
+  into its solution (``_sensitivity``); and the same pair of systems
+  through the JAX package's own K3 entry, ``fused_cg_mb(coarse_strips=True,
+  interpret=True)`` and with Jacobi alone (``_sensitivity_jax``), so the
+  reference's two-level preconditioner is measured beside the port's;
 * ``iterates``: the same pair of solves stopped after k = 10, 20, ..., 80
   iterations: how the two runs' iterates part as the iterations go
   (``_iterates``);
@@ -32,7 +36,8 @@ Two measurements, printed as one JSON object:
   iterations of each run.  Jacobi alone is the yardstick of how far
   summation order alone moves a step.
 
-Runs on the CPU only; imports nothing of JAX or of the JAX package.
+Runs on the CPU only.  Only ``_sensitivity_jax`` imports JAX and the JAX
+package (inside the function; the port itself never does).
 """
 
 import argparse
@@ -137,21 +142,88 @@ def _sensitivity():
     into its solution (``_perturbed_cylinder``), cold, at the env's
     tolerance: the largest difference of the two mean-free solutions
     relative to max|x|, and both iteration counts.  ``strips_eps_1e-2``:
-    the strips with a 1e4 x larger regularisation of the coarse inverse."""
+    the strips with a 1e4 x larger regularisation of the coarse inverse;
+    ``strips_float64``: the strips on the same numbers widened to float64."""
     from fluidgym_tpu_torch.ops import cg_cuda_mb
 
+    from fluidgym_tpu_torch.solver import coarse_strips as cs
+
     plan, diag, off, b, bp, tol2, arms = _perturbed_cylinder()
+    # the strips in float64: the same float32 numbers widened
+    wide = lambda t: t.double()
+    mops64 = tuple((wide(d[0]), wide(o)) for d, o in zip(
+        cg_cuda_mb.unflatten_fields(plan, diag),
+        (u.reshape((2 * plan.ndims,) + tuple(u.shape[1:])) for u in
+         cg_cuda_mb.unflatten_fields(plan, off.reshape(2 * plan.ndims, -1)))))
+    sp = cs.strip_plan(plan)
+    cases = [(arm, coarse, diag, off, b, bp) for arm, coarse in arms.items()]
+    cases.append(("strips_float64", (sp, cs.coarse_inverse(plan, sp, mops64)[None]),
+                  wide(diag), wide(off), wide(b), wide(bp)))
     out = {}
-    for arm, coarse in arms.items():
+    for arm, coarse, d, o, rhs0, rhs1 in cases:
         xs, its = [], []
-        for rhs in (b, bp):
+        for rhs in (rhs0, rhs1):
             x, it, _ = cg_cuda_mb.fused_cg_mb_plain(
-                plan, diag, off, rhs, None, tol2_sum=tol2, maxiter=5000,
+                plan, d, o, rhs, None, tol2_sum=tol2, maxiter=5000,
                 stall_iters=250, precondition=True, return_best=True,
                 coarse=coarse)
             xs.append(x)
             its.append(int(it[0]))
         out[arm] = {"x_rel_diff": _rel_diff(*xs), "iterations": its}
+    return out
+
+
+def _sensitivity_jax():
+    """``_sensitivity``'s two solves (the RHS and the RHS perturbed by 1e-7
+    relative) through the JAX package's ``cg_pallas_mb.fused_cg_mb`` on the
+    same numbers (the port's operator and RHS as float32 arrays, the plan
+    merged from the JAX package's own cylinder topology), with the strips
+    (``coarse_strips=True``, the reference's unprojected coarse inverse) and
+    with Jacobi alone, in interpret mode on the CPU, and with the strips in
+    float64 (the same float32 numbers widened): how far the reference
+    carries the perturbation into its solution."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import fluidgym_tpu
+    from fluidgym_tpu.ops import cg_pallas_mb
+    from fluidgym_tpu.solver import block_merge as jbm
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    jax.config.update("jax_platforms", "cpu")
+    plan, diag, off, b, bp, _, _ = _perturbed_cylinder()
+    env = fluidgym_tpu.make("CylinderJet2D-easy-v0", load_initial_domain=False,
+                            load_domain_statistics=False,
+                            randomize_initial_state=False)
+    env.reset(seed=0)
+    jplan = jbm.merge_plan(env._topo)
+    nf = 2 * plan.ndims
+    per_sb = lambda t: [jnp.asarray(x[0].numpy())
+                        for x in cg_cuda_mb.unflatten_fields(plan, t)]
+    jd = per_sb(diag)
+    jo = [jnp.asarray(x.numpy().reshape((nf,) + tuple(x.shape[1:])))
+          for x in cg_cuda_mb.unflatten_fields(plan, off.reshape(nf, -1))]
+    flat = lambda xs: np.concatenate([np.asarray(x).reshape(-1) for x in xs])
+    out = {}
+    for arm, strips, f64 in (("jax_jacobi", False, False),
+                             ("jax_strips", True, False),
+                             ("jax_strips_float64", True, True)):
+        xs, its, conv = [], [], []
+        for rhs in (b, bp):
+            with jax.enable_x64(f64):
+                cast = lambda xs: [x.astype(jnp.float64 if f64 else jnp.float32)
+                                   for x in xs]
+                x, info = cg_pallas_mb.fused_cg_mb(
+                    jplan, cast(jd), cast(jo), cast(per_sb(rhs)), None,
+                    tol=1e-5, maxiter=5000, stall_iters=250, precondition=True,
+                    return_best=True, coarse_strips=strips, interpret=True)
+                xs.append(flat(x))
+                its.append(int(info.iterations))
+                conv.append(bool(info.converged))
+        xa, xb = (x - x.mean() for x in xs)
+        out[arm] = {"x_rel_diff": float(np.abs(xa - xb).max() / np.abs(xa).max()),
+                    "iterations": its, "converged": conv}
     return out
 
 
@@ -222,14 +294,23 @@ def _threads(n_threads):
 
 
 def main() -> int:
+    parts = {"solves": _solves, "sensitivity": _sensitivity,
+             "sensitivity_jax": _sensitivity_jax, "iterates": _iterates,
+             "spectrum": _spectrum}
     ap = argparse.ArgumentParser()
+    ap.add_argument("part", nargs="*", choices=[*parts, "threads"],
+                    help="measurements to run (default: all)")
     ap.add_argument("--threads", type=int, default=8)
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    print(json.dumps({"device": "cpu", "solves": _solves(),
-                      "sensitivity": _sensitivity(), "iterates": _iterates(),
-                      "spectrum": _spectrum(),
-                      "threads": {"n": args.threads, **_threads(args.threads)}}))
+    chosen = args.part or [*parts, "threads"]
+    if "sensitivity" in chosen and "sensitivity_jax" not in chosen:
+        chosen.append("sensitivity_jax")
+    out = {"device": "cpu"}
+    for name in chosen:
+        out[name] = ({"n": args.threads, **_threads(args.threads)}
+                     if name == "threads" else parts[name]())
+    print(json.dumps(out))
     return 0
 
 

@@ -28,6 +28,11 @@ the same converged flags as the plain version, iterations within 3, x
 within the bars above; two runs bit-equal; C = 1 through the wrapper
 bit-equal to the chunk grid's raw launch, and every C bit-equal to C = 1
 (its sums are the one-block form's).
+The resident arm of K1 / K2 (one lane per block, its rows and four vectors
+in shared memory): at the RBC2D-easy block, K1 at 1, 4 (past the refresh)
+and 130 lanes, K2's temperature and velocity systems cold and warm,
+bit-equal to the chunk grid (x, iterations, residual), two runs
+bit-equal, both within the bars above of the plain version.
 """
 
 import numpy as np
@@ -784,3 +789,89 @@ def test_cluster_arm_matches_plain(case):
         else:
             assert torch.equal(x1, x_c1), f"C={C}: x differs from C = 1"
             assert torch.equal(it1, it_c1) and torch.equal(conv, conv_c1), C
+
+
+# ---------------------------------------------------------------------------
+# the resident arm of K1 and K2: one lane in one block's shared memory
+# ---------------------------------------------------------------------------
+
+def _resident_case(case, dev):
+    """``(algo, diag (1|L, *SHAPE), off, b (L, *SHAPE), x0, tol, past)`` at
+    the RBC2D-easy block: K1 at 1 lane, at 4 lanes past the iteration-100
+    refresh (lane 1 scaled 1e-3, lane 2 zero) and at 130 lanes with one
+    operator each (scales 1e-3..1, lane 2 zero); K2's temperature (1 lane)
+    and velocity (2 lanes) systems, cold or warm.  ``past``: an iteration
+    some lane must pass."""
+    t = lambda a: torch.from_numpy(a).to(dev)
+    if case == "K1-1":
+        diag, off = (t(a)[None] for a in spd_stencil(SHAPE, 2, 0, 0.05))
+        return "cg", diag, off, t(_lanes(1, 1)), None, 1e-5, 0
+    if case == "K1-4-refresh":
+        diag, off = (t(a)[None] for a in spd_stencil(SHAPE, 2, 0, 1e-3))
+        return "cg", diag, off, t(_lanes(1, 4)), None, 1e-7, 100
+    if case == "K1-130":
+        L = LANES
+        d0, o0 = (t(a) for a in spd_stencil(SHAPE, 2, 3))
+        s = _lane_scales(dev, L)
+        diag = d0 * s.reshape(L, 1, 1)
+        off = o0 * s.reshape(L, 1, 1, 1)
+        g = torch.Generator().manual_seed(131)
+        xs = _lane_rhs((torch.randn((L,) + SHAPE, generator=g).to(dev),), L)[0]
+        return "cg", diag, off, cg_cuda.roll_matvec(diag, off, xs, 2), None, 1e-6, 0
+    _, what, start = case.split("-")
+    L = 1 if what == "temperature" else 2
+    diag, off = (t(a)[None] for a in nonsym_stencil(SHAPE, 2, L))
+    b = t(_lanes(5 + L, L, scale_lane=3))
+    return "bicgstab", diag, off, b, 0.5 * b if start == "warm" else None, 1e-6, 0
+
+
+@pytest.mark.parametrize("case", ["K1-1", "K1-4-refresh", "K1-130",
+                                  "K2-temperature-cold", "K2-temperature-warm",
+                                  "K2-velocity-cold", "K2-velocity-warm"])
+def test_resident_arm_bit_equal_to_chunk_grid(case):
+    """One lane per block: the resident arm (rows and four vectors in
+    shared memory) returns the chunk grid's x, iterations and residual bit
+    for bit, run after run; both within today's bars of the plain version
+    (the same converged flags, iterations within 3, x within 1e-3 of
+    max|x|, zero lanes exactly 0); the wrapper takes the arm by the rule."""
+    dev = require_cuda()
+    algo, diag, off, b, x0, tol, past = _resident_case(case, dev)
+    cg = algo == "cg"
+    mod = cg_cuda if cg else cg_cuda_mb
+    L = b.shape[0]
+    n = SHAPE[0] * SHAPE[1]
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    kw = dict(maxiter=3000, stall_iters=250, precondition=True, return_best=cg)
+    runs = []
+    for arm in (False, True, True, False):
+        launch = mod.launcher(diag, off, b, x0, ndims=2, chunk=1, resident=arm,
+                              tol2_sum=tol2, **kw)
+        runs.append(tuple(v.clone() for v in launch()))
+    torch.cuda.synchronize()
+    same = lambda u, v: all(torch.equal(a, c) for a, c in zip(u, v))
+    assert same(runs[0], runs[3]), "the chunk grid: two runs differ"
+    assert same(runs[1], runs[2]), "the resident arm: two runs differ"
+    assert same(runs[1], runs[0]), "the resident arm differs from the chunk grid"
+    x, it, rs = runs[1]
+    plain = cg_cuda.fused_cg_plain if cg else cg_cuda_mb.fused_bicgstab_plain
+    xp, ip, rp = plain(diag, off, b, x0, ndims=2, tol2_sum=tol2, chunk=1, **kw)
+    torch.cuda.synchronize()
+    zero = (b.reshape(L, -1) == 0).all(dim=1)
+    assert torch.equal(((rs <= tol2) | zero).cpu(), ((rp <= tol2) | zero).cpu())
+    assert int((it.long() - ip.long()).abs().max()) <= 3, (it, ip)
+    assert int(it.max()) > past
+    assert_rel(x.cpu().numpy(), xp.cpu().numpy(), 1e-3, case)
+    assert bool((x[zero] == 0).all())
+    # the wrapper picks the arm itself (default chunk 1 at up to 132 lanes)
+    fn = cg_cuda.fused_cg if cg else cg_cuda_mb.fused_bicgstab_mb
+    before = (fn.launches, fn.resident_launches)
+    if cg:
+        xw = cg_cuda.fused_cg(diag if diag.shape[0] > 1 else diag[0],
+                              off if off.shape[0] > 1 else off[0], b, x0,
+                              ndims=2, tol=tol, **kw)[0]
+    else:
+        xw = cg_cuda_mb.fused_bicgstab_mb(
+            block_merge.trivial_plan(_single_block_topo()), (diag[0],),
+            (off[0],), (b,), None if x0 is None else (x0,), tol=tol, **kw)[0][0]
+    assert (fn.launches, fn.resident_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(xw, x)
