@@ -117,7 +117,33 @@ Phases, each printed with its elapsed seconds:
    main path's solves of phases 3-4 and phase 19's 64 and 130 lanes it
    must return the chunk grid's x, iterations and residual bit for bit,
    twice, and per raw launch (phases 3, 4 and 19) be no slower than the
-   chunk grid at 1 and 64 lanes.
+   chunk grid at 1 and 64 lanes;
+25. K1-3D and K2-3D (the 3D roll forms, the chunk grid: no 3D lane fits
+   the resident arm) against their plain versions on the solves of a
+   first substep of RBC3D-easy (64, 41, 64) and RBC3D-wide-easy (128, 41,
+   128) from their bundled snapshots, captured at the wrappers: K1 on 1 and
+   2 lanes, K2 on the temperature (1 lane) and velocity (3 lanes) solves,
+   with phases 3 and 4's bars; ms per wrapper call and per raw launch, us
+   per iteration, the plain version's ms, the bound;
+26. the RBC3D main path: ``make("RBC3D-easy-v0")`` at its registered
+   defaults (MARL, 64 agents), ``reset(seed=0)`` (randomized: noise and a
+   1-2 time-unit burn-in), 3 steps; then ``use_marl=False``, 1 step; the
+   counters zeroed just before each ``make`` and read after every step: in
+   every step K1 launches once per pressure corrector per substep and K2
+   once per advection solve, every one of them a 3D launch (K1-3D, K2-3D)
+   on the chunk grid, and no other kernel form, plain version or
+   ``linsolve`` loop runs; ms and pressure iterations per env step;
+27. the card against the host for RBC3D-easy: 1 sim step (``step_length =
+   dt``) at full width from the bundled snapshot; obs and rewards to 1e-4;
+28. ``RBC3D-wide-easy-v0`` (256 agents, (128, 41, 128)): reset and 1 step
+   with phase 26's checks;
+29. the five other RBC2D ids (medium, hard, wide-easy, wide-medium,
+   wide-hard) at their registered defaults: reset and 2 steps each with
+   phase 26's checks, the (61, 96) blocks on the resident arm and the (61,
+   192) blocks on the chunk grid;
+30. the other four RBC3D ids: ``make`` at the registered defaults on the
+   card, then (this run does not read their datasets) 1 step from a
+   conduction state at full width with phase 26's checks.
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -635,12 +661,14 @@ def _run(dev) -> int:
         res_systems += [(f"{name} {Ln} lanes", lambda arm, f=f, Ln=Ln:
                          f["roll_launcher"](Ln, arm)) for Ln in (64, CHUNK_LANES)]
     _resident_phase(kernels, res_systems)
+    _rbc_phases(dev, kernels, compare, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip", "K4", "K3-coarse",
-        "K3-coarse-flip", "K1 lanes", "K2 lanes", "K3 lanes", "K2-mb lanes")]}),
+        "K3-coarse-flip", "K1 lanes", "K2 lanes", "K3 lanes", "K2-mb lanes",
+        "K1-3D", "K2-3D")]}),
         flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
@@ -1971,6 +1999,346 @@ def _resident_phase(kernels, systems) -> None:
         f"chunk grid, no slower per raw launch at 1 and 64 lanes, in "
         f"{time.perf_counter() - t0:.1f}s")
 
+
+
+# ---------------------------------------------------------------------------
+# phases 25-30: RBC3D (K1-3D, K2-3D) and the other RBC2D ids
+# ---------------------------------------------------------------------------
+
+#: RBC3D's two widths: (64, 41, 64) and (128, 41, 128) cells, (Z, Y, X)
+RBC3D_IDS = ("RBC3D-easy-v0", "RBC3D-wide-easy-v0")
+#: the RBC2D ids beside RBC2D-easy-v0: (61, 96) blocks (the resident arm)
+#: and (61, 192) blocks (the chunk grid)
+RBC2D_IDS = ("RBC2D-medium-v0", "RBC2D-hard-v0", "RBC2D-wide-easy-v0",
+             "RBC2D-wide-medium-v0", "RBC2D-wide-hard-v0")
+#: the RBC3D ids whose bundled datasets this run does not read (the copy of
+#: the repository it runs in may leave them out: they are 9-72 MB each)
+RBC3D_OTHER_IDS = ("RBC3D-medium-v0", "RBC3D-hard-v0", "RBC3D-wide-medium-v0",
+                   "RBC3D-wide-hard-v0")
+
+
+def _captured_systems(dev, env_id) -> dict:
+    """The solves of the first substep of one sim step of ``env_id`` at full
+    width from its bundled ``train_00`` snapshot, captured at the kernels'
+    wrappers as the solver hands them over: ``"K1"`` the first pressure
+    solve, ``"K2"`` the temperature and the velocity solves, each as
+    ``(args, kwargs)`` with the tensors cloned."""
+    import numpy as np
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    env = fluidgym_tpu_torch.make(env_id, device=dev, randomize_initial_state=False,
+                                  step_length=0.05, episode_length=2)
+    env.reset(seed=0)
+    seen = {"K1": [], "K2": []}
+    keep = lambda v: (tuple(keep(t) for t in v) if isinstance(v, tuple)
+                      else v.clone() if hasattr(v, "clone") else v)
+    originals = {"K1": (cg_cuda, "fused_cg", cg_cuda.fused_cg),
+                 "K2": (cg_cuda_mb, "fused_bicgstab_mb",
+                        cg_cuda_mb.fused_bicgstab_mb)}
+    for k, (mod, attr, fn) in originals.items():
+        def capture(*a, _fn=fn, _k=k, **kw):
+            seen[_k].append((keep(a), {n: keep(v) for n, v in kw.items()}))
+            return _fn(*a, **kw)
+
+        # the wrapper counts its launches on the object its module's name
+        # holds: share the counters with it
+        capture.__dict__ = fn.__dict__
+        setattr(mod, attr, capture)
+    try:
+        env.step(np.zeros((env.n_agents, 1), np.float32))
+    finally:
+        for mod, attr, fn in originals.values():
+            setattr(mod, attr, fn)
+    return {"K1": seen["K1"][0], "K2": seen["K2"][:2]}
+
+
+def _k3d_phase(dev, kernels, compare) -> None:
+    """Phase 25: K1-3D and K2-3D (the chunk grid, one lane per block: no 3D
+    lane fits the resident arm) against their plain versions on the solves
+    of a first substep of RBC3D-easy and RBC3D-wide-easy at full width from
+    their bundled snapshots (``_captured_systems``), with phases 3 and 4's
+    bars: K1 on the pressure system (1 lane) and with a second, random
+    right-hand side beside it (2 lanes); K2 on the temperature (1 lane) and
+    velocity (3 lanes) systems as the solver starts them.  ms per wrapper
+    call and per raw launch (preallocated buffers), us per iteration, the
+    plain version's ms and the bound."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t0 = time.perf_counter()
+    rows = {"K1-3D": {}, "K2-3D": {}}
+    errs = {"K1-3D": 0.0, "K2-3D": 0.0}
+
+    def timed(name, key, call, plain, launch, n, lanes, its, algo, warm):
+        raw = cuda_ms(torch, launch, 3)
+        b_ms, by, stream = bound_ms(n, lanes, 3, its, algo, warm, True)
+        row = dict(iterations=its, ms=cuda_ms(torch, call, 3), raw_ms=raw,
+                   us_per_it=raw * 1e3 / max(its, 1),
+                   plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms,
+                   bound_by=by, stream_ms=stream)
+        rows[name][key] = row
+        log(f"  {name} {key}: {row['ms']:.3f} ms per wrapper call, raw launch "
+            f"{raw:.3f} ms = {row['us_per_it']:.2f} us/iteration at {its} "
+            f"iterations (plain {row['plain_ms']:.3f} ms; bound "
+            f"{b_ms * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us)")
+
+    for env_id in RBC3D_IDS:
+        sy = _captured_systems(dev, env_id)
+        (diag, off, p_rhs, x0), kw1 = sy["K1"]
+        tol = kw1.pop("tol")
+        shape = tuple(p_rhs.shape[1:])
+        n = math.prod(shape)
+        tol2 = cg_cuda.tol2_sum_f32(tol, n)
+        check(kw1["ndims"] == 3 and x0 is None, f"{env_id}: the pressure solve "
+              f"is not a cold 3D solve ({kw1})")
+        mv_p = lambda v: cg_cuda.roll_matvec(diag[None], off[None], v, 3)
+        g = torch.Generator().manual_seed(25)
+        other = torch.randn(shape, generator=g).to(dev) * p_rhs.abs().max()
+        for b in (p_rhs, torch.stack([p_rhs[0], other - other.mean()])):
+            L = b.shape[0]
+
+            def call(b=b):
+                x, inf = cg_cuda.fused_cg(diag, off, b, tol=tol, **kw1)
+                return x, inf.iterations, inf.residual ** 2 * n
+
+            def plain(b=b):
+                return cg_cuda.fused_cg_plain(diag[None], off[None], b, None,
+                                              tol2_sum=tol2, chunk=1, **kw1)
+
+            key = f"{shape} {L} lane(s)"
+            e, it = compare(f"K1-3D {key}", call, plain, b, tol, 1e-3, 3, mv_p)
+            errs["K1-3D"] = max(errs["K1-3D"], e)
+            timed("K1-3D", key, call, plain, cg_cuda.launcher(
+                diag[None], off[None], b, None, chunk=1, resident=False,
+                tol2_sum=tol2, **kw1), n, L, it, "cg", False)
+        for what, ((plan, diags, offs, bs), kw2) in zip(
+                ("temperature", "velocity"), sy["K2"]):
+            tol, x0s = kw2.pop("tol"), kw2.pop("x0s", None)
+            d, o, b = diags[0], offs[0], bs[0]
+            x0 = None if x0s is None else x0s[0]
+            mv_a = lambda v, d=d, o=o: cg_cuda.roll_matvec(d[None], o[None], v, 3)
+
+            def call(b=b, x0=x0, d=d, o=o, kw2=kw2, tol=tol):
+                xs, inf = cg_cuda_mb.fused_bicgstab_mb(
+                    plan, (d,), (o,), (b,), None if x0 is None else (x0,),
+                    tol=tol, **kw2)
+                return xs[0], inf.iterations.repeat(b.shape[0]), None
+
+            def plain(b=b, x0=x0, d=d, o=o, kw2=kw2, tol=tol):
+                return cg_cuda_mb.fused_bicgstab_plain(
+                    d[None], o[None], b, x0, ndims=3,
+                    tol2_sum=cg_cuda.tol2_sum_f32(tol, n), **kw2)
+
+            key = f"{shape} {what} {b.shape[0]} lane(s)"
+            e, it = compare(f"K2-3D {key}", call, plain, b, tol, 1e-4, 2, mv_a)
+            errs["K2-3D"] = max(errs["K2-3D"], e)
+            timed("K2-3D", key, call, plain, cg_cuda_mb.launcher(
+                d[None], o[None], b, x0, ndims=3, chunk=1, resident=False,
+                tol2_sum=cg_cuda.tol2_sum_f32(tol, n), **kw2), n, b.shape[0],
+                it, "bicgstab", x0 is not None)
+    for name, main, what in (
+            ("K1-3D", "(64, 41, 64) 1 lane(s)", "Jacobi-PCG, 7-point roll stencil"),
+            ("K2-3D", "(64, 41, 64) velocity 3 lane(s)",
+             "right-Jacobi BiCGStab, trivial plan")):
+        r = rows[name][main]
+        kernels[name] = dict(
+            name=f"{name} ({what}, the chunk grid)", route="cuda",
+            source=("fluidgym_tpu_torch/csrc/cg.cu" if name == "K1-3D"
+                    else "fluidgym_tpu_torch/csrc/bicgstab_mb.cu"),
+            replaces=("fluidgym_tpu/ops/cg_pallas.py:143" if name == "K1-3D"
+                      else "fluidgym_tpu/ops/cg_pallas_mb.py:458"),
+            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            iterations=r["iterations"], raw_ms=r["raw_ms"],
+            us_per_it=r["us_per_it"], shape=main, arm="global",
+            systems=rows[name])
+    log(f"phase 25 K1-3D and K2-3D ok on {len(rows['K1-3D'])} + "
+        f"{len(rows['K2-3D'])} systems in {time.perf_counter() - t0:.1f}s")
+
+
+def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
+    """``make(env_id, **make_kw)`` on the card at the registered full width,
+    ``reset(seed=0)`` (randomized: noise and a 1-2 time-unit burn-in), then
+    ``steps`` steps with seeded numpy actions.  Every counter is zeroed just
+    before ``make`` and read after each step: in every step K1 launches
+    once per pressure corrector per substep and K2 once per advection solve
+    (temperature, velocity), in 3D every one of them a 3D launch; the
+    resident arm takes them exactly where ``default_resident`` admits the
+    block (never in 3D); no other kernel form, plain version or
+    ``linsolve`` loop runs; obs of the space's shapes, obs, reward and
+    Nusselt finite."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
+    launches, plains = _counters()
+    extra = [(k, a) for k in (k1, k2) for a in ("launches_3d", "resident_launches")]
+    calls, restore = count_calls(piso, linsolve)
+
+    def counts():
+        out = {"K1": k1.launches, "K2": k2.launches, "K1 3d": k1.launches_3d,
+               "K2 3d": k2.launches_3d, "K1 resident": k1.resident_launches,
+               "K2 resident": k2.resident_launches}
+        out["other"] = sum(getattr(*c) for c in launches) - out["K1"] - out["K2"]
+        out["plain"] = sum(getattr(*c) for c in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["substeps"] = calls["piso_substep_info"]
+        return out
+
+    for c in launches + plains + extra:
+        setattr(*c, 0)
+    torch.cuda.synchronize()
+    rows = []
+    try:
+        t = time.perf_counter()
+        env = fluidgym_tpu_torch.make(env_id, **make_kw)
+        env.reset(seed=0)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        reset = counts()
+        nd, shape = env.ndims, env._topo.blocks[0].shape
+        resident = cg_cuda.default_resident(1, math.prod(shape), nd, 1, dev)
+        rng = np.random.default_rng(ph)
+        a_shape = ((env.n_agents, 1) if env.use_marl
+                   else tuple(env.action_space.shape))
+        for i in range(steps):
+            a = rng.uniform(-1, 1, a_shape).astype(np.float32)
+            c0 = counts()
+            t = time.perf_counter()
+            obs, reward, _, _, info = env.step(a)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t
+            d = {k: v - c0[k] for k, v in counts().items()}
+            sub = d["substeps"]
+            expect = {"K1": env._cfg.corrector_steps * sub,
+                      "K2": (env._topo.scalar_channels + 1) * sub}
+            for k in ("K1", "K2"):
+                expect[f"{k} 3d"] = expect[k] if nd == 3 else 0
+                expect[f"{k} resident"] = expect[k] if resident else 0
+            expect.update(other=0, plain=0, linsolve=0)
+            check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+                  f"{env_id} step {i}: launches {d}, expected {expect}")
+            for k, v in obs.items():
+                want = env.observation_space[k].shape
+                if env.use_marl:
+                    want = (env.n_agents,) + tuple(want)
+                check(tuple(v.shape) == tuple(want), f"{env_id} obs {k} shape "
+                      f"{tuple(v.shape)} != {want}")
+                check(bool(torch.isfinite(v).all()), f"{env_id} obs {k} not finite")
+            nu = float(info["nusselt"])
+            check(bool(torch.isfinite(reward).all()) and math.isfinite(nu)
+                  and nu > 0, f"{env_id}: reward or Nusselt {nu} not finite")
+            rows.append(dict(s=step_s, substeps=sub, K1=d["K1"], K2=d["K2"],
+                             pressure_iterations=int(info["pressure_iterations"]),
+                             pressure_converged=bool(info["pressure_converged"]),
+                             nusselt=nu))
+    finally:
+        restore()
+    total = counts()
+    out = dict(env_id=env_id, shape=tuple(shape), marl=env.use_marl,
+               n_agents=env.n_agents, arm="resident" if resident else "global",
+               reset_s=reset_s, reset_launches={k: reset[k] for k in ("K1", "K2")},
+               ms_step=1e3 * sum(r["s"] for r in rows) / len(rows),
+               substeps=[r["substeps"] for r in rows],
+               pressure_iterations=[r["pressure_iterations"] for r in rows],
+               pressure_converged=[r["pressure_converged"] for r in rows],
+               nusselt=[round(r["nusselt"], 5) for r in rows],
+               launches={k: total[k] for k in ("K1", "K2", "K1 3d", "K2 3d",
+                                               "K1 resident", "K2 resident")},
+               step_launches=[{k: r[k] for k in ("K1", "K2")} for r in rows])
+    log(f"phase {ph} {env_id} {out['shape']} "
+        f"({'MARL, ' + str(env.n_agents) + ' agents' if env.use_marl else 'SARL'}): "
+        f"reset {reset_s:.2f}s (launches {out['reset_launches']}), steps "
+        f"{[round(r['s'], 3) for r in rows]} s = {out['ms_step']:.1f} ms/env "
+        f"step, substeps {out['substeps']}, pressure iterations "
+        f"{out['pressure_iterations']} (converged {out['pressure_converged']}), "
+        f"Nusselt {out['nusselt']}, per-step launches {out['step_launches']}, "
+        f"totals {out['launches']}, arm {out['arm']}; no other form, plain "
+        f"version or linsolve loop")
+    return out
+
+
+def _rbc3d_card_vs_host(dev) -> float:
+    """Phase 27: one full-width RBC3D-easy-v0 sim step (``step_length`` =
+    dt, the bundled ``train_00``, MARL at the registered defaults) on the
+    card and on the host: obs and rewards within 1e-4 of each quantity's
+    scale (the rollout bar)."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+
+    t0 = time.perf_counter()
+    kw = dict(randomize_initial_state=False, step_length=0.05, episode_length=2)
+    a = np.linspace(-1, 1, 64, dtype=np.float32).reshape(64, 1)
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        e = fluidgym_tpu_torch.make("RBC3D-easy-v0", device=where, **kw)
+        e.reset(seed=0)
+        o, r, _, _, info = e.step(a)
+        outs[where.type] = dict(o, reward=r, nusselt=info["nusselt"].reshape(1))
+    worst = {}
+    for k, c in outs["cpu"].items():
+        g = outs[dev.type][k].cpu()
+        worst[k] = float((g - c).abs().max() / c.abs().max().clamp(min=1e-30))
+    log(f"phase 27 RBC3D-easy-v0 full width, 1 sim step from the bundled "
+        f"snapshot, card vs host: relative diffs {worst} (bar 1e-4) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(all(v <= 1e-4 for v in worst.values()),
+          f"RBC3D card and host disagree: {worst}")
+    return max(worst.values())
+
+
+def _rbc_phases(dev, kernels, compare, piso, linsolve) -> None:
+    """Phases 25-30: K1-3D and K2-3D against their plain versions (25); the
+    RBC3D-easy-v0 main path, 3 MARL steps (its default) and 1 SARL step
+    (26); RBC3D card against host (27); RBC3D-wide-easy-v0, 1 step (28); the
+    five other RBC2D ids, 2 steps each (29); the other four RBC3D ids (30):
+    ``make`` at the registered defaults on the card, then, as their
+    datasets need not be present, 1 step from a conduction state at
+    full width with phase 26's checks."""
+    _k3d_phase(dev, kernels, compare)
+    runs = [_rbc_main_path(dev, piso, linsolve, "RBC3D-easy-v0", 3, 26),
+            _rbc_main_path(dev, piso, linsolve, "RBC3D-easy-v0", 1, 26,
+                           use_marl=False)]
+    host = _rbc3d_card_vs_host(dev)
+    wide = _rbc_main_path(dev, piso, linsolve, "RBC3D-wide-easy-v0", 1, 28)
+    for name, k in (("K1-3D", "K1"), ("K2-3D", "K2")):
+        e = kernels[name]
+        # the count of the runs (resets included); per env step without them
+        e["launches"] = sum(r["launches"][f"{k} 3d"] for r in runs)
+        steps = [d[k] for r in runs for d in r["step_launches"]]
+        e["launches_per_env_step"] = sum(steps) / len(steps)
+        e["main_path"] = {f"{r['env_id']} {'MARL' if r['marl'] else 'SARL'}":
+                          {x: r[x] for x in ("ms_step", "reset_s", "substeps",
+                                             "pressure_iterations")}
+                          for r in runs + [wide]}
+        e["wide_launches"] = wide["launches"][f"{k} 3d"]
+        e["card_vs_host"] = host
+    t0 = time.perf_counter()
+    ids = [_rbc_main_path(dev, piso, linsolve, env_id, 2, 29)
+           for env_id in RBC2D_IDS]
+    log(f"phase 29 RBC2D ids ok in {time.perf_counter() - t0:.1f}s: "
+        + json.dumps({r["env_id"]: {x: r[x] for x in (
+            "shape", "arm", "ms_step", "reset_s", "substeps",
+            "pressure_iterations", "launches")} for r in ids}))
+    t0 = time.perf_counter()
+    import fluidgym_tpu_torch
+
+    for env_id in RBC3D_OTHER_IDS:
+        env = fluidgym_tpu_torch.make(env_id)
+        check(env.device.type == dev.type and env.ndims == 3,
+              f"{env_id}: make put it on {env.device}")
+        _rbc_main_path(dev, piso, linsolve, env_id, 1, 30,
+                       load_initial_domain=False, load_domain_statistics=False,
+                       randomize_initial_state=False)
+    log(f"phase 30 the other RBC3D ids ok in {time.perf_counter() - t0:.1f}s")
 
 if __name__ == "__main__":
     try:

@@ -106,7 +106,7 @@ class RBCEnvBase(FluidEnv):
     # domain construction
     # ------------------------------------------------------------------
     def _make_vertex_grid(self) -> np.ndarray:
-        return geo.make_wall_refined_ortho_grid(
+        grid = geo.make_wall_refined_ortho_grid(
             self._x,
             self._y,
             corner_lower=(0.0, -self._H / 2),
@@ -114,6 +114,10 @@ class RBCEnvBase(FluidEnv):
             wall_refinement=("-y", "+y"),
             base=1.0 if self._uniform_grid else self._non_uniform_grid_base,
         )
+        if self._ndims == 3:
+            grid = geo.extrude_grid_z(grid, res_z=self._x, start_z=0.0,
+                                      end_z=self._L, weights_z=None, exp_base=1)
+        return grid
 
     def _get_domain(self):
         if self._np_rng is None:
@@ -125,13 +129,16 @@ class RBCEnvBase(FluidEnv):
         dom.set_scalar_diffusivity(self._thermal_diffusivity)
         block = dom.create_block(grid, name="RBCBlock")
 
-        # hot bottom / cold top plates; x periodic
+        # hot bottom / cold top plates; x (and z) periodic
         block.close_boundary("-y", scalar=self._T_hot)
         block.close_boundary("+y", scalar=self._T_cold)
 
         # linear conduction profile + perturbation (numpy draws, as in JAX)
         grad = np.linspace(self._T_hot, self._T_cold, self._y)
-        T0 = np.broadcast_to(grad[:, None], (self._y, self._x))
+        if self._ndims == 2:
+            T0 = np.broadcast_to(grad[:, None], (self._y, self._x))
+        else:
+            T0 = np.broadcast_to(grad[None, :, None], (self._x, self._y, self._x))
         T0 = T0 + self._np_rng.normal(0.0, 1.0, T0.shape) * 0.1 * (
             self._T_hot - self._T_cold)
         T0 = np.clip(T0, self._T_cold, self._T_hot)
@@ -145,11 +152,14 @@ class RBCEnvBase(FluidEnv):
     def _get_prep_fn(self) -> Hooks:
         """Boussinesq buoyancy hook."""
         buoyancy = self._buoyancy_factor
+        ndims = self._ndims
 
         def buoyancy_fn(state: DomainState, **kw) -> DomainState:
             blk = state.blocks[0]
             T = blk.scalar[0]
-            src = torch.stack([torch.zeros_like(T), T * buoyancy], dim=0)
+            zero = torch.zeros_like(T)
+            comps = [zero, T * buoyancy] + ([zero] if ndims == 3 else [])
+            src = torch.stack(comps, dim=0)
             return state.replace_block(0, replace(blk, velocity_source=src))
 
         return {"PRE_VELOCITY_SETUP": (buoyancy_fn,)}
@@ -184,9 +194,17 @@ class RBCEnvBase(FluidEnv):
             T = torch.flip(T, dims=(-1,))
             u = torch.flip(u, dims=(-1,))
             u = torch.cat([-u[:1], u[1:]], dim=0)
+        if self._ndims == 3 and rng.uniform() > 0.5:  # flip z
+            T = torch.flip(T, dims=(-3,))
+            u = torch.flip(u, dims=(-3,))
+            u = torch.cat([u[:2], -u[2:]], dim=0)
         x_shift = int(rng.integers(0, self._x))
         T = torch.roll(T, x_shift, dims=-1)
         u = torch.roll(u, x_shift, dims=-1)
+        if self._ndims == 3:
+            z_shift = int(rng.integers(0, self._x))
+            T = torch.roll(T, z_shift, dims=-3)
+            u = torch.roll(u, z_shift, dims=-3)
         T = T + torch.as_tensor(rng.normal(0.0, 1.0, tuple(T.shape)) * 0.05,
                                 device=T.device).to(T.dtype)
         T = torch.clamp(T, self._T_cold, self._T_hot)

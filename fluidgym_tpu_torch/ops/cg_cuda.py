@@ -5,7 +5,8 @@ entry ``fused_cg``).  The CUDA kernel (``csrc/cg.cu``) runs the entire
 Krylov loop of every lane in one launch: no host round-trip per iteration.
 
 * ``fused_cg`` is the wrapper.  For CUDA tensors it launches the kernel and
-  adds one to ``fused_cg.launches``; for CPU tensors it runs
+  adds one to ``fused_cg.launches`` (and, for a 3D system, RBC3D's "K1-3D",
+  to ``fused_cg.launches_3d``); for CPU tensors it runs
   ``fused_cg_plain``; any other device raises.  There is no fallback.
 * ``fused_cg_plain`` is the plain PyTorch version with the same lockstep
   semantics (one iteration counter shared by the lanes of a chunk; frozen
@@ -424,6 +425,7 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
         res = default_resident(b.shape[0], n, ndims, c, b.device)
         out = _launch(diag, off, b, x0, chunk=c, resident=res, **kw)
         fused_cg.launches += 1
+        fused_cg.launches_3d += int(ndims == 3)
         fused_cg.resident_launches += int(res)
         return out
 
@@ -436,4 +438,5 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
 
 
 fused_cg.launches = 0
+fused_cg.launches_3d = 0
 fused_cg.resident_launches = 0

@@ -28,7 +28,8 @@ neighbour table built once per plan (``neighbor_table``; see
   ``csrc/bicgstab_mb.cu``) and count each launch, per form:
   ``fused_cg_mb.launches`` (identity seams) and ``.flip_launches`` (a plan
   with flip seams, the reflected C-grid cut); ``fused_bicgstab_mb.launches``
-  (single super-block), ``.merged_launches`` and ``.merged_flip_launches``.
+  (single super-block; ``.launches_3d`` those of them in 3D, RBC3D's
+  "K2-3D"), ``.merged_launches`` and ``.merged_flip_launches``.
   CPU tensors run the plain versions; any other device raises.  A flip seam
   needs nothing of its own in the kernels: the neighbour table reverses the
   source slab once, when it is built.
@@ -712,6 +713,7 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
             out = _launch(diag, off, b, x0, ndims=ndims, chunk=c,
                           resident=res, **kw)
             fused_bicgstab_mb.launches += 1
+            fused_bicgstab_mb.launches_3d += int(ndims == 3)
             fused_bicgstab_mb.resident_launches += int(res)
         else:
             out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
@@ -737,6 +739,7 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 
 
 fused_bicgstab_mb.launches = 0
+fused_bicgstab_mb.launches_3d = 0
 fused_bicgstab_mb.merged_launches = 0
 fused_bicgstab_mb.merged_flip_launches = 0
 fused_bicgstab_mb.cluster_launches = 0

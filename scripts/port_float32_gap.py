@@ -5,6 +5,7 @@ port's tests).
 
     JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env Airfoil2D-easy-v0
     JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env CylinderJet2D-easy-v0
+    JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env RBC3D-easy-v0
 
 The configurations are those of the port's float32 tests:
 
@@ -13,14 +14,20 @@ The configurations are those of the port's float32 tests:
   0.05``), actions ``linspace(-0.5, 0.7, 3) * (1 - 0.3 i)``, no domain
   statistics;
 * ``CylinderJet2D-easy-v0`` (``tests/test_torch_cylinder_env.py``): the
-  bundled ``test_00``, 1 env step of 25 sim steps, action 0.5.
+  bundled ``test_00``, 1 env step of 25 sim steps, action 0.5;
+* ``RBC3D-easy-v0`` (``tests/test_torch_rbc3d.py``): the bundled
+  ``train_00``, MARL at the registered defaults, 1 sim step
+  (``step_length = dt = 0.05``), actions ``linspace(-1, 1, 64)``;
+* ``RBC2D-wide-easy-v0`` (``tests/test_torch_rbc3d_ids.py``): the bundled
+  ``train_00``, 1 env step of 20 sim steps, actions ``linspace(-1, 1, 24)``.
 
 Every run starts from the port's float32 state after ``reset(seed=0)``:
 the port in float32, the JAX package in float32 on its default CPU path
 (blockwise ``linsolve`` for the airfoil's flip-seam plan), in float32 with
 its merged Pallas kernels routed in (interpret mode; ``--kernels``), and in
 float64.  Prints one JSON object: per step and quantity (velocity and
-pressure obs, reward, drag, lift) the max relative difference of each run
+pressure obs, reward, drag, lift; RBC: velocity and temperature obs,
+reward, Nusselt) the max relative difference of each run
 from the float64 run and of the port from each JAX float32 run, and the
 pressure iterations of each run.
 """
@@ -58,11 +65,23 @@ def main() -> int:
         actions = [(np.linspace(-0.5, 0.7, 3) * (1 - 0.3 * i)).astype(np.float32)
                    for i in range(3)]
         mode = "train"
+    elif args.env.startswith("RBC3D"):
+        kw = dict(randomize_initial_state=False, episode_length=2,
+                  step_length=0.05)
+        actions = [np.linspace(-1, 1, 64, dtype=np.float32).reshape(64, 1)]
+        mode = "train"
+    elif args.env.startswith("RBC2D"):
+        kw = dict(randomize_initial_state=False, episode_length=2)
+        actions = [np.linspace(-1, 1, 24, dtype=np.float32).reshape(24, 1)]
+        mode = "train"
     else:
         kw = dict(randomize_initial_state=False, load_domain_statistics=False,
                   episode_length=2)
         actions = [np.array([0.5], np.float32)]
         mode = "test"
+    rbc = args.env.startswith("RBC")
+    keys = (("velocity", "temperature", "reward", "nusselt") if rbc
+            else ("velocity", "pressure", "reward", "drag", "lift"))
 
     def run(env):
         out = []
@@ -70,8 +89,8 @@ def main() -> int:
             obs, r, _, _, info = env.step(a)
             f = lambda x: np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
                                      np.float64)
-            out.append(dict(velocity=f(obs["velocity"]), pressure=f(obs["pressure"]),
-                            reward=f(r), drag=f(info["drag"]), lift=f(info["lift"]),
+            both = dict(obs, reward=r, **info)
+            out.append(dict({k: f(both[k]) for k in keys},
                             iterations=int(f(info["pressure_iterations"]))))
         return out
 
@@ -87,7 +106,9 @@ def main() -> int:
     def jax_run(dtype, npdtype):
         env = fresh(fluidgym_tpu, dtype=dtype)
         env._state = jax_domain_state(host.domain, npdtype)
-        env._last_control = jnp.asarray(host.additional_info["last_control"], dtype)
+        if not rbc:
+            env._last_control = jnp.asarray(host.additional_info["last_control"],
+                                            dtype)
         return run(env)
 
     runs = {"port32": run(tenv), "jax32": jax_run(jnp.float32, np.float32)}
@@ -107,7 +128,6 @@ def main() -> int:
     def rel(a, b):
         return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
-    keys = ("velocity", "pressure", "reward", "drag", "lift")
     pairs = [(r, "jax64") for r in runs if r != "jax64"]
     pairs += [("port32", r) for r in runs if r.startswith("jax32")]
     out = {"env": args.env, "snapshot": f"{mode}_00",

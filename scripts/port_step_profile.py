@@ -127,7 +127,7 @@ def _profile(args) -> int:
         env.reset(seed=0)
         env._cfg = dataclasses.replace(env._cfg,
                                        pressure_coarse_strips=args.strips)
-        shape = env.action_space.shape
+        shape = tuple(env._zero_action.shape)  # (agents, 1) for a MARL id
     stencil_cuda.set_stencil_kernel(args.k4)
     rng = np.random.default_rng(0)
     act = lambda: rng.uniform(-1, 1, shape).astype(np.float32)

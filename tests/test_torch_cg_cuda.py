@@ -54,7 +54,8 @@ def _port_lanes(diag, off, B, ndims, tol, x0=None, **kw):
             info.residual.numpy())
 
 
-@pytest.mark.parametrize("shape,ndims", [((12, 32), 2), ((4, 6, 16), 3)])
+@pytest.mark.parametrize("shape,ndims", [((12, 32), 2), ((4, 6, 16), 3),
+                                         ((4, 8, 128), 3)])
 def test_plain_k1_matches_pallas_multilane_with_zero_lane(shape, ndims):
     diag, off = spd_stencil(shape, ndims, seed=0)
     rng = np.random.default_rng(1)

@@ -33,6 +33,11 @@ in shared memory): at the RBC2D-easy block, K1 at 1, 4 (past the refresh)
 and 130 lanes, K2's temperature and velocity systems cold and warm,
 bit-equal to the chunk grid (x, iterations, residual), two runs
 bit-equal, both within the bars above of the plain version.
+K1-3D and K2-3D (RBC3D's roll forms, the chunk grid): at the RBC3D-easy
+(64, 41, 64) and RBC3D-wide (128, 41, 128) blocks, K1 with 1 and 3 lanes
+(one lane per block, and one lockstep block) and K2 with 1 and 3 lanes,
+cold and warm, within the bars above; a small RBC3D env step takes them
+for every solve.
 """
 
 import numpy as np
@@ -875,3 +880,127 @@ def test_resident_arm_bit_equal_to_chunk_grid(case):
             (off[0],), (b,), None if x0 is None else (x0,), tol=tol, **kw)[0][0]
     assert (fn.launches, fn.resident_launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(xw, x)
+
+
+# ---------------------------------------------------------------------------
+# K1-3D and K2-3D: the 3D roll forms of RBC3D (the chunk grid, one lane per
+# block; no 3D lane fits the resident arm)
+# ---------------------------------------------------------------------------
+
+#: the blocks of RBC3D-easy-v0 and of the RBC3D-wide ids, (Z, Y, X)
+SHAPES_3D = {"easy": (64, 41, 64), "wide": (128, 41, 128)}
+
+
+def _rbc3d_operator(shape, dev, symmetric):
+    """A periodic-x/z stencil whose +-y wall faces carry off = 0, as RBC3D's
+    plates do: SPD (K1) or diagonally dominant non-symmetric (K2)."""
+    make = spd_stencil if symmetric else nonsym_stencil
+    diag, off = make(shape, 3, seed=sum(shape))
+    off[2, :, 0, :] = 0.0   # -y face of the bottom row
+    off[3, :, -1, :] = 0.0  # +y face of the top row
+    if symmetric:
+        diag = -off.sum(axis=0) + 0.05
+    return torch.from_numpy(diag).to(dev), torch.from_numpy(off).to(dev)
+
+
+def _rbc3d_rhs(shape, L, dev, seed):
+    """L mean-free right-hand sides: lane 1 scaled 1e-3, lane 2 zero."""
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(L,) + shape).astype(np.float32)
+    B -= B.reshape(L, -1).mean(axis=1).reshape((L, 1, 1, 1))
+    if L > 1:
+        B[1] *= 1e-3
+    if L > 2:
+        B[2] = 0.0
+    return torch.from_numpy(B).to(dev)
+
+
+@pytest.mark.parametrize("size", list(SHAPES_3D))
+@pytest.mark.parametrize("L,chunk", [(1, None), (3, None), (3, 3)])
+def test_k1_3d_kernel_matches_plain(size, L, chunk):
+    """K1 in 3D at RBC3D's shapes, one lane per block (the default) and 3
+    lanes in one lockstep block: the bars of the 2D K1 test; every launch
+    counts as a 3D one and none takes the resident arm."""
+    dev = require_cuda()
+    shape = SHAPES_3D[size]
+    diag, off = _rbc3d_operator(shape, dev, True)
+    B = _rbc3d_rhs(shape, L, dev, 11)
+    n = int(np.prod(shape))
+    tol = 1e-5
+    kw = dict(ndims=3, maxiter=2000, stall_iters=250, precondition=True,
+              return_best=True)
+    f = cg_cuda.fused_cg
+    before = (f.launches, f.launches_3d, f.resident_launches)
+    x, info = f(diag, off, B, tol=tol, chunk=chunk, **kw)
+    assert (f.launches, f.launches_3d, f.resident_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    xp, ip, rp = cg_cuda.fused_cg_plain(
+        diag[None], off[None], B, None, tol2_sum=cg_cuda.tol2_sum_f32(tol, n),
+        chunk=L if chunk else 1, **kw)
+    torch.cuda.synchronize()
+    assert bool(info.converged.all())
+    assert int((info.iterations.long() - ip.long()).abs().max()) <= 3
+    if L > 2:
+        assert bool((x[2] == 0).all())
+    assert_rel(x.cpu().numpy(), xp.cpu().numpy(), 1e-3, f"{size} L={L}")
+    # the true residual (float64) of each converged lane meets the tolerance
+    r = B.double() - cg_cuda.roll_matvec(diag[None].double(),
+                                         off[None].double(), x.double(), 3)
+    rmse = torch.sqrt((r.reshape(L, -1) ** 2).mean(dim=1))
+    assert bool((rmse <= 2 * tol).all()), rmse
+
+
+@pytest.mark.parametrize("size", list(SHAPES_3D))
+@pytest.mark.parametrize("C,warm", [(1, True), (3, False), (3, True)])
+def test_k2_3d_kernel_matches_plain(size, C, warm):
+    """K2 over a 3D trivial plan at RBC3D's shapes: 1 lane (the temperature
+    solve) and 3 (the velocity solve), cold and warm."""
+    dev = require_cuda()
+    shape = SHAPES_3D[size]
+    dom = DomainBuilder(ndims=3, viscosity=0.01)
+    blk = dom.create_block(geometry.make_uniform_grid(
+        (shape[2], shape[1], shape[0]), (0, 0, 0), (1.0, 1.0, 1.0)))
+    blk.close_boundary("-y")
+    blk.close_boundary("+y")
+    plan = block_merge.trivial_plan(dom.build()[0])
+    diag, off = _rbc3d_operator(shape, dev, False)
+    b = _rbc3d_rhs(shape, C, dev, 12)
+    x0 = 0.5 * b if warm else None
+    n = int(np.prod(shape))
+    kw = dict(maxiter=2000, stall_iters=250, precondition=True,
+              return_best=False)
+    f = cg_cuda_mb.fused_bicgstab_mb
+    before = (f.launches, f.launches_3d, f.resident_launches)
+    xs, info = f(plan, (diag,), (off,), (b,), None if x0 is None else (x0,),
+                 tol=1e-6, **kw)
+    assert (f.launches, f.launches_3d, f.resident_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(
+        diag[None], off[None], b, x0, ndims=3,
+        tol2_sum=cg_cuda.tol2_sum_f32(1e-6, n), chunk=1, **kw)
+    torch.cuda.synchronize()
+    assert bool(info.converged)
+    assert abs(int(info.iterations) - int(ip.max())) <= 3
+    assert_rel(xs[0].cpu().numpy(), xp.cpu().numpy(), 1e-3, f"{size} C={C}")
+    if C > 2:
+        assert bool((xs[0][2] == 0).all())
+
+
+def test_rbc3d_step_on_card_goes_through_3d_kernels():
+    """A small RBC3D env step on the card: every solve a K1-3D or K2-3D
+    launch (2 each per substep), no plain version."""
+    require_cuda()
+    k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
+    before = (k1.launches, k1.launches_3d, k2.launches, k2.launches_3d)
+    plain = cg_cuda.fused_cg_plain.calls + cg_cuda_mb.fused_bicgstab_plain.calls
+    env = fluidgym_tpu_torch.make("RBC3D-easy-v0",
+                                  **dict(SMALL_RBC_KW, use_marl=False))
+    env.reset(seed=0)
+    obs, reward, *_, info = env.step(np.zeros(env.action_space.shape, np.float32))
+    d = [a - b for a, b in zip(
+        (k1.launches, k1.launches_3d, k2.launches, k2.launches_3d), before)]
+    assert d[0] > 0 and d[0] == d[1] and d[2] == d[3] == d[0], d
+    assert (cg_cuda.fused_cg_plain.calls
+            + cg_cuda_mb.fused_bicgstab_plain.calls) == plain
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(info["nusselt"]))
