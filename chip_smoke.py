@@ -118,20 +118,25 @@ Phases, each printed with its elapsed seconds:
    must return the chunk grid's x, iterations and residual bit for bit,
    twice, and per raw launch (phases 3, 4 and 19) be no slower than the
    chunk grid at 1 and 64 lanes;
-25. K1-3D and K2-3D (the 3D roll forms, the chunk grid: no 3D lane fits
-   the resident arm) against their plain versions on the solves of a
-   first substep of RBC3D-easy (64, 41, 64) and RBC3D-wide-easy (128, 41,
-   128) from their bundled snapshots, captured at the wrappers: K1 on 1 and
-   2 lanes, K2 on the temperature (1 lane) and velocity (3 lanes) solves,
-   with phases 3 and 4's bars; ms per wrapper call and per raw launch, us
-   per iteration, the plain version's ms, the bound;
+25. K1-3D and K2-3D (the 3D roll forms) against their plain versions on
+   the solves of a first substep of RBC3D-easy (64, 41, 64) and
+   RBC3D-wide-easy (128, 41, 128) from their bundled snapshots, captured at
+   the wrappers: K1 on 1 and 2 lanes, K2 on the temperature (1 lane) and
+   velocity (3 lanes) solves, with phases 3 and 4's bars; on each, the
+   spread arm (one lane over G co-resident blocks, ``csrc/krylov.cuh``) at
+   every G the card holds for the lanes, in both layouts, must return the
+   chunk grid's x, iterations and residual bit for bit, and is timed
+   against it per raw launch in turns; at (128, 41, 128) the rule's arm
+   must be faster than the chunk grid for K1 and K2's velocity solve; ms
+   per wrapper call and per raw launch, us per iteration, the plain
+   version's ms, the bound;
 26. the RBC3D main path: ``make("RBC3D-easy-v0")`` at its registered
    defaults (MARL, 64 agents), ``reset(seed=0)`` (randomized: noise and a
    1-2 time-unit burn-in), 3 steps; then ``use_marl=False``, 1 step; the
    counters zeroed just before each ``make`` and read after every step: in
    every step K1 launches once per pressure corrector per substep and K2
    once per advection solve, every one of them a 3D launch (K1-3D, K2-3D)
-   on the chunk grid, and no other kernel form, plain version or
+   on the spread arm, and no other kernel form, plain version or
    ``linsolve`` loop runs; ms and pressure iterations per env step;
 27. the card against the host for RBC3D-easy: 1 sim step (``step_length =
    dt``) at full width from the bundled snapshot; obs and rewards to 1e-4;
@@ -140,10 +145,16 @@ Phases, each printed with its elapsed seconds:
 29. the five other RBC2D ids (medium, hard, wide-easy, wide-medium,
    wide-hard) at their registered defaults: reset and 2 steps each with
    phase 26's checks, the (61, 96) blocks on the resident arm and the (61,
-   192) blocks on the chunk grid;
+   192) blocks on the spread arm (G = 32);
 30. the other four RBC3D ids: ``make`` at the registered defaults on the
    card, then (this run does not read their datasets) 1 step from a
-   conduction state at full width with phase 26's checks.
+   conduction state at full width with phase 26's checks;
+31. the spread arm against the chunk grid end to end: RBC3D-easy (2
+   steps), RBC3D-wide-easy (1) and RBC2D-wide-easy (1, the spread arm
+   pinned to G = 32) at their registered defaults, four arms in turns
+   (chunk grid, spread, spread, chunk grid) from one reset state, obs
+   bit-equal across the arms: ms per env step of each; and RBC2D-wide's
+   (61, 192) K1 lane per raw launch at every G against the chunk grid.
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -2002,7 +2013,7 @@ def _resident_phase(kernels, systems) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 25-30: RBC3D (K1-3D, K2-3D) and the other RBC2D ids
+# phases 25-30: RBC3D (K1-3D, K2-3D on the spread arm) and the other RBC2D ids
 # ---------------------------------------------------------------------------
 
 #: RBC3D's two widths: (64, 41, 64) and (128, 41, 128) cells, (Z, Y, X)
@@ -2046,24 +2057,68 @@ def _captured_systems(dev, env_id) -> dict:
         # holds: share the counters with it
         capture.__dict__ = fn.__dict__
         setattr(mod, attr, capture)
+    a_shape = ((env.n_agents, 1) if env.use_marl
+               else tuple(env.action_space.shape))
     try:
-        env.step(np.zeros((env.n_agents, 1), np.float32))
+        env.step(np.zeros(a_shape, np.float32))
     finally:
         for mod, attr, fn in originals.values():
             setattr(mod, attr, fn)
     return {"K1": seen["K1"][0], "K2": seen["K2"][:2]}
 
 
+def spread_arms(torch, cg_cuda, launcher, lanes: int, n: int, ndims: int,
+                algo: str, reps: int = 3, extra=None) -> dict:
+    """The chunk grid and the spread arm of one roll-form system, in turns:
+    ``launcher(G, chains)`` gives a raw launch on preallocated buffers (G = 0:
+    the chunk grid).  The spread arm runs at every G in
+    ``cg_cuda.SPREAD_SIZES`` whose grid the card holds for ``lanes`` lanes,
+    in both layouts (``chains``: each block the cells of its sum chains;
+    else a contiguous range, 3D only); each must return the chunk grid's x,
+    iterations and residual bit for bit.  Then ms per raw launch of every
+    arm, in turns (forward, then backward).  Returns the rule's G and
+    layout, the iterations, ms and us per iteration per arm.  ``extra``:
+    more raw launches by name (another revision's chunk grid), held and
+    timed alike."""
+    dev = torch.device("cuda")
+    arms = {"grid": launcher(0, None), **(extra or {})}
+    for G in cg_cuda.SPREAD_SIZES:
+        if lanes * G > cg_cuda.spread_capacity(algo, ndims, G, True, n, dev):
+            continue
+        for chains in (True, False) if ndims == 3 else (True,):
+            arms[f"G={G} {'chains' if chains else 'range'}"] = launcher(G, chains)
+    ref = tuple(t.clone() for t in arms["grid"]())
+    torch.cuda.synchronize()
+    for name, launch in arms.items():
+        out = launch()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"{name} differs from the chunk grid: max|dx| "
+              f"{float((out[0] - ref[0]).abs().max()):.3e}, iterations "
+              f"{out[1].tolist()} / {ref[1].tolist()}, residual "
+              f"{out[2].tolist()} / {ref[2].tolist()}")
+    ms = {k: 0.0 for k in arms}
+    for k in list(arms) + list(reversed(list(arms))):
+        ms[k] += cuda_ms(torch, arms[k], reps) / 2
+    its = int(ref[1].max())
+    G = cg_cuda.default_spread(lanes, n, ndims, 1, dev, algo)
+    layout = "chains" if cg_cuda.spread_chains(n, G, ndims) else "range"
+    rule = f"G={G} {layout}" if G else "grid"
+    return dict(iterations=its, rule=rule, raw_ms=ms,
+                us_per_it={k: v * 1e3 / max(its, 1) for k, v in ms.items()})
+
+
 def _k3d_phase(dev, kernels, compare) -> None:
-    """Phase 25: K1-3D and K2-3D (the chunk grid, one lane per block: no 3D
-    lane fits the resident arm) against their plain versions on the solves
+    """Phase 25: K1-3D and K2-3D against their plain versions on the solves
     of a first substep of RBC3D-easy and RBC3D-wide-easy at full width from
     their bundled snapshots (``_captured_systems``), with phases 3 and 4's
     bars: K1 on the pressure system (1 lane) and with a second, random
     right-hand side beside it (2 lanes); K2 on the temperature (1 lane) and
-    velocity (3 lanes) systems as the solver starts them.  ms per wrapper
-    call and per raw launch (preallocated buffers), us per iteration, the
-    plain version's ms and the bound."""
+    velocity (3 lanes) systems as the solver starts them.  On each, the
+    spread arm at every G the card holds, in both layouts, bit-equal to the
+    chunk grid and timed against it in turns (``spread_arms``).  ms per
+    wrapper call (the rule's arm: the spread arm), per raw launch of each
+    arm, us per iteration, the plain version's ms and the bound."""
     import torch
 
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
@@ -2072,18 +2127,23 @@ def _k3d_phase(dev, kernels, compare) -> None:
     rows = {"K1-3D": {}, "K2-3D": {}}
     errs = {"K1-3D": 0.0, "K2-3D": 0.0}
 
-    def timed(name, key, call, plain, launch, n, lanes, its, algo, warm):
-        raw = cuda_ms(torch, launch, 3)
+    def timed(name, key, call, plain, launcher, n, lanes, its, algo, warm):
+        arms = spread_arms(torch, cg_cuda, launcher, lanes, n, 3, algo)
         b_ms, by, stream = bound_ms(n, lanes, 3, its, algo, warm, True)
+        raw, grid = arms["raw_ms"][arms["rule"]], arms["raw_ms"]["grid"]
         row = dict(iterations=its, ms=cuda_ms(torch, call, 3), raw_ms=raw,
-                   us_per_it=raw * 1e3 / max(its, 1),
+                   us_per_it=raw * 1e3 / max(its, 1), raw_ms_grid=grid,
+                   us_per_it_grid=grid * 1e3 / max(its, 1),
                    plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms,
-                   bound_by=by, stream_ms=stream)
+                   bound_by=by, stream_ms=stream, arms=arms)
         rows[name][key] = row
-        log(f"  {name} {key}: {row['ms']:.3f} ms per wrapper call, raw launch "
-            f"{raw:.3f} ms = {row['us_per_it']:.2f} us/iteration at {its} "
-            f"iterations (plain {row['plain_ms']:.3f} ms; bound "
-            f"{b_ms * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us)")
+        log(f"  {name} {key}: {row['ms']:.3f} ms per wrapper call; raw launch "
+            f"{arms['rule']} {raw:.3f} ms = {row['us_per_it']:.2f} us/iteration"
+            f", chunk grid {grid:.3f} ms = {row['us_per_it_grid']:.2f} "
+            f"({grid / raw:.2f}x) at {its} iterations; every arm bit-equal, "
+            f"raw ms {json.dumps({k: round(v, 4) for k, v in arms['raw_ms'].items()})}"
+            f" (plain {row['plain_ms']:.3f} ms; bound {b_ms * 1e3:.3f} us by "
+            f"{by}, streaming {stream * 1e3:.3f} us)")
 
     for env_id in RBC3D_IDS:
         sy = _captured_systems(dev, env_id)
@@ -2111,9 +2171,11 @@ def _k3d_phase(dev, kernels, compare) -> None:
             key = f"{shape} {L} lane(s)"
             e, it = compare(f"K1-3D {key}", call, plain, b, tol, 1e-3, 3, mv_p)
             errs["K1-3D"] = max(errs["K1-3D"], e)
-            timed("K1-3D", key, call, plain, cg_cuda.launcher(
-                diag[None], off[None], b, None, chunk=1, resident=False,
-                tol2_sum=tol2, **kw1), n, L, it, "cg", False)
+            timed("K1-3D", key, call, plain,
+                  lambda G, chains, b=b: cg_cuda.launcher(
+                      diag[None], off[None], b, None, chunk=1, spread=G,
+                      chains=chains, tol2_sum=tol2, **kw1), n, L, it, "cg",
+                  False)
         for what, ((plan, diags, offs, bs), kw2) in zip(
                 ("temperature", "velocity"), sy["K2"]):
             tol, x0s = kw2.pop("tol"), kw2.pop("x0s", None)
@@ -2135,28 +2197,53 @@ def _k3d_phase(dev, kernels, compare) -> None:
             key = f"{shape} {what} {b.shape[0]} lane(s)"
             e, it = compare(f"K2-3D {key}", call, plain, b, tol, 1e-4, 2, mv_a)
             errs["K2-3D"] = max(errs["K2-3D"], e)
-            timed("K2-3D", key, call, plain, cg_cuda_mb.launcher(
-                d[None], o[None], b, x0, ndims=3, chunk=1, resident=False,
-                tol2_sum=cg_cuda.tol2_sum_f32(tol, n), **kw2), n, b.shape[0],
-                it, "bicgstab", x0 is not None)
+            timed("K2-3D", key, call, plain,
+                  lambda G, chains, b=b, x0=x0, d=d, o=o, kw2=kw2, tol=tol:
+                  cg_cuda_mb.launcher(
+                      d[None], o[None], b, x0, ndims=3, chunk=1, spread=G,
+                      chains=chains, tol2_sum=cg_cuda.tol2_sum_f32(tol, n),
+                      **kw2), n, b.shape[0], it, "bicgstab", x0 is not None)
     for name, main, what in (
             ("K1-3D", "(64, 41, 64) 1 lane(s)", "Jacobi-PCG, 7-point roll stencil"),
             ("K2-3D", "(64, 41, 64) velocity 3 lane(s)",
              "right-Jacobi BiCGStab, trivial plan")):
         r = rows[name][main]
-        kernels[name] = dict(
-            name=f"{name} ({what}, the chunk grid)", route="cuda",
+        common = dict(
+            route="cuda",
             source=("fluidgym_tpu_torch/csrc/cg.cu" if name == "K1-3D"
                     else "fluidgym_tpu_torch/csrc/bicgstab_mb.cu"),
             replaces=("fluidgym_tpu/ops/cg_pallas.py:143" if name == "K1-3D"
                       else "fluidgym_tpu/ops/cg_pallas_mb.py:458"),
-            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=errs[name], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            iterations=r["iterations"], raw_ms=r["raw_ms"],
-            us_per_it=r["us_per_it"], shape=main, arm="global",
+            iterations=r["iterations"], shape=main)
+        # one entry per TPU kernel, of the arm the main path runs (the
+        # spread arm); the chunk grid's raw launch, timed beside it in
+        # turns, only as raw_ms_grid / us_per_it_grid
+        kernels[name] = dict(
+            common, name=f"{name} ({what}, the spread arm, "
+                         f"{r['arms']['rule']})",
+            source=common["source"] + " + fluidgym_tpu_torch/csrc/krylov.cuh",
+            ms=r["ms"], raw_ms=r["raw_ms"], us_per_it=r["us_per_it"],
+            arm=f"spread {r['arms']['rule']}",
+            raw_ms_grid=r["raw_ms_grid"], us_per_it_grid=r["us_per_it_grid"],
+            speedup_over_grid=r["raw_ms_grid"] / r["raw_ms"],
+            wide={k: {x: v[x] for x in ("raw_ms", "raw_ms_grid", "us_per_it",
+                                        "us_per_it_grid", "ms", "plain_ms",
+                                        "bound_ms")}
+                  for k, v in rows[name].items() if "(128" in k},
             systems=rows[name])
+    for name in ("K1-3D", "K2-3D"):
+        wide = [v for k, v in rows[name].items()
+                if "(128" in k and (name == "K1-3D" or "velocity" in k)][0]
+        check(wide["raw_ms"] < wide["raw_ms_grid"],
+              f"{name} at (128, 41, 128): the spread arm ({wide['raw_ms']:.3f} "
+              f"ms per raw launch) is not faster than the chunk grid "
+              f"({wide['raw_ms_grid']:.3f} ms)")
     log(f"phase 25 K1-3D and K2-3D ok on {len(rows['K1-3D'])} + "
-        f"{len(rows['K2-3D'])} systems in {time.perf_counter() - t0:.1f}s")
+        f"{len(rows['K2-3D'])} systems: the spread arm bit-equal to the "
+        f"chunk grid at every G and layout, faster at (128, 41, 128), in "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
@@ -2167,7 +2254,8 @@ def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
     once per pressure corrector per substep and K2 once per advection solve
     (temperature, velocity), in 3D every one of them a 3D launch; the
     resident arm takes them exactly where ``default_resident`` admits the
-    block (never in 3D); no other kernel form, plain version or
+    block (never in 3D), the spread arm exactly where ``default_spread``
+    gives G (every RBC3D solve); no other kernel form, plain version or
     ``linsolve`` loop runs; obs of the space's shapes, obs, reward and
     Nusselt finite."""
     import numpy as np
@@ -2178,13 +2266,15 @@ def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
 
     k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
     launches, plains = _counters()
-    extra = [(k, a) for k in (k1, k2) for a in ("launches_3d", "resident_launches")]
+    extra = [(k, a) for k in (k1, k2)
+             for a in ("launches_3d", "resident_launches", "spread_launches")]
     calls, restore = count_calls(piso, linsolve)
 
     def counts():
         out = {"K1": k1.launches, "K2": k2.launches, "K1 3d": k1.launches_3d,
                "K2 3d": k2.launches_3d, "K1 resident": k1.resident_launches,
-               "K2 resident": k2.resident_launches}
+               "K2 resident": k2.resident_launches,
+               "K1 spread": k1.spread_launches, "K2 spread": k2.spread_launches}
         out["other"] = sum(getattr(*c) for c in launches) - out["K1"] - out["K2"]
         out["plain"] = sum(getattr(*c) for c in plains)
         out["linsolve"] = calls["cg"] + calls["bicgstab"]
@@ -2203,7 +2293,14 @@ def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
         reset_s = time.perf_counter() - t
         reset = counts()
         nd, shape = env.ndims, env._topo.blocks[0].shape
-        resident = cg_cuda.default_resident(1, math.prod(shape), nd, 1, dev)
+        n = math.prod(shape)
+        resident = cg_cuda.default_resident(1, n, nd, 1, dev)
+        # the arm of each solve: K1 (1 lane), K2's scalars (1 lane) and its
+        # velocity (nd lanes)
+        spread = {"K1": cg_cuda.roll_arm(1, n, nd, 1, dev)[1],
+                  "K2 scalar": cg_cuda.roll_arm(1, n, nd, 1, dev, "bicgstab")[1],
+                  "K2 velocity": cg_cuda.roll_arm(nd, n, nd, 1, dev,
+                                                  "bicgstab")[1]}
         rng = np.random.default_rng(ph)
         a_shape = ((env.n_agents, 1) if env.use_marl
                    else tuple(env.action_space.shape))
@@ -2221,6 +2318,10 @@ def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
             for k in ("K1", "K2"):
                 expect[f"{k} 3d"] = expect[k] if nd == 3 else 0
                 expect[f"{k} resident"] = expect[k] if resident else 0
+            expect["K1 spread"] = expect["K1"] if spread["K1"] else 0
+            expect["K2 spread"] = sub * (
+                env._topo.scalar_channels * bool(spread["K2 scalar"])
+                + bool(spread["K2 velocity"]))
             expect.update(other=0, plain=0, linsolve=0)
             check(sub > 0 and all(d[k] == v for k, v in expect.items()),
                   f"{env_id} step {i}: launches {d}, expected {expect}")
@@ -2241,16 +2342,20 @@ def _rbc_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
     finally:
         restore()
     total = counts()
+    arm = ("resident" if resident else
+           f"spread G={spread['K1']}/{spread['K2 scalar']}/"
+           f"{spread['K2 velocity']}" if spread["K1"] else "global")
     out = dict(env_id=env_id, shape=tuple(shape), marl=env.use_marl,
-               n_agents=env.n_agents, arm="resident" if resident else "global",
+               n_agents=env.n_agents, arm=arm,
                reset_s=reset_s, reset_launches={k: reset[k] for k in ("K1", "K2")},
                ms_step=1e3 * sum(r["s"] for r in rows) / len(rows),
                substeps=[r["substeps"] for r in rows],
                pressure_iterations=[r["pressure_iterations"] for r in rows],
                pressure_converged=[r["pressure_converged"] for r in rows],
                nusselt=[round(r["nusselt"], 5) for r in rows],
-               launches={k: total[k] for k in ("K1", "K2", "K1 3d", "K2 3d",
-                                               "K1 resident", "K2 resident")},
+               launches={k: total[k] for k in (
+                   "K1", "K2", "K1 3d", "K2 3d", "K1 resident", "K2 resident",
+                   "K1 spread", "K2 spread")},
                step_launches=[{k: r[k] for k in ("K1", "K2")} for r in rows])
     log(f"phase {ph} {env_id} {out['shape']} "
         f"({'MARL, ' + str(env.n_agents) + ' agents' if env.use_marl else 'SARL'}): "
@@ -2296,30 +2401,40 @@ def _rbc3d_card_vs_host(dev) -> float:
 
 
 def _rbc_phases(dev, kernels, compare, piso, linsolve) -> None:
-    """Phases 25-30: K1-3D and K2-3D against their plain versions (25); the
-    RBC3D-easy-v0 main path, 3 MARL steps (its default) and 1 SARL step
-    (26); RBC3D card against host (27); RBC3D-wide-easy-v0, 1 step (28); the
-    five other RBC2D ids, 2 steps each (29); the other four RBC3D ids (30):
-    ``make`` at the registered defaults on the card, then, as their
-    datasets need not be present, 1 step from a conduction state at
-    full width with phase 26's checks."""
+    """Phases 25-31: K1-3D and K2-3D against their plain versions and the
+    spread arm against the chunk grid (25); the RBC3D-easy-v0 main path, 3
+    MARL steps (its default) and 1 SARL step (26); RBC3D card against host
+    (27); RBC3D-wide-easy-v0, 1 step (28), every RBC3D solve on the spread
+    arm; the five other RBC2D ids, 2 steps each (29); the other four RBC3D
+    ids (30): ``make`` at the registered defaults on the card, then, as
+    their datasets need not be present, 1 step from a conduction state at
+    full width with phase 26's checks; the spread arm's end-to-end A/B
+    (31)."""
     _k3d_phase(dev, kernels, compare)
     runs = [_rbc_main_path(dev, piso, linsolve, "RBC3D-easy-v0", 3, 26),
             _rbc_main_path(dev, piso, linsolve, "RBC3D-easy-v0", 1, 26,
                            use_marl=False)]
     host = _rbc3d_card_vs_host(dev)
     wide = _rbc_main_path(dev, piso, linsolve, "RBC3D-wide-easy-v0", 1, 28)
+    for r in runs + [wide]:
+        check(r["arm"].startswith("spread") and r["launches"]["K1 spread"]
+              == r["launches"]["K1 3d"] > 0 and r["launches"]["K2 spread"]
+              == r["launches"]["K2 3d"] > 0,
+              f"{r['env_id']}: not every K1-3D / K2-3D launch took the spread "
+              f"arm: {r['arm']}, {r['launches']}")
     for name, k in (("K1-3D", "K1"), ("K2-3D", "K2")):
         e = kernels[name]
-        # the count of the runs (resets included); per env step without them
-        e["launches"] = sum(r["launches"][f"{k} 3d"] for r in runs)
+        # the spread arm's launches in the runs (resets included; every 3D
+        # launch, as checked above); per env step without the resets
+        e["launches"] = sum(r["launches"][f"{k} spread"] for r in runs)
         steps = [d[k] for r in runs for d in r["step_launches"]]
         e["launches_per_env_step"] = sum(steps) / len(steps)
-        e["main_path"] = {f"{r['env_id']} {'MARL' if r['marl'] else 'SARL'}":
-                          {x: r[x] for x in ("ms_step", "reset_s", "substeps",
-                                             "pressure_iterations")}
-                          for r in runs + [wide]}
-        e["wide_launches"] = wide["launches"][f"{k} 3d"]
+        e["main_path"] = {
+            f"{r['env_id']} {'MARL' if r['marl'] else 'SARL'}":
+            {x: r[x] for x in ("ms_step", "reset_s", "substeps",
+                               "pressure_iterations", "arm")}
+            for r in runs + [wide]}
+        e["wide_launches"] = wide["launches"][f"{k} spread"]
         e["card_vs_host"] = host
     t0 = time.perf_counter()
     ids = [_rbc_main_path(dev, piso, linsolve, env_id, 2, 29)
@@ -2339,6 +2454,112 @@ def _rbc_phases(dev, kernels, compare, piso, linsolve) -> None:
                        load_initial_domain=False, load_domain_statistics=False,
                        randomize_initial_state=False)
     log(f"phase 30 the other RBC3D ids ok in {time.perf_counter() - t0:.1f}s")
+    _spread_ab_phase(dev, kernels)
+
+# ---------------------------------------------------------------------------
+# phase 31: the spread arm against the chunk grid, end to end
+# ---------------------------------------------------------------------------
+
+#: phase 31's ids and env steps per arm; RBC2D-wide-easy-v0's (61, 192)
+#: lanes run the spread arm pinned to G = 32, the rule's G for them (11,712
+#: cells: 366 per block, at least SPREAD_MIN_CELLS; too few for G = 64)
+SPREAD_AB = (("RBC3D-easy-v0", 2, None), ("RBC3D-wide-easy-v0", 1, None),
+             ("RBC2D-wide-easy-v0", 1, 32))
+
+
+def spread_env_ab(dev, env_id: str, steps: int, pin=None) -> dict:
+    """``env_id`` at its registered defaults on the card, ``reset(seed=0)``,
+    then four arms in turns from that one state (``set_state``): the chunk
+    grid (``cg_cuda.pinned_spread(0)``), the spread arm, the spread arm, the
+    chunk grid, each taking the same seeded actions.  ``pin``: the spread
+    arm's G (None: the rule's).  Every arm's obs must be bit-equal to the
+    first's (the spread arm computes the chunk grid's bits), the chunk
+    grid's arms launch no spread arm and the spread arms nothing else.
+    Returns ms per env step per arm (host clock around ``step``, ending in
+    a device synchronise), the pressure iterations and launches."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
+    count = lambda: (k1.launches, k2.launches, k1.spread_launches,
+                     k2.spread_launches)
+    env = fluidgym_tpu_torch.make(env_id)
+    env.reset(seed=0)
+    start = env.get_state()
+    rng = np.random.default_rng(31)
+    a_shape = ((env.n_agents, 1) if env.use_marl
+               else tuple(env.action_space.shape))
+    actions = [rng.uniform(-1, 1, a_shape).astype(np.float32)
+               for _ in range(steps)]
+    rows, first = [], None
+    for arm in ("grid", "spread", "spread", "grid"):
+        with cg_cuda.pinned_spread(0 if arm == "grid" else pin):
+            env.set_state(start)
+            c0 = count()
+            step_ms, its = [], []
+            for a in actions:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                obs, _, _, _, info = env.step(a)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t))
+                its.append(int(info["pressure_iterations"]))
+        d = [b - a for a, b in zip(c0, count())]
+        first = obs if first is None else first
+        check(all(torch.equal(obs[k], first[k]) for k in obs),
+              f"{env_id} {arm} arm: obs differ from the first arm's")
+        spread_all = d[2] == d[0] > 0 and d[3] == d[1] > 0
+        check(spread_all if arm == "spread" else d[2] == d[3] == 0,
+              f"{env_id} {arm} arm: launches K1, K2, K1 spread, K2 spread {d}")
+        rows.append(dict(arm=arm, ms_per_step=step_ms,
+                         mean_ms=sum(step_ms) / len(step_ms),
+                         pressure_iterations=its, launches=d))
+    mean = lambda a: sum(r["mean_ms"] for r in rows if r["arm"] == a) / 2
+    return dict(env_id=env_id, steps=steps, pin=pin, arms=rows,
+                grid_ms=mean("grid"), spread_ms=mean("spread"),
+                speedup=mean("grid") / mean("spread"))
+
+
+def _spread_ab_phase(dev, kernels) -> None:
+    """Phase 31: ms per env step under the spread arm and the chunk grid,
+    in turns from one state (``spread_env_ab``), for RBC3D-easy-v0,
+    RBC3D-wide-easy-v0 and RBC2D-wide-easy-v0 (its (61, 192) lanes pinned
+    to G = 32); and RBC2D-wide's K1 lane (its first substep's pressure
+    solve) per raw launch at every G against the chunk grid
+    (``spread_arms``)."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda
+
+    t0 = time.perf_counter()
+    ab = {}
+    for env_id, steps, pin in SPREAD_AB:
+        r = ab[env_id] = spread_env_ab(dev, env_id, steps, pin)
+        log(f"  {env_id}: chunk grid {r['grid_ms']:.1f} ms/env step, spread "
+            f"arm{'' if pin is None else f' (pinned G = {pin})'} "
+            f"{r['spread_ms']:.1f} ({r['speedup']:.2f}x); per arm "
+            + ", ".join(f"{x['arm']} {[round(v, 1) for v in x['ms_per_step']]}"
+                        for x in r["arms"])
+            + f"; pressure iterations {r['arms'][0]['pressure_iterations']}, "
+              f"obs bit-equal across the arms")
+    (diag, off, b, x0), kw1 = _captured_systems(dev, "RBC2D-wide-easy-v0")["K1"]
+    tol = kw1.pop("tol")
+    n = math.prod(b.shape[1:])
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    lane = spread_arms(torch, cg_cuda, lambda G, chains: cg_cuda.launcher(
+        diag[None], off[None], b, x0, chunk=1, spread=G, chains=chains,
+        tol2_sum=tol2, **kw1), 1, n, 2, "cg", reps=10)
+    log(f"  RBC2D-wide-easy-v0 K1 lane {tuple(b.shape[1:])} at "
+        f"{lane['iterations']} iterations, ms per raw launch "
+        + json.dumps({k: round(v, 4) for k, v in lane["raw_ms"].items()})
+        + f" (the rule: {lane['rule']})")
+    kernels["K1-3D"]["main_path_ab"] = ab
+    kernels["K1-3D"]["rbc2d_wide_k1_lane"] = lane
+    log(f"phase 31 spread arm A/B ok in {time.perf_counter() - t0:.1f}s")
+
 
 if __name__ == "__main__":
     try:

@@ -52,10 +52,20 @@
 // divides by diag on every pass: with its eight vectors' pointers live,
 // 1 / diag in registers did not fit 64 registers without spills.)  As in
 // cg.cu, thread 0 updates a lane's scalars right after the lane's sum.
+//
+// The spread arm (trivial plan, template SPREAD; entry fg_bicgstab_solve
+// with spread = G, chunk 1), as K1's (see cg.cu): one lane over G
+// co-resident blocks, rows from L2, the one-block form's sums.  Its lane
+// barriers close the loop's top (pass 1 gathers p_hat), pass 2 (pass 3
+// gathers s_hat) and each of the three sums: five per iteration in the
+// chains layout, eight in the range layout.  RBC3D's velocity solve (3
+// lanes) takes G = 32, its temperature solve G = 128.
 #include "krylov.cuh"
 
-// one 1024-thread block per SM: see fg_cg_kernel's launch bounds
-template <int ND, bool TABLE, bool CLUSTER = false, bool RESIDENT = false>
+// one 1024-thread block per SM: see fg_cg_kernel's launch bounds; SPREAD
+// as there
+template <int ND, bool TABLE, bool CLUSTER = false, bool RESIDENT = false,
+          int SPREAD = 0>
 __global__ void __launch_bounds__(FG_THREADS, 1)
 fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                const float* __restrict__ off, const int* __restrict__ nbr,
@@ -67,10 +77,16 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                float* __restrict__ shat, float* __restrict__ t,
                float* __restrict__ best, int lanes, int chunk, FgGrid g,
                int op_per_lane, float tol2, int maxiter, int stall_iters,
-               int precondition, int return_best, int warm_start) {
+               int precondition, int return_best, int warm_start,
+               FgSpread sp) {
   static_assert(!CLUSTER || TABLE, "cluster arm: K2-mb only");
   static_assert(!RESIDENT || (ND == 2 && !TABLE && !CLUSTER),
                 "resident arm: K2 over the trivial plan, in 2D only");
+  static_assert(!SPREAD || (!TABLE && !CLUSTER && !RESIDENT),
+                "spread arm: K2 over the trivial plan only");
+  constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
+  // the spread arm reads the vectors other blocks write through L2
+  constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
   __shared__ float s_rho[FG_MAX_LANES], s_rs[FG_MAX_LANES];
   __shared__ float s_best_rs[FG_MAX_LANES];
@@ -82,14 +98,13 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   extern __shared__ __align__(16) float s_rows[];  // staged operator rows
 
   const int tid = threadIdx.x;
-  const int T = blockDim.x;
   const int n = g.n;
   const int nf = 2 * ND;
 
-  // this block's lanes and cells (krylov.cuh fg_block_cells)
-  int c0, c1;
-  const int l0 = fg_block_cells<CLUSTER>(lanes, chunk, n, c0, c1);
-  const bool lead = tid == 0 && c0 == 0;  // writes the lane stats (rank 0)
+  // this block's lanes and cells (krylov.cuh fg_lane_init)
+  FgLane L;
+  const int l0 = fg_lane_init<ARM>(L, lanes, chunk, n, sp);
+  const bool lead = tid == 0 && L.rank == 0;  // writes the lane stats
   const size_t lo = (size_t)l0 * n;
   b += lo;
   x0 += lo;
@@ -108,13 +123,14 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   rs_out += l0;
 
   FgRows staged{};
-  float* s_terms = nullptr;  // fg_lane_sum2's chain terms (cluster arm)
   if constexpr (CLUSTER) {
-    staged = fg_stage_rows<ND>(diag, off, nbr, n, c0, c1, c1 - c0, s_rows);
-    s_terms = fg_chain_buf(
-        s_rows, n, (int)cooperative_groups::this_cluster().num_blocks(), ND);
+    staged = fg_stage_rows<ND>(diag, off, nbr, n, L.c0, L.c1, L.c1 - L.c0,
+                               s_rows);
+    L.buf = fg_chain_buf(s_rows, n, fg_lane_blocks<ARM>(sp), ND);
+    L.slot = s_chain;
     __syncthreads();
   }
+  if constexpr (SPREAD) L.buf = s_rows;  // the chain terms alone
   // the resident arm (one lane, chunk 1): the lane's rows, the two gathered
   // vectors p_hat and s_hat, and r and v (the own-cell vectors read most)
   // in shared memory for the whole solve
@@ -140,11 +156,11 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    for (int c = c0 + tid; c < c1; c += T) {
+    fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
-        rr = b[o + c] - fg_apply<ND, TABLE>(R, x0 + o, c, g);
+        rr = b[o + c] - fg_apply<ND, TABLE, CG>(R, x0 + o, c, g);
       } else {
         xx = 0.0f;
         rr = b[o + c];
@@ -155,14 +171,13 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       rhat[o + c] = rr;
       p[o + c] = rr;
       phat[o + c] = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
-      a1 += rr * rr;
-    }
-    fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
-                          [&](int c, float& u, float& w) {
-                            const float rr = __ldcg(r + o + c);
-                            u = rr * rr;
-                            w = 0.0f;
-                          });
+      fg_put<ARM>(L, e, rr * rr, a1);
+    });
+    fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+      const float rr = __ldcg(r + o + c);
+      u = rr * rr;
+      w = 0.0f;
+    });
     if (tid == 0) {
       s_rho[l] = a1;
       s_rs[l] = a1;
@@ -173,11 +188,8 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
   int it = 0;
   for (;;) {
-    // the cluster arm: publishes p_hat before pass 1 gathers it
-    if constexpr (CLUSTER)
-      fg_cluster_sync();
-    else
-      __syncthreads();
+    // several blocks per lane: publishes p_hat before pass 1 gathers it
+    fg_lane_sync<ARM>(L, sp);
     // every thread reads the lanes' state and takes the same branch; thread
     // 0, which alone computes the lanes' scalars, keeps which are frozen
     // (as in cg.cu)
@@ -195,16 +207,15 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = c0 + tid; c < c1; c += T) {
-        const float vv = fg_apply<ND, TABLE>(R, phat + o, c, g);
+      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
+        const float vv = fg_apply<ND, TABLE, CG>(R, phat + o, c, g);
         v[o + c] = vv;
-        a1 += rhat[o + c] * vv;
-      }
-      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
-                            [&](int c, float& u, float& w) {
-                              u = __ldcg(rhat + o + c) * __ldcg(v + o + c);
-                              w = 0.0f;
-                            });
+        fg_put<ARM>(L, e, rhat[o + c] * vv, a1);
+      });
+      fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+        u = __ldcg(rhat + o + c) * __ldcg(v + o + c);
+        w = 0.0f;
+      });
       if (tid == 0) s_alpha[l] = s_done[l] ? 0.0f : s_rho[l] / fg_guard(a1);
     }
     __syncthreads();
@@ -214,35 +225,30 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
-      for (int c = c0 + tid; c < c1; c += T) {
+      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int) {
         const float ss = r[o + c] - al * v[o + c];
         r[o + c] = ss;
         shat[o + c] = precondition ? (1.0f / R.dg[c - R.base]) * ss : ss;
-      }
+      });
     }
-    // the cluster arm: publishes s_hat before pass 3 gathers it
-    if constexpr (CLUSTER)
-      fg_cluster_sync();
-    else
-      __syncthreads();
+    // several blocks per lane: publishes s_hat before pass 3 gathers it
+    fg_lane_sync<ARM>(L, sp);
 
     // ---- pass 3: t = A s_hat, <t, t>, <t, s> ------------------------------
     for (int l = 0; l < lanes; ++l) {
       const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = c0 + tid; c < c1; c += T) {
-        const float tv = fg_apply<ND, TABLE>(R, shat + o, c, g);
+      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
+        const float tv = fg_apply<ND, TABLE, CG>(R, shat + o, c, g);
         t[o + c] = tv;
-        a1 += tv * tv;
-        a2 += tv * r[o + c];
-      }
-      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
-                            [&](int c, float& u, float& w) {
-                              const float tv = __ldcg(t + o + c);
-                              u = tv * tv;
-                              w = tv * __ldcg(r + o + c);
-                            });
+        fg_put<ARM>(L, e, tv * tv, tv * r[o + c], a1, a2);
+      });
+      fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+        const float tv = __ldcg(t + o + c);
+        u = tv * tv;
+        w = tv * __ldcg(r + o + c);
+      });
       if (tid == 0) s_omega[l] = s_done[l] ? 0.0f : a2 / fg_guard(a1);
     }
     __syncthreads();
@@ -252,19 +258,17 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l], om = s_omega[l];
       float a1 = 0.0f, a2 = 0.0f;
-      for (int c = c0 + tid; c < c1; c += T) {
+      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
         x[o + c] = x[o + c] + al * phat[o + c] + om * shat[o + c];
         const float rr = r[o + c] - om * t[o + c];
         r[o + c] = rr;
-        a1 += rhat[o + c] * rr;
-        a2 += rr * rr;
-      }
-      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
-                            [&](int c, float& u, float& w) {
-                              const float rr = __ldcg(r + o + c);
-                              u = __ldcg(rhat + o + c) * rr;
-                              w = rr * rr;
-                            });
+        fg_put<ARM>(L, e, rhat[o + c] * rr, rr * rr, a1, a2);
+      });
+      fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+        const float rr = __ldcg(r + o + c);
+        u = __ldcg(rhat + o + c) * rr;
+        w = rr * rr;
+      });
       if (tid == 0) {
         const int done = s_done[l];
         const float rho_new = done ? s_rho[l] : a1;
@@ -290,12 +294,12 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float be = s_beta[l], om = s_omega[l];
       const int keep = return_best && s_better[l];
-      for (int c = c0 + tid; c < c1; c += T) {
+      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int) {
         const float pp = r[o + c] + be * (p[o + c] - om * v[o + c]);
         p[o + c] = pp;
         phat[o + c] = precondition ? (1.0f / R.dg[c - R.base]) * pp : pp;
         if (keep) best[o + c] = x[o + c];
-      }
+      });
     }
     ++it;
   }
@@ -303,25 +307,32 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   for (int l = 0; l < lanes; ++l) {
     const size_t o = (size_t)l * n;
     const int use_best = return_best && !(s_rs[l] <= tol2);
-    if (use_best) {
-      for (int c = c0 + tid; c < c1; c += T) x[o + c] = best[o + c];
-    }
+    if (use_best)
+      fg_cells<ARM, false>(L, sp, n,
+                           [&](int c, int, int) { x[o + c] = best[o + c]; });
     if (lead) {
       iters_out[l] = it;
       rs_out[l] = use_best ? s_best_rs[l] : s_rs[l];
     }
   }
-  // no block leaves while another may still read its shared memory
-  if constexpr (CLUSTER) fg_cluster_sync();
+  // no block leaves while another may still read its shared memory (the
+  // cluster arm) or the lane's chains (the spread arm)
+  if constexpr (ARM != FG_ARM_BLOCK) fg_lane_sync<ARM>(L, sp);
 }
 
 // K2's entry over the trivial plan (one grid, roll-form matvec).
-// `resident` = 1 (chunk 1): the resident arm, one lane per block with its
-// rows and four vectors in shared memory (krylov.cuh); a lane whose bytes
-// do not fit is refused.  0: the chunk grid.
+// `resident`, `spread`, `chains`, `bar` and `slot` as in cg.cu fg_cg_solve:
+// the resident arm, the spread arm, or (both 0) the chunk grid.
 using FgBicgKernel = decltype(&fg_bicg_kernel<2, true>);
 
-static FgBicgKernel fg_bicg_roll_kernel(int ndims, int resident) {
+static FgBicgKernel fg_bicg_roll_kernel(int ndims, int resident, int spread,
+                                        int chains) {
+  if (spread) {
+    if (ndims == 3)
+      return chains ? fg_bicg_kernel<3, false, false, false, FG_ARM_CHAINS>
+                    : fg_bicg_kernel<3, false, false, false, FG_ARM_RANGE>;
+    return fg_bicg_kernel<2, false, false, false, FG_ARM_CHAINS>;
+  }
   if (ndims == 3) return fg_bicg_kernel<3, false>;
   return resident ? fg_bicg_kernel<2, false, false, true>
                   : fg_bicg_kernel<2, false>;
@@ -331,23 +342,44 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
                                  const float* off, const float* x0, float* x,
                                  int* iters, float* rs, float* r, float* rhat,
                                  float* p, float* phat, float* v, float* shat,
-                                 float* t, float* best, int lanes, int chunk,
-                                 int resident, int nz, int ny, int nx,
-                                 int ndims, int op_per_lane, float tol2,
-                                 int maxiter, int stall_iters,
+                                 float* t, float* best, unsigned* bar,
+                                 float* slot, int lanes, int chunk,
+                                 int resident, int spread, int chains, int nz,
+                                 int ny, int nx, int ndims, int op_per_lane,
+                                 float tol2, int maxiter, int stall_iters,
                                  int precondition, int return_best,
                                  int warm_start, void* stream) {
-  const int blocks = fg_chunk_blocks(lanes, chunk);
   const FgGrid g = fg_grid(nz, ny, nx);
-  if (blocks == 0 || (ndims != 2 && ndims != 3) ||
-      (resident && !fg_resident_ok(g.n, ndims, chunk)))
+  if (!fg_roll_args_ok(lanes, chunk, resident, spread, chains, g.n, ndims,
+                       bar, slot))
     return (int)cudaErrorInvalidValue;
+  const FgBicgKernel k = fg_bicg_roll_kernel(ndims, resident, spread, chains);
+  cudaStream_t s = (cudaStream_t)stream;
+  const FgSpread sp{bar, reinterpret_cast<float2*>(slot), spread};
+  if (spread)
+    return (int)fg_launch_spread(
+        k, lanes, spread, fg_spread_bytes(g.n, spread), bar, s, b, diag, off,
+        nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best, lanes,
+        1, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
+        return_best, warm_start, sp);
   return (int)fg_launch_smem(
-      fg_bicg_roll_kernel(ndims, resident), blocks,
-      resident ? fg_resident_bytes(g.n, ndims) : 0, (cudaStream_t)stream, b,
-      diag, off, nullptr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-      best, lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters,
-      precondition, return_best, warm_start);
+      k, fg_chunk_blocks(lanes, chunk),
+      resident ? fg_resident_bytes(g.n, ndims) : 0, s, b, diag, off, nullptr,
+      x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best, lanes, chunk, g,
+      op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+      warm_start, sp);
+}
+
+// How many blocks of K2's spread arm the card holds at once, into *out (as
+// cg.cu fg_cg_spread_capacity).
+extern "C" int fg_bicgstab_spread_capacity(int ndims, int spread, int chains,
+                                           int n, int* out) {
+  if ((ndims != 2 && ndims != 3) || !fg_spread_ok(spread) ||
+      !fg_spread_layout_ok(ndims, chains))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_resident_blocks(
+      fg_bicg_roll_kernel(ndims, 0, spread, chains),
+      fg_spread_bytes(n, spread), out);
 }
 
 // K2 over the merged frame of a multi-block plan (S >= 2 super-blocks, seam
@@ -384,18 +416,18 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
         fg_stage_bytes(n, cluster, ndims), s, b,
         diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
         lanes, 1, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
-        return_best, warm_start);
+        return_best, warm_start, FgSpread{});
   }
   if (ndims == 2) {
     fg_bicg_kernel<2, true><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
         lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
-        return_best, warm_start);
+        return_best, warm_start, FgSpread{});
   } else {
     fg_bicg_kernel<3, true><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
         lanes, chunk, g, op_per_lane, tol2, maxiter, stall_iters, precondition,
-        return_best, warm_start);
+        return_best, warm_start, FgSpread{});
   }
   return (int)cudaGetLastError();
 }

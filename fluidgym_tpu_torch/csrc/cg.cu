@@ -51,7 +51,36 @@
 // barrier, no new reduction order.  ops/cg_cuda.py `default_resident`
 // picks it by shape (chunk 1, a 2D lane whose bytes fit 227 KB less the
 // static reserve); a lane that does not fit (RBC2D-wide's 11,712 cells,
-// RBC3D) takes the chunk grid.
+// RBC3D) takes the spread arm below.
+//
+// The spread arm of K1 (template SPREAD; entry fg_cg_solve with spread = G
+// in 32, 64, 128, chunk 1).  An RBC3D lane (167,936 or 671,744 cells, 7-30
+// MB of rows and vectors) fits neither one SM nor a cluster's shared
+// memory, and on one SM the chunk grid ran at ~1.5 ns per cell-iteration,
+// bound by instruction issue (250 and 1,118 us per iteration).  So one lane
+// runs on G blocks of one cooperative launch, one per SM, all resident at
+// once (the launch is refused otherwise), the rows read from L2:
+//   * block r takes its share of the cells with each pass's per-cell
+//     arithmetic: the cells of its sum chains [r T/G, (r+1) T/G) (row k of
+//     them the T/G cells from k T + r T/G; krylov.cuh FG_ARM_CHAINS), or
+//     at G = 128 on big 3D lanes a contiguous range (FG_ARM_RANGE; ops/
+//     cg_cuda.py `spread_chains` says why);
+//   * every dot product is the one-block form's sum, bit for bit
+//     (fg_lane_sum2): the chains layout puts each cell's terms in shared
+//     memory as the pass computes them, one thread per chain adds them in
+//     chain order, the chains go to global memory, and after a lane barrier
+//     every block runs the same tree over all T of them;
+//   * the barrier (fg_spread_sync) is a counter per lane in global memory:
+//     release add, acquire spin, then the block's threads read the gathered
+//     vectors, chain terms and chains with __ldcg (through L2, never a
+//     read-only or stale L1 path); lanes do not wait on each other.  It
+//     closes the loop's top (pass A gathers p) and each sum: three per
+//     iteration in the chains layout, five in the range layout;
+//   * thread 0 of every block computes the lanes' scalars from the same
+//     bits, so every block takes the same branches; rank 0 writes the stats.
+// So it returns the chunk grid's x, iterations and residual at any G.  The
+// serial part is each chain: ceil(n / T) dependent adds per sum (164 at
+// (64, 41, 64), 656 at (128, 41, 128)).
 //
 // In every form thread 0 updates a lane's scalars (alpha; beta, the best
 // residual) right after the lane's sum, and every thread reads the lanes'
@@ -172,9 +201,10 @@ __device__ __forceinline__ void fg_coarse_precond(
 
 // One 1024-thread block per SM (the second launch bound): without it ptxas
 // cut the resident arm to 32 registers, with spills, to fit two blocks of
-// whose dynamic shared memory it knows nothing.
+// whose dynamic shared memory it knows nothing.  SPREAD: 0, or the spread
+// arm's layout (FG_ARM_RANGE, FG_ARM_CHAINS; krylov.cuh).
 template <int ND, bool TABLE, bool COARSE, bool CLUSTER = false,
-          bool RESIDENT = false>
+          bool RESIDENT = false, int SPREAD = 0>
 __global__ void __launch_bounds__(FG_THREADS, 1)
 fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              const float* __restrict__ off, const int* __restrict__ nbr,
@@ -184,10 +214,16 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              float* __restrict__ p, float* __restrict__ q,
              float* __restrict__ best, int lanes, int chunk, FgGrid g,
              int op_per_lane, float tol2, int maxiter, int stall_iters,
-             int precondition, int return_best, int warm_start, FgCoarse cz) {
+             int precondition, int return_best, int warm_start, FgCoarse cz,
+             FgSpread sp) {
   static_assert(!CLUSTER || (TABLE && !COARSE), "cluster arm: K3 only");
   static_assert(!RESIDENT || (ND == 2 && !TABLE && !COARSE && !CLUSTER),
                 "resident arm: K1 in 2D only");
+  static_assert(!SPREAD || (!TABLE && !COARSE && !CLUSTER && !RESIDENT),
+                "spread arm: K1 only");
+  constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
+  // the spread arm reads the vectors other blocks write through L2
+  constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
   __shared__ float s_rc[COARSE ? FG_MAX_K : 1], s_xc[COARSE ? FG_MAX_K : 1];
   __shared__ float s_rz[FG_MAX_LANES], s_rs[FG_MAX_LANES];
@@ -204,10 +240,10 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   const int nf = 2 * ND;
 
   // this block's lanes and cells: a chunk of whole lanes, or one lane's
-  // range in the cluster arm (krylov.cuh fg_block_cells)
-  int c0, c1;
-  const int l0 = fg_block_cells<CLUSTER>(lanes, chunk, n, c0, c1);
-  const bool lead = tid == 0 && c0 == 0;  // writes the lane stats (rank 0)
+  // range or chains over several blocks (krylov.cuh fg_lane_init)
+  FgLane L;
+  const int l0 = fg_lane_init<ARM>(L, lanes, chunk, n, sp);
+  const bool lead = tid == 0 && L.rank == 0;  // writes the lane stats
   const size_t lo = (size_t)l0 * n;
   b += lo;
   x0 += lo;
@@ -223,13 +259,14 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   if (COARSE) cz.einv_t += (size_t)l0 * cz.K * cz.K * cz.per_lane;
 
   FgRows staged{};
-  float* s_terms = nullptr;  // fg_lane_sum2's chain terms (cluster arm)
   if constexpr (CLUSTER) {
-    staged = fg_stage_rows<ND>(diag, off, nbr, n, c0, c1, c1 - c0, s_rows);
-    s_terms = fg_chain_buf(
-        s_rows, n, (int)cooperative_groups::this_cluster().num_blocks(), ND);
+    staged = fg_stage_rows<ND>(diag, off, nbr, n, L.c0, L.c1, L.c1 - L.c0,
+                               s_rows);
+    L.buf = fg_chain_buf(s_rows, n, fg_lane_blocks<ARM>(sp), ND);
+    L.slot = s_chain;
     __syncthreads();
   }
+  if constexpr (SPREAD) L.buf = s_rows;  // the chain terms alone
   // the resident arm (one lane, chunk 1): the lane's rows and x, r, p, q
   // in shared memory for the whole solve; x goes out to x_out at the end
   float* const x_out = x;
@@ -253,12 +290,14 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   // resident arm kept from one division per solve (the same bits)
   float dinv[RESIDENT ? FG_RESIDENT_CELLS : 1];
   if constexpr (RESIDENT)
-    fg_cells<true>(0, n, [&](int c, int k) { dinv[k] = 1.0f / staged.dg[c]; });
+    fg_cells<ARM, true>(L, sp, n, [&](int c, int k, int) {
+      dinv[k] = 1.0f / staged.dg[c];
+    });
   auto inv_dg = [&](const FgRows& R, int c, int k) {
     if constexpr (RESIDENT) return dinv[k];
     else return 1.0f / R.dg[c - R.base];
   };
-  // lane l's diag in global memory (the cluster arm's sums read every cell)
+  // lane l's diag in global memory (the range arms' sums read every cell)
   auto gdiag = [&](int l) { return diag + (size_t)l * n * op_per_lane; };
 
   // ---- init: r = b - A x0 (or b), z = M^-1 r, p = z, best = x ----------
@@ -266,11 +305,11 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
+    fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int e) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
-        rr = b[o + c] - fg_apply<ND, TABLE>(R, x0 + o, c, g);
+        rr = b[o + c] - fg_apply<ND, TABLE, CG>(R, x0 + o, c, g);
       } else {
         xx = 0.0f;
         rr = b[o + c];
@@ -281,8 +320,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       if (!COARSE) {
         const float zz = precondition ? inv_dg(R, c, k) * rr : rr;
         p[o + c] = zz;
-        a1 += rr * zz;
-        a2 += rr * rr;
+        fg_put<ARM>(L, e, rr * zz, rr * rr, a1, a2);
       }
     });
     if (COARSE) {
@@ -290,13 +328,12 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       fg_coarse_precond(r + o, R.dg, p + o, n, cz, l, precondition, s_rc,
                         s_xc, sh, a1, a2);
     } else {
-      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
-                            [&](int c, float& u, float& w) {
-                              const float rr = __ldcg(r + o + c);
-                              const float zz = __ldcg(p + o + c);
-                              u = rr * zz;
-                              w = rr * rr;
-                            });
+      fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+        const float rr = __ldcg(r + o + c);
+        const float zz = __ldcg(p + o + c);
+        u = rr * zz;
+        w = rr * rr;
+      });
     }
     if (tid == 0) {
       s_rz[l] = a1;
@@ -308,11 +345,9 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
 
   int it = 0;
   for (;;) {
-    // the cluster arm: publishes p (x) before pass A gathers it across ranges
-    if constexpr (CLUSTER)
-      fg_cluster_sync();
-    else
-      __syncthreads();
+    // several blocks per lane: publishes p (x) before pass A gathers it
+    // across blocks
+    fg_lane_sync<ARM>(L, sp);
     // every thread reads the lanes' state (last written before pass C's
     // barrier) and takes the same branch; thread 0, which alone computes
     // the lanes' scalars, keeps which lanes are frozen
@@ -332,16 +367,15 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float* src = (recompute ? x : p) + o;
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
-        const float av = fg_apply<ND, TABLE>(R, src, c, g);
+      fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int e) {
+        const float av = fg_apply<ND, TABLE, CG>(R, src, c, g);
         q[o + c] = av;
-        a1 += p[o + c] * av;
+        fg_put<ARM>(L, e, p[o + c] * av, a1);
       });
-      fg_lane_sum2<CLUSTER>(a1, a2, sh, s_chain, s_terms, n,
-                            [&](int c, float& u, float& w) {
-                              u = __ldcg(p + o + c) * __ldcg(q + o + c);
-                              w = 0.0f;
-                            });
+      fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+        u = __ldcg(p + o + c) * __ldcg(q + o + c);
+        w = 0.0f;
+      });
       if (tid == 0)
         s_alpha[l] = (s_done[l] || recompute) ? 0.0f : s_rz[l] / fg_guard(a1);
     }
@@ -355,7 +389,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
+      fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int e) {
         x[o + c] = x[o + c] + al * p[o + c];
         const float rr =
             recompute ? b[o + c] - q[o + c] : r[o + c] - al * q[o + c];
@@ -363,8 +397,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
         if (!COARSE) {
           const float zz =
               precondition ? inv_dg(R, c, k) * rr : rr;
-          a1 += rr * zz;
-          a2 += rr * rr;
+          fg_put<ARM>(L, e, rr * zz, rr * rr, a1, a2);
         }
       });
       if (COARSE) {
@@ -373,13 +406,12 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                           s_xc, sh, a1, a2);
       } else {
         const float* dg = gdiag(l);
-        fg_lane_sum2<CLUSTER>(
-            a1, a2, sh, s_chain, s_terms, n, [&](int c, float& u, float& w) {
-              const float rr = __ldcg(r + o + c);
-              const float zz = precondition ? (1.0f / __ldcg(dg + c)) * rr : rr;
-              u = rr * zz;
-              w = rr * rr;
-            });
+        fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+          const float rr = __ldcg(r + o + c);
+          const float zz = precondition ? (1.0f / __ldcg(dg + c)) * rr : rr;
+          u = rr * zz;
+          w = rr * rr;
+        });
       }
       if (tid == 0) {
         const float rz_new = a1, rs_new = a2;
@@ -402,7 +434,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float be = s_beta[l];
       const int keep = return_best && s_better[l];
-      fg_cells<RESIDENT>(c0, c1, [&](int c, int k) {
+      fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int) {
         float zz;
         if (COARSE) {
           zz = q[o + c];
@@ -422,24 +454,39 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const size_t o = (size_t)l * n;
     const int use_best = return_best && !(s_rs[l] <= tol2);
     if (RESIDENT || use_best) {
-      for (int c = c0 + tid; c < c1; c += T)
+      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int) {
         x_out[o + c] = use_best ? best[o + c] : x[o + c];
+      });
     }
     if (lead) {
       iters_out[l] = it;
       rs_out[l] = use_best ? s_best_rs[l] : s_rs[l];
     }
   }
-  // no block leaves while another may still read its shared memory
-  if constexpr (CLUSTER) fg_cluster_sync();
+  // no block leaves while another may still read its shared memory (the
+  // cluster arm) or the lane's chains (the spread arm)
+  if constexpr (ARM != FG_ARM_BLOCK) fg_lane_sync<ARM>(L, sp);
 }
 
 // K1's entry.  `resident` = 1 (chunk 1): the resident arm, one lane per
 // block with its rows and four vectors in shared memory (krylov.cuh); a
-// lane whose bytes do not fit is refused.  0: the chunk grid.
+// lane whose bytes do not fit is refused.  `spread` = G in 32, 64, 128
+// (chunk 1, resident 0): the spread arm, one lane over G co-resident
+// blocks of a cooperative launch, `chains` picking its layout (1: each
+// block the cells of its sum chains, 0: a contiguous range, 3D only);
+// `bar` (lanes unsigned) and `slot` (lanes x 2 x 1024 float2) are its
+// global memory.  A grid the card cannot hold at once is refused.  Else
+// the chunk grid.
 using FgCgKernel = decltype(&fg_cg_kernel<2, true, false>);
 
-static FgCgKernel fg_cg_roll_kernel(int ndims, int resident) {
+static FgCgKernel fg_cg_roll_kernel(int ndims, int resident, int spread,
+                                    int chains) {
+  if (spread) {
+    if (ndims == 3)
+      return chains ? fg_cg_kernel<3, false, false, false, false, FG_ARM_CHAINS>
+                    : fg_cg_kernel<3, false, false, false, false, FG_ARM_RANGE>;
+    return fg_cg_kernel<2, false, false, false, false, FG_ARM_CHAINS>;
+  }
   if (ndims == 3) return fg_cg_kernel<3, false, false>;
   return resident ? fg_cg_kernel<2, false, false, false, true>
                   : fg_cg_kernel<2, false, false>;
@@ -448,21 +495,43 @@ static FgCgKernel fg_cg_roll_kernel(int ndims, int resident) {
 extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
                            const float* x0, float* x, int* iters, float* rs,
                            float* r, float* p, float* q, float* best,
-                           int lanes, int chunk, int resident, int nz, int ny,
-                           int nx, int ndims, int op_per_lane, float tol2,
-                           int maxiter, int stall_iters, int precondition,
-                           int return_best, int warm_start, void* stream) {
-  const int blocks = fg_chunk_blocks(lanes, chunk);
+                           unsigned* bar, float* slot, int lanes, int chunk,
+                           int resident, int spread, int chains, int nz,
+                           int ny, int nx, int ndims, int op_per_lane,
+                           float tol2, int maxiter, int stall_iters,
+                           int precondition, int return_best, int warm_start,
+                           void* stream) {
   const FgGrid g = fg_grid(nz, ny, nx);
-  if (blocks == 0 || (ndims != 2 && ndims != 3) ||
-      (resident && !fg_resident_ok(g.n, ndims, chunk)))
+  if (!fg_roll_args_ok(lanes, chunk, resident, spread, chains, g.n, ndims,
+                       bar, slot))
     return (int)cudaErrorInvalidValue;
+  const FgCgKernel k = fg_cg_roll_kernel(ndims, resident, spread, chains);
+  cudaStream_t s = (cudaStream_t)stream;
+  const FgSpread sp{bar, reinterpret_cast<float2*>(slot), spread};
+  if (spread)
+    return (int)fg_launch_spread(
+        k, lanes, spread, fg_spread_bytes(g.n, spread), bar, s, b, diag, off,
+        nullptr, x0, x, iters, rs, r, p, q, best, lanes, 1, g, op_per_lane,
+        tol2, maxiter, stall_iters, precondition, return_best, warm_start,
+        FgCoarse{}, sp);
   return (int)fg_launch_smem(
-      fg_cg_roll_kernel(ndims, resident), blocks,
-      resident ? fg_resident_bytes(g.n, ndims) : 0, (cudaStream_t)stream, b,
-      diag, off, nullptr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g,
-      op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-      warm_start, FgCoarse{});
+      k, fg_chunk_blocks(lanes, chunk),
+      resident ? fg_resident_bytes(g.n, ndims) : 0, s, b, diag, off, nullptr,
+      x0, x, iters, rs, r, p, q, best, lanes, chunk, g, op_per_lane, tol2,
+      maxiter, stall_iters, precondition, return_best, warm_start, FgCoarse{},
+      sp);
+}
+
+// How many blocks of K1's spread arm (ndims, G blocks per lane over n
+// cells, layout `chains`) the card holds at once, into *out: the spread
+// rule's co-residency (lanes x G must not exceed it).
+extern "C" int fg_cg_spread_capacity(int ndims, int spread, int chains, int n,
+                                     int* out) {
+  if ((ndims != 2 && ndims != 3) || !fg_spread_ok(spread) ||
+      !fg_spread_layout_ok(ndims, chains))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_resident_blocks(fg_cg_roll_kernel(ndims, 0, spread, chains),
+                                 fg_spread_bytes(n, spread), out);
 }
 
 // K3: the same solve over the merged super-block frame of a multi-block
@@ -498,18 +567,18 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
         fg_stage_bytes(n, cluster, ndims), s, b, diag,
         off, nbr, x0, x, iters, rs, r, p, q, best, lanes, 1, g, op_per_lane,
         tol2, maxiter, stall_iters, precondition, return_best, warm_start,
-        FgCoarse{});
+        FgCoarse{}, FgSpread{});
   }
   if (ndims == 2) {
     fg_cg_kernel<2, true, false><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
         g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-        warm_start, FgCoarse{});
+        warm_start, FgCoarse{}, FgSpread{});
   } else {
     fg_cg_kernel<3, true, false><<<blocks, FG_THREADS, 0, s>>>(
         b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
         g, op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-        warm_start, FgCoarse{});
+        warm_start, FgCoarse{}, FgSpread{});
   }
   return (int)cudaGetLastError();
 }
@@ -548,6 +617,6 @@ extern "C" int fg_cg_mb_coarse_solve(
   fg_cg_kernel<2, true, true><<<blocks, FG_THREADS, 0, (cudaStream_t)stream>>>(
       b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g,
       op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-      warm_start, cz);
+      warm_start, cz, FgSpread{});
   return (int)cudaGetLastError();
 }

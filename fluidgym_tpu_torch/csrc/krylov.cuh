@@ -1,8 +1,8 @@
 // Shared device helpers for the whole-solve Krylov kernels (K1/K3 cg.cu,
 // K2 bicgstab_mb.cu): the stencil applies, block-wide sums, the cluster
-// arm of the merged-frame forms (one lane over a thread-block cluster) and
-// the resident arm of the roll forms (one lane in one block's shared
-// memory).
+// arm of the merged-frame forms (one lane over a thread-block cluster), the
+// resident arm of the roll forms (one lane in one block's shared memory)
+// and their spread arm (one lane over G co-resident blocks).
 //
 // Layout (identical to the PyTorch side): a lane's field is a contiguous
 // (nz, ny, nx) array (nz = 1 in 2D), x the minor axis; the stencil
@@ -56,9 +56,19 @@ inline FgGrid fg_grid(int nz, int ny, int nx) {
   return g;
 }
 
+// A load of `p`: plain, or (CG) through L2 with __ldcg, which no stale L1
+// line or read-only path can answer: the spread arm's reads of what other
+// blocks wrote during the launch.
+template <bool CG>
+__device__ __forceinline__ float fg_ld(const float* p) {
+  if constexpr (CG) return __ldcg(p);
+  else return *p;
+}
+
 // (A v)_c = diag_c v_c + sum_f off_f,c v_nbr_f(c), summed in face order as
-// the PyTorch version does.
-template <int ND>
+// the PyTorch version does.  CG: v is read with fg_ld<true> (the spread
+// arm, whose v other blocks write).
+template <int ND, bool CG = false>
 __device__ __forceinline__ float fg_matvec(const float* __restrict__ diag,
                                            const float* __restrict__ off,
                                            const float* __restrict__ v,
@@ -74,17 +84,18 @@ __device__ __forceinline__ float fg_matvec(const float* __restrict__ diag,
   const int ip = (i == nx - 1) ? 0 : i + 1;
   const int jm = (j == 0) ? ny - 1 : j - 1;
   const int jp = (j == ny - 1) ? 0 : j + 1;
-  float y = diag[c] * v[c];
-  y = y + off[c] * v[row + im];
-  y = y + off[n + c] * v[row + ip];
-  y = y + off[2 * n + c] * v[plane + jm * nx + i];
-  y = y + off[3 * n + c] * v[plane + jp * nx + i];
+  const auto V = [&](int idx) { return fg_ld<CG>(v + idx); };
+  float y = diag[c] * V(c);
+  y = y + off[c] * V(row + im);
+  y = y + off[n + c] * V(row + ip);
+  y = y + off[2 * n + c] * V(plane + jm * nx + i);
+  y = y + off[3 * n + c] * V(plane + jp * nx + i);
   if (ND == 3) {
     const int nz = g.nz;
     const int km = (k == 0) ? nz - 1 : k - 1;
     const int kp = (k == nz - 1) ? 0 : k + 1;
-    y = y + off[4 * n + c] * v[(km * ny + j) * nx + i];
-    y = y + off[5 * n + c] * v[(kp * ny + j) * nx + i];
+    y = y + off[4 * n + c] * V((km * ny + j) * nx + i);
+    y = y + off[5 * n + c] * V((kp * ny + j) * nx + i);
   }
   return y;
 }
@@ -162,31 +173,54 @@ struct FgRows {
 };
 
 // The stencil apply of either frame: roll-form over one (nz, ny, nx) grid
-// (TABLE false), or the merged frame's neighbour table.
-template <int ND, bool TABLE>
+// (TABLE false), or the merged frame's neighbour table.  CG: the roll form
+// reads v through L2 (the spread arm).
+template <int ND, bool TABLE, bool CG = false>
 __device__ __forceinline__ float fg_apply(const FgRows& R,
                                           const float* __restrict__ v, int c,
                                           const FgGrid& g) {
+  static_assert(!(CG && TABLE), "coherent loads: the roll form only");
   if (TABLE)
     return fg_table_matvec<ND>(R.dg, R.of, R.nb, R.stride, v, c, c - R.base);
-  return fg_matvec<ND>(R.dg, R.of, v, c, g);
+  return fg_matvec<ND, CG>(R.dg, R.of, v, c, g);
 }
 
 // ---------------------------------------------------------------------------
-// The cluster arm: one lane over a cluster of C blocks (C in 2, 4, 8, 16)
+// One lane over several blocks: the cluster arm and the spread arm
 // ---------------------------------------------------------------------------
 //
-// Block r of a cluster owns cells [r * seg, (r + 1) * seg) of the lane's flat
-// buffer (cut at n), seg = ceil(n / C) rounded up to 32; its threads loop
-// over that range only, in the order the one-block form uses (thread t takes
-// c0 + t, c0 + t + T, ...), and it keeps its range's operator rows in shared
-// memory for the whole solve.  Every dot product is the one-block form's sum,
-// bit for bit (fg_lane_sum2), so every block holds the same bits of every
-// scalar and takes the same branches, and the cluster arm computes what the
-// chunk grid computes for the lane: the same x, iterations and residual.
+// How the blocks of a kernel share its lanes (template argument ARM of the
+// kernels):
+//   FG_ARM_BLOCK    one block per chunk of lanes: the chunk grid and the
+//                   resident arm (fg_chunk);
+//   FG_ARM_CLUSTER  the merged-frame forms (K3, K2-mb): one lane over a
+//                   thread-block cluster of C blocks (C in 2, 4, 8, 16), each
+//                   block a contiguous range of cells, its operator rows in
+//                   shared memory;
+//   FG_ARM_RANGE    the 3D roll forms (K1, K2 over the trivial plan): one
+//                   lane over G co-resident blocks (G in 32, 64, 128) of a
+//                   cooperative launch, each block a contiguous range, the
+//                   rows read from global memory (L2);
+//   FG_ARM_CHAINS   the same launch (2D or 3D), each block the cells of its
+//                   sum chains (below) instead of a range.
+// In every arm the per-cell arithmetic is the one-block form's, and every
+// dot product is the one-block form's sum, bit for bit (fg_lane_sum2), so
+// every block holds the same bits of every scalar and takes the same
+// branches, and the arm computes what a one-lane launch of the chunk grid
+// computes: the same x, iterations and residual.
+//
+// The sum chains: in the one-block form thread t adds the terms of cells
+// t, t + T, t + 2T, ... one after another (chain t; T = FG_THREADS), and
+// fg_block_sum2 adds the T chains in a fixed tree.  Block r of a lane of G
+// blocks owns chains [r * T/G, (r + 1) * T/G); row k of its chains' cells
+// is the run of T/G consecutive cells from k T + r T/G.
+#define FG_ARM_BLOCK 0
+#define FG_ARM_CLUSTER 1
+#define FG_ARM_RANGE 2
+#define FG_ARM_CHAINS 3
 
-// cells per block of a C-block cluster over n cells (ops/cg_cuda_mb.py
-// `cluster_ranges` mirrors it)
+// cells per block of a lane over C blocks in a range arm (ops/cg_cuda.py
+// `block_ranges` mirrors it)
 __host__ __device__ inline int fg_cluster_seg(int n, int C) {
   return ((n + C - 1) / C + 31) / 32 * 32;
 }
@@ -211,6 +245,116 @@ __device__ __forceinline__ float* fg_chain_buf(float* smem, int n, int C,
   return smem + (size_t)fg_cluster_seg(n, C) * (1 + 4 * nd);
 }
 
+// dynamic shared memory of a spread-arm block: its chain terms only
+// (ops/cg_cuda.py `spread_bytes` mirrors it)
+__host__ __device__ inline size_t fg_spread_bytes(int n, int G) {
+  return (size_t)fg_chain_floats(n, G) * 4;
+}
+
+// A blocks-per-lane count the spread arm takes: 32, 64 or 128 (a power of
+// two, so a block's chains are T/G of them), one lane per G blocks.
+inline bool fg_spread_ok(int G) { return G == 32 || G == 64 || G == 128; }
+
+// The spread arm's memory in global memory, allocated by the wrapper:
+// `bar` (lanes) the arrivals at each lane's barrier, zeroed on the stream
+// before every launch (fg_launch_spread); `slot` (lanes, 2, T) each lane's
+// chains of its current sum, two buffers used in turns.
+struct FgSpread {
+  unsigned* bar;
+  float2* slot;
+  int G;
+};
+
+// One block's view of its lane: what stays live over the solve (fg_chains
+// forms the rest where a sum needs it, as registers are what a 1024-thread
+// block is short of).
+struct FgLane {
+  int c0, c1;       // this block's range (the one-block form: [0, n))
+  int rank;         // its place among the lane's blocks
+  int lane;         // the spread arm: its lane in the launch
+  int terms;        // FG_ARM_CHAINS: its chains' cells (fg_chains)
+  float* buf;       // its chains' terms: 2 * terms floats of shared memory
+  float2* slot;     // the cluster arm: its chains, in its shared memory
+  unsigned target;  // the spread arm: arrivals its next barrier waits for
+  int parity;       // the spread arm: the slot buffer of the next sum
+};
+
+// Blocks per lane: 1, the cluster's size, or the spread arm's G.
+template <int ARM>
+__device__ __forceinline__ int fg_lane_blocks(const FgSpread& sp) {
+  if constexpr (ARM == FG_ARM_BLOCK) return 1;
+  else if constexpr (ARM == FG_ARM_CLUSTER)
+    return (int)cooperative_groups::this_cluster().num_blocks();
+  else return sp.G;
+}
+
+// This block's sum chains [t0, t0 + per), per = T / G = 2^ps, and their
+// terms: row k of them is the run of per cells from k T + t0 (terms = per
+// * ceil(n / T) in all).
+struct FgChains {
+  int t0, per, ps, terms;
+};
+
+template <int ARM>
+__device__ __forceinline__ FgChains fg_chains(const FgLane& L,
+                                              const FgSpread& sp, int n) {
+  FgChains h;
+  h.per = FG_THREADS / fg_lane_blocks<ARM>(sp);
+  h.ps = 31 - __clz(h.per);
+  if constexpr (ARM == FG_ARM_CLUSTER)
+    h.t0 = (int)cooperative_groups::this_cluster().block_rank() * h.per;
+  else
+    h.t0 = L.rank * h.per;
+  h.terms = h.per * ((n + FG_THREADS - 1) / FG_THREADS);
+  return h;
+}
+
+// The cell of this block's e-th chain term: row k = e / per of its chains,
+// chain t0 + (e - k per).
+__device__ __forceinline__ int fg_chain_cell(const FgChains& h, int e) {
+  const int k = e >> h.ps;
+  return k * FG_THREADS + h.t0 + (e - k * h.per);
+}
+
+// A barrier over the G blocks of a spread lane that publishes memory: the
+// block's threads meet, thread 0 arrives (fence, then a release add on the
+// lane's counter) and waits until all G blocks of this barrier have
+// arrived (acquire loads), and the block's threads meet again; so the
+// global writes of every block before it are visible to every block after
+// it, as grid.sync() orders them, but lane by lane: lanes do not wait on
+// each other.  The counter counts up over the launch (zeroed before it);
+// every block meets every barrier, since every block takes the same
+// branches.  A wait of more than 2 s traps: a barrier that a block never
+// reaches then fails the launch where it would hang the card.  Must be
+// reached by all threads of the lane.
+__device__ __forceinline__ void fg_spread_sync(FgLane& L, const FgSpread& sp) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* bar = sp.bar + L.lane;
+    L.target += (unsigned)sp.G;
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(bar),
+                 "r"(1u)
+                 : "memory");
+    unsigned seen;
+    unsigned long long t_start = 0, now;
+    for (int spin = 0;; ++spin) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(bar)
+                   : "memory");
+      if ((int)(seen - L.target) >= 0) break;
+      if ((spin & 1023) == 0) {
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+        if (spin == 0) t_start = now;
+        else if (now - t_start > 2000000000ull) __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // A cluster-wide barrier that publishes memory: every thread of the cluster
 // arrives with release semantics and waits with acquire semantics, so the
 // global and shared writes of every block before it are visible to every
@@ -221,86 +365,146 @@ __device__ __forceinline__ void fg_cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// A lane's two dot products, summed as the one-block form sums them: there
-// thread t adds the terms of its cells t, t + T, t + 2T, ... one after
-// another (its chain), and fg_block_sum2 adds the T chains in a fixed tree.
-// One-block form (CLUSTER false): the caller's per-thread chains a, b go
-// straight into the tree.  Cluster arm: a block's threads hold pieces of
-// chains, so the chains are formed again from the terms, which
-// `term(c, u, w)` computes for cell c from the vectors in global memory:
-//   * a cluster barrier publishes the pass's writes;
-//   * block r owns chains [r * T/C, (r + 1) * T/C): all its threads compute
-//     those chains' terms (row k of a chain's cells is a run of T/C
-//     consecutive cells, read through L2 with __ldcg) into shared memory
-//     (`buf`, fg_chain_floats), then one thread per chain adds its terms
-//     in chain order and puts the chain in the block's `slot`;
-//   * after a second barrier thread t loads chain t from its owner's slot
-//     (distributed shared memory) and the block runs the same tree.
+// The barrier that closes a pass whose writes other blocks read: the
+// block's (one-block form), the cluster's, or the spread lane's.
+template <int ARM>
+__device__ __forceinline__ void fg_lane_sync(FgLane& L, const FgSpread& sp) {
+  if constexpr (ARM == FG_ARM_BLOCK) __syncthreads();
+  else if constexpr (ARM == FG_ARM_CLUSTER) fg_cluster_sync();
+  else fg_spread_sync(L, sp);
+}
+
+// This block's share of its lane(s): the whole lane and the chunk grid's
+// lanes (fg_chunk) in the one-block form; else one lane over G blocks
+// (lanes set to 1), this block's range (and, FG_ARM_CHAINS, the count of
+// its chain terms).  Returns the block's first lane.  The caller sets
+// L.buf (and the cluster arm's L.slot).
+template <int ARM>
+__device__ __forceinline__ int fg_lane_init(FgLane& L, int& lanes, int chunk,
+                                            int n, const FgSpread& sp) {
+  L = FgLane{};
+  if constexpr (ARM == FG_ARM_BLOCK) {
+    L.c1 = n;
+    return fg_chunk(lanes, chunk);
+  } else {
+    const int G = fg_lane_blocks<ARM>(sp);
+    if constexpr (ARM == FG_ARM_CLUSTER)
+      L.rank = (int)cooperative_groups::this_cluster().block_rank();
+    else
+      L.rank = (int)blockIdx.x & (G - 1);  // G is a power of two
+    L.lane = (int)blockIdx.x / G;
+    if constexpr (ARM == FG_ARM_CHAINS)
+      L.terms = fg_chains<ARM>(L, sp, n).terms;
+    const int seg = fg_cluster_seg(n, G);
+    L.c0 = min(n, L.rank * seg);
+    L.c1 = min(n, L.c0 + seg);
+    lanes = 1;
+    return L.lane;
+  }
+}
+
+// A lane's two dot products, summed as the one-block form sums them (see
+// above).  One-block form: the caller's per-thread chains a, b go straight
+// into the tree.  Else a block's threads hold pieces of chains, so the
+// chains are formed again from their terms:
+//   * the terms: FG_ARM_CHAINS: the pass put each cell's terms in `L.buf`
+//     (fg_put) and a block barrier completes them.  The range arms: a lane
+//     barrier publishes the pass's writes, then the block's threads compute
+//     its chains' terms with `term(c, u, w)` for cell c, from the vectors in
+//     global memory (read through L2 with __ldcg), into `L.buf`;
+//   * one thread per chain adds its terms in chain order (the serial part:
+//     ceil(n / T) adds) and puts the chain in a slot: the cluster arm's in
+//     its shared memory (`L.slot`), the spread arm's in global memory;
+//   * after a lane barrier, thread t loads chain t (the cluster arm: from its
+//     owner's shared memory; the spread arm: from global memory) and the
+//     block runs the same tree.
 // So every block gets the one-block form's bits, with no float atomics.
-// `slot` needs T / 2 entries; one slot suffices, since a block writes it
-// again only after the next sum's first barrier, which no block passes
-// before every block has read this sum.  Every thread gets both totals.
-// Must be reached by all threads of the block (the cluster).
-template <bool CLUSTER, typename Term>
+// The cluster arm's slot (T / 2 entries) is written again only after the
+// next sum's first barrier, which no block passes before every block has
+// read this sum; the spread arm's chains layout has no such barrier, so the
+// spread arm uses the lane's two buffers of T chains in turns: a block
+// writes one again only after the next sum's barrier.  Every thread gets
+// both totals.  Must be reached by all threads of the lane.
+template <int ARM, typename Term>
 __device__ __forceinline__ void fg_lane_sum2(float& a, float& b, float* sh,
-                                             float2* slot, float* buf, int n,
-                                             Term term) {
-  if constexpr (CLUSTER) {
-    namespace cgr = cooperative_groups;
-    cgr::cluster_group cl = cgr::this_cluster();
-    const int T = blockDim.x;
-    const int per = T / (int)cl.num_blocks();
-    const int t0 = (int)cl.block_rank() * per;
-    const int terms = per * ((n + T - 1) / T);  // rows of T cells x per
-    float* bu = buf;
-    float* bw = buf + terms;
-    fg_cluster_sync();
-    for (int e = threadIdx.x; e < terms; e += T) {
-      const int k = e / per;
-      const int c = k * T + t0 + (e - k * per);
-      float u = 0.0f, w = 0.0f;
-      if (c < n) term(c, u, w);
-      bu[e] = u;
-      bw[e] = w;
+                                             FgLane& L, const FgSpread& sp,
+                                             int n, Term term) {
+  if constexpr (ARM != FG_ARM_BLOCK) {
+    const int T = FG_THREADS;
+    const FgChains h = fg_chains<ARM>(L, sp, n);
+    float* bu = L.buf;
+    float* bw = L.buf + h.terms;
+    if constexpr (ARM == FG_ARM_CHAINS) {
+      __syncthreads();
+    } else {
+      fg_lane_sync<ARM>(L, sp);
+      for (int e = threadIdx.x; e < h.terms; e += T) {
+        const int c = fg_chain_cell(h, e);
+        float u = 0.0f, w = 0.0f;
+        if (c < n) term(c, u, w);
+        bu[e] = u;
+        bw[e] = w;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    if ((int)threadIdx.x < per) {
+    float2* chains;
+    if constexpr (ARM == FG_ARM_CLUSTER) {
+      chains = L.slot;  // this block's own chains
+    } else {
+      chains = sp.slot + (size_t)(2 * L.lane + L.parity) * T;  // all T
+      L.parity ^= 1;
+    }
+    if ((int)threadIdx.x < h.per) {
       float u = 0.0f, w = 0.0f;
 #pragma unroll 8
-      for (int e = threadIdx.x, c = t0 + threadIdx.x; c < n; e += per, c += T) {
+      for (int e = threadIdx.x, c = h.t0 + threadIdx.x; c < n;
+           e += h.per, c += T) {
         u = u + bu[e];
         w = w + bw[e];
       }
-      slot[threadIdx.x] = make_float2(u, w);
+      if constexpr (ARM == FG_ARM_CLUSTER)
+        chains[threadIdx.x] = make_float2(u, w);
+      else
+        chains[h.t0 + threadIdx.x] = make_float2(u, w);
     }
-    fg_cluster_sync();
-    const float2 v =
-        *cl.map_shared_rank(slot + threadIdx.x % per, threadIdx.x / per);
+    fg_lane_sync<ARM>(L, sp);
+    float2 v;
+    if constexpr (ARM == FG_ARM_CLUSTER) {
+      v = *cooperative_groups::this_cluster().map_shared_rank(
+          chains + (threadIdx.x & (h.per - 1)), threadIdx.x >> h.ps);
+    } else {
+      v = __ldcg(chains + threadIdx.x);
+    }
     a = v.x;
     b = v.y;
   }
   fg_block_sum2(a, b, sh);
 }
 
-// This block's cells [c0, c1) and its lane: the whole lane (c0 = 0, c1 = n)
-// and the chunk grid's lanes (fg_chunk) in the one-block form; one lane per
-// cluster and the block's range in the cluster arm (lanes set to 1).
-template <bool CLUSTER>
-__device__ __forceinline__ int fg_block_cells(int& lanes, int chunk, int n,
-                                              int& c0, int& c1) {
-  if constexpr (CLUSTER) {
-    namespace cgr = cooperative_groups;
-    cgr::cluster_group cl = cgr::this_cluster();
-    const int C = (int)cl.num_blocks();
-    const int seg = fg_cluster_seg(n, C);
-    c0 = min(n, (int)cl.block_rank() * seg);
-    c1 = min(n, c0 + seg);
-    lanes = 1;
-    return (int)(blockIdx.x / C);
+// A cell's terms of the pass's sum: added to this thread's chains a, b, or
+// (FG_ARM_CHAINS) put at e in the block's chain terms for fg_lane_sum2.
+template <int ARM>
+__device__ __forceinline__ void fg_put(const FgLane& L, int e, float u,
+                                       float w, float& a, float& b) {
+  if constexpr (ARM == FG_ARM_CHAINS) {
+    L.buf[e] = u;
+    L.buf[L.terms + e] = w;
   } else {
-    c0 = 0;
-    c1 = n;
-    return fg_chunk(lanes, chunk);
+    a += u;
+    b += w;
+  }
+}
+
+// The same for a pass with one sum (its second total is 0): the chain b is
+// left alone, not carried through the loop as b + 0.
+template <int ARM>
+__device__ __forceinline__ void fg_put(const FgLane& L, int e, float u,
+                                       float& a) {
+  if constexpr (ARM == FG_ARM_CHAINS) {
+    L.buf[e] = u;
+    L.buf[L.terms + e] = 0.0f;
+  } else {
+    a += u;
   }
 }
 
@@ -363,6 +567,25 @@ inline bool fg_resident_ok(int n, int nd, int chunk) {
   return nd == 2 && chunk == 1 && n <= FG_RESIDENT_CELLS * FG_THREADS;
 }
 
+// whether the spread arm has a layout for ndims: the range layout is built
+// for 3D only (the rule picks it only for lanes of 524,288 cells and more)
+inline bool fg_spread_layout_ok(int ndims, int chains) {
+  return ndims == 3 || (ndims == 2 && chains);
+}
+
+// The arguments the roll-form entries (K1 in cg.cu, K2 in bicgstab_mb.cu)
+// take for their arms (chunk grid, resident, spread): whether they hold
+// together.
+inline bool fg_roll_args_ok(int lanes, int chunk, int resident, int spread,
+                            int chains, int n, int ndims, const void* bar,
+                            const void* slot) {
+  if (fg_chunk_blocks(lanes, chunk) == 0 || (ndims != 2 && ndims != 3))
+    return false;
+  if (resident && (spread || !fg_resident_ok(n, ndims, chunk))) return false;
+  return !spread || (fg_spread_ok(spread) && chunk == 1 && bar != nullptr &&
+                     slot != nullptr && fg_spread_layout_ok(ndims, chains));
+}
+
 // the first of the resident vectors, after the staged rows; vector k starts
 // k * n floats further
 __device__ __forceinline__ float* fg_resident_vecs(float* smem, int n,
@@ -370,21 +593,30 @@ __device__ __forceinline__ float* fg_resident_vecs(float* smem, int n,
   return smem + (size_t)n * (1 + 2 * nd);
 }
 
-// The cells of [c0, c1) this thread visits, c = c0 + tid + k T for k = 0,
-// 1, ... (the order of its sum chain): in the resident arm (UNROLLED, at
-// most FG_RESIDENT_CELLS cells) a loop the compiler unrolls, so values kept
-// per cell live in registers indexed by k; else the plain loop (k unused).
-template <bool UNROLLED, typename F>
-__device__ __forceinline__ void fg_cells(int c0, int c1, F&& f) {
+// The cells of this block that this thread visits, f(c, k, e) for each:
+// in a range [c0, c1), c = c0 + tid + k T for k = 0, 1, ... (the order of
+// its sum chain); in the resident arm (UNROLLED, at most FG_RESIDENT_CELLS
+// cells) a loop the compiler unrolls, so values kept per cell live in
+// registers indexed by k; in FG_ARM_CHAINS its chain terms e = tid + j T
+// and their cells (fg_chain_cell), e being where fg_put puts their terms.
+template <int ARM, bool UNROLLED, typename F>
+__device__ __forceinline__ void fg_cells(const FgLane& L, const FgSpread& sp,
+                                         int n, F&& f) {
   const int t = threadIdx.x;
   if constexpr (UNROLLED) {
 #pragma unroll
     for (int k = 0; k < FG_RESIDENT_CELLS; ++k) {
-      const int c = c0 + t + k * FG_THREADS;
-      if (c < c1) f(c, k);
+      const int c = L.c0 + t + k * FG_THREADS;
+      if (c < L.c1) f(c, k, 0);
+    }
+  } else if constexpr (ARM == FG_ARM_CHAINS) {
+    const FgChains h = fg_chains<ARM>(L, sp, n);
+    for (int e = t; e < h.terms; e += FG_THREADS) {
+      const int c = fg_chain_cell(h, e);
+      if (c < n) f(c, 0, e);
     }
   } else {
-    for (int c = c0 + t; c < c1; c += blockDim.x) f(c, 0);
+    for (int c = L.c0 + t; c < L.c1; c += FG_THREADS) f(c, 0, 0);
   }
 }
 
@@ -457,4 +689,53 @@ static cudaError_t fg_max_clusters(void (*kernel)(P...), int C, size_t smem,
   cudaError_t e = fg_cluster_config((const void*)kernel, C, C, smem, 0, L);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &L.cfg);
+}
+
+// Launch `kernel` as `lanes` spread lanes of G blocks each (grid = lanes *
+// G) with `smem` bytes of dynamic shared memory, cooperatively: the card
+// refuses a grid whose blocks cannot all be resident at once
+// (cudaErrorCooperativeLaunchTooLarge) where the lane barriers would wait
+// forever.  Zeroes the lanes' barrier counters `bar` on the stream first.
+// A refused launch returns its error; nothing falls back.
+template <typename... P, typename... A>
+static cudaError_t fg_launch_spread(void (*kernel)(P...), int lanes, int G,
+                                    size_t smem, unsigned* bar,
+                                    cudaStream_t s, A&&... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(bar, 0, sizeof(unsigned) * (size_t)lanes, s);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(lanes * G, 1, 1);
+  cfg.blockDim = dim3(FG_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+}
+
+// How many blocks of `kernel` with `smem` bytes of dynamic shared memory
+// the card holds at once (blocks per SM times SMs), into *out: the spread
+// rule's co-residency.
+template <typename... P>
+static cudaError_t fg_resident_blocks(void (*kernel)(P...), size_t smem,
+                                      int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      FG_THREADS, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = per_sm * sms;
+  return e;
 }

@@ -35,14 +35,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _ARGTYPES = {
-    # b, diag, off, x0, x, iters, rs, r, p, q, best, lanes, chunk,
-    # resident, nz, ny, nx, ndims, op_per_lane, tol2, maxiter, stall,
-    # precond, best?, warm, stream
-    "fg_cg_solve": [_P] * 11 + [_I] * 8 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, x0, x, iters, rs, r, p, q, best, bar, slot, lanes,
+    # chunk, resident, spread, chains, nz, ny, nx, ndims, op_per_lane, tol2,
+    # maxiter, stall, precond, best?, warm, stream
+    "fg_cg_solve": [_P] * 13 + [_I] * 10 + [_F] + [_I] * 5 + [_P],
     # b, diag, off, x0, x, iters, rs, r, rhat, p, phat, v, shat, t, best,
-    # lanes, chunk, resident, nz, ny, nx, ndims, op_per_lane, tol2, maxiter,
-    # stall, precond, best?, warm, stream
-    "fg_bicgstab_solve": [_P] * 15 + [_I] * 8 + [_F] + [_I] * 5 + [_P],
+    # bar, slot, lanes, chunk, resident, spread, chains, nz, ny, nx, ndims,
+    # op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
+    "fg_bicgstab_solve": [_P] * 17 + [_I] * 10 + [_F] + [_I] * 5 + [_P],
+    # ndims, spread, chains, n, out (int*)
+    "fg_cg_spread_capacity": [_I] * 4 + [_P],
+    "fg_bicgstab_spread_capacity": [_I] * 4 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
     # cluster, n, ndims, op_per_lane, tol2, maxiter, stall, precond, best?,
     # warm, stream

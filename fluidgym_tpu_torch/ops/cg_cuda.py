@@ -33,6 +33,17 @@ the chunk grid's arithmetic and sums, so it returns the same bits.
 answer inside a ``with`` block (tests and A/B scripts);
 ``fused_cg.resident_launches`` counts the launches that took it.
 
+The spread arm (K1 and K2 over the trivial plan, for lanes too big for one
+SM: RBC3D's): one lane over G co-resident blocks (G in ``SPREAD_SIZES``)
+of one cooperative launch, the operator rows read from global memory,
+each block its share of the lane's cells (the cells of its sum chains,
+``chain_cells``, or a contiguous range, ``block_ranges``: ``spread_chains``
+picks by shape), its blocks meeting at a barrier in global memory.  Its
+sums are the one-block form's, bit for bit, so it returns the chunk grid's
+x, iterations and residual.  ``default_spread`` picks G by shape after the
+resident rule (``roll_arm``); ``pinned_spread`` pins it;
+``fused_cg.spread_launches`` counts the launches that took it.
+
 Bound on the H100 and what the design does about it: see the note at the
 top of ``csrc/cg.cu``.
 """
@@ -40,9 +51,11 @@ top of ``csrc/cg.cu``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from fluidgym_tpu_torch.ops import _build
@@ -51,7 +64,10 @@ from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 __all__ = ["fused_cg", "fused_cg_plain", "cg_lockstep", "roll_matvec",
            "tol2_sum_f32", "guard", "MAX_LANES", "LaneFold", "default_chunk",
            "lockstep_chunks", "default_resident", "pinned_resident",
-           "resident_bytes", "resident_fits", "launcher"]
+           "resident_bytes", "resident_fits", "launcher", "default_spread",
+           "pinned_spread", "spread_bytes", "spread_fits", "spread_capacity",
+           "block_ranges", "chain_cells", "roll_arm", "spread_chains",
+           "SPREAD_SIZES"]
 
 _TINY = 1e-30
 MAX_LANES = 64  # FG_MAX_LANES in csrc/krylov.cuh: lanes of one thread block
@@ -63,7 +79,22 @@ SMEM_STATIC = 8_192
 #: (FG_RESIDENT_VECS in csrc/krylov.cuh)
 RESIDENT_VECS = 4
 
+#: threads of a kernel block (FG_THREADS in csrc/krylov.cuh): the one-block
+#: form's sum chains
+THREADS = 1024
+#: blocks per lane of the spread arm, largest first (``fg_spread_ok``)
+SPREAD_SIZES = (128, 64, 32)
+#: the spread rule keeps at least this many cells per block: a quarter per
+#: thread.  On the H100 RBC2D-wide's 11,712-cell lanes ran faster at G = 32
+#: (366 cells per block) than on the chunk grid: K1 0.56 against 0.88 ms
+#: per raw launch, K2 0.10 against 0.15 (scripts/port_spread_ab.py)
+SPREAD_MIN_CELLS = 256
+#: cells per thread from which a G = 128 spread lane takes the range layout
+#: (``spread_chains``)
+SPREAD_RANGE_CELLS = 4
+
 _PINNED_RESIDENT: bool | None = None
+_PINNED_SPREAD: int | None = None
 
 
 def default_chunk(lanes: int, device) -> int:
@@ -129,6 +160,162 @@ def pinned_resident(arm: bool | None):
         yield
     finally:
         _PINNED_RESIDENT = before
+
+
+def block_seg(n: int, G: int) -> int:
+    """Cells per block of a lane of ``n`` cells over ``G`` blocks in a range
+    layout: ``ceil(n / G)`` rounded up to 32 (``csrc/krylov.cuh``
+    ``fg_cluster_seg``)."""
+    return -(-(-(-n // G)) // 32) * 32
+
+
+def block_ranges(n: int, G: int) -> list[tuple[int, int]]:
+    """The cells ``[c0, c1)`` that each of the ``G`` blocks of a lane owns in
+    a range layout (the cluster arm, the spread arm's range layout):
+    contiguous, ``block_seg`` per block, cut at ``n``."""
+    seg = block_seg(n, G)
+    return [(min(n, r * seg), min(n, (r + 1) * seg)) for r in range(G)]
+
+
+def chain_cells(n: int, G: int, r: int) -> np.ndarray:
+    """The cells of block ``r``'s sum chains in a lane of ``n`` cells over
+    ``G`` blocks, in the order of its chain terms ``e``: row ``k = e //
+    per`` of its chains ``[r per, (r + 1) per)``, ``per = THREADS // G``,
+    is cell ``k THREADS + r per + (e - k per)`` (``csrc/krylov.cuh``
+    ``fg_chain_cell``), cells past ``n`` left out.  The spread arm's chains
+    layout gives block ``r`` these cells."""
+    per = THREADS // G
+    e = np.arange(per * -(-n // THREADS))
+    k = e // per
+    c = k * THREADS + r * per + (e - k * per)
+    return c[c < n]
+
+
+def spread_bytes(n: int, G: int) -> int:
+    """Dynamic shared memory of a spread-arm block over an ``n``-cell lane:
+    two floats for each cell of its ``THREADS / G`` sum chains
+    (``csrc/krylov.cuh`` ``fg_spread_bytes``)."""
+    return 2 * (THREADS // G) * -(-n // THREADS) * 4
+
+
+def spread_fits(n: int, G: int) -> bool:
+    """Whether a spread-arm block's chain terms fit its shared memory."""
+    return spread_bytes(n, G) <= SMEM_PER_BLOCK - SMEM_STATIC
+
+
+@functools.lru_cache(maxsize=None)
+def spread_capacity(algo: str, ndims: int, G: int, chains: bool, n: int,
+                    device: torch.device) -> int:
+    """How many blocks of the spread arm of ``algo`` (``"cg"``: K1,
+    ``"bicgstab"``: K2) the card holds at once: blocks per SM (the
+    occupancy API) times SMs.  A cooperative launch of more is refused."""
+    lib = _build.library()
+    entry = (lib.fg_cg_spread_capacity if algo == "cg"
+             else lib.fg_bicgstab_spread_capacity)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = entry(ndims, G, int(chains), n, ctypes.addressof(out))
+    _build.check(status, f"{algo} spread capacity at G = {G}")
+    return out.value
+
+
+def default_spread(lanes: int, n: int, ndims: int, chunk: int, device,
+                   algo: str = "cg") -> int:
+    """Blocks per lane G of a roll-form solve (K1: ``algo="cg"``, K2 over
+    the trivial plan: ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells:
+    on the card with one lane per block (``chunk == 1``), the largest G in
+    ``SPREAD_SIZES`` with at least ``SPREAD_MIN_CELLS`` cells per block, its
+    chain terms in shared memory (``spread_fits``) and ``lanes * G`` blocks
+    co-resident (``spread_capacity``); else 0 (the chunk grid), as on the
+    CPU.  A dispatch by shape: nothing falls back on a refused launch.
+    ``pinned_spread`` overrides it where the arm can run (the card, chunk
+    1).  The wrappers ask it only for a lane the resident arm does not take
+    (``roll_arm``)."""
+    if torch.device(device).type != "cuda" or chunk != 1 or lanes < 1:
+        return 0
+    if _PINNED_SPREAD is not None:
+        return _PINNED_SPREAD
+    for G in SPREAD_SIZES:
+        if n < SPREAD_MIN_CELLS * G or not spread_fits(n, G):
+            continue
+        if lanes * G <= spread_capacity(algo, ndims, G,
+                                        spread_chains(n, G, ndims), n,
+                                        torch.device(device)):
+            return G
+    return 0
+
+
+def spread_chains(n: int, G: int, ndims: int) -> bool:
+    """The spread arm's layout over ``n``-cell lanes at G blocks per lane:
+    each block the cells of its sum chains (True), or, in 3D, a contiguous
+    range (False) at G = 128 from ``SPREAD_RANGE_CELLS`` cells per thread
+    of a block (the range layout is built for 3D lanes only).  The chains layout puts each pass's terms of a sum straight into
+    shared memory: one lane barrier per sum where the range layout needs
+    two and a second read of the vectors.  But a row of a block's chains is
+    a run of only THREADS / G cells, 8 (one 32-byte sector) at G = 128, so
+    a stencil pass reads about twice the L2 sectors of a contiguous range;
+    on a big lane that outweighs the barrier.  On the H100 (phase 25):
+    (128, 41, 128) at G = 128, K1 1.02 ms per raw launch in the range layout
+    against 1.18 in the chains layout, K2's temperature 0.36 against 0.40;
+    at (64, 41, 64), and at G = 32 or 64 on either block, the chains layout
+    wins (K1 0.47 against 0.53 ms at G = 128)."""
+    return not (ndims == 3 and G == 128
+                and n >= SPREAD_RANGE_CELLS * THREADS * G)
+
+
+def roll_arm(lanes: int, n: int, ndims: int, chunk: int, device,
+             algo: str = "cg") -> tuple[bool, int]:
+    """The arm of a roll-form solve: ``(resident, G)``, the resident rule
+    first (a lane it takes keeps it), then the spread rule; ``(False, 0)``
+    is the chunk grid."""
+    if default_resident(lanes, n, ndims, chunk, device):
+        return True, 0
+    return False, default_spread(lanes, n, ndims, chunk, device, algo)
+
+
+@contextlib.contextmanager
+def pinned_spread(G: int | None):
+    """Inside the ``with`` block ``default_spread`` answers ``G`` (a size of
+    ``SPREAD_SIZES``, 0: the chunk grid, None: the rule) for the card's
+    one-lane-per-block roll-form solves that the resident arm does not
+    take, and afterwards what it answered before: an A/B of the spread arm
+    on the main path.  A pinned G whose grid the card cannot hold raises at
+    its launch."""
+    if G is not None and G not in (0,) + SPREAD_SIZES:
+        raise ValueError(f"G must be 0, None or one of {SPREAD_SIZES}, got {G!r}")
+    global _PINNED_SPREAD
+    before, _PINNED_SPREAD = _PINNED_SPREAD, G
+    try:
+        yield
+    finally:
+        _PINNED_SPREAD = before
+
+
+def check_spread(spread: int, chunk: int, resident: bool, ndims: int,
+                 chains: bool) -> None:
+    """The spread arm takes G in ``SPREAD_SIZES``, one lane per G blocks,
+    is not the resident arm, and takes the range layout in 3D only."""
+    if spread not in (0,) + SPREAD_SIZES:
+        raise ValueError(f"spread must be 0 or one of {SPREAD_SIZES}, got {spread}")
+    if spread and chunk != 1:
+        raise ValueError(f"the spread arm takes one lane per G blocks "
+                         f"(chunk 1), got chunk {chunk}")
+    if spread and resident:
+        raise ValueError("a launch takes the resident arm or the spread arm, "
+                         "not both")
+    if spread and ndims == 2 and not chains:
+        raise ValueError("the spread arm's range layout is 3D only")
+
+
+def spread_buffers(L: int, spread: int, device) -> tuple:
+    """The spread arm's global memory for ``L`` lanes: the barrier counters
+    (``L`` int32, zeroed by the entry on the stream before every launch)
+    and the chain slots (``L x 2 x THREADS`` float2); None for the other
+    arms."""
+    if not spread:
+        return None, None
+    return (torch.empty(L, dtype=torch.int32, device=device),
+            torch.empty((L, 2, THREADS, 2), dtype=torch.float32, device=device))
 
 
 def check_resident(resident: bool, chunk: int, n: int, ndims: int) -> None:
@@ -343,19 +530,25 @@ def _launch(diag, off, b, x0, **kw):
 
 
 def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
-             precondition, return_best, chunk, resident=False):
+             precondition, return_best, chunk, resident=False, spread=0,
+             chains=None):
     """Check and lay out K1's operands (``(lanes, *spatial)``; ``diag`` /
     ``off`` with a leading axis of 1 or lanes), allocate the outputs and
     scratch once, and return ``launch()``: one kernel launch on the current
     stream into those buffers, returning ``(x, iterations, residual_sum)``
     (the same tensors on every call; a timing loop of raw launches).
-    ``resident``: the resident arm (chunk 1, a 2D lane whose bytes fit)."""
+    ``resident``: the resident arm (chunk 1, a 2D lane whose bytes fit).
+    ``spread``: G > 0 for the spread arm (chunk 1), in the chains layout or
+    not (``chains``; None: ``spread_chains``)."""
     L = b.shape[0]
     spatial = tuple(b.shape[1:])
     check_chunk(L, chunk)
     if len(spatial) != ndims or ndims not in (2, 3):
         raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
-    check_resident(resident, chunk, math.prod(spatial), ndims)
+    n = math.prod(spatial)
+    check_resident(resident, chunk, n, ndims)
+    chains = spread_chains(n, spread, ndims) if chains is None else bool(chains)
+    check_spread(spread, chunk, resident, ndims, chains)
     dev = b.device
     for name, t in (("diag", diag), ("off", off), ("x0", x0)):
         if t is not None and (t.device != dev or t.dtype != torch.float32):
@@ -377,15 +570,16 @@ def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     ny, nx = spatial[-2], spatial[-1]
     lib = _build.library()
     # the closure holds every buffer it hands the kernel by pointer
-    bufs = (b, diag, off, x0c, x, iters, rs, r, p, q, best)
-    args = (L, chunk, int(resident), nz, ny, nx, ndims, op_per_lane, tol2_sum,
-            int(maxiter), int(stall_iters), int(precondition),
-            int(return_best), int(x0 is not None))
+    bufs = (b, diag, off, x0c, x, iters, rs, r, p, q, best,
+            *spread_buffers(L, spread, dev))
+    args = (L, chunk, int(resident), int(spread), int(chains), nz, ny, nx,
+            ndims, op_per_lane, tol2_sum, int(maxiter), int(stall_iters),
+            int(precondition), int(return_best), int(x0 is not None))
 
     def launch():
         with torch.cuda.device(dev):
             status = lib.fg_cg_solve(
-                *[t.data_ptr() for t in bufs], *args,
+                *[0 if t is None else t.data_ptr() for t in bufs], *args,
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(status, "fused_cg")
         return x, iters, rs
@@ -404,7 +598,8 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
     ``2*ndims`` face axis after the lane axis.  ``chunk``: lanes per
     lockstep chunk (``default_chunk`` when None); with one lane per block
     the card takes the resident arm where a lane fits
-    (``default_resident``).  Returns ``(x,
+    (``default_resident``), else the spread arm where the rule gives G
+    (``default_spread``).  Returns ``(x,
     SolveInfo)`` with per-lane ``(lanes,)`` info; the iteration count is the
     lane's chunk's.  A lane whose RHS is all zero gets a zero solution.
     Under ``torch.func.vmap`` the batch folds onto the lanes (``LaneFold``)."""
@@ -422,11 +617,12 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
         if device_kind(b, "fused_cg") == "cpu":
             return fused_cg_plain(diag, off, b, x0, chunk=c, **kw)
-        res = default_resident(b.shape[0], n, ndims, c, b.device)
-        out = _launch(diag, off, b, x0, chunk=c, resident=res, **kw)
+        res, G = roll_arm(b.shape[0], n, ndims, c, b.device)
+        out = _launch(diag, off, b, x0, chunk=c, resident=res, spread=G, **kw)
         fused_cg.launches += 1
         fused_cg.launches_3d += int(ndims == 3)
         fused_cg.resident_launches += int(res)
+        fused_cg.spread_launches += int(G > 0)
         return out
 
     x, iters, rs = LaneFold.apply(solve, 2, b, x0, diag, off)
@@ -440,3 +636,4 @@ def fused_cg(diag, off, b, x0=None, *, ndims: int, tol: float,
 fused_cg.launches = 0
 fused_cg.launches_3d = 0
 fused_cg.resident_launches = 0
+fused_cg.spread_launches = 0

@@ -65,7 +65,9 @@ counts those with C > 1.
 
 K2 over the trivial plan takes ``cg_cuda``'s resident arm at one lane per
 block where a lane fits (``cg_cuda.default_resident``; its launches count
-in ``fused_bicgstab_mb.resident_launches`` too).
+in ``fused_bicgstab_mb.resident_launches`` too), else its spread arm where
+``cg_cuda.default_spread`` gives G (RBC3D's lanes;
+``fused_bicgstab_mb.spread_launches``).
 
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
@@ -84,12 +86,14 @@ import torch
 from fluidgym_tpu_torch.core.domain import face_axis
 from fluidgym_tpu_torch.ops import _build
 from fluidgym_tpu_torch.ops.cg_cuda import (SMEM_PER_BLOCK, SMEM_STATIC,
-                                            LaneFold, cg_lockstep,
-                                            check_chunk, check_resident,
-                                            default_chunk, default_resident,
-                                            device_kind, guard,
-                                            lockstep_chunks, roll_matvec,
-                                            tol2_sum_f32)
+                                            LaneFold,
+                                            block_ranges, block_seg,
+                                            cg_lockstep, check_chunk,
+                                            check_resident, check_spread,
+                                            default_chunk, device_kind, guard,
+                                            lockstep_chunks, roll_arm,
+                                            roll_matvec, spread_buffers,
+                                            spread_chains, tol2_sum_f32)
 from fluidgym_tpu_torch.solver import coarse_strips as cs
 from fluidgym_tpu_torch.solver.block_merge import (MergePlan, fixup_slabs,
                                                    merged_apply)
@@ -234,16 +238,9 @@ MIN_CELLS_PER_BLOCK = 1024
 _PINNED: int | None = None
 
 
-def _cluster_seg(n: int, C: int) -> int:
-    return -(-(-(-n // C)) // 32) * 32
-
-
-def cluster_ranges(n: int, C: int) -> list[tuple[int, int]]:
-    """The cells ``[c0, c1)`` that each block of a C-block cluster owns in a
-    lane of ``n`` cells: contiguous, ``ceil(n / C)`` rounded up to 32 per
-    block, cut at ``n`` (``csrc/krylov.cuh`` ``fg_cluster_seg``)."""
-    seg = _cluster_seg(n, C)
-    return [(min(n, r * seg), min(n, (r + 1) * seg)) for r in range(C)]
+#: the cells ``[c0, c1)`` that each block of a C-block cluster owns in a
+#: lane of ``n`` cells (``cluster_ranges(n, C)``)
+cluster_ranges = block_ranges
 
 
 def stage_bytes(n: int, C: int, ndims: int) -> int:
@@ -252,7 +249,7 @@ def stage_bytes(n: int, C: int, ndims: int) -> int:
     neighbours per cell), then two floats for each cell of its 1024 / C
     sum chains (``fg_stage_bytes``)."""
     chains = 2 * (1024 // C) * -(-n // 1024)
-    return (_cluster_seg(n, C) * (1 + 4 * ndims) + chains) * 4
+    return (block_seg(n, C) * (1 + 4 * ndims) + chains) * 4
 
 
 def rows_fit(n: int, C: int, ndims: int) -> bool:
@@ -471,18 +468,23 @@ def _launch(diag, off, b, x0, **kw):
 
 
 def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
-             precondition, return_best, chunk, resident=False):
+             precondition, return_best, chunk, resident=False, spread=0,
+             chains=None):
     """K2, single-super-block form, on ``(lanes, *spatial)`` tensors: check
     and lay out the operands, allocate the outputs and scratch once, and
     return ``launch()``, one kernel launch into those buffers returning
     ``(x, iterations, residual_sum)`` (as ``cg_cuda.launcher``).
-    ``resident``: the resident arm (chunk 1, a 2D lane whose bytes fit)."""
+    ``resident``: the resident arm (chunk 1, a 2D lane whose bytes fit);
+    ``spread``, ``chains``: the spread arm, as ``cg_cuda.launcher``."""
     L = b.shape[0]
     spatial = tuple(b.shape[1:])
     if len(spatial) != ndims or ndims not in (2, 3):
         raise ValueError(f"b must be (lanes, *spatial) with {ndims} spatial axes")
     op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
     check_resident(resident, chunk, math.prod(spatial), ndims)
+    chains = (spread_chains(math.prod(spatial), spread, ndims)
+              if chains is None else bool(chains))
+    check_spread(spread, chunk, resident, ndims, chains)
     b = b.contiguous()
     diag = diag.contiguous()
     off = off.contiguous()
@@ -495,15 +497,16 @@ def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     ny, nx = spatial[-2], spatial[-1]
     lib = _build.library()
     # the closure holds every buffer it hands the kernel by pointer
-    bufs = (b, diag, off, x0c, x, iters, rs, *scratch)
-    args = (L, chunk, int(resident), nz, ny, nx, ndims, op_per_lane, tol2_sum,
-            int(maxiter), int(stall_iters), int(precondition),
-            int(return_best), int(x0 is not None))
+    bufs = (b, diag, off, x0c, x, iters, rs, *scratch,
+            *spread_buffers(L, spread, b.device))
+    args = (L, chunk, int(resident), int(spread), int(chains), nz, ny, nx,
+            ndims, op_per_lane, tol2_sum, int(maxiter), int(stall_iters),
+            int(precondition), int(return_best), int(x0 is not None))
 
     def launch():
         with torch.cuda.device(b.device):
             status = lib.fg_bicgstab_solve(
-                *[t.data_ptr() for t in bufs], *args,
+                *[0 if t is None else t.data_ptr() for t in bufs], *args,
                 torch.cuda.current_stream(b.device).cuda_stream)
         _build.check(status, "fused_bicgstab_mb")
         return x, iters, rs
@@ -675,7 +678,8 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
     (``default_chunk`` when None), ``cluster`` blocks per lane on the card
     (``default_cluster`` when None; the single-super-block form takes 1,
     and at one lane per block the resident arm where a lane fits,
-    ``cg_cuda.default_resident``).
+    ``cg_cuda.default_resident``, else the spread arm where
+    ``cg_cuda.default_spread`` gives G).
     Returns ``(xs, SolveInfo)`` with the info aggregated over components
     (converged = all, iterations = max,
     residual = joint RMSE).  Under ``torch.func.vmap`` the batch folds onto
@@ -709,12 +713,14 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                                         plan=None if single else plan,
                                         chunk=c, **kw)
         if single:
-            res = default_resident(b.shape[0], n_lane, ndims, c, b.device)
+            res, G = roll_arm(b.shape[0], n_lane, ndims, c, b.device,
+                              "bicgstab")
             out = _launch(diag, off, b, x0, ndims=ndims, chunk=c,
-                          resident=res, **kw)
+                          resident=res, spread=G, **kw)
             fused_bicgstab_mb.launches += 1
             fused_bicgstab_mb.launches_3d += int(ndims == 3)
             fused_bicgstab_mb.resident_launches += int(res)
+            fused_bicgstab_mb.spread_launches += int(G > 0)
         else:
             out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
                                  cluster=cl, **kw)
@@ -744,3 +750,4 @@ fused_bicgstab_mb.merged_launches = 0
 fused_bicgstab_mb.merged_flip_launches = 0
 fused_bicgstab_mb.cluster_launches = 0
 fused_bicgstab_mb.resident_launches = 0
+fused_bicgstab_mb.spread_launches = 0

@@ -128,14 +128,17 @@ def _revision(root: str):
 
 
 def _rev_launcher(lib, mod, algo, diag, off, b, x0, tol2, kw, resident):
-    """One raw launch of a revision's K1 / K2 entry on preallocated
-    buffers; ``resident`` is passed only to entries that take it (None
-    where the revision's entry has no arm argument)."""
+    """One raw launch of a revision's K1 / K2 entry (the chunk grid, or its
+    resident arm) on preallocated buffers, 2D or 3D (``b`` of (lanes,
+    [nz,] ny, nx)); ``resident`` is passed only to entries that take it
+    (None where the revision's entry has no arm argument).  Entries with
+    the spread arm's arguments (buffers, G, layout) get G = 0."""
     import torch
 
     name = "fg_cg_solve" if algo == "cg" else "fg_bicgstab_solve"
     n_args = len(mod._ARGTYPES[name])
-    takes_arm = n_args == (26 if algo == "cg" else 30)
+    spread = n_args == (30 if algo == "cg" else 34)
+    takes_arm = spread or n_args == (26 if algo == "cg" else 30)
     if resident and not takes_arm:
         return None
     L, dev = b.shape[0], b.device
@@ -144,15 +147,20 @@ def _rev_launcher(lib, mod, algo, diag, off, b, x0, tol2, kw, resident):
     it = torch.empty(L, dtype=torch.int32, device=dev)
     rs = torch.empty(L, dtype=torch.float32, device=dev)
     x0c = b if x0 is None else x0.contiguous()
-    bufs = (b, diag, off, x0c, x, it, rs, *scratch)
+    bufs = (b, diag, off, x0c, x, it, rs, *scratch) + ((None,) * 2 * spread)
+    ndims = b.dim() - 1
+    nz = b.shape[1] if ndims == 3 else 1
     shape = ((L, 1) + ((int(resident),) if takes_arm else ())
-             + (1, b.shape[-2], b.shape[-1], 2, int(diag.shape[0] != 1)))
-    tail = (tol2, kw["maxiter"], kw["stall_iters"], 1, int(kw["return_best"]),
+             + ((0, 0) if spread else ())
+             + (nz, b.shape[-2], b.shape[-1], ndims, int(diag.shape[0] != 1)))
+    tail = (tol2, kw["maxiter"], kw["stall_iters"],
+            int(kw.get("precondition", True)), int(kw["return_best"]),
             int(x0 is not None))
     entry = getattr(lib, name)
 
     def launch():
-        status = entry(*[t.data_ptr() for t in bufs], *shape, *tail,
+        status = entry(*[0 if t is None else t.data_ptr() for t in bufs],
+                       *shape, *tail,
                        torch.cuda.current_stream(dev).cuda_stream)
         mod.check(status, f"revision {name}")
         return x, it, rs

@@ -3,6 +3,7 @@
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
         [--strips] [--k4] [--batch N] [--cluster C] [--resident 0|1]
+        [--spread 0|1]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
@@ -15,8 +16,9 @@ N envs instead (seeds 0..N-1, random actions), one batched step being one
 C`` pins the merged kernels' cluster rule to C (``cg_cuda_mb.pinned_cluster``;
 1: one block per lane) for an A/B of device time; ``--resident 0|1`` pins
 K1's and K2's resident rule (``cg_cuda.pinned_resident``: 1 the resident
-arm, 0 the chunk grid) likewise.  Prints one JSON
-object:
+arm, 0 the chunk grid) likewise, and ``--spread 0|1`` their spread rule
+(``cg_cuda.pinned_spread``: 0 the chunk grid, 1 the rule's G).  Prints one
+JSON object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise (``env_steps_per_s``: envs x steps over that time);
@@ -33,8 +35,8 @@ object:
   ``<ND, true, false, ...>`` K3 and ``<ND, true, true, ...>`` K3-coarse in
   either seam form, ``fg_bicg_kernel<ND, false, ...>`` K2, ``<ND, true,
   ...>`` K2-mb in either form, the cluster arm's instances (template
-  argument CLUSTER) under their form, the resident arm's (RESIDENT) under
-  K1 / K2, ``fg_stencil2d_kernel`` K4;
+  argument CLUSTER) under their form, the resident arm's (RESIDENT) and
+  the spread arm's (SPREAD) under K1 / K2, ``fg_stencil2d_kernel`` K4;
   a flip form's device time is
   reported under its template's entry, which for an id with flip seams
   holds only the flip form);
@@ -83,6 +85,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--cluster", type=int, default=None)
     ap.add_argument("--resident", type=int, choices=(0, 1), default=None)
+    ap.add_argument("--spread", type=int, choices=(0, 1), default=None)
     args = ap.parse_args()
     if args.batch and args.strips:
         print("port_step_profile: the batched path runs without the strips",
@@ -95,13 +98,15 @@ def main() -> int:
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
 
     arm = None if args.resident is None else bool(args.resident)
-    with cg_cuda_mb.pinned_cluster(args.cluster), cg_cuda.pinned_resident(arm):
+    spread = 0 if args.spread == 0 else None
+    with cg_cuda_mb.pinned_cluster(args.cluster), cg_cuda.pinned_resident(arm), \
+            cg_cuda.pinned_spread(spread):
         return _profile(args)
 
 
 def _profile(args) -> int:
-    """The profiled run of ``main`` (the cluster and resident rules pinned
-    as asked)."""
+    """The profiled run of ``main`` (the cluster, resident and spread rules
+    pinned as asked)."""
     import dataclasses
 
     import numpy as np
@@ -152,7 +157,9 @@ def _profile(args) -> int:
                 "K3-coarse-flip": cg_cuda_mb.fused_cg_mb.coarse_flip_launches,
                 "K4": stencil_cuda.stencil_apply.launches,
                 "K1 resident": cg_cuda.fused_cg.resident_launches,
-                "K2 resident": cg_cuda_mb.fused_bicgstab_mb.resident_launches}
+                "K2 resident": cg_cuda_mb.fused_bicgstab_mb.resident_launches,
+                "K1 spread": cg_cuda.fused_cg.spread_launches,
+                "K2 spread": cg_cuda_mb.fused_bicgstab_mb.spread_launches}
 
     k0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -203,10 +210,14 @@ def _profile(args) -> int:
                 "launches_per_substep": (k1[k] - k0[k]) / args.steps
                 / max(subs, 1),
                 "device_ms_per_step": port_us.get(k, 0.0) / 1e3 / args.steps}
-            for k in k0 if "resident" not in k},
+            for k in k0 if " " not in k},
         "resident_launches_per_step": {
             k.split()[0]: (k1[k] - k0[k]) / args.steps
             for k in k0 if "resident" in k},
+        "spread_pin": args.spread,
+        "spread_launches_per_step": {
+            k.split()[0]: (k1[k] - k0[k]) / args.steps
+            for k in k0 if "spread" in k},
         "top_kernels": [
             {"name": n, "calls_per_step": c / args.steps,
              "device_ms_per_step": us / 1e3 / args.steps}
@@ -220,7 +231,8 @@ def _profile(args) -> int:
     tag = "".join(("_strips" if args.strips else "", "_k4" if args.k4 else "",
                    f"_batch{args.batch}" if args.batch else "",
                    "" if args.cluster is None else f"_cluster{args.cluster}",
-                   "" if args.resident is None else f"_resident{args.resident}"))
+                   "" if args.resident is None else f"_resident{args.resident}",
+                   "" if args.spread is None else f"_spread{args.spread}"))
     with open(os.path.join(args.out, f"port_step_profile_{args.env}{tag}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)

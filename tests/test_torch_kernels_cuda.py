@@ -38,6 +38,11 @@ K1-3D and K2-3D (RBC3D's roll forms, the chunk grid): at the RBC3D-easy
 (one lane per block, and one lockstep block) and K2 with 1 and 3 lanes,
 cold and warm, within the bars above; a small RBC3D env step takes them
 for every solve.
+Their spread arm (one lane over G co-resident blocks of a cooperative
+launch): at both RBC3D blocks, K1 on 1 and 2 lanes and K2's temperature and
+velocity systems, at every G the card holds and in both layouts, bit-equal
+to the chunk grid, five launches back to back bit-equal; a grid the card
+cannot hold raises; a full-width RBC3D step takes it for every solve.
 """
 
 import numpy as np
@@ -1002,5 +1007,135 @@ def test_rbc3d_step_on_card_goes_through_3d_kernels():
     assert d[0] > 0 and d[0] == d[1] and d[2] == d[3] == d[0], d
     assert (cg_cuda.fused_cg_plain.calls
             + cg_cuda_mb.fused_bicgstab_plain.calls) == plain
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(info["nusselt"]))
+
+
+# ---------------------------------------------------------------------------
+# the spread arm of K1-3D and K2-3D: one lane over G co-resident blocks
+# ---------------------------------------------------------------------------
+
+def _spread_case(case, shape, dev):
+    """``(algo, diag (1, *shape), off, b (L, *shape), x0, tol)`` at an RBC3D
+    block: K1 on 1 lane and on 2 (the second a scaled right-hand side);
+    K2's temperature (1 lane) and velocity (3 lanes, lane 2 zero) systems,
+    cold or warm."""
+    algo, what, start = (case.split("-") + ["cold"])[:3]
+    if algo == "K1":
+        diag, off = _rbc3d_operator(shape, dev, True)
+        return "cg", diag[None], off[None], _rbc3d_rhs(shape, int(what), dev,
+                                                       21), None, 1e-5
+    diag, off = _rbc3d_operator(shape, dev, False)
+    b = _rbc3d_rhs(shape, 1 if what == "temperature" else 3, dev, 22)
+    return ("bicgstab", diag[None], off[None], b,
+            0.5 * b if start == "warm" else None, 1e-6)
+
+
+@pytest.mark.parametrize("size", list(SHAPES_3D))
+@pytest.mark.parametrize("case", ["K1-1", "K1-2", "K2-temperature-warm",
+                                  "K2-velocity-cold", "K2-velocity-warm"])
+def test_spread_arm_bit_equal_to_chunk_grid(size, case):
+    """One lane over G blocks: at every G the card holds for the lanes, in
+    both layouts, the spread arm returns the chunk grid's x, iterations and
+    residual bit for bit; five launches back to back on one stream (one
+    barrier buffer, no host sync between) give the same bits; the result
+    is within the 3D bars of the plain version; the wrapper takes the
+    rule's G and counts it."""
+    dev = require_cuda()
+    shape = SHAPES_3D[size]
+    algo, diag, off, b, x0, tol = _spread_case(case, shape, dev)
+    cg = algo == "cg"
+    mod = cg_cuda if cg else cg_cuda_mb
+    L, n = b.shape[0], int(np.prod(shape))
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    kw = dict(ndims=3, maxiter=2000, stall_iters=250, precondition=True,
+              return_best=cg, tol2_sum=tol2, chunk=1)
+    grid = tuple(v.clone() for v in mod.launcher(diag, off, b, x0, **kw)())
+    same = lambda u: all(torch.equal(a, c) for a, c in zip(u, grid))
+    rule = cg_cuda.default_spread(L, n, 3, 1, dev, algo)
+    assert rule == {1: 128, 2: 64, 3: 32}[L]
+    for G in cg_cuda.SPREAD_SIZES:
+        if L * G > cg_cuda.spread_capacity(algo, 3, G, True, n, dev):
+            continue
+        for chains in (True, False):
+            launch = mod.launcher(diag, off, b, x0, spread=G, chains=chains, **kw)
+            if G == rule and chains == cg_cuda.spread_chains(n, G, 3):
+                runs = [tuple(v.clone() for v in launch()) for _ in range(5)]
+            else:
+                runs = [launch()]
+            torch.cuda.synchronize()
+            for i, run in enumerate(runs):
+                assert same(run), f"G={G} chains={chains} launch {i}"
+    plain = cg_cuda.fused_cg_plain if cg else cg_cuda_mb.fused_bicgstab_plain
+    xp, ip, rp = plain(diag, off, b, x0, **{k: v for k, v in kw.items()})
+    torch.cuda.synchronize()
+    x, it, rs = grid
+    assert int((it.long() - ip.long()).abs().max()) <= 3, (it, ip)
+    assert_rel(x.cpu().numpy(), xp.cpu().numpy(), 1e-3, case)
+    zero = (b.reshape(L, -1) == 0).all(dim=1)
+    assert bool((x[zero] == 0).all())
+    fn = cg_cuda.fused_cg if cg else cg_cuda_mb.fused_bicgstab_mb
+    before = (fn.launches, fn.spread_launches)
+    if cg:
+        xw = fn(diag[0], off[0], b, x0, ndims=3, tol=tol, maxiter=2000,
+                stall_iters=250, precondition=True, return_best=True)[0]
+    else:
+        dom = DomainBuilder(ndims=3, viscosity=0.01)
+        blk = dom.create_block(geometry.make_uniform_grid(
+            (shape[2], shape[1], shape[0]), (0, 0, 0), (1.0, 1.0, 1.0)))
+        blk.close_boundary("-y")
+        blk.close_boundary("+y")
+        xw = fn(block_merge.trivial_plan(dom.build()[0]), (diag[0],),
+                (off[0],), (b,), None if x0 is None else (x0,), tol=tol,
+                maxiter=2000, stall_iters=250, precondition=True,
+                return_best=False)[0][0]
+    assert (fn.launches, fn.spread_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(xw, x)
+
+
+def test_spread_arm_refuses_a_grid_it_cannot_hold():
+    """Two lanes at G = 128 are 256 blocks, more than the card holds at
+    once: the cooperative launch is refused and raises, through the raw
+    launcher and through the wrapper under a pin; nothing falls back."""
+    dev = require_cuda()
+    shape = SHAPES_3D["easy"]
+    diag, off = _rbc3d_operator(shape, dev, True)
+    b = _rbc3d_rhs(shape, 2, dev, 23)
+    n = int(np.prod(shape))
+    assert 2 * 128 > cg_cuda.spread_capacity("cg", 3, 128, True, n, dev)
+    kw = dict(ndims=3, maxiter=50, stall_iters=250, precondition=True,
+              return_best=True)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cg_cuda.launcher(diag[None], off[None], b, None, chunk=1, spread=128,
+                         tol2_sum=cg_cuda.tol2_sum_f32(1e-5, n), **kw)()
+    f = cg_cuda.fused_cg
+    before = (f.launches, f.spread_launches, cg_cuda.fused_cg_plain.calls)
+    with cg_cuda.pinned_spread(128), pytest.raises(RuntimeError):
+        f(diag, off, b, tol=1e-5, **kw)
+    assert (f.launches, f.spread_launches,
+            cg_cuda.fused_cg_plain.calls) == before
+    # the card is still usable: a launch it can hold runs
+    x, info = f(diag, off, b, tol=1e-5, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
+
+
+def test_rbc3d_full_width_step_takes_the_spread_arm():
+    """One sim step of RBC3D-easy-v0 at full width from the bundled
+    snapshot: every K1-3D and K2-3D launch on the spread arm, no plain
+    version."""
+    require_cuda()
+    k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
+    keys = lambda: (k1.launches_3d, k1.spread_launches, k2.launches_3d,
+                    k2.spread_launches, cg_cuda.fused_cg_plain.calls
+                    + cg_cuda_mb.fused_bicgstab_plain.calls)
+    env = fluidgym_tpu_torch.make("RBC3D-easy-v0", randomize_initial_state=False,
+                                  step_length=0.05, episode_length=2)
+    env.reset(seed=0)
+    before = keys()
+    obs, reward, *_, info = env.step(np.zeros((env.n_agents, 1), np.float32))
+    d = [a - c for a, c in zip(keys(), before)]
+    assert d[0] > 0 and d[2] > 0 and d[0] == d[1] and d[2] == d[3], d
+    assert d[4] == 0, d
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["nusselt"]))
