@@ -154,7 +154,32 @@ Phases, each printed with its elapsed seconds:
    pinned to G = 32) at their registered defaults, four arms in turns
    (chunk grid, spread, spread, chunk grid) from one reset state, obs
    bit-equal across the arms: ms per env step of each; and RBC2D-wide's
-   (61, 192) K1 lane per raw launch at every G against the chunk grid.
+   (61, 192) K1 lane per raw launch at every G against the chunk grid;
+32. K3-3D and K2-mb-3D (the 3D merged forms: identity seams, periodic z,
+   the chunk grid, C = 1) against their plain versions on the solves of a
+   first substep of CylinderJet3D-easy from its bundled ``train_00``
+   snapshot at full width (341,568 cells, 2 super-blocks), captured at the
+   wrappers: the pressure solve cold and warm from the deflated guess, a
+   3-lane pressure run (one zero RHS) past iteration 100, the velocity
+   advection solve (3 lanes); the same converged flags, iterations within
+   3 (K3) / 2 (K2), x within phases 7-8's bars; ``default_cluster`` gives
+   1 and the launcher refuses C = 2; ms per wrapper call and per raw
+   launch, us per iteration, the plain version's ms, the bound;
+33. the CylinderJet3D-easy main path: ``make("CylinderJet3D-easy-v0")`` at
+   its registered defaults (SARL, 8 jets), ``reset(seed=0)``
+   (randomized), 3 steps with fixed numpy actions; then ``use_marl=True``
+   (8 agents): reset and 1 step; the counters zeroed just before each
+   ``make`` and read after every step: in every step K3 launches twice per
+   substep and K2-mb once, every one a 3D merged launch
+   (``.launches_3d`` / ``.merged_launches_3d``) on the chunk grid, and no
+   other kernel form, plain version or ``linsolve`` loop runs; drag, lift,
+   obs and rewards finite; ms and pressure iterations per env step;
+34. the card against the host for CylinderJet3D-easy: 1 sim step
+   (``step_length = dt``) at full width from the bundled snapshot, no
+   randomization; obs and reward to 1e-4 (see ``CYL3D_HOST_BARS``);
+35. ``CylinderJet3D-medium-v0`` (749,568 cells) at its registered
+   defaults: reset from its bundled ``train_00`` (randomized) and 1 step
+   with phase 33's checks.
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -296,6 +321,42 @@ def count_calls(piso, linsolve):
     return calls, restore
 
 
+def compare(name, wrapper_call, plain_call, b, tol, rel_tol, it_tol,
+            matvec):
+    """Kernel vs plain on the same inputs: iterations within ``it_tol``,
+    max|dx| <= rel_tol * max|x_plain|, converged lanes' true residual
+    RMSE <= 2 tol, zero-RHS lanes exactly zero."""
+    import torch
+
+    xk, ik, rk = wrapper_call()
+    xp, ip, rp = plain_call()
+    torch.cuda.synchronize()
+    err = float((xk - xp).abs().max())
+    scale = float(xp.abs().max())
+    L = b.shape[0]
+    # the true residual in float64: in float32, b - A x has a rounding
+    # floor of ~eps * |A x| per cell, above tol for these systems
+    res = (b.double() - matvec(xk.double())).reshape(L, -1)
+    rmse = torch.sqrt((res * res).mean(dim=1))
+    conv = rp <= tol * tol * b[0].numel()
+    zero = (b.reshape(L, -1) == 0).all(dim=1)
+    log(f"  {name}: iters kernel {ik.tolist()} plain {ip.tolist()} | "
+        f"max|dx| {err:.3e} (max|x| {scale:.3e}, bar {rel_tol:g} rel) | "
+        f"true-residual rmse {[f'{v:.2e}' for v in rmse.tolist()]} "
+        f"(bar 2*tol = {2 * tol:.1e}) | zero lanes {zero.tolist()}")
+    check(all(abs(a - c) <= it_tol for a, c in zip(ik.tolist(), ip.tolist())),
+          f"{name}: iteration counts differ by more than {it_tol}")
+    check(err <= rel_tol * max(scale, 1e-30), f"{name}: solutions differ")
+    check(bool(torch.isfinite(xk).all()), f"{name}: non-finite solution")
+    for l in range(L):
+        if bool(zero[l]):
+            check(bool((xk[l] == 0).all()), f"{name}: zero-RHS lane {l} not zero")
+        elif bool(conv[l]):
+            check(float(rmse[l]) <= 2 * tol,
+                  f"{name}: lane {l} residual {float(rmse[l])} > 2 tol")
+    return err, int(ik.max())
+
+
 def main() -> int:
     import torch
 
@@ -367,39 +428,6 @@ def _run(dev) -> int:
     n = math.prod(shape)
     log(f"main-path block shape {shape} ({n} cells)")
     kernels = {}
-
-    def compare(name, wrapper_call, plain_call, b, tol, rel_tol, it_tol,
-                matvec):
-        """Kernel vs plain on the same inputs: iterations within ``it_tol``,
-        max|dx| <= rel_tol * max|x_plain|, converged lanes' true residual
-        RMSE <= 2 tol, zero-RHS lanes exactly zero."""
-        xk, ik, rk = wrapper_call()
-        xp, ip, rp = plain_call()
-        torch.cuda.synchronize()
-        err = float((xk - xp).abs().max())
-        scale = float(xp.abs().max())
-        L = b.shape[0]
-        # the true residual in float64: in float32, b - A x has a rounding
-        # floor of ~eps * |A x| per cell, above tol for these systems
-        res = (b.double() - matvec(xk.double())).reshape(L, -1)
-        rmse = torch.sqrt((res * res).mean(dim=1))
-        conv = rp <= tol * tol * b[0].numel()
-        zero = (b.reshape(L, -1) == 0).all(dim=1)
-        log(f"  {name}: iters kernel {ik.tolist()} plain {ip.tolist()} | "
-            f"max|dx| {err:.3e} (max|x| {scale:.3e}, bar {rel_tol:g} rel) | "
-            f"true-residual rmse {[f'{v:.2e}' for v in rmse.tolist()]} "
-            f"(bar 2*tol = {2 * tol:.1e}) | zero lanes {zero.tolist()}")
-        check(all(abs(a - c) <= it_tol for a, c in zip(ik.tolist(), ip.tolist())),
-              f"{name}: iteration counts differ by more than {it_tol}")
-        check(err <= rel_tol * max(scale, 1e-30), f"{name}: solutions differ")
-        check(bool(torch.isfinite(xk).all()), f"{name}: non-finite solution")
-        for l in range(L):
-            if bool(zero[l]):
-                check(bool((xk[l] == 0).all()), f"{name}: zero-RHS lane {l} not zero")
-            elif bool(conv[l]):
-                check(float(rmse[l]) <= 2 * tol,
-                      f"{name}: lane {l} residual {float(rmse[l])} > 2 tol")
-        return err, int(ik.max())
 
     # ---- 3: K1 vs plain ------------------------------------------------------
     po = p_ops[0]
@@ -673,13 +701,14 @@ def _run(dev) -> int:
                          f["roll_launcher"](Ln, arm)) for Ln in (64, CHUNK_LANES)]
     _resident_phase(kernels, res_systems)
     _rbc_phases(dev, kernels, compare, piso, linsolve)
+    _cyl3d_phases(dev, kernels, compare, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip", "K4", "K3-coarse",
         "K3-coarse-flip", "K1 lanes", "K2 lanes", "K3 lanes", "K2-mb lanes",
-        "K1-3D", "K2-3D")]}),
+        "K1-3D", "K2-3D", "K3-3D", "K2-mb-3D")]}),
         flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
@@ -2028,42 +2057,51 @@ RBC3D_OTHER_IDS = ("RBC3D-medium-v0", "RBC3D-hard-v0", "RBC3D-wide-medium-v0",
                    "RBC3D-wide-hard-v0")
 
 
-def _captured_systems(dev, env_id) -> dict:
-    """The solves of the first substep of one sim step of ``env_id`` at full
-    width from its bundled ``train_00`` snapshot, captured at the kernels'
-    wrappers as the solver hands them over: ``"K1"`` the first pressure
-    solve, ``"K2"`` the temperature and the velocity solves, each as
-    ``(args, kwargs)`` with the tensors cloned."""
+def _capture_solves(dev, env_id, step_length, wrappers) -> dict:
+    """The solves of one sim step of ``env_id`` at full width from its
+    bundled ``train_00`` snapshot (no randomization, zero action), captured
+    at the wrappers as the solver hands them over: ``wrappers`` maps a name
+    to ``(module, attribute)``; returns every call of each as ``(args,
+    kwargs)`` with the tensors cloned, in order."""
     import numpy as np
 
     import fluidgym_tpu_torch
-    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
 
     env = fluidgym_tpu_torch.make(env_id, device=dev, randomize_initial_state=False,
-                                  step_length=0.05, episode_length=2)
+                                  step_length=step_length, episode_length=2)
     env.reset(seed=0)
-    seen = {"K1": [], "K2": []}
+    seen = {k: [] for k in wrappers}
     keep = lambda v: (tuple(keep(t) for t in v) if isinstance(v, tuple)
                       else v.clone() if hasattr(v, "clone") else v)
-    originals = {"K1": (cg_cuda, "fused_cg", cg_cuda.fused_cg),
-                 "K2": (cg_cuda_mb, "fused_bicgstab_mb",
-                        cg_cuda_mb.fused_bicgstab_mb)}
-    for k, (mod, attr, fn) in originals.items():
-        def capture(*a, _fn=fn, _k=k, **kw):
+    fns = {k: getattr(mod, attr) for k, (mod, attr) in wrappers.items()}
+    for k, (mod, attr) in wrappers.items():
+        def capture(*a, _fn=fns[k], _k=k, **kw):
             seen[_k].append((keep(a), {n: keep(v) for n, v in kw.items()}))
             return _fn(*a, **kw)
 
         # the wrapper counts its launches on the object its module's name
         # holds: share the counters with it
-        capture.__dict__ = fn.__dict__
+        capture.__dict__ = fns[k].__dict__
         setattr(mod, attr, capture)
     a_shape = ((env.n_agents, 1) if env.use_marl
                else tuple(env.action_space.shape))
     try:
         env.step(np.zeros(a_shape, np.float32))
     finally:
-        for mod, attr, fn in originals.values():
-            setattr(mod, attr, fn)
+        for k, (mod, attr) in wrappers.items():
+            setattr(mod, attr, fns[k])
+    return seen
+
+
+def _captured_systems(dev, env_id) -> dict:
+    """The solves of the first substep of one sim step of ``env_id``
+    (``_capture_solves``): ``"K1"`` the first pressure solve, ``"K2"`` the
+    temperature and the velocity solves."""
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    seen = _capture_solves(dev, env_id, 0.05, {
+        "K1": (cg_cuda, "fused_cg"),
+        "K2": (cg_cuda_mb, "fused_bicgstab_mb")})
     return {"K1": seen["K1"][0], "K2": seen["K2"][:2]}
 
 
@@ -2559,6 +2597,354 @@ def _spread_ab_phase(dev, kernels) -> None:
     kernels["K1-3D"]["main_path_ab"] = ab
     kernels["K1-3D"]["rbc2d_wide_k1_lane"] = lane
     log(f"phase 31 spread arm A/B ok in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phases 32-35: CylinderJet3D (the 3D merged forms K3-3D and K2-mb-3D)
+# ---------------------------------------------------------------------------
+
+CYL3D_EASY, CYL3D_MEDIUM = "CylinderJet3D-easy-v0", "CylinderJet3D-medium-v0"
+
+#: phase 34's bars, relative to each quantity's scale: the rollout bar,
+#: except the pressure obs.  A float32 step decides it only to ~1e-4: on
+#: the host alone the summation order (1 thread against all of them, which
+#: phase 34 measures beside the card) moves it ~6e-5, against ~2e-7 for the
+#: velocity; a wrong seam or z wrap moves it O(1), which 1e-3 still catches
+CYL3D_HOST_BARS = dict(velocity=1e-4, pressure=1e-3, reward=1e-4)
+
+
+def _captured_merged(dev, env_id) -> dict:
+    """The solves of the first substep of one sim step of ``env_id``
+    (``_capture_solves``): ``"K3"`` the first pressure solve (warm from the
+    deflated guess), ``"K2"`` the velocity advection solve."""
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    seen = _capture_solves(dev, env_id, 0.01, {
+        "K3": (cg_cuda_mb, "fused_cg_mb"),
+        "K2": (cg_cuda_mb, "fused_bicgstab_mb")})
+    return {"K3": seen["K3"][0], "K2": seen["K2"][0]}
+
+
+def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
+    """Phase 32: K3-3D and K2-mb-3D against their plain versions on the
+    captured solves of CylinderJet3D-easy (``_captured_merged``), timed per
+    wrapper call and per raw launch on preallocated buffers."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t0 = time.perf_counter()
+    sy = _captured_merged(dev, CYL3D_EASY)
+    (plan, diags, offs, bs), kw3 = sy["K3"]
+    x0s, tol = kw3.pop("x0s"), kw3.pop("tol")
+    kw3.pop("coarse_strips", None)
+    n = sum(math.prod(sb.shape) for sb in plan.superblocks)
+    seam = sum(math.prod(hi - lo for K, (lo, hi) in enumerate(fx.window)
+                         if K != fx.face // 2) for fx in plan.fixups)
+    check(plan.ndims == 3 and plan.identity_seams and len(plan.superblocks) == 2
+          and n == 341568 and x0s is not None,
+          f"the captured pressure solve is not the 3D merged warm solve: "
+          f"{plan.ndims}D, {len(plan.superblocks)} super-blocks, {n} cells")
+    C = {algo: cg_cuda_mb.default_cluster(L, n, 3, 1, dev, algo)
+         for algo, L in (("cg", 1), ("bicgstab", 3))}
+    check(C == {"cg": 1, "bicgstab": 1}, f"default_cluster picks {C}, not 1")
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    b1 = cg_cuda_mb.flatten_fields(plan, tuple(b.unsqueeze(0) for b in bs))
+    g1 = cg_cuda_mb.flatten_fields(plan, tuple(x.unsqueeze(0) for x in x0s))
+    try:
+        cg_cuda_mb.merged_launcher("cg", plan, diag, off, b1, g1, tol2_sum=tol2,
+                                   chunk=1, cluster=2, **kw3)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the K3-3D launcher took cluster 2, whose rows do not fit")
+    mv3 = cg_cuda_mb._merged_mv(plan, diag, off)
+    errs, rows = {"K3-3D": 0.0, "K2-mb-3D": 0.0}, {}
+
+    def run(name, key, algo, b, x0, tol, kw, ops, rel, it_tol, mv, timed):
+        """One system on flat ``(lanes, n)`` tensors: the wrapper call
+        against the plain version (``compare``, and the same converged
+        flags), then, if ``timed``, ms per wrapper call and per raw
+        launch."""
+        d, o, dg, of = ops
+        last = {}
+        wrap = (cg_cuda_mb.fused_cg_mb if algo == "cg"
+                else cg_cuda_mb.fused_bicgstab_mb)
+        t2 = cg_cuda.tol2_sum_f32(tol, n)
+
+        def call():
+            xs, inf = wrap(plan, dg, of, cg_cuda_mb.unflatten_fields(plan, b),
+                           None if x0 is None
+                           else cg_cuda_mb.unflatten_fields(plan, x0),
+                           tol=tol, chunk=1, **kw)
+            x = cg_cuda_mb.flatten_fields(plan, xs)
+            if algo == "cg":
+                out = (x, inf.iterations, inf.residual ** 2 * n)
+                last["kern"] = inf.converged
+            else:
+                out = (x, inf.iterations.repeat(b.shape[0]), None)
+                last["kern"] = inf.converged.repeat(b.shape[0])
+            return out
+
+        def plain():
+            if algo == "cg":
+                out = cg_cuda_mb.fused_cg_mb_plain(plan, d, o, b, x0,
+                                                   tol2_sum=t2, chunk=1, **kw)
+            else:
+                out = cg_cuda_mb.fused_bicgstab_plain(d, o, b, x0, ndims=3,
+                                                      plan=plan, tol2_sum=t2,
+                                                      chunk=1, **kw)
+            zero = (b == 0).all(dim=1)
+            last["plain"] = (out[2] <= t2) | zero
+            if algo != "cg":  # the wrapper reports over every component
+                last["plain"] = last["plain"].all().repeat(b.shape[0])
+                out = (out[0], out[1].max().repeat(b.shape[0]), out[2])
+            return out
+
+        e, it = compare(f"{name} {key}", call, plain, b, tol, rel, it_tol, mv)
+        check(torch.equal(last["kern"].cpu(), last["plain"].cpu()),
+              f"{name} {key}: converged flags {last['kern'].tolist()} (kernel) "
+              f"!= {last['plain'].tolist()} (plain)")
+        errs[name] = max(errs[name], e)
+        row = dict(iterations=it, converged=last["kern"].tolist())
+        if timed:
+            L = b.shape[0]
+            raw = cg_cuda_mb.merged_launcher(algo, plan, d, o, b, x0,
+                                             tol2_sum=t2, chunk=1, cluster=1,
+                                             **kw)
+            raw_ms = cuda_ms(torch, raw, 5)
+            b_ms, by, stream = bound_ms(n, L, 3, it, algo, x0 is not None, True,
+                                        seam)
+            row.update(ms=cuda_ms(torch, call, 5), raw_ms=raw_ms,
+                       us_per_it=raw_ms * 1e3 / max(it, 1),
+                       plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms,
+                       bound_by=by, stream_ms=stream)
+            log(f"  {name} {key}: {row['ms']:.3f} ms per wrapper call; raw "
+                f"launch {raw_ms:.3f} ms = {row['us_per_it']:.2f} us/iteration "
+                f"at {it} iterations (plain {row['plain_ms']:.3f} ms; bound "
+                f"{b_ms * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us)")
+        rows.setdefault(name, {})[key] = row
+        return it
+
+    ops3 = (diag, off, diags, offs)
+    run("K3-3D", "cold (1, 341568)", "cg", b1, None, tol, kw3, ops3, 1e-3, 3,
+        mv3, False)
+    run("K3-3D", "warm (1, 341568)", "cg", b1, g1, tol, kw3, ops3, 1e-3, 3, mv3,
+        True)
+    g = torch.Generator().manual_seed(32)
+    rand = torch.randn(n, generator=g).to(dev) * b1.abs().max()
+    b3 = torch.stack([rand - rand.mean(), 1e-3 * b1[0], torch.zeros_like(b1[0])])
+    it3 = run("K3-3D", "3 lanes (3, 341568)", "cg", b3, None, tol, kw3, ops3,
+              1e-3, 3, mv3, False)
+    check(it3 > 100, f"the 3-lane K3-3D run stopped at iteration {it3} (<= 100)")
+    (plan2, adiags, aoffs, bvs), kw2 = sy["K2"]
+    check(plan2 == plan and bvs[0].shape[0] == 3,
+          "the captured advection solve is not the 3-lane 3D merged solve")
+    xvs, tol_a = kw2.pop("x0s"), kw2.pop("tol")
+    adiag, aoff = cg_cuda_mb.flatten_ops(plan, adiags, aoffs)
+    bv = cg_cuda_mb.flatten_fields(plan, bvs)
+    xv = None if xvs is None else cg_cuda_mb.flatten_fields(plan, xvs)
+    run("K2-mb-3D", "velocity (3, 341568)", "bicgstab", bv, xv, tol_a, kw2,
+        (adiag, aoff, adiags, aoffs), 1e-4, 2,
+        cg_cuda_mb._merged_mv(plan, adiag, aoff), True)
+    for name, key, what, src, rep in (
+            ("K3-3D", "warm (1, 341568)", "Jacobi-PCG", "cg.cu", 284),
+            ("K2-mb-3D", "velocity (3, 341568)", "right-Jacobi BiCGStab",
+             "bicgstab_mb.cu", 458)):
+        r = rows[name][key]
+        kernels[name] = dict(
+            name=f"{name} ({what}, 3D merged frame: identity seams, periodic "
+                 "z; the chunk grid, C = 1)",
+            route="cuda",
+            source=f"fluidgym_tpu_torch/csrc/{src} + "
+                   "fluidgym_tpu_torch/csrc/merged.cuh",
+            replaces=f"fluidgym_tpu/ops/cg_pallas_mb.py:{rep}",
+            max_abs_err=errs[name], ms=r["ms"], raw_ms=r["raw_ms"],
+            us_per_it=r["us_per_it"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            stream_ms=r["stream_ms"], library_ms=None,
+            iterations=r["iterations"], cluster=1, shape=key,
+            systems=rows[name])
+    log(f"phase 32 K3-3D and K2-mb-3D ok (C = 1 from default_cluster, C = 2 "
+        f"refused; {seam} seam cells) in {time.perf_counter() - t0:.1f}s")
+
+
+def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
+    """``make(env_id, **make_kw)`` on the card at the registered full width,
+    ``reset(seed=0)``, then ``steps`` steps with seeded numpy actions.
+    Every counter is zeroed just before ``make`` and read after each step:
+    in every step K3 launches twice per substep and K2-mb once, every one a
+    3D merged launch on the chunk grid (no cluster launch), and no other
+    kernel form, plain version or ``linsolve`` loop runs; obs of the
+    space's shapes, obs, rewards, drag and lift finite."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    launches, plains = _counters()
+    extra = [(k3, "launches_3d"), (k2, "merged_launches_3d"),
+             (k3, "cluster_launches"), (k2, "cluster_launches")]
+    calls, restore = count_calls(piso, linsolve)
+
+    def counts():
+        out = {"K3": k3.launches, "K2-mb": k2.merged_launches,
+               "K3 3d": k3.launches_3d, "K2-mb 3d": k2.merged_launches_3d,
+               "cluster": k3.cluster_launches + k2.cluster_launches}
+        out["other"] = (sum(getattr(*c) for c in launches) - out["K3"]
+                        - out["K2-mb"])
+        out["plain"] = sum(getattr(*c) for c in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["substeps"] = calls["piso_substep_info"]
+        return out
+
+    for c in launches + plains + extra:
+        setattr(*c, 0)
+    torch.cuda.synchronize()
+    rows = []
+    try:
+        t = time.perf_counter()
+        env = fluidgym_tpu_torch.make(env_id, **make_kw)
+        env.reset(seed=0)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        reset = counts()
+        nb = [b.shape for b in env._topo.blocks]
+        cells = sum(math.prod(s_) for s_ in nb)
+        rng = np.random.default_rng(ph)
+        a_shape = ((env.n_agents, 1) if env.use_marl
+                   else tuple(env.action_space.shape))
+        for i in range(steps):
+            a = rng.uniform(-1, 1, a_shape).astype(np.float32)
+            c0 = counts()
+            t = time.perf_counter()
+            obs, reward, _, _, info = env.step(a)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t
+            d = {k: v - c0[k] for k, v in counts().items()}
+            sub = d["substeps"]
+            expect = {"K3": 2 * sub, "K3 3d": 2 * sub, "K2-mb": sub,
+                      "K2-mb 3d": sub, "cluster": 0, "other": 0, "plain": 0,
+                      "linsolve": 0}
+            check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+                  f"{env_id} step {i}: launches {d}, expected {expect}")
+            for k, v in obs.items():
+                want = env.observation_space[k].shape
+                if env.use_marl:
+                    want = (env.n_agents,) + tuple(want)
+                check(tuple(v.shape) == tuple(want), f"{env_id} obs {k} shape "
+                      f"{tuple(v.shape)} != {want}")
+                check(bool(torch.isfinite(v).all()), f"{env_id} obs {k} not finite")
+            drag, lift = float(info["drag"]), float(info["lift"])
+            check(bool(torch.isfinite(reward).all()) and math.isfinite(drag)
+                  and math.isfinite(lift), f"{env_id}: reward, drag {drag} or "
+                  f"lift {lift} not finite")
+            rows.append(dict(s=step_s, substeps=sub, K3=d["K3"], K2=d["K2-mb"],
+                             pressure_iterations=int(info["pressure_iterations"]),
+                             pressure_converged=bool(info["pressure_converged"]),
+                             drag=drag, lift=lift))
+    finally:
+        restore()
+    total = counts()
+    out = dict(env_id=env_id, cells=cells, marl=env.use_marl,
+               n_agents=env.n_agents, reset_s=reset_s,
+               reset_launches={k: reset[k] for k in ("K3", "K2-mb")},
+               ms_step=1e3 * sum(r["s"] for r in rows) / len(rows),
+               step_ms=[1e3 * r["s"] for r in rows],
+               substeps=[r["substeps"] for r in rows],
+               pressure_iterations=[r["pressure_iterations"] for r in rows],
+               pressure_converged=[r["pressure_converged"] for r in rows],
+               drag=[round(r["drag"], 5) for r in rows],
+               lift=[round(r["lift"], 5) for r in rows],
+               launches={k: total[k] for k in ("K3", "K2-mb", "K3 3d",
+                                               "K2-mb 3d", "cluster")},
+               step_launches=[{k: r[k] for k in ("K3", "K2")} for r in rows])
+    log(f"phase {ph} {env_id} {nb} = {cells} cells "
+        f"({'MARL, ' + str(env.n_agents) + ' agents' if env.use_marl else 'SARL'}): "
+        f"reset {reset_s:.2f}s (launches {out['reset_launches']}), steps "
+        f"{[round(r['s'], 3) for r in rows]} s = {out['ms_step']:.1f} ms/env "
+        f"step, substeps {out['substeps']}, pressure iterations "
+        f"{out['pressure_iterations']} (converged {out['pressure_converged']}), "
+        f"drag {out['drag']}, lift {out['lift']}, per-step launches "
+        f"{out['step_launches']}, totals {out['launches']}; all 3D merged on "
+        f"the chunk grid, no other form, plain version or linsolve loop")
+    return out
+
+
+def _cyl3d_card_vs_host(dev) -> dict:
+    """Phase 34: one full-width CylinderJet3D-easy-v0 sim step
+    (``step_length`` = dt, the bundled ``train_00``, SARL at the registered
+    defaults) on the card and on the host: obs and reward within
+    ``CYL3D_HOST_BARS`` of each quantity's scale.  Beside it, the host
+    against itself on one thread: how far summation order alone moves the
+    same step."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+
+    t0 = time.perf_counter()
+    kw = dict(randomize_initial_state=False, step_length=0.01, episode_length=2)
+    a = np.linspace(0.4, -0.4, 8, dtype=np.float32).reshape(8, 1)
+    outs = {}
+    threads = torch.get_num_threads()
+    for label, where, nt in (("card", dev, threads), ("host", torch.device("cpu"),
+                                                      threads),
+                             ("host 1 thread", torch.device("cpu"), 1)):
+        torch.set_num_threads(nt)
+        try:
+            e = fluidgym_tpu_torch.make(CYL3D_EASY, device=where, **kw)
+            e.reset(seed=0)
+            o, r, _, _, info = e.step(a)
+        finally:
+            torch.set_num_threads(threads)
+        outs[label] = {k: v.cpu() for k, v in dict(o, reward=r).items()}
+
+    def diffs(x, y):
+        return {k: float((x[k] - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                for k, c in y.items()}
+
+    worst = diffs(outs["card"], outs["host"])
+    order = diffs(outs["host 1 thread"], outs["host"])
+    log(f"phase 34 {CYL3D_EASY} full width, 1 sim step from the bundled "
+        f"snapshot, card vs host: relative diffs {worst} (bars "
+        f"{CYL3D_HOST_BARS}); host on 1 thread vs {threads}: {order}; in "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(all(v <= CYL3D_HOST_BARS[k] for k, v in worst.items()),
+          f"CylinderJet3D card and host disagree: {worst}")
+    return dict(card_vs_host=worst, host_threads=order)
+
+
+def _cyl3d_phases(dev, kernels, compare, piso, linsolve) -> None:
+    """Phases 32-35: K3-3D and K2-mb-3D against their plain versions (32);
+    the CylinderJet3D-easy-v0 main path, 3 SARL steps (its default) and 1
+    MARL step (33); card against host (34); CylinderJet3D-medium-v0, 1 step
+    (35)."""
+    _cyl3d_kernel_phase(dev, kernels, compare)
+    runs = [_cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 3, 33),
+            _cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 1, 33,
+                             use_marl=True)]
+    host = _cyl3d_card_vs_host(dev)
+    medium = _cyl3d_main_path(dev, piso, linsolve, CYL3D_MEDIUM, 1, 35)
+    check(runs[0]["cells"] == 341568 and medium["cells"] == 749568,
+          f"not the registered widths: {runs[0]['cells']}, {medium['cells']}")
+    for name, k in (("K3-3D", "K3"), ("K2-mb-3D", "K2-mb")):
+        e = kernels[name]
+        # the main path's launches in the easy runs (resets included)
+        e["launches"] = sum(r["launches"][f"{k} 3d"] for r in runs)
+        steps = [d["K3" if k == "K3" else "K2"] for r in runs
+                 for d in r["step_launches"]]
+        e["launches_per_env_step"] = sum(steps) / len(steps)
+        e["main_path"] = {
+            f"{r['env_id']} {'MARL' if r['marl'] else 'SARL'}":
+            {x: r[x] for x in ("ms_step", "step_ms", "reset_s", "substeps",
+                               "pressure_iterations", "pressure_converged")}
+            for r in runs + [medium]}
+        e["medium_launches"] = medium["launches"][f"{k} 3d"]
+        e["card_vs_host"] = host
 
 
 if __name__ == "__main__":

@@ -1,21 +1,26 @@
 """Base class of the cylinder flow environments, von Karman vortex street
-(counterpart of ``fluidgym_tpu/envs/cylinder/cylinder_env_base.py``, 2D).
+(counterpart of ``fluidgym_tpu/envs/cylinder/cylinder_env_base.py``).
 
-* 5-block curvilinear O-grid + wake block (``grid.py``);
+* 5-block curvilinear O-grid + wake block (``grid.py``), in 3D extruded
+  along a periodic z of extent ``D``;
 * parabolic inflow, convective outflow on the wake's +x face by a PRE hook
   (outflow advection + flux balancing, ``solver/boundaries.py``);
 * solver preset: adaptive substeps, non-orthogonal corrections, pressure
-  tol 1e-5, FD corrector, pressure warm start with deflation,
+  tol 1e-5 (2D) / 5e-7 (3D), FD corrector, pressure warm start with deflation,
   ``make_divergence_free`` at initialization;
-* 151 wake/ring sensors gathered directly from the blocks;
-* drag/lift from wall-stress integration around the cylinder;
+* 151 wake/ring sensors gathered directly from the blocks (at mid z in
+  3D);
+* drag/lift from wall-stress integration around the cylinder (per
+  z-slice in 3D);
 * reward ``cd_ref - cd - lift_penalty*|cl|`` with action smoothing
   ``c <- c + alpha*(a - c)`` per sim step;
 * domain randomization: field noise (numpy draws per block, velocity then
   pressure) + a random number of uncontrolled steps.
 
-Not ported yet: 3D cylinders, rendering to images, the upwind blend of the
-hard tier (Re >= 500 raises).
+Not ported yet: rendering to images, the upwind blend of the hard tier
+(Re >= 500 raises).  The uniform render grid's resample plan is built on
+the first ``get_velocity`` / ``get_pressure`` call, not at every reset (at
+3D widths it is millions of targets and only rendering reads it).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
 
     H: float = 4.1
     L: float = 22.0
+    D: float = 4.0  # z extent in 3D
     cylinder_diameter: float = 1.0
     _U_mean: float = 1.0
     cylinder_offset_y: float = 0.05
@@ -74,8 +80,6 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         differentiable: bool = False,
         device=None,
     ):
-        if ndims != 2:
-            raise NotImplementedError("3D cylinders are not ported yet")
         if reynolds_number >= 500:
             # the JAX package's hard tier blends upwind advection in
             raise NotImplementedError(
@@ -106,6 +110,8 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
          self._bottom_block_idx, self._vortex_street_block_idx) = range(5)
         self._last_control = torch.zeros(self._control_shape, dtype=self._dtype,
                                          device=self._device)
+        self._sensor_locations = self._get_sensor_locations()
+        self._cylinder_mask = self._get_cylinder_mask()
 
     # ------------------------------------------------------------------
     # spaces
@@ -181,7 +187,7 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             substeps=ADAPTIVE,
             adaptive_cfl=self._adaptive_cfl,
             corrector_steps=2,
-            pressure_tol=1e-5,
+            pressure_tol=1e-5 if self._ndims == 2 else 5e-7,
             pressure_return_best_result=True,
             velocity_corrector="FD",
             non_orthogonal=True,
@@ -196,15 +202,15 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             self._state, self._geoms, self._topo, self._cfg)
         if not hasattr(self, "_grid_info"):
             _, self._grid_info = self._build_domain()
-        gi = self._grid_info
         centers = [g.centers.detach().cpu().numpy() for g in self._geoms]
-        self._resample = make_multiblock_plan(
-            centers, self.render_shape[: self._ndims],
-            (gi["x_min"], gi["y_min"]), (gi["x_max"], gi["y_max"]),
-            device=self._device)
-        # the sensors gather their 151 physical points directly
+        self._centers_np = centers  # reused by subclass sensor plans
+        self._resample = None  # built on first use (_render_resample)
+        # the sensors gather their 151 physical points directly (mid z in 3D)
+        pts = self._get_sensor_locations_2d().T
+        if self._ndims == 3:
+            pts = np.concatenate([pts, np.zeros((pts.shape[0], 1))], axis=1)
         self._sensor_sample = make_multiblock_point_plan(
-            centers, self._get_sensor_locations_2d().T, device=self._device)
+            centers, pts, device=self._device)
         self._prepare_drag_and_lift()
         self._last_control = torch.zeros(self._control_shape, dtype=self._dtype,
                                          device=self._device)
@@ -223,6 +229,10 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         ]
 
     @property
+    def _wall_dz(self) -> float:
+        return self.D / self._circle_resolution_angular
+
+    @property
     def _force_scale(self) -> float:
         return 0.5 * self._U_mean ** 2 * self.cylinder_diameter
 
@@ -237,6 +247,34 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     # ------------------------------------------------------------------
     # observations
     # ------------------------------------------------------------------
+    def _sensor_locations_to_grid_coords(self, phys: np.ndarray) -> np.ndarray:
+        """Physical sensor points ``(ndims, n)`` -> integer render-grid
+        indices."""
+        phys = phys.copy()
+        phys[0] += 2.0
+        phys[0] *= (self.render_shape[0] - 1) / (self.L - 2.0)
+        phys[1] += self.H / 2
+        phys[1] *= (self.render_shape[1] - 1) / self.H
+        if self._ndims == 3:
+            phys[2] += self.H / 2
+            phys[2] *= (self.render_shape[1] - 1) / self.H
+        return np.round(phys).astype(np.int32)
+
+    def _get_sensor_locations(self) -> np.ndarray:
+        return self._sensor_locations_to_grid_coords(self._get_sensor_locations_2d())
+
+    def _get_cylinder_mask(self) -> np.ndarray:
+        """The cylinder's cells on the render grid, ``(y, x)`` (``(z, y,
+        x)`` in 3D)."""
+        r = self.cylinder_diameter / 2 * (self.render_shape[1] - 1) / self.H
+        cx = round((self.render_shape[0] - 1) / self.L * 2.0)
+        cy = round((self.render_shape[1] - 1) / self.H * 2.0)
+        Y, X = np.ogrid[: self.render_shape[1], : self.render_shape[0]]
+        mask = np.sqrt((X - cx) ** 2 + (Y - cy) ** 2) <= r
+        if self._ndims == 3:
+            mask = np.repeat(mask[None], self.render_shape[2], axis=0)
+        return mask
+
     def _get_sensor_locations_2d(self) -> np.ndarray:
         """151 wake/ring sensor positions ``(2, 151)``."""
         x_idx = np.arange(1.0, 5.0, 0.5)
@@ -266,17 +304,33 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         """Velocity/pressure at the 151 sensors."""
         u = self._sensor_sample(tuple(b.velocity for b in state.blocks))
         p = self._sensor_sample(tuple(b.pressure for b in state.blocks))
-        return {"velocity": u[: self._ndims].T, "pressure": p}
+        return {"velocity": u.T[:, : self._ndims], "pressure": p}
 
     def _get_global_obs(self) -> dict[str, Tensor]:
         return self._pure_global_obs(self._state)
 
+    def _render_resample(self):
+        """The resample plan to the uniform render grid, built once per
+        reset on first use."""
+        if self._resample is None:
+            gi = self._grid_info
+            lower, upper = (gi["x_min"], gi["y_min"]), (gi["x_max"], gi["y_max"])
+            if self._ndims == 3:
+                lower, upper = lower + (-2.0,), upper + (2.0,)
+            self._resample = make_multiblock_plan(
+                self._centers_np, self.render_shape[: self._ndims], lower,
+                upper, device=self._device)
+        return self._resample
+
     def get_velocity(self) -> Tensor:
-        """Velocity resampled to the uniform render grid."""
-        return self._resample(tuple(b.velocity for b in self._state.blocks))
+        """Velocity resampled to the uniform render grid, zero inside the
+        cylinder."""
+        u = self._render_resample()(tuple(b.velocity for b in self._state.blocks))
+        mask = torch.as_tensor(self._cylinder_mask, device=u.device)
+        return torch.where(mask, torch.zeros_like(u), u)
 
     def get_pressure(self) -> Tensor:
-        return self._resample(tuple(b.pressure for b in self._state.blocks))
+        return self._render_resample()(tuple(b.pressure for b in self._state.blocks))
 
     # ------------------------------------------------------------------
     # stepping

@@ -1,10 +1,11 @@
 """Drag and lift from wall-stress integration around a closed body contour
-(counterpart of ``fluidgym_tpu/envs/util/wall_forces.py``, 2D part).
+(counterpart of ``fluidgym_tpu/envs/util/wall_forces.py``).
 
 A body's wall is an ordered loop of ``(block, face, cell_slice, flip)``
 segments; its static geometry (normals, distances, segment lengths) is
 prepared on the host once, and the per-step fields are gathered with tensor
-ops on the env's device.
+ops on the env's device.  In 3D the loop is one z-slice of the extruded
+wall and the forces come per z-slice.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from fluidgym_tpu_torch.core.domain import DomainState
 from fluidgym_tpu_torch.envs.util.forces import (compute_forces_2d,
+                                                 compute_forces_3d,
                                                  wall_distance_from_vertices)
 
 Tensor = torch.Tensor
@@ -36,13 +38,13 @@ class WallForcesMixin:
     def _prepare_drag_and_lift(self) -> None:
         """Static wall geometry: inward normals, wall distances, tangent and
         face lengths."""
-        if self._ndims != 2:
-            raise NotImplementedError("3D wall forces are not ported yet")
         spec = self._wall_loop_spec()
         coords_list, centers_list = [], []
         for i, (b, f, sl, flip) in enumerate(spec):
             vc = np.asarray(self._blocks_vertex_coords[b])
             cc = self._geoms[b].centers.detach().cpu().numpy()
+            if self._ndims == 3:  # one z-slice of the wall line
+                vc, cc = vc[:2, 0], cc[:2, 0]
             bc, cl = vc[sl], cc[sl]
             if flip:
                 bc = bc[..., ::-1]
@@ -72,10 +74,10 @@ class WallForcesMixin:
         u_list, ub_list, p_list = [], [], []
         for b, f, sl, flip in self._wall_loop_spec():
             blk = state.blocks[b]
-            u = blk.velocity[sl]          # (ndims, N)
+            u = blk.velocity[sl]          # (ndims, [Z,] N)
             p = blk.pressure[sl]
             # squeeze the face axis to match the wall line layout
-            ub = blk.faces[f].velocity.squeeze(-1 if f // 2 == 0 else -2)
+            ub = blk.faces[f].velocity.squeeze(-1 - f // 2)
             if flip:
                 u, p, ub = (torch.flip(t, dims=(-1,)) for t in (u, p, ub))
             u_list.append(u)
@@ -85,10 +87,16 @@ class WallForcesMixin:
                 torch.cat(p_list, dim=-1))
 
     def _pure_drag_lift(self, state: DomainState):
-        """``(cd, cl)`` as 0-d tensors."""
+        """``(cd, cl)``: 0-d tensors in 2D, per z-slice ``(Z,)`` in 3D."""
         u_cell, u_b, p_cell = self._collect_wall_fields(state)
-        forces = compute_forces_2d(
-            u_cell, u_b, p_cell, self._wall_normals, self._tangent_lengths,
-            self._wall_distances, self._wall_face_lengths, self._viscosity)
+        if self._ndims == 2:
+            forces = compute_forces_2d(
+                u_cell, u_b, p_cell, self._wall_normals, self._tangent_lengths,
+                self._wall_distances, self._wall_face_lengths, self._viscosity)
+        else:
+            forces = compute_forces_3d(
+                u_cell, u_b, p_cell, self._wall_normals, self._tangent_lengths,
+                self._wall_distances, self._wall_face_lengths * self._wall_dz,
+                self._viscosity)
         scale = self._force_scale
         return forces[0] / scale, forces[1] / scale

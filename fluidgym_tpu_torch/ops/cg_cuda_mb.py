@@ -26,10 +26,14 @@ neighbour table built once per plan (``neighbor_table``; see
 * ``fused_cg_mb`` (K3) and ``fused_bicgstab_mb`` (K2, both forms) launch the
   CUDA kernels for CUDA tensors (``csrc/cg.cu`` ``fg_cg_mb_solve``,
   ``csrc/bicgstab_mb.cu``) and count each launch, per form:
-  ``fused_cg_mb.launches`` (identity seams) and ``.flip_launches`` (a plan
-  with flip seams, the reflected C-grid cut); ``fused_bicgstab_mb.launches``
-  (single super-block; ``.launches_3d`` those of them in 3D, RBC3D's
-  "K2-3D"), ``.merged_launches`` and ``.merged_flip_launches``.
+  ``fused_cg_mb.launches`` (identity seams; ``.launches_3d`` those of them
+  in 3D, CylinderJet3D's "K3-3D") and ``.flip_launches`` (a plan with flip
+  seams, the reflected C-grid cut); ``fused_bicgstab_mb.launches`` (single
+  super-block; ``.launches_3d`` those of them in 3D, RBC3D's "K2-3D"),
+  ``.merged_launches`` (``.merged_launches_3d`` those of them in 3D,
+  "K2-mb-3D") and ``.merged_flip_launches``.  A 3D merged plan runs the
+  chunk grid (C = 1): its lanes' rows do not fit a cluster's shared
+  memory.
   CPU tensors run the plain versions; any other device raises.  A flip seam
   needs nothing of its own in the kernels: the neighbour table reverses the
   source slab once, when it is built.
@@ -638,6 +642,7 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
             fused_cg_mb.cluster_launches += 1
         if coarse is None and plan.identity_seams:
             fused_cg_mb.launches += 1
+            fused_cg_mb.launches_3d += int(plan.ndims == 3)
         elif coarse is None:
             fused_cg_mb.flip_launches += 1
         elif plan.identity_seams:
@@ -659,6 +664,7 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
 
 
 fused_cg_mb.launches = 0
+fused_cg_mb.launches_3d = 0
 fused_cg_mb.flip_launches = 0
 fused_cg_mb.coarse_launches = 0
 fused_cg_mb.coarse_flip_launches = 0
@@ -728,6 +734,7 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                 fused_bicgstab_mb.cluster_launches += 1
             if plan.identity_seams:
                 fused_bicgstab_mb.merged_launches += 1
+                fused_bicgstab_mb.merged_launches_3d += int(ndims == 3)
             else:
                 fused_bicgstab_mb.merged_flip_launches += 1
         return out
@@ -747,6 +754,7 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 fused_bicgstab_mb.launches = 0
 fused_bicgstab_mb.launches_3d = 0
 fused_bicgstab_mb.merged_launches = 0
+fused_bicgstab_mb.merged_launches_3d = 0
 fused_bicgstab_mb.merged_flip_launches = 0
 fused_bicgstab_mb.cluster_launches = 0
 fused_bicgstab_mb.resident_launches = 0

@@ -186,8 +186,9 @@ def _kernel_operand_ok(ops, topo: DomainTopo) -> bool:
 def _merged_plan(ops, topo: DomainTopo):
     """Gate of the merged kernels (K3 ``ops.cg_cuda_mb.fused_cg_mb`` and K2
     in merged form): a scalar stencil over a multi-block topology whose
-    ``merge_plan`` exists, with identity or flip (reflected, C-grid) seams.
-    Returns the plan or None.
+    ``merge_plan`` exists, with identity or flip (reflected, C-grid) seams,
+    in 2D or 3D (CylinderJet3D's extruded O-grid: identity seams, periodic
+    z).  Returns the plan or None.
 
     Deliberate difference: the JAX package's default ``"auto"`` mode
     declines flip-seam plans (``_fused_cg_mb_plan``/``_fused_bicg_mb_plan``)

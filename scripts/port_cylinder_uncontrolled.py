@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Uncontrolled CylinderJet2D-easy-v0 episode of fluidgym_tpu_torch against
-the bundled reference trace.
+"""Uncontrolled cylinder episode of fluidgym_tpu_torch against the bundled
+reference trace.
 
-    python3 scripts/port_cylinder_uncontrolled.py [--steps 80] [--device cuda]
+    python3 scripts/port_cylinder_uncontrolled.py [--env CylinderJet2D-easy-v0]
+        [--steps 80] [--device cuda]
 
 The bundled dataset ships, beside each initial-domain snapshot, the drag
 and lift of every step of a zero-action episode recorded by the JAX package
 (``<split>_<idx>_uncontrolled_episode.csv``).  This script resets the port's
 env to the same snapshot (``test_00``, no randomization) at the registered
-defaults (resolution 24: 5 blocks, 14,232 cells), takes ``--steps``
-zero-action steps and prints one JSON object: the per-step |delta cd| and
-|delta cl| against the trace (max, and at steps 1, 10, 40, 80), both
-episode means, the trace statistics' p5-p95 bands
-(``domain_statistics.json``), ms per env step, the card's name and power
-limit, and whether the episode-mean drag is within 0.2% of the trace's (the
+defaults of ``--env`` (``CylinderJet2D-easy-v0``: resolution 24, 5 blocks,
+14,232 cells; ``CylinderJet3D-easy-v0``: 5 extruded blocks, 341,568 cells,
+8 jets, SARL), takes ``--steps`` zero-action steps and prints one JSON
+object: the per-step |delta cd| and |delta cl| against the trace (max, at
+steps 1, 10, 40, 80, and every step), the port's and the trace's pressure
+iterations and converged flags per step, both episode means, the trace
+statistics' p5-p95 bands (``domain_statistics.json``), ms per env step,
+the card's name and power limit, whether every step's |delta cd| is within
+1e-3, and whether the episode-mean drag is within 0.2% of the trace's (the
 exit code is 1 if not, or if a value is not finite).  The device defaults
 to the card.
 """
@@ -32,6 +36,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--env", default="CylinderJet2D-easy-v0")
     ap.add_argument("--steps", type=int, default=80)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -39,7 +44,7 @@ def main() -> int:
     import fluidgym_tpu_torch
     from fluidgym_tpu_torch.utils import data_utils
 
-    env = fluidgym_tpu_torch.make("CylinderJet2D-easy-v0", device=args.device,
+    env = fluidgym_tpu_torch.make(args.env, device=args.device,
                                   randomize_initial_state=False,
                                   episode_length=args.steps)
     env.test()
@@ -49,10 +54,12 @@ def main() -> int:
         rows = list(csv.DictReader(fh))
     ref_cd = np.array([float(r["drag"]) for r in rows])
     ref_cl = np.array([float(r["lift"]) for r in rows])
+    ref_its = [int(float(r["pressure_iterations"])) for r in rows]
+    ref_conv = [bool(float(r["pressure_converged"])) for r in rows]
     stats = data_utils.load_statistics(env.initial_domain_id)
     n = min(args.steps, len(ref_cd))
     zero = np.zeros(env.action_space.shape, np.float32)
-    cds, cls = [], []
+    cds, cls, its, conv = [], [], [], []
     sync = torch.cuda.synchronize if env.device.type == "cuda" else (lambda: None)
     sync()
     t = time.perf_counter()
@@ -60,6 +67,8 @@ def main() -> int:
         _, _, _, _, info = env.step(zero)
         cds.append(float(info["drag"]))
         cls.append(float(info["lift"]))
+        its.append(int(info["pressure_iterations"]))
+        conv.append(bool(info["pressure_converged"]))
     sync()
     wall = (time.perf_counter() - t) / n
     cds, cls = np.array(cds), np.array(cls)
@@ -73,13 +82,17 @@ def main() -> int:
     mean_rel = abs(cds.mean() - ref_cd[:n].mean()) / abs(ref_cd[:n].mean())
     finite = bool(np.isfinite(cds).all() and np.isfinite(cls).all())
     out = {
-        "device": str(env.device), "card": card, "steps": n,
+        "env": args.env, "device": str(env.device), "card": card, "steps": n,
         "ms_per_env_step": wall * 1e3,
         "max_abs_dcd": float(dcd.max()), "max_abs_dcl": float(dcl.max()),
         "abs_dcd_at": {str(k): float(dcd[k - 1]) for k in (1, 10, 40, 80)
                        if k <= n},
         "abs_dcl_at": {str(k): float(dcl[k - 1]) for k in (1, 10, 40, 80)
                        if k <= n},
+        "abs_dcd": [float(v) for v in dcd], "abs_dcl": [float(v) for v in dcl],
+        "pressure_iterations": its, "ref_pressure_iterations": ref_its[:n],
+        "pressure_converged": conv, "ref_pressure_converged": ref_conv[:n],
+        "abs_dcd_within_1e-3": bool(dcd.max() <= 1e-3),
         "mean_cd": float(cds.mean()), "ref_mean_cd": float(ref_cd[:n].mean()),
         "mean_cl": float(cls.mean()), "ref_mean_cl": float(ref_cl[:n].mean()),
         "mean_cd_rel_diff": float(mean_rel),

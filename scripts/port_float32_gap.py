@@ -6,6 +6,7 @@ port's tests).
     JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env Airfoil2D-easy-v0
     JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env CylinderJet2D-easy-v0
     JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env RBC3D-easy-v0
+    JAX_PLATFORMS=cpu python3 scripts/port_float32_gap.py --env CylinderJet3D-easy-v0
 
 The configurations are those of the port's float32 tests:
 
@@ -19,7 +20,10 @@ The configurations are those of the port's float32 tests:
   ``train_00``, MARL at the registered defaults, 1 sim step
   (``step_length = dt = 0.05``), actions ``linspace(-1, 1, 64)``;
 * ``RBC2D-wide-easy-v0`` (``tests/test_torch_rbc3d_ids.py``): the bundled
-  ``train_00``, 1 env step of 20 sim steps, actions ``linspace(-1, 1, 24)``.
+  ``train_00``, 1 env step of 20 sim steps, actions ``linspace(-1, 1, 24)``;
+* ``CylinderJet3D-easy-v0`` (``chip_smoke.py`` phase 34): the bundled
+  ``train_00``, SARL at 8 jets, 1 sim step (``step_length = dt = 0.01``),
+  actions ``linspace(0.4, -0.4, 8)``, no domain statistics.
 
 Every run starts from the port's float32 state after ``reset(seed=0)``:
 the port in float32, the JAX package in float32 on its default CPU path
@@ -73,6 +77,11 @@ def main() -> int:
     elif args.env.startswith("RBC2D"):
         kw = dict(randomize_initial_state=False, episode_length=2)
         actions = [np.linspace(-1, 1, 24, dtype=np.float32).reshape(24, 1)]
+        mode = "train"
+    elif args.env.startswith("CylinderJet3D"):
+        kw = dict(randomize_initial_state=False, load_domain_statistics=False,
+                  episode_length=2, step_length=0.01)
+        actions = [np.linspace(0.4, -0.4, 8, dtype=np.float32).reshape(8, 1)]
         mode = "train"
     else:
         kw = dict(randomize_initial_state=False, load_domain_statistics=False,

@@ -112,6 +112,34 @@ def test_cylinder_imports_and_steps_without_card_packages():
     assert "OK" in out.stdout
 
 
+def test_cylinder3d_imports_and_steps_without_card_packages():
+    """CylinderJet3D (slice 10) at resolution 8: the 3D merged plan, the
+    per-z-slice forces and the z-stacked sensor plan need none of the
+    refused packages."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        env = fluidgym_tpu_torch.make(
+            "CylinderJet3D-easy-v0", device="cpu", resolution=8, n_jets=4,
+            load_initial_domain=False, load_domain_statistics=False,
+            randomize_initial_state=False, step_length=0.01, dt=0.01)
+        obs, _ = env.reset(seed=0)
+        obs, reward, *_ , info = env.step(np.full((4, 1), 0.5, np.float32))
+        assert obs["velocity"].shape == (4, 2, 3, 151)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 def test_airfoil_imports_and_steps_without_card_packages():
     """The third registered id: the airfoil C-grid, whose mask is the port's
     own point-in-polygon test (matplotlib is refused here), stepped from

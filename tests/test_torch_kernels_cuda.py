@@ -43,6 +43,12 @@ launch): at both RBC3D blocks, K1 on 1 and 2 lanes and K2's temperature and
 velocity systems, at every G the card holds and in both layouts, bit-equal
 to the chunk grid, five launches back to back bit-equal; a grid the card
 cannot hold raises; a full-width RBC3D step takes it for every solve.
+K3-3D and K2-mb-3D (CylinderJet3D's merged forms: identity seams, periodic
+z, the chunk grid): on the bundled snapshot's full-width pressure (1 and 3
+lanes) and velocity (3 lanes) systems, within the bars above and with the
+plain version's converged flags; ``default_cluster`` gives 1 for these
+lanes and the launcher refuses C > 1 (the rows do not fit); a full-width
+sim step takes them for every solve.
 """
 
 import numpy as np
@@ -1139,3 +1145,141 @@ def test_rbc3d_full_width_step_takes_the_spread_arm():
     assert d[4] == 0, d
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["nusselt"]))
+
+
+# ---------------------------------------------------------------------------
+# K3-3D and K2-mb-3D: the merged frame of the CylinderJet3D-easy-v0 grid
+# ---------------------------------------------------------------------------
+
+CYL3D_CELLS = 341568
+
+
+def _cylinder3d_systems(dev):
+    """Pressure and velocity advection systems of the bundled res-24 3D
+    cylinder snapshot, in the merged frame (2 super-blocks, periodic z)."""
+    from fluidgym_tpu_torch.core.domain_io import load_domain
+    from fluidgym_tpu_torch.solver import stencil as st
+    from fluidgym_tpu_torch.utils import data_utils
+
+    topo, geoms, state = load_domain(
+        data_utils.initial_domain_dir("cylinder_3D_Re100_Res24") / "train_00",
+        device=dev)
+    plan = block_merge.merge_plan(topo)
+    assert plan.ndims == 3 and plan.identity_seams
+    dt = torch.tensor(0.005, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    return topo, state, plan, adv, p_ops
+
+
+@pytest.mark.parametrize("lanes,warm", [(1, True), (3, False)])
+def test_k3_3d_kernel_matches_plain(lanes, warm):
+    dev = require_cuda()
+    _, _, plan, _, p_ops = _cylinder3d_systems(dev)
+    diags, offs = _packed(plan, p_ops)
+    g = torch.Generator().manual_seed(lanes)
+    xs = tuple(torch.randn((lanes,) + tuple(d.shape), generator=g).to(dev)
+               for d in diags)
+    bs = block_merge.merged_apply(plan, tuple(zip(diags, offs)), xs)
+    if lanes == 3:
+        # lane 0 a mean-free random right-hand side, which takes the solve
+        # past the iteration-100 refresh (an A x of random x does not here)
+        mean = sum(x[0].sum() for x in xs) / CYL3D_CELLS
+        bs = tuple(torch.stack([x[0] - mean, 1e-3 * b[1], 0 * b[2]])
+                   for x, b in zip(xs, bs))
+    x0s = (tuple(x + 0.01 * torch.randn(x.shape, generator=g).to(dev) for x in xs)
+           if warm else None)
+    kw = dict(tol=1e-6, maxiter=3000, stall_iters=250, precondition=True,
+              return_best=True)
+    before = (cg_cuda_mb.fused_cg_mb.launches_3d,
+              cg_cuda_mb.fused_cg_mb.cluster_launches)
+    xk, ik = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s, **kw)
+    assert (cg_cuda_mb.fused_cg_mb.launches_3d,
+            cg_cuda_mb.fused_cg_mb.cluster_launches) == (before[0] + 1, before[1])
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    assert b.shape == (lanes, CYL3D_CELLS)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    tol2 = cg_cuda.tol2_sum_f32(1e-6, b.shape[1])
+    xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(
+        plan, diag, off, b, None if x0s is None else
+        cg_cuda_mb.flatten_fields(plan, x0s), tol2_sum=tol2, chunk=1,
+        **{k: v for k, v in kw.items() if k != "tol"})
+    torch.cuda.synchronize()
+    conv = ((rp <= tol2) | (b == 0).all(dim=1)).cpu()
+    assert torch.equal(ik.converged.reshape(-1).cpu(), conv)
+    assert max(abs(a - c) for a, c in zip(ik.iterations.reshape(-1).tolist(),
+                                          ip.tolist())) <= 3
+    xk = cg_cuda_mb.flatten_fields(plan, xk)
+    if lanes == 3:
+        assert bool((xk[2] == 0).all())
+        assert int(ik.iterations[0]) > 100
+    assert_rel(xk.cpu().numpy(), xp.cpu().numpy(), 1e-3)
+
+
+def test_k2_mb_3d_kernel_matches_plain():
+    dev = require_cuda()
+    _, state, plan, adv, _ = _cylinder3d_systems(dev)
+    diags, offs = _packed(plan, adv)
+    vel = [b.velocity for b in state.blocks]
+    per_c = [block_merge.pack_fields(plan, tuple(v[c] for v in vel))
+             for c in range(3)]
+    x0s = tuple(torch.stack([per_c[c][s] for c in range(3)]) for s in range(2))
+    bs = tuple(x * 200.0 for x in x0s)
+    kw = dict(tol=1e-6, maxiter=2000, stall_iters=250, precondition=True,
+              return_best=False)
+    before = cg_cuda_mb.fused_bicgstab_mb.merged_launches_3d
+    xk, ik = cg_cuda_mb.fused_bicgstab_mb(plan, diags, offs, bs, x0s, **kw)
+    assert cg_cuda_mb.fused_bicgstab_mb.merged_launches_3d == before + 1
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    tol2 = cg_cuda.tol2_sum_f32(1e-6, b.shape[1])
+    xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(
+        diag, off, b, cg_cuda_mb.flatten_fields(plan, x0s), ndims=3, plan=plan,
+        tol2_sum=tol2, chunk=1, **{k: v for k, v in kw.items() if k != "tol"})
+    torch.cuda.synchronize()
+    assert bool(ik.converged) == bool((rp <= tol2).all())
+    assert abs(int(ik.iterations) - int(ip.max())) <= 2
+    assert_rel(cg_cuda_mb.flatten_fields(plan, xk).cpu().numpy(),
+               xp.cpu().numpy(), 1e-4)
+
+
+def test_cylinder3d_takes_the_chunk_grid_and_refuses_clusters():
+    """A 3D cylinder lane's rows need ~1.1 MB per block even at C = 16: the
+    rule gives 1, and a forced C > 1 is refused before any launch."""
+    dev = require_cuda()
+    _, _, plan, _, p_ops = _cylinder3d_systems(dev)
+    assert not cg_cuda_mb.rows_fit(CYL3D_CELLS, 16, 3)
+    assert cg_cuda_mb.default_cluster(1, CYL3D_CELLS, 3, 1, dev) == 1
+    assert cg_cuda_mb.default_cluster(3, CYL3D_CELLS, 3, 1, dev, "bicgstab") == 1
+    diags, offs = _packed(plan, p_ops)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = torch.ones((1, CYL3D_CELLS), device=dev)
+    for C in cg_cuda_mb.CLUSTER_SIZES:
+        with pytest.raises(ValueError, match="do not fit"):
+            cg_cuda_mb.merged_launcher(
+                "cg", plan, diag, off, b, None, tol2_sum=1e-6, maxiter=10,
+                stall_iters=250, precondition=True, return_best=True, chunk=1,
+                cluster=C)
+
+
+def test_cylinder3d_full_width_step_takes_the_3d_merged_kernels():
+    """One sim step of CylinderJet3D-easy-v0 at full width from the bundled
+    snapshot: every K3 and K2-mb launch a 3D merged launch on the chunk
+    grid, no plain version."""
+    require_cuda()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    keys = lambda: (k3.launches, k3.launches_3d, k2.merged_launches,
+                    k2.merged_launches_3d, k3.cluster_launches
+                    + k2.cluster_launches, cg_cuda_mb.fused_cg_mb_plain.calls
+                    + cg_cuda_mb.fused_bicgstab_plain.calls)
+    env = fluidgym_tpu_torch.make("CylinderJet3D-easy-v0",
+                                  randomize_initial_state=False,
+                                  step_length=0.01, episode_length=2)
+    env.reset(seed=0)
+    before = keys()
+    obs, reward, *_, info = env.step(np.zeros((8, 1), np.float32))
+    d = [a - c for a, c in zip(keys(), before)]
+    assert d[0] > 0 and d[2] > 0 and d[0] == d[1] == 2 * d[2] == 2 * d[3], d
+    assert d[4] == 0 and d[5] == 0, d
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
