@@ -155,23 +155,32 @@ Phases, each printed with its elapsed seconds:
    (chunk grid, spread, spread, chunk grid) from one reset state, obs
    bit-equal across the arms: ms per env step of each; and RBC2D-wide's
    (61, 192) K1 lane per raw launch at every G against the chunk grid;
-32. K3-3D and K2-mb-3D (the 3D merged forms: identity seams, periodic z,
-   the chunk grid, C = 1) against their plain versions on the solves of a
-   first substep of CylinderJet3D-easy from its bundled ``train_00``
-   snapshot at full width (341,568 cells, 2 super-blocks), captured at the
-   wrappers: the pressure solve cold and warm from the deflated guess, a
-   3-lane pressure run (one zero RHS) past iteration 100, the velocity
-   advection solve (3 lanes); the same converged flags, iterations within
-   3 (K3) / 2 (K2), x within phases 7-8's bars; ``default_cluster`` gives
-   1 and the launcher refuses C = 2; ms per wrapper call and per raw
-   launch, us per iteration, the plain version's ms, the bound;
+32. K3-3D and K2-mb-3D (the 3D merged forms: identity seams, periodic z)
+   against their plain versions on the solves of a first substep of
+   CylinderJet3D-easy from its bundled ``train_00`` snapshot at full width
+   (341,568 cells, 2 super-blocks), captured at the wrappers: the pressure
+   solve cold and warm from the deflated guess, a 3-lane pressure run (one
+   zero RHS) past iteration 100, the velocity advection solve (3 lanes);
+   the same converged flags, iterations within 3 (K3) / 2 (K2), x within
+   phases 7-8's bars; ``default_cluster`` gives 1, the launcher refuses
+   C = 2 and ``merged_arm`` picks the spread arm (G = 128 for K3, 32 for
+   K2-mb's 3 lanes); on each system the spread arm at every G the card
+   holds for the lanes, in both layouts, must return the chunk grid's x,
+   iterations and residual bit for bit, twice, timed against it per raw
+   launch in turns; then CylinderJet3D-medium's first pressure solve
+   (749,568 cells) alike; the rule's arm must be faster per raw launch than
+   the chunk grid for K3-3D at both widths and for K2-mb-3D; ms per wrapper
+   call and per raw launch, us per iteration, the plain version's ms, the
+   bound;
 33. the CylinderJet3D-easy main path: ``make("CylinderJet3D-easy-v0")`` at
    its registered defaults (SARL, 8 jets), ``reset(seed=0)``
    (randomized), 3 steps with fixed numpy actions; then ``use_marl=True``
    (8 agents): reset and 1 step; the counters zeroed just before each
    ``make`` and read after every step: in every step K3 launches twice per
    substep and K2-mb once, every one a 3D merged launch
-   (``.launches_3d`` / ``.merged_launches_3d``) on the chunk grid, and no
+   (``.launches_3d`` / ``.merged_launches_3d``) on the spread arm
+   (``fused_cg_mb.spread_launches`` / ``fused_bicgstab_mb.
+   merged_spread_launches`` equal to them, no cluster launch), and no
    other kernel form, plain version or ``linsolve`` loop runs; drag, lift,
    obs and rewards finite; ms and pressure iterations per env step;
 34. the card against the host for CylinderJet3D-easy: 1 sim step
@@ -179,7 +188,15 @@ Phases, each printed with its elapsed seconds:
    randomization; obs and reward to 1e-4 (see ``CYL3D_HOST_BARS``);
 35. ``CylinderJet3D-medium-v0`` (749,568 cells) at its registered
    defaults: reset from its bundled ``train_00`` (randomized) and 1 step
-   with phase 33's checks.
+   with phase 33's checks;
+36. the merged forms' spread arm against the chunk grid end to end:
+   CylinderJet3D-easy (2 SARL steps; four arms in turns: chunk grid,
+   spread, spread, chunk grid) and -medium (1 step; chunk grid, spread)
+   at their registered defaults, every arm from the state phases 33
+   (SARL) and 35 left, the chunk grid pinned with
+   ``cg_cuda.pinned_spread(0)``; obs bit-equal across the arms; ms per
+   env step of each arm and, for easy, device ms of the first step per
+   arm (``torch.profiler``, CUDA activity only).
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -2106,41 +2123,46 @@ def _captured_systems(dev, env_id) -> dict:
 
 
 def spread_arms(torch, cg_cuda, launcher, lanes: int, n: int, ndims: int,
-                algo: str, reps: int = 3, extra=None) -> dict:
-    """The chunk grid and the spread arm of one roll-form system, in turns:
-    ``launcher(G, chains)`` gives a raw launch on preallocated buffers (G = 0:
-    the chunk grid).  The spread arm runs at every G in
+                algo: str, reps: int = 3, extra=None, merged: bool = False,
+                runs: int = 1) -> dict:
+    """The chunk grid and the spread arm of one system, in turns:
+    ``launcher(G, chains)`` gives a raw launch on preallocated buffers (G =
+    0: the chunk grid).  The spread arm runs at every G in
     ``cg_cuda.SPREAD_SIZES`` whose grid the card holds for ``lanes`` lanes,
     in both layouts (``chains``: each block the cells of its sum chains;
     else a contiguous range, 3D only); each must return the chunk grid's x,
-    iterations and residual bit for bit.  Then ms per raw launch of every
-    arm, in turns (forward, then backward).  Returns the rule's G and
-    layout, the iterations, ms and us per iteration per arm.  ``extra``:
-    more raw launches by name (another revision's chunk grid), held and
-    timed alike."""
+    iterations and residual bit for bit, ``runs`` times back to back.  Then
+    ms per raw launch of every arm, in turns (forward, then backward).
+    ``merged``: a 3D merged lane (K3 / K2-mb: the merged instances'
+    co-residency and layout rule).  Returns the rule's G and layout, the
+    iterations, ms and us per iteration per arm.  ``extra``: more raw
+    launches by name (another revision's chunk grid), held and timed
+    alike."""
     dev = torch.device("cuda")
+    kind = algo + "_mb" if merged else algo
     arms = {"grid": launcher(0, None), **(extra or {})}
     for G in cg_cuda.SPREAD_SIZES:
-        if lanes * G > cg_cuda.spread_capacity(algo, ndims, G, True, n, dev):
+        if lanes * G > cg_cuda.spread_capacity(kind, ndims, G, True, n, dev):
             continue
         for chains in (True, False) if ndims == 3 else (True,):
             arms[f"G={G} {'chains' if chains else 'range'}"] = launcher(G, chains)
     ref = tuple(t.clone() for t in arms["grid"]())
     torch.cuda.synchronize()
     for name, launch in arms.items():
-        out = launch()
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
-              f"{name} differs from the chunk grid: max|dx| "
-              f"{float((out[0] - ref[0]).abs().max()):.3e}, iterations "
-              f"{out[1].tolist()} / {ref[1].tolist()}, residual "
-              f"{out[2].tolist()} / {ref[2].tolist()}")
+        for i in range(runs):
+            out = launch()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  f"{name} (run {i}) differs from the chunk grid: max|dx| "
+                  f"{float((out[0] - ref[0]).abs().max()):.3e}, iterations "
+                  f"{out[1].tolist()} / {ref[1].tolist()}, residual "
+                  f"{out[2].tolist()} / {ref[2].tolist()}")
     ms = {k: 0.0 for k in arms}
     for k in list(arms) + list(reversed(list(arms))):
         ms[k] += cuda_ms(torch, arms[k], reps) / 2
     its = int(ref[1].max())
-    G = cg_cuda.default_spread(lanes, n, ndims, 1, dev, algo)
-    layout = "chains" if cg_cuda.spread_chains(n, G, ndims) else "range"
+    G = cg_cuda.default_spread(lanes, n, ndims, 1, dev, kind)
+    layout = "chains" if cg_cuda.spread_chains(n, G, ndims, merged) else "range"
     rule = f"G={G} {layout}" if G else "grid"
     return dict(iterations=its, rule=rule, raw_ms=ms,
                 us_per_it={k: v * 1e3 / max(its, 1) for k, v in ms.items()})
@@ -2627,8 +2649,14 @@ def _captured_merged(dev, env_id) -> dict:
 
 def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     """Phase 32: K3-3D and K2-mb-3D against their plain versions on the
-    captured solves of CylinderJet3D-easy (``_captured_merged``), timed per
-    wrapper call and per raw launch on preallocated buffers."""
+    captured solves of CylinderJet3D-easy (``_captured_merged``): the
+    pressure solve cold and warm, a 3-lane pressure run past iteration 100,
+    the velocity solve (3 lanes).  On each, the spread arm at every G the
+    card holds for the lanes, in both layouts, bit-equal to the chunk grid
+    twice and timed against it per raw launch in turns (``spread_arms``);
+    ms per wrapper call (the rule's arm), the plain version's ms, the
+    bound.  Then the medium width's first pressure solve (749,568 cells):
+    against the plain version and on every arm alike."""
     import torch
 
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
@@ -2639,8 +2667,6 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     x0s, tol = kw3.pop("x0s"), kw3.pop("tol")
     kw3.pop("coarse_strips", None)
     n = sum(math.prod(sb.shape) for sb in plan.superblocks)
-    seam = sum(math.prod(hi - lo for K, (lo, hi) in enumerate(fx.window)
-                         if K != fx.face // 2) for fx in plan.fixups)
     check(plan.ndims == 3 and plan.identity_seams and len(plan.superblocks) == 2
           and n == 341568 and x0s is not None,
           f"the captured pressure solve is not the 3D merged warm solve: "
@@ -2648,6 +2674,10 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     C = {algo: cg_cuda_mb.default_cluster(L, n, 3, 1, dev, algo)
          for algo, L in (("cg", 1), ("bicgstab", 3))}
     check(C == {"cg": 1, "bicgstab": 1}, f"default_cluster picks {C}, not 1")
+    arm = {algo: cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo)
+           for algo, L in (("cg", 1), ("bicgstab", 3))}
+    check(arm == {"cg": (1, 128), "bicgstab": (1, 32)},
+          f"merged_arm picks {arm}, not G = 128 for K3 and 32 for K2-mb")
     diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
     tol2 = cg_cuda.tol2_sum_f32(tol, n)
     b1 = cg_cuda_mb.flatten_fields(plan, tuple(b.unsqueeze(0) for b in bs))
@@ -2662,16 +2692,17 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     mv3 = cg_cuda_mb._merged_mv(plan, diag, off)
     errs, rows = {"K3-3D": 0.0, "K2-mb-3D": 0.0}, {}
 
-    def run(name, key, algo, b, x0, tol, kw, ops, rel, it_tol, mv, timed):
+    def run(name, key, algo, plan, b, x0, tol, kw, ops, rel, it_tol, mv, reps):
         """One system on flat ``(lanes, n)`` tensors: the wrapper call
         against the plain version (``compare``, and the same converged
-        flags), then, if ``timed``, ms per wrapper call and per raw
-        launch."""
+        flags), then every arm bit for bit and per raw launch in turns
+        (``spread_arms``), ms per wrapper call and the bound."""
         d, o, dg, of = ops
+        nc = b.shape[1]
         last = {}
         wrap = (cg_cuda_mb.fused_cg_mb if algo == "cg"
                 else cg_cuda_mb.fused_bicgstab_mb)
-        t2 = cg_cuda.tol2_sum_f32(tol, n)
+        t2 = cg_cuda.tol2_sum_f32(tol, nc)
 
         def call():
             xs, inf = wrap(plan, dg, of, cg_cuda_mb.unflatten_fields(plan, b),
@@ -2680,7 +2711,7 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
                            tol=tol, chunk=1, **kw)
             x = cg_cuda_mb.flatten_fields(plan, xs)
             if algo == "cg":
-                out = (x, inf.iterations, inf.residual ** 2 * n)
+                out = (x, inf.iterations, inf.residual ** 2 * nc)
                 last["kern"] = inf.converged
             else:
                 out = (x, inf.iterations.repeat(b.shape[0]), None)
@@ -2707,36 +2738,42 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
               f"{name} {key}: converged flags {last['kern'].tolist()} (kernel) "
               f"!= {last['plain'].tolist()} (plain)")
         errs[name] = max(errs[name], e)
-        row = dict(iterations=it, converged=last["kern"].tolist())
-        if timed:
-            L = b.shape[0]
-            raw = cg_cuda_mb.merged_launcher(algo, plan, d, o, b, x0,
-                                             tol2_sum=t2, chunk=1, cluster=1,
-                                             **kw)
-            raw_ms = cuda_ms(torch, raw, 5)
-            b_ms, by, stream = bound_ms(n, L, 3, it, algo, x0 is not None, True,
-                                        seam)
-            row.update(ms=cuda_ms(torch, call, 5), raw_ms=raw_ms,
-                       us_per_it=raw_ms * 1e3 / max(it, 1),
-                       plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms,
-                       bound_by=by, stream_ms=stream)
-            log(f"  {name} {key}: {row['ms']:.3f} ms per wrapper call; raw "
-                f"launch {raw_ms:.3f} ms = {row['us_per_it']:.2f} us/iteration "
-                f"at {it} iterations (plain {row['plain_ms']:.3f} ms; bound "
-                f"{b_ms * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us)")
+        L = b.shape[0]
+        arms = spread_arms(
+            torch, cg_cuda, lambda G, chains: cg_cuda_mb.merged_launcher(
+                algo, plan, d, o, b, x0, tol2_sum=t2, chunk=1, spread=G,
+                chains=chains, **kw), L, nc, 3, algo, reps=reps, merged=True,
+            runs=2)
+        raw, grid = arms["raw_ms"][arms["rule"]], arms["raw_ms"]["grid"]
+        b_ms, by, stream = bound_ms(nc, L, 3, it, algo, x0 is not None, True,
+                                    _seam_cells(plan))
+        row = dict(iterations=it, converged=last["kern"].tolist(),
+                   ms=cuda_ms(torch, call, reps), raw_ms=raw,
+                   us_per_it=raw * 1e3 / max(it, 1), raw_ms_grid=grid,
+                   us_per_it_grid=grid * 1e3 / max(it, 1),
+                   plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms,
+                   bound_by=by, stream_ms=stream, arms=arms)
+        log(f"  {name} {key}: {row['ms']:.3f} ms per wrapper call; raw launch "
+            f"{arms['rule']} {raw:.3f} ms = {row['us_per_it']:.2f} us/iteration"
+            f", chunk grid {grid:.3f} ms = {row['us_per_it_grid']:.2f} "
+            f"({grid / raw:.2f}x) at {it} iterations; every arm bit-equal "
+            f"twice, raw ms "
+            f"{json.dumps({k: round(v, 4) for k, v in arms['raw_ms'].items()})}"
+            f" (plain {row['plain_ms']:.3f} ms; bound {b_ms * 1e3:.3f} us by "
+            f"{by}, streaming {stream * 1e3:.3f} us)")
         rows.setdefault(name, {})[key] = row
         return it
 
     ops3 = (diag, off, diags, offs)
-    run("K3-3D", "cold (1, 341568)", "cg", b1, None, tol, kw3, ops3, 1e-3, 3,
-        mv3, False)
-    run("K3-3D", "warm (1, 341568)", "cg", b1, g1, tol, kw3, ops3, 1e-3, 3, mv3,
-        True)
+    run("K3-3D", "cold (1, 341568)", "cg", plan, b1, None, tol, kw3, ops3,
+        1e-3, 3, mv3, 3)
+    run("K3-3D", "warm (1, 341568)", "cg", plan, b1, g1, tol, kw3, ops3, 1e-3,
+        3, mv3, 3)
     g = torch.Generator().manual_seed(32)
     rand = torch.randn(n, generator=g).to(dev) * b1.abs().max()
     b3 = torch.stack([rand - rand.mean(), 1e-3 * b1[0], torch.zeros_like(b1[0])])
-    it3 = run("K3-3D", "3 lanes (3, 341568)", "cg", b3, None, tol, kw3, ops3,
-              1e-3, 3, mv3, False)
+    it3 = run("K3-3D", "3 lanes (3, 341568)", "cg", plan, b3, None, tol, kw3,
+              ops3, 1e-3, 3, mv3, 1)
     check(it3 > 100, f"the 3-lane K3-3D run stopped at iteration {it3} (<= 100)")
     (plan2, adiags, aoffs, bvs), kw2 = sy["K2"]
     check(plan2 == plan and bvs[0].shape[0] == 3,
@@ -2745,29 +2782,68 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     adiag, aoff = cg_cuda_mb.flatten_ops(plan, adiags, aoffs)
     bv = cg_cuda_mb.flatten_fields(plan, bvs)
     xv = None if xvs is None else cg_cuda_mb.flatten_fields(plan, xvs)
-    run("K2-mb-3D", "velocity (3, 341568)", "bicgstab", bv, xv, tol_a, kw2,
-        (adiag, aoff, adiags, aoffs), 1e-4, 2,
-        cg_cuda_mb._merged_mv(plan, adiag, aoff), True)
+    run("K2-mb-3D", "velocity (3, 341568)", "bicgstab", plan, bv, xv, tol_a,
+        kw2, (adiag, aoff, adiags, aoffs), 1e-4, 2,
+        cg_cuda_mb._merged_mv(plan, adiag, aoff), 3)
+    # the medium width's first pressure solve (warm from the deflated guess)
+    (mplan, mdiags, moffs, mbs), kwm = _captured_merged(dev, CYL3D_MEDIUM)["K3"]
+    mx0s, mtol = kwm.pop("x0s"), kwm.pop("tol")
+    kwm.pop("coarse_strips", None)
+    nm = sum(math.prod(sb.shape) for sb in mplan.superblocks)
+    check(nm == 749568 and mplan.ndims == 3 and mx0s is not None,
+          f"the medium pressure solve is not the 3D merged warm solve ({nm})")
+    check(cg_cuda_mb.merged_arm(1, nm, 3, 1, dev, "cg") == (1, 128),
+          "merged_arm does not pick G = 128 for the medium K3 lane")
+    mdiag, moff = cg_cuda_mb.flatten_ops(mplan, mdiags, moffs)
+    mb = cg_cuda_mb.flatten_fields(mplan, tuple(b.unsqueeze(0) for b in mbs))
+    mg = cg_cuda_mb.flatten_fields(mplan, tuple(x.unsqueeze(0) for x in mx0s))
+    run("K3-3D", "medium warm (1, 749568)", "cg", mplan, mb, mg, mtol, kwm,
+        (mdiag, moff, mdiags, moffs), 1e-3, 3,
+        cg_cuda_mb._merged_mv(mplan, mdiag, moff), 3)
+    for name, key in (("K3-3D", "warm (1, 341568)"),
+                      ("K3-3D", "medium warm (1, 749568)"),
+                      ("K2-mb-3D", "velocity (3, 341568)")):
+        r = rows[name][key]
+        check(r["raw_ms"] < r["raw_ms_grid"],
+              f"{name} {key}: the rule's arm {r['arms']['rule']} "
+              f"({r['raw_ms']:.3f} ms per raw launch) is not faster than the "
+              f"chunk grid ({r['raw_ms_grid']:.3f} ms)")
     for name, key, what, src, rep in (
             ("K3-3D", "warm (1, 341568)", "Jacobi-PCG", "cg.cu", 284),
             ("K2-mb-3D", "velocity (3, 341568)", "right-Jacobi BiCGStab",
              "bicgstab_mb.cu", 458)):
         r = rows[name][key]
+        rule = r["arms"]["rule"]
+        # one entry per TPU kernel, of the arm the main path runs (the
+        # spread arm); the chunk grid's raw launch, timed beside it in
+        # turns, only as raw_ms_grid / us_per_it_grid
         kernels[name] = dict(
             name=f"{name} ({what}, 3D merged frame: identity seams, periodic "
-                 "z; the chunk grid, C = 1)",
+                 f"z; the spread arm, {rule})",
             route="cuda",
             source=f"fluidgym_tpu_torch/csrc/{src} + "
-                   "fluidgym_tpu_torch/csrc/merged.cuh",
+                   "fluidgym_tpu_torch/csrc/merged.cuh + "
+                   "fluidgym_tpu_torch/csrc/krylov.cuh",
             replaces=f"fluidgym_tpu/ops/cg_pallas_mb.py:{rep}",
             max_abs_err=errs[name], ms=r["ms"], raw_ms=r["raw_ms"],
             us_per_it=r["us_per_it"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             stream_ms=r["stream_ms"], library_ms=None,
-            iterations=r["iterations"], cluster=1, shape=key,
+            iterations=r["iterations"], arm=f"spread {rule}",
+            G=int(rule.split()[0][2:]), layout=rule.split()[1],
+            raw_ms_grid=r["raw_ms_grid"], us_per_it_grid=r["us_per_it_grid"],
+            speedup_over_grid=r["raw_ms_grid"] / r["raw_ms"], shape=key,
             systems=rows[name])
-    log(f"phase 32 K3-3D and K2-mb-3D ok (C = 1 from default_cluster, C = 2 "
-        f"refused; {seam} seam cells) in {time.perf_counter() - t0:.1f}s")
+    m = rows["K3-3D"]["medium warm (1, 749568)"]
+    kernels["K3-3D"]["medium"] = {x: m[x] for x in (
+        "iterations", "raw_ms", "us_per_it", "raw_ms_grid", "us_per_it_grid",
+        "ms", "plain_ms", "bound_ms", "bound_by", "stream_ms")}
+    kernels["K3-3D"]["medium"]["rule"] = m["arms"]["rule"]
+    log(f"phase 32 K3-3D and K2-mb-3D ok: the spread arm bit-equal to the "
+        f"chunk grid at every G and layout on {len(rows['K3-3D'])} + "
+        f"{len(rows['K2-mb-3D'])} systems, faster at both widths (C = 1 from "
+        f"default_cluster, C = 2 refused; {_seam_cells(plan)} seam cells) "
+        f"in {time.perf_counter() - t0:.1f}s")
 
 
 def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
@@ -2775,9 +2851,10 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
     ``reset(seed=0)``, then ``steps`` steps with seeded numpy actions.
     Every counter is zeroed just before ``make`` and read after each step:
     in every step K3 launches twice per substep and K2-mb once, every one a
-    3D merged launch on the chunk grid (no cluster launch), and no other
+    3D merged launch on the spread arm (no cluster launch), and no other
     kernel form, plain version or ``linsolve`` loop runs; obs of the
-    space's shapes, obs, rewards, drag and lift finite."""
+    space's shapes, obs, rewards, drag and lift finite.  The result holds
+    the env as the steps left it (phase 36 starts there)."""
     import numpy as np
     import torch
 
@@ -2787,12 +2864,15 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
     k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
     launches, plains = _counters()
     extra = [(k3, "launches_3d"), (k2, "merged_launches_3d"),
-             (k3, "cluster_launches"), (k2, "cluster_launches")]
+             (k3, "cluster_launches"), (k2, "cluster_launches"),
+             (k3, "spread_launches"), (k2, "merged_spread_launches")]
     calls, restore = count_calls(piso, linsolve)
 
     def counts():
         out = {"K3": k3.launches, "K2-mb": k2.merged_launches,
                "K3 3d": k3.launches_3d, "K2-mb 3d": k2.merged_launches_3d,
+               "K3 spread": k3.spread_launches,
+               "K2-mb spread": k2.merged_spread_launches,
                "cluster": k3.cluster_launches + k2.cluster_launches}
         out["other"] = (sum(getattr(*c) for c in launches) - out["K3"]
                         - out["K2-mb"])
@@ -2826,9 +2906,9 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
             step_s = time.perf_counter() - t
             d = {k: v - c0[k] for k, v in counts().items()}
             sub = d["substeps"]
-            expect = {"K3": 2 * sub, "K3 3d": 2 * sub, "K2-mb": sub,
-                      "K2-mb 3d": sub, "cluster": 0, "other": 0, "plain": 0,
-                      "linsolve": 0}
+            expect = {"K3": 2 * sub, "K3 3d": 2 * sub, "K3 spread": 2 * sub,
+                      "K2-mb": sub, "K2-mb 3d": sub, "K2-mb spread": sub,
+                      "cluster": 0, "other": 0, "plain": 0, "linsolve": 0}
             check(sub > 0 and all(d[k] == v for k, v in expect.items()),
                   f"{env_id} step {i}: launches {d}, expected {expect}")
             for k, v in obs.items():
@@ -2860,8 +2940,10 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
                drag=[round(r["drag"], 5) for r in rows],
                lift=[round(r["lift"], 5) for r in rows],
                launches={k: total[k] for k in ("K3", "K2-mb", "K3 3d",
-                                               "K2-mb 3d", "cluster")},
-               step_launches=[{k: r[k] for k in ("K3", "K2")} for r in rows])
+                                               "K2-mb 3d", "K3 spread",
+                                               "K2-mb spread", "cluster")},
+               step_launches=[{k: r[k] for k in ("K3", "K2")} for r in rows],
+               env=env)
     log(f"phase {ph} {env_id} {nb} = {cells} cells "
         f"({'MARL, ' + str(env.n_agents) + ' agents' if env.use_marl else 'SARL'}): "
         f"reset {reset_s:.2f}s (launches {out['reset_launches']}), steps "
@@ -2870,7 +2952,7 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
         f"{out['pressure_iterations']} (converged {out['pressure_converged']}), "
         f"drag {out['drag']}, lift {out['lift']}, per-step launches "
         f"{out['step_launches']}, totals {out['launches']}; all 3D merged on "
-        f"the chunk grid, no other form, plain version or linsolve loop")
+        f"the spread arm, no other form, plain version or linsolve loop")
     return out
 
 
@@ -2918,11 +3000,134 @@ def _cyl3d_card_vs_host(dev) -> dict:
     return dict(card_vs_host=worst, host_threads=order)
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the merged forms' spread arm against the chunk grid, end to end
+# ---------------------------------------------------------------------------
+
+#: phase 36's ids, env steps per arm, the arms in turns, and whether the
+#: first step runs once more per arm under the profiler (a profiled medium
+#: step costs ~30-40 s of host time, so medium's device time comes from
+#: ``scripts/port_step_profile.py``)
+CYL3D_AB = ((CYL3D_EASY, 2, ("grid", "spread", "spread", "grid"), True),
+            (CYL3D_MEDIUM, 1, ("grid", "spread"), False))
+
+
+def device_ms(torch, fn) -> float:
+    """Device time of ``fn()`` in ms: the summed durations of the CUDA
+    activities (kernels, copies, sets) that ``torch.profiler`` records with
+    the CUDA activity alone (no host operators, so no event tree to
+    build)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == DeviceType.CUDA)
+    check(ns > 0, "the profiler recorded no device time")
+    return ns / 1e6
+
+
+def cyl3d_env_ab(dev, env_id: str, env, steps: int, arms,
+                 profiled: bool) -> dict:
+    """``env`` (a CylinderJet3D env made on the card at its registered
+    defaults and stepped, phases 33 and 35), then ``arms`` in turns from its
+    current state (``set_state``): "grid" pins
+    the spread rule to the chunk grid (``cg_cuda.pinned_spread(0)``),
+    "spread" leaves the rule free; each takes the same seeded actions.
+    Every arm's obs must be bit-equal to the first's (the spread arm
+    computes the chunk grid's bits); in the grid arms no merged launch
+    takes the spread arm, in the spread arms every one; no plain version
+    runs.  Then, if ``profiled``, from the same state the first step once
+    more per arm under ``torch.profiler`` (``device_ms``).  Returns ms per
+    env step per arm (host clock around ``step``, ending in a device
+    synchronise), device ms per step, pressure iterations and launches."""
+    import numpy as np
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    _, plains = _counters()
+    count = lambda: (k3.launches_3d, k2.merged_launches_3d, k3.spread_launches,
+                     k2.merged_spread_launches,
+                     k3.cluster_launches + k2.cluster_launches,
+                     sum(getattr(*c) for c in plains))
+    start = env.get_state()
+    rng = np.random.default_rng(36)
+    a_shape = ((env.n_agents, 1) if env.use_marl
+               else tuple(env.action_space.shape))
+    actions = [rng.uniform(-1, 1, a_shape).astype(np.float32)
+               for _ in range(steps)]
+    rows, first = [], None
+    for arm in arms:
+        with cg_cuda.pinned_spread(0 if arm == "grid" else None):
+            env.set_state(start)
+            c0 = count()
+            step_ms, its = [], []
+            for a in actions:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                obs, _, _, _, info = env.step(a)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t))
+                its.append(int(info["pressure_iterations"]))
+        d = [b - a for a, b in zip(c0, count())]
+        first = obs if first is None else first
+        check(all(torch.equal(obs[k], first[k]) for k in obs),
+              f"{env_id} {arm} arm: obs differ from the first arm's")
+        spread = d[2] == d[0] > 0 and d[3] == d[1] > 0
+        check((spread if arm == "spread" else d[2] == d[3] == 0)
+              and d[4] == d[5] == 0,
+              f"{env_id} {arm} arm: launches K3 3d, K2-mb 3d, K3 spread, "
+              f"K2-mb spread, cluster, plain {d}")
+        rows.append(dict(arm=arm, ms_per_step=step_ms,
+                         mean_ms=sum(step_ms) / len(step_ms),
+                         pressure_iterations=its, launches=d))
+    dev_ms = {}
+    for arm in ("grid", "spread") if profiled else ():
+        with cg_cuda.pinned_spread(0 if arm == "grid" else None):
+            env.set_state(start)
+            dev_ms[arm] = device_ms(torch, lambda: env.step(actions[0]))
+    mean = lambda a: (sum(r["mean_ms"] for r in rows if r["arm"] == a)
+                      / sum(r["arm"] == a for r in rows))
+    return dict(env_id=env_id, steps=steps, arms=rows, grid_ms=mean("grid"),
+                spread_ms=mean("spread"),
+                speedup=mean("grid") / mean("spread"),
+                device_ms_first_step=dev_ms)
+
+
+def _cyl3d_ab_phase(dev, kernels, envs) -> None:
+    """Phase 36: ms per env step of CylinderJet3D-easy (2 SARL steps, four
+    arms in turns; and device ms per step) and -medium (1 step, two arms)
+    under the merged forms' spread arm and the chunk grid
+    (``cyl3d_env_ab``), from the states where phases 33 (SARL) and 35 left
+    ``envs`` (by id)."""
+    t0 = time.perf_counter()
+    ab = {}
+    for env_id, steps, arms, profiled in CYL3D_AB:
+        r = ab[env_id] = cyl3d_env_ab(dev, env_id, envs[env_id], steps, arms,
+                                      profiled)
+        log(f"  {env_id}: chunk grid {r['grid_ms']:.1f} ms/env step, spread "
+            f"arm {r['spread_ms']:.1f} ({r['speedup']:.2f}x); per arm "
+            + ", ".join(f"{x['arm']} {[round(v, 1) for v in x['ms_per_step']]}"
+                        for x in r["arms"])
+            + f"; device ms of the first step "
+              f"{json.dumps({k: round(v, 1) for k, v in r['device_ms_first_step'].items()})}"
+              f"; pressure iterations {r['arms'][0]['pressure_iterations']}, "
+              f"obs bit-equal across the arms")
+    kernels["K3-3D"]["main_path_ab"] = ab
+    log(f"phase 36 merged spread arm A/B ok in {time.perf_counter() - t0:.1f}s")
+
+
 def _cyl3d_phases(dev, kernels, compare, piso, linsolve) -> None:
-    """Phases 32-35: K3-3D and K2-mb-3D against their plain versions (32);
-    the CylinderJet3D-easy-v0 main path, 3 SARL steps (its default) and 1
-    MARL step (33); card against host (34); CylinderJet3D-medium-v0, 1 step
-    (35)."""
+    """Phases 32-36: K3-3D and K2-mb-3D against their plain versions and the
+    spread arm against the chunk grid (32); the CylinderJet3D-easy-v0 main
+    path, 3 SARL steps (its default) and 1 MARL step (33); card against host
+    (34); CylinderJet3D-medium-v0, 1 step (35); the two arms end to end
+    (36)."""
     _cyl3d_kernel_phase(dev, kernels, compare)
     runs = [_cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 3, 33),
             _cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 1, 33,
@@ -2945,6 +3150,8 @@ def _cyl3d_phases(dev, kernels, compare, piso, linsolve) -> None:
             for r in runs + [medium]}
         e["medium_launches"] = medium["launches"][f"{k} 3d"]
         e["card_vs_host"] = host
+    _cyl3d_ab_phase(dev, kernels, {CYL3D_EASY: runs[0]["env"],
+                                   CYL3D_MEDIUM: medium["env"]})
 
 
 if __name__ == "__main__":

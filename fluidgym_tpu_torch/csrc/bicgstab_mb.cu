@@ -59,7 +59,10 @@
 // barriers close the loop's top (pass 1 gathers p_hat), pass 2 (pass 3
 // gathers s_hat) and each of the three sums: five per iteration in the
 // chains layout, eight in the range layout.  RBC3D's velocity solve (3
-// lanes) takes G = 32, its temperature solve G = 128.
+// lanes) takes G = 32, its temperature solve G = 128.  The merged form
+// over a 3D plan (entry fg_bicgstab_mb_solve with spread = G) takes the
+// same arm with the neighbour-table matvec, the table read from L2:
+// CylinderJet3D's velocity solve (3 lanes) at G = 32.
 #include "krylov.cuh"
 
 // one 1024-thread block per SM: see fg_cg_kernel's launch bounds; SPREAD
@@ -82,8 +85,9 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!CLUSTER || TABLE, "cluster arm: K2-mb only");
   static_assert(!RESIDENT || (ND == 2 && !TABLE && !CLUSTER),
                 "resident arm: K2 over the trivial plan, in 2D only");
-  static_assert(!SPREAD || (!TABLE && !CLUSTER && !RESIDENT),
-                "spread arm: K2 over the trivial plan only");
+  static_assert(!SPREAD || (!CLUSTER && !RESIDENT && (!TABLE || ND == 3)),
+                "spread arm: K2 over the trivial plan, and over a 3D merged "
+                "plan");
   constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
@@ -386,11 +390,17 @@ extern "C" int fg_bicgstab_spread_capacity(int ndims, int spread, int chains,
 // fixups, identity or flip): each lane is one flat buffer of n cells, the
 // matvec goes through the plan's neighbour table (merged.cuh) and every
 // lane's dot products are joint over the super-blocks.  Semantics as above.
-// `cluster` as in cg.cu fg_cg_mb_solve: 1 is the chunk grid, C in 2, 4, 8,
-// 16 (chunk 1) the cluster arm.
+// `cluster`, `spread`, `chains`, `bar` and `slot` as in cg.cu
+// fg_cg_mb_solve: 1 and 0 is the chunk grid, C in 2, 4, 8, 16 (chunk 1) the
+// cluster arm, G in 32, 64, 128 (chunk 1, a 3D plan) the spread arm.
 static FgBicgKernel fg_bicg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_bicg_kernel<2, true, true>
                     : fg_bicg_kernel<3, true, true>;
+}
+
+static FgBicgKernel fg_bicg_mb_spread_kernel(int chains) {
+  return chains ? fg_bicg_kernel<3, true, false, false, FG_ARM_CHAINS>
+                : fg_bicg_kernel<3, true, false, false, FG_ARM_RANGE>;
 }
 
 extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
@@ -398,18 +408,26 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
                                     const float* x0, float* x, int* iters,
                                     float* rs, float* r, float* rhat, float* p,
                                     float* phat, float* v, float* shat,
-                                    float* t, float* best, int lanes,
-                                    int chunk, int cluster, int n,
+                                    float* t, float* best, unsigned* bar,
+                                    float* slot, int lanes, int chunk,
+                                    int cluster, int spread, int chains, int n,
                                     int ndims, int op_per_lane, float tol2,
                                     int maxiter, int stall_iters,
                                     int precondition, int return_best,
                                     int warm_start, void* stream) {
-  const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr ||
-      !fg_cluster_ok(cluster, chunk))
+  if (!fg_merged_args_ok(lanes, chunk, cluster, spread, chains, ndims, nbr,
+                         bar, slot))
     return (int)cudaErrorInvalidValue;
+  const int blocks = fg_chunk_blocks(lanes, chunk);
   const FgGrid g = fg_grid(1, 1, n);
   cudaStream_t s = (cudaStream_t)stream;
+  if (spread)
+    return (int)fg_launch_spread(
+        fg_bicg_mb_spread_kernel(chains), lanes, spread,
+        fg_spread_bytes(n, spread), bar, s, b, diag, off, nbr, x0, x, iters,
+        rs, r, rhat, p, phat, v, shat, t, best, lanes, 1, g, op_per_lane,
+        tol2, maxiter, stall_iters, precondition, return_best, warm_start,
+        FgSpread{bar, reinterpret_cast<float2*>(slot), spread});
   if (cluster > 1) {
     return (int)fg_launch_clusters(
         fg_bicg_cluster_kernel(ndims), lanes, cluster,
@@ -430,6 +448,17 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
         return_best, warm_start, FgSpread{});
   }
   return (int)cudaGetLastError();
+}
+
+// How many blocks of K2-mb's spread arm (a 3D plan) the card holds at once,
+// into *out (as cg.cu fg_cg_mb_spread_capacity).
+extern "C" int fg_bicgstab_mb_spread_capacity(int ndims, int spread,
+                                              int chains, int n, int* out) {
+  if (ndims != 3 || !fg_spread_ok(spread) ||
+      !fg_spread_layout_ok(ndims, chains))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_resident_blocks(fg_bicg_mb_spread_kernel(chains),
+                                 fg_spread_bytes(n, spread), out);
 }
 
 // How many C-block clusters of K2-mb's cluster arm the card holds at once,

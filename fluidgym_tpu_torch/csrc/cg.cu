@@ -82,6 +82,15 @@
 // serial part is each chain: ceil(n / T) dependent adds per sum (164 at
 // (64, 41, 64), 656 at (128, 41, 128)).
 //
+// K3 over a 3D merged plan (CylinderJet3D: 341,568 or 749,568 cells, whose
+// rows no cluster's shared memory holds) takes the same spread arm (entry
+// fg_cg_mb_solve with spread = G): the matvec goes through the neighbour
+// table (merged.cuh), the rows and the table (13 words per cell) read from
+// L2 with read-only loads, the gathered vector through L2 (fg_ld<true>).
+// On one SM per lane (the chunk grid) its pass ran ~1.5 ns per cell, the
+// issue of one SM's gathers; the arm spreads that issue over G SMs with
+// the chunk grid's arithmetic and sums.
+//
 // In every form thread 0 updates a lane's scalars (alpha; beta, the best
 // residual) right after the lane's sum, and every thread reads the lanes'
 // state at the top of the loop to decide whether to go on: one barrier per
@@ -219,8 +228,9 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!CLUSTER || (TABLE && !COARSE), "cluster arm: K3 only");
   static_assert(!RESIDENT || (ND == 2 && !TABLE && !COARSE && !CLUSTER),
                 "resident arm: K1 in 2D only");
-  static_assert(!SPREAD || (!TABLE && !COARSE && !CLUSTER && !RESIDENT),
-                "spread arm: K1 only");
+  static_assert(!SPREAD || (!COARSE && !CLUSTER && !RESIDENT &&
+                            (!TABLE || ND == 3)),
+                "spread arm: K1, and K3 over a 3D plan");
   constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
@@ -539,28 +549,46 @@ extern "C" int fg_cg_spread_capacity(int ndims, int spread, int chains, int n,
 // lane is one flat buffer of n cells holding all super-blocks, the matvec
 // goes through the plan's neighbour table (merged.cuh), so every dot
 // product is joint over the super-blocks.  Semantics as K1 above.
-// `cluster` = 1: the chunk grid, one block per chunk of lanes; `cluster` =
-// C in 2, 4, 8, 16 (chunk 1): the cluster arm, one lane over C blocks
-// (lanes * C blocks), each block's operator rows in shared memory (a size
-// whose rows do not fit is refused: cudaFuncSetAttribute fails).
+// `cluster` = 1, `spread` = 0: the chunk grid, one block per chunk of
+// lanes; `cluster` = C in 2, 4, 8, 16 (chunk 1): the cluster arm, one lane
+// over C blocks (lanes * C blocks), each block's operator rows in shared
+// memory (a size whose rows do not fit is refused: cudaFuncSetAttribute
+// fails); `spread` = G in 32, 64, 128 (chunk 1, cluster 1, a 3D plan):
+// the spread arm as K1's, the rows and the table read from L2, `chains`,
+// `bar` and `slot` as in fg_cg_solve (a grid the card cannot hold at once
+// is refused).
 static FgCgKernel fg_cg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_cg_kernel<2, true, false, true>
                     : fg_cg_kernel<3, true, false, true>;
+}
+
+static FgCgKernel fg_cg_mb_spread_kernel(int chains) {
+  return chains ? fg_cg_kernel<3, true, false, false, false, FG_ARM_CHAINS>
+                : fg_cg_kernel<3, true, false, false, false, FG_ARM_RANGE>;
 }
 
 extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
                               const float* off, const int* nbr,
                               const float* x0, float* x, int* iters, float* rs,
                               float* r, float* p, float* q, float* best,
-                              int lanes, int chunk, int cluster, int n, int ndims, int op_per_lane, float tol2,
+                              unsigned* bar, float* slot, int lanes, int chunk,
+                              int cluster, int spread, int chains, int n,
+                              int ndims, int op_per_lane, float tol2,
                               int maxiter, int stall_iters, int precondition,
                               int return_best, int warm_start, void* stream) {
-  const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || (ndims != 2 && ndims != 3) || nbr == nullptr ||
-      !fg_cluster_ok(cluster, chunk))
+  if (!fg_merged_args_ok(lanes, chunk, cluster, spread, chains, ndims, nbr,
+                         bar, slot))
     return (int)cudaErrorInvalidValue;
+  const int blocks = fg_chunk_blocks(lanes, chunk);
   const FgGrid g = fg_grid(1, 1, n);
   cudaStream_t s = (cudaStream_t)stream;
+  if (spread)
+    return (int)fg_launch_spread(
+        fg_cg_mb_spread_kernel(chains), lanes, spread,
+        fg_spread_bytes(n, spread), bar, s, b, diag, off, nbr, x0, x, iters,
+        rs, r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter,
+        stall_iters, precondition, return_best, warm_start, FgCoarse{},
+        FgSpread{bar, reinterpret_cast<float2*>(slot), spread});
   if (cluster > 1) {
     return (int)fg_launch_clusters(
         fg_cg_cluster_kernel(ndims), lanes, cluster,
@@ -581,6 +609,18 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
         warm_start, FgCoarse{}, FgSpread{});
   }
   return (int)cudaGetLastError();
+}
+
+// How many blocks of K3's spread arm (a 3D plan, G blocks per lane over n
+// cells, layout `chains`) the card holds at once, into *out (as
+// fg_cg_spread_capacity; the merged instances' registers are their own).
+extern "C" int fg_cg_mb_spread_capacity(int ndims, int spread, int chains,
+                                        int n, int* out) {
+  if (ndims != 3 || !fg_spread_ok(spread) ||
+      !fg_spread_layout_ok(ndims, chains))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_resident_blocks(fg_cg_mb_spread_kernel(chains),
+                                 fg_spread_bytes(n, spread), out);
 }
 
 // How many C-block clusters of K3's cluster arm (ndims, over n cells) the

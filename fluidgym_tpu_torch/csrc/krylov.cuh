@@ -2,7 +2,8 @@
 // K2 bicgstab_mb.cu): the stencil applies, block-wide sums, the cluster
 // arm of the merged-frame forms (one lane over a thread-block cluster), the
 // resident arm of the roll forms (one lane in one block's shared memory)
-// and their spread arm (one lane over G co-resident blocks).
+// and the spread arm of the 3D roll and merged forms (one lane over G
+// co-resident blocks).
 //
 // Layout (identical to the PyTorch side): a lane's field is a contiguous
 // (nz, ny, nx) array (nz = 1 in 2D), x the minor axis; the stencil
@@ -173,15 +174,15 @@ struct FgRows {
 };
 
 // The stencil apply of either frame: roll-form over one (nz, ny, nx) grid
-// (TABLE false), or the merged frame's neighbour table.  CG: the roll form
-// reads v through L2 (the spread arm).
+// (TABLE false), or the merged frame's neighbour table.  CG: v is read
+// through L2 (the spread arm).
 template <int ND, bool TABLE, bool CG = false>
 __device__ __forceinline__ float fg_apply(const FgRows& R,
                                           const float* __restrict__ v, int c,
                                           const FgGrid& g) {
-  static_assert(!(CG && TABLE), "coherent loads: the roll form only");
   if (TABLE)
-    return fg_table_matvec<ND>(R.dg, R.of, R.nb, R.stride, v, c, c - R.base);
+    return fg_table_matvec<ND, CG>(R.dg, R.of, R.nb, R.stride, v, c,
+                                   c - R.base);
   return fg_matvec<ND, CG>(R.dg, R.of, v, c, g);
 }
 
@@ -197,10 +198,12 @@ __device__ __forceinline__ float fg_apply(const FgRows& R,
 //                   thread-block cluster of C blocks (C in 2, 4, 8, 16), each
 //                   block a contiguous range of cells, its operator rows in
 //                   shared memory;
-//   FG_ARM_RANGE    the 3D roll forms (K1, K2 over the trivial plan): one
+//   FG_ARM_RANGE    the 3D roll forms (K1, K2 over the trivial plan) and
+//                   the 3D merged forms (K3, K2-mb over a 3D plan): one
 //                   lane over G co-resident blocks (G in 32, 64, 128) of a
 //                   cooperative launch, each block a contiguous range, the
-//                   rows read from global memory (L2);
+//                   rows (and the neighbour table) read from global memory
+//                   (L2);
 //   FG_ARM_CHAINS   the same launch (2D or 3D), each block the cells of its
 //                   sum chains (below) instead of a range.
 // In every arm the per-cell arithmetic is the one-block form's, and every
@@ -584,6 +587,21 @@ inline bool fg_roll_args_ok(int lanes, int chunk, int resident, int spread,
   if (resident && (spread || !fg_resident_ok(n, ndims, chunk))) return false;
   return !spread || (fg_spread_ok(spread) && chunk == 1 && bar != nullptr &&
                      slot != nullptr && fg_spread_layout_ok(ndims, chains));
+}
+
+// The same for the merged-frame entries (K3 in cg.cu, K2-mb in
+// bicgstab_mb.cu) and their arms (chunk grid, cluster, spread): the spread
+// arm takes chunk 1, no cluster, G in 32, 64, 128, its global memory and
+// a 3D plan (the 2D merged lanes keep the cluster arm).
+inline bool fg_merged_args_ok(int lanes, int chunk, int cluster, int spread,
+                              int chains, int ndims, const void* nbr,
+                              const void* bar, const void* slot) {
+  if (fg_chunk_blocks(lanes, chunk) == 0 || (ndims != 2 && ndims != 3) ||
+      nbr == nullptr || !fg_cluster_ok(cluster, chunk))
+    return false;
+  return !spread || (fg_spread_ok(spread) && chunk == 1 && cluster == 1 &&
+                     ndims == 3 && bar != nullptr && slot != nullptr &&
+                     fg_spread_layout_ok(ndims, chains));
 }
 
 // the first of the resident vectors, after the staged rows; vector k starts

@@ -22,7 +22,9 @@
 // super-blocks, and the matvec is one gather per face.  The table holds
 // 2*ndims int32 per cell (the cylinder: 4 x 14,232 x 4 B = 228 KB), read
 // from L2 like the coefficients, or from shared memory in the cluster arm,
-// where each block stages the rows of its own range once per solve.
+// where each block stages the rows of its own range once per solve.  The
+// spread arm of a 3D plan (krylov.cuh) reads the rows and the table from
+// L2 and the gathered vector through L2 (fg_ld<true>).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,17 +32,20 @@
 // (A v)_c = diag_c v_c + sum_f off_f,c v_nbr_f(c), summed in face order.
 // The operator rows are read at row i of arrays with face stride `stride`:
 // i = c, stride = n for the lane's rows in global memory, or a block's rows
-// staged in shared memory (krylov.cuh fg_stage_rows).
-template <int ND>
+// staged in shared memory (krylov.cuh fg_stage_rows).  CG: v is read
+// through L2 with fg_ld<true> (the spread arm, whose v other blocks write);
+// the rows and the table, which no block writes, keep their read-only
+// loads.
+template <int ND, bool CG = false>
 __device__ __forceinline__ float fg_table_matvec(const float* __restrict__ diag,
                                                  const float* __restrict__ off,
                                                  const int* __restrict__ nbr,
                                                  int stride,
                                                  const float* __restrict__ v,
                                                  int c, int i) {
-  float y = diag[i] * v[c];
+  float y = diag[i] * fg_ld<CG>(v + c);
 #pragma unroll
   for (int f = 0; f < 2 * ND; ++f)
-    y = y + off[f * stride + i] * v[nbr[f * stride + i]];
+    y = y + off[f * stride + i] * fg_ld<CG>(v + nbr[f * stride + i]);
   return y;
 }

@@ -46,14 +46,17 @@ _ARGTYPES = {
     # ndims, spread, chains, n, out (int*)
     "fg_cg_spread_capacity": [_I] * 4 + [_P],
     "fg_bicgstab_spread_capacity": [_I] * 4 + [_P],
-    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk,
-    # cluster, n, ndims, op_per_lane, tol2, maxiter, stall, precond, best?,
-    # warm, stream
-    "fg_cg_mb_solve": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
-    # b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
-    # best, lanes, chunk, cluster, n, ndims, op_per_lane, tol2, maxiter,
+    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, bar, slot, lanes,
+    # chunk, cluster, spread, chains, n, ndims, op_per_lane, tol2, maxiter,
     # stall, precond, best?, warm, stream
-    "fg_bicgstab_mb_solve": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "fg_cg_mb_solve": [_P] * 14 + [_I] * 8 + [_F] + [_I] * 5 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, rhat, p, phat, v, shat, t,
+    # best, bar, slot, lanes, chunk, cluster, spread, chains, n, ndims,
+    # op_per_lane, tol2, maxiter, stall, precond, best?, warm, stream
+    "fg_bicgstab_mb_solve": [_P] * 18 + [_I] * 8 + [_F] + [_I] * 5 + [_P],
+    # ndims, spread, chains, n, out (int*)
+    "fg_cg_mb_spread_capacity": [_I] * 4 + [_P],
+    "fg_bicgstab_mb_spread_capacity": [_I] * 4 + [_P],
     # ndims, cluster, n, out (int*)
     "fg_cg_mb_cluster_occupancy": [_I] * 3 + [_P],
     "fg_bicgstab_mb_cluster_occupancy": [_I] * 3 + [_P],

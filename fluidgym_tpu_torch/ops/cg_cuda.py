@@ -34,7 +34,9 @@ answer inside a ``with`` block (tests and A/B scripts);
 ``fused_cg.resident_launches`` counts the launches that took it.
 
 The spread arm (K1 and K2 over the trivial plan, for lanes too big for one
-SM: RBC3D's): one lane over G co-resident blocks (G in ``SPREAD_SIZES``)
+SM: RBC3D's; K3 and K2-mb over a 3D merged plan take it through
+``cg_cuda_mb.merged_arm``): one lane over G co-resident blocks (G in
+``SPREAD_SIZES``)
 of one cooperative launch, the operator rows read from global memory,
 each block its share of the lane's cells (the cells of its sum chains,
 ``chain_cells``, or a contiguous range, ``block_ranges``: ``spread_chains``
@@ -89,8 +91,8 @@ SPREAD_SIZES = (128, 64, 32)
 #: (366 cells per block) than on the chunk grid: K1 0.56 against 0.88 ms
 #: per raw launch, K2 0.10 against 0.15 (scripts/port_spread_ab.py)
 SPREAD_MIN_CELLS = 256
-#: cells per thread from which a G = 128 spread lane takes the range layout
-#: (``spread_chains``)
+#: cells per thread from which a G = 128 spread lane of a roll form takes
+#: the range layout (``spread_chains``)
 SPREAD_RANGE_CELLS = 4
 
 _PINNED_RESIDENT: bool | None = None
@@ -203,15 +205,24 @@ def spread_fits(n: int, G: int) -> bool:
     return spread_bytes(n, G) <= SMEM_PER_BLOCK - SMEM_STATIC
 
 
+#: the C entry that answers the spread arm's co-residency, by ``algo``: the
+#: roll forms (K1, K2 over the trivial plan) and the 3D merged forms (K3,
+#: K2-mb), whose instances' registers differ
+_SPREAD_CAPACITY = {"cg": "fg_cg_spread_capacity",
+                    "bicgstab": "fg_bicgstab_spread_capacity",
+                    "cg_mb": "fg_cg_mb_spread_capacity",
+                    "bicgstab_mb": "fg_bicgstab_mb_spread_capacity"}
+
+
 @functools.lru_cache(maxsize=None)
 def spread_capacity(algo: str, ndims: int, G: int, chains: bool, n: int,
                     device: torch.device) -> int:
     """How many blocks of the spread arm of ``algo`` (``"cg"``: K1,
-    ``"bicgstab"``: K2) the card holds at once: blocks per SM (the
-    occupancy API) times SMs.  A cooperative launch of more is refused."""
-    lib = _build.library()
-    entry = (lib.fg_cg_spread_capacity if algo == "cg"
-             else lib.fg_bicgstab_spread_capacity)
+    ``"bicgstab"``: K2 over the trivial plan, ``"cg_mb"``: K3 and
+    ``"bicgstab_mb"``: K2-mb over a 3D merged plan) the card holds at once:
+    blocks per SM (the occupancy API) times SMs.  A cooperative launch of
+    more is refused."""
+    entry = getattr(_build.library(), _SPREAD_CAPACITY[algo])
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         status = entry(ndims, G, int(chains), n, ctypes.addressof(out))
@@ -221,44 +232,56 @@ def spread_capacity(algo: str, ndims: int, G: int, chains: bool, n: int,
 
 def default_spread(lanes: int, n: int, ndims: int, chunk: int, device,
                    algo: str = "cg") -> int:
-    """Blocks per lane G of a roll-form solve (K1: ``algo="cg"``, K2 over
-    the trivial plan: ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells:
-    on the card with one lane per block (``chunk == 1``), the largest G in
-    ``SPREAD_SIZES`` with at least ``SPREAD_MIN_CELLS`` cells per block, its
-    chain terms in shared memory (``spread_fits``) and ``lanes * G`` blocks
-    co-resident (``spread_capacity``); else 0 (the chunk grid), as on the
-    CPU.  A dispatch by shape: nothing falls back on a refused launch.
-    ``pinned_spread`` overrides it where the arm can run (the card, chunk
-    1).  The wrappers ask it only for a lane the resident arm does not take
-    (``roll_arm``)."""
+    """Blocks per lane G of a spread-arm form (K1 ``"cg"``, K2 over the
+    trivial plan ``"bicgstab"``, K3 / K2-mb over a 3D merged plan
+    ``"cg_mb"`` / ``"bicgstab_mb"``) over ``lanes`` lanes of
+    ``n`` cells: on the card with one lane per block (``chunk == 1``), the
+    largest G in ``SPREAD_SIZES`` with at least ``SPREAD_MIN_CELLS`` cells
+    per block, its chain terms in shared memory (``spread_fits``) and
+    ``lanes * G`` blocks co-resident (``spread_capacity``); else 0 (the
+    chunk grid), as on the CPU.  A dispatch by shape: nothing falls back on
+    a refused launch.  ``pinned_spread`` overrides it where the arm can run
+    (the card, chunk 1).  The wrappers ask it only for a lane the resident
+    arm (``roll_arm``) or the cluster arm (``cg_cuda_mb.merged_arm``) does
+    not take."""
     if torch.device(device).type != "cuda" or chunk != 1 or lanes < 1:
         return 0
     if _PINNED_SPREAD is not None:
         return _PINNED_SPREAD
+    merged = algo.endswith("_mb")
     for G in SPREAD_SIZES:
         if n < SPREAD_MIN_CELLS * G or not spread_fits(n, G):
             continue
         if lanes * G <= spread_capacity(algo, ndims, G,
-                                        spread_chains(n, G, ndims), n,
+                                        spread_chains(n, G, ndims, merged), n,
                                         torch.device(device)):
             return G
     return 0
 
 
-def spread_chains(n: int, G: int, ndims: int) -> bool:
+def spread_chains(n: int, G: int, ndims: int, merged: bool = False) -> bool:
     """The spread arm's layout over ``n``-cell lanes at G blocks per lane:
     each block the cells of its sum chains (True), or, in 3D, a contiguous
     range (False) at G = 128 from ``SPREAD_RANGE_CELLS`` cells per thread
-    of a block (the range layout is built for 3D lanes only).  The chains layout puts each pass's terms of a sum straight into
-    shared memory: one lane barrier per sum where the range layout needs
-    two and a second read of the vectors.  But a row of a block's chains is
-    a run of only THREADS / G cells, 8 (one 32-byte sector) at G = 128, so
-    a stencil pass reads about twice the L2 sectors of a contiguous range;
-    on a big lane that outweighs the barrier.  On the H100 (phase 25):
-    (128, 41, 128) at G = 128, K1 1.02 ms per raw launch in the range layout
-    against 1.18 in the chains layout, K2's temperature 0.36 against 0.40;
-    at (64, 41, 64), and at G = 32 or 64 on either block, the chains layout
-    wins (K1 0.47 against 0.53 ms at G = 128)."""
+    of a block (the range layout is built for 3D lanes only).  The chains
+    layout puts each pass's terms of a sum straight into shared memory: one
+    lane barrier per sum where the range layout needs two and a second read
+    of the vectors.  But a row of a block's chains is a run of only THREADS
+    / G cells, 8 (one 32-byte sector) at G = 128, so a stencil pass reads
+    about twice the L2 sectors of a contiguous range; on a big lane that
+    outweighs the barrier.  On the H100 (phase 25): (128, 41, 128) at G =
+    128, K1 1.02 ms per raw launch in the range layout against 1.18 in the
+    chains layout, K2's temperature 0.36 against 0.40; at (64, 41, 64), and
+    at G = 32 or 64 on either block, the chains layout wins (K1 0.47
+    against 0.53 ms at G = 128).  ``merged``: a 3D merged lane (K3, K2-mb)
+    takes the chains layout at every G: on the H100 (phase 32) it won at
+    every G on both CylinderJet3D widths, K3 at G = 128 3.27 against 4.38
+    ms per raw launch at 341,568 cells and 7.64 against 9.14 at 749,568
+    (5.7 cells per thread, where a roll-form lane takes the range), K2-mb's
+    velocity at G = 32 0.39 against 0.51; its range instances also spill
+    (``scripts/port_spread_sass.py``)."""
+    if merged:
+        return True
     return not (ndims == 3 and G == 128
                 and n >= SPREAD_RANGE_CELLS * THREADS * G)
 

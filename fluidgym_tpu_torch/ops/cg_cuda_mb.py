@@ -31,8 +31,8 @@ neighbour table built once per plan (``neighbor_table``; see
   seams, the reflected C-grid cut); ``fused_bicgstab_mb.launches`` (single
   super-block; ``.launches_3d`` those of them in 3D, RBC3D's "K2-3D"),
   ``.merged_launches`` (``.merged_launches_3d`` those of them in 3D,
-  "K2-mb-3D") and ``.merged_flip_launches``.  A 3D merged plan runs the
-  chunk grid (C = 1): its lanes' rows do not fit a cluster's shared
+  "K2-mb-3D") and ``.merged_flip_launches``.  A 3D merged plan's lanes
+  take the spread arm (below): their rows do not fit a cluster's shared
   memory.
   CPU tensors run the plain versions; any other device raises.  A flip seam
   needs nothing of its own in the kernels: the neighbour table reverses the
@@ -73,6 +73,19 @@ in ``fused_bicgstab_mb.resident_launches`` too), else its spread arm where
 ``cg_cuda.default_spread`` gives G (RBC3D's lanes;
 ``fused_bicgstab_mb.spread_launches``).
 
+The spread arm of the merged forms (K3 and K2-mb over a 3D plan:
+CylinderJet3D's 341,568- and 749,568-cell lanes, whose rows no cluster
+holds): one lane over G co-resident blocks of a cooperative launch, as
+``cg_cuda``'s spread arm, the operator rows and the neighbour table read
+from L2, every sum the one-block form's, so it returns the chunk grid's
+x, iterations and residual bit for bit.  ``merged_arm`` picks the arm of a
+merged solve: the cluster rule first, then the spread rule
+(``cg_cuda.default_spread`` over the merged instances, pinned by
+``cg_cuda.pinned_spread``); ``merged_launcher(..., spread=G, chains=)``
+gives a raw launch; ``fused_cg_mb.spread_launches`` and
+``fused_bicgstab_mb.merged_spread_launches`` count the launches that took
+it.
+
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
 """
@@ -94,7 +107,8 @@ from fluidgym_tpu_torch.ops.cg_cuda import (SMEM_PER_BLOCK, SMEM_STATIC,
                                             block_ranges, block_seg,
                                             cg_lockstep, check_chunk,
                                             check_resident, check_spread,
-                                            default_chunk, device_kind, guard,
+                                            default_chunk, default_spread,
+                                            device_kind, guard,
                                             lockstep_chunks, roll_arm,
                                             roll_matvec, spread_buffers,
                                             spread_chains, tol2_sum_f32)
@@ -107,7 +121,8 @@ __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "fused_cg_mb_plain", "neighbor_table", "strip_lists",
            "flatten_fields", "unflatten_fields", "flatten_ops",
            "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
-           "max_active_clusters", "rows_fit", "CLUSTER_SIZES"]
+           "max_active_clusters", "rows_fit", "CLUSTER_SIZES", "merged_arm",
+           "merged_launcher"]
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +329,26 @@ def pinned_cluster(C: int | None):
         yield
     finally:
         _PINNED = before
+
+
+def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
+               algo: str = "cg", coarse: bool = False) -> tuple[int, int]:
+    """The arm of a merged-frame solve (K3: ``algo="cg"``, K2-mb:
+    ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells: ``(C, G)``.  The
+    cluster rule first (``default_cluster``): a lane it spreads over C > 1
+    blocks keeps the cluster arm (the 2D cylinder at C = 8, the airfoil at
+    16).  Else, for a 3D plan with one lane per block, the spread rule
+    (``cg_cuda.default_spread`` over the merged instances: the largest G
+    with ``lanes * G`` blocks co-resident and ``SPREAD_MIN_CELLS`` cells per
+    block; ``cg_cuda.pinned_spread`` pins it).  ``(1, 0)`` is the chunk
+    grid: the answer on the CPU, for chunks of several lanes, in 2D and for
+    K3-coarse (``coarse``), which has neither arm."""
+    if coarse:
+        return 1, 0
+    C = default_cluster(lanes, n, ndims, chunk, device, algo)
+    if C > 1 or ndims != 3:
+        return C, 0
+    return 1, default_spread(lanes, n, ndims, chunk, device, algo + "_mb")
 
 
 def check_cluster(cluster: int, chunk: int, arm_ok: bool = True) -> None:
@@ -525,9 +560,26 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, **kw):
     return merged_launcher(algo, plan, diag, off, b, x0, **kw)()
 
 
+def check_merged_spread(spread: int, chunk: int, cluster: int, coarse: bool,
+                        ndims: int, chains: bool) -> None:
+    """The merged forms' spread arm: as ``cg_cuda.check_spread``, and with
+    no cluster, over a 3D plan (a 2D merged lane keeps the cluster arm),
+    not K3-coarse."""
+    check_spread(spread, chunk, False, ndims, chains)
+    if spread and cluster > 1:
+        raise ValueError("a launch takes the cluster arm or the spread arm, "
+                         "not both")
+    if spread and coarse:
+        raise ValueError("K3-coarse has no spread arm")
+    if spread and ndims != 3:
+        raise ValueError("the merged forms' spread arm takes 3D plans only "
+                         "(a 2D merged lane keeps the cluster arm)")
+
+
 def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
                     maxiter, stall_iters, precondition, return_best, chunk,
-                    coarse=None, cluster: int = 1):
+                    coarse=None, cluster: int = 1, spread: int = 0,
+                    chains=None):
     """Check and lay out the operands of K3 / K3-coarse / K2-mb on the flat
     merged layout (``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``,
     ``off (1|lanes, 2*ndims, n)``, ``einv (1|lanes, K, K)`` like ``diag``),
@@ -535,13 +587,20 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     kernel launch on the current stream into those buffers, returning ``(x,
     iterations, residual_sum)`` (the same tensors on every call; a timing
     loop of raw launches).  ``cluster``: blocks per lane (1: the chunk
-    grid; C > 1: the cluster arm, chunk 1, whose rows must fit)."""
+    grid; C > 1: the cluster arm, chunk 1, whose rows must fit).
+    ``spread``: G > 0 for the spread arm (chunk 1, cluster 1, a 3D plan,
+    not K3-coarse), in the chains layout or not (``chains``; None:
+    ``cg_cuda.spread_chains`` for a merged lane)."""
     ndims = plan.ndims
     L, n = b.shape
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
         raise ValueError("b must be (lanes, n) and off (1|lanes, 2*ndims, n)")
     op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
     check_cluster(cluster, chunk, coarse is None)
+    chains = (spread_chains(n, spread, ndims, merged=True) if chains is None
+              else bool(chains))
+    check_merged_spread(spread, chunk, cluster, coarse is not None, ndims,
+                        chains)
     if cluster > 1 and not rows_fit(n, cluster, ndims):
         raise ValueError(f"a block's operator rows ({stage_bytes(n, cluster, ndims)}"
                          f" B) do not fit in shared memory at cluster {cluster}")
@@ -569,14 +628,17 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
         shape = (L, chunk, n, ndims, op_per_lane, sp.K)
         entry = lib.fg_cg_mb_coarse_solve
     else:
-        shape = (L, chunk, cluster, n, ndims, op_per_lane)
+        bufs += spread_buffers(L, spread, b.device)
+        shape = (L, chunk, cluster, int(spread), int(chains), n, ndims,
+                 op_per_lane)
         entry = (lib.fg_cg_mb_solve if algo == "cg"
                  else lib.fg_bicgstab_mb_solve)
     what = "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb"
 
     def launch():
         with torch.cuda.device(b.device):
-            status = entry(*[t.data_ptr() for t in bufs], *shape, *tail,
+            status = entry(*[0 if t is None else t.data_ptr() for t in bufs],
+                           *shape, *tail,
                            torch.cuda.current_stream(b.device).cuda_stream)
         _build.check(status, what)
         return x, iters, rs
@@ -602,8 +664,10 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     correction to the preconditioner (K3-coarse); a plan without strip
     spaces (3D) keeps Jacobi alone, as in the JAX package.  ``chunk``:
     lanes per lockstep chunk (``default_chunk`` when None).  ``cluster``:
-    blocks per lane on the card (``default_cluster`` when None; K3-coarse
-    takes 1).  Returns ``(xs, SolveInfo)`` in the same layout, the info per
+    the cluster arm's blocks per lane on the card (1: the chunk grid);
+    None: ``merged_arm`` picks the arm (the cluster arm, the spread arm of
+    a 3D plan, or the chunk grid; K3-coarse takes the chunk grid).
+    Returns ``(xs, SolveInfo)`` in the same layout, the info per
     lane (scalars for one unbatched lane).  A lane whose RHS is all zero
     over every super-block gets a zero solution.  Under ``torch.func.vmap`` the batch folds onto
     the lanes (``cg_cuda.LaneFold``)."""
@@ -628,18 +692,20 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     def solve(b, x0, diag, off, einv):
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
         coarse = None if einv is None else (sp, einv)
-        cl = cluster
-        if cl is None:
-            cl = 1 if coarse else default_cluster(b.shape[0], n, plan.ndims,
-                                                  c, b.device)
+        if cluster is None:
+            cl, G = merged_arm(b.shape[0], n, plan.ndims, c, b.device,
+                               coarse=coarse is not None)
+        else:
+            cl, G = cluster, 0
         check_cluster(cl, c, coarse is None)
         if device_kind(b, "fused_cg_mb") == "cpu":
             return fused_cg_mb_plain(plan, diag, off, b, x0, coarse=coarse,
                                      chunk=c, **kw)
         out = _launch_merged("cg", plan, diag, off, b, x0, coarse=coarse,
-                             chunk=c, cluster=cl, **kw)
+                             chunk=c, cluster=cl, spread=G, **kw)
         if cl > 1:
             fused_cg_mb.cluster_launches += 1
+        fused_cg_mb.spread_launches += int(G > 0)
         if coarse is None and plan.identity_seams:
             fused_cg_mb.launches += 1
             fused_cg_mb.launches_3d += int(plan.ndims == 3)
@@ -669,6 +735,7 @@ fused_cg_mb.flip_launches = 0
 fused_cg_mb.coarse_launches = 0
 fused_cg_mb.coarse_flip_launches = 0
 fused_cg_mb.cluster_launches = 0
+fused_cg_mb.spread_launches = 0
 
 
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
@@ -681,11 +748,12 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
     *spatial_s)``; ``bs``/``x0s``: per-super-block ``(C, *spatial_s)`` with a
     leading component axis.  Components are independent lanes with
     per-component stopping, in lockstep chunks of ``chunk`` lanes
-    (``default_chunk`` when None), ``cluster`` blocks per lane on the card
-    (``default_cluster`` when None; the single-super-block form takes 1,
-    and at one lane per block the resident arm where a lane fits,
-    ``cg_cuda.default_resident``, else the spread arm where
-    ``cg_cuda.default_spread`` gives G).
+    (``default_chunk`` when None), ``cluster`` blocks per lane of the
+    cluster arm on the card (1: the chunk grid; None: ``merged_arm``, the
+    cluster arm or, over a 3D plan, the spread arm; the
+    single-super-block form takes 1, and at one lane per block the
+    resident arm where a lane fits, ``cg_cuda.default_resident``, else the
+    spread arm where ``cg_cuda.default_spread`` gives G).
     Returns ``(xs, SolveInfo)`` with the info aggregated over components
     (converged = all, iterations = max,
     residual = joint RMSE).  Under ``torch.func.vmap`` the batch folds onto
@@ -709,10 +777,12 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 
     def solve(b, x0, diag, off):
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
-        cl = cluster
-        if cl is None:
-            cl = 1 if single else default_cluster(b.shape[0], n_lane, ndims, c,
-                                                  b.device, "bicgstab")
+        cl, G = 1, 0
+        if cluster is not None:
+            cl = cluster
+        elif not single:
+            cl, G = merged_arm(b.shape[0], n_lane, ndims, c, b.device,
+                               "bicgstab")
         check_cluster(cl, c, not single)
         if device_kind(b, "fused_bicgstab_mb") == "cpu":
             return fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
@@ -729,9 +799,10 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
             fused_bicgstab_mb.spread_launches += int(G > 0)
         else:
             out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
-                                 cluster=cl, **kw)
+                                 cluster=cl, spread=G, **kw)
             if cl > 1:
                 fused_bicgstab_mb.cluster_launches += 1
+            fused_bicgstab_mb.merged_spread_launches += int(G > 0)
             if plan.identity_seams:
                 fused_bicgstab_mb.merged_launches += 1
                 fused_bicgstab_mb.merged_launches_3d += int(ndims == 3)
@@ -759,3 +830,4 @@ fused_bicgstab_mb.merged_flip_launches = 0
 fused_bicgstab_mb.cluster_launches = 0
 fused_bicgstab_mb.resident_launches = 0
 fused_bicgstab_mb.spread_launches = 0
+fused_bicgstab_mb.merged_spread_launches = 0

@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""The spread arm of K1 / K2 (RBC's roll-form solves) against the chunk
-grid on one CUDA card.
+"""The spread arm of K1 / K2 (RBC's roll-form solves) and of K3 / K2-mb
+over a 3D merged plan (CylinderJet3D) against the chunk grid on one CUDA
+card.
 
     python3 scripts/port_spread_ab.py [--env ID ...] [--steps 2]
         [--parent DIR] [--out FILE]
 
 For each ``--env`` (default: RBC3D-easy-v0 and RBC3D-wide-easy-v0): the
 solves of a first substep from the bundled ``train_00`` snapshot, captured
-at the wrappers (``chip_smoke._captured_systems``: K1's pressure solve, K2's
-temperature and velocity solves), each launched on the chunk grid and on
-the spread arm at every G the card holds, in both layouts
-(``chip_smoke.spread_arms``): every arm bit-equal to the chunk grid, ms per
-raw launch in turns.  With ``--parent DIR`` (a directory holding another
-revision's ``fluidgym_tpu_torch/csrc/`` and ``fluidgym_tpu_torch/ops/
-_build.py``, e.g. the parent's from ``git archive``) that revision's chunk
-grid joins every system, held bit for bit and timed in the same turns, and
-both libraries' ``ptxas`` lines (registers, spills) are printed.  Then, with
-``--steps`` > 0, ms per env step of each id under both arms in turns from
-one state (``chip_smoke.spread_env_ab``; ``--pin G`` pins the spread arm's
-G, for ids the rule leaves on the chunk grid).
+at the wrappers (an RBC id: ``chip_smoke._captured_systems``, K1's
+pressure solve, K2's temperature and velocity solves; a CylinderJet3D id:
+``chip_smoke._captured_merged``, K3's pressure solve warm from the deflated
+guess and K2-mb's 3-lane velocity solve), each launched on the chunk grid
+and on the spread arm at every G the card holds, in both layouts
+(``chip_smoke.spread_arms``): every arm bit-equal to the chunk grid (a
+merged system twice), ms per raw launch in turns.  With ``--parent DIR`` (a
+directory holding another revision's ``fluidgym_tpu_torch/csrc/`` and
+``fluidgym_tpu_torch/ops/_build.py``, e.g. the parent's from ``git
+archive``) that revision's chunk grid joins every system, held bit for bit
+and timed in the same turns; the 2D merged lanes' cluster arm (K3, K2-mb,
+K3-flip, K2-mb-flip on the CylinderJet2D and Airfoil2D snapshots' systems,
+``chip_smoke.MERGED_CASES``) is held bit for bit against that revision's
+at C = 1 and at the rule's C; and both libraries' ``ptxas`` lines
+(registers, spills) are printed.  Then, with ``--steps`` > 0, ms per env
+step of each RBC id under both arms in turns from one state
+(``chip_smoke.spread_env_ab``; ``--pin G`` pins the spread arm's G, for
+ids the rule leaves on the chunk grid); CylinderJet3D's end-to-end A/B is
+``chip_smoke.py`` phase 36.
 
 Prints one JSON object (also to ``--out``) with the card's name and power
 limit.  Needs a card; imports nothing of JAX or of the JAX package.
@@ -40,10 +48,51 @@ def _ptxas(log: str) -> list:
             if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
-def systems_ab(dev, env_id: str, parent=None) -> dict:
-    """Every captured roll-form system of ``env_id`` on every arm."""
+def _rev_merged_launcher(lib, mod, algo, plan, diag, off, b, x0, tol2, kw,
+                         cluster=1):
+    """One raw launch of a revision's K3 / K2-mb entry on the flat merged
+    layout (the chunk grid, or its cluster arm at ``cluster``) on
+    preallocated buffers.  Entries with the spread arm's arguments (buffers,
+    G, layout) get G = 0; entries without a cluster argument take C = 1
+    only (None otherwise)."""
     import torch
 
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    name = "fg_cg_mb_solve" if algo == "cg" else "fg_bicgstab_mb_solve"
+    n_args = len(mod._ARGTYPES[name])
+    spread = n_args == (29 if algo == "cg" else 33)
+    takes_cluster = spread or n_args == (25 if algo == "cg" else 29)
+    if cluster > 1 and not takes_cluster:
+        return None
+    (L, n), dev = b.shape, b.device
+    x = torch.empty_like(b)
+    scratch = [torch.empty_like(b) for _ in range(4 if algo == "cg" else 8)]
+    it = torch.empty(L, dtype=torch.int32, device=dev)
+    rs = torch.empty(L, dtype=torch.float32, device=dev)
+    nbr = cg_cuda_mb.neighbor_table(plan, dev)
+    bufs = ((b, diag, off, nbr, b if x0 is None else x0, x, it, rs, *scratch)
+            + (None,) * (2 * spread))
+    shape = ((L, 1) + ((cluster,) if takes_cluster else ())
+             + ((0, 0) if spread else ())
+             + (n, plan.ndims, int(diag.shape[0] != 1)))
+    tail = (tol2, kw["maxiter"], kw["stall_iters"],
+            int(kw.get("precondition", True)), int(kw["return_best"]),
+            int(x0 is not None))
+    entry = getattr(lib, name)
+
+    def launch():
+        status = entry(*[0 if t is None else t.data_ptr() for t in bufs],
+                       *shape, *tail, torch.cuda.current_stream(dev).cuda_stream)
+        mod.check(status, f"revision {name}")
+        return x, it, rs
+
+    return launch
+
+
+def _roll_cases(dev, env_id: str) -> list:
+    """RBC's captured roll-form systems: ``(name, algo, launcher(G,
+    chains), parent_launcher(lib, mod), lanes, n, ndims)``."""
     import chip_smoke
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
     from port_resident_ab import _rev_launcher
@@ -52,25 +101,78 @@ def systems_ab(dev, env_id: str, parent=None) -> dict:
     (diag, off, b, x0), kw1 = sy["K1"]
     tol = kw1.pop("tol")
     nd, n = kw1["ndims"], math.prod(b.shape[1:])
-    cases = [("K1 pressure", "cg", diag[None], off[None], b, x0,
-              cg_cuda.tol2_sum_f32(tol, n), kw1)]
+    raw = [("K1 pressure", "cg", diag[None], off[None], b, x0,
+            cg_cuda.tol2_sum_f32(tol, n), kw1)]
     for what, ((plan, diags, offs, bs), kw2) in zip(("temperature", "velocity"),
                                                    sy["K2"]):
         tol, x0s = kw2.pop("tol"), kw2.pop("x0s", None)
-        cases.append((f"K2 {what}", "bicgstab", diags[0][None], offs[0][None],
-                      bs[0], None if x0s is None else x0s[0],
-                      cg_cuda.tol2_sum_f32(tol, n), dict(kw2, ndims=nd)))
-    out = {}
-    for name, algo, d, o, rhs, start, tol2, kw in cases:
+        raw.append((f"K2 {what}", "bicgstab", diags[0][None], offs[0][None],
+                    bs[0], None if x0s is None else x0s[0],
+                    cg_cuda.tol2_sum_f32(tol, n), dict(kw2, ndims=nd)))
+    cases = []
+    for name, algo, d, o, rhs, start, tol2, kw in raw:
         mod = cg_cuda if algo == "cg" else cg_cuda_mb
-        launcher = lambda G, chains: mod.launcher(
-            d, o, rhs, start, chunk=1, spread=G, chains=chains, tol2_sum=tol2,
-            **kw)
+        rk = {k: v for k, v in kw.items() if k != "ndims"}
+        cases.append((
+            f"{name} {tuple(rhs.shape)}", algo,
+            lambda G, chains, mod=mod, d=d, o=o, rhs=rhs, start=start,
+            tol2=tol2, kw=kw: mod.launcher(d, o, rhs, start, chunk=1, spread=G,
+                                           chains=chains, tol2_sum=tol2, **kw),
+            lambda lib, pm, algo=algo, d=d, o=o, rhs=rhs, start=start,
+            tol2=tol2, rk=rk: _rev_launcher(lib, pm, algo, d, o, rhs, start,
+                                            tol2, rk, False),
+            rhs.shape[0], n, nd))
+    return cases
+
+
+def _merged_cases(dev, env_id: str) -> list:
+    """CylinderJet3D's captured merged systems (K3's pressure solve, K2-mb's
+    velocity solve), as ``_roll_cases``."""
+    import chip_smoke
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    sy = chip_smoke._captured_merged(dev, env_id)
+    cases = []
+    for name, algo, key in (("K3 pressure", "cg", "K3"),
+                            ("K2-mb velocity", "bicgstab", "K2")):
+        (plan, diags, offs, bs), kw = sy[key]
+        tol, x0s = kw.pop("tol"), kw.pop("x0s", None)
+        kw.pop("coarse_strips", None)
+        diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+        lead = (lambda t: t.unsqueeze(0)) if algo == "cg" else (lambda t: t)
+        b = cg_cuda_mb.flatten_fields(plan, tuple(lead(t) for t in bs))
+        x0 = (None if x0s is None else
+              cg_cuda_mb.flatten_fields(plan, tuple(lead(t) for t in x0s)))
+        n = b.shape[1]
+        tol2 = cg_cuda.tol2_sum_f32(tol, n)
+        cases.append((
+            f"{name} {tuple(b.shape)}", algo,
+            lambda G, chains, algo=algo, plan=plan, diag=diag, off=off, b=b,
+            x0=x0, tol2=tol2, kw=kw: cg_cuda_mb.merged_launcher(
+                algo, plan, diag, off, b, x0, tol2_sum=tol2, chunk=1,
+                spread=G, chains=chains, **kw),
+            lambda lib, pm, algo=algo, plan=plan, diag=diag, off=off, b=b,
+            x0=x0, tol2=tol2, kw=kw: _rev_merged_launcher(
+                lib, pm, algo, plan, diag, off, b, x0, tol2, kw),
+            b.shape[0], n, 3))
+    return cases
+
+
+def systems_ab(dev, env_id: str, parent=None) -> dict:
+    """Every captured system of ``env_id`` on every arm (and the parent's
+    chunk grid, held bit for bit where it agrees)."""
+    import torch
+
+    import chip_smoke
+    from fluidgym_tpu_torch.ops import cg_cuda
+
+    merged = env_id.startswith("CylinderJet3D")
+    cases = _merged_cases(dev, env_id) if merged else _roll_cases(dev, env_id)
+    out = {}
+    for name, algo, launcher, parent_launcher, L, n, nd in cases:
         extra = {}
         if parent is not None:
-            rk = {k: v for k, v in kw.items() if k != "ndims"}
-            extra["parent grid"] = _rev_launcher(*parent, algo, d, o, rhs, start,
-                                                 tol2, rk, False)
+            extra["parent grid"] = parent_launcher(*parent)
             # the parent's chunk grid, twice, against this tree's
             runs = [tuple(t.clone() for t in f()) for f in (
                 launcher(0, None), extra["parent grid"], extra["parent grid"])]
@@ -86,14 +188,79 @@ def systems_ab(dev, env_id: str, parent=None) -> dict:
                       flush=True)
             if not all(same):  # timed, not held (the record says which)
                 del extra["parent grid"]
-        r = chip_smoke.spread_arms(torch, cg_cuda, launcher, rhs.shape[0], n,
-                                   nd, algo, reps=5, extra=extra)
-        out[f"{name} {tuple(rhs.shape)}"] = r
-        print(f"{env_id} {name} {tuple(rhs.shape)} at {r['iterations']} "
-              f"iterations (rule {r['rule']}), every arm bit-equal to the chunk "
-              "grid; ms per raw launch "
+        r = chip_smoke.spread_arms(torch, cg_cuda, launcher, L, n, nd, algo,
+                                   reps=5, extra=extra, merged=merged,
+                                   runs=2 if merged else 1)
+        out[name] = r
+        print(f"{env_id} {name} at {r['iterations']} iterations (rule "
+              f"{r['rule']}), every arm bit-equal to the chunk grid; ms per "
+              "raw launch "
               + json.dumps({k: round(v, 4) for k, v in r["raw_ms"].items()}),
               flush=True)
+    return out
+
+
+def cluster_parent_check(dev, parent) -> dict:
+    """The 2D merged lanes' solves (``chip_smoke.MERGED_CASES``: the
+    snapshots' pressure solve warm from the deflated guess and the 2-lane
+    velocity solve of CylinderJet2D-easy and Airfoil2D-easy) at C = 1 and
+    at the rule's C, this tree's against the parent revision's, bit for
+    bit."""
+    import torch
+
+    import chip_smoke
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.solver import block_merge, piso
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    out = {}
+    for case in chip_smoke.MERGED_CASES:
+        sy = chip_smoke._snapshot_system(dev, piso, case)
+        plan, n = sy["plan"], sy["n"]
+        flat = lambda xs: cg_cuda_mb.flatten_fields(plan, xs)
+
+        def ops_of(ops):
+            m = block_merge.pack_ops(plan, ops)
+            return cg_cuda_mb.flatten_ops(plan, tuple(a[0] for a in m),
+                                          tuple(a[1] for a in m))
+
+        state = sy["state"]
+        vel = st.advection_rhs_velocity(state, sy["geoms"], sy["topo"],
+                                        state.viscosity, sy["dt"])
+        pack = lambda fs: flat(tuple(p.unsqueeze(0) for p in
+                                     block_merge.pack_fields(plan, fs)))
+        systems = (
+            (case["k3"], "cg", *ops_of(sy["p_ops"]), pack(sy["rhs"]),
+             pack(sy["guess"]), case["tol_p"]),
+            (case["k2"], "bicgstab", *ops_of(sy["adv"]),
+             torch.cat([pack(tuple(f[c] for f in vel)) for c in range(2)]),
+             torch.cat([pack(tuple(b.velocity[c] for b in state.blocks))
+                        for c in range(2)]), 1e-5))
+        for name, algo, diag, off, b, x0, tol in systems:
+            L = b.shape[0]
+            kw = dict(maxiter=5000, stall_iters=250, precondition=True,
+                      return_best=algo == "cg")
+            tol2 = cg_cuda.tol2_sum_f32(tol, n)
+            row = {}
+            for C in sorted({1, cg_cuda_mb.default_cluster(L, n, 2, 1, dev,
+                                                           algo)}):
+                here = tuple(t.clone() for t in cg_cuda_mb.merged_launcher(
+                    algo, plan, diag, off, b, x0, tol2_sum=tol2, chunk=1,
+                    cluster=C, **kw)())
+                theirs = _rev_merged_launcher(*parent, algo, plan, diag, off,
+                                              b, x0, tol2, kw, C)
+                torch.cuda.synchronize()
+                if theirs is None:
+                    row[f"C={C}"] = "the parent has no cluster arm"
+                    continue
+                got = theirs()
+                torch.cuda.synchronize()
+                row[f"C={C}"] = dict(
+                    bit_equal=all(torch.equal(u, v) for u, v in zip(here, got)),
+                    iterations=here[1].tolist(),
+                    iterations_parent=got[1].tolist())
+            out[name] = row
+            print(f"parent check {name} ({L} lane(s)): {row}", flush=True)
     return out
 
 
@@ -129,11 +296,15 @@ def main() -> int:
     for key in ("ptxas", "parent_ptxas"):
         for ln in result.get(key, []):
             print(f"{key}: {ln}", flush=True)
+    if parent is not None:
+        result["cluster_parent"] = cluster_parent_check(dev, parent)
     result["systems"] = {env_id: systems_ab(dev, env_id, parent)
                          for env_id in envs}
     if args.steps:
         result["env"] = {}
         for env_id in envs:
+            if env_id.startswith("CylinderJet3D"):
+                continue  # chip_smoke.py phase 36
             r = result["env"][env_id] = chip_smoke.spread_env_ab(
                 dev, env_id, args.steps, args.pin)
             print(f"{env_id}: chunk grid {r['grid_ms']:.1f} ms/env step, "

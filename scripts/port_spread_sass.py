@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What the compiler made of the roll-form kernels' arms: loads by kind.
+"""What the compiler made of the Krylov kernels' arms: loads by kind.
 
     python3 scripts/port_spread_sass.py [--out FILE]
 
@@ -9,12 +9,16 @@ registers and spills per kernel instance (a cached library has no build
 log), and walks ``cuobjdump -sass`` of the library: for every instance of
 ``fg_cg_kernel`` / ``fg_bicg_kernel`` it counts the global loads by
 opcode (``LDG.E``, ``LDG.E.CONSTANT`` = the read-only path,
-``LDG.E.STRONG.GPU`` / ``.EF`` / ... = ``__ldcg`` and its kin).  The spread
-arm reads what other blocks wrote during the launch (the gathered vector
-of a matvec, the chain terms, the chains): a read-only load of those could
-return a stale value, so its instances should hold constant loads only of
-the operator rows.  Prints one JSON object (also to ``--out``).  Needs the
-CUDA toolkit (``nvcc``, ``cuobjdump``); no card.
+``LDG.E.STRONG.GPU`` / ``.EF`` / ... = ``__ldcg`` and its kin), and names
+the instance's form and arm from its template arguments (K1 / K3 /
+K3-coarse, K2 / K2-mb; chunk grid, cluster, resident, spread range or
+chains).  The spread arm (K1-3D, K2-3D, and K3-3D, K2-mb-3D over a 3D
+merged plan) reads what other blocks wrote during the launch (the gathered
+vector of a matvec, the chain terms, the chains): a read-only load of
+those could return a stale value, so its instances should hold constant
+loads only of the operator rows (and the merged forms' neighbour table).
+Prints one JSON object (also to ``--out``).  Needs the CUDA toolkit
+(``nvcc``, ``cuobjdump``); no card.
 """
 
 import argparse
@@ -47,6 +51,34 @@ def ptxas_log() -> str:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in _build.SOURCES]
         return "".join(proc.communicate()[0] for proc in procs)
+
+
+#: the spread arm's layouts by template value (FG_ARM_* in csrc/krylov.cuh)
+_SPREAD = {"0": None, "2": "spread range", "3": "spread chains"}
+
+
+def form_and_arm(pretty: str) -> str:
+    """"K3 spread chains", "K2 resident", ... for a demangled instance
+    ``fg_cg_kernel<ND, TABLE, COARSE, CLUSTER, RESIDENT, SPREAD>`` or
+    ``fg_bicg_kernel<ND, TABLE, CLUSTER, RESIDENT, SPREAD>``."""
+    head = pretty.split("(")[0]
+    args = head[head.find("<") + 1:head.rfind(">")].replace(" ", "").split(",")
+    if len(args) < 5:
+        return "?"
+    cg = "fg_cg_kernel" in head
+    nd, table = args[0], args[1] == "true"
+    if cg:
+        coarse, cluster, resident, spread = (args[2] == "true",
+                                             args[3] == "true",
+                                             args[4] == "true", args[5])
+        form = "K3-coarse" if coarse else "K3" if table else "K1"
+    else:
+        cluster, resident, spread = (args[2] == "true", args[3] == "true",
+                                     args[4])
+        form = "K2-mb" if table else "K2"
+    arm = (_SPREAD.get(spread) or ("cluster" if cluster else "resident"
+                                   if resident else "chunk grid"))
+    return f"{form} {nd}D {arm}"
 
 
 def _demangle(names):
@@ -89,10 +121,11 @@ def main() -> int:
     for name, loads in funcs.items():
         if "fg_cg_kernel" not in name and "fg_bicg_kernel" not in name:
             continue
-        rows.append(dict(kernel=pretty[name], registers=regs.get(name),
-                         spills=spills.get(name), loads=dict(loads)))
+        rows.append(dict(kernel=pretty[name], form=form_and_arm(pretty[name]),
+                         registers=regs.get(name), spills=spills.get(name),
+                         loads=dict(loads)))
     for r in rows:
-        print(f"{r['kernel'][:110]}: registers {r['registers']} "
+        print(f"{r['form']}: {r['kernel'][:90]}: registers {r['registers']} "
               f"({r['spills']}), loads "
               f"{r['loads']}", flush=True)
     text = json.dumps(dict(library=info["path"], kernels=rows))

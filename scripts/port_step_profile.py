@@ -16,7 +16,8 @@ N envs instead (seeds 0..N-1, random actions), one batched step being one
 C`` pins the merged kernels' cluster rule to C (``cg_cuda_mb.pinned_cluster``;
 1: one block per lane) for an A/B of device time; ``--resident 0|1`` pins
 K1's and K2's resident rule (``cg_cuda.pinned_resident``: 1 the resident
-arm, 0 the chunk grid) likewise, and ``--spread 0|1`` their spread rule
+arm, 0 the chunk grid) likewise, and ``--spread 0|1`` the spread rule of K1
+and K2 and of K3 and K2-mb over a 3D merged plan (CylinderJet3D)
 (``cg_cuda.pinned_spread``: 0 the chunk grid, 1 the rule's G).  Prints one
 JSON object:
 
@@ -36,7 +37,8 @@ JSON object:
   either seam form, ``fg_bicg_kernel<ND, false, ...>`` K2, ``<ND, true,
   ...>`` K2-mb in either form, the cluster arm's instances (template
   argument CLUSTER) under their form, the resident arm's (RESIDENT) and
-  the spread arm's (SPREAD) under K1 / K2, ``fg_stencil2d_kernel`` K4;
+  the spread arm's (SPREAD) under K1 / K2, or K3 / K2-mb for a merged
+  plan, ``fg_stencil2d_kernel`` K4;
   a flip form's device time is
   reported under its template's entry, which for an id with flip seams
   holds only the flip form);
@@ -159,7 +161,10 @@ def _profile(args) -> int:
                 "K1 resident": cg_cuda.fused_cg.resident_launches,
                 "K2 resident": cg_cuda_mb.fused_bicgstab_mb.resident_launches,
                 "K1 spread": cg_cuda.fused_cg.spread_launches,
-                "K2 spread": cg_cuda_mb.fused_bicgstab_mb.spread_launches}
+                "K2 spread": cg_cuda_mb.fused_bicgstab_mb.spread_launches,
+                "K3 spread": cg_cuda_mb.fused_cg_mb.spread_launches,
+                "K2-mb spread":
+                    cg_cuda_mb.fused_bicgstab_mb.merged_spread_launches}
 
     k0 = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

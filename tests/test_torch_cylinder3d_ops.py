@@ -571,9 +571,10 @@ def test_render_fields_3d_match_jax(cyl):
 @pytest.mark.parametrize("cells", [341568, 749568], ids=["easy", "medium"])
 def test_3d_lanes_take_the_chunk_grid(cyl, cells):
     """At the registered 3D widths no cluster size holds a block's rows in
-    shared memory (~1.1 MB per block at C = 16 for easy): the rule can only
-    give 1, and a forced C > 1 is refused before the plan is read or
-    anything is built or launched."""
+    shared memory (~1.1 MB per block at C = 16 for easy): the cluster rule
+    can only give 1 (on the card ``merged_arm`` then takes the spread arm,
+    ``tests/test_torch_merged_spread_rule.py``), and a forced C > 1 is
+    refused before the plan is read or anything is built or launched."""
     assert cg_cuda_mb.stage_bytes(cells, 16, 3) > 1_000_000
     b = torch.zeros((1, cells))
     diag, off = torch.ones((1, cells)), torch.zeros((1, 6, cells))

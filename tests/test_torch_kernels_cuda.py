@@ -44,11 +44,22 @@ velocity systems, at every G the card holds and in both layouts, bit-equal
 to the chunk grid, five launches back to back bit-equal; a grid the card
 cannot hold raises; a full-width RBC3D step takes it for every solve.
 K3-3D and K2-mb-3D (CylinderJet3D's merged forms: identity seams, periodic
-z, the chunk grid): on the bundled snapshot's full-width pressure (1 and 3
-lanes) and velocity (3 lanes) systems, within the bars above and with the
-plain version's converged flags; ``default_cluster`` gives 1 for these
-lanes and the launcher refuses C > 1 (the rows do not fit); a full-width
-sim step takes them for every solve.
+z): on the bundled snapshot's full-width pressure (1 and 3 lanes) and
+velocity (3 lanes) systems, within the bars above and with the plain
+version's converged flags; ``default_cluster`` gives 1 for these lanes and
+the launcher refuses C > 1 (the rows do not fit); a full-width sim step
+takes them for every solve.
+Their spread arm (one merged lane over G co-resident blocks, the rows and
+the neighbour table read from L2): on the small (resolution 8) and the
+full-width CylinderJet3D plans, K3 on 1 and 3 lanes cold and warm and K2-mb
+on the 3 velocity components, at every G the card holds and in both
+layouts, bit-equal to the chunk grid, five launches back to back bit-equal;
+``merged_arm`` gives G = 128 (1 lane) and 32 (3 lanes) at full width; a
+grid the card cannot hold raises; a full-width sim step takes it for every
+K3-3D and K2-mb-3D launch.  Only these:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py \
+        -k "merged_spread or cylinder3d"
 """
 
 import numpy as np
@@ -1245,7 +1256,8 @@ def test_k2_mb_3d_kernel_matches_plain():
 
 def test_cylinder3d_takes_the_chunk_grid_and_refuses_clusters():
     """A 3D cylinder lane's rows need ~1.1 MB per block even at C = 16: the
-    rule gives 1, and a forced C > 1 is refused before any launch."""
+    cluster rule gives 1 (``merged_arm`` then takes the spread arm, tested
+    below), and a forced C > 1 is refused before any launch."""
     dev = require_cuda()
     _, _, plan, _, p_ops = _cylinder3d_systems(dev)
     assert not cg_cuda_mb.rows_fit(CYL3D_CELLS, 16, 3)
@@ -1264,8 +1276,8 @@ def test_cylinder3d_takes_the_chunk_grid_and_refuses_clusters():
 
 def test_cylinder3d_full_width_step_takes_the_3d_merged_kernels():
     """One sim step of CylinderJet3D-easy-v0 at full width from the bundled
-    snapshot: every K3 and K2-mb launch a 3D merged launch on the chunk
-    grid, no plain version."""
+    snapshot: every K3 and K2-mb launch a 3D merged launch, no plain
+    version."""
     require_cuda()
     k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
     keys = lambda: (k3.launches, k3.launches_3d, k2.merged_launches,
@@ -1280,6 +1292,178 @@ def test_cylinder3d_full_width_step_takes_the_3d_merged_kernels():
     obs, reward, *_, info = env.step(np.zeros((8, 1), np.float32))
     d = [a - c for a, c in zip(keys(), before)]
     assert d[0] > 0 and d[2] > 0 and d[0] == d[1] == 2 * d[2] == 2 * d[3], d
+    assert d[4] == 0 and d[5] == 0, d
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+
+
+# ---------------------------------------------------------------------------
+# the spread arm of K3-3D and K2-mb-3D: one merged lane over G blocks
+# ---------------------------------------------------------------------------
+
+def _cylinder3d_small(dev):
+    """The CylinderJet3D grid at resolution 8 (4 jets), merged (2
+    super-blocks, periodic z), with its pressure and advection operators
+    after a reset from a uniform flow."""
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    env = fluidgym_tpu_torch.make(
+        "CylinderJet3D-easy-v0", device=dev, resolution=8, n_jets=4,
+        load_initial_domain=False, load_domain_statistics=False,
+        randomize_initial_state=False, step_length=0.02, dt=0.01)
+    env.reset(seed=0)
+    topo, geoms, state = env._topo, env._geoms, env._state
+    dt = torch.tensor(0.005, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    return topo, state, block_merge.merge_plan(topo), adv, p_ops
+
+
+def _merged_spread_case(case, size, dev):
+    """``(algo, plan, diags, offs, bs, x0s, tol)`` per super-block on the
+    small or the full-width CylinderJet3D plan: K3 on 1 or 3 lanes (lane 1
+    scaled by 1e-3, lane 2 zero), cold or warm from a perturbed solution
+    (zero on the zero lane);
+    K2-mb on the 3 velocity components, warm from a perturbed velocity."""
+    algo, lanes, start = case.split("-")
+    _, state, plan, adv, p_ops = (_cylinder3d_small(dev) if size == "small"
+                                  else _cylinder3d_systems(dev))
+    assert plan.ndims == 3 and plan.identity_seams
+    g = torch.Generator().manual_seed(len(case) + len(size))
+    if algo == "K3":
+        diags, offs = _packed(plan, p_ops)
+        L = int(lanes)
+        xs = tuple(torch.randn((L,) + tuple(d.shape), generator=g).to(dev)
+                   for d in diags)
+        bs = block_merge.merged_apply(plan, tuple(zip(diags, offs)), xs)
+        if L == 3:
+            bs = tuple(torch.stack([b[0], 1e-3 * b[1], 0 * b[2]]) for b in bs)
+        x0s = None
+        if start == "warm":  # the zero lane starts at 0: it stays exactly 0
+            keep = torch.tensor([1.0, 1.0, 0.0][:L], device=dev)
+            x0s = tuple((x + 0.01 * torch.randn(x.shape, generator=g).to(dev))
+                        * keep.reshape((L,) + (1,) * (x.dim() - 1))
+                        for x in xs)
+        return "cg", plan, diags, offs, bs, x0s, 1e-6
+    diags, offs = _packed(plan, adv)
+    vel = [b.velocity for b in state.blocks]
+    per_c = [block_merge.pack_fields(plan, tuple(v[c] for v in vel))
+             for c in range(3)]
+    x0s = tuple(torch.stack([per_c[c][s] for c in range(3)])
+                for s in range(len(plan.superblocks)))
+    x0s = tuple(x + 0.1 * torch.randn(x.shape, generator=g).to(dev)
+                for x in x0s)
+    return "bicgstab", plan, diags, offs, tuple(x * 200.0 for x in x0s), x0s, 1e-6
+
+
+@pytest.mark.parametrize("size", ["small", "full"])
+@pytest.mark.parametrize("case", ["K3-1-cold", "K3-1-warm", "K3-3-cold",
+                                  "K3-3-warm", "K2mb-3-warm"])
+def test_merged_spread_arm_bit_equal_to_chunk_grid(size, case):
+    """One merged lane over G blocks: at every G the card holds for the
+    lanes, in both layouts, the spread arm returns the chunk grid's x,
+    iterations and residual bit for bit; five launches back to back on one
+    stream (one barrier buffer, no host sync between) give the same bits;
+    the chunk grid is within the merged bars of the plain version; at full
+    width the wrapper takes the rule's G (128 for one lane, 32 for three),
+    counts it and returns the same x."""
+    dev = require_cuda()
+    algo, plan, diags, offs, bs, x0s, tol = _merged_spread_case(case, size, dev)
+    cg = algo == "cg"
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
+    L, n = b.shape
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    kw = dict(maxiter=2000, stall_iters=250, precondition=True,
+              return_best=cg, tol2_sum=tol2, chunk=1)
+    grid = tuple(v.clone() for v in cg_cuda_mb.merged_launcher(
+        algo, plan, diag, off, b, x0, **kw)())
+    same = lambda u: all(torch.equal(a, c) for a, c in zip(u, grid))
+    held = 0
+    for G in cg_cuda.SPREAD_SIZES:
+        if L * G > cg_cuda.spread_capacity(algo + "_mb", 3, G, True, n, dev):
+            continue
+        for chains in (True, False):
+            launch = cg_cuda_mb.merged_launcher(algo, plan, diag, off, b, x0,
+                                                spread=G, chains=chains, **kw)
+            runs = [tuple(v.clone() for v in launch()) for _ in range(5)]
+            torch.cuda.synchronize()
+            for i, run in enumerate(runs):
+                assert same(run), f"G={G} chains={chains} launch {i}"
+            held += 1
+    assert held >= 2
+    if cg:
+        xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(plan, diag, off, b, x0, **kw)
+    else:
+        xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(diag, off, b, x0, ndims=3,
+                                                     plan=plan, **kw)
+    torch.cuda.synchronize()
+    x, it, rs = grid
+    assert int((it.long() - ip.long()).abs().max()) <= (3 if cg else 2), (it, ip)
+    assert_rel(x.cpu().numpy(), xp.cpu().numpy(), 1e-3 if cg else 1e-4, case)
+    zero = (b == 0).all(dim=1)
+    assert bool((x[zero] == 0).all())
+    if size != "full":
+        return
+    assert cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo) == (1, {1: 128, 3: 32}[L])
+    fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
+    counter = "spread_launches" if cg else "merged_spread_launches"
+    before = getattr(fn, counter)
+    xw, _ = fn(plan, diags, offs, bs, x0s, tol=tol, maxiter=2000,
+               stall_iters=250, precondition=True, return_best=cg)
+    assert getattr(fn, counter) == before + 1
+    assert torch.equal(cg_cuda_mb.flatten_fields(plan, xw), x)
+
+
+def test_merged_spread_arm_refuses_a_grid_it_cannot_hold():
+    """Two full-width K3-3D lanes at G = 128 are 256 blocks, more than the
+    card holds at once: the cooperative launch is refused and raises,
+    through the raw launcher and through the wrapper under a pin; nothing
+    falls back, and the card stays usable."""
+    dev = require_cuda()
+    _, plan, diags, offs, bs, _, tol = _merged_spread_case("K3-3-cold", "full",
+                                                           dev)
+    bs = tuple(x[:2] for x in bs)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    n = b.shape[1]
+    assert 2 * 128 > cg_cuda.spread_capacity("cg_mb", 3, 128, True, n, dev)
+    kw = dict(maxiter=50, stall_iters=250, precondition=True, return_best=True)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cg_cuda_mb.merged_launcher("cg", plan, diag, off, b, None, chunk=1,
+                                   spread=128,
+                                   tol2_sum=cg_cuda.tol2_sum_f32(tol, n), **kw)()
+    f = cg_cuda_mb.fused_cg_mb
+    before = (f.launches, f.spread_launches, cg_cuda_mb.fused_cg_mb_plain.calls)
+    with cg_cuda.pinned_spread(128), pytest.raises(RuntimeError):
+        f(plan, diags, offs, bs, tol=tol, **kw)
+    assert (f.launches, f.spread_launches,
+            cg_cuda_mb.fused_cg_mb_plain.calls) == before
+    xs, info = f(plan, diags, offs, bs, tol=tol, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in xs)
+    assert f.spread_launches == before[1] + 1
+
+
+def test_cylinder3d_full_width_step_takes_the_merged_spread_arm():
+    """One sim step of CylinderJet3D-easy-v0 at full width from the bundled
+    snapshot: every K3-3D and K2-mb-3D launch on the spread arm, no
+    cluster launch, no plain version."""
+    require_cuda()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    keys = lambda: (k3.launches_3d, k3.spread_launches, k2.merged_launches_3d,
+                    k2.merged_spread_launches, k3.cluster_launches
+                    + k2.cluster_launches, cg_cuda_mb.fused_cg_mb_plain.calls
+                    + cg_cuda_mb.fused_bicgstab_plain.calls)
+    env = fluidgym_tpu_torch.make("CylinderJet3D-easy-v0",
+                                  randomize_initial_state=False,
+                                  step_length=0.01, episode_length=2)
+    env.reset(seed=0)
+    before = keys()
+    obs, reward, *_, info = env.step(np.zeros((8, 1), np.float32))
+    d = [a - c for a, c in zip(keys(), before)]
+    assert d[0] > 0 and d[0] == d[1] == 2 * d[2] == 2 * d[3], d
     assert d[4] == 0 and d[5] == 0, d
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))

@@ -216,10 +216,12 @@ def test_spread_bytes_of_the_main_path():
     assert not cg_cuda.spread_fits(room // 256 * T + T, 32)
 
 
-@pytest.mark.parametrize("n", [167_936, 671_744, 11_712, 100_001])
+@pytest.mark.parametrize("n", [167_936, 671_744, 11_712, 100_001,
+                               341_568, 749_568])
 @pytest.mark.parametrize("G", cg_cuda.SPREAD_SIZES)
 def test_blocks_cover_the_lane_once(n, G):
-    """Both layouts: the G blocks' cells are [0, n), each cell once."""
+    """Both layouts: the G blocks' cells are [0, n), each cell once (the
+    RBC3D and RBC2D-wide lanes, and CylinderJet3D's merged lanes)."""
     seen = np.zeros(n, np.int64)
     for c0, c1 in cg_cuda.block_ranges(n, G):
         assert 0 <= c0 <= c1 <= n
