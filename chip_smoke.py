@@ -68,14 +68,20 @@ Phases, each printed with its elapsed seconds:
    two-level preconditioner of ``solver/coarse_strips.py``, K = 34 strips)
    against its plain version on the cylinder's full-width pressure system:
    cold, warm from the deflated guess and a 3-lane run past iteration 100;
-   the same converged flags, iterations within 2; the Jacobi-only K3
-   iterations on the same systems beside them;
+   the same converged flags, iterations within 2; each run also at the
+   cluster rule's C (one lane over C SMs, ``csrc/krylov.cuh``; the 1-lane
+   runs through the wrapper at it) bit-equal to C = 1 (x, iterations,
+   residual); the warm solve's raw launch at C = 1 and at the rule's C in
+   turns (ms, us per iteration), the coarse inverse's ms, the bound and
+   the streamed bound; the Jacobi-only K3 iterations on the same systems
+   beside them;
 16. K3-coarse-flip likewise on the airfoil's system (K = 59);
 17. the slice's main path: ``make`` of each merged id at its registered
    defaults, ``reset(seed=0)``, then ``SimConfig.pressure_coarse_strips``
    and the K4 switch on; 3 cylinder steps and 1 airfoil step with phases
    9 and 12's actions; in every step K3-coarse(-flip) launches twice per
-   substep, K2-mb(-flip) once, K4 once per block per ``domain_apply`` (15
+   substep, each on the cluster arm (``.cluster_launches``), K2-mb(-flip)
+   once, K4 once per block per ``domain_apply`` (15
    per cylinder substep, 18 per airfoil substep), and no other kernel form,
    plain version or ``linsolve`` loop; ms and pressure iterations per env
    step beside phases 9 and 12's;
@@ -88,7 +94,8 @@ Phases, each printed with its elapsed seconds:
    against their plain versions in the same chunks (the same converged
    flags, iterations and x within each form's bar, a zero lane exactly 0,
    the CG forms past iteration 100); the vmapped wrapper equal to its raw
-   launch; ms per solve at 1, 64 and 130 lanes and the bound of the batch;
+   launch, and no launch of the batch on the cluster arm; ms per solve at
+   1, 64 and 130 lanes and the bound of the batch;
    K1 and K2 also in both arms at 1, 64 and 130 lanes, one lane per block,
    in turns (ms per raw launch);
 20. the batched main path: ``BatchedFluidEnv("RBC2D-easy-v0", 64)`` at its
@@ -1148,8 +1155,11 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
     K3-coarse-flip (the airfoil) against their plain versions on the
     snapshot's full-width pressure system: cold, warm from the deflated
     guess and (cylinder) a 3-lane run past iteration 100; the same
-    converged flags and iterations within 2.  Also the Jacobi-only K3
-    iterations on the same systems."""
+    converged flags and iterations within 2.  Each run also at the cluster
+    rule's C (one lane per cluster; the 1-lane runs go through the wrapper
+    at it) against C = 1, bit for bit (x, iterations, residual).  Also the
+    Jacobi-only K3 iterations on the same systems, and the warm solve's raw
+    launch at C = 1 and at the rule's C in turns."""
     import torch
 
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
@@ -1206,48 +1216,84 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
         flat3 = torch.stack([lane0, 1e-3 * flat1[0], torch.zeros(n, device=dev)])
         runs.append(("3 lanes", cg_cuda_mb.unflatten_fields(plan, flat3), None,
                      case["k3c_lanes_tol"]))
-    errs, its, jac = [], {}, {}
+    def raw(bs, x0s, tol, C, coarse=(sp, einv)):
+        """A raw launch on preallocated buffers at C (one lane per block or
+        per cluster)."""
+        return cg_cuda_mb.merged_launcher(
+            "cg", plan, diag, off, flat(bs), flat(x0s),
+            tol2_sum=cg_cuda.tol2_sum_f32(tol, n), coarse=coarse, chunk=1,
+            cluster=C, **kw)
+
+    rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, coarse=True)[0]
+    errs, its, jac, bits = [], {}, {}, {}
     for label, bs, x0s, tol in runs:
         flags = {}
         kern, plain, jacobi = pair(bs, x0s, tol, flags)
-        e, it = compare(f"{name} {label} ({bs[0].shape[0]}, {n})", kern, plain,
+        lanes = bs[0].shape[0]
+        cl0 = cg_cuda_mb.fused_cg_mb.cluster_launches
+        e, it = compare(f"{name} {label} ({lanes}, {n})", kern, plain,
                         flat(bs), tol, 1e-3, 2, mv)
         check(torch.equal(flags["kernel"], flags["plain"]),
               f"{name} {label}: converged flags {flags}")
+        if lanes == 1:
+            check(cg_cuda_mb.fused_cg_mb.cluster_launches == cl0 + int(rule > 1),
+                  f"{name} {label}: the wrapper did not take the cluster arm")
         errs.append(e)
         its[label] = it
         jac[label] = jacobi()
         if label == "3 lanes":
             check(it > 100, f"3-lane {name} run stopped at iteration {it} (<= 100)")
+        # the cluster arm against the chunk grid, one lane per cluster
+        rule_l = cg_cuda_mb.merged_arm(lanes, n, 2, 1, dev, coarse=True)[0]
+        outs = {C: tuple(t.clone() for t in raw(bs, x0s, tol, C)())
+                for C in (1, rule_l)}
+        torch.cuda.synchronize()
+        bits[label] = dict(cluster=rule_l, iterations=outs[1][1].tolist(),
+                           bit_equal=all(torch.equal(u, v) for u, v in
+                                         zip(outs[1], outs[rule_l])))
+        check(bits[label]["bit_equal"], f"{name} {label}: C={rule_l} is not "
+              f"bit-equal to C=1 (iterations {outs[rule_l][1].tolist()} vs "
+              f"{outs[1][1].tolist()})")
     kern, plain, _ = pair(b1, g1, case["tol_p"], {})
     ms = cuda_ms(torch, kern, 10)
     plain_ms = cuda_ms(torch, plain, case["plain_reps"])
     # the wrapper's two parts: the coarse inverse from the operator (every
-    # call, as in the JAX package) and the kernel launch itself
+    # call, as in the JAX package) and the kernel launch itself, at C = 1
+    # and at the rule's C in turns
     einv_ms = cuda_ms(torch, lambda: coarse_strips.coarse_inverse(plan, sp, mops), 10)
-    tol2 = cg_cuda.tol2_sum_f32(case["tol_p"], n)
-    launch = lambda coarse: cuda_ms(torch, lambda: cg_cuda_mb._launch_merged(
-        "cg", plan, diag, off, flat(b1), flat(g1), tol2_sum=tol2,
-        coarse=coarse, chunk=1, **kw), 10)
-    launch_ms, jacobi_launch_ms = launch((sp, einv)), launch(None)
+    launches = {C: raw(b1, g1, case["tol_p"], C) for C in (1, rule)}
+    t = dict.fromkeys(launches, 0.0)
+    for C in (1, rule, rule, 1):
+        t[C] += cuda_ms(torch, launches[C], 10) / 2
+    launch_ms, launch_ms_1 = t[rule], t[1]
+    k3_rule = cg_cuda_mb.default_cluster(1, n, 2, 1, dev)
+    jacobi_launch_ms = cuda_ms(torch, raw(b1, g1, case["tol_p"], k3_rule,
+                                          coarse=None), 10)
     warm_it = its["warm (deflated guess)"]
+    us = lambda v, it: v * 1e3 / max(it, 1)
     b, by, stream = bound_ms(n, 1, 2, warm_it, "cg", True, True, seam, sp.K)
     log(f"phase {ph} {name} ok: {ms:.3f} ms/solve warm (plain {plain_ms:.3f} ms, "
-        f"bound {b * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us) at "
-        f"{warm_it} iterations: coarse inverse {einv_ms:.3f} ms + launch "
-        f"{launch_ms:.3f} ms = {launch_ms * 1e3 / max(warm_it, 1):.1f} "
-        f"us/iteration (Jacobi-only K3 launch on the same warm system "
-        f"{jacobi_launch_ms:.3f} ms = "
-        f"{jacobi_launch_ms * 1e3 / max(jac['warm (deflated guess)'], 1):.1f} "
-        f"us/iteration); K = {sp.K} strips; iterations with strips {its}, "
+        f"bound {b * 1e3:.3f} us by {by}, streamed {stream * 1e3:.3f} us) at "
+        f"{warm_it} iterations: coarse inverse {einv_ms:.3f} ms + launch at "
+        f"C={rule} {launch_ms:.3f} ms = {us(launch_ms, warm_it):.2f} us/iteration "
+        f"(C=1 {launch_ms_1:.3f} ms = {us(launch_ms_1, warm_it):.2f} us/iteration, "
+        f"{launch_ms_1 / launch_ms:.2f}x; in turns); the rule's C bit-equal to "
+        f"C=1 on every run {bits}; Jacobi-only K3 launch on the same warm "
+        f"system at C={k3_rule} {jacobi_launch_ms:.3f} ms = "
+        f"{us(jacobi_launch_ms, jac['warm (deflated guess)']):.2f} "
+        f"us/iteration; K = {sp.K} strips; iterations with strips {its}, "
         f"Jacobi-only K3 on the same systems {jac}")
     kernels[name] = dict(
         name=f"{name} fused_cg_mb(coarse_strips=True) (strip-coarse two-level "
-             f"PCG, merged frame{case['k3_form']}, whole solve)",
+             f"PCG, merged frame{case['k3_form']}, whole solve; cluster arm, "
+             f"one lane over C = {rule} SMs)",
         route="cuda", source="fluidgym_tpu_torch/csrc/cg.cu",
         replaces="fluidgym_tpu/ops/cg_pallas_mb.py:284", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-        coarse_inverse_ms=einv_ms, launch_ms=launch_ms,
+        streamed_ms=stream, coarse_inverse_ms=einv_ms, cluster=rule,
+        launch_ms=launch_ms, us_per_it=us(launch_ms, warm_it),
+        launch_ms_cluster_1=launch_ms_1,
+        us_per_it_cluster_1=us(launch_ms_1, warm_it), cluster_bits=bits,
         jacobi_launch_ms=jacobi_launch_ms,
         iterations=warm_it, iterations_by_run=its, jacobi_iterations=jac,
         K=sp.K, shape=f"(1, {n}) pressure, K = {sp.K}")
@@ -1275,9 +1321,11 @@ def _strips_main_path(dev, kernels, piso, linsolve) -> None:
     ``reset(seed=0)``, then the strips (``SimConfig.pressure_coarse_strips``)
     and K4 switched on; 3 steps of the cylinder and 1 of the airfoil with
     phases 9 and 12's actions.  In every step K3-coarse(-flip) launches
-    exactly twice per substep, K2-mb(-flip) once, K4 once per block per
-    ``domain_apply`` (the deflation setup and the two warm-start gates), and
-    no other kernel form, plain version or ``linsolve`` loop runs."""
+    exactly twice per substep, every launch on the cluster arm
+    (``fused_cg_mb.cluster_launches``), K2-mb(-flip) once, K4 once per
+    block per ``domain_apply`` (the deflation setup and the two warm-start
+    gates), and no other kernel form, plain version or ``linsolve`` loop
+    runs."""
     import numpy as np
     import torch
 
@@ -1297,12 +1345,13 @@ def _strips_main_path(dev, kernels, piso, linsolve) -> None:
         def counts():
             out = {k: getattr(*v) for k, v in watched.items()}
             out["other"] = sum(getattr(*c) for c in launches) - sum(out.values())
+            out[f"{name} cluster"] = k3.cluster_launches
             out["plain"] = sum(getattr(*c) for c in plains)
             out["linsolve"] = calls["cg"] + calls["bicgstab"]
             out["substeps"] = calls["piso_substep_info"]
             return out
 
-        for c in launches + plains:
+        for c in launches + plains + [(k3, "cluster_launches")]:
             setattr(*c, 0)
         torch.cuda.synchronize()
         try:
@@ -1327,9 +1376,10 @@ def _strips_main_path(dev, kernels, piso, linsolve) -> None:
                 d = {k: v - c0[k] for k, v in counts().items()}
                 per_step.append(d)
                 sub = d["substeps"]
-                expect = {name: cfg.corrector_steps * sub, case["k2"]: sub,
-                          "K4": k4_per_sub * sub, "other": 0, "plain": 0,
-                          "linsolve": 0}
+                expect = {name: cfg.corrector_steps * sub,
+                          f"{name} cluster": cfg.corrector_steps * sub,
+                          case["k2"]: sub, "K4": k4_per_sub * sub, "other": 0,
+                          "plain": 0, "linsolve": 0}
                 check(sub > 0 and all(d[k] == v for k, v in expect.items()),
                       f"{env_id} step with strips + K4: launches {d}, expected "
                       f"{expect}")
@@ -1361,7 +1411,9 @@ def _strips_main_path(dev, kernels, piso, linsolve) -> None:
             f"{[round(x, 5) for x in drags]}, per-step launches {per_step}, "
             f"totals {total}, K4 {k4_per_sub} per substep")
         kernels[name].update(
-            launches=total[name], launches_per_env_step=total[name] / n,
+            launches=total[name],
+            cluster_launches=sum(d[f"{name} cluster"] for d in per_step),
+            launches_per_env_step=total[name] / n,
             ms_per_env_step=ms_step, jacobi_ms_per_env_step=ref_ms,
             pressure_iterations_per_step=p_its,
             jacobi_pressure_iterations_per_step=ref_its, substeps_per_step=subs)
@@ -1373,8 +1425,8 @@ def _strips_main_path(dev, kernels, piso, linsolve) -> None:
 def _strips_card_vs_host(dev, piso) -> None:
     """Phase 18: the card against the host for the cylinder with the strips
     and K4 on: 1 env step (25 sim steps) at full width from the bundled
-    snapshot, the card's solves as the rule picks them (K2-mb on the
-    cluster arm); obs and reward to 1e-3.
+    snapshot, the card's solves as the rule picks them (K3-coarse and K2-mb
+    on the cluster arm); obs and reward to 1e-3.
 
     With the strips on, this float32 step is decided by rounding: on the
     host alone, 1 against 8 threads moves the pressure obs 1.5e-4, the
@@ -1394,8 +1446,13 @@ def _strips_card_vs_host(dev, piso) -> None:
     case = MERGED_CASES[0]
     t = time.perf_counter()
     outs = {}
-    before = cg_cuda_mb.fused_cg_mb.coarse_launches
-    cluster_before = cg_cuda_mb.fused_bicgstab_mb.cluster_launches
+    k3 = cg_cuda_mb.fused_cg_mb
+    # every K3 launch of the card run (the reset's Jacobi-only ones, then
+    # K3-coarse) and its count on the cluster arm
+    k3_all = lambda: (k3.launches + k3.flip_launches + k3.coarse_launches
+                      + k3.coarse_flip_launches)
+    before = (k3.coarse_launches, k3_all(), k3.cluster_launches,
+              cg_cuda_mb.fused_bicgstab_mb.cluster_launches)
     stencil_cuda.set_stencil_kernel(True)
     try:
         for where in (dev, torch.device("cpu")):
@@ -1408,10 +1465,12 @@ def _strips_card_vs_host(dev, piso) -> None:
             outs[where.type] = dict(o, reward=r)
     finally:
         stencil_cuda.set_stencil_kernel(False)
-    check(cg_cuda_mb.fused_cg_mb.coarse_launches > before,
+    check(k3.coarse_launches > before[0],
           "phase 18's card run did not launch K3-coarse")
-    check(cg_cuda_mb.fused_bicgstab_mb.cluster_launches > cluster_before,
-          "phase 18's card run did not take the cluster arm")
+    check(k3.cluster_launches - before[2] == k3_all() - before[1]
+          and cg_cuda_mb.fused_bicgstab_mb.cluster_launches > before[3],
+          "phase 18's card run did not take the cluster arm for every K3 "
+          "and K3-coarse launch and for K2-mb")
     og, oc = outs[dev.type], outs["cpu"]
     diffs = {k: float((og[k].cpu() - oc[k]).abs().max()
                       / oc[k].abs().max().clamp(min=1e-30)) for k in og}
@@ -1599,7 +1658,7 @@ def _chunk_phase(dev, kernels, piso, rbc) -> dict:
     bit)."""
     import torch
 
-    from fluidgym_tpu_torch.ops import cg_cuda
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
 
     t0 = time.perf_counter()
     L = CHUNK_LANES
@@ -1628,8 +1687,12 @@ def _chunk_phase(dev, kernels, piso, rbc) -> dict:
         if cg:
             check(int(ik.max()) > 100, f"{name} x{L}: no lane passed iteration 100")
         x_def = f["launch"](L)[0]
+        cl0 = cg_cuda_mb.fused_cg_mb.cluster_launches
         check(torch.equal(f["vmapped"](), x_def),
               f"{name}: the vmapped wrapper differs from its launch")
+        # a batch the card cannot hold as clusters keeps the chunk grid
+        check(cg_cuda_mb.fused_cg_mb.cluster_launches == cl0,
+              f"{name} x{L}: the batch took the cluster arm")
         bt = f["b_time"]
         ms = {Ln: cuda_ms(torch, lambda Ln=Ln: f["launch"](Ln, rhs=bt), 5)
               for Ln in (1, 64, L)}

@@ -125,8 +125,8 @@
 //     may still read its shared memory.
 // C = 1 is the chunk grid above, unchanged.  ops/cg_cuda_mb.py
 // `default_cluster` picks C from the card's own occupancy answer
-// (fg_cg_mb_cluster_occupancy).  The COARSE arm has no cluster form: its
-// restriction sums whole strips across ranges.
+// (fg_cg_mb_cluster_occupancy; fg_cg_mb_coarse_cluster_occupancy for the
+// COARSE instance below, whose registers and static arrays are its own).
 //
 // K3-coarse (entry fg_cg_mb_coarse_solve, the COARSE arm of the template):
 // replaces the strip-coarse form of cg_pallas_mb.py `_kernel` (`coarse=`,
@@ -152,9 +152,38 @@
 // it again.  K is capped at FG_MAX_K (shared memory); the entry refuses
 // more.  The flip form (K3-coarse-flip) needs nothing more: the neighbour
 // table carries the reflected seams, and E the flipped seam couplings.
+//
+// On one SM per lane (the chunk grid) K3-coarse-flip runs ~115-125 us per
+// iteration on the H100 at the airfoil's 73,456 cells, where Jacobi-only
+// K3-flip on its cluster arm runs ~16-18.  So the COARSE instance has the
+// cluster arm too (entry fg_cg_mb_coarse_solve with cluster = C in 2, 4,
+// 8, 16): the passes, rows and sums as K3's above, and the preconditioner
+// split so that every step keeps the one-block form's order
+// (fg_coarse_precond<FG_ARM_CLUSTER>):
+//   * a cluster barrier publishes r (a strip's cells span several ranges);
+//   * restriction: strip k is summed by one warp of block k mod C, its
+//     lanes strided by 32 over the strip's cells as in the one-block form,
+//     r read through L2, then the same butterfly: the same bits whichever
+//     block's warp sums it.  A strip is never split over warps;
+//   * a cluster barrier, then every block gathers the K strip sums from
+//     their owners' shared memory (distributed shared memory) and forms
+//     Einv rc itself, thread k row k in the one-block order: every block
+//     holds the same bits (K^2 <= 16,384 multiply-adds, Einv from L2);
+//   * z for the block's own range, into q (p at init), from the staged
+//     diag; <r, z> and <r, r> are fg_lane_sum2's, whose chains (cells t,
+//     t + T, ...) are this loop's chains in the one-block form followed by
+//     fg_block_sum2: the same bits.
+// Seven cluster barriers per iteration: K3's five, r and the strip sums.
+// So every C returns the chunk grid's x, iterations and residual; at C =
+// 16 the airfoil's lane runs ~26 us per iteration.  What it spends beyond
+// K3-flip's arm was mostly the serial gathers (one warp's pass over a
+// strip, one thread's row of Einv), so each thread issues its loads
+// FG_BATCH at a time, added in the same order.
 #include "krylov.cuh"
 
 #define FG_MAX_K 128
+// loads in flight per thread in the coarse preconditioner's gathers
+#define FG_BATCH 8
 
 // The strip-coarse space of K3's coarse arm (unused when COARSE is false).
 struct FgCoarse {
@@ -167,45 +196,93 @@ struct FgCoarse {
 };
 
 // z = M^-1 r for one lane (Jacobi + strip-coarse), written to `dst`; every
-// thread returns <r, z> in a1 and <r, r> in a2.  Must be reached by all
-// threads, after a barrier that publishes r.
+// thread returns <r, z> in a1 and <r, r> in a2.  FG_ARM_BLOCK: the whole
+// lane in this block, reached after a block barrier that publishes r.
+// FG_ARM_CLUSTER: one lane over the cluster (see the note at the top of
+// this file), this block's range [L.c0, L.c1) of z, its rows `R` staged;
+// it publishes r itself.  Must be reached by all threads of the lane.
+template <int ARM>
 __device__ __forceinline__ void fg_coarse_precond(
-    const float* __restrict__ r, const float* __restrict__ dg,
-    float* __restrict__ dst, int n, const FgCoarse& cz, int l,
-    int precondition, float* s_rc, float* s_xc, float* sh, float& a1,
+    const float* __restrict__ r, const FgRows& R, float* __restrict__ dst,
+    int n, const FgCoarse& cz, int l, int precondition, float* s_rc,
+    float* s_xc, float* sh, FgLane& L, const FgSpread& sp, float& a1,
     float& a2) {
   const int tid = threadIdx.x;
   const int T = blockDim.x;
   const int wl = tid & 31;
   const int nw = T >> 5;
   const int K = cz.K;
-  for (int k = tid >> 5; k < K; k += nw) {
+  constexpr bool CG = ARM == FG_ARM_CLUSTER;  // r of other blocks: via L2
+  // strip k: one warp, its lanes strided over the strip's cells, then the
+  // butterfly; the one-block form's warps take the strips in turn, the
+  // cluster's blocks the strips k = rank mod C.  A lane's loads go out
+  // FG_BATCH at a time (a chain of dependent gathers otherwise) and are
+  // added in the same order.
+  auto restrict_strip = [&](int k) {
+    const int* __restrict__ cells = cz.strip_cells;
+    const int end = cz.strip_ptr[k + 1];
     float s = 0.0f;
-    for (int i = cz.strip_ptr[k] + wl; i < cz.strip_ptr[k + 1]; i += 32)
-      s += r[cz.strip_cells[i]];
+    int i = cz.strip_ptr[k] + wl;
+    for (; i + 32 * (FG_BATCH - 1) < end; i += 32 * FG_BATCH) {
+      float v[FG_BATCH];
+#pragma unroll
+      for (int u = 0; u < FG_BATCH; ++u)
+        v[u] = fg_ld<CG>(r + cells[i + 32 * u]);
+#pragma unroll
+      for (int u = 0; u < FG_BATCH; ++u) s += v[u];
+    }
+    for (; i < end; i += 32) s += fg_ld<CG>(r + cells[i]);
     s = fg_warp_sum(s);
     if (wl == 0) s_rc[k] = s;
+  };
+  if constexpr (ARM == FG_ARM_CLUSTER) {
+    auto cl = cooperative_groups::this_cluster();
+    const int C = (int)cl.num_blocks();
+    const int rank = (int)cl.block_rank();
+    fg_cluster_sync();  // r of every range is complete
+    for (int k = rank + C * (tid >> 5); k < K; k += C * nw) restrict_strip(k);
+    fg_cluster_sync();  // every strip sum is in its owner's s_rc
+    // the strips other blocks own: no block reads them here, and an owner
+    // writes its own again only after the sum below has met every block
+    for (int k = tid; k < K; k += T)
+      if (k % C != rank) s_rc[k] = *cl.map_shared_rank(s_rc + k, k % C);
+  } else {
+    for (int k = tid >> 5; k < K; k += nw) restrict_strip(k);
   }
   __syncthreads();
+  // row k of Einv rc, its loads FG_BATCH at a time, summed in order
   const float* et = cz.einv_t + (size_t)l * K * K * cz.per_lane;
   for (int k = tid; k < K; k += T) {
     float s = 0.0f;
-    for (int j = 0; j < K; ++j) s = s + et[j * K + k] * s_rc[j];
+    int j = 0;
+    for (; j + FG_BATCH <= K; j += FG_BATCH) {
+      float e[FG_BATCH];
+#pragma unroll
+      for (int u = 0; u < FG_BATCH; ++u) e[u] = et[(j + u) * K + k];
+#pragma unroll
+      for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + u];
+    }
+    for (; j < K; ++j) s = s + et[j * K + k] * s_rc[j];
     s_xc[k] = s;
   }
   __syncthreads();
   a1 = 0.0f;
   a2 = 0.0f;
-  for (int c = tid; c < n; c += T) {
+  for (int c = L.c0 + tid; c < L.c1; c += T) {
     const float rr = r[c];
-    float zz = precondition ? (1.0f / dg[c]) * rr : rr;
+    float zz = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
     const int ci = cz.cidx[c];
     if (ci >= 0) zz = zz + s_xc[ci];
     dst[c] = zz;
     a1 += rr * zz;
     a2 += rr * rr;
   }
-  fg_block_sum2(a1, a2, sh);
+  // the cluster arm forms the chains again from r and z in L2
+  fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
+    const float rr = __ldcg(r + c);
+    u = rr * __ldcg(dst + c);
+    w = rr * rr;
+  });
 }
 
 // One 1024-thread block per SM (the second launch bound): without it ptxas
@@ -225,7 +302,8 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              int op_per_lane, float tol2, int maxiter, int stall_iters,
              int precondition, int return_best, int warm_start, FgCoarse cz,
              FgSpread sp) {
-  static_assert(!CLUSTER || (TABLE && !COARSE), "cluster arm: K3 only");
+  static_assert(!CLUSTER || (TABLE && (!COARSE || ND == 2)),
+                "cluster arm: K3, and K3-coarse in 2D");
   static_assert(!RESIDENT || (ND == 2 && !TABLE && !COARSE && !CLUSTER),
                 "resident arm: K1 in 2D only");
   static_assert(!SPREAD || (!COARSE && !CLUSTER && !RESIDENT &&
@@ -333,10 +411,10 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
         fg_put<ARM>(L, e, rr * zz, rr * rr, a1, a2);
       }
     });
-    if (COARSE) {
-      __syncthreads();  // r of this lane is complete
-      fg_coarse_precond(r + o, R.dg, p + o, n, cz, l, precondition, s_rc,
-                        s_xc, sh, a1, a2);
+    if constexpr (COARSE) {
+      if constexpr (!CLUSTER) __syncthreads();  // r of this lane is complete
+      fg_coarse_precond<ARM>(r + o, R, p + o, n, cz, l, precondition, s_rc,
+                             s_xc, sh, L, sp, a1, a2);
     } else {
       fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
         const float rr = __ldcg(r + o + c);
@@ -410,10 +488,10 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
           fg_put<ARM>(L, e, rr * zz, rr * rr, a1, a2);
         }
       });
-      if (COARSE) {
-        __syncthreads();  // r of this lane is complete
-        fg_coarse_precond(r + o, R.dg, q + o, n, cz, l, precondition, s_rc,
-                          s_xc, sh, a1, a2);
+      if constexpr (COARSE) {
+        if constexpr (!CLUSTER) __syncthreads();  // r of this lane is complete
+        fg_coarse_precond<ARM>(r + o, R, q + o, n, cz, l, precondition, s_rc,
+                               s_xc, sh, L, sp, a1, a2);
       } else {
         const float* dg = gdiag(l);
         fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
@@ -635,16 +713,26 @@ extern "C" int fg_cg_mb_cluster_occupancy(int ndims, int cluster, int n,
 
 // K3-coarse: K3 with the strip-coarse preconditioner (see the note at the
 // top of this file), 2D plans only (the strip plan is None in 3D, as in the
-// JAX package).  Returns cudaErrorInvalidValue when K exceeds FG_MAX_K.
+// JAX package).  `cluster` = 1: the chunk grid; C in 2, 4, 8, 16 (chunk 1):
+// the cluster arm, one lane over C blocks, each block's rows in shared
+// memory (a size whose rows do not fit is refused).  Returns
+// cudaErrorInvalidValue when K exceeds FG_MAX_K.
+static FgCgKernel fg_cg_coarse_kernel(int cluster) {
+  return cluster > 1 ? fg_cg_kernel<2, true, true, true>
+                     : fg_cg_kernel<2, true, true>;
+}
+
 extern "C" int fg_cg_mb_coarse_solve(
     const float* b, const float* diag, const float* off, const int* nbr,
     const float* x0, float* x, int* iters, float* rs, float* r, float* p,
     float* q, float* best, const float* einv_t, const int* strip_ptr,
-    const int* strip_cells, const int* cidx, int lanes, int chunk, int n,
-    int ndims, int op_per_lane, int K, float tol2, int maxiter, int stall_iters,
-    int precondition, int return_best, int warm_start, void* stream) {
+    const int* strip_cells, const int* cidx, int lanes, int chunk,
+    int cluster, int n, int ndims, int op_per_lane, int K, float tol2,
+    int maxiter, int stall_iters, int precondition, int return_best,
+    int warm_start, void* stream) {
   const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || ndims != 2 || nbr == nullptr || K < 1 || K > FG_MAX_K)
+  if (blocks == 0 || ndims != 2 || nbr == nullptr || K < 1 || K > FG_MAX_K ||
+      !fg_cluster_ok(cluster, chunk))
     return (int)cudaErrorInvalidValue;
   const FgGrid g = fg_grid(1, 1, n);
   FgCoarse cz;
@@ -654,9 +742,27 @@ extern "C" int fg_cg_mb_coarse_solve(
   cz.cidx = cidx;
   cz.K = K;
   cz.per_lane = op_per_lane;
-  fg_cg_kernel<2, true, true><<<blocks, FG_THREADS, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cluster > 1)
+    return (int)fg_launch_clusters(
+        fg_cg_coarse_kernel(cluster), lanes, cluster,
+        fg_stage_bytes(n, cluster, ndims), s, b, diag, off, nbr, x0, x, iters,
+        rs, r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter,
+        stall_iters, precondition, return_best, warm_start, cz, FgSpread{});
+  fg_cg_kernel<2, true, true><<<blocks, FG_THREADS, 0, s>>>(
       b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g,
       op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
       warm_start, cz, FgSpread{});
   return (int)cudaGetLastError();
+}
+
+// How many C-block clusters of K3-coarse's cluster arm (a 2D plan over n
+// cells) the card holds at once, into *out (as fg_cg_mb_cluster_occupancy;
+// the COARSE instance's registers and static arrays are its own).
+extern "C" int fg_cg_mb_coarse_cluster_occupancy(int ndims, int cluster,
+                                                 int n, int* out) {
+  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_max_clusters(fg_cg_coarse_kernel(cluster), cluster,
+                              fg_stage_bytes(n, cluster, ndims), out);
 }

@@ -61,9 +61,11 @@ _ARGTYPES = {
     "fg_cg_mb_cluster_occupancy": [_I] * 3 + [_P],
     "fg_bicgstab_mb_cluster_occupancy": [_I] * 3 + [_P],
     # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, einv_t, strip_ptr,
-    # strip_cells, cidx, lanes, chunk, n, ndims, op_per_lane, K, tol2,
-    # maxiter, stall, precond, best?, warm, stream
-    "fg_cg_mb_coarse_solve": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # strip_cells, cidx, lanes, chunk, cluster, n, ndims, op_per_lane, K,
+    # tol2, maxiter, stall, precond, best?, warm, stream
+    "fg_cg_mb_coarse_solve": [_P] * 16 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    # ndims, cluster, n, out (int*)
+    "fg_cg_mb_coarse_cluster_occupancy": [_I] * 3 + [_P],
     # diag, off, x, hxm, hxp, hym, hyp, y, k, ny, nx, stream
     "fg_stencil2d_apply": [_P] * 8 + [_I] * 3 + [_P],
 }

@@ -75,7 +75,8 @@ _TINY = 1e-30
 MAX_LANES = 64  # FG_MAX_LANES in csrc/krylov.cuh: lanes of one thread block
 #: shared memory one block may opt into on the H100 (227 KB)
 SMEM_PER_BLOCK = 232_448
-#: room kept for the kernels' static shared arrays (at most 6.5 KB today)
+#: room kept for the kernels' static shared arrays (at most 7.25 KB today:
+#: K3-coarse's cluster instance)
 SMEM_STATIC = 8_192
 #: a lane's vectors the resident arm keeps in shared memory
 #: (FG_RESIDENT_VECS in csrc/krylov.cuh)

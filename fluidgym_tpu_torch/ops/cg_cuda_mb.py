@@ -44,7 +44,7 @@ neighbour table built once per plan (``neighbor_table``; see
   (identity seams) and ``.coarse_flip_launches`` (flip seams).  ``Einv`` is
   computed from the operator on every call, as in the JAX package; the
   kernel restricts through per-strip cell lists (``strip_lists``, built once
-  per plan).
+  per plan).  A single env's lane takes the cluster arm (below), as K3's.
 * ``fused_cg_mb_plain`` and ``fused_bicgstab_plain`` are the plain PyTorch
   versions, with ``.calls`` counters; in the merged frame their matvec is
   ``block_merge.merged_apply`` (rolls plus slab fixups, the TPU kernel's
@@ -52,12 +52,14 @@ neighbour table built once per plan (``neighbor_table``; see
   ``fused_cg_mb_plain(..., coarse=...)`` is ``coarse_strips.restrict`` /
   ``prolong``, independent of the cell lists.
 
-The cluster arm (K3 and K2-mb, both seam forms): a lane can be spread over
-a thread-block cluster of C blocks (C in 2, 4, 8, 16), one per SM, each
-owning a contiguous range of the flat buffer (``cluster_ranges``) with its
-operator rows in shared memory (``stage_bytes``; a C whose rows do not fit
-is refused).  Its sums are the one-block form's, bit for bit, so it
-computes what a one-lane launch of the chunk grid computes.
+The cluster arm (K3, K3-coarse and K2-mb, both seam forms): a lane can be
+spread over a thread-block cluster of C blocks (C in 2, 4, 8, 16), one per
+SM, each owning a contiguous range of the flat buffer (``cluster_ranges``)
+with its operator rows in shared memory (``stage_bytes``; a C whose rows
+do not fit is refused).  Its sums are the one-block form's, bit for bit (K3-coarse's
+strip sums too: one warp per strip, gathered through distributed shared
+memory), so it computes what a one-lane launch of the chunk grid
+computes.
 ``default_cluster`` picks C by shape from the card's own occupancy answer
 (``max_active_clusters``); C = 1 is the chunk grid, unchanged, and stays
 the shape of a batch with more lanes than the card holds clusters.
@@ -280,11 +282,13 @@ def rows_fit(n: int, C: int, ndims: int) -> bool:
 def max_active_clusters(algo: str, ndims: int, C: int, n: int,
                         device: torch.device) -> int:
     """How many C-block clusters of the cluster arm of ``algo`` (``"cg"``:
-    K3, ``"bicgstab"``: K2-mb) over ``n``-cell lanes the card holds at once:
-    ``cudaOccupancyMaxActiveClusters`` (C's rows must fit, ``rows_fit``)."""
+    K3, ``"cg_coarse"``: K3-coarse, ``"bicgstab"``: K2-mb) over ``n``-cell
+    lanes the card holds at once: ``cudaOccupancyMaxActiveClusters`` (C's
+    rows must fit, ``rows_fit``)."""
     lib = _build.library()
-    entry = (lib.fg_cg_mb_cluster_occupancy if algo == "cg"
-             else lib.fg_bicgstab_mb_cluster_occupancy)
+    entry = {"cg": lib.fg_cg_mb_cluster_occupancy,
+             "cg_coarse": lib.fg_cg_mb_coarse_cluster_occupancy,
+             "bicgstab": lib.fg_bicgstab_mb_cluster_occupancy}[algo]
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         status = entry(ndims, C, n, ctypes.addressof(out))
@@ -340,11 +344,14 @@ def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
     16).  Else, for a 3D plan with one lane per block, the spread rule
     (``cg_cuda.default_spread`` over the merged instances: the largest G
     with ``lanes * G`` blocks co-resident and ``SPREAD_MIN_CELLS`` cells per
-    block; ``cg_cuda.pinned_spread`` pins it).  ``(1, 0)`` is the chunk
-    grid: the answer on the CPU, for chunks of several lanes, in 2D and for
-    K3-coarse (``coarse``), which has neither arm."""
+    block; ``cg_cuda.pinned_spread`` pins it).  K3-coarse (``coarse``, 2D
+    plans only) asks the cluster rule over its own instance
+    (``"cg_coarse"``) and has no spread arm.  ``(1, 0)`` is the chunk grid:
+    the answer on the CPU, for chunks of several lanes, and in 2D where no
+    cluster fits."""
     if coarse:
-        return 1, 0
+        return (default_cluster(lanes, n, ndims, chunk, device, "cg_coarse")
+                if ndims == 2 else 1), 0
     C = default_cluster(lanes, n, ndims, chunk, device, algo)
     if C > 1 or ndims != 3:
         return C, 0
@@ -362,7 +369,7 @@ def check_cluster(cluster: int, chunk: int, arm_ok: bool = True) -> None:
                          f"(chunk 1), got chunk {chunk}")
     if cluster > 1 and not arm_ok:
         raise ValueError("this kernel form has no cluster arm (K2 over the "
-                         "trivial plan and K3-coarse take cluster 1)")
+                         "trivial plan takes cluster 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -596,7 +603,7 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
         raise ValueError("b must be (lanes, n) and off (1|lanes, 2*ndims, n)")
     op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
-    check_cluster(cluster, chunk, coarse is None)
+    check_cluster(cluster, chunk)
     chains = (spread_chains(n, spread, ndims, merged=True) if chains is None
               else bool(chains))
     check_merged_spread(spread, chunk, cluster, coarse is not None, ndims,
@@ -625,7 +632,7 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
             raise ValueError("einv must be float32 (1|lanes, K, K) like diag")
         bufs += (einv.transpose(-1, -2).contiguous(),
                  *strip_lists(plan, b.device))
-        shape = (L, chunk, n, ndims, op_per_lane, sp.K)
+        shape = (L, chunk, cluster, n, ndims, op_per_lane, sp.K)
         entry = lib.fg_cg_mb_coarse_solve
     else:
         bufs += spread_buffers(L, spread, b.device)
@@ -665,14 +672,14 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     spaces (3D) keeps Jacobi alone, as in the JAX package.  ``chunk``:
     lanes per lockstep chunk (``default_chunk`` when None).  ``cluster``:
     the cluster arm's blocks per lane on the card (1: the chunk grid);
-    None: ``merged_arm`` picks the arm (the cluster arm, the spread arm of
-    a 3D plan, or the chunk grid; K3-coarse takes the chunk grid).
+    None: ``merged_arm`` picks the arm (the cluster arm, K3-coarse's too,
+    the spread arm of a 3D plan, or the chunk grid).
     Returns ``(xs, SolveInfo)`` in the same layout, the info per
     lane (scalars for one unbatched lane).  A lane whose RHS is all zero
     over every super-block gets a zero solution.  Under ``torch.func.vmap`` the batch folds onto
     the lanes (``cg_cuda.LaneFold``)."""
     if cluster is not None:  # before the coarse inverse is built
-        check_cluster(cluster, 1 if chunk is None else chunk, not coarse_strips)
+        check_cluster(cluster, 1 if chunk is None else chunk)
     batched = bs[0].dim() == plan.ndims + 1
     if not batched:
         bs = tuple(b.unsqueeze(0) for b in bs)
@@ -697,7 +704,7 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
                                coarse=coarse is not None)
         else:
             cl, G = cluster, 0
-        check_cluster(cl, c, coarse is None)
+        check_cluster(cl, c)
         if device_kind(b, "fused_cg_mb") == "cpu":
             return fused_cg_mb_plain(plan, diag, off, b, x0, coarse=coarse,
                                      chunk=c, **kw)

@@ -1,10 +1,15 @@
-"""The cluster arm of K3 and K2-mb (``fluidgym_tpu_torch.ops.cg_cuda_mb``)
-on the host: the rule that picks the cluster size, the partition of a lane
-over the blocks of a cluster, the shared memory a block stages, the
-``cluster=`` argument's checks, ``pinned_cluster``, and the wrappers' plain
-versions on CPU tensors.  The card's occupancy answer is stubbed here; the kernels
-themselves run in ``tests/test_torch_kernels_cuda.py`` on the card.
+"""The cluster arm of K3, K3-coarse and K2-mb
+(``fluidgym_tpu_torch.ops.cg_cuda_mb``) on the host: the rule that picks
+the cluster size (K3-coarse's over its own kernel instance), the partition
+of a lane over the blocks of a cluster, the shared memory a block stages,
+the ``cluster=`` argument's checks, ``pinned_cluster``, the coarse entries'
+C signatures against the loader's argtypes, and the wrappers' plain
+versions on CPU tensors.  The card's occupancy answer is stubbed here; the
+kernels themselves run in ``tests/test_torch_kernels_cuda.py`` on the card.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,7 +19,7 @@ from fluidgym_tpu_torch.core import geometry
 from fluidgym_tpu_torch.core.domain import DomainBuilder
 from fluidgym_tpu_torch.envs.cylinder.grid import \
     make_vortex_street_domain as cylinder_grid
-from fluidgym_tpu_torch.ops import cg_cuda_mb
+from fluidgym_tpu_torch.ops import _build, cg_cuda_mb
 from fluidgym_tpu_torch.solver import block_merge, coarse_strips
 from torch_port_helpers import nonsym_stencil
 
@@ -33,13 +38,14 @@ GRID_KW = dict(ndims=2, viscosity=0.01, domain_height=4.1, domain_length=22.0,
 
 @pytest.fixture
 def occupancy(monkeypatch):
-    """Stub ``max_active_clusters`` with a table (default: the H100's);
-    records every query."""
-    state = {"table": dict(H100_CLUSTERS), "calls": []}
+    """Stub ``max_active_clusters`` with a table (default: the H100's; a
+    table per kernel instance under ``"by_algo"`` overrides it for that
+    instance); records every query."""
+    state = {"table": dict(H100_CLUSTERS), "by_algo": {}, "calls": []}
 
     def fake(algo, ndims, C, n, device):
         state["calls"].append((algo, ndims, C, n))
-        return state["table"][C]
+        return state["by_algo"].get(algo, state["table"])[C]
 
     monkeypatch.setattr(cg_cuda_mb, "max_active_clusters", fake)
     return state
@@ -86,6 +92,155 @@ def test_default_cluster_reads_the_cards_answer(occupancy):
     occupancy["table"][16] = 1
     assert cg_cuda_mb.default_cluster(1, AIRFOIL_N, 2, 1, CUDA) == 16
     assert cg_cuda_mb.default_cluster(2, AIRFOIL_N, 2, 1, CUDA) == 1
+
+
+# ---------------------------------------------------------------------------
+# K3-coarse: the cluster rule over its own kernel instance
+# ---------------------------------------------------------------------------
+
+CSRC = Path(cg_cuda_mb.__file__).resolve().parents[1] / "csrc"
+
+
+def _coarse_static_bytes():
+    """Static shared memory of K3-coarse's cluster instance
+    (``fg_cg_kernel<2, true, true, true>`` in ``csrc/cg.cu``): ``sh[64]``,
+    ``s_rc`` and ``s_xc`` (``FG_MAX_K`` each), seven per-lane arrays
+    (``FG_MAX_LANES`` each) and the cluster sum's ``FG_THREADS / 2``
+    float2 slots, and the 256 B that ptxas adds to every instance (7,424 B
+    in all on the H100 build)."""
+    const = {}
+    for src in ("cg.cu", "krylov.cuh"):
+        for name, v in re.findall(r"#define (FG_MAX_K|FG_MAX_LANES|FG_THREADS)"
+                                  r" (\d+)", (CSRC / src).read_text()):
+            const[name] = int(v)
+    return 256 + 4 * (64 + 2 * const["FG_MAX_K"] + 7 * const["FG_MAX_LANES"]
+                      + 2 * (const["FG_THREADS"] // 2))
+
+
+@pytest.mark.parametrize("what,lanes,n,expected", [
+    ("airfoil K3-coarse-flip", 1, AIRFOIL_N, 16),
+    ("cylinder K3-coarse", 1, CYLINDER_N, 8),
+    ("batch-64 cylinder K3-coarse", 64, CYLINDER_N, 1),
+    ("130 cylinder lanes", 130, CYLINDER_N, 1),
+    ("batch-64 airfoil K3-coarse-flip", 64, AIRFOIL_N, 1),
+    ("130 airfoil lanes", 130, AIRFOIL_N, 1),
+    ("30 cylinder lanes", 30, CYLINDER_N, 4),
+])
+def test_coarse_rule_on_the_main_path_shapes(occupancy, what, lanes, n,
+                                             expected):
+    """A single env's K3-coarse lane takes the cluster arm where K3's does
+    (the airfoil 16, the cylinder 8), a batch the card cannot hold as
+    clusters the chunk grid; the rule asks the card about the coarse
+    instance only, only at sizes whose rows fit, and the chosen C's staged
+    rows and chain terms fit beside the instance's static arrays."""
+    assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA, "cg", coarse=True) \
+        == (expected, 0), what
+    assert occupancy["calls"]
+    assert all(a == "cg_coarse" and nd == 2 and cg_cuda_mb.rows_fit(n_, C, nd)
+               for a, nd, C, n_ in occupancy["calls"])
+    if expected > 1:
+        assert (cg_cuda_mb.stage_bytes(n, expected, 2) + _coarse_static_bytes()
+                <= cg_cuda_mb.SMEM_PER_BLOCK)
+
+
+def test_coarse_static_arrays_fit_the_reserve():
+    """``rows_fit`` keeps ``SMEM_STATIC`` for the static arrays: the coarse
+    cluster instance's (7.25 KB: its strip sums on top of K3's) fit in it."""
+    assert _coarse_static_bytes() == 7_424
+    assert _coarse_static_bytes() <= cg_cuda_mb.SMEM_STATIC
+
+
+def test_coarse_rule_reads_the_coarse_instances_answer(occupancy):
+    """The coarse instance's own occupancy decides K3-coarse's C, and K3's
+    decides K3's: fewer coarse clusters leave K3 where it was."""
+    occupancy["by_algo"]["cg_coarse"] = {16: 0, 8: 1, 4: 33, 2: 66}
+    arm = lambda lanes, n, **kw: cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA,
+                                                       "cg", **kw)
+    # at C = 8 the airfoil's rows (9,184 cells x 36 B) do not fit: one block
+    assert arm(1, AIRFOIL_N, coarse=True) == (1, 0)
+    assert arm(1, AIRFOIL_N) == (16, 0)
+    assert arm(1, CYLINDER_N, coarse=True) == (8, 0)
+    assert arm(2, CYLINDER_N, coarse=True) == (4, 0)
+    assert arm(2, CYLINDER_N) == (8, 0)
+
+
+def test_coarse_rule_off_the_card_for_chunks_and_pinned(occupancy):
+    """The CPU, a chunk of several lanes and a 3D plan (which has no strip
+    plan) take the chunk grid without asking the card; ``pinned_cluster``
+    pins K3-coarse's C as K3's."""
+    arm = lambda lanes, n, nd, chunk, dev: cg_cuda_mb.merged_arm(
+        lanes, n, nd, chunk, dev, "cg", coarse=True)
+    assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0)
+    assert arm(3, CYLINDER_N, 2, 3, CUDA) == (1, 0)
+    assert arm(1, 341_568, 3, 1, CUDA) == (1, 0)
+    assert occupancy["calls"] == []
+    with cg_cuda_mb.pinned_cluster(1):
+        assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (1, 0)
+        with cg_cuda_mb.pinned_cluster(4):
+            assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (4, 0)
+            assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0)
+    assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (16, 0)
+
+
+def test_max_active_clusters_asks_each_instance(monkeypatch):
+    """``max_active_clusters`` reads the occupancy entry of the instance it
+    is asked about (``"cg_coarse"``: ``fg_cg_mb_coarse_cluster_occupancy``)
+    and returns what the entry wrote."""
+    import contextlib
+    import ctypes
+    from types import SimpleNamespace
+
+    asked = []
+
+    def entry(name):
+        def occupancy(ndims, C, n, out):
+            asked.append(name)
+            ctypes.c_int.from_address(out).value = 100 + C
+            return 0
+        return occupancy
+
+    names = {"cg": "fg_cg_mb_cluster_occupancy",
+             "cg_coarse": "fg_cg_mb_coarse_cluster_occupancy",
+             "bicgstab": "fg_bicgstab_mb_cluster_occupancy"}
+    lib = SimpleNamespace(**{nm: entry(nm) for nm in names.values()})
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    cg_cuda_mb.max_active_clusters.cache_clear()
+    try:
+        for algo, name in names.items():
+            assert cg_cuda_mb.max_active_clusters(algo, 2, 8, 5_000, CUDA) == 108
+            assert asked[-1] == name
+    finally:
+        cg_cuda_mb.max_active_clusters.cache_clear()
+
+
+def _c_params(entry):
+    """``(type, name)`` of each parameter of an ``extern "C"`` entry of
+    ``csrc/cg.cu``."""
+    sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{",
+                    (CSRC / "cg.cu").read_text(), re.S).group(1)
+    return [(" ".join(p.split()[:-1]), p.split()[-1])
+            for p in sig.replace("\n", " ").split(",")]
+
+
+@pytest.mark.parametrize("entry", ["fg_cg_mb_coarse_solve",
+                                   "fg_cg_mb_coarse_cluster_occupancy"])
+def test_coarse_entry_signature_matches_the_ctypes_argtypes(entry):
+    """The loader's argtypes follow the C signature one for one (pointers
+    and the stream as void*, int, float); the coarse solve takes
+    ``cluster`` after ``chunk``, as ``merged_launcher`` passes it."""
+    params = _c_params(entry)
+    kinds = {"int": "c_int", "float": "c_float"}
+    assert ([t.__name__ for t in _build._ARGTYPES[entry]]
+            == [kinds.get(t, "c_void_p") for t, _ in params])
+    names = [nm for _, nm in params]
+    if "occupancy" in entry:
+        assert names == ["ndims", "cluster", "n", "out"]
+    else:
+        i = names.index("cluster")
+        assert names[i - 2:i + 6] == ["lanes", "chunk", "cluster", "n",
+                                      "ndims", "op_per_lane", "K", "tol2"]
 
 
 @pytest.mark.parametrize("n,ndims,expected", [
@@ -195,10 +350,15 @@ def test_cluster_argument_is_checked():
         cg_cuda_mb.fused_cg_mb(plan, pd, po, bs, cluster=2, chunk=2, **kw)
     with pytest.raises(ValueError, match="chunk"):
         cg_cuda_mb.fused_bicgstab_mb(plan, ad, ao, bs, cluster=4, chunk=2, **kw)
-    # K3-coarse and K2 over the trivial plan have no cluster arm
-    with pytest.raises(ValueError, match="no cluster arm"):
-        cg_cuda_mb.fused_cg_mb(plan, pd, po, tuple(b[:1] for b in bs),
-                               coarse_strips=True, cluster=2, **kw)
+    # K3-coarse has the cluster arm (CPU tensors run its plain version) and
+    # one lane per cluster; K2 over the trivial plan has no cluster arm
+    one = tuple(b[:1] for b in bs)
+    xs, info = cg_cuda_mb.fused_cg_mb(plan, pd, po, one, coarse_strips=True,
+                                      cluster=2, **kw)
+    assert all(bool(torch.isfinite(x).all()) for x in xs)
+    with pytest.raises(ValueError, match="chunk"):
+        cg_cuda_mb.fused_cg_mb(plan, pd, po, bs, coarse_strips=True, cluster=2,
+                               chunk=2, **kw)
     dom = DomainBuilder(ndims=2, viscosity=0.01)
     dom.create_block(geometry.make_uniform_grid((12, 8), (0, 0), (1.0, 1.0)))
     tplan = block_merge.trivial_plan(dom.build()[0])
@@ -223,20 +383,24 @@ def test_cluster_argument_is_checked():
                                   return_best=True, chunk=1, cluster=16)
 
 
-@pytest.mark.parametrize("algo", ["cg", "bicgstab"])
+@pytest.mark.parametrize("algo", ["cg", "cg_coarse", "bicgstab"])
 def test_cpu_wrappers_run_the_plain_versions_whatever_the_cluster(algo):
     """On CPU tensors a forced cluster size runs the plain version, bit-equal
-    to the default, and launches nothing."""
+    to the default, and launches nothing (K3-coarse: its strips on the
+    resolution-8 cylinder plan, K = 14)."""
     plan, pd, po, ad, ao, bs = _merged_system(lanes=2, seed=3)
     k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
-    counters = lambda: (k3.launches, k3.flip_launches, k3.cluster_launches,
+    counters = lambda: (k3.launches, k3.flip_launches, k3.coarse_launches,
+                        k3.coarse_flip_launches, k3.cluster_launches,
                         k2.merged_launches, k2.merged_flip_launches,
                         k2.cluster_launches)
     before = counters()
-    if algo == "cg":
+    if algo != "bicgstab":
+        assert coarse_strips.strip_plan(plan).K == 14
         plain, call = cg_cuda_mb.fused_cg_mb_plain, (
             lambda C: k3(plan, pd, po, tuple(b[:1] for b in bs), tol=1e-6,
-                         maxiter=200, cluster=C))
+                         maxiter=200, coarse_strips=algo == "cg_coarse",
+                         cluster=C))
     else:
         plain, call = cg_cuda_mb.fused_bicgstab_plain, (
             lambda C: k2(plan, ad, ao, bs, tol=1e-6, maxiter=200, cluster=C))

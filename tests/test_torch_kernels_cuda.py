@@ -28,6 +28,17 @@ the same converged flags as the plain version, iterations within 3, x
 within the bars above; two runs bit-equal; C = 1 through the wrapper
 bit-equal to the chunk grid's raw launch, and every C bit-equal to C = 1
 (its sums are the one-block form's).
+The cluster arm of K3-coarse / K3-coarse-flip: at every C in 2, 4, 8, 16
+whose rows fit and whose clusters the card holds, on the cylinder's and
+the airfoil's full-width pressure systems cold, warm from the deflated
+guess, 3 cylinder lanes past the iteration-100 refresh and return-best on
+an unconverged solve: x, iterations and residual bit-equal to the chunk
+grid, twice; the wrapper at the rule's C against the plain version as
+above; K > 128, a bad cluster size and C > 1 with chunk > 1 refused; 64 and
+130 lanes take C = 1.  Only these:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py \
+        -k "coarse"
 The resident arm of K1 / K2 (one lane per block, its rows and four vectors
 in shared memory): at the RBC2D-easy block, K1 at 1, 4 (past the refresh)
 and 130 lanes, K2's temperature and velocity systems cold and warm,
@@ -816,6 +827,180 @@ def test_cluster_arm_matches_plain(case):
         else:
             assert torch.equal(x1, x_c1), f"C={C}: x differs from C = 1"
             assert torch.equal(it1, it_c1) and torch.equal(conv, conv_c1), C
+
+
+# ---------------------------------------------------------------------------
+# the cluster arm of K3-coarse and K3-coarse-flip
+# ---------------------------------------------------------------------------
+
+def _strips_system(system, dev):
+    """``(plan, diags, offs, b (1, n), guess (1, n))``: the pressure system
+    of one substep of the bundled snapshot at full width (the cylinder's
+    res-24 ``test_00`` at dt 0.005, the airfoil's ``train_00`` at dt 0.01),
+    its RHS mean-free and the deflated warm start from the snapshot's
+    pressure, as the main path builds them."""
+    from fluidgym_tpu_torch.core.domain_io import load_domain
+    from fluidgym_tpu_torch.solver import stencil as st
+    from fluidgym_tpu_torch.utils import data_utils
+
+    data_id, split, dt = {
+        "cylinder": ("cylinder_2D_Re100_Res24", "test_00", 0.005),
+        "airfoil": ("airfoil_2D_Re1000", "train_00", 0.01)}[system]
+    topo, geoms, state = load_domain(
+        data_utils.initial_domain_dir(data_id) / split, device=dev)
+    plan = block_merge.merge_plan(topo)
+    dt = torch.tensor(dt, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    hbyA = st.pressure_rhs_vec(state, geoms, topo, adv,
+                               tuple(b.velocity for b in state.blocks),
+                               state.viscosity, dt)
+    rhs = tuple(-d for d in st.divergence_of(hbyA, state, geoms, topo))
+    n = sum(r.numel() for r in rhs)
+    mean = sum(r.sum() for r in rhs) / n
+    rhs = tuple(r - mean for r in rhs)
+    guess = piso._make_deflation_x0(p_ops, topo, torch.float32)(
+        rhs, base=tuple(b.pressure for b in state.blocks))
+    diags, offs = _packed(plan, p_ops)
+    pack = lambda fs: cg_cuda_mb.flatten_fields(plan, tuple(
+        p.unsqueeze(0) for p in block_merge.pack_fields(plan, fs)))
+    return plan, diags, offs, pack(rhs), pack(guess)
+
+
+#: (system, start): cold, warm from the deflated guess, 3 lanes past the
+#: iteration-100 refresh (one lane per cluster: A x for a random x, the RHS
+#: scaled 1e-3, a zero RHS), and return-best on a solve cut at 40
+#: iterations, unconverged
+COARSE_CLUSTER_CASES = [
+    ("cylinder", "cold"), ("cylinder", "warm"), ("cylinder", "3 lanes"),
+    ("cylinder", "unconverged"), ("airfoil", "cold"), ("airfoil", "warm"),
+    ("airfoil", "unconverged")]
+
+
+@pytest.mark.parametrize("case", COARSE_CLUSTER_CASES,
+                         ids=lambda c: "-".join(c).replace(" ", "_"))
+def test_coarse_cluster_arm_bit_equal_to_chunk_grid(case):
+    """K3-coarse (the cylinder, K = 34) and K3-coarse-flip (the airfoil,
+    K = 59) on the cluster arm at every C in 2, 4, 8, 16 whose rows fit and
+    whose clusters the card holds for the lanes: x, iterations and residual
+    bit-equal to the chunk grid's (C = 1), twice; the wrapper at the rule's
+    C bit-equal to it too, counted as a cluster launch, with the plain
+    version's converged flags and iterations within 3."""
+    dev = require_cuda()
+    system, start = case
+    plan, diags, offs, b, guess = _strips_system(system, dev)
+    L, n = b.shape
+    tol = 1e-7 if system == "airfoil" else 1e-6
+    x0, maxiter, past = None, 5000, 0
+    if start == "warm":
+        x0 = guess
+    elif start == "3 lanes":
+        g = torch.Generator().manual_seed(3)
+        diag1, off1 = cg_cuda_mb.flatten_ops(plan, diags, offs)
+        lane0 = cg_cuda_mb._merged_mv(plan, diag1, off1)(
+            torch.randn((1, n), generator=g).to(dev))[0]
+        b = torch.stack([lane0, 1e-3 * b[0], torch.zeros_like(b[0])])
+        L, tol, past = 3, 3e-7, 100
+    elif start == "unconverged":
+        maxiter = 40
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    sp = coarse_strips.strip_plan(plan)
+    einv = coarse_strips.coarse_inverse(plan, sp, tuple(zip(diags, offs)))[None]
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    kw = dict(tol2_sum=tol2, maxiter=maxiter, stall_iters=250,
+              precondition=True, return_best=True, coarse=(sp, einv), chunk=1)
+
+    def run(C):
+        launch = cg_cuda_mb.merged_launcher("cg", plan, diag, off, b, x0,
+                                            cluster=C, **kw)
+        out = [tuple(t.clone() for t in launch()) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(*out)), f"C={C}: runs differ"
+        return out[0]
+
+    ref = run(1)
+    assert bool(torch.isfinite(ref[0]).all())
+    assert int(ref[1].max()) > past
+    if start == "unconverged":
+        assert int(ref[1].max()) == maxiter and not bool((ref[2] <= tol2).any())
+    if start == "3 lanes":
+        assert bool((ref[0][2] == 0).all())
+    taken = [C for C in cg_cuda_mb.CLUSTER_SIZES
+             if cg_cuda_mb.rows_fit(n, C, 2) and cg_cuda_mb.max_active_clusters(
+                 "cg_coarse", 2, C, n, dev) >= L]
+    assert taken, "the card holds no coarse cluster of any size"
+    for C in taken:
+        got = run(C)
+        assert all(torch.equal(u, v) for u, v in zip(got, ref)), (
+            f"C={C}: not bit-equal to the chunk grid (iterations "
+            f"{got[1].tolist()} vs {ref[1].tolist()})")
+    # the wrapper: the rule's C, its own Einv (the same computation)
+    rule, _ = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, coarse=True)
+    assert rule in taken, (rule, taken)
+    before = (cg_cuda_mb.fused_cg_mb.cluster_launches,
+              cg_cuda_mb.fused_cg_mb.coarse_launches
+              + cg_cuda_mb.fused_cg_mb.coarse_flip_launches)
+    xs, info = cg_cuda_mb.fused_cg_mb(
+        plan, diags, offs, cg_cuda_mb.unflatten_fields(plan, b),
+        None if x0 is None else cg_cuda_mb.unflatten_fields(plan, x0),
+        tol=tol, maxiter=maxiter, stall_iters=250, coarse_strips=True)
+    assert (cg_cuda_mb.fused_cg_mb.cluster_launches,
+            cg_cuda_mb.fused_cg_mb.coarse_launches
+            + cg_cuda_mb.fused_cg_mb.coarse_flip_launches) == (
+                before[0] + 1, before[1] + 1)
+    xw = cg_cuda_mb.flatten_fields(plan, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(xw, ref[0])
+    assert torch.equal(info.iterations.reshape(-1).cpu(), ref[1].cpu())
+    # the plain version one lane per chunk, as the kernels take them
+    xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(
+        plan, diag, off, b, x0, tol2_sum=tol2, maxiter=maxiter, stall_iters=250,
+        precondition=True, return_best=True, coarse=(sp, einv), chunk=1)
+    zero = (b == 0).all(dim=1)
+    conv_p = ((rp <= tol2) | zero).cpu()
+    assert torch.equal(info.converged.reshape(-1).cpu(), conv_p)
+    assert int((ref[1].cpu().long() - ip.cpu().long()).abs().max()) <= 3
+
+
+def test_coarse_cluster_arm_refusals_and_batches():
+    """The coarse entry still refuses K > FG_MAX_K (128), a cluster size
+    outside 1, 2, 4, 8, 16 and C > 1 with a chunk of several lanes; a batch
+    of more lanes than the card holds coarse clusters (64, 130) takes C = 1
+    for both systems, a single lane C > 1."""
+    dev = require_cuda()
+    from fluidgym_tpu_torch.ops import _build
+
+    lib = _build.library()
+    plan, diags, offs, b, _ = _strips_system("cylinder", dev)
+    n = b.shape[1]
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    nbr = cg_cuda_mb.neighbor_table(plan, dev)
+    ptr, cells, cidx = cg_cuda_mb.strip_lists(plan, dev)
+    bufs = [torch.empty_like(b) for _ in range(6)]
+    it = torch.empty(2, dtype=torch.int32, device=dev)
+    einv = torch.zeros(129 * 129, device=dev)
+
+    def status(lanes, chunk, cluster, K):
+        return lib.fg_cg_mb_coarse_solve(
+            b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
+            b.data_ptr(), bufs[0].data_ptr(), it.data_ptr(), bufs[1].data_ptr(),
+            bufs[2].data_ptr(), bufs[3].data_ptr(), bufs[4].data_ptr(),
+            bufs[5].data_ptr(), einv.data_ptr(), ptr.data_ptr(),
+            cells.data_ptr(), cidx.data_ptr(), lanes, chunk, cluster, n, 2, 0,
+            K, 1.0, 1, 250, 1, 1, 0, torch.cuda.current_stream(dev).cuda_stream)
+
+    invalid = 1  # cudaErrorInvalidValue, before any launch
+    for lanes, chunk, cluster, K in ((1, 1, 1, 129), (1, 1, 8, 129),
+                                     (1, 1, 3, 34), (2, 2, 8, 34),
+                                     (1, 1, 8, 0)):
+        assert status(lanes, chunk, cluster, K) == invalid, (chunk, cluster, K)
+    torch.cuda.synchronize()
+    for system in ("cylinder", "airfoil"):
+        n_s = _strips_system(system, dev)[3].shape[1]
+        assert cg_cuda_mb.merged_arm(1, n_s, 2, 1, dev, coarse=True)[0] > 1
+        for lanes in (64, 130):
+            assert cg_cuda_mb.merged_arm(lanes, n_s, 2, 1, dev,
+                                         coarse=True) == (1, 0), (system, lanes)
 
 
 # ---------------------------------------------------------------------------

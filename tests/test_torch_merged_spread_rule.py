@@ -100,8 +100,8 @@ def test_merged_arm_on_the_main_path_shapes(h100, what, lanes, n, ndims, algo,
 
 @pytest.mark.parametrize("n", [EASY_N, MEDIUM_N])
 def test_merged_arm_keeps_the_chunk_grid(h100, n):
-    """K3-coarse, a chunk of several lanes and the CPU take the chunk grid,
-    whatever is pinned; a 3D lane too small for a cluster of 2 (2 x 1,024
+    """K3-coarse over a 3D plan (which has no strip plan), a chunk of
+    several lanes and the CPU take the chunk grid, whatever is pinned; a 3D lane too small for a cluster of 2 (2 x 1,024
     cells) and for 32 spread blocks (32 x 256) too."""
     for G in (None, 128, 32):
         with cg_cuda.pinned_spread(G):
