@@ -203,7 +203,36 @@ Phases, each printed with its elapsed seconds:
    (SARL) and 35 left, the chunk grid pinned with
    ``cg_cuda.pinned_spread(0)``; obs bit-equal across the arms; ms per
    env step of each arm and, for easy, device ms of the first step per
-   arm (``torch.profiler``, CUDA activity only).
+   arm (``torch.profiler``, CUDA activity only);
+37. the 2D cylinder ids of the upwind blend (``CylinderJet2D-medium/-hard``,
+   ``CylinderRot2D-easy/-medium/-hard``; 23,424 cells, Rot2D-easy
+   14,232) at their registered defaults: ``reset(seed=0)`` (randomized),
+   3 steps with a fixed non-zero action; the counters zeroed before and
+   read after every step: K3 twice per substep and K2-mb once, every one
+   on the cluster arm, no other form, plain version or ``linsolve`` loop;
+   drag, lift, obs and reward finite; the C that ``default_cluster``
+   picks, ms per env step, substeps and pressure iterations; then K3 and
+   K2-mb on the captured first-substep solves of CylinderJet2D-hard
+   (``train_00``) against their plain versions with phases 7-8's bars, the
+   rule's C bit-equal to C = 1 twice, both per raw launch in turns, the
+   bound;
+38. the card against the host for ``CylinderRot2D-easy-v0`` and
+   ``CylinderJet2D-hard-v0`` (the blend): 1 env step at full width from the
+   bundled ``test_00``, no randomization; obs and reward to 1e-4;
+39. K3-3D and K2-mb-3D on the captured first-substep solves of
+   CylinderJet3D-hard (``test_00``, 2,481,408 cells): the card's
+   co-residency at this width (one 155,136 B block per SM at G = 128, and
+   G = 64 / 32 do not fit), ``merged_arm`` K3 at G = 128 and K2-mb's 3
+   lanes one per launch at G = 128; against the plain versions with phase
+   32's bars (a converged lane's true residual within 2 tol or twice the
+   plain version's own); the rule's arm bit-equal to the chunk grid twice,
+   both per raw launch in turns; ms per wrapper call, us per iteration,
+   the bound;
+40. ``CylinderJet3D-hard-v0`` at its registered defaults (SARL) from its
+   bundled ``test_00`` (``load_initial_domain``), 1 step with phase 33's
+   checks: every K3-3D and K2-mb-3D launch (3 K2-mb per substep, one per
+   lane) on the spread arm, no chunk-grid launch; ms per env step,
+   substeps and pressure iterations.
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -346,10 +375,14 @@ def count_calls(piso, linsolve):
 
 
 def compare(name, wrapper_call, plain_call, b, tol, rel_tol, it_tol,
-            matvec):
+            matvec, plain_bar: bool = False):
     """Kernel vs plain on the same inputs: iterations within ``it_tol``,
     max|dx| <= rel_tol * max|x_plain|, converged lanes' true residual
-    RMSE <= 2 tol, zero-RHS lanes exactly zero."""
+    RMSE <= 2 tol, zero-RHS lanes exactly zero.  ``plain_bar``: a converged
+    lane's true residual may also reach twice the plain version's own on
+    the same lane (a float32 solution of a system with a large diagonal
+    has a float64 residual floor of ~eps * |A x|, and BiCGStab stops on its
+    recursive residual, so the plain version lands above 2 tol there too)."""
     import torch
 
     xk, ik, rk = wrapper_call()
@@ -360,14 +393,20 @@ def compare(name, wrapper_call, plain_call, b, tol, rel_tol, it_tol,
     L = b.shape[0]
     # the true residual in float64: in float32, b - A x has a rounding
     # floor of ~eps * |A x| per cell, above tol for these systems
-    res = (b.double() - matvec(xk.double())).reshape(L, -1)
-    rmse = torch.sqrt((res * res).mean(dim=1))
+    true_rmse = lambda x: torch.sqrt(
+        ((b.double() - matvec(x.double())).reshape(L, -1) ** 2).mean(dim=1))
+    rmse = true_rmse(xk)
+    bars = [2 * tol] * L
+    if plain_bar:
+        bars = [max(2 * tol, 2 * v) for v in true_rmse(xp).tolist()]
     conv = rp <= tol * tol * b[0].numel()
     zero = (b.reshape(L, -1) == 0).all(dim=1)
     log(f"  {name}: iters kernel {ik.tolist()} plain {ip.tolist()} | "
         f"max|dx| {err:.3e} (max|x| {scale:.3e}, bar {rel_tol:g} rel) | "
         f"true-residual rmse {[f'{v:.2e}' for v in rmse.tolist()]} "
-        f"(bar 2*tol = {2 * tol:.1e}) | zero lanes {zero.tolist()}")
+        f"(bar 2*tol = {2 * tol:.1e}"
+        + (f"; or twice the plain version's: {[f'{v:.2e}' for v in bars]}"
+           if plain_bar else "") + f") | zero lanes {zero.tolist()}")
     check(all(abs(a - c) <= it_tol for a, c in zip(ik.tolist(), ip.tolist())),
           f"{name}: iteration counts differ by more than {it_tol}")
     check(err <= rel_tol * max(scale, 1e-30), f"{name}: solutions differ")
@@ -376,8 +415,8 @@ def compare(name, wrapper_call, plain_call, b, tol, rel_tol, it_tol,
         if bool(zero[l]):
             check(bool((xk[l] == 0).all()), f"{name}: zero-RHS lane {l} not zero")
         elif bool(conv[l]):
-            check(float(rmse[l]) <= 2 * tol,
-                  f"{name}: lane {l} residual {float(rmse[l])} > 2 tol")
+            check(float(rmse[l]) <= bars[l],
+                  f"{name}: lane {l} residual {float(rmse[l])} > {bars[l]}")
     return err, int(ik.max())
 
 
@@ -726,6 +765,7 @@ def _run(dev) -> int:
     _resident_phase(kernels, res_systems)
     _rbc_phases(dev, kernels, compare, piso, linsolve)
     _cyl3d_phases(dev, kernels, compare, piso, linsolve)
+    _blend_phases(dev, kernels, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -2137,18 +2177,21 @@ RBC3D_OTHER_IDS = ("RBC3D-medium-v0", "RBC3D-hard-v0", "RBC3D-wide-medium-v0",
                    "RBC3D-wide-hard-v0")
 
 
-def _capture_solves(dev, env_id, step_length, wrappers) -> dict:
+def _capture_solves(dev, env_id, step_length, wrappers,
+                    split: str = "train") -> dict:
     """The solves of one sim step of ``env_id`` at full width from its
-    bundled ``train_00`` snapshot (no randomization, zero action), captured
+    bundled ``<split>_00`` snapshot (no randomization, zero action), captured
     at the wrappers as the solver hands them over: ``wrappers`` maps a name
     to ``(module, attribute)``; returns every call of each as ``(args,
     kwargs)`` with the tensors cloned, in order."""
     import numpy as np
 
     import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.types import EnvMode
 
     env = fluidgym_tpu_torch.make(env_id, device=dev, randomize_initial_state=False,
                                   step_length=step_length, episode_length=2)
+    env.mode = EnvMode(split)
     env.reset(seed=0)
     seen = {k: [] for k in wrappers}
     keep = lambda v: (tuple(keep(t) for t in v) if isinstance(v, tuple)
@@ -2209,21 +2252,8 @@ def spread_arms(torch, cg_cuda, launcher, lanes: int, n: int, ndims: int,
             continue
         for chains in (True, False) if ndims == 3 else (True,):
             arms[f"G={G} {'chains' if chains else 'range'}"] = launcher(G, chains)
-    ref = tuple(t.clone() for t in arms["grid"]())
-    torch.cuda.synchronize()
-    for name, launch in arms.items():
-        for i in range(runs):
-            out = launch()
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
-                  f"{name} (run {i}) differs from the chunk grid: max|dx| "
-                  f"{float((out[0] - ref[0]).abs().max()):.3e}, iterations "
-                  f"{out[1].tolist()} / {ref[1].tolist()}, residual "
-                  f"{out[2].tolist()} / {ref[2].tolist()}")
-    ms = {k: 0.0 for k in arms}
-    for k in list(arms) + list(reversed(list(arms))):
-        ms[k] += cuda_ms(torch, arms[k], reps) / 2
-    its = int(ref[1].max())
+    turns = arms_in_turns(torch, arms, reps, runs)
+    ms, its = turns["raw_ms"], turns["iterations"]
     G = cg_cuda.default_spread(lanes, n, ndims, 1, dev, kind)
     layout = "chains" if cg_cuda.spread_chains(n, G, ndims, merged) else "range"
     rule = f"G={G} {layout}" if G else "grid"
@@ -2698,7 +2728,7 @@ CYL3D_EASY, CYL3D_MEDIUM = "CylinderJet3D-easy-v0", "CylinderJet3D-medium-v0"
 CYL3D_HOST_BARS = dict(velocity=1e-4, pressure=1e-3, reward=1e-4)
 
 
-def _captured_merged(dev, env_id) -> dict:
+def _captured_merged(dev, env_id, split: str = "train") -> dict:
     """The solves of the first substep of one sim step of ``env_id``
     (``_capture_solves``): ``"K3"`` the first pressure solve (warm from the
     deflated guess), ``"K2"`` the velocity advection solve."""
@@ -2706,7 +2736,7 @@ def _captured_merged(dev, env_id) -> dict:
 
     seen = _capture_solves(dev, env_id, 0.01, {
         "K3": (cg_cuda_mb, "fused_cg_mb"),
-        "K2": (cg_cuda_mb, "fused_bicgstab_mb")})
+        "K2": (cg_cuda_mb, "fused_bicgstab_mb")}, split)
     return {"K3": seen["K3"][0], "K2": seen["K2"][0]}
 
 
@@ -2739,7 +2769,7 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     check(C == {"cg": 1, "bicgstab": 1}, f"default_cluster picks {C}, not 1")
     arm = {algo: cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo)
            for algo, L in (("cg", 1), ("bicgstab", 3))}
-    check(arm == {"cg": (1, 128), "bicgstab": (1, 32)},
+    check(arm == {"cg": (1, 128, False), "bicgstab": (1, 32, False)},
           f"merged_arm picks {arm}, not G = 128 for K3 and 32 for K2-mb")
     diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
     tol2 = cg_cuda.tol2_sum_f32(tol, n)
@@ -2855,7 +2885,7 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
     nm = sum(math.prod(sb.shape) for sb in mplan.superblocks)
     check(nm == 749568 and mplan.ndims == 3 and mx0s is not None,
           f"the medium pressure solve is not the 3D merged warm solve ({nm})")
-    check(cg_cuda_mb.merged_arm(1, nm, 3, 1, dev, "cg") == (1, 128),
+    check(cg_cuda_mb.merged_arm(1, nm, 3, 1, dev, "cg") == (1, 128, False),
           "merged_arm does not pick G = 128 for the medium K3 lane")
     mdiag, moff = cg_cuda_mb.flatten_ops(mplan, mdiags, moffs)
     mb = cg_cuda_mb.flatten_fields(mplan, tuple(b.unsqueeze(0) for b in mbs))
@@ -2909,11 +2939,15 @@ def _cyl3d_kernel_phase(dev, kernels, compare) -> None:
         f"in {time.perf_counter() - t0:.1f}s")
 
 
-def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
+def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, snapshot=None,
+                     k2_per_substep=1, **make_kw) -> dict:
     """``make(env_id, **make_kw)`` on the card at the registered full width,
-    ``reset(seed=0)``, then ``steps`` steps with seeded numpy actions.
+    ``reset(seed=0)`` (or, with ``snapshot = (split, index)``, ``seed(0)``
+    and ``load_initial_domain`` of that bundled file), then ``steps`` steps
+    with seeded numpy actions.
     Every counter is zeroed just before ``make`` and read after each step:
-    in every step K3 launches twice per substep and K2-mb once, every one a
+    in every step K3 launches twice per substep and K2-mb ``k2_per_substep``
+    times (3 where its lanes go one per launch), every one a
     3D merged launch on the spread arm (no cluster launch), and no other
     kernel form, plain version or ``linsolve`` loop runs; obs of the
     space's shapes, obs, rewards, drag and lift finite.  The result holds
@@ -2923,6 +2957,7 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
 
     import fluidgym_tpu_torch
     from fluidgym_tpu_torch.ops import cg_cuda_mb
+    from fluidgym_tpu_torch.types import EnvMode
 
     k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
     launches, plains = _counters()
@@ -2951,7 +2986,11 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
     try:
         t = time.perf_counter()
         env = fluidgym_tpu_torch.make(env_id, **make_kw)
-        env.reset(seed=0)
+        if snapshot is None:
+            env.reset(seed=0)
+        else:
+            env.seed(0)
+            env.load_initial_domain(EnvMode(snapshot[0]), snapshot[1])
         torch.cuda.synchronize()
         reset_s = time.perf_counter() - t
         reset = counts()
@@ -2969,8 +3008,9 @@ def _cyl3d_main_path(dev, piso, linsolve, env_id, steps, ph, **make_kw) -> dict:
             step_s = time.perf_counter() - t
             d = {k: v - c0[k] for k, v in counts().items()}
             sub = d["substeps"]
+            k2_n = k2_per_substep * sub
             expect = {"K3": 2 * sub, "K3 3d": 2 * sub, "K3 spread": 2 * sub,
-                      "K2-mb": sub, "K2-mb 3d": sub, "K2-mb spread": sub,
+                      "K2-mb": k2_n, "K2-mb 3d": k2_n, "K2-mb spread": k2_n,
                       "cluster": 0, "other": 0, "plain": 0, "linsolve": 0}
             check(sub > 0 and all(d[k] == v for k, v in expect.items()),
                   f"{env_id} step {i}: launches {d}, expected {expect}")
@@ -3215,6 +3255,424 @@ def _cyl3d_phases(dev, kernels, compare, piso, linsolve) -> None:
         e["card_vs_host"] = host
     _cyl3d_ab_phase(dev, kernels, {CYL3D_EASY: runs[0]["env"],
                                    CYL3D_MEDIUM: medium["env"]})
+
+
+# ---------------------------------------------------------------------------
+# phases 37-40: the cylinder ids of the upwind blend
+# ---------------------------------------------------------------------------
+
+#: phase 37's ids: the 2D cylinder ids of this slice
+CYL2D_NEW = ("CylinderJet2D-medium-v0", "CylinderJet2D-hard-v0",
+             "CylinderRot2D-easy-v0", "CylinderRot2D-medium-v0",
+             "CylinderRot2D-hard-v0")
+#: phase 37's captured solves (the slice's width, with the blend)
+CYL2D_SYSTEMS = "CylinderJet2D-hard-v0"
+#: phase 38's ids; its bars are phase 10's
+CYL2D_HOST = ("CylinderRot2D-easy-v0", "CylinderJet2D-hard-v0")
+CYL3D_HARD = "CylinderJet3D-hard-v0"
+
+
+def arms_in_turns(torch, arms: dict, reps: int, runs: int = 2) -> dict:
+    """``arms`` maps a name to a raw launch returning ``(x, iterations,
+    residual_sum)``; the first is the reference (the chunk grid).  Every
+    arm must return its bits, ``runs`` times back to back; then ms per raw
+    launch of each, in turns (forward, then backward)."""
+    names = list(arms)
+    ref = tuple(t.clone() for t in arms[names[0]]())
+    torch.cuda.synchronize()
+    for name in names:
+        for i in range(runs):
+            out = arms[name]()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  f"{name} (run {i}) differs from {names[0]}: max|dx| "
+                  f"{float((out[0] - ref[0]).abs().max()):.3e}, iterations "
+                  f"{out[1].tolist()} / {ref[1].tolist()}, residual "
+                  f"{out[2].tolist()} / {ref[2].tolist()}")
+    ms = {k: 0.0 for k in names}
+    for k in names + names[::-1]:
+        ms[k] += cuda_ms(torch, arms[k], reps) / 2
+    return dict(iterations=int(ref[1].max()), raw_ms=ms)
+
+
+def merged_system(name, algo, plan, diags, offs, bs, x0s, tol, kw, arms,
+                  rel, it_tol, reps) -> dict:
+    """One captured merged solve (``bs`` / ``x0s`` per super-block with a
+    leading lane axis): the wrapper call (the rule's arm) against the plain
+    version (``compare``, and the same converged flags), then ``arms(diag,
+    off, b, x0, tol2)`` (name -> raw launch, the chunk grid first) bit for
+    bit and per raw launch in turns (``arms_in_turns``); ms per wrapper
+    call, the plain version's ms, the bound."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
+    L, nc = b.shape
+    t2 = cg_cuda.tol2_sum_f32(tol, nc)
+    wrap = (cg_cuda_mb.fused_cg_mb if algo == "cg"
+            else cg_cuda_mb.fused_bicgstab_mb)
+    last = {}
+
+    def call():
+        xs, inf = wrap(plan, diags, offs, bs, x0s, tol=tol, **kw)
+        x = cg_cuda_mb.flatten_fields(plan, xs)
+        if algo == "cg":
+            last["kern"] = inf.converged
+            return x, inf.iterations, inf.residual ** 2 * nc
+        last["kern"] = inf.converged.repeat(L)
+        return x, inf.iterations.repeat(L), None
+
+    def plain():
+        if algo == "cg":
+            out = cg_cuda_mb.fused_cg_mb_plain(plan, diag, off, b, x0,
+                                               tol2_sum=t2, chunk=1, **kw)
+        else:
+            out = cg_cuda_mb.fused_bicgstab_plain(diag, off, b, x0,
+                                                  ndims=plan.ndims, plan=plan,
+                                                  tol2_sum=t2, chunk=1, **kw)
+        last["plain"] = (out[2] <= t2) | (b == 0).all(dim=1)
+        if algo != "cg":  # the wrapper reports over every component
+            last["plain"] = last["plain"].all().repeat(L)
+            out = (out[0], out[1].max().repeat(L), out[2])
+        return out
+
+    e, it = compare(name, call, plain, b, tol, rel, it_tol,
+                    cg_cuda_mb._merged_mv(plan, diag, off), plain_bar=True)
+    check(torch.equal(last["kern"].cpu(), last["plain"].cpu()),
+          f"{name}: converged flags {last['kern'].tolist()} (kernel) != "
+          f"{last['plain'].tolist()} (plain)")
+    turns = arms_in_turns(torch, arms(diag, off, b, x0, t2), reps)
+    b_ms, by, stream = bound_ms(nc, L, plan.ndims, it, algo, x0 is not None,
+                                True, _seam_cells(plan))
+    return dict(max_abs_err=e, iterations=it, ms=cuda_ms(torch, call, reps),
+                plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms, bound_by=by,
+                stream_ms=stream, raw_ms=turns["raw_ms"], lanes=L, cells=nc)
+
+
+def _captured_lanes(sy, key):
+    """``(plan, diags, offs, bs, x0s, tol, kw)`` of a captured solve, the
+    right-hand sides and start with a leading lane axis (K3's one lane)."""
+    (plan, diags, offs, bs), kw = sy[key]
+    kw = dict(kw)
+    x0s, tol = kw.pop("x0s"), kw.pop("tol")
+    kw.pop("coarse_strips", None)
+    if key == "K3":
+        bs = tuple(b_.unsqueeze(0) for b_ in bs)
+        x0s = None if x0s is None else tuple(x.unsqueeze(0) for x in x0s)
+    return plan, diags, offs, bs, x0s, tol, kw
+
+
+def _cyl2d_systems(dev) -> dict:
+    """Phase 37, second part: K3 and K2-mb on the first-substep solves of
+    ``CYL2D_SYSTEMS`` from its bundled ``train_00`` at full width (23,424
+    cells; the blended velocity matrix), captured at the wrappers: against
+    the plain versions with phases 7-8's bars, the rule's cluster size
+    bit-equal to C = 1 twice, both per raw launch in turns."""
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    sy = _captured_merged(dev, CYL2D_SYSTEMS)
+    out = {}
+    for key, algo, name, rel, it_tol in (("K3", "cg", "K3", 1e-3, 3),
+                                         ("K2", "bicgstab", "K2-mb", 1e-4, 2)):
+        plan, diags, offs, bs, x0s, tol, kw = _captured_lanes(sy, key)
+        L = bs[0].shape[0]
+        n = sum(math.prod(sb.shape) for sb in plan.superblocks)
+        check(plan.ndims == 2 and n == 23424,
+              f"the captured {name} solve is not the 23,424-cell merged lane")
+        rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, algo)
+        check(rule.cluster > 1 and not rule.spread and not rule.per_lane,
+              f"{name}: merged_arm picks {rule}, not the cluster arm")
+
+        def arms(diag, off, b, x0, t2, algo=algo, plan=plan, kw=kw,
+                 C=rule.cluster):
+            return {f"C={c}": cg_cuda_mb.merged_launcher(
+                algo, plan, diag, off, b, x0, tol2_sum=t2, chunk=1,
+                cluster=c, **kw) for c in (1, C)}
+
+        r = merged_system(f"{name} {CYL2D_SYSTEMS} ({L}, {n})", algo, plan,
+                          diags, offs, bs, x0s, tol, kw, arms, rel, it_tol, 10)
+        raw, c1 = r["raw_ms"][f"C={rule.cluster}"], r["raw_ms"]["C=1"]
+        r.update(C=rule.cluster, raw_ms_rule=raw, raw_ms_c1=c1,
+                 us_per_it=raw * 1e3 / max(r["iterations"], 1),
+                 us_per_it_c1=c1 * 1e3 / max(r["iterations"], 1))
+        log(f"  {name} ({L}, {n}) at C = {rule.cluster}: {r['ms']:.3f} ms per "
+            f"wrapper call; raw launch {raw:.3f} ms = {r['us_per_it']:.2f} "
+            f"us/iteration, C = 1 {c1:.3f} ms ({c1 / raw:.2f}x) at "
+            f"{r['iterations']} iterations, bit-equal twice (plain "
+            f"{r['plain_ms']:.3f} ms; bound {r['bound_ms'] * 1e3:.3f} us by "
+            f"{r['bound_by']})")
+        out[name] = r
+    return out
+
+
+def _cyl2d_new_main_path(dev, kernels, piso, linsolve) -> None:
+    """Phase 37: the five 2D cylinder ids of this slice at their registered
+    defaults: ``make``, ``reset(seed=0)`` (randomized: noise on the bundled
+    ``train_00``, then 13-25 uncontrolled sim steps), 3 steps with a fixed
+    non-zero action.  Counters zeroed just before
+    ``make`` and read after each step: in every step K3 launches twice per
+    substep and K2-mb once, every one on the cluster arm, and no other
+    kernel form, plain version or ``linsolve`` loop runs; drag, lift, obs
+    and reward finite.  Then the captured solves (``_cyl2d_systems``)."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    t0 = time.perf_counter()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    launches, plains = _counters()
+    rows = {}
+    for env_id in CYL2D_NEW:
+        calls, restore = count_calls(piso, linsolve)
+
+        def counts():
+            out = {"K3": k3.launches, "K2-mb": k2.merged_launches,
+                   "cluster": k3.cluster_launches + k2.cluster_launches}
+            out["other"] = (sum(getattr(*c) for c in launches) - out["K3"]
+                            - out["K2-mb"])
+            out["plain"] = sum(getattr(*c) for c in plains)
+            out["linsolve"] = calls["cg"] + calls["bicgstab"]
+            out["substeps"] = calls["piso_substep_info"]
+            return out
+
+        for c in launches + plains + [(k3, "cluster_launches"),
+                                      (k2, "cluster_launches")]:
+            setattr(*c, 0)
+        torch.cuda.synchronize()
+        per_step, step_s, p_its, drags, lifts = [], [], [], [], []
+        try:
+            t = time.perf_counter()
+            env = fluidgym_tpu_torch.make(env_id)
+            env.reset(seed=0)
+            torch.cuda.synchronize()
+            reset_s = time.perf_counter() - t
+            reset = counts()
+            cells = sum(math.prod(b.shape) for b in env._topo.blocks)
+            a = np.full(env.action_space.shape, 0.5, np.float32)
+            for i in range(3):
+                c0 = counts()
+                t = time.perf_counter()
+                obs, reward, _, _, info = env.step(a)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                d = {k: v - c0[k] for k, v in counts().items()}
+                sub = d["substeps"]
+                expect = {"K3": 2 * sub, "K2-mb": sub, "cluster": 3 * sub,
+                          "other": 0, "plain": 0, "linsolve": 0}
+                check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+                      f"{env_id} step {i}: launches {d}, expected {expect}")
+                for k, v in obs.items():
+                    check(tuple(v.shape) == env.observation_space[k].shape,
+                          f"{env_id} obs {k} shape {tuple(v.shape)}")
+                    check(bool(torch.isfinite(v).all()),
+                          f"{env_id} obs {k} not finite")
+                drags.append(float(info["drag"]))
+                lifts.append(float(info["lift"]))
+                check(bool(torch.isfinite(reward).all())
+                      and math.isfinite(drags[-1]) and math.isfinite(lifts[-1]),
+                      f"{env_id}: reward, drag or lift not finite")
+                p_its.append(int(info["pressure_iterations"]))
+                per_step.append(d)
+        finally:
+            restore()
+        C = {name: cg_cuda_mb.default_cluster(L, cells, 2, 1, dev, algo)
+             for name, L, algo in (("K3", 1, "cg"), ("K2-mb", 2, "bicgstab"))}
+        check(min(C.values()) > 1, f"{env_id}: default_cluster gives {C}")
+        blend = env._cfg.advection_upwind_blend
+        check(blend == (0.3 if env._reynolds_number >= 500 else 0.0),
+              f"{env_id}: upwind blend {blend}")
+        r = rows[env_id] = dict(
+            cells=cells, C=C, reset_s=reset_s,
+            reset_launches={k: reset[k] for k in ("K3", "K2-mb")},
+            ms_step=1e3 * sum(step_s) / len(step_s),
+            step_ms=[1e3 * x for x in step_s],
+            substeps=[d["substeps"] for d in per_step],
+            pressure_iterations=p_its, drag=drags, lift=lifts, blend=blend,
+            launches_per_env_step={k: sum(d[k] for d in per_step) / len(per_step)
+                                   for k in ("K3", "K2-mb")})
+        log(f"phase 37 {env_id}: {cells} cells, blend {blend}, "
+            f"default_cluster {C}, reset {reset_s:.2f}s (launches "
+            f"{r['reset_launches']}), steps {[round(x, 3) for x in step_s]} s "
+            f"= {r['ms_step']:.1f} ms/env step, substeps {r['substeps']}, "
+            f"pressure iterations {p_its}, drag {[round(x, 5) for x in drags]}"
+            f", lift {[round(x, 5) for x in lifts]}, launches per step "
+            f"{r['launches_per_env_step']}; every K3 / K2-mb launch on the "
+            f"cluster arm")
+    systems = _cyl2d_systems(dev)
+    for k in ("K3", "K2-mb"):
+        s_ = systems[k]
+        kernels[k]["cylinder_23424"] = dict(
+            {x: s_[x] for x in ("lanes", "cells", "iterations", "ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "stream_ms", "max_abs_err", "C",
+                                "raw_ms_rule", "raw_ms_c1", "us_per_it",
+                                "us_per_it_c1")},
+            launches=sum(3 * rows[i]["launches_per_env_step"][k]
+                         for i in CYL2D_NEW),
+            launches_per_env_step={i: rows[i]["launches_per_env_step"][k]
+                                   for i in CYL2D_NEW},
+            main_path={i: {x: rows[i][x] for x in (
+                "cells", "C", "ms_step", "step_ms", "substeps",
+                "pressure_iterations", "reset_s")}
+                for i in CYL2D_NEW})
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"],
+                                        s_["max_abs_err"])
+    log(f"phase 37 the 2D cylinder ids of the upwind blend ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def _cyl2d_new_card_vs_host(dev) -> None:
+    """Phase 38: one full-width env step of each of ``CYL2D_HOST`` from the
+    bundled ``test_00`` (no randomization) on the card and on the host,
+    the same action: obs and reward within 1e-4 relative (phase 10's bars;
+    the Re 500 id through the blended velocity matrix)."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+
+    for env_id in CYL2D_HOST:
+        t = time.perf_counter()
+        outs, its = {}, {}
+        for where in (dev, torch.device("cpu")):
+            e = fluidgym_tpu_torch.make(env_id, device=where,
+                                        randomize_initial_state=False)
+            e.test()
+            e.reset(seed=0)
+            o, r, _, _, info = e.step(np.array([0.6], np.float32))
+            outs[where.type] = {k: v.cpu() for k, v in dict(o, reward=r).items()}
+            its[where.type] = int(info["pressure_iterations"])
+        og, oc = outs[dev.type], outs["cpu"]
+        diffs = {k: float((og[k] - oc[k]).abs().max()
+                          / oc[k].abs().max().clamp(min=1e-30)) for k in og}
+        log(f"phase 38 {env_id} full width, 1 step from the bundled test_00 "
+            f"({e.n_sim_steps} sim steps, blend "
+            f"{e._cfg.advection_upwind_blend}, pressure iterations {its}), "
+            f"card vs host: relative diffs {diffs} (bar 1e-4) in "
+            f"{time.perf_counter() - t:.2f}s")
+        check(all(v <= 1e-4 for v in diffs.values()),
+              f"card and host disagree on {env_id}: {diffs}")
+
+
+def _hard_kernel_phase(dev, kernels) -> None:
+    """Phase 39: K3-3D and K2-mb-3D on the first-substep solves of
+    CylinderJet3D-hard from its bundled ``test_00`` at full width (2,481,408
+    cells), captured at the wrappers: the warm pressure solve (1 lane) and
+    the velocity solve (3 lanes), against their plain versions with phase
+    32's bars.  A spread block's chain terms fill one SM at this width, so
+    the card's co-residency (``spread_capacity``) holds one lane at G = 128
+    and not three: ``merged_arm`` gives K3 G = 128 and K2-mb's lanes one
+    per launch at G = 128.  On each system the rule's arm must return the
+    chunk grid's x, iterations and residual bit for bit, twice, and is
+    timed against it per raw launch in turns."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t0 = time.perf_counter()
+    sy = _captured_merged(dev, CYL3D_HARD, split="test")
+    n = sum(math.prod(sb.shape) for sb in sy["K3"][0][0].superblocks)
+    check(n == 2481408, f"the hard pressure solve has {n} cells, not 2,481,408")
+    # the card answers only for a G whose chain terms fit a block
+    cap = {algo: {G: cg_cuda.spread_capacity(algo + "_mb", 3, G, True, n, dev)
+                  for G in cg_cuda.SPREAD_SIZES if cg_cuda.spread_fits(n, G)}
+           for algo in ("cg", "bicgstab")}
+    check(all(128 <= c[128] < 3 * 128 and len(c) == 1 for c in cap.values()),
+          f"the card's co-residency at the hard width is not one lane at "
+          f"G = 128 and fewer than three: {cap}")
+    arm = {algo: cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo)
+           for algo, L in (("cg", 1), ("bicgstab", 3))}
+    log(f"  {CYL3D_HARD}: spread blocks co-resident per G {cap}, "
+        f"{cg_cuda.spread_bytes(n, 128)} B of chain terms per block at G = "
+        f"128; merged_arm {arm}")
+    check(arm == {"cg": (1, 128, False), "bicgstab": (1, 128, True)},
+          f"merged_arm picks {arm}, not G = 128 for K3 and the K2-mb lanes "
+          "one per launch at G = 128")
+    rows = {}
+    for key, algo, name, rel, it_tol in (("K3", "cg", "K3-3D", 1e-3, 3),
+                                         ("K2", "bicgstab", "K2-mb-3D", 1e-4, 2)):
+        plan, diags, offs, bs, x0s, tol, kw = _captured_lanes(sy, key)
+        L = bs[0].shape[0]
+        check(plan.ndims == 3 and L == (1 if algo == "cg" else 3)
+              and (algo != "cg" or x0s is not None),
+              f"the captured {name} solve is not the {L}-lane 3D merged solve")
+
+        def arms(diag, off, b, x0, t2, algo=algo, plan=plan, kw=kw, L=L):
+            def mk(sl, G):
+                one = lambda t: t if t is None or t.shape[0] == 1 else t[sl]
+                return cg_cuda_mb.merged_launcher(
+                    algo, plan, one(diag), one(off), b[sl], one(x0),
+                    tol2_sum=t2, chunk=1, spread=G, **kw)
+            grid = mk(slice(None), 0)
+            if L == 1:
+                return {"grid": grid, "G=128": mk(slice(None), 128)}
+            lanes = [mk(slice(l, l + 1), 128) for l in range(L)]
+            return {"grid": grid, "G=128 one lane per launch": lambda: tuple(
+                torch.cat(t) for t in zip(*[f() for f in lanes]))}
+
+        r = merged_system(f"{name} hard ({L}, {n})", algo, plan, diags, offs,
+                          bs, x0s, tol, kw, arms, rel, it_tol, 3)
+        rule = [k for k in r["raw_ms"] if k != "grid"][0]
+        raw, grid = r["raw_ms"][rule], r["raw_ms"]["grid"]
+        r.update(rule=rule, raw_ms_rule=raw, raw_ms_grid=grid,
+                 us_per_it=raw * 1e3 / max(r["iterations"], 1),
+                 us_per_it_grid=grid * 1e3 / max(r["iterations"], 1),
+                 spread_capacity=cap[algo])
+        log(f"  {name} hard ({L}, {n}): {r['ms']:.3f} ms per wrapper call; raw "
+            f"launch {rule} {raw:.3f} ms = {r['us_per_it']:.2f} us/iteration, "
+            f"chunk grid {grid:.3f} ms = {r['us_per_it_grid']:.2f} "
+            f"({grid / raw:.2f}x) at {r['iterations']} iterations; bit-equal "
+            f"twice (plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, streaming "
+            f"{r['stream_ms'] * 1e3:.3f} us)")
+        rows[name] = r
+    for name, r in rows.items():
+        kernels[name]["hard"] = {x: r[x] for x in (
+            "lanes", "cells", "iterations", "ms", "plain_ms", "bound_ms",
+            "bound_by", "stream_ms", "max_abs_err", "rule", "raw_ms_rule",
+            "us_per_it", "raw_ms_grid", "us_per_it_grid", "spread_capacity")}
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           r["max_abs_err"])
+    log(f"phase 39 K3-3D and K2-mb-3D at the hard width ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def _hard_main_path(dev, kernels, piso, linsolve) -> None:
+    """Phase 40: ``CylinderJet3D-hard-v0`` at its registered defaults
+    (SARL), from its bundled ``test_00`` (``load_initial_domain``; the one
+    file of the set the chip copy holds), 1 step with
+    ``_cyl3d_main_path``'s checks: every K3 launch and every K2-mb launch
+    (3 per substep: one per velocity lane) a 3D merged launch on the
+    spread arm, no chunk-grid launch."""
+    r = _cyl3d_main_path(dev, piso, linsolve, CYL3D_HARD, 1, 40,
+                         snapshot=("test", 0), k2_per_substep=3)
+    check(r["cells"] == 2481408, f"{CYL3D_HARD} has {r['cells']} cells")
+    check(r["launches"]["K3 spread"] == r["launches"]["K3 3d"] > 0
+          and r["launches"]["K2-mb spread"] == r["launches"]["K2-mb 3d"] > 0,
+          f"{CYL3D_HARD}: a launch took the chunk grid: {r['launches']}")
+    for name, k in (("K3-3D", "K3"), ("K2-mb-3D", "K2")):
+        kernels[name]["hard"]["main_path"] = {x: r[x] for x in (
+            "ms_step", "step_ms", "reset_s", "substeps", "pressure_iterations",
+            "pressure_converged", "drag", "lift")}
+        kernels[name]["hard"]["launches"] = r["launches"][
+            "K3 3d" if k == "K3" else "K2-mb 3d"]
+        kernels[name]["hard"]["launches_per_env_step"] = r["step_launches"][0][k]
+    r.pop("env")
+
+
+def _blend_phases(dev, kernels, piso, linsolve) -> None:
+    """Phases 37-40: the 2D ids of the blend on the cluster arm (37), card
+    against host (38), the hard width's K3-3D and K2-mb-3D (39), the
+    CylinderJet3D-hard main path (40)."""
+    _cyl2d_new_main_path(dev, kernels, piso, linsolve)
+    _cyl2d_new_card_vs_host(dev)
+    _hard_kernel_phase(dev, kernels)
+    _hard_main_path(dev, kernels, piso, linsolve)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Environment families and registration.  This port registers the 12
-RBC ids (2D and 3D), ``CylinderJet2D-easy-v0``, the three CylinderJet3D
-ids (the hard one raises: it needs the upwind blend) and
-``Airfoil2D-easy-v0``; the other ids of the JAX package follow slice by
-slice."""
+RBC ids (2D and 3D), the three CylinderJet2D ids, the three CylinderRot2D
+ids, the three CylinderJet3D ids and ``Airfoil2D-easy-v0``: 22 of the JAX
+package's 39 ids, with the same merged defaults; the other ids follow
+slice by slice."""
 
 from fluidgym_tpu_torch.envs.fluid_env import EnvState, FluidEnv
 from fluidgym_tpu_torch.registry import register
@@ -47,16 +47,27 @@ def _register_rbc() -> None:
 def _register_cylinder() -> None:
     from fluidgym_tpu_torch.envs.cylinder import (
         CYLINDER_JET_2D_DEFAULT_CONFIG, CYLINDER_JET_3D_DEFAULT_CONFIG,
-        CylinderJetEnv2D, CylinderJetEnv3D)
+        CYLINDER_ROT_2D_DEFAULT_CONFIG, CylinderJetEnv2D, CylinderJetEnv3D,
+        CylinderRotEnv2D)
 
     register("CylinderJet2D-easy-v0", CylinderJetEnv2D,
              CYLINDER_JET_2D_DEFAULT_CONFIG, reynolds_number=100, resolution=24)
+    register("CylinderJet2D-medium-v0", CylinderJetEnv2D,
+             CYLINDER_JET_2D_DEFAULT_CONFIG, reynolds_number=250, resolution=32)
+    register("CylinderJet2D-hard-v0", CylinderJetEnv2D,
+             CYLINDER_JET_2D_DEFAULT_CONFIG, reynolds_number=500, resolution=32)
     register("CylinderJet3D-easy-v0", CylinderJetEnv3D,
              CYLINDER_JET_3D_DEFAULT_CONFIG, reynolds_number=100, resolution=24)
     register("CylinderJet3D-medium-v0", CylinderJetEnv3D,
              CYLINDER_JET_3D_DEFAULT_CONFIG, reynolds_number=250, resolution=32)
     register("CylinderJet3D-hard-v0", CylinderJetEnv3D,
              CYLINDER_JET_3D_DEFAULT_CONFIG, reynolds_number=500, resolution=48)
+    register("CylinderRot2D-easy-v0", CylinderRotEnv2D,
+             CYLINDER_ROT_2D_DEFAULT_CONFIG, reynolds_number=100, resolution=24)
+    register("CylinderRot2D-medium-v0", CylinderRotEnv2D,
+             CYLINDER_ROT_2D_DEFAULT_CONFIG, reynolds_number=250, resolution=32)
+    register("CylinderRot2D-hard-v0", CylinderRotEnv2D,
+             CYLINDER_ROT_2D_DEFAULT_CONFIG, reynolds_number=500, resolution=32)
 
 
 def _register_airfoil() -> None:

@@ -19,8 +19,8 @@
   pressure) + a random number of uncontrolled steps.
 
 Not ported yet: 3D airfoils, rendering to images and vorticity, and the
-Re >= 3000 tiers (they need the upwind blend of the advection matrix and
-the aggregation coarse space of the pressure solve; they raise).
+Re >= 3000 tiers (they need the aggregation coarse space of the pressure
+solve; they raise).
 """
 
 from __future__ import annotations
@@ -108,13 +108,12 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         if ndims != 2:
             raise NotImplementedError("3D airfoils are not ported yet")
         if reynolds_number >= 3000:
-            # the JAX package's medium/hard tiers blend upwind advection in
-            # and precondition the pressure solve with an aggregation coarse
-            # space
+            # the JAX package's medium/hard tiers precondition the pressure
+            # solve with an aggregation coarse space
             raise NotImplementedError(
-                "Re >= 3000 needs the upwind blend of the advection matrix "
-                "and the aggregation coarse space of the pressure solve, "
-                "which are not ported to fluidgym_tpu_torch yet")
+                "Re >= 3000 needs the aggregation coarse space of the "
+                "pressure solve, which is not ported to fluidgym_tpu_torch "
+                "yet")
         self._reynolds_number = float(reynolds_number)
         self._attack_angle_deg = float(attack_angle_deg)
         self._ndims = ndims

@@ -7,6 +7,7 @@
   (outflow advection + flux balancing, ``solver/boundaries.py``);
 * solver preset: adaptive substeps, non-orthogonal corrections, pressure
   tol 1e-5 (2D) / 5e-7 (3D), FD corrector, pressure warm start with deflation,
+  an upwind blend of 0.3 in the velocity advection matrix at Re >= 500,
   ``make_divergence_free`` at initialization;
 * 151 wake/ring sensors gathered directly from the blocks (at mid z in
   3D);
@@ -17,8 +18,7 @@
 * domain randomization: field noise (numpy draws per block, velocity then
   pressure) + a random number of uncontrolled steps.
 
-Not ported yet: rendering to images, the upwind blend of the hard tier
-(Re >= 500 raises).  The uniform render grid's resample plan is built on
+Not ported yet: rendering to images.  The uniform render grid's resample plan is built on
 the first ``get_velocity`` / ``get_pressure`` call, not at every reset (at
 3D widths it is millions of targets and only rendering reads it).
 """
@@ -80,11 +80,6 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         differentiable: bool = False,
         device=None,
     ):
-        if reynolds_number >= 500:
-            # the JAX package's hard tier blends upwind advection in
-            raise NotImplementedError(
-                "Re >= 500 needs the upwind blend of the advection matrix, "
-                "which is not ported to fluidgym_tpu_torch yet")
         self._reynolds_number = float(reynolds_number)
         self._circle_resolution_angular = int(resolution)
         self._lift_penalty = float(lift_penalty)
@@ -194,6 +189,9 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             differentiable=self._differentiable,
             pressure_warm_start=True,
             pressure_deflation=True,
+            # central advection is unstable at the hard tier's cell Peclet
+            # number (impulsive-start blow-up); a 0.3 upwind blend is stable
+            advection_upwind_blend=0.3 if self._reynolds_number >= 500 else 0.0,
         )
 
     def _additional_initialization(self) -> None:

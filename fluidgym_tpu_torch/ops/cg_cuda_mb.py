@@ -83,10 +83,14 @@ from L2, every sum the one-block form's, so it returns the chunk grid's
 x, iterations and residual bit for bit.  ``merged_arm`` picks the arm of a
 merged solve: the cluster rule first, then the spread rule
 (``cg_cuda.default_spread`` over the merged instances, pinned by
-``cg_cuda.pinned_spread``); ``merged_launcher(..., spread=G, chains=)``
+``cg_cuda.pinned_spread``), and where no G holds all the lanes of a solve
+at once but one holds a single lane, one lane per launch at that G
+(CylinderJet3D-hard's 2,481,408-cell velocity lanes: each lane stops on
+its own, so that too is the chunk grid's bits); ``merged_launcher(...,
+spread=G, chains=)``
 gives a raw launch; ``fused_cg_mb.spread_launches`` and
 ``fused_bicgstab_mb.merged_spread_launches`` count the launches that took
-it.
+it, one per lane where the lanes go one per launch.
 
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
@@ -98,6 +102,7 @@ import contextlib
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -124,7 +129,7 @@ __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "flatten_fields", "unflatten_fields", "flatten_ops",
            "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
            "max_active_clusters", "rows_fit", "CLUSTER_SIZES", "merged_arm",
-           "merged_launcher"]
+           "MergedArm", "merged_launcher"]
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +262,23 @@ CLUSTER_SIZES = (16, 8, 4, 2)
 MIN_CELLS_PER_BLOCK = 1024
 
 _PINNED: int | None = None
+#: a 3D merged solve whose lanes no G holds at once goes one lane per
+#: launch at the G that holds one lane, while that G gives each lane at
+#: least this many blocks: on the H100 a merged lane over 128 blocks ran
+#: 15-21x faster per iteration than on the chunk grid's one block (K3-3D,
+#: 341,568 and 749,568 cells), so up to 16 lanes in turn beat the chunk
+#: grid's concurrent lanes, and a batch keeps the chunk grid
+SPLIT_BLOCKS_PER_LANE = 8
+
+
+class MergedArm(NamedTuple):
+    """``merged_arm``'s answer: blocks per lane of the cluster arm (1: no
+    cluster), G of the spread arm (0: none) and whether the lanes go one
+    per launch (``per_lane``)."""
+
+    cluster: int
+    spread: int
+    per_lane: bool
 
 
 #: the cells ``[c0, c1)`` that each block of a C-block cluster owns in a
@@ -336,26 +358,38 @@ def pinned_cluster(C: int | None):
 
 
 def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
-               algo: str = "cg", coarse: bool = False) -> tuple[int, int]:
+               algo: str = "cg", coarse: bool = False) -> MergedArm:
     """The arm of a merged-frame solve (K3: ``algo="cg"``, K2-mb:
-    ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells: ``(C, G)``.  The
-    cluster rule first (``default_cluster``): a lane it spreads over C > 1
-    blocks keeps the cluster arm (the 2D cylinder at C = 8, the airfoil at
-    16).  Else, for a 3D plan with one lane per block, the spread rule
-    (``cg_cuda.default_spread`` over the merged instances: the largest G
-    with ``lanes * G`` blocks co-resident and ``SPREAD_MIN_CELLS`` cells per
-    block; ``cg_cuda.pinned_spread`` pins it).  K3-coarse (``coarse``, 2D
+    ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells: ``(C, G,
+    per_lane)``.  The cluster rule first (``default_cluster``): a lane it
+    spreads over C > 1 blocks keeps the cluster arm (the 2D cylinder at
+    C = 8 or 16, the airfoil at 16).  Else, for a 3D plan with one lane per
+    block, the spread rule (``cg_cuda.default_spread`` over the merged
+    instances: the largest G with ``lanes * G`` blocks co-resident and
+    ``SPREAD_MIN_CELLS`` cells per block; ``cg_cuda.pinned_spread`` pins
+    it).  Where no G holds the lanes at once but one holds a single lane
+    with ``SPLIT_BLOCKS_PER_LANE`` blocks per lane of the solve, the lanes
+    go one per launch at that G (``per_lane``: CylinderJet3D-hard's 3
+    velocity lanes of 2,481,408 cells at G = 128); each lane stops on its
+    own, so that is the chunk grid's bits.  K3-coarse (``coarse``, 2D
     plans only) asks the cluster rule over its own instance
-    (``"cg_coarse"``) and has no spread arm.  ``(1, 0)`` is the chunk grid:
-    the answer on the CPU, for chunks of several lanes, and in 2D where no
-    cluster fits."""
+    (``"cg_coarse"``) and has no spread arm.  ``(1, 0, False)`` is the
+    chunk grid: the answer on the CPU, for chunks of several lanes, in 2D
+    where no cluster fits, and with ``pinned_spread(0)``."""
     if coarse:
-        return (default_cluster(lanes, n, ndims, chunk, device, "cg_coarse")
-                if ndims == 2 else 1), 0
+        return MergedArm(default_cluster(lanes, n, ndims, chunk, device,
+                                         "cg_coarse") if ndims == 2 else 1,
+                         0, False)
     C = default_cluster(lanes, n, ndims, chunk, device, algo)
     if C > 1 or ndims != 3:
-        return C, 0
-    return 1, default_spread(lanes, n, ndims, chunk, device, algo + "_mb")
+        return MergedArm(C, 0, False)
+    G = default_spread(lanes, n, ndims, chunk, device, algo + "_mb")
+    if G or lanes == 1:
+        return MergedArm(1, G, False)
+    G1 = default_spread(1, n, ndims, chunk, device, algo + "_mb")
+    if G1 and lanes * SPLIT_BLOCKS_PER_LANE <= G1:
+        return MergedArm(1, G1, True)
+    return MergedArm(1, 0, False)
 
 
 def check_cluster(cluster: int, chunk: int, arm_ok: bool = True) -> None:
@@ -560,11 +594,19 @@ def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
     return launch
 
 
-def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0, **kw):
+def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0,
+                   per_lane: bool = False, **kw):
     """K3 (``algo="cg"``; K3-coarse with ``coarse = (sp, einv)``) or K2-mb
     (``"bicgstab"``) on the flat merged layout: one launch of
-    ``merged_launcher``.  Returns ``(x, iterations, residual_sum)``."""
-    return merged_launcher(algo, plan, diag, off, b, x0, **kw)()
+    ``merged_launcher``, or with ``per_lane`` one launch per lane in turn
+    (``merged_arm``).  Returns ``(x, iterations, residual_sum)``."""
+    if not per_lane:
+        return merged_launcher(algo, plan, diag, off, b, x0, **kw)()
+    one = lambda t, l: t if t is None or t.shape[0] == 1 else t[l:l + 1]
+    outs = [merged_launcher(algo, plan, one(diag, l), one(off, l), b[l:l + 1],
+                            None if x0 is None else x0[l:l + 1], **kw)()
+            for l in range(b.shape[0])]
+    return tuple(torch.cat(t) for t in zip(*outs))
 
 
 def check_merged_spread(spread: int, chunk: int, cluster: int, coarse: bool,
@@ -700,28 +742,30 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
         coarse = None if einv is None else (sp, einv)
         if cluster is None:
-            cl, G = merged_arm(b.shape[0], n, plan.ndims, c, b.device,
-                               coarse=coarse is not None)
+            cl, G, per_lane = merged_arm(b.shape[0], n, plan.ndims, c,
+                                         b.device, coarse=coarse is not None)
         else:
-            cl, G = cluster, 0
+            cl, G, per_lane = cluster, 0, False
         check_cluster(cl, c)
         if device_kind(b, "fused_cg_mb") == "cpu":
             return fused_cg_mb_plain(plan, diag, off, b, x0, coarse=coarse,
                                      chunk=c, **kw)
-        out = _launch_merged("cg", plan, diag, off, b, x0, coarse=coarse,
-                             chunk=c, cluster=cl, spread=G, **kw)
+        out = _launch_merged("cg", plan, diag, off, b, x0, per_lane,
+                             coarse=coarse, chunk=c, cluster=cl, spread=G,
+                             **kw)
+        k = b.shape[0] if per_lane else 1  # launches
         if cl > 1:
-            fused_cg_mb.cluster_launches += 1
-        fused_cg_mb.spread_launches += int(G > 0)
+            fused_cg_mb.cluster_launches += k
+        fused_cg_mb.spread_launches += k * int(G > 0)
         if coarse is None and plan.identity_seams:
-            fused_cg_mb.launches += 1
-            fused_cg_mb.launches_3d += int(plan.ndims == 3)
+            fused_cg_mb.launches += k
+            fused_cg_mb.launches_3d += k * int(plan.ndims == 3)
         elif coarse is None:
-            fused_cg_mb.flip_launches += 1
+            fused_cg_mb.flip_launches += k
         elif plan.identity_seams:
-            fused_cg_mb.coarse_launches += 1
+            fused_cg_mb.coarse_launches += k
         else:
-            fused_cg_mb.coarse_flip_launches += 1
+            fused_cg_mb.coarse_flip_launches += k
         return out
 
     x, iters, rs = LaneFold.apply(solve, 2, b, x0, diag, off, einv)
@@ -784,12 +828,12 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
 
     def solve(b, x0, diag, off):
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
-        cl, G = 1, 0
+        cl, G, per_lane = 1, 0, False
         if cluster is not None:
             cl = cluster
         elif not single:
-            cl, G = merged_arm(b.shape[0], n_lane, ndims, c, b.device,
-                               "bicgstab")
+            cl, G, per_lane = merged_arm(b.shape[0], n_lane, ndims, c,
+                                         b.device, "bicgstab")
         check_cluster(cl, c, not single)
         if device_kind(b, "fused_bicgstab_mb") == "cpu":
             return fused_bicgstab_plain(diag, off, b, x0, ndims=ndims,
@@ -805,16 +849,17 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
             fused_bicgstab_mb.resident_launches += int(res)
             fused_bicgstab_mb.spread_launches += int(G > 0)
         else:
-            out = _launch_merged("bicgstab", plan, diag, off, b, x0, chunk=c,
-                                 cluster=cl, spread=G, **kw)
+            out = _launch_merged("bicgstab", plan, diag, off, b, x0, per_lane,
+                                 chunk=c, cluster=cl, spread=G, **kw)
+            k = b.shape[0] if per_lane else 1  # launches
             if cl > 1:
-                fused_bicgstab_mb.cluster_launches += 1
-            fused_bicgstab_mb.merged_spread_launches += int(G > 0)
+                fused_bicgstab_mb.cluster_launches += k
+            fused_bicgstab_mb.merged_spread_launches += k * int(G > 0)
             if plan.identity_seams:
-                fused_bicgstab_mb.merged_launches += 1
-                fused_bicgstab_mb.merged_launches_3d += int(ndims == 3)
+                fused_bicgstab_mb.merged_launches += k
+                fused_bicgstab_mb.merged_launches_3d += k * int(ndims == 3)
             else:
-                fused_bicgstab_mb.merged_flip_launches += 1
+                fused_bicgstab_mb.merged_flip_launches += k
         return out
 
     x, iters, rs = LaneFold.apply(solve, 2, b, x0, diag, off)

@@ -31,10 +31,11 @@ plain loops of ``linsolve``, on CPU tensors only: on the card a system no
 kernel takes raises.
 
 Opt-in levers ported: ``pressure_coarse_strips`` (the strip-coarse
-preconditioner inside K3).  Not ported yet: the differentiable path, the
-upwind blend, extra inner non-orthogonal pressure passes (3D), the
-full-mode non-orthogonal pressure solve and the JAX package's other opt-in
-solver levers (no ``SimConfig`` field for them).
+preconditioner inside K3) and ``advection_upwind_blend`` (the upwind blend
+of the velocity advection matrix).  Not ported yet: the differentiable
+path, extra inner non-orthogonal pressure passes (3D), the full-mode
+non-orthogonal pressure solve and the JAX package's other opt-in solver
+levers (no ``SimConfig`` field for them).
 """
 
 from __future__ import annotations
@@ -134,6 +135,10 @@ class SimConfig:
     pressure_time_step_normalized: bool = False
     velocity_corrector: str = "FD"
     advect_passive_scalar: bool = True
+    # upwind blend of the VELOCITY advection matrix (stencil.
+    # build_advection_ops): 0 = central face interpolation, 1 = first-order
+    # upwind; the scalar system stays central, as in the JAX package
+    advection_upwind_blend: float = 0.0
     non_orthogonal: bool = False
     max_substeps: int = 1000
     differentiable: bool = True
@@ -444,7 +449,8 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     # ---- velocity prediction ---------------------------------------------
     state = _run_hooks(hooks, "PRE_VELOCITY_SETUP", state, time_step=dt)
     nu = state.viscosity
-    adv_ops = st.build_advection_ops(state, geoms, topo, nu, dt)
+    adv_ops = st.build_advection_ops(state, geoms, topo, nu, dt,
+                                     upwind=cfg.advection_upwind_blend)
     vel_rhs = st.advection_rhs_velocity(state, geoms, topo, nu, dt)
     if cfg.non_orthogonal:
         # per-cell viscosity reaches the cross-diffusion terms too

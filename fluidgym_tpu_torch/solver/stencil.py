@@ -29,8 +29,10 @@ across a same-side connection change sign.  Curvilinear blocks carry the
 full inverse metric ``minv (*s, d, d)``.
 
 The JAX package's opt-in fused stencil kernel is K4
-(``ops/stencil_cuda.py``), behind the same default-off switch.  Not ported:
-the optional upwind blend of the advection matrix.
+(``ops/stencil_cuda.py``), behind the same default-off switch.  The
+advection matrix takes the JAX package's optional upwind blend
+(``build_advection_ops(upwind=)``, the velocity system of the high-Re
+tiers).
 """
 
 from __future__ import annotations
@@ -369,10 +371,13 @@ def build_advection_ops(
     dt,
     for_scalar: bool = False,
     scalar_channel: int = 0,
+    upwind: float = 0.0,
 ) -> tuple[StencilOp, ...]:
     """Implicit-Euler advection-diffusion matrix for all blocks, already
-    divided by ``det`` (central face interpolation; the JAX package's
-    optional upwind blend is not ported yet)."""
+    divided by ``det``.  ``upwind``: blend factor gamma in [0, 1] between
+    central face interpolation (0) and first-order upwind (1), which adds
+    ``gamma * |0.5 s F|`` to the diagonal and subtracts it from the face
+    coefficient; 0 leaves the central matrix bit for bit."""
     ndims = topo.ndims
     Cs = _field_contravariants(tuple(b.velocity for b in state.blocks), geoms, topo)
     nus = tuple(_block_nu(state, b, nu, for_scalar) for b in range(len(geoms)))
@@ -392,8 +397,9 @@ def build_advection_ops(
                 halo_a = _halo_axis_component(alpha_nu, spec, f, ndims)
                 an_n = _set(an_n, _face_slab(an_n.dim(), f), halo_a)
             visc = 0.5 * (alpha_nu[b][d] + an_n)
-            off = adv - visc
-            diag_c = adv + visc
+            au = upwind * torch.abs(adv) if upwind else 0.0
+            off = adv - au - visc
+            diag_c = adv + au + visc
             if spec.kind == BoundKind.FIXED:
                 slab = _face_slab(off.dim(), f)
                 off = _set(off, slab, 0.0)

@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""The JAX package's own uncontrolled cylinder episode on the host, against
+its bundled reference trace: what the reference itself holds on a backend
+other than the one that recorded the trace.
+
+    JAX_PLATFORMS=cpu python3 scripts/jax_cylinder_uncontrolled.py \
+        [--env CylinderJet2D-hard-v0] [--steps 20]
+
+Resets the JAX package's env to the bundled ``test_00`` snapshot at the
+registered defaults of ``--env`` (no randomization; float32), takes
+``--steps`` zero-action steps and prints one JSON object per step: |delta
+cd| against ``test_00_uncontrolled_episode.csv`` and the pressure
+iterations beside the trace's.  Compare with
+``scripts/port_cylinder_uncontrolled.py --device cpu`` (the port on the
+same host).  Runs on the CPU only; the port does not import it.
+"""
+
+import argparse
+import csv
+import json
+import os
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--env", default="CylinderJet2D-hard-v0")
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import numpy as np
+
+    import fluidgym_tpu
+
+    env = fluidgym_tpu.make(args.env, randomize_initial_state=False,
+                            episode_length=args.steps)
+    env.test()
+    env.reset(seed=0)
+    path = os.path.join(root, "fluidgym_tpu", "data", "initial_domains",
+                        env.initial_domain_id,
+                        "test_00_uncontrolled_episode.csv")
+    with open(path, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    zero = np.zeros(env.action_space.shape, np.float32)
+    for i in range(min(args.steps, len(rows))):
+        _, _, _, _, info = env.step(zero)
+        ref_its = rows[i].get("pressure_iterations")
+        print(json.dumps({
+            "env": args.env, "step": i + 1,
+            "abs_dcd": abs(float(np.asarray(info["drag"]))
+                           - float(rows[i]["drag"])),
+            "pressure_iterations": int(np.asarray(info["pressure_iterations"])),
+            "ref_pressure_iterations": (None if ref_its is None
+                                        else int(float(ref_its)))}),
+            flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

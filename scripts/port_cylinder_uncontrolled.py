@@ -3,20 +3,26 @@
 reference trace.
 
     python3 scripts/port_cylinder_uncontrolled.py [--env CylinderJet2D-easy-v0]
-        [--steps 80] [--device cuda]
+        [--steps 80] [--device cuda] [--pressure-tol TOL]
 
 The bundled dataset ships, beside each initial-domain snapshot, the drag
 and lift of every step of a zero-action episode recorded by the JAX package
 (``<split>_<idx>_uncontrolled_episode.csv``).  This script resets the port's
 env to the same snapshot (``test_00``, no randomization) at the registered
-defaults of ``--env`` (``CylinderJet2D-easy-v0``: resolution 24, 5 blocks,
-14,232 cells; ``CylinderJet3D-easy-v0``: 5 extruded blocks, 341,568 cells,
-8 jets, SARL), takes ``--steps`` zero-action steps and prints one JSON
+defaults of ``--env`` (any cylinder id: ``CylinderJet2D-easy-v0``:
+resolution 24, 5 blocks, 14,232 cells; the 2D medium and hard ids 23,424
+cells; ``CylinderJet3D-easy-v0``: 5 extruded blocks, 341,568 cells, 8 jets,
+SARL; ``-hard-v0`` 2,481,408 cells; a ``CylinderRot2D`` id, whose zero
+action leaves the wall at rest, reads the jet ids' datasets), takes
+``--steps`` zero-action steps and prints one JSON
 object: the per-step |delta cd| and |delta cl| against the trace (max, at
 steps 1, 10, 40, 80, and every step), the port's and the trace's pressure
 iterations and converged flags per step, both episode means, the trace
-statistics' p5-p95 bands (``domain_statistics.json``), ms per env step,
-the card's name and power limit, whether every step's |delta cd| is within
+statistics' p5-p95 bands (``domain_statistics.json``; the trace's
+iterations and flags are null where an older trace does not record them),
+ms per env step,
+the card's name and power limit (``--pressure-tol`` replaces the registered
+pressure tolerance after the reset), whether every step's |delta cd| is within
 1e-3, and whether the episode-mean drag is within 0.2% of the trace's (the
 exit code is 1 if not, or if a value is not finite).  The device defaults
 to the card.
@@ -24,6 +30,7 @@ to the card.
 
 import argparse
 import csv
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,6 +46,9 @@ def main() -> int:
     ap.add_argument("--env", default="CylinderJet2D-easy-v0")
     ap.add_argument("--steps", type=int, default=80)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pressure-tol", type=float, default=None,
+                    help="replace the registered pressure tolerance after "
+                         "the reset (how far where the solves stop moves cd)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import fluidgym_tpu_torch
@@ -49,13 +59,18 @@ def main() -> int:
                                   episode_length=args.steps)
     env.test()
     env.reset(seed=0)
+    if args.pressure_tol is not None:
+        env._cfg = dataclasses.replace(env._cfg, pressure_tol=args.pressure_tol)
     root = data_utils.initial_domain_dir(env.initial_domain_id)
     with open(root / "test_00_uncontrolled_episode.csv", newline="") as fh:
         rows = list(csv.DictReader(fh))
     ref_cd = np.array([float(r["drag"]) for r in rows])
     ref_cl = np.array([float(r["lift"]) for r in rows])
-    ref_its = [int(float(r["pressure_iterations"])) for r in rows]
-    ref_conv = [bool(float(r["pressure_converged"])) for r in rows]
+    # older traces (cylinder_2D_Re100_Res24) record no solver health
+    ref_its = [int(float(r["pressure_iterations"])) if "pressure_iterations" in r
+               else None for r in rows]
+    ref_conv = [bool(float(r["pressure_converged"])) if "pressure_converged" in r
+                else None for r in rows]
     stats = data_utils.load_statistics(env.initial_domain_id)
     n = min(args.steps, len(ref_cd))
     zero = np.zeros(env.action_space.shape, np.float32)
@@ -83,6 +98,7 @@ def main() -> int:
     finite = bool(np.isfinite(cds).all() and np.isfinite(cls).all())
     out = {
         "env": args.env, "device": str(env.device), "card": card, "steps": n,
+        "pressure_tol": env._cfg.pressure_tol,
         "ms_per_env_step": wall * 1e3,
         "max_abs_dcd": float(dcd.max()), "max_abs_dcl": float(dcl.max()),
         "abs_dcd_at": {str(k): float(dcd[k - 1]) for k in (1, 10, 40, 80)

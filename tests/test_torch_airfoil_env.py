@@ -60,7 +60,7 @@ def test_airfoil_attack_angle_validation():
 
 
 def test_airfoil_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="upwind blend"):
+    with pytest.raises(NotImplementedError, match="aggregation coarse space"):
         fluidgym_tpu_torch.make(ID, reynolds_number=3e3, **KW)
     # the JAX package's 2D airfoil has no multi-agent mode either
     with pytest.raises(ValueError, match="multi-agent"):

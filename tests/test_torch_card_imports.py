@@ -231,3 +231,31 @@ def test_chip_smoke_refuses_without_card(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_cylinder_rot2d_imports_and_steps_without_card_packages():
+    """CylinderRot2D (slice 13) at Re 500 (the upwind blend) and resolution
+    8 needs none of the refused packages."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        env = fluidgym_tpu_torch.make(
+            "CylinderRot2D-hard-v0", device="cpu", resolution=8,
+            load_initial_domain=False, load_domain_statistics=False,
+            randomize_initial_state=False, step_length=0.01, dt=0.01)
+        obs, _ = env.reset(seed=0)
+        assert env._cfg.advection_upwind_blend == 0.3
+        obs, reward, *_ , info = env.step(np.full((1,), 0.5, np.float32))
+        assert obs["velocity"].shape == (151, 2)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout

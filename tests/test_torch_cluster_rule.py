@@ -134,7 +134,7 @@ def test_coarse_rule_on_the_main_path_shapes(occupancy, what, lanes, n,
     instance only, only at sizes whose rows fit, and the chosen C's staged
     rows and chain terms fit beside the instance's static arrays."""
     assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA, "cg", coarse=True) \
-        == (expected, 0), what
+        == (expected, 0, False), what
     assert occupancy["calls"]
     assert all(a == "cg_coarse" and nd == 2 and cg_cuda_mb.rows_fit(n_, C, nd)
                for a, nd, C, n_ in occupancy["calls"])
@@ -157,11 +157,11 @@ def test_coarse_rule_reads_the_coarse_instances_answer(occupancy):
     arm = lambda lanes, n, **kw: cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA,
                                                        "cg", **kw)
     # at C = 8 the airfoil's rows (9,184 cells x 36 B) do not fit: one block
-    assert arm(1, AIRFOIL_N, coarse=True) == (1, 0)
-    assert arm(1, AIRFOIL_N) == (16, 0)
-    assert arm(1, CYLINDER_N, coarse=True) == (8, 0)
-    assert arm(2, CYLINDER_N, coarse=True) == (4, 0)
-    assert arm(2, CYLINDER_N) == (8, 0)
+    assert arm(1, AIRFOIL_N, coarse=True) == (1, 0, False)
+    assert arm(1, AIRFOIL_N) == (16, 0, False)
+    assert arm(1, CYLINDER_N, coarse=True) == (8, 0, False)
+    assert arm(2, CYLINDER_N, coarse=True) == (4, 0, False)
+    assert arm(2, CYLINDER_N) == (8, 0, False)
 
 
 def test_coarse_rule_off_the_card_for_chunks_and_pinned(occupancy):
@@ -170,16 +170,16 @@ def test_coarse_rule_off_the_card_for_chunks_and_pinned(occupancy):
     pins K3-coarse's C as K3's."""
     arm = lambda lanes, n, nd, chunk, dev: cg_cuda_mb.merged_arm(
         lanes, n, nd, chunk, dev, "cg", coarse=True)
-    assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0)
-    assert arm(3, CYLINDER_N, 2, 3, CUDA) == (1, 0)
-    assert arm(1, 341_568, 3, 1, CUDA) == (1, 0)
+    assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0, False)
+    assert arm(3, CYLINDER_N, 2, 3, CUDA) == (1, 0, False)
+    assert arm(1, 341_568, 3, 1, CUDA) == (1, 0, False)
     assert occupancy["calls"] == []
     with cg_cuda_mb.pinned_cluster(1):
-        assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (1, 0)
+        assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (1, 0, False)
         with cg_cuda_mb.pinned_cluster(4):
-            assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (4, 0)
-            assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0)
-    assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (16, 0)
+            assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (4, 0, False)
+            assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0, False)
+    assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (16, 0, False)
 
 
 def test_max_active_clusters_asks_each_instance(monkeypatch):

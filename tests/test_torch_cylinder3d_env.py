@@ -18,8 +18,8 @@ tolerance does not see, and the other quantities by <= 3.6e-6.  At 1e-10
 they agree to 1.4e-7 (pressure) and 1e-9 (the others): what differs at
 5e-7 is where the solves stop, not the env.
 
-Also: the registered ids and their defaults, the hard id's refusal (it
-needs the upwind blend), the spaces, and a seeded randomized reset that
+Also: the registered ids and their defaults, the hard id's upwind blend,
+the spaces, and a seeded randomized reset that
 draws the same noise and takes the same number of uncontrolled steps.
 """
 
@@ -138,10 +138,11 @@ def test_registry_ids_and_defaults():
         assert i in ids
         assert (fluidgym_tpu_torch.registry._entries[i][1]
                 == fluidgym_tpu.registry._entries[i][1]), i
-    with pytest.raises(NotImplementedError, match="upwind blend"):
-        fluidgym_tpu_torch.make("CylinderJet3D-hard-v0", device="cpu",
-                                load_initial_domain=False,
-                                load_domain_statistics=False)
+    # the hard id builds, with the upwind blend
+    env = fluidgym_tpu_torch.make("CylinderJet3D-hard-v0", device="cpu",
+                                  load_initial_domain=False,
+                                  load_domain_statistics=False)
+    assert env._get_simulation().advection_upwind_blend == 0.3
 
 
 def test_bad_configs_raise_like_jax():

@@ -67,10 +67,13 @@ on the 3 velocity components, at every G the card holds and in both
 layouts, bit-equal to the chunk grid, five launches back to back bit-equal;
 ``merged_arm`` gives G = 128 (1 lane) and 32 (3 lanes) at full width; a
 grid the card cannot hold raises; a full-width sim step takes it for every
-K3-3D and K2-mb-3D launch.  Only these:
+K3-3D and K2-mb-3D launch.  At CylinderJet3D-hard's width (2,481,408
+cells) the 3 velocity lanes go one per launch at G = 128, bit-equal to the
+3-lane chunk grid; a full-width CylinderRot2D step takes the cluster arm
+for every K3 and K2-mb launch.  Only these:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py \
-        -k "merged_spread or cylinder3d"
+        -k "merged_spread or cylinder3d or rot2d"
 """
 
 import numpy as np
@@ -935,7 +938,7 @@ def test_coarse_cluster_arm_bit_equal_to_chunk_grid(case):
             f"C={C}: not bit-equal to the chunk grid (iterations "
             f"{got[1].tolist()} vs {ref[1].tolist()})")
     # the wrapper: the rule's C, its own Einv (the same computation)
-    rule, _ = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, coarse=True)
+    rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, coarse=True)[0]
     assert rule in taken, (rule, taken)
     before = (cg_cuda_mb.fused_cg_mb.cluster_launches,
               cg_cuda_mb.fused_cg_mb.coarse_launches
@@ -1000,7 +1003,7 @@ def test_coarse_cluster_arm_refusals_and_batches():
         assert cg_cuda_mb.merged_arm(1, n_s, 2, 1, dev, coarse=True)[0] > 1
         for lanes in (64, 130):
             assert cg_cuda_mb.merged_arm(lanes, n_s, 2, 1, dev,
-                                         coarse=True) == (1, 0), (system, lanes)
+                                         coarse=True) == (1, 0, False), (system, lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -1591,7 +1594,8 @@ def test_merged_spread_arm_bit_equal_to_chunk_grid(size, case):
     assert bool((x[zero] == 0).all())
     if size != "full":
         return
-    assert cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo) == (1, {1: 128, 3: 32}[L])
+    assert cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo) == (1, {1: 128, 3: 32}[L],
+                                                             False)
     fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
     counter = "spread_launches" if cg else "merged_spread_launches"
     before = getattr(fn, counter)
@@ -1650,5 +1654,99 @@ def test_cylinder3d_full_width_step_takes_the_merged_spread_arm():
     d = [a - c for a, c in zip(keys(), before)]
     assert d[0] > 0 and d[0] == d[1] == 2 * d[2] == 2 * d[3], d
     assert d[4] == 0 and d[5] == 0, d
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+
+
+# ---------------------------------------------------------------------------
+# the upwind blend's ids: CylinderJet3D-hard's lanes one per launch, and
+# CylinderRot2D on the cluster arm
+# ---------------------------------------------------------------------------
+
+def test_merged_spread_one_lane_per_launch_bit_equal_to_chunk_grid():
+    """CylinderJet3D-hard's velocity system (3 lanes of 2,481,408 cells, the
+    blended matrix, from a reset of the uniform flow): a spread block's
+    chain terms fill one SM, so no G holds the 3 lanes at once and
+    ``merged_arm`` launches them one at a time at G = 128.  The wrapper's x
+    and iterations equal the 3-lane chunk grid's raw launch bit for bit,
+    twice; each lane's raw spread launch equals its chunk-grid lane (x,
+    iterations, residual); every launch counts as K2-mb-3D on the spread
+    arm."""
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    dev = require_cuda()
+    env = fluidgym_tpu_torch.make(
+        "CylinderJet3D-hard-v0", load_initial_domain=False,
+        load_domain_statistics=False, randomize_initial_state=False)
+    env.reset(seed=0)
+    topo, geoms, state = env._topo, env._geoms, env._state
+    assert env._cfg.advection_upwind_blend == 0.3
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity,
+                                 torch.tensor(0.003, device=dev), upwind=0.3)
+    plan = block_merge.merge_plan(topo)
+    diags, offs = _packed(plan, adv)
+    n = sum(int(np.prod(sb.shape)) for sb in plan.superblocks)
+    assert n == 2_481_408
+    assert cg_cuda_mb.merged_arm(3, n, 3, 1, dev, "bicgstab") == (1, 128, True)
+    assert cg_cuda_mb.merged_arm(1, n, 3, 1, dev, "cg") == (1, 128, False)
+    vel = [b.velocity for b in state.blocks]
+    per_c = [block_merge.pack_fields(plan, tuple(v[c] for v in vel))
+             for c in range(3)]
+    x0s = tuple(torch.stack([per_c[c][s] for c in range(3)])
+                for s in range(len(plan.superblocks)))
+    g = torch.Generator().manual_seed(17)
+    bs = tuple(300.0 * x + torch.randn(x.shape, generator=g).to(dev)
+               for x in x0s)
+    kw = dict(maxiter=2000, stall_iters=250, precondition=True,
+              return_best=False)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    x0 = cg_cuda_mb.flatten_fields(plan, x0s)
+    tol2 = cg_cuda.tol2_sum_f32(1e-5, n)
+    grid = tuple(v.clone() for v in cg_cuda_mb.merged_launcher(
+        "bicgstab", plan, diag, off, b, x0, tol2_sum=tol2, chunk=1, **kw)())
+    for lane in range(3):
+        one = cg_cuda_mb.merged_launcher(
+            "bicgstab", plan, diag, off, b[lane:lane + 1], x0[lane:lane + 1],
+            tol2_sum=tol2, chunk=1, spread=128, **kw)()
+        assert all(torch.equal(a, c[lane:lane + 1]) for a, c in zip(one, grid))
+    f = cg_cuda_mb.fused_bicgstab_mb
+    for _ in range(2):
+        before = (f.merged_launches_3d, f.merged_spread_launches)
+        xs, info = f(plan, diags, offs, bs, x0s, tol=1e-5, **kw)
+        torch.cuda.synchronize()
+        assert (f.merged_launches_3d - before[0],
+                f.merged_spread_launches - before[1]) == (3, 3)
+        assert torch.equal(cg_cuda_mb.flatten_fields(plan, xs), grid[0])
+        assert int(info.iterations) == int(grid[1].max())
+    with cg_cuda.pinned_spread(0):
+        before = f.merged_spread_launches
+        xs, _ = f(plan, diags, offs, bs, x0s, tol=1e-5, **kw)
+        assert f.merged_spread_launches == before
+        assert torch.equal(cg_cuda_mb.flatten_fields(plan, xs), grid[0])
+
+
+def test_cylinder_rot2d_full_width_step_takes_the_cluster_arm():
+    """One sim step of CylinderRot2D-hard-v0 (23,424 cells, the blend) at
+    full width from the bundled snapshot with a non-zero action: every K3
+    and K2-mb launch on the cluster arm, no other form, no plain version."""
+    require_cuda()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    keys = lambda: (k3.launches, k2.merged_launches,
+                    k3.cluster_launches + k2.cluster_launches,
+                    k3.launches_3d + k2.merged_launches_3d + k3.flip_launches
+                    + k2.merged_flip_launches,
+                    cg_cuda_mb.fused_cg_mb_plain.calls
+                    + cg_cuda_mb.fused_bicgstab_plain.calls)
+    env = fluidgym_tpu_torch.make("CylinderRot2D-hard-v0",
+                                  randomize_initial_state=False,
+                                  step_length=0.01, episode_length=2)
+    env.reset(seed=0)
+    assert sum(int(np.prod(b.shape)) for b in env._topo.blocks) == 23_424
+    before = keys()
+    obs, reward, *_, info = env.step(np.full((1,), 0.7, np.float32))
+    d = [a - c for a, c in zip(keys(), before)]
+    assert d[0] > 0 and d[0] == 2 * d[1] and d[2] == d[0] + d[1], d
+    assert d[3] == 0 and d[4] == 0, d
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))

@@ -1,8 +1,11 @@
 """The spread arm of K3 and K2-mb over a 3D merged plan
 (``fluidgym_tpu_torch.ops.cg_cuda_mb``) on the host: the rule
-``merged_arm`` that picks the cluster arm, the spread arm or the chunk grid
-by shape (the card's SM count, co-residency and cluster occupancy
-stubbed), ``cg_cuda.pinned_spread`` over it, the merged lanes' shared
+``merged_arm`` that picks the cluster arm, the spread arm (all lanes in
+one launch, or one lane per launch where no G holds them all:
+CylinderJet3D-hard's 2,481,408-cell velocity lanes) or the chunk grid by
+shape (the card's SM count, co-residency and cluster occupancy stubbed),
+``cg_cuda.pinned_spread`` over it, the wrappers' one-lane-per-launch path
+with the launcher stubbed by the plain version, the merged lanes' shared
 memory and layout, the C entry points' signatures (against
 ``ops/_build.py``), ``merged_launcher``'s refusals, and the wrappers' plain
 versions on CPU tensors whatever the pin, against the JAX package's kernels
@@ -35,7 +38,9 @@ H100_SMS = 132
 #: an H100's co-resident clusters of 1024-thread blocks, by cluster size
 H100_CLUSTERS = {16: 7, 8: 16, 4: 33, 2: 66}
 EASY_N, MEDIUM_N = 341_568, 749_568      # CylinderJet3D-easy / -medium
+HARD_N = 2_481_408                       # CylinderJet3D-hard
 CYLINDER_N, AIRFOIL_N = 14_232, 73_456   # the 2D merged lanes
+CYLINDER32_N = 23_424                    # CylinderJet2D / Rot2D medium, hard
 CSRC = Path(cg_cuda.__file__).resolve().parents[1] / "csrc"
 GRID_KW = dict(viscosity=0.01, domain_height=4.1, domain_length=22.0,
                cylinder_radius=0.5, cylinder_offset_y=0.05, circle_thickness=0.5,
@@ -72,21 +77,33 @@ def _arm(lanes, n, ndims, algo="cg", chunk=None, device=CUDA, coarse=False):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what,lanes,n,ndims,algo,arm", [
-    ("CylinderJet3D-easy K3-3D", 1, EASY_N, 3, "cg", (1, 128)),
-    ("CylinderJet3D-medium K3-3D", 1, MEDIUM_N, 3, "cg", (1, 128)),
-    ("CylinderJet3D-easy K2-mb-3D velocity", 3, EASY_N, 3, "bicgstab", (1, 32)),
+    ("CylinderJet3D-easy K3-3D", 1, EASY_N, 3, "cg", (1, 128, False)),
+    ("CylinderJet3D-medium K3-3D", 1, MEDIUM_N, 3, "cg", (1, 128, False)),
+    ("CylinderJet3D-easy K2-mb-3D velocity", 3, EASY_N, 3, "bicgstab", (1, 32, False)),
     ("CylinderJet3D-medium K2-mb-3D velocity", 3, MEDIUM_N, 3, "bicgstab",
-     (1, 32)),
-    ("K3-3D with a second right-hand side", 2, EASY_N, 3, "cg", (1, 64)),
-    ("CylinderJet2D K3 (the cluster arm)", 1, CYLINDER_N, 2, "cg", (8, 0)),
+     (1, 32, False)),
+    ("CylinderJet3D-hard K3-3D", 1, HARD_N, 3, "cg", (1, 128, False)),
+    ("CylinderJet3D-hard K2-mb-3D velocity: one lane per launch", 3, HARD_N,
+     3, "bicgstab", (1, 128, True)),
+    ("K3-3D at the hard width with 3 lanes", 3, HARD_N, 3, "cg",
+     (1, 128, True)),
+    ("K3-3D with a second right-hand side", 2, EASY_N, 3, "cg", (1, 64, False)),
+    ("CylinderJet2D-medium K3 (the cluster arm)", 1, CYLINDER32_N, 2, "cg",
+     (16, 0, False)),
+    ("CylinderJet2D-medium K2-mb (the cluster arm)", 2, CYLINDER32_N, 2,
+     "bicgstab", (16, 0, False)),
+    ("CylinderJet2D K3 (the cluster arm)", 1, CYLINDER_N, 2, "cg", (8, 0, False)),
     ("CylinderJet2D K2-mb (the cluster arm)", 2, CYLINDER_N, 2, "bicgstab",
-     (8, 0)),
-    ("Airfoil2D K3-flip (the cluster arm)", 1, AIRFOIL_N, 2, "cg", (16, 0)),
+     (8, 0, False)),
+    ("Airfoil2D K3-flip (the cluster arm)", 1, AIRFOIL_N, 2, "cg", (16, 0, False)),
     ("Airfoil2D K2-mb-flip (the cluster arm)", 2, AIRFOIL_N, 2, "bicgstab",
-     (16, 0)),
-    ("a batch of 64 CylinderJet2D lanes", 64, CYLINDER_N, 2, "cg", (1, 0)),
-    ("a batch of 64 CylinderJet3D lanes", 64, EASY_N, 3, "cg", (1, 0)),
-    ("5 lanes x 32 blocks > 132", 5, EASY_N, 3, "bicgstab", (1, 0)),
+     (16, 0, False)),
+    ("a batch of 64 CylinderJet2D lanes", 64, CYLINDER_N, 2, "cg", (1, 0, False)),
+    ("a batch of 64 CylinderJet3D lanes", 64, EASY_N, 3, "cg", (1, 0, False)),
+    ("5 lanes x 32 blocks > 132: one lane per launch at G = 128", 5, EASY_N,
+     3, "bicgstab", (1, 128, True)),
+    ("17 lanes: fewer than 8 blocks per lane at G = 128", 17, EASY_N, 3,
+     "bicgstab", (1, 0, False)),
 ])
 def test_merged_arm_on_the_main_path_shapes(h100, what, lanes, n, ndims, algo,
                                             arm):
@@ -105,13 +122,13 @@ def test_merged_arm_keeps_the_chunk_grid(h100, n):
     cells) and for 32 spread blocks (32 x 256) too."""
     for G in (None, 128, 32):
         with cg_cuda.pinned_spread(G):
-            assert _arm(1, n, 3, coarse=True) == (1, 0)
-            assert _arm(3, n, 3, chunk=3) == (1, 0)
-            assert _arm(1, n, 3, device="cpu") == (1, 0)
-            assert _arm(3, n, 3, "bicgstab", device=torch.device("cpu")) == (1, 0)
-    assert _arm(1, 2_000, 3) == (1, 0)
+            assert _arm(1, n, 3, coarse=True) == (1, 0, False)
+            assert _arm(3, n, 3, chunk=3) == (1, 0, False)
+            assert _arm(1, n, 3, device="cpu") == (1, 0, False)
+            assert _arm(3, n, 3, "bicgstab", device=torch.device("cpu")) == (1, 0, False)
+    assert _arm(1, 2_000, 3) == (1, 0, False)
     # a 3D lane a cluster holds keeps the cluster arm
-    assert _arm(1, 8_000, 3) == (4, 0)
+    assert _arm(1, 8_000, 3) == (4, 0, False)
 
 
 def test_pinned_spread_over_the_merged_rule(h100):
@@ -119,35 +136,68 @@ def test_pinned_spread_over_the_merged_rule(h100):
     and leaves the 2D merged lanes on the cluster rule's answer;
     ``pinned_cluster`` still pins C first."""
     with cg_cuda.pinned_spread(0):
-        assert _arm(1, EASY_N, 3) == (1, 0)
-        assert _arm(3, MEDIUM_N, 3, "bicgstab") == (1, 0)
+        assert _arm(1, EASY_N, 3) == (1, 0, False)
+        assert _arm(3, MEDIUM_N, 3, "bicgstab") == (1, 0, False)
         with cg_cuda.pinned_spread(64):
-            assert _arm(1, EASY_N, 3) == (1, 64)
+            assert _arm(1, EASY_N, 3) == (1, 64, False)
             # a pin reaches a lane the rule leaves on the chunk grid
-            assert _arm(1, 2_000, 3) == (1, 64)
+            assert _arm(1, 2_000, 3) == (1, 64, False)
             # the 2D lanes keep the cluster arm, or the chunk grid
-            assert _arm(1, CYLINDER_N, 2) == (8, 0)
-            assert _arm(64, CYLINDER_N, 2) == (1, 0)
+            assert _arm(1, CYLINDER_N, 2) == (8, 0, False)
+            assert _arm(64, CYLINDER_N, 2) == (1, 0, False)
             with cg_cuda_mb.pinned_cluster(1):
-                assert _arm(1, CYLINDER_N, 2) == (1, 0)
-                assert _arm(1, EASY_N, 3) == (1, 64)
+                assert _arm(1, CYLINDER_N, 2) == (1, 0, False)
+                assert _arm(1, EASY_N, 3) == (1, 64, False)
             with cg_cuda.pinned_spread(None):
-                assert _arm(1, EASY_N, 3) == (1, 128)
-        assert _arm(1, EASY_N, 3) == (1, 0)
-    assert _arm(1, EASY_N, 3) == (1, 128)
+                assert _arm(1, EASY_N, 3) == (1, 128, False)
+        assert _arm(1, EASY_N, 3) == (1, 0, False)
+    assert _arm(1, EASY_N, 3) == (1, 128, False)
     assert cg_cuda._PINNED_SPREAD is None
 
 
 def test_merged_arm_follows_co_residency(h100, monkeypatch):
-    """G is the largest size whose grid the card holds for the lanes."""
-    for room, G in ((132, 32), (96, 32), (95, 0)):
+    """G is the largest size whose grid the card holds for the lanes; where
+    none holds them all, the largest that holds one lane, one lane per
+    launch."""
+    for room, arm in ((132, (1, 32, False)), (96, (1, 32, False)),
+                      (95, (1, 64, True)), (63, (1, 32, True)),
+                      (31, (1, 0, False))):
         monkeypatch.setattr(cg_cuda, "spread_capacity",
                             lambda *a, room=room, **k: room)
-        assert _arm(3, EASY_N, 3, "bicgstab") == (1, G), room
+        assert _arm(3, EASY_N, 3, "bicgstab") == arm, room
     for room, G in ((127, 64), (63, 32), (31, 0)):
         monkeypatch.setattr(cg_cuda, "spread_capacity",
                             lambda *a, room=room, **k: room)
-        assert _arm(1, MEDIUM_N, 3) == (1, G), room
+        assert _arm(1, MEDIUM_N, 3) == (1, G, False), room
+
+
+def test_hard_width_goes_one_lane_per_launch(h100):
+    """At 2,481,408 cells a spread block's chain terms fill one SM (155,136
+    B at G = 128; G = 64 and 32 do not fit), so 3 lanes need 384
+    co-resident blocks and no G holds them: the rule launches the lanes
+    one at a time at G = 128.  ``pinned_spread(0)`` still pins the chunk
+    grid, a pinned G is taken as given, and the easy and medium widths keep
+    their answers."""
+    assert cg_cuda.spread_bytes(HARD_N, 128) == 2 * 8 * 2424 * 4 == 155_136
+    assert cg_cuda.spread_fits(HARD_N, 128)
+    assert not cg_cuda.spread_fits(HARD_N, 64)
+    assert not cg_cuda.spread_fits(HARD_N, 32)
+    assert cg_cuda.default_spread(3, HARD_N, 3, 1, CUDA, "bicgstab_mb") == 0
+    assert _arm(3, HARD_N, 3, "bicgstab") == (1, 128, True)
+    with cg_cuda.pinned_spread(0):
+        assert _arm(3, HARD_N, 3, "bicgstab") == (1, 0, False)
+        assert _arm(1, HARD_N, 3) == (1, 0, False)
+    with cg_cuda.pinned_spread(128):
+        assert _arm(3, HARD_N, 3, "bicgstab") == (1, 128, False)
+    for n in (EASY_N, MEDIUM_N):
+        assert _arm(3, n, 3, "bicgstab") == (1, 32, False)
+        assert _arm(1, n, 3) == (1, 128, False)
+    # a batch of hard lanes, or a chunk of several, keeps the chunk grid
+    assert _arm(17, HARD_N, 3, "bicgstab") == (1, 0, False)
+    assert _arm(3, HARD_N, 3, "bicgstab", chunk=3) == (1, 0, False)
+    assert _arm(3, HARD_N, 3, "bicgstab", device="cpu") == (1, 0, False)
+    arm = cg_cuda_mb.merged_arm(3, HARD_N, 3, 1, CUDA, "bicgstab")
+    assert (arm.cluster, arm.spread, arm.per_lane) == (1, 128, True)
 
 
 # ---------------------------------------------------------------------------
@@ -354,3 +404,69 @@ def test_cpu_k2_mb_3d_runs_the_plain_version_whatever_the_pin(plans):
     assert abs(int(it.iterations) - int(ij.iterations)) <= 2
     for a, c in zip(xt, xj):
         assert_rel(a.numpy(), np.asarray(c), 1e-4, "K2-mb-3D")
+
+
+@pytest.mark.parametrize("algo", ["cg", "bicgstab"])
+def test_per_lane_launches_are_the_chunk_grids_lanes(plans, monkeypatch, algo):
+    """The wrappers' one-lane-per-launch path on the host, with the card's
+    pieces stubbed: ``merged_arm`` answers ``(1, 128, True)``, the tensors
+    count as the card's, and each launch runs the plain version of the
+    lanes it is given.  The wrapper must launch each lane alone at G = 128
+    (its operator shared), in order, count every launch on its form and
+    on the spread arm, and return what the plain version returns for the
+    lanes in chunks of one (the chunk grid at one lane per block), bit for
+    bit."""
+    _, tp = plans
+    d, o = _operators(tp, algo == "bicgstab", 80)
+    rng = np.random.default_rng(81)
+    b = [rng.normal(size=(3,) + dd.shape).astype(np.float32) for dd in d]
+    b[1][1] *= 1e-3
+    x0 = [(0.3 * bb).astype(np.float32) for bb in b]
+    T = lambda xs: tuple(torch.from_numpy(x) for x in xs)
+    launched = []
+
+    def launcher(algo_, plan, diag, off, b_, x0_, *, tol2_sum, maxiter,
+                 stall_iters, precondition, return_best, chunk, cluster=1,
+                 spread=0, coarse=None, chains=None):
+        launched.append((algo_, tuple(b_.shape), diag.shape[0], off.shape[0],
+                         chunk, cluster, spread))
+        kw = dict(tol2_sum=tol2_sum, maxiter=maxiter, stall_iters=stall_iters,
+                  precondition=precondition, return_best=return_best, chunk=1)
+        if algo_ == "cg":
+            return lambda: cg_cuda_mb.fused_cg_mb_plain(plan, diag, off, b_,
+                                                        x0_, **kw)
+        return lambda: cg_cuda_mb.fused_bicgstab_plain(
+            diag, off, b_, x0_, ndims=3, plan=plan, **kw)
+
+    monkeypatch.setattr(cg_cuda_mb, "merged_arm",
+                        lambda *a, **k: cg_cuda_mb.MergedArm(1, 128, True))
+    monkeypatch.setattr(cg_cuda_mb, "device_kind", lambda b_, what: "cuda")
+    monkeypatch.setattr(cg_cuda_mb, "merged_launcher", launcher)
+    kw = dict(tol=1e-6, maxiter=400, stall_iters=250, precondition=True,
+              return_best=algo == "cg")
+    if algo == "cg":
+        f, counters = cg_cuda_mb.fused_cg_mb, ("launches", "launches_3d",
+                                               "spread_launches")
+    else:
+        f, counters = cg_cuda_mb.fused_bicgstab_mb, (
+            "merged_launches", "merged_launches_3d", "merged_spread_launches")
+    before = [getattr(f, c) for c in counters]
+    xs, info = f(tp, T(d), T(o), T(b), T(x0), **kw)
+    assert [getattr(f, c) - v for c, v in zip(counters, before)] == [3, 3, 3]
+    n = sum(int(np.prod(s_)) for s_ in coarse_strips.sb_array_shapes(tp))
+    assert launched == [(algo, (1, n), 1, 1, 1, 1, 128)] * 3
+    flat = lambda xs_: cg_cuda_mb.flatten_fields(tp, xs_)
+    diag, off = cg_cuda_mb.flatten_ops(tp, T(d), T(o))
+    pkw = dict(tol2_sum=cg_cuda.tol2_sum_f32(1e-6, n), maxiter=400,
+               stall_iters=250, precondition=True, return_best=algo == "cg",
+               chunk=1)
+    if algo == "cg":
+        xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(tp, diag, off, flat(T(b)),
+                                                  flat(T(x0)), **pkw)
+        assert torch.equal(info.iterations.to(ip.dtype), ip)
+    else:
+        xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(
+            diag, off, flat(T(b)), flat(T(x0)), ndims=3, plan=tp, **pkw)
+        assert int(info.iterations) == int(ip.max())
+    assert torch.equal(flat(xs), xp)
+    assert int(ip.min()) < int(ip.max()) or algo == "bicgstab"

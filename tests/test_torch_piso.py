@@ -96,11 +96,11 @@ def test_make_divergence_free(setup):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="differentiable"):
         tpiso.SimConfig(differentiable=True)
-    # non_orthogonal is ported (curvilinear slice); the upwind blend that
-    # the cylinder's hard tier needs is not
+    # non_orthogonal is ported (curvilinear slice), and so is the upwind
+    # blend that the cylinder's hard tier needs
     assert tpiso.SimConfig(differentiable=False, non_orthogonal=True).non_orthogonal
-    with pytest.raises(NotImplementedError, match="upwind"):
-        fluidgym_tpu_torch.make("CylinderJet2D-easy-v0", device="cpu",
-                                reynolds_number=500,
-                                load_initial_domain=False,
-                                load_domain_statistics=False)
+    env = fluidgym_tpu_torch.make("CylinderJet2D-easy-v0", device="cpu",
+                                  reynolds_number=500,
+                                  load_initial_domain=False,
+                                  load_domain_statistics=False)
+    assert env._get_simulation().advection_upwind_blend == 0.3
