@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 Phases, each printed with its elapsed seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the CUDA kernels (K1/K3/K3-coarse ``csrc/cg.cu``, K2
+2. build of the CUDA kernels (K1/K3/K3-coarse/K3-agg ``csrc/cg.cu``, K2
    ``csrc/bicgstab_mb.cu``, K4 ``csrc/stencil.cu``): one ``nvcc -c`` per
    source, all started together, and one link into ``build/kernels/``;
 3. K1 against its plain PyTorch version on the card: the pressure system of
@@ -51,8 +51,8 @@ Phases, each printed with its elapsed seconds:
    ``train_00`` snapshot at full width: K3 cold and warm from the deflated
    guess, K2-mb with 2 lanes; the same iteration counts;
 12. the airfoil main path: ``make("Airfoil2D-easy-v0")`` at its registered
-   defaults (no randomization), ``reset(seed=0)``, 3 steps with fixed numpy
-   actions; in every step K3-flip launches twice per substep and K2-mb-flip
+   defaults (no randomization), ``reset(seed=0)``, 1 step with a fixed numpy
+   action; in every step K3-flip launches twice per substep and K2-mb-flip
    once, no other kernel form, no plain version and no ``linsolve`` loop;
    obs, reward, drag and lift finite;
 13. the card against the host for the airfoil: 1 sim step (``step_length =
@@ -181,7 +181,7 @@ Phases, each printed with its elapsed seconds:
    bound;
 33. the CylinderJet3D-easy main path: ``make("CylinderJet3D-easy-v0")`` at
    its registered defaults (SARL, 8 jets), ``reset(seed=0)``
-   (randomized), 3 steps with fixed numpy actions; then ``use_marl=True``
+   (randomized), 1 step with a fixed numpy action; then ``use_marl=True``
    (8 agents): reset and 1 step; the counters zeroed just before each
    ``make`` and read after every step: in every step K3 launches twice per
    substep and K2-mb once, every one a 3D merged launch
@@ -197,7 +197,7 @@ Phases, each printed with its elapsed seconds:
    defaults: reset from its bundled ``train_00`` (randomized) and 1 step
    with phase 33's checks;
 36. the merged forms' spread arm against the chunk grid end to end:
-   CylinderJet3D-easy (2 SARL steps; four arms in turns: chunk grid,
+   CylinderJet3D-easy (1 SARL step; four arms in turns: chunk grid,
    spread, spread, chunk grid) and -medium (1 step; chunk grid, spread)
    at their registered defaults, every arm from the state phases 33
    (SARL) and 35 left, the chunk grid pinned with
@@ -207,7 +207,7 @@ Phases, each printed with its elapsed seconds:
 37. the 2D cylinder ids of the upwind blend (``CylinderJet2D-medium/-hard``,
    ``CylinderRot2D-easy/-medium/-hard``; 23,424 cells, Rot2D-easy
    14,232) at their registered defaults: ``reset(seed=0)`` (randomized),
-   3 steps with a fixed non-zero action; the counters zeroed before and
+   1 step with a fixed non-zero action; the counters zeroed before and
    read after every step: K3 twice per substep and K2-mb once, every one
    on the cluster arm, no other form, plain version or ``linsolve`` loop;
    drag, lift, obs and reward finite; the C that ``default_cluster``
@@ -232,7 +232,25 @@ Phases, each printed with its elapsed seconds:
    bundled ``test_00`` (``load_initial_domain``), 1 step with phase 33's
    checks: every K3-3D and K2-mb-3D launch (3 K2-mb per substep, one per
    lane) on the spread arm, no chunk-grid launch; ms per env step,
-   substeps and pressure iterations.
+   substeps and pressure iterations;
+41. K3-agg-flip (``csrc/cg.cu`` ``fg_cg_mb_agg_solve``: K3 with the
+   aggregation coarse space of 8 x 8 tiles, k = 1,194, its Einv fixed per
+   env) on the first substep's two pressure solves of one
+   Airfoil2D-medium sim step from its bundled ``train_00``, captured at
+   the wrapper: against its plain version with phase 7's bars and the same
+   converged flags; the rule's C (16) bit-equal to C = 1 twice, both per
+   raw launch in turns; ms, us per iteration, the bound and the streamed
+   bound;
+42. ``Airfoil2D-medium-v0`` and ``-hard-v0`` at their registered defaults
+   from the bundled ``train_00`` (no randomization): reset and 2 steps
+   each; counters zeroed before ``make`` and read after every step: per
+   substep 2 K3-agg-flip and 1 K2-mb-flip launches, every one on the
+   cluster arm, no other kernel form, plain version or ``linsolve`` loop;
+   obs, reward, drag and lift finite, every pressure solve converged; ms,
+   substeps and pressure iterations per env step;
+43. the card against the host for ``Airfoil2D-medium-v0``: 1 sim step of
+   0.01 from ``train_00``; velocity obs and reward to 1e-4, pressure obs
+   to 1e-3 (phase 13's bars).
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -766,13 +784,14 @@ def _run(dev) -> int:
     _rbc_phases(dev, kernels, compare, piso, linsolve)
     _cyl3d_phases(dev, kernels, compare, piso, linsolve)
     _blend_phases(dev, kernels, piso, linsolve)
+    _agg_phases(dev, kernels, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip", "K4", "K3-coarse",
         "K3-coarse-flip", "K1 lanes", "K2 lanes", "K3 lanes", "K2-mb lanes",
-        "K1-3D", "K2-3D", "K3-3D", "K2-mb-3D")]}),
+        "K1-3D", "K2-3D", "K3-3D", "K2-mb-3D", "K3-agg-flip")]}),
         flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
@@ -789,7 +808,7 @@ MERGED_CASES = (
          phases=(7, 8, 9, 10), plan=(2, 2, 0), cells=(5, 14232),
          k3="K3", k3_count="launches", k2="K2-mb", k2_count="merged_launches",
          k3c="K3-coarse", k3c_count="coarse_launches", coarse_phase=15,
-         k3c_lanes_tol=3e-7, k3c_steps=3,
+         k3c_lanes_tol=3e-7, k3c_steps=3, main_steps=3,
          k3_form="", k2_form="", dt=0.01, tol_p=1e-5, k3_it_tol=3,
          k2_it_tol=2, lanes3=True, plain_reps=3, make_kw={},
          host_kw=dict(randomize_initial_state=False), host_pressure_bar=1e-4),
@@ -797,7 +816,7 @@ MERGED_CASES = (
          phases=(11, 11, 12, 13), plan=(3, 6, 2), cells=(6, 73456),
          k3="K3-flip", k3_count="flip_launches", k2="K2-mb-flip",
          k3c="K3-coarse-flip", k3c_count="coarse_flip_launches",
-         coarse_phase=16, k3c_lanes_tol=None, k3c_steps=1,
+         coarse_phase=16, k3c_lanes_tol=None, k3c_steps=1, main_steps=1,
          k2_count="merged_flip_launches", k3_form=" with reflected seams",
          k2_form=" with reflected seams", dt=0.05, tol_p=1e-7, k3_it_tol=0,
          k2_it_tol=0, lanes3=False, plain_reps=1,
@@ -1035,7 +1054,7 @@ def _merged_phases(dev, kernels, compare, piso, linsolve, case) -> None:
               f"the {env_id} main path is not the registered width: {nb}")
         rng = np.random.default_rng(0)
         actions = [rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
-                   for _ in range(3)]
+                   for _ in range(case["main_steps"])]
         step_s, per_step, drags, lifts, p_its = [], [], [], [], []
         for a in actions:
             c0 = counts()
@@ -1346,7 +1365,8 @@ def _counters():
 
     k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
     launches = [(k3, "launches"), (k3, "flip_launches"), (k3, "coarse_launches"),
-                (k3, "coarse_flip_launches"), (k2, "launches"),
+                (k3, "coarse_flip_launches"), (k3, "agg_launches"),
+                (k3, "agg_flip_launches"), (k2, "launches"),
                 (k2, "merged_launches"), (k2, "merged_flip_launches"),
                 (cg_cuda.fused_cg, "launches"),
                 (stencil_cuda.stencil_apply, "launches")]
@@ -2194,8 +2214,11 @@ def _capture_solves(dev, env_id, step_length, wrappers,
     env.mode = EnvMode(split)
     env.reset(seed=0)
     seen = {k: [] for k in wrappers}
-    keep = lambda v: (tuple(keep(t) for t in v) if isinstance(v, tuple)
-                      else v.clone() if hasattr(v, "clone") else v)
+    def keep(v):
+        if isinstance(v, tuple):  # a named tuple keeps its type
+            vals = tuple(keep(t) for t in v)
+            return type(v)(*vals) if hasattr(v, "_fields") else vals
+        return v.clone() if hasattr(v, "clone") else v
     fns = {k: getattr(mod, attr) for k, (mod, attr) in wrappers.items()}
     for k, (mod, attr) in wrappers.items():
         def capture(*a, _fn=fns[k], _k=k, **kw):
@@ -3111,7 +3134,7 @@ def _cyl3d_card_vs_host(dev) -> dict:
 #: first step runs once more per arm under the profiler (a profiled medium
 #: step costs ~30-40 s of host time, so medium's device time comes from
 #: ``scripts/port_step_profile.py``)
-CYL3D_AB = ((CYL3D_EASY, 2, ("grid", "spread", "spread", "grid"), True),
+CYL3D_AB = ((CYL3D_EASY, 1, ("grid", "spread", "spread", "grid"), True),
             (CYL3D_MEDIUM, 1, ("grid", "spread"), False))
 
 
@@ -3203,7 +3226,7 @@ def cyl3d_env_ab(dev, env_id: str, env, steps: int, arms,
 
 
 def _cyl3d_ab_phase(dev, kernels, envs) -> None:
-    """Phase 36: ms per env step of CylinderJet3D-easy (2 SARL steps, four
+    """Phase 36: ms per env step of CylinderJet3D-easy (1 SARL step, four
     arms in turns; and device ms per step) and -medium (1 step, two arms)
     under the merged forms' spread arm and the chunk grid
     (``cyl3d_env_ab``), from the states where phases 33 (SARL) and 35 left
@@ -3228,11 +3251,11 @@ def _cyl3d_ab_phase(dev, kernels, envs) -> None:
 def _cyl3d_phases(dev, kernels, compare, piso, linsolve) -> None:
     """Phases 32-36: K3-3D and K2-mb-3D against their plain versions and the
     spread arm against the chunk grid (32); the CylinderJet3D-easy-v0 main
-    path, 3 SARL steps (its default) and 1 MARL step (33); card against host
+    path, 1 SARL step (its default) and 1 MARL step (33); card against host
     (34); CylinderJet3D-medium-v0, 1 step (35); the two arms end to end
     (36)."""
     _cyl3d_kernel_phase(dev, kernels, compare)
-    runs = [_cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 3, 33),
+    runs = [_cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 1, 33),
             _cyl3d_main_path(dev, piso, linsolve, CYL3D_EASY, 1, 33,
                              use_marl=True)]
     host = _cyl3d_card_vs_host(dev)
@@ -3265,6 +3288,8 @@ def _cyl3d_phases(dev, kernels, compare, piso, linsolve) -> None:
 CYL2D_NEW = ("CylinderJet2D-medium-v0", "CylinderJet2D-hard-v0",
              "CylinderRot2D-easy-v0", "CylinderRot2D-medium-v0",
              "CylinderRot2D-hard-v0")
+#: phase 37's env steps per id (3 until phases 41-43 took their time)
+CYL2D_STEPS = 1
 #: phase 37's captured solves (the slice's width, with the blend)
 CYL2D_SYSTEMS = "CylinderJet2D-hard-v0"
 #: phase 38's ids; its bars are phase 10's
@@ -3411,7 +3436,7 @@ def _cyl2d_systems(dev) -> dict:
 def _cyl2d_new_main_path(dev, kernels, piso, linsolve) -> None:
     """Phase 37: the five 2D cylinder ids of this slice at their registered
     defaults: ``make``, ``reset(seed=0)`` (randomized: noise on the bundled
-    ``train_00``, then 13-25 uncontrolled sim steps), 3 steps with a fixed
+    ``train_00``, then 13-25 uncontrolled sim steps), 1 step with a fixed
     non-zero action.  Counters zeroed just before
     ``make`` and read after each step: in every step K3 launches twice per
     substep and K2-mb once, every one on the cluster arm, and no other
@@ -3454,7 +3479,7 @@ def _cyl2d_new_main_path(dev, kernels, piso, linsolve) -> None:
             reset = counts()
             cells = sum(math.prod(b.shape) for b in env._topo.blocks)
             a = np.full(env.action_space.shape, 0.5, np.float32)
-            for i in range(3):
+            for i in range(CYL2D_STEPS):
                 c0 = counts()
                 t = time.perf_counter()
                 obs, reward, _, _, info = env.step(a)
@@ -3512,7 +3537,7 @@ def _cyl2d_new_main_path(dev, kernels, piso, linsolve) -> None:
                                 "stream_ms", "max_abs_err", "C",
                                 "raw_ms_rule", "raw_ms_c1", "us_per_it",
                                 "us_per_it_c1")},
-            launches=sum(3 * rows[i]["launches_per_env_step"][k]
+            launches=sum(CYL2D_STEPS * rows[i]["launches_per_env_step"][k]
                          for i in CYL2D_NEW),
             launches_per_env_step={i: rows[i]["launches_per_env_step"][k]
                                    for i in CYL2D_NEW},
@@ -3673,6 +3698,270 @@ def _blend_phases(dev, kernels, piso, linsolve) -> None:
     _cyl2d_new_card_vs_host(dev)
     _hard_kernel_phase(dev, kernels)
     _hard_main_path(dev, kernels, piso, linsolve)
+
+
+# ---------------------------------------------------------------------------
+# phases 41-43: Airfoil2D-medium and -hard, K3-agg-flip
+# ---------------------------------------------------------------------------
+
+#: the aggregation-coarse airfoil ids (Re 3000 and 5000: the blend 0.3 and
+#: 8 x 8 tiles, k = 1,194)
+AGG_IDS = ("Airfoil2D-medium-v0", "Airfoil2D-hard-v0")
+
+
+def _agg_kernel_phase(dev, kernels) -> None:
+    """Phase 41: K3-agg-flip on the first substep's two pressure solves of
+    one Airfoil2D-medium sim step from its bundled ``train_00`` at full
+    width, captured at the wrapper (warm from the deflated guess, the
+    env's aggregation space): the wrapper (the rule's C) against the plain
+    version (``compare``: iterations within 3, x within 1e-3 of max|x|, a
+    converged solve's true residual within 2 tol, and the same converged
+    flags); the rule's C bit-equal to C = 1, twice, both per raw launch in
+    turns; ms per wrapper call, us per iteration, the bound and the
+    streamed bound."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t0 = time.perf_counter()
+    seen = _capture_solves(dev, AGG_IDS[0], 0.05, {
+        "K3": (cg_cuda_mb, "fused_cg_mb")})["K3"]
+    check(len(seen) >= 2 and all(kw.get("agg") is not None for _, kw in seen),
+          f"Airfoil2D-medium's pressure solves ({len(seen)}) did not all take "
+          "the aggregation space")
+    rows = []
+    for i, ((plan, diags, offs, bs), kw) in enumerate(seen[:2]):
+        kw = dict(kw)
+        x0s, tol, space = kw.pop("x0s"), kw.pop("tol"), kw.pop("agg")
+        kw.pop("coarse_strips", None)
+        bs = tuple(b_.unsqueeze(0) for b_ in bs)
+        x0s = None if x0s is None else tuple(x.unsqueeze(0) for x in x0s)
+        diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+        b = cg_cuda_mb.flatten_fields(plan, bs)
+        x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
+        n, K = b.shape[1], space.K
+        check(n == 73456 and K == 1194 and not plan.identity_seams,
+              f"the captured solve is not the airfoil's flip-seam lane with "
+              f"1,194 tiles (n {n}, K {K})")
+        t2 = cg_cuda.tol2_sum_f32(tol, n)
+        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, agg_k=K)
+        check(rule.cluster > 1 and not rule.spread,
+              f"merged_arm picks {rule} for K3-agg-flip, not the cluster arm")
+        last = {}
+
+        def call():
+            xs, inf = cg_cuda_mb.fused_cg_mb(plan, diags, offs, bs, x0s,
+                                             tol=tol, agg=space, **kw)
+            last["kern"] = inf.converged
+            return (cg_cuda_mb.flatten_fields(plan, xs), inf.iterations,
+                    inf.residual ** 2 * n)
+
+        def plain():
+            out = cg_cuda_mb.fused_cg_mb_plain(
+                plan, diag, off, b, x0, tol2_sum=t2, chunk=1,
+                coarse=(space, space.einv[None]), **kw)
+            last["plain"] = out[2] <= t2
+            return out
+
+        before = (cg_cuda_mb.fused_cg_mb.agg_flip_launches,
+                  cg_cuda_mb.fused_cg_mb.cluster_launches)
+        err, its = compare(f"K3-agg-flip solve {i} (1, {n}), K = {K}", call,
+                           plain, b, tol, 1e-3, 3,
+                           cg_cuda_mb._merged_mv(plan, diag, off))
+        check((cg_cuda_mb.fused_cg_mb.agg_flip_launches,
+               cg_cuda_mb.fused_cg_mb.cluster_launches)
+              == (before[0] + 1, before[1] + 1),
+              "the wrapper's K3-agg-flip launch was not counted as one "
+              "cluster launch of its form")
+        check(torch.equal(last["kern"].reshape(-1).cpu(),
+                          last["plain"].reshape(-1).cpu()),
+              f"converged flags differ: {last}")
+        arms = {f"C={c}": cg_cuda_mb.merged_launcher(
+            "cg", plan, diag, off, b, x0, tol2_sum=t2, chunk=1, cluster=c,
+            coarse=(space, space.einv[None]), **kw) for c in (1, rule.cluster)}
+        turns = arms_in_turns(torch, arms, 10)
+        raw, c1 = turns["raw_ms"][f"C={rule.cluster}"], turns["raw_ms"]["C=1"]
+        b_ms, by, stream = bound_ms(n, 1, 2, its, "cg", x0 is not None, True,
+                                    _seam_cells(plan), coarse_K=K)
+        r = dict(solve=i, iterations=its, max_abs_err=err, C=rule.cluster,
+                 ms=cuda_ms(torch, call, 10), plain_ms=cuda_ms(torch, plain, 1),
+                 raw_ms_rule=raw, raw_ms_c1=c1,
+                 us_per_it=raw * 1e3 / max(its, 1),
+                 us_per_it_c1=c1 * 1e3 / max(its, 1), bound_ms=b_ms,
+                 bound_by=by, stream_ms=stream, cells=n, K=K)
+        log(f"  K3-agg-flip solve {i}: {r['ms']:.3f} ms per wrapper call; "
+            f"raw launch C = {rule.cluster} {raw:.3f} ms = "
+            f"{r['us_per_it']:.2f} us/iteration, C = 1 {c1:.3f} ms = "
+            f"{r['us_per_it_c1']:.2f} ({c1 / raw:.2f}x) at {its} iterations, "
+            f"bit-equal twice (plain {r['plain_ms']:.3f} ms; bound "
+            f"{b_ms * 1e3:.3f} us by {by}, streaming {stream * 1e3:.3f} us)")
+        rows.append(r)
+    first = rows[0]
+    kernels["K3-agg-flip"] = dict(
+        name="K3-agg-flip fused_cg_mb(agg=) (Jacobi + aggregation-coarse PCG, "
+             "flip seams, whole solve)",
+        route="cuda", source="fluidgym_tpu_torch/csrc/cg.cu",
+        replaces="fluidgym_tpu/solver/piso.py:652",
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], library_ms=None,
+        iterations=first["iterations"], shape="(1, 73456), K = 1194",
+        C=first["C"], raw_ms=first["raw_ms_rule"],
+        us_per_it=first["us_per_it"], raw_ms_cluster_1=first["raw_ms_c1"],
+        us_per_it_cluster_1=first["us_per_it_c1"],
+        streamed_ms=first["stream_ms"], solves=rows)
+    log(f"phase 41 K3-agg-flip on Airfoil2D-medium's captured solves ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def _agg_main_path(dev, kernels, piso, linsolve) -> None:
+    """Phase 42: Airfoil2D-medium-v0 and -hard-v0 at their registered
+    defaults from the bundled ``train_00`` (no randomization):
+    ``reset(seed=0)`` and 2 steps with a fixed action.  Counters zeroed
+    just before ``make`` and read after each step: in every step each
+    substep launches K3-agg-flip twice (its two pressure correctors) and
+    K2-mb-flip once, every one on the cluster arm, and no other kernel
+    form, plain version or ``linsolve`` loop runs; obs, reward, drag and
+    lift finite, every pressure solve converged; ms, substeps and pressure
+    iterations per env step."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    t0 = time.perf_counter()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    launches, plains = _counters()
+    rows = {}
+    for env_id in AGG_IDS:
+        calls, restore = count_calls(piso, linsolve)
+
+        def counts():
+            out = {"K3-agg-flip": k3.agg_flip_launches,
+                   "K2-mb-flip": k2.merged_flip_launches,
+                   "cluster": k3.cluster_launches + k2.cluster_launches}
+            out["other"] = (sum(getattr(*c) for c in launches)
+                            - out["K3-agg-flip"] - out["K2-mb-flip"])
+            out["plain"] = sum(getattr(*c) for c in plains)
+            out["linsolve"] = calls["cg"] + calls["bicgstab"]
+            out["substeps"] = calls["piso_substep_info"]
+            return out
+
+        for c in launches + plains + [(k3, "cluster_launches"),
+                                      (k2, "cluster_launches")]:
+            setattr(*c, 0)
+        torch.cuda.synchronize()
+        per_step, step_s, p_its, drags, lifts = [], [], [], [], []
+        try:
+            t = time.perf_counter()
+            env = fluidgym_tpu_torch.make(env_id, randomize_initial_state=False)
+            env.reset(seed=0)
+            torch.cuda.synchronize()
+            reset_s = time.perf_counter() - t
+            reset = counts()
+            agg = env._cfg.pressure_agg
+            check(agg is not None and agg.k == 1194 and agg.tile == 8
+                  and env._cfg.advection_upwind_blend == 0.3,
+                  f"{env_id}: not the blend and the 1,194-tile space")
+            a = np.array([0.5, -0.2, -0.3], np.float32)
+            for i in range(2):
+                c0 = counts()
+                t = time.perf_counter()
+                obs, reward, _, _, info = env.step(a)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                d = {k: v - c0[k] for k, v in counts().items()}
+                sub = d["substeps"]
+                expect = {"K3-agg-flip": 2 * sub, "K2-mb-flip": sub,
+                          "cluster": 3 * sub, "other": 0, "plain": 0,
+                          "linsolve": 0}
+                check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+                      f"{env_id} step {i}: launches {d}, expected {expect}")
+                for k, v in obs.items():
+                    check(tuple(v.shape) == env.observation_space[k].shape,
+                          f"{env_id} obs {k} shape {tuple(v.shape)}")
+                    check(bool(torch.isfinite(v).all()),
+                          f"{env_id} obs {k} not finite")
+                drags.append(float(info["drag"]))
+                lifts.append(float(info["lift"]))
+                check(bool(torch.isfinite(reward).all())
+                      and math.isfinite(drags[-1]) and math.isfinite(lifts[-1]),
+                      f"{env_id}: reward, drag or lift not finite")
+                check(bool(info["pressure_converged"]),
+                      f"{env_id} step {i}: a pressure solve did not converge")
+                p_its.append(int(info["pressure_iterations"]))
+                per_step.append(d)
+        finally:
+            restore()
+        r = rows[env_id] = dict(
+            reset_s=reset_s,
+            reset_launches={k: reset[k] for k in ("K3-agg-flip", "other")},
+            ms_step=1e3 * sum(step_s) / len(step_s),
+            step_ms=[1e3 * x for x in step_s],
+            substeps=[d["substeps"] for d in per_step],
+            pressure_iterations=p_its, drag=drags, lift=lifts,
+            launches_per_env_step={k: sum(d[k] for d in per_step) / len(per_step)
+                                   for k in ("K3-agg-flip", "K2-mb-flip")},
+            launches=sum(d["K3-agg-flip"] for d in per_step))
+        log(f"phase 42 {env_id}: reset {reset_s:.2f}s (launches "
+            f"{r['reset_launches']}), steps {[round(x, 3) for x in step_s]} s "
+            f"= {r['ms_step']:.1f} ms/env step, substeps {r['substeps']}, "
+            f"pressure iterations {p_its}, drag {[round(x, 5) for x in drags]}"
+            f", lift {[round(x, 5) for x in lifts]}, launches per step "
+            f"{r['launches_per_env_step']}; every K3-agg-flip / K2-mb-flip "
+            f"launch on the cluster arm")
+    kernels["K3-agg-flip"]["launches"] = sum(r["launches"] for r in rows.values())
+    kernels["K3-agg-flip"]["launches_per_env_step"] = {
+        i: r["launches_per_env_step"]["K3-agg-flip"] for i, r in rows.items()}
+    kernels["K3-agg-flip"]["main_path"] = {i: {x: r[x] for x in (
+        "ms_step", "step_ms", "substeps", "pressure_iterations", "reset_s",
+        "drag", "lift")} for i, r in rows.items()}
+    log(f"phase 42 the aggregation-coarse airfoil ids ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def _agg_card_vs_host(dev) -> None:
+    """Phase 43: one shortened Airfoil2D-medium step (``step_length`` = dt
+    = 0.01: one sim step; the aggregation space built at that dt on both
+    sides) from the bundled ``train_00`` at full width, on the card and on
+    the host: the velocity obs and the reward within 1e-4, the pressure obs
+    within 1e-3 (phase 13's bars: a float32 airfoil pressure obs is decided
+    by rounding at ~1e-4)."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+
+    t = time.perf_counter()
+    outs, its = {}, {}
+    for where in (dev, torch.device("cpu")):
+        e = fluidgym_tpu_torch.make(AGG_IDS[0], device=where,
+                                    randomize_initial_state=False,
+                                    load_domain_statistics=False,
+                                    step_length=0.01, dt=0.01)
+        e.reset(seed=0)
+        o, r, _, _, info = e.step(np.array([0.5, -0.2, -0.3], np.float32))
+        outs[where.type] = {k: v.cpu() for k, v in dict(o, reward=r).items()}
+        its[where.type] = int(info["pressure_iterations"])
+    og, oc = outs[dev.type], outs["cpu"]
+    diffs = {k: float((og[k] - oc[k]).abs().max()
+                      / oc[k].abs().max().clamp(min=1e-30)) for k in og}
+    bars = {"velocity": 1e-4, "reward": 1e-4, "pressure": 1e-3}
+    log(f"phase 43 {AGG_IDS[0]} full width, 1 sim step of 0.01 from the "
+        f"bundled train_00 (pressure iterations {its}), card vs host: "
+        f"relative diffs {diffs} (bars {bars}) in "
+        f"{time.perf_counter() - t:.2f}s")
+    check(all(v <= bars[k] for k, v in diffs.items()),
+          f"card and host disagree on {AGG_IDS[0]}: {diffs}")
+
+
+def _agg_phases(dev, kernels, piso, linsolve) -> None:
+    """Phases 41-43: K3-agg-flip on the captured solves (41), the medium and
+    hard main paths (42), card against host (43)."""
+    _agg_kernel_phase(dev, kernels)
+    _agg_main_path(dev, kernels, piso, linsolve)
+    _agg_card_vs_host(dev)
 
 
 if __name__ == "__main__":

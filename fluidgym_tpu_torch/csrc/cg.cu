@@ -179,15 +179,48 @@
 // K3-flip's arm was mostly the serial gathers (one warp's pass over a
 // strip, one thread's row of Einv), so each thread issues its loads
 // FG_BATCH at a time, added in the same order.
+//
+// K3-agg (entry fg_cg_mb_agg_solve, the COARSE arm with AGG): the additive
+// two-level preconditioner of the aggregation coarse space, which replaces
+// no TPU kernel: the JAX package solves this system with linsolve.cg over
+// the blocks and its aggregation coarse_fn (fluidgym_tpu/solver/piso.py
+// `_agg_coarse_from_cache`, the Airfoil2D medium and hard tiers), where the
+// port runs every main-path solve on the card in a kernel.  The same z =
+// D^-1 r + W Einv W^T r, with W the indicators of 8 x 8 index-space tiles
+// of every block, so the strips' structure holds with the tiles as strips:
+// per-tile cell lists in CSR form (a flip seam scatters a tile's cells in
+// the merged frame), each cell's tile for the prolongation.  Two things
+// differ.  K is large (1,194 tiles on the airfoil, where the strips stop
+// at FG_MAX_K = 128), so the restricted and coarse vectors live in dynamic
+// shared memory (2 K floats, after the cluster arm's rows and chain
+// terms; K <= FG_MAX_AGG_K, the entry refuses more), and Einv (K x K, 5.7
+// MB at K = 1,194: fixed for the env, built from its state at reset and
+// folded with d in float64 by ops/cg_cuda_mb.py's caller) stays in the 50
+// MB L2.  And Einv rc (1.43 M multiply-adds per iteration there) is not
+// formed in every block: row k is formed by one warp, its lanes strided by
+// 32 over the row (FG_BATCH loads in flight, row-major Einv, coalesced),
+// then the butterfly, on block k mod C of the cluster (the one block of
+// the chunk grid), into its owner's s_xc; a cluster barrier, then every
+// block gathers the K values from their owners' shared memory, as it
+// gathers the tile sums.  A row's order is the same whichever warp or
+// block forms it, so every C returns the chunk grid's x, iterations and
+// residual.  Eight cluster barriers per iteration: K3-coarse's seven and
+// the coarse rows.  What bounds it: per iteration each block of a C = 16
+// cluster streams ~K / 16 rows of Einv (~360 KB at K = 1,194) from L2
+// beside K3-coarse's passes; the field passes are K3-flip's.
 #include "krylov.cuh"
 
 #define FG_MAX_K 128
+// K3-agg's tiles: two floats each of a block's dynamic shared memory
+// (ops/cg_cuda_mb.py AGG_MAX_K)
+#define FG_MAX_AGG_K 2048
 // loads in flight per thread in the coarse preconditioner's gathers
 #define FG_BATCH 8
 
 // The strip-coarse space of K3's coarse arm (unused when COARSE is false).
 struct FgCoarse {
   const float* einv_t;     // (1|lanes, K, K), transposed: [j * K + k] = Einv[k][j]
+                           // (K3-agg: row-major, [k * K + j] = Einv[k][j])
   const int* strip_ptr;    // (K + 1): strip k owns strip_cells[ptr[k]:ptr[k+1]]
   const int* strip_cells;  // flat cell indices, ascending within a strip
   const int* cidx;         // (n): strip of each cell, -1 outside every space
@@ -195,13 +228,15 @@ struct FgCoarse {
   int per_lane;            // einv_t has one matrix per lane
 };
 
-// z = M^-1 r for one lane (Jacobi + strip-coarse), written to `dst`; every
-// thread returns <r, z> in a1 and <r, r> in a2.  FG_ARM_BLOCK: the whole
-// lane in this block, reached after a block barrier that publishes r.
-// FG_ARM_CLUSTER: one lane over the cluster (see the note at the top of
-// this file), this block's range [L.c0, L.c1) of z, its rows `R` staged;
-// it publishes r itself.  Must be reached by all threads of the lane.
-template <int ARM>
+// z = M^-1 r for one lane (Jacobi + strip-coarse, or with AGG Jacobi +
+// aggregation-coarse), written to `dst`; every thread returns <r, z> in a1
+// and <r, r> in a2.  FG_ARM_BLOCK: the whole lane in this block, reached
+// after a block barrier that publishes r.  FG_ARM_CLUSTER: one lane over
+// the cluster (see the notes at the top of this file), this block's range
+// [L.c0, L.c1) of z, its rows `R` staged; it publishes r itself.  `s_rc`,
+// `s_xc`: K floats each of this block's shared memory.  Must be reached by
+// all threads of the lane.
+template <int ARM, bool AGG>
 __device__ __forceinline__ void fg_coarse_precond(
     const float* __restrict__ r, const FgRows& R, float* __restrict__ dst,
     int n, const FgCoarse& cz, int l, int precondition, float* s_rc,
@@ -250,20 +285,54 @@ __device__ __forceinline__ void fg_coarse_precond(
     for (int k = tid >> 5; k < K; k += nw) restrict_strip(k);
   }
   __syncthreads();
-  // row k of Einv rc, its loads FG_BATCH at a time, summed in order
   const float* et = cz.einv_t + (size_t)l * K * K * cz.per_lane;
-  for (int k = tid; k < K; k += T) {
-    float s = 0.0f;
-    int j = 0;
-    for (; j + FG_BATCH <= K; j += FG_BATCH) {
-      float e[FG_BATCH];
-#pragma unroll
-      for (int u = 0; u < FG_BATCH; ++u) e[u] = et[(j + u) * K + k];
-#pragma unroll
-      for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + u];
+  if constexpr (AGG) {
+    // row k of Einv rc on one warp of block k mod C: its lanes strided by
+    // 32 over the row (FG_BATCH loads in flight, added in order), then the
+    // butterfly; into the owner's s_xc
+    int C = 1, rank = 0;
+    if constexpr (ARM == FG_ARM_CLUSTER) {
+      C = (int)cooperative_groups::this_cluster().num_blocks();
+      rank = (int)cooperative_groups::this_cluster().block_rank();
     }
-    for (; j < K; ++j) s = s + et[j * K + k] * s_rc[j];
-    s_xc[k] = s;
+    for (int k = rank + C * (tid >> 5); k < K; k += C * nw) {
+      const float* __restrict__ row = et + (size_t)k * K;
+      float s = 0.0f;
+      int j = wl;
+      for (; j + 32 * (FG_BATCH - 1) < K; j += 32 * FG_BATCH) {
+        float e[FG_BATCH];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) e[u] = row[j + 32 * u];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + 32 * u];
+      }
+      for (; j < K; j += 32) s = s + row[j] * s_rc[j];
+      s = fg_warp_sum(s);
+      if (wl == 0) s_xc[k] = s;
+    }
+    if constexpr (ARM == FG_ARM_CLUSTER) {
+      auto cl = cooperative_groups::this_cluster();
+      fg_cluster_sync();  // every row is in its owner's s_xc
+      // as the tile sums above: an owner writes its rows again only after
+      // the sum below has met every block
+      for (int k = tid; k < K; k += T)
+        if (k % C != rank) s_xc[k] = *cl.map_shared_rank(s_xc + k, k % C);
+    }
+  } else {
+    // row k of Einv rc, its loads FG_BATCH at a time, summed in order
+    for (int k = tid; k < K; k += T) {
+      float s = 0.0f;
+      int j = 0;
+      for (; j + FG_BATCH <= K; j += FG_BATCH) {
+        float e[FG_BATCH];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) e[u] = et[(j + u) * K + k];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + u];
+      }
+      for (; j < K; ++j) s = s + et[j * K + k] * s_rc[j];
+      s_xc[k] = s;
+    }
   }
   __syncthreads();
   a1 = 0.0f;
@@ -288,9 +357,10 @@ __device__ __forceinline__ void fg_coarse_precond(
 // One 1024-thread block per SM (the second launch bound): without it ptxas
 // cut the resident arm to 32 registers, with spills, to fit two blocks of
 // whose dynamic shared memory it knows nothing.  SPREAD: 0, or the spread
-// arm's layout (FG_ARM_RANGE, FG_ARM_CHAINS; krylov.cuh).
+// arm's layout (FG_ARM_RANGE, FG_ARM_CHAINS; krylov.cuh).  AGG (with
+// COARSE): K3-agg, the coarse vectors in dynamic shared memory.
 template <int ND, bool TABLE, bool COARSE, bool CLUSTER = false,
-          bool RESIDENT = false, int SPREAD = 0>
+          bool RESIDENT = false, int SPREAD = 0, bool AGG = false>
 __global__ void __launch_bounds__(FG_THREADS, 1)
 fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
              const float* __restrict__ off, const int* __restrict__ nbr,
@@ -309,11 +379,14 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!SPREAD || (!COARSE && !CLUSTER && !RESIDENT &&
                             (!TABLE || ND == 3)),
                 "spread arm: K1, and K3 over a 3D plan");
+  static_assert(!AGG || (COARSE && TABLE && ND == 2 && !RESIDENT && !SPREAD),
+                "K3-agg: the merged frame in 2D");
   constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
-  __shared__ float s_rc[COARSE ? FG_MAX_K : 1], s_xc[COARSE ? FG_MAX_K : 1];
+  __shared__ float s_rc[COARSE && !AGG ? FG_MAX_K : 1];
+  __shared__ float s_xc[COARSE && !AGG ? FG_MAX_K : 1];
   __shared__ float s_rz[FG_MAX_LANES], s_rs[FG_MAX_LANES];
   __shared__ float s_best_rs[FG_MAX_LANES];
   __shared__ float s_alpha[FG_MAX_LANES], s_beta[FG_MAX_LANES];
@@ -355,6 +428,16 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     __syncthreads();
   }
   if constexpr (SPREAD) L.buf = s_rows;  // the chain terms alone
+  // the coarse vectors: K3-coarse's static arrays, or K3-agg's 2 K floats
+  // after the cluster arm's rows and chain terms (fg_agg_bytes)
+  float* rc_buf = s_rc;
+  float* xc_buf = s_xc;
+  if constexpr (AGG) {
+    const int C = fg_lane_blocks<ARM>(sp);
+    rc_buf = CLUSTER ? fg_chain_buf(s_rows, n, C, ND) + fg_chain_floats(n, C)
+                     : s_rows;
+    xc_buf = rc_buf + cz.K;
+  }
   // the resident arm (one lane, chunk 1): the lane's rows and x, r, p, q
   // in shared memory for the whole solve; x goes out to x_out at the end
   float* const x_out = x;
@@ -413,8 +496,8 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     });
     if constexpr (COARSE) {
       if constexpr (!CLUSTER) __syncthreads();  // r of this lane is complete
-      fg_coarse_precond<ARM>(r + o, R, p + o, n, cz, l, precondition, s_rc,
-                             s_xc, sh, L, sp, a1, a2);
+      fg_coarse_precond<ARM, AGG>(r + o, R, p + o, n, cz, l, precondition,
+                                  rc_buf, xc_buf, sh, L, sp, a1, a2);
     } else {
       fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
         const float rr = __ldcg(r + o + c);
@@ -490,8 +573,8 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       });
       if constexpr (COARSE) {
         if constexpr (!CLUSTER) __syncthreads();  // r of this lane is complete
-        fg_coarse_precond<ARM>(r + o, R, q + o, n, cz, l, precondition, s_rc,
-                               s_xc, sh, L, sp, a1, a2);
+        fg_coarse_precond<ARM, AGG>(r + o, R, q + o, n, cz, l, precondition,
+                                    rc_buf, xc_buf, sh, L, sp, a1, a2);
       } else {
         const float* dg = gdiag(l);
         fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
@@ -765,4 +848,69 @@ extern "C" int fg_cg_mb_coarse_cluster_occupancy(int ndims, int cluster,
     return (int)cudaErrorInvalidValue;
   return (int)fg_max_clusters(fg_cg_coarse_kernel(cluster), cluster,
                               fg_stage_bytes(n, cluster, ndims), out);
+}
+
+// K3-agg: K3 with the aggregation coarse space (see the note at the top of
+// this file), 2D plans only: `einv` (1|lanes, K, K) row-major, the tiles'
+// cell lists `tile_ptr` (K + 1) / `tile_cells` and each cell's tile `cidx`
+// (n; -1: none).  `cluster` = 1: the chunk grid; C in 2, 4, 8, 16 (chunk
+// 1): the cluster arm, one lane over C blocks, each block's rows in shared
+// memory beside its 2 K coarse floats (a size that does not fit is
+// refused).  Returns cudaErrorInvalidValue when K exceeds FG_MAX_AGG_K.
+static FgCgKernel fg_cg_agg_kernel(int cluster) {
+  return cluster > 1 ? fg_cg_kernel<2, true, true, true, false, 0, true>
+                     : fg_cg_kernel<2, true, true, false, false, 0, true>;
+}
+
+// dynamic shared memory of a K3-agg block: the cluster arm's rows and
+// chain terms (C > 1), then its s_rc and s_xc (ops/cg_cuda_mb.py
+// `stage_bytes` with agg_k mirrors the cluster arm's)
+static size_t fg_agg_bytes(int n, int C, int K) {
+  return (C > 1 ? fg_stage_bytes(n, C, 2) : 0) + (size_t)2 * K * sizeof(float);
+}
+
+extern "C" int fg_cg_mb_agg_solve(
+    const float* b, const float* diag, const float* off, const int* nbr,
+    const float* x0, float* x, int* iters, float* rs, float* r, float* p,
+    float* q, float* best, const float* einv, const int* tile_ptr,
+    const int* tile_cells, const int* cidx, int lanes, int chunk,
+    int cluster, int n, int ndims, int op_per_lane, int K, float tol2,
+    int maxiter, int stall_iters, int precondition, int return_best,
+    int warm_start, void* stream) {
+  const int blocks = fg_chunk_blocks(lanes, chunk);
+  if (blocks == 0 || ndims != 2 || nbr == nullptr || K < 1 ||
+      K > FG_MAX_AGG_K || !fg_cluster_ok(cluster, chunk))
+    return (int)cudaErrorInvalidValue;
+  const FgGrid g = fg_grid(1, 1, n);
+  FgCoarse cz;
+  cz.einv_t = einv;
+  cz.strip_ptr = tile_ptr;
+  cz.strip_cells = tile_cells;
+  cz.cidx = cidx;
+  cz.K = K;
+  cz.per_lane = op_per_lane;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cluster > 1)
+    return (int)fg_launch_clusters(
+        fg_cg_agg_kernel(cluster), lanes, cluster,
+        fg_agg_bytes(n, cluster, K), s, b, diag, off, nbr, x0, x, iters, rs,
+        r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter, stall_iters,
+        precondition, return_best, warm_start, cz, FgSpread{});
+  return (int)fg_launch_smem(
+      fg_cg_agg_kernel(1), blocks, fg_agg_bytes(n, 1, K), s, b, diag, off,
+      nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g, op_per_lane,
+      tol2, maxiter, stall_iters, precondition, return_best, warm_start, cz,
+      FgSpread{});
+}
+
+// How many C-block clusters of K3-agg's cluster arm (a 2D plan over n
+// cells, K tiles) the card holds at once, into *out (the AGG instance's
+// registers and shared memory are its own).
+extern "C" int fg_cg_mb_agg_cluster_occupancy(int ndims, int cluster, int n,
+                                              int K, int* out) {
+  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1) || K < 1 ||
+      K > FG_MAX_AGG_K)
+    return (int)cudaErrorInvalidValue;
+  return (int)fg_max_clusters(fg_cg_agg_kernel(cluster), cluster,
+                              fg_agg_bytes(n, cluster, K), out);
 }

@@ -1,6 +1,6 @@
 """Environment families and registration.  This port registers the 12
 RBC ids (2D and 3D), the three CylinderJet2D ids, the three CylinderRot2D
-ids, the three CylinderJet3D ids and ``Airfoil2D-easy-v0``: 22 of the JAX
+ids, the three CylinderJet3D ids and the three Airfoil2D ids: 24 of the JAX
 package's 39 ids, with the same merged defaults; the other ids follow
 slice by slice."""
 
@@ -76,6 +76,10 @@ def _register_airfoil() -> None:
 
     register("Airfoil2D-easy-v0", AirfoilEnv2D, AIRFOIL_2D_DEFAULT_CONFIG,
              reynolds_number=1e3)
+    register("Airfoil2D-medium-v0", AirfoilEnv2D, AIRFOIL_2D_DEFAULT_CONFIG,
+             reynolds_number=3e3)
+    register("Airfoil2D-hard-v0", AirfoilEnv2D, AIRFOIL_2D_DEFAULT_CONFIG,
+             reynolds_number=5e3)
 
 
 _register_rbc()

@@ -18,9 +18,12 @@
 * domain randomization: field noise (numpy draws per block, velocity then
   pressure) + a random number of uncontrolled steps.
 
-Not ported yet: 3D airfoils, rendering to images and vorticity, and the
-Re >= 3000 tiers (they need the aggregation coarse space of the pressure
-solve; they raise).
+At Re >= 3000 (the medium and hard tiers) the velocity advection matrix
+takes the upwind blend 0.3 and the pressure solve the aggregation coarse
+space of 8 x 8 tiles (``pressure_coarse_tile``,
+``pressure_coarse_precondition``), as in the JAX package.
+
+Not ported yet: 3D airfoils, rendering to images and vorticity.
 """
 
 from __future__ import annotations
@@ -107,13 +110,6 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             raise ValueError("Attack angle must be between 0 and 20 degrees.")
         if ndims != 2:
             raise NotImplementedError("3D airfoils are not ported yet")
-        if reynolds_number >= 3000:
-            # the JAX package's medium/hard tiers precondition the pressure
-            # solve with an aggregation coarse space
-            raise NotImplementedError(
-                "Re >= 3000 needs the aggregation coarse space of the "
-                "pressure solve, which is not ported to fluidgym_tpu_torch "
-                "yet")
         self._reynolds_number = float(reynolds_number)
         self._attack_angle_deg = float(attack_angle_deg)
         self._ndims = ndims
@@ -222,6 +218,14 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             differentiable=self._differentiable,
             pressure_warm_start=True,
             pressure_deflation=True,
+            # Re >= 3000: the central scheme grows an advective instability
+            # on the C-grid, so the velocity matrix takes the upwind blend,
+            # on which plain Jacobi-PCG stalls above the 1e-7 tolerance; the
+            # aggregation coarse space restores convergence (the JAX
+            # package's settings and reasons)
+            advection_upwind_blend=0.3 if self._reynolds_number >= 3000 else 0.0,
+            **({"pressure_coarse_tile": 8, "pressure_coarse_precondition": True}
+               if self._reynolds_number >= 3000 else {}),
         )
 
     def _additional_initialization(self) -> None:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import logging
 from abc import ABC, abstractmethod
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -406,6 +406,7 @@ class FluidEnv(ABC, FluidEnvLike):
         self._hooks = self._get_prep_fn()
         self._cfg = self._get_simulation()
         self._additional_initialization()
+        self._ensure_agg_coarse()
         self._reset_called = True
         self._n_steps = 0
 
@@ -437,8 +438,25 @@ class FluidEnv(ABC, FluidEnvLike):
         self._hooks = self._get_prep_fn()
         self._cfg = self._get_simulation()
         self._additional_initialization()
+        self._ensure_agg_coarse()
         if randomize:
             self._randomize_domain()
+
+    def _ensure_agg_coarse(self, force: bool = False) -> None:
+        """The aggregation coarse space of the pressure solve, where the
+        config asks for one (``pressure_coarse_tile``): built from the
+        state (after ``_additional_initialization``, before any
+        randomization, as the JAX package builds its cache entry), kept on
+        the env and reused while the operator's key and viscosity hold
+        (``piso.ensure_agg_coarse``), and handed to the solver on the
+        config (``SimConfig.pressure_agg``).  Deliberate difference: the
+        JAX package keeps it in a process-global FIFO cache and does not
+        build it in ``load_initial_domain``."""
+        self._agg_coarse = piso.ensure_agg_coarse(
+            getattr(self, "_agg_coarse", None), self._state, self._geoms,
+            self._topo, self._cfg, force=force)
+        if self._agg_coarse is not None:
+            self._cfg = replace(self._cfg, pressure_agg=self._agg_coarse)
 
     # ------------------------------------------------------------------
     # core loop

@@ -45,12 +45,25 @@ neighbour table built once per plan (``neighbor_table``; see
   computed from the operator on every call, as in the JAX package; the
   kernel restricts through per-strip cell lists (``strip_lists``, built once
   per plan).  A single env's lane takes the cluster arm (below), as K3's.
+* ``fused_cg_mb(..., agg=space)`` is K3-agg (no TPU kernel: the JAX
+  package solves this system with ``linsolve.cg`` and the aggregation
+  ``coarse_fn``): the additive two-level preconditioner ``z = D^-1 r + W
+  Einv W^T r`` over the tiles of ``solver/piso.py``'s aggregation space,
+  ``Einv`` fixed (built once per env from the state at reset and folded with
+  ``d`` in float64, ``piso.build_agg_coarse``), the restriction through
+  per-tile cell lists and the prolongation through each cell's tile
+  (``agg_space``, built once with the space).  Counted as
+  ``fused_cg_mb.agg_launches`` (identity seams) and ``.agg_flip_launches``
+  (flip seams: the airfoil's "K3-agg-flip", k = 1,194 tiles).  A single
+  env's lane takes the cluster arm (``merged_arm(..., agg_k=K)``).
 * ``fused_cg_mb_plain`` and ``fused_bicgstab_plain`` are the plain PyTorch
   versions, with ``.calls`` counters; in the merged frame their matvec is
   ``block_merge.merged_apply`` (rolls plus slab fixups, the TPU kernel's
   arithmetic), independent of the neighbour table, and the coarse term of
   ``fused_cg_mb_plain(..., coarse=...)`` is ``coarse_strips.restrict`` /
-  ``prolong``, independent of the cell lists.
+  ``prolong``, independent of the cell lists; with an ``AggSpace`` it
+  sums and spreads through each cell's tile (``cidx``), independent of the
+  per-tile lists.
 
 The cluster arm (K3, K3-coarse and K2-mb, both seam forms): a lane can be
 spread over a thread-block cluster of C blocks (C in 2, 4, 8, 16), one per
@@ -126,9 +139,11 @@ from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
 __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "fused_cg_mb_plain", "neighbor_table", "strip_lists",
+           "AggSpace", "agg_space", "AGG_MAX_K",
            "flatten_fields", "unflatten_fields", "flatten_ops",
            "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
-           "max_active_clusters", "rows_fit", "CLUSTER_SIZES", "merged_arm",
+           "max_active_clusters", "max_active_agg_clusters", "rows_fit",
+           "CLUSTER_SIZES", "merged_arm",
            "MergedArm", "merged_launcher"]
 
 
@@ -215,17 +230,78 @@ def strip_lists(plan: MergePlan, device):
                  for a in (np.asarray(ptr), np.concatenate(cells), cidx))
 
 
+#: the most tiles K3-agg takes: two floats per tile of a block's dynamic
+#: shared memory beside the cluster arm's rows (``stage_bytes``;
+#: ``FG_MAX_AGG_K`` in ``csrc/cg.cu``)
+AGG_MAX_K = 2048
+
+
+class AggSpace(NamedTuple):
+    """K3-agg's view of an aggregation space in the merged frame of a plan
+    (``agg_space``): every cell's tile and the tiles' cell lists in CSR
+    form, and the fixed ``(K, K)`` coarse inverse."""
+
+    cidx: torch.Tensor    # (n,) int32: each flat cell's tile (-1: none)
+    ptr: torch.Tensor     # (K + 1,) int32: tile k owns cells[ptr[k]:ptr[k+1]]
+    cells: torch.Tensor   # (n,) int32: flat cell indices, ascending per tile
+    einv: torch.Tensor    # (K, K)
+    K: int
+
+
+def agg_space(plan: MergePlan, tile_ids, einv: torch.Tensor) -> AggSpace:
+    """The merged frame's view of per-block tile ids (``tile_ids``: per
+    block ``(*shape)`` integers in ``[0, K)``): packed like any field
+    (``block_merge.pack_fields``; a flip seam reverses cells, so a tile's
+    cells need not be contiguous), then grouped by tile.  Built once per
+    space, on the device of ``einv``."""
+    from fluidgym_tpu_torch.solver.block_merge import pack_fields
+
+    K = einv.shape[-1]
+    # +1: a cell of a super-block that no block covers packs as 0 -> -1
+    packed = pack_fields(plan, tuple(t.to(torch.int64) + 1 for t in tile_ids))
+    cidx = (torch.cat([p.reshape(-1) for p in packed]) - 1).cpu()
+    if int(cidx.max()) >= K:
+        raise ValueError(f"a tile id is out of range for K = {K}")
+    covered = torch.nonzero(cidx >= 0).reshape(-1)
+    order = torch.argsort(cidx[covered], stable=True)
+    cells = covered[order]
+    counts = torch.bincount(cidx[covered], minlength=K)
+    ptr = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)])
+    dev = einv.device
+    return AggSpace(cidx=cidx.to(torch.int32).to(dev),
+                    ptr=ptr.to(torch.int32).to(dev),
+                    cells=cells.to(torch.int32).to(dev), einv=einv, K=K)
+
+
 def _coarse_precond(plan: MergePlan, sp, einv, diag, precondition: bool):
     """``z = D^-1 r + W Einv W^T r`` on flat ``(lanes, n)`` residuals
     (``einv``: ``(1|lanes, K, K)``), through ``coarse_strips.restrict`` /
-    ``prolong``: the TPU kernel's ``apply_precond``."""
+    ``prolong`` for a strip plan (the TPU kernel's ``apply_precond``), or
+    each cell's tile for an ``AggSpace``."""
     inv_diag = 1.0 / diag if precondition else None
+    if isinstance(sp, AggSpace):
+        cidx = sp.cidx.to(torch.int64)
+        inside = (cidx >= 0).to(einv.dtype)
+        cid = cidx.clamp(min=0)
+
+        def restrict(r):
+            rc = torch.zeros(r.shape[:-1] + (sp.K,), dtype=r.dtype,
+                             device=r.device)
+            return rc.index_add_(-1, cid, r * inside)
+
+        def prolong(xc):
+            return xc[..., cid] * inside
+    else:
+        def restrict(r):
+            return cs.restrict(plan, sp, unflatten_fields(plan, r))
+
+        def prolong(xc):
+            return flatten_fields(plan, cs.prolong(plan, sp, xc))
 
     def precond(r):
         z = inv_diag * r if precondition else r
-        rc = cs.restrict(plan, sp, unflatten_fields(plan, r))
-        xc = (einv @ rc.unsqueeze(-1)).squeeze(-1)
-        return z + flatten_fields(plan, cs.prolong(plan, sp, xc))
+        xc = (einv @ restrict(r).unsqueeze(-1)).squeeze(-1)
+        return z + prolong(xc)
 
     return precond
 
@@ -286,18 +362,20 @@ class MergedArm(NamedTuple):
 cluster_ranges = block_ranges
 
 
-def stage_bytes(n: int, C: int, ndims: int) -> int:
+def stage_bytes(n: int, C: int, ndims: int, agg_k: int = 0) -> int:
     """Dynamic shared memory of one block in the cluster arm: the operator
     rows of its range (diag, ``2*ndims`` off and ``2*ndims`` int32
     neighbours per cell), then two floats for each cell of its 1024 / C
-    sum chains (``fg_stage_bytes``)."""
+    sum chains (``fg_stage_bytes``), then K3-agg's two floats per tile
+    (``agg_k`` tiles; ``fg_agg_bytes``)."""
     chains = 2 * (1024 // C) * -(-n // 1024)
-    return (block_seg(n, C) * (1 + 4 * ndims) + chains) * 4
+    return (block_seg(n, C) * (1 + 4 * ndims) + chains + 2 * agg_k) * 4
 
 
-def rows_fit(n: int, C: int, ndims: int) -> bool:
-    """Whether a block's operator rows fit in its shared memory at C."""
-    return stage_bytes(n, C, ndims) <= SMEM_PER_BLOCK - SMEM_STATIC
+def rows_fit(n: int, C: int, ndims: int, agg_k: int = 0) -> bool:
+    """Whether a block's operator rows (and K3-agg's ``agg_k`` tiles) fit
+    in its shared memory at C."""
+    return stage_bytes(n, C, ndims, agg_k) <= SMEM_PER_BLOCK - SMEM_STATIC
 
 
 @functools.lru_cache(maxsize=None)
@@ -318,8 +396,22 @@ def max_active_clusters(algo: str, ndims: int, C: int, n: int,
     return out.value
 
 
+@functools.lru_cache(maxsize=None)
+def max_active_agg_clusters(ndims: int, C: int, n: int, K: int,
+                            device: torch.device) -> int:
+    """``max_active_clusters`` of K3-agg's cluster arm over ``K`` tiles (its
+    shared memory holds 2 K floats beside the rows)."""
+    lib = _build.library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = lib.fg_cg_mb_agg_cluster_occupancy(ndims, C, n, K,
+                                                    ctypes.addressof(out))
+    _build.check(status, f"cg_agg cluster occupancy at C = {C}")
+    return out.value
+
+
 def default_cluster(lanes: int, n: int, ndims: int, chunk: int, device,
-                    algo: str = "cg") -> int:
+                    algo: str = "cg", agg_k: int = 0) -> int:
     """Blocks per lane of a merged-frame solve of ``lanes`` lanes of ``n``
     cells: the largest C in ``CLUSTER_SIZES`` with one lane per cluster
     (``chunk == 1``), every lane's cluster co-resident on the card
@@ -327,16 +419,20 @@ def default_cluster(lanes: int, n: int, ndims: int, chunk: int, device,
     shared memory (``stage_bytes``), and at least ``MIN_CELLS_PER_BLOCK``
     cells per block; else 1 (the chunk grid), as on the CPU.  A dispatch by
     shape: 1 stays the shape of a batch with more lanes than the card holds
-    clusters.  ``pinned_cluster`` overrides it."""
+    clusters.  ``pinned_cluster`` overrides it.  ``agg_k``: K3-agg's tiles
+    (``algo="cg_agg"``), whose two floats per tile share the rows' memory."""
     if torch.device(device).type != "cuda" or chunk != 1:
         return 1
     if _PINNED is not None:
         return _PINNED
     for C in CLUSTER_SIZES:
-        if n < MIN_CELLS_PER_BLOCK * C or not rows_fit(n, C, ndims):
+        if n < MIN_CELLS_PER_BLOCK * C or not rows_fit(n, C, ndims, agg_k):
             continue
-        if max_active_clusters(algo, ndims, C, n,
-                               torch.device(device)) >= lanes:
+        dev = torch.device(device)
+        held = (max_active_agg_clusters(ndims, C, n, agg_k, dev)
+                if algo == "cg_agg" else
+                max_active_clusters(algo, ndims, C, n, dev))
+        if held >= lanes:
             return C
     return 1
 
@@ -358,7 +454,8 @@ def pinned_cluster(C: int | None):
 
 
 def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
-               algo: str = "cg", coarse: bool = False) -> MergedArm:
+               algo: str = "cg", coarse: bool = False,
+               agg_k: int = 0) -> MergedArm:
     """The arm of a merged-frame solve (K3: ``algo="cg"``, K2-mb:
     ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells: ``(C, G,
     per_lane)``.  The cluster rule first (``default_cluster``): a lane it
@@ -373,9 +470,14 @@ def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
     velocity lanes of 2,481,408 cells at G = 128); each lane stops on its
     own, so that is the chunk grid's bits.  K3-coarse (``coarse``, 2D
     plans only) asks the cluster rule over its own instance
-    (``"cg_coarse"``) and has no spread arm.  ``(1, 0, False)`` is the
+    (``"cg_coarse"``) and has no spread arm; K3-agg (``agg_k`` tiles, 2D
+    plans only) likewise over ``"cg_agg"``.  ``(1, 0, False)`` is the
     chunk grid: the answer on the CPU, for chunks of several lanes, in 2D
     where no cluster fits, and with ``pinned_spread(0)``."""
+    if agg_k:
+        return MergedArm(default_cluster(lanes, n, ndims, chunk, device,
+                                         "cg_agg", agg_k) if ndims == 2 else 1,
+                         0, False)
     if coarse:
         return MergedArm(default_cluster(lanes, n, ndims, chunk, device,
                                          "cg_coarse") if ndims == 2 else 1,
@@ -505,7 +607,8 @@ def fused_cg_mb_plain(plan: MergePlan, diag, off, b, x0, *, tol2_sum: float,
     """Plain PyTorch K3 on the flat merged layout (``b``/``x0`` ``(lanes,
     n)``, ``diag (1|lanes, n)``, ``off (1|lanes, 2*ndims, n)``); with
     ``coarse = (sp, einv)`` (a ``coarse_strips.StripPlan`` and ``(1|lanes,
-    K, K)`` like ``diag``) K3-coarse.  Lockstep chunks of ``chunk`` lanes
+    K, K)`` like ``diag``) K3-coarse, with ``(AggSpace, einv)`` K3-agg.
+    Lockstep chunks of ``chunk`` lanes
     (one chunk when None).  Returns ``(x, iterations (lanes,), residual_sum
     (lanes,))``."""
     fused_cg_mb_plain.calls += 1
@@ -613,13 +716,13 @@ def check_merged_spread(spread: int, chunk: int, cluster: int, coarse: bool,
                         ndims: int, chains: bool) -> None:
     """The merged forms' spread arm: as ``cg_cuda.check_spread``, and with
     no cluster, over a 3D plan (a 2D merged lane keeps the cluster arm),
-    not K3-coarse."""
+    not K3-coarse or K3-agg."""
     check_spread(spread, chunk, False, ndims, chains)
     if spread and cluster > 1:
         raise ValueError("a launch takes the cluster arm or the spread arm, "
                          "not both")
     if spread and coarse:
-        raise ValueError("K3-coarse has no spread arm")
+        raise ValueError("K3-coarse and K3-agg have no spread arm")
     if spread and ndims != 3:
         raise ValueError("the merged forms' spread arm takes 3D plans only "
                          "(a 2D merged lane keeps the cluster arm)")
@@ -631,7 +734,9 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
                     chains=None):
     """Check and lay out the operands of K3 / K3-coarse / K2-mb on the flat
     merged layout (``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``,
-    ``off (1|lanes, 2*ndims, n)``, ``einv (1|lanes, K, K)`` like ``diag``),
+    ``off (1|lanes, 2*ndims, n)``, ``coarse = (sp, einv)`` with ``einv
+    (1|lanes, K, K)`` like ``diag``: K3-coarse for a strip plan, K3-agg for
+    an ``AggSpace``),
     allocate the outputs and scratch once, and return ``launch()``: one
     kernel launch on the current stream into those buffers, returning ``(x,
     iterations, residual_sum)`` (the same tensors on every call; a timing
@@ -650,9 +755,15 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
               else bool(chains))
     check_merged_spread(spread, chunk, cluster, coarse is not None, ndims,
                         chains)
-    if cluster > 1 and not rows_fit(n, cluster, ndims):
-        raise ValueError(f"a block's operator rows ({stage_bytes(n, cluster, ndims)}"
-                         f" B) do not fit in shared memory at cluster {cluster}")
+    agg = coarse is not None and isinstance(coarse[0], AggSpace)
+    agg_k = coarse[0].K if agg else 0
+    if agg and (ndims != 2 or not 1 <= agg_k <= AGG_MAX_K):
+        raise ValueError(f"K3-agg takes 2D plans and 1 to {AGG_MAX_K} tiles, "
+                         f"got ndims {ndims}, K = {agg_k}")
+    if cluster > 1 and not rows_fit(n, cluster, ndims, agg_k):
+        raise ValueError(f"a block's operator rows "
+                         f"({stage_bytes(n, cluster, ndims, agg_k)} B) do not "
+                         f"fit in shared memory at cluster {cluster}")
     nbr = neighbor_table(plan, b.device)
     b = b.contiguous()
     diag = diag.contiguous()
@@ -672,10 +783,18 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
         if (einv.shape != (diag.shape[0], sp.K, sp.K) or einv.device != b.device
                 or einv.dtype != torch.float32):
             raise ValueError("einv must be float32 (1|lanes, K, K) like diag")
-        bufs += (einv.transpose(-1, -2).contiguous(),
-                 *strip_lists(plan, b.device))
+        if agg:
+            if sp.cidx.device != b.device or sp.cidx.numel() != n:
+                raise ValueError("the aggregation space is not this plan's "
+                                 "on this device")
+            # row-major: a warp reads row k of Einv whole
+            bufs += (einv.contiguous(), sp.ptr, sp.cells, sp.cidx)
+            entry = lib.fg_cg_mb_agg_solve
+        else:
+            bufs += (einv.transpose(-1, -2).contiguous(),
+                     *strip_lists(plan, b.device))
+            entry = lib.fg_cg_mb_coarse_solve
         shape = (L, chunk, cluster, n, ndims, op_per_lane, sp.K)
-        entry = lib.fg_cg_mb_coarse_solve
     else:
         bufs += spread_buffers(L, spread, b.device)
         shape = (L, chunk, cluster, int(spread), int(chains), n, ndims,
@@ -702,8 +821,8 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
 def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
                 maxiter: int = 5000, stall_iters: int = 250,
                 precondition: bool = True, return_best: bool = True,
-                coarse_strips: bool = False, chunk: int | None = None,
-                cluster: int | None = None):
+                coarse_strips: bool = False, agg: AggSpace | None = None,
+                chunk: int | None = None, cluster: int | None = None):
     """K3: whole-solve lockstep CG on a merged multi-block stencil operator.
 
     ``diags``/``offs``: per-super-block ``(*spatial_s)`` / ``(2*ndims,
@@ -711,17 +830,23 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     per-super-block ``(*spatial_s)`` (one lane, as the JAX entry) or
     ``(lanes, *spatial_s)``.  ``coarse_strips``: add the strip-coarse
     correction to the preconditioner (K3-coarse); a plan without strip
-    spaces (3D) keeps Jacobi alone, as in the JAX package.  ``chunk``:
+    spaces (3D) keeps Jacobi alone, as in the JAX package.  ``agg``: an
+    ``AggSpace`` of this plan (``agg_space``), the aggregation coarse space
+    added to the preconditioner (K3-agg; not with ``coarse_strips``).
+    ``chunk``:
     lanes per lockstep chunk (``default_chunk`` when None).  ``cluster``:
     the cluster arm's blocks per lane on the card (1: the chunk grid);
-    None: ``merged_arm`` picks the arm (the cluster arm, K3-coarse's too,
-    the spread arm of a 3D plan, or the chunk grid).
+    None: ``merged_arm`` picks the arm (the cluster arm, K3-coarse's and
+    K3-agg's too, the spread arm of a 3D plan, or the chunk grid).
     Returns ``(xs, SolveInfo)`` in the same layout, the info per
     lane (scalars for one unbatched lane).  A lane whose RHS is all zero
     over every super-block gets a zero solution.  Under ``torch.func.vmap`` the batch folds onto
     the lanes (``cg_cuda.LaneFold``)."""
     if cluster is not None:  # before the coarse inverse is built
         check_cluster(cluster, 1 if chunk is None else chunk)
+    if agg is not None and coarse_strips:
+        raise ValueError("one coarse space per solve: the strips or the "
+                         "aggregation tiles")
     batched = bs[0].dim() == plan.ndims + 1
     if not batched:
         bs = tuple(b.unsqueeze(0) for b in bs)
@@ -735,6 +860,8 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
     einv = None
     if sp is not None:
         einv = cs.coarse_inverse(plan, sp, tuple(zip(diags, offs))).unsqueeze(0)
+    elif agg is not None:
+        sp, einv = agg, agg.einv.to(b.dtype).unsqueeze(0)
     kw = dict(tol2_sum=tol2, maxiter=int(maxiter), stall_iters=int(stall_iters),
               precondition=bool(precondition), return_best=bool(return_best))
 
@@ -743,7 +870,8 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
         coarse = None if einv is None else (sp, einv)
         if cluster is None:
             cl, G, per_lane = merged_arm(b.shape[0], n, plan.ndims, c,
-                                         b.device, coarse=coarse is not None)
+                                         b.device, coarse=coarse is not None,
+                                         agg_k=0 if agg is None else agg.K)
         else:
             cl, G, per_lane = cluster, 0, False
         check_cluster(cl, c)
@@ -762,6 +890,10 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
             fused_cg_mb.launches_3d += k * int(plan.ndims == 3)
         elif coarse is None:
             fused_cg_mb.flip_launches += k
+        elif agg is not None and plan.identity_seams:
+            fused_cg_mb.agg_launches += k
+        elif agg is not None:
+            fused_cg_mb.agg_flip_launches += k
         elif plan.identity_seams:
             fused_cg_mb.coarse_launches += k
         else:
@@ -785,6 +917,8 @@ fused_cg_mb.launches_3d = 0
 fused_cg_mb.flip_launches = 0
 fused_cg_mb.coarse_launches = 0
 fused_cg_mb.coarse_flip_launches = 0
+fused_cg_mb.agg_launches = 0
+fused_cg_mb.agg_flip_launches = 0
 fused_cg_mb.cluster_launches = 0
 fused_cg_mb.spread_launches = 0
 

@@ -9,7 +9,14 @@
   package's 2D setting);
 * pressure warm starts: the previous pressure (``pressure_warm_start``)
   and/or the coarse-space deflation guess (``pressure_deflation``: per-block
-  constant + linear modes, ``W E^+ W^T``), self-gated on the device;
+  constant + linear modes, ``W E^+ W^T``, or the aggregation space below),
+  self-gated on the device;
+* the aggregation coarse space of the pressure solve
+  (``pressure_coarse_tile``, ``pressure_coarse_precondition``): the tile
+  indicators of every block, the Galerkin matrix ``E = W^T A W`` built once
+  from the state at reset (``build_agg_coarse``), ``M^-1 r = D^-1 r + W
+  Einv W^T r`` inside the merged pressure kernel (K3-agg / K3-agg-flip) and
+  ``W Einv W^T`` in the deflation guess;
 * ``piso_adaptive_step_info``: CFL-driven substepping that reproduces the
   JAX ``lax.while_loop`` (same ``eps`` cut-off, ``max_substeps``, substep
   count and dt sequence).  The loop runs on the host and reads the
@@ -31,8 +38,17 @@ plain loops of ``linsolve``, on CPU tensors only: on the card a system no
 kernel takes raises.
 
 Opt-in levers ported: ``pressure_coarse_strips`` (the strip-coarse
-preconditioner inside K3) and ``advection_upwind_blend`` (the upwind blend
-of the velocity advection matrix).  Not ported yet: the differentiable
+preconditioner inside K3), ``advection_upwind_blend`` (the upwind blend
+of the velocity advection matrix) and the aggregation coarse space above.
+
+Deliberate difference in the aggregation space: the JAX package keeps the
+Galerkin data in a process-global FIFO cache keyed by the operator's
+static fields, and on a miss falls back to the constant + linear space.
+Here ``build_agg_coarse`` returns an ``AggCoarse`` that the env keeps and
+hands the solver on its ``SimConfig`` (``pressure_agg``), built on every
+path that sets the state (reset and ``load_initial_domain``) and reused
+while the operator's key and viscosity hold; a substep without it, or with
+the data of another operator, raises.  Not ported yet: the differentiable
 path, extra inner non-orthogonal pressure passes (3D), the full-mode
 non-orthogonal pressure solve and the JAX package's other opt-in solver
 levers (no ``SimConfig`` field for them).
@@ -41,10 +57,12 @@ levers (no ``SimConfig`` field for them).
 from __future__ import annotations
 
 import contextlib
+import math
 import warnings
-from dataclasses import dataclass, replace
-from typing import Callable, NamedTuple
+from dataclasses import dataclass, field, replace
+from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from fluidgym_tpu_torch.core.domain import (
@@ -60,11 +78,12 @@ from fluidgym_tpu_torch.solver import stencil as st
 
 Tensor = torch.Tensor
 
-__all__ = ["SimConfig", "Hooks", "StepInfo", "ADAPTIVE",
+__all__ = ["SimConfig", "Hooks", "StepInfo", "ADAPTIVE", "AggCoarse",
            "piso_substep_info", "piso_adaptive_step_info",
            "single_step", "single_step_info", "batched_step_info",
            "strict_vmap", "make_divergence_free", "combine_infos",
-           "solver_info_dict"]
+           "solver_info_dict", "build_pressure_ops_like_substep",
+           "build_agg_coarse", "ensure_agg_coarse", "agg_coarse_fn"]
 
 Hooks = dict[str, tuple[Callable[..., DomainState], ...]]
 
@@ -151,6 +170,16 @@ class SimConfig:
     # (K3-coarse, solver/coarse_strips.py); only solves routed through the
     # merged kernel take it, others ignore it (as in the JAX package)
     pressure_coarse_strips: bool = False
+    # the additive two-level pressure preconditioner D^-1 r + W Einv W^T r
+    # over the aggregation space of tile^ndims index-space tiles of every
+    # block (pressure_coarse_tile > 0); the tile space also replaces the
+    # constant + linear space of the deflation guess
+    pressure_coarse_precondition: bool = False
+    pressure_coarse_tile: int = 0
+    # the aggregation data of this config's operator (build_agg_coarse; the
+    # env builds it at reset): not part of the config's identity
+    pressure_agg: Any = field(default=None, compare=False, hash=False,
+                              repr=False)
 
     def __post_init__(self):
         if self.velocity_corrector not in ("FD",):
@@ -160,6 +189,10 @@ class SimConfig:
             raise NotImplementedError(
                 "SimConfig.differentiable: the differentiable path is not "
                 "ported to fluidgym_tpu_torch yet")
+        if self.pressure_coarse_precondition and self.pressure_coarse_tile <= 0:
+            raise NotImplementedError(
+                "pressure_coarse_precondition without pressure_coarse_tile: "
+                "only the aggregation coarse space is ported")
 
 
 def _run_hooks(hooks: Hooks | None, name: str, state: DomainState, **kw) -> DomainState:
@@ -242,13 +275,16 @@ def _fused_bicg_mb_solve(mplan, ops, b, topo: DomainTopo, *, tol, maxiter,
 
 
 def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
-           x0=None, precondition=False, stall_iters=250, coarse_strips=False):
+           x0=None, precondition=False, stall_iters=250, coarse_strips=False,
+           agg=None):
     """Non-differentiable global linear solve over all blocks: CG for the
     SPD pressure system (``symmetric``), else BiCGStab.  ``x0``: the initial
     guess (a warm start or the deflation guess).  ``coarse_strips``: the
     strip-coarse preconditioner, on the merged pressure kernel only (K3-coarse;
-    K1 takes none, as the JAX package's ``fused_cg``).  Returns ``(x,
-    SolveInfo)``."""
+    K1 takes none, as the JAX package's ``fused_cg``).  ``agg``: an
+    ``AggCoarse``, the aggregation coarse space added to the preconditioner
+    (K3-agg on a merged plan; a system without one takes ``linsolve.cg``,
+    CPU tensors only).  Returns ``(x, SolveInfo)``."""
 
     def mv(xs):
         return st.domain_apply(ops, xs, topo)
@@ -256,13 +292,20 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
     dtype = b[0].dtype
     tol_resolved = tol if tol is not None else linsolve.default_tolerance(dtype)
     precond_fn = None
-    if precondition:
-        inv_diag = tuple(1.0 / op.diag for op in ops)
+    inv_diag = tuple(1.0 / op.diag for op in ops) if precondition else None
+    if agg is not None:
+        coarse = agg_coarse_fn(agg)
 
+        # never the coarse solve alone (singular outside the coarse space)
+        def precond_fn(rs):
+            zs = (tuple(d * r for d, r in zip(inv_diag, rs)) if precondition
+                  else rs)
+            return tuple(z + c for z, c in zip(zs, coarse(rs)))
+    elif precondition:
         def precond_fn(rs):
             return tuple(d * r for d, r in zip(inv_diag, rs))
 
-    single = _kernel_operand_ok(ops, topo)
+    single = agg is None and _kernel_operand_ok(ops, topo)
     mplan = None if single else _merged_plan(ops, topo)
     if b[0].is_cuda and not single and mplan is None:
         raise NotImplementedError(
@@ -285,6 +328,11 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
         if mplan is not None:
             from fluidgym_tpu_torch.ops import cg_cuda_mb
 
+            if agg is not None and agg.plan != mplan:
+                raise ValueError("the aggregation data was built for another "
+                                 "merge plan")
+            if agg is not None:
+                kw["agg"] = agg.space
             mops = block_merge.pack_ops(mplan, ops)
             xs, inf = cg_cuda_mb.fused_cg_mb(
                 mplan, tuple(m[0] for m in mops), tuple(m[1] for m in mops),
@@ -357,13 +405,16 @@ def _make_coarse_solver(p_ops, topo: DomainTopo, dtype):
     return coarse
 
 
-def _make_deflation_x0(p_ops, topo: DomainTopo, dtype):
+def _make_deflation_x0(p_ops, topo: DomainTopo, dtype, coarse=None):
     """``x0_fn(b, base=None)`` for the pressure solves of one substep:
     without ``base`` the coarse solution ``W E^+ W^T b``; with ``base`` the
     coarse-corrected guess ``base + W E^+ W^T (b - A base)``, self-gated:
     the base is used only when ``||b - A base|| <= ||b||`` (a device-side
-    ``torch.where``, no host sync), else the pure coarse start."""
-    coarse = _make_coarse_solver(p_ops, topo, dtype)
+    ``torch.where``, no host sync), else the pure coarse start.
+    ``coarse``: the coarse solve (the aggregation space's,
+    ``agg_coarse_fn``); None: the constant + linear space's."""
+    if coarse is None:
+        coarse = _make_coarse_solver(p_ops, topo, dtype)
 
     def x0_fn(b, base=None):
         if base is None:
@@ -377,6 +428,185 @@ def _make_deflation_x0(p_ops, topo: DomainTopo, dtype):
         return tuple(ss + cc for ss, cc in zip(sel, coarse(r)))
 
     return x0_fn
+
+
+# ---------------------------------------------------------------------------
+# the aggregation coarse space
+# ---------------------------------------------------------------------------
+
+class AggCoarse(NamedTuple):
+    """The aggregation coarse space of one pressure operator
+    (``build_agg_coarse``).  ``einv = diag(d) pinv(diag(d) E diag(d))
+    diag(d)``, folded in float64 and cast to the solve dtype: ``W einv W^T``
+    is the JAX package's ``W d (E_n^+ (d W^T r))``.  ``space`` is the merged
+    frame's view for the pressure kernel (``cg_cuda_mb.agg_space``; None
+    without a merge plan)."""
+
+    key: tuple          # (topo, tile, dt, upwind blend, non_orthogonal)
+    nu: float           # the viscosity E was built at
+    specs: tuple        # _agg_tile_specs
+    tile: int
+    k: int
+    einv: Tensor        # (k, k), solve dtype
+    tile_ids: tuple     # per block (*shape) int64: each cell's tile
+    plan: Any           # block_merge.merge_plan(topo) or None
+    space: Any          # cg_cuda_mb.AggSpace or None
+
+
+def _agg_key(topo: DomainTopo, cfg: SimConfig) -> tuple:
+    """Every static field that defines the pressure operator (the JAX
+    package's cache key)."""
+    return (topo, int(cfg.pressure_coarse_tile), float(cfg.dt),
+            float(cfg.advection_upwind_blend), bool(cfg.non_orthogonal))
+
+
+def _agg_tile_specs(topo: DomainTopo, tile: int):
+    """Per block ``(block_shape, coarse_shape, flat_offset)`` of the
+    ceil-division tile aggregation, and the coarse dimension k: remainder
+    cells form a smaller tail tile per axis."""
+    specs, k = [], 0
+    for bt in topo.blocks:
+        shp = tuple(bt.shape)
+        cshp = tuple(-(-n // tile) for n in shp)
+        specs.append((shp, cshp, k))
+        k += math.prod(cshp)
+    return tuple(specs), k
+
+
+def _agg_restrict(rs, specs, tile: int) -> Tensor:
+    """``W^T r``: per block, pad to tile multiples, sum each tile, and
+    concatenate (row-major tiles); any leading axes of ``rs`` are kept."""
+    parts = []
+    for r, (shp, cshp, _off) in zip(rs, specs):
+        lead = r.shape[:r.dim() - len(shp)]
+        pad = []
+        for n, c in zip(reversed(shp), reversed(cshp)):
+            pad += [0, c * tile - n]
+        rp = torch.nn.functional.pad(r, pad)
+        rp = rp.reshape(lead + tuple(x for c in cshp for x in (c, tile)))
+        nl = len(lead)
+        rp = rp.sum(dim=tuple(nl + 1 + 2 * a for a in range(len(shp))))
+        parts.append(rp.reshape(lead + (-1,)))
+    return torch.cat(parts, dim=-1)
+
+
+def _agg_prolong(c: Tensor, specs, tile: int):
+    """``W c``: per block, its tiles' values repeated over their cells and
+    cropped to the block; any leading axes of ``c`` are kept."""
+    lead = c.shape[:-1]
+    outs = []
+    for shp, cshp, off in specs:
+        cb = c[..., off:off + math.prod(cshp)].reshape(lead + cshp)
+        for ax in range(len(shp)):
+            cb = torch.repeat_interleave(cb, tile, dim=len(lead) + ax)
+        outs.append(cb[(Ellipsis,) + tuple(slice(0, n) for n in shp)])
+    return tuple(outs)
+
+
+def build_pressure_ops_like_substep(state: DomainState, geoms, topo: DomainTopo,
+                                    cfg: SimConfig):
+    """The pressure operator as ``piso_substep_info`` assembles it (the
+    advection diagonal, with the non-orthogonal matrix terms, into
+    ``build_pressure_ops``) at the state's fields and ``cfg.dt``."""
+    dtype = state.blocks[0].velocity.dtype
+    nu = state.viscosity
+    dt = torch.tensor(cfg.dt, dtype=dtype, device=state.blocks[0].velocity.device)
+    adv_ops = st.build_advection_ops(state, geoms, topo, nu, dt,
+                                     upwind=cfg.advection_upwind_blend)
+    if cfg.non_orthogonal:
+        nus = tuple(torch.ones_like(g.det) * st._block_nu(state, b, nu, False)
+                    for b, g in enumerate(geoms))
+        adv_ops = nonortho.apply_matrix_terms(
+            adv_ops, geoms, topo, nus, det_divide=True, field="velocity")
+    return st.build_pressure_ops(tuple(op.diag for op in adv_ops), geoms, topo)
+
+
+def build_agg_coarse(state: DomainState, geoms, topo: DomainTopo,
+                     cfg: SimConfig, *, chunk: int = 64) -> AggCoarse:
+    """The aggregation coarse space of ``cfg.pressure_coarse_tile`` from the
+    state's pressure operator (``build_pressure_ops_like_substep``), as the
+    JAX package's ``ensure_agg_coarse_cache`` builds it: E row by row from
+    ``chunk`` indicator columns at a time (``domain_apply`` over a leading
+    column axis, then the restriction), in the solve dtype; then in float64
+    symmetrized, ``d = 1 / sqrt(|diag E| + 1e-30)`` and the pseudo-inverse
+    of ``diag(d) E diag(d)`` with numpy's ``rcond = 1e-7``."""
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    tile = int(cfg.pressure_coarse_tile)
+    if tile <= 0:
+        raise ValueError("build_agg_coarse needs pressure_coarse_tile > 0")
+    specs, k = _agg_tile_specs(topo, tile)
+    blk0 = state.blocks[0].pressure
+    dtype, device = blk0.dtype, blk0.device
+    with torch.no_grad():
+        p_ops = build_pressure_ops_like_substep(state, geoms, topo, cfg)
+        # each block's cells' tile, flat over all blocks (row-major tiles:
+        # the order of _agg_restrict and _agg_prolong)
+        tile_ids = []
+        for shp, cshp, off in specs:
+            grids = np.meshgrid(*[np.arange(n) // tile for n in shp],
+                                indexing="ij")
+            tile_ids.append(torch.from_numpy(
+                np.ravel_multi_index(tuple(grids), cshp) + off).to(device))
+        E = np.zeros((k, k), np.float64)
+        for c0 in range(0, k, chunk):
+            js = torch.arange(c0, min(c0 + chunk, k), device=device)
+            cols = tuple((m[None] == js.reshape((-1,) + (1,) * m.dim()))
+                         .to(dtype) for m in tile_ids)
+            rows = _agg_restrict(st.domain_apply(p_ops, cols, topo), specs, tile)
+            E[c0:c0 + len(js)] = rows.double().cpu().numpy()
+    # the rows are operator columns restrict(A W e_j): an identity only for
+    # a symmetric operator, so symmetrize (as the JAX package)
+    E = 0.5 * (E + E.T)
+    d = 1.0 / np.sqrt(np.abs(np.diagonal(E)) + 1e-30)
+    En_inv = np.linalg.pinv(E * d[:, None] * d[None, :], rcond=1e-7)
+    einv = torch.from_numpy(d[:, None] * En_inv * d[None, :]).to(device, dtype)
+    plan = block_merge.merge_plan(topo) if len(topo.blocks) > 1 else None
+    space = (None if plan is None
+             else cg_cuda_mb.agg_space(plan, tuple(tile_ids), einv))
+    return AggCoarse(key=_agg_key(topo, cfg), nu=float(state.viscosity),
+                     specs=specs, tile=tile, k=k, einv=einv,
+                     tile_ids=tuple(tile_ids), plan=plan, space=space)
+
+
+def ensure_agg_coarse(prev: AggCoarse | None, state: DomainState, geoms,
+                      topo: DomainTopo, cfg: SimConfig, *,
+                      force: bool = False) -> AggCoarse | None:
+    """``prev`` while it holds for this operator (the same key and a
+    viscosity within 1e-6 relative, as the JAX package reuses its cache
+    entry), else ``build_agg_coarse`` anew; None without a tile space."""
+    if cfg.pressure_coarse_tile <= 0:
+        return None
+    nu = float(state.viscosity)
+    if (prev is not None and not force and prev.key == _agg_key(topo, cfg)
+            and abs(prev.nu - nu) <= 1e-6 * max(abs(nu), 1e-30)):
+        return prev
+    return build_agg_coarse(state, geoms, topo, cfg)
+
+
+def agg_coarse_fn(agg: AggCoarse):
+    """The coarse solve ``r -> W einv W^T r`` over the blocks (the JAX
+    package's ``_agg_coarse_from_cache``); the matrix product is
+    ``torch.matmul``."""
+    def coarse(rs):
+        rc = _agg_restrict(rs, agg.specs, agg.tile)
+        return _agg_prolong(agg.einv @ rc, agg.specs, agg.tile)
+
+    return coarse
+
+
+def _agg_for(cfg: SimConfig, topo: DomainTopo) -> AggCoarse | None:
+    """The aggregation data a substep of ``cfg`` uses; raises where the
+    config asks for the tile space and holds no data of this operator."""
+    if cfg.pressure_coarse_tile <= 0:
+        return None
+    agg = cfg.pressure_agg
+    if agg is None or agg.key != _agg_key(topo, cfg):
+        raise ValueError(
+            "pressure_coarse_tile needs the aggregation data of this operator "
+            "on SimConfig.pressure_agg (piso.build_agg_coarse; FluidEnv "
+            "builds it at reset)")
+    return agg
 
 
 def _global_mean(xs) -> Tensor:
@@ -486,8 +716,11 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     p_ops = st.build_pressure_ops(adiags, geoms, topo)
     inv_a = tuple(1.0 / a for a in adiags)
     pressures = tuple(blk.pressure for blk in state.blocks)
-    defl = (_make_deflation_x0(p_ops, topo, dtype) if cfg.pressure_deflation
-            else None)
+    agg = _agg_for(cfg, topo)
+    defl = (_make_deflation_x0(p_ops, topo, dtype,
+                               None if agg is None else agg_coarse_fn(agg))
+            if cfg.pressure_deflation else None)
+    p_agg = agg if cfg.pressure_coarse_precondition else None
     for _corrector in range(cfg.corrector_steps):
         hbyA = st.pressure_rhs_vec(state, geoms, topo, adv_ops, u_star, nu, dt)
         div = st.divergence_of(hbyA, state, geoms, topo)
@@ -514,6 +747,7 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
             precondition=cfg.pressure_precondition,
             stall_iters=cfg.pressure_stall_iters,
             coarse_strips=cfg.pressure_coarse_strips,
+            agg=p_agg,
         )
         info = info._replace(
             pressure_converged=info.pressure_converged & p_info.converged,
@@ -636,6 +870,9 @@ def batched_step_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     host sync per lockstep round), every lane takes its CFL substep, then
     finished lanes keep their state and info (``where(active, new,
     old)``).  Each lane gets the dt sequence its single env would."""
+    if cfg.pressure_coarse_tile:
+        raise NotImplementedError(
+            "the aggregation coarse space is not ported to the batched step")
     leaves = state_leaves(state)
     blk0 = state.blocks[0].velocity
     B, dtype, device = blk0.shape[0], blk0.dtype, blk0.device

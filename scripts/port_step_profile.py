@@ -3,7 +3,7 @@
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
         [--strips] [--k4] [--batch N] [--cluster C] [--resident 0|1]
-        [--spread 0|1]
+        [--spread 0|1] [--cuda-only] [--warmup 1]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
@@ -18,8 +18,12 @@ C`` pins the merged kernels' cluster rule to C (``cg_cuda_mb.pinned_cluster``;
 K1's and K2's resident rule (``cg_cuda.pinned_resident``: 1 the resident
 arm, 0 the chunk grid) likewise, and ``--spread 0|1`` the spread rule of K1
 and K2 and of K3 and K2-mb over a 3D merged plan (CylinderJet3D)
-(``cg_cuda.pinned_spread``: 0 the chunk grid, 1 the rule's G).  Prints one
-JSON object:
+(``cg_cuda.pinned_spread``: 0 the chunk grid, 1 the rule's G).
+``--cuda-only`` records the CUDA activity alone and sums its device events
+(``kineto_results``), with no host operator table: minutes faster on a
+step of hundreds of substeps (Airfoil2D-medium's ~420), whose event tree
+the full profile walks for tens of minutes.  ``--warmup`` sets the steps
+taken before the profiled ones (default 1).  Prints one JSON object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise (``env_steps_per_s``: envs x steps over that time);
@@ -34,7 +38,8 @@ JSON object:
   profiler's kernel
   events of that instantiation: ``fg_cg_kernel<ND, false, false>`` is K1,
   ``<ND, true, false, ...>`` K3 and ``<ND, true, true, ...>`` K3-coarse in
-  either seam form, ``fg_bicg_kernel<ND, false, ...>`` K2, ``<ND, true,
+  either seam form (with the last argument AGG true: K3-agg and
+  K3-agg-flip), ``fg_bicg_kernel<ND, false, ...>`` K2, ``<ND, true,
   ...>`` K2-mb in either form, the cluster arm's instances (template
   argument CLUSTER) under their form, the resident arm's (RESIDENT) and
   the spread arm's (SPREAD) under K1 / K2, or K3 / K2-mb for a merged
@@ -42,7 +47,8 @@ JSON object:
   a flip form's device time is
   reported under its template's entry, which for an id with flip seams
   holds only the flip form);
-* the host operators with the most self CPU time per step;
+* the host operators with the most self CPU time per step (not with
+  ``--cuda-only``);
 * the card's name and power limit.
 
 Also writes the JSON to ``<--out>/port_step_profile_<env>.json``.  Needs a card;
@@ -59,12 +65,15 @@ import time
 
 
 def _port_kernel(name: str) -> str | None:
-    """K1/K2/K2-mb/K3/K3-coarse/K4 for a profiler kernel name, else None."""
+    """K1/K2/K2-mb/K3/K3-coarse/K3-agg/K4 for a profiler kernel name, else
+    None."""
     head = name.split("(")[0]
     args = head[head.find("<") + 1:head.rfind(">")].replace(" ", "").split(",")
     if "fg_cg_kernel" in name:
-        # <ND, TABLE, COARSE[, CLUSTER, RESIDENT]>: the cluster arm counts as
-        # K3, the resident arm as K1
+        # <ND, TABLE, COARSE[, CLUSTER, RESIDENT, SPREAD, AGG]>: the cluster
+        # arm counts as K3, the resident arm as K1
+        if args[1:3] == ["true", "true"] and args[6:7] == ["true"]:
+            return "K3-agg"
         if args[1:3] == ["true", "true"]:
             return "K3-coarse"
         return "K3" if args[1:2] == ["true"] else "K1"
@@ -88,6 +97,8 @@ def main() -> int:
     ap.add_argument("--cluster", type=int, default=None)
     ap.add_argument("--resident", type=int, choices=(0, 1), default=None)
     ap.add_argument("--spread", type=int, choices=(0, 1), default=None)
+    ap.add_argument("--cuda-only", action="store_true")
+    ap.add_argument("--warmup", type=int, default=1)
     args = ap.parse_args()
     if args.batch and args.strips:
         print("port_step_profile: the batched path runs without the strips",
@@ -138,7 +149,8 @@ def _profile(args) -> int:
     stencil_cuda.set_stencil_kernel(args.k4)
     rng = np.random.default_rng(0)
     act = lambda: rng.uniform(-1, 1, shape).astype(np.float32)
-    stepper.step(act())
+    for _ in range(args.warmup):
+        stepper.step(act())
     torch.cuda.synchronize()
     substeps = [0]
     substep = piso.piso_substep_info
@@ -157,6 +169,8 @@ def _profile(args) -> int:
                 "K3-flip": cg_cuda_mb.fused_cg_mb.flip_launches,
                 "K3-coarse": cg_cuda_mb.fused_cg_mb.coarse_launches,
                 "K3-coarse-flip": cg_cuda_mb.fused_cg_mb.coarse_flip_launches,
+                "K3-agg": cg_cuda_mb.fused_cg_mb.agg_launches,
+                "K3-agg-flip": cg_cuda_mb.fused_cg_mb.agg_flip_launches,
                 "K4": stencil_cuda.stencil_apply.launches,
                 "K1 resident": cg_cuda.fused_cg.resident_launches,
                 "K2 resident": cg_cuda_mb.fused_bicgstab_mb.resident_launches,
@@ -167,7 +181,9 @@ def _profile(args) -> int:
                     cg_cuda_mb.fused_bicgstab_mb.merged_spread_launches}
 
     k0 = counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CUDA] if args.cuda_only
+            else [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with profile(activities=acts) as prof:
         t = time.perf_counter()
         for _ in range(args.steps):
             stepper.step(act())
@@ -178,28 +194,25 @@ def _profile(args) -> int:
     subs = substeps[0] / args.steps
 
     kernels = {}
-    port_us = {k: 0.0 for k in ("K1", "K2", "K2-mb", "K3", "K3-coarse", "K4")}
+    port_us = {k: 0.0 for k in ("K1", "K2", "K2-mb", "K3", "K3-coarse",
+                                "K3-agg", "K4")}
     n_launch = 0
-    for ev in prof.events():
-        dev_type = getattr(ev, "device_type", None)
-        if dev_type is None or "CUDA" not in str(dev_type):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        which = _port_kernel(ev.name)
+    for name, us in _device_events(prof, args.cuda_only):
+        which = _port_kernel(name)
         if which is not None:
             port_us[which] += us
-        name = ev.name if len(ev.name) <= 80 else ev.name[:77] + "..."
+        name = name if len(name) <= 80 else name[:77] + "..."
         k = kernels.setdefault(name, [0, 0.0])
         k[0] += 1
         k[1] += us
         n_launch += 1
     device_ms = sum(v[1] for v in kernels.values()) / 1e3 / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
+    host = ([] if args.cuda_only else
+            sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15])
     out = {
         "env": args.env, "strips": args.strips, "k4": args.k4,
+        "cuda_only": args.cuda_only, "warmup": args.warmup,
         "batch": args.batch or None, "cluster_pin": args.cluster,
         "resident_pin": args.resident,
         "card": smi,
@@ -237,12 +250,34 @@ def _profile(args) -> int:
                    f"_batch{args.batch}" if args.batch else "",
                    "" if args.cluster is None else f"_cluster{args.cluster}",
                    "" if args.resident is None else f"_resident{args.resident}",
-                   "" if args.spread is None else f"_spread{args.spread}"))
+                   "" if args.spread is None else f"_spread{args.spread}",
+                   "_cuda" if args.cuda_only else ""))
     with open(os.path.join(args.out, f"port_step_profile_{args.env}{tag}.json"),
               "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))
     return 0
+
+
+def _device_events(prof, cuda_only: bool):
+    """``(name, device us)`` of every device event of the profile: with
+    ``cuda_only`` from ``kineto_results`` (no event tree), else the self
+    device time of the profiler's CUDA events."""
+    if cuda_only:
+        from torch.autograd import DeviceType
+
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() == DeviceType.CUDA:
+                yield ev.name(), ev.duration_ns() / 1e3
+        return
+    for ev in prof.events():
+        dev_type = getattr(ev, "device_type", None)
+        if dev_type is None or "CUDA" not in str(dev_type):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        yield ev.name, us
 
 
 if __name__ == "__main__":

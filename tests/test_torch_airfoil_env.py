@@ -60,8 +60,10 @@ def test_airfoil_attack_angle_validation():
 
 
 def test_airfoil_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="aggregation coarse space"):
-        fluidgym_tpu_torch.make(ID, reynolds_number=3e3, **KW)
+    # Re >= 3000 builds (the blend and the aggregation coarse space)
+    cfg = fluidgym_tpu_torch.make(ID, reynolds_number=3e3, **KW)._get_simulation()
+    assert cfg.advection_upwind_blend == 0.3
+    assert cfg.pressure_coarse_tile == 8 and cfg.pressure_coarse_precondition
     # the JAX package's 2D airfoil has no multi-agent mode either
     with pytest.raises(ValueError, match="multi-agent"):
         fluidgym_tpu_torch.make(ID, use_marl=True, **KW)

@@ -259,3 +259,30 @@ def test_cylinder_rot2d_imports_and_steps_without_card_packages():
     """)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "OK" in out.stdout
+
+
+def test_airfoil_medium_imports_and_steps_without_card_packages():
+    """Airfoil2D-medium (the blend and the aggregation coarse space, built
+    at reset) needs none of the refused packages; a short sim step."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        env = fluidgym_tpu_torch.make(
+            "Airfoil2D-medium-v0", device="cpu", randomize_initial_state=False,
+            step_length=0.01, dt=0.01)
+        obs, _ = env.reset(seed=0)
+        assert env._cfg.pressure_agg.k == 1194
+        obs, reward, *_ , info = env.step(np.array([1.0, -0.5, -0.5], np.float32))
+        assert obs["velocity"].shape == (209, 2)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout

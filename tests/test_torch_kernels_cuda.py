@@ -1750,3 +1750,245 @@ def test_cylinder_rot2d_full_width_step_takes_the_cluster_arm():
     assert d[3] == 0 and d[4] == 0, d
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+
+
+# ---------------------------------------------------------------------------
+# K3-agg / K3-agg-flip: the aggregation coarse space inside K3
+# ---------------------------------------------------------------------------
+
+def _agg_system(system, dev):
+    """``(plan, diags, offs, b (1, n), guess (1, n), space)``: a pressure
+    system of the bundled snapshot at full width with its aggregation space
+    (``piso.build_agg_coarse`` at the env's dt, on the card): the airfoil's
+    Re 3000 ``train_00`` (K3-agg-flip, 8 x 8 tiles, k = 1,194, the
+    blended operator at a substep's dt) or the cylinder's res-24
+    ``test_00`` (K3-agg, identity seams, 8 x 8 tiles); the RHS is the
+    substep's (the divergence of ``H/A``, mean-free, as the first corrector
+    forms it without the deferred non-orthogonal part), the guess the
+    deflated warm start from the snapshot's pressure through the same
+    space."""
+    from fluidgym_tpu_torch.core.domain_io import load_domain
+    from fluidgym_tpu_torch.solver import nonortho
+    from fluidgym_tpu_torch.solver import stencil as st
+    from fluidgym_tpu_torch.utils import data_utils
+
+    data_id, split, blend, dt_env, dt = {
+        "airfoil": ("airfoil_2D_Re3000", "train_00", 0.3, 0.05, 6e-4),
+        "cylinder": ("cylinder_2D_Re100_Res24", "test_00", 0.0, 0.01, 0.005),
+    }[system]
+    topo, geoms, state = load_domain(
+        data_utils.initial_domain_dir(data_id) / split, device=dev)
+    cfg = piso.SimConfig(dt=dt_env, non_orthogonal=True, differentiable=False,
+                         advection_upwind_blend=blend, pressure_coarse_tile=8,
+                         pressure_coarse_precondition=True)
+    agg = piso.build_agg_coarse(state, geoms, topo, cfg)
+    plan = agg.plan
+    nu = state.viscosity
+    dt = torch.tensor(dt, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, nu, dt, upwind=blend)
+    adv = nonortho.apply_matrix_terms(
+        adv, geoms, topo, tuple(torch.ones_like(g.det) * nu for g in geoms),
+        det_divide=True, field="velocity")
+    p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+    hbyA = st.pressure_rhs_vec(state, geoms, topo, adv,
+                               tuple(b.velocity for b in state.blocks), nu, dt)
+    rhs = tuple(-d for d in st.divergence_of(hbyA, state, geoms, topo))
+    n = sum(r.numel() for r in rhs)
+    mean = sum(r.sum() for r in rhs) / n
+    rhs = tuple(r - mean for r in rhs)
+    guess = piso._make_deflation_x0(p_ops, topo, torch.float32,
+                                    piso.agg_coarse_fn(agg))(
+        rhs, base=tuple(b.pressure for b in state.blocks))
+    diags, offs = _packed(plan, p_ops)
+    pack = lambda fs: cg_cuda_mb.flatten_fields(plan, tuple(
+        p.unsqueeze(0) for p in block_merge.pack_fields(plan, fs)))
+    return plan, diags, offs, pack(rhs), pack(guess), agg.space
+
+
+#: (system, start): cold, warm from the deflated guess, 3 lanes past the
+#: iteration-100 refresh (A x for a random x, the RHS, a zero RHS; one lane
+#: per cluster), and return-best on a solve cut at 40 iterations,
+#: unconverged
+AGG_CASES = [("airfoil", "cold"), ("airfoil", "warm"), ("airfoil", "3 lanes"),
+             ("airfoil", "unconverged"), ("cylinder", "cold"),
+             ("cylinder", "warm")]
+
+
+@pytest.mark.parametrize("case", AGG_CASES,
+                         ids=lambda c: "-".join(c).replace(" ", "_"))
+def test_k3_agg_kernel_matches_plain_and_every_cluster_size(case):
+    """K3-agg-flip (the airfoil, K = 1,194) and K3-agg (the cylinder): the
+    chunk grid (C = 1) and every C in 2, 4, 8, 16 whose rows and tiles fit
+    and whose clusters the card holds: x, iterations and residual bit-equal
+    to C = 1, twice; the wrapper at the rule's C bit-equal to it, counted
+    as its form and as a cluster launch; against the plain version the
+    same converged flags, iterations within 3, x within 1e-3 of max|x|."""
+    dev = require_cuda()
+    system, start = case
+    plan, diags, offs, b, guess, space = _agg_system(system, dev)
+    L, n = b.shape
+    tol = 1e-7 if system == "airfoil" else 1e-6
+    x0, maxiter, past = None, 5000, 0
+    if start == "warm":
+        x0 = guess
+    elif start == "3 lanes":
+        g = torch.Generator().manual_seed(3)
+        diag1, off1 = cg_cuda_mb.flatten_ops(plan, diags, offs)
+        lane0 = cg_cuda_mb._merged_mv(plan, diag1, off1)(
+            torch.randn((1, n), generator=g).to(dev))[0]
+        b = torch.stack([lane0, b[0], torch.zeros_like(b[0])])
+        L, past = 3, 100
+    elif start == "unconverged":
+        maxiter = 40
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    einv = space.einv[None]
+    tol2 = cg_cuda.tol2_sum_f32(tol, n)
+    kw = dict(tol2_sum=tol2, maxiter=maxiter, stall_iters=250,
+              precondition=True, return_best=True, coarse=(space, einv),
+              chunk=1)
+
+    def run(C):
+        launch = cg_cuda_mb.merged_launcher("cg", plan, diag, off, b, x0,
+                                            cluster=C, **kw)
+        out = [tuple(t.clone() for t in launch()) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(*out)), f"C={C}: runs differ"
+        return out[0]
+
+    ref = run(1)
+    assert bool(torch.isfinite(ref[0]).all())
+    assert int(ref[1].max()) > past
+    if start == "unconverged":
+        assert int(ref[1].max()) == maxiter and not bool((ref[2] <= tol2).any())
+    if start == "3 lanes":
+        assert bool((ref[0][2] == 0).all())
+    taken = [C for C in cg_cuda_mb.CLUSTER_SIZES
+             if cg_cuda_mb.rows_fit(n, C, 2, space.K)
+             and cg_cuda_mb.max_active_agg_clusters(2, C, n, space.K, dev) >= L]
+    assert taken, "the card holds no K3-agg cluster of any size"
+    for C in taken:
+        got = run(C)
+        assert all(torch.equal(u, v) for u, v in zip(got, ref)), (
+            f"C={C}: not bit-equal to the chunk grid (iterations "
+            f"{got[1].tolist()} vs {ref[1].tolist()})")
+    rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, agg_k=space.K)[0]
+    assert rule in taken, (rule, taken)
+    k3 = cg_cuda_mb.fused_cg_mb
+    form = "agg_launches" if plan.identity_seams else "agg_flip_launches"
+    before = (k3.cluster_launches, getattr(k3, form))
+    xs, info = k3(
+        plan, diags, offs, cg_cuda_mb.unflatten_fields(plan, b),
+        None if x0 is None else cg_cuda_mb.unflatten_fields(plan, x0),
+        tol=tol, maxiter=maxiter, stall_iters=250, agg=space)
+    assert (k3.cluster_launches, getattr(k3, form)) == (
+        before[0] + 1, before[1] + 1)
+    xw = cg_cuda_mb.flatten_fields(plan, xs)
+    torch.cuda.synchronize()
+    zero = (b == 0).all(dim=1)
+    assert torch.equal(xw, torch.where(zero[:, None], 0.0, ref[0]))
+    assert torch.equal(info.iterations.reshape(-1).cpu(), ref[1].cpu())
+    xp, ip, rp = cg_cuda_mb.fused_cg_mb_plain(
+        plan, diag, off, b, x0, tol2_sum=tol2, maxiter=maxiter, stall_iters=250,
+        precondition=True, return_best=True, coarse=(space, einv), chunk=1)
+    conv_p = ((rp <= tol2) | zero).cpu()
+    assert torch.equal(info.converged.reshape(-1).cpu(), conv_p)
+    assert int((ref[1].cpu().long() - ip.cpu().long()).abs().max()) <= 3
+    if start != "unconverged":
+        assert_rel(ref[0].cpu().numpy(), xp.cpu().numpy(), 1e-3, "x")
+
+
+def test_k3_agg_refusals():
+    """The entry refuses K over FG_MAX_AGG_K (2048) or below 1, a cluster
+    size outside 1, 2, 4, 8, 16, C > 1 with a chunk of several lanes and a
+    3D plan; the launcher refuses K over the cap and a space of another
+    plan; a batch of more lanes than the card holds clusters takes C = 1."""
+    dev = require_cuda()
+    from fluidgym_tpu_torch.ops import _build
+
+    lib = _build.library()
+    plan, diags, offs, b, _, space = _agg_system("airfoil", dev)
+    n = b.shape[1]
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    nbr = cg_cuda_mb.neighbor_table(plan, dev)
+    bufs = [torch.empty_like(b) for _ in range(6)]
+    it = torch.empty(2, dtype=torch.int32, device=dev)
+    einv = torch.zeros(2049 * 2049, device=dev)
+
+    def status(lanes, chunk, cluster, K, ndims=2):
+        return lib.fg_cg_mb_agg_solve(
+            b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
+            b.data_ptr(), bufs[0].data_ptr(), it.data_ptr(), bufs[1].data_ptr(),
+            bufs[2].data_ptr(), bufs[3].data_ptr(), bufs[4].data_ptr(),
+            bufs[5].data_ptr(), einv.data_ptr(), space.ptr.data_ptr(),
+            space.cells.data_ptr(), space.cidx.data_ptr(), lanes, chunk,
+            cluster, n, ndims, 0, K, 1.0, 1, 250, 1, 1, 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    invalid = 1  # cudaErrorInvalidValue, before any launch
+    for lanes, chunk, cluster, K, nd in ((1, 1, 1, 2049, 2), (1, 1, 16, 2049, 2),
+                                         (1, 1, 3, 1194, 2), (2, 2, 16, 1194, 2),
+                                         (1, 1, 16, 0, 2), (1, 1, 1, 1194, 3)):
+        assert status(lanes, chunk, cluster, K, nd) == invalid, (chunk, cluster, K)
+    occ = lib.fg_cg_mb_agg_cluster_occupancy
+    import ctypes
+    out = ctypes.c_int(0)
+    assert occ(2, 16, n, 2049, ctypes.addressof(out)) == invalid
+    torch.cuda.synchronize()
+    kw = dict(tol2_sum=1.0, maxiter=10, stall_iters=250, precondition=True,
+              return_best=True, chunk=1)
+    big = space._replace(einv=torch.zeros(2049, 2049, device=dev), K=2049)
+    with pytest.raises(ValueError, match="tiles"):
+        cg_cuda_mb.merged_launcher("cg", plan, diag, off, b, None,
+                                   coarse=(big, big.einv[None]), **kw)
+    short = space._replace(cidx=space.cidx[:-1])
+    with pytest.raises(ValueError, match="aggregation space"):
+        cg_cuda_mb.merged_launcher("cg", plan, diag, off, b, None,
+                                   coarse=(short, space.einv[None]), **kw)
+    with pytest.raises(ValueError, match="chunk"):
+        cg_cuda_mb.fused_cg_mb(plan, diags, offs,
+                               cg_cuda_mb.unflatten_fields(plan, b), tol=1e-7,
+                               agg=space, chunk=2, cluster=16)
+    assert cg_cuda_mb.merged_arm(1, n, 2, 1, dev, agg_k=space.K)[0] > 1
+    for lanes in (64, 130):
+        assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, dev,
+                                     agg_k=space.K) == (1, 0, False), lanes
+
+
+def test_airfoil_medium_full_width_step_takes_k3_agg_flip():
+    """One sim step of Airfoil2D-medium-v0 at full width from the bundled
+    ``train_00`` (no randomization): every substep's two pressure solves
+    are K3-agg-flip launches on the cluster arm, its velocity solve one
+    K2-mb-flip launch; no other form, no plain version."""
+    require_cuda()
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    calls = {"substeps": 0}
+    real = piso.piso_substep_info
+
+    def counted(*a, **k):
+        calls["substeps"] += 1
+        return real(*a, **k)
+
+    keys = lambda: (k3.agg_flip_launches, k2.merged_flip_launches,
+                    k3.cluster_launches + k2.cluster_launches,
+                    k3.launches + k3.flip_launches + k3.coarse_launches
+                    + k3.coarse_flip_launches + k3.agg_launches
+                    + k2.merged_launches, cg_cuda_mb.fused_cg_mb_plain.calls
+                    + cg_cuda_mb.fused_bicgstab_plain.calls)
+    env = fluidgym_tpu_torch.make("Airfoil2D-medium-v0",
+                                  randomize_initial_state=False,
+                                  step_length=0.05, episode_length=2)
+    env.reset(seed=0)
+    assert env._cfg.pressure_agg.k == 1194
+    before = keys()
+    piso.piso_substep_info = counted
+    try:
+        obs, reward, *_, info = env.step(np.array([0.5, -0.2, -0.3], np.float32))
+    finally:
+        piso.piso_substep_info = real
+    d = [a - c for a, c in zip(keys(), before)]
+    sub = calls["substeps"]
+    assert sub > 0 and d[0] == 2 * sub and d[1] == sub, (d, sub)
+    assert d[2] == 3 * sub and d[3] == 0 and d[4] == 0, d
+    assert bool(info["pressure_converged"])
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+    assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
