@@ -1283,7 +1283,7 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
             tol2_sum=cg_cuda.tol2_sum_f32(tol, n), coarse=coarse, chunk=1,
             cluster=C, **kw)
 
-    rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, coarse=True)[0]
+    rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, "cg_coarse")[0]
     errs, its, jac, bits = [], {}, {}, {}
     for label, bs, x0s, tol in runs:
         flags = {}
@@ -1303,7 +1303,7 @@ def _coarse_phase(dev, kernels, compare, piso, case) -> None:
         if label == "3 lanes":
             check(it > 100, f"3-lane {name} run stopped at iteration {it} (<= 100)")
         # the cluster arm against the chunk grid, one lane per cluster
-        rule_l = cg_cuda_mb.merged_arm(lanes, n, 2, 1, dev, coarse=True)[0]
+        rule_l = cg_cuda_mb.merged_arm(lanes, n, 2, 1, dev, "cg_coarse")[0]
         outs = {C: tuple(t.clone() for t in raw(bs, x0s, tol, C)())
                 for C in (1, rule_l)}
         torch.cuda.synchronize()
@@ -3744,7 +3744,7 @@ def _agg_kernel_phase(dev, kernels) -> None:
               f"the captured solve is not the airfoil's flip-seam lane with "
               f"1,194 tiles (n {n}, K {K})")
         t2 = cg_cuda.tol2_sum_f32(tol, n)
-        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, agg_k=K)
+        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, "cg_coarse", K)
         check(rule.cluster > 1 and not rule.spread,
               f"merged_arm picks {rule} for K3-agg-flip, not the cluster arm")
         last = {}
@@ -3861,7 +3861,7 @@ def _agg_main_path(dev, kernels, piso, linsolve) -> None:
             reset_s = time.perf_counter() - t
             reset = counts()
             agg = env._cfg.pressure_agg
-            check(agg is not None and agg.k == 1194 and agg.tile == 8
+            check(agg is not None and agg.space.K == 1194 and agg.tile == 8
                   and env._cfg.advection_upwind_blend == 0.3,
                   f"{env_id}: not the blend and the 1,194-tile space")
             a = np.array([0.5, -0.2, -0.3], np.float32)

@@ -126,7 +126,8 @@
 // C = 1 is the chunk grid above, unchanged.  ops/cg_cuda_mb.py
 // `default_cluster` picks C from the card's own occupancy answer
 // (fg_cg_mb_cluster_occupancy; fg_cg_mb_coarse_cluster_occupancy for the
-// COARSE instance below, whose registers and static arrays are its own).
+// COARSE instances below, K3-coarse's and K3-agg's, whose registers and
+// shared memory are their own).
 //
 // K3-coarse (entry fg_cg_mb_coarse_solve, the COARSE arm of the template):
 // replaces the strip-coarse form of cg_pallas_mb.py `_kernel` (`coarse=`,
@@ -839,17 +840,6 @@ extern "C" int fg_cg_mb_coarse_solve(
   return (int)cudaGetLastError();
 }
 
-// How many C-block clusters of K3-coarse's cluster arm (a 2D plan over n
-// cells) the card holds at once, into *out (as fg_cg_mb_cluster_occupancy;
-// the COARSE instance's registers and static arrays are its own).
-extern "C" int fg_cg_mb_coarse_cluster_occupancy(int ndims, int cluster,
-                                                 int n, int* out) {
-  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1))
-    return (int)cudaErrorInvalidValue;
-  return (int)fg_max_clusters(fg_cg_coarse_kernel(cluster), cluster,
-                              fg_stage_bytes(n, cluster, ndims), out);
-}
-
 // K3-agg: K3 with the aggregation coarse space (see the note at the top of
 // this file), 2D plans only: `einv` (1|lanes, K, K) row-major, the tiles'
 // cell lists `tile_ptr` (K + 1) / `tile_cells` and each cell's tile `cidx`
@@ -864,7 +854,7 @@ static FgCgKernel fg_cg_agg_kernel(int cluster) {
 
 // dynamic shared memory of a K3-agg block: the cluster arm's rows and
 // chain terms (C > 1), then its s_rc and s_xc (ops/cg_cuda_mb.py
-// `stage_bytes` with agg_k mirrors the cluster arm's)
+// `stage_bytes` with coarse_k mirrors the cluster arm's)
 static size_t fg_agg_bytes(int n, int C, int K) {
   return (C > 1 ? fg_stage_bytes(n, C, 2) : 0) + (size_t)2 * K * sizeof(float);
 }
@@ -903,14 +893,19 @@ extern "C" int fg_cg_mb_agg_solve(
       FgSpread{});
 }
 
-// How many C-block clusters of K3-agg's cluster arm (a 2D plan over n
-// cells, K tiles) the card holds at once, into *out (the AGG instance's
-// registers and shared memory are its own).
-extern "C" int fg_cg_mb_agg_cluster_occupancy(int ndims, int cluster, int n,
-                                              int K, int* out) {
-  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1) || K < 1 ||
+// How many C-block clusters of a coarse form's cluster arm (a 2D plan over
+// n cells) the card holds at once, into *out (as
+// fg_cg_mb_cluster_occupancy; each coarse instance's registers and shared
+// memory are its own): K = 0 asks K3-coarse's (the strips, their vectors
+// in static arrays), K in 1..FG_MAX_AGG_K K3-agg's over K tiles.
+extern "C" int fg_cg_mb_coarse_cluster_occupancy(int ndims, int cluster,
+                                                 int n, int K, int* out) {
+  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1) || K < 0 ||
       K > FG_MAX_AGG_K)
     return (int)cudaErrorInvalidValue;
+  if (K == 0)
+    return (int)fg_max_clusters(fg_cg_coarse_kernel(cluster), cluster,
+                                fg_stage_bytes(n, cluster, ndims), out);
   return (int)fg_max_clusters(fg_cg_agg_kernel(cluster), cluster,
                               fg_agg_bytes(n, cluster, K), out);
 }

@@ -442,7 +442,7 @@ class FluidEnv(ABC, FluidEnvLike):
         if randomize:
             self._randomize_domain()
 
-    def _ensure_agg_coarse(self, force: bool = False) -> None:
+    def _ensure_agg_coarse(self) -> None:
         """The aggregation coarse space of the pressure solve, where the
         config asks for one (``pressure_coarse_tile``): built from the
         state (after ``_additional_initialization``, before any
@@ -454,7 +454,7 @@ class FluidEnv(ABC, FluidEnvLike):
         build it in ``load_initial_domain``."""
         self._agg_coarse = piso.ensure_agg_coarse(
             getattr(self, "_agg_coarse", None), self._state, self._geoms,
-            self._topo, self._cfg, force=force)
+            self._topo, self._cfg)
         if self._agg_coarse is not None:
             self._cfg = replace(self._cfg, pressure_agg=self._agg_coarse)
 

@@ -55,7 +55,8 @@ neighbour table built once per plan (``neighbor_table``; see
   (``agg_space``, built once with the space).  Counted as
   ``fused_cg_mb.agg_launches`` (identity seams) and ``.agg_flip_launches``
   (flip seams: the airfoil's "K3-agg-flip", k = 1,194 tiles).  A single
-  env's lane takes the cluster arm (``merged_arm(..., agg_k=K)``).
+  env's lane takes the cluster arm (``merged_arm(..., "cg_coarse",
+  coarse_k=K)``).
 * ``fused_cg_mb_plain`` and ``fused_bicgstab_plain`` are the plain PyTorch
   versions, with ``.calls`` counters; in the merged frame their matvec is
   ``block_merge.merged_apply`` (rolls plus slab fixups, the TPU kernel's
@@ -142,8 +143,7 @@ __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "AggSpace", "agg_space", "AGG_MAX_K",
            "flatten_fields", "unflatten_fields", "flatten_ops",
            "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
-           "max_active_clusters", "max_active_agg_clusters", "rows_fit",
-           "CLUSTER_SIZES", "merged_arm",
+           "max_active_clusters", "rows_fit", "CLUSTER_SIZES", "merged_arm",
            "MergedArm", "merged_launcher"]
 
 
@@ -362,56 +362,45 @@ class MergedArm(NamedTuple):
 cluster_ranges = block_ranges
 
 
-def stage_bytes(n: int, C: int, ndims: int, agg_k: int = 0) -> int:
+def stage_bytes(n: int, C: int, ndims: int, coarse_k: int = 0) -> int:
     """Dynamic shared memory of one block in the cluster arm: the operator
     rows of its range (diag, ``2*ndims`` off and ``2*ndims`` int32
     neighbours per cell), then two floats for each cell of its 1024 / C
     sum chains (``fg_stage_bytes``), then K3-agg's two floats per tile
-    (``agg_k`` tiles; ``fg_agg_bytes``)."""
+    (``coarse_k`` tiles, 0 for the other forms; ``fg_agg_bytes``)."""
     chains = 2 * (1024 // C) * -(-n // 1024)
-    return (block_seg(n, C) * (1 + 4 * ndims) + chains + 2 * agg_k) * 4
+    return (block_seg(n, C) * (1 + 4 * ndims) + chains + 2 * coarse_k) * 4
 
 
-def rows_fit(n: int, C: int, ndims: int, agg_k: int = 0) -> bool:
-    """Whether a block's operator rows (and K3-agg's ``agg_k`` tiles) fit
-    in its shared memory at C."""
-    return stage_bytes(n, C, ndims, agg_k) <= SMEM_PER_BLOCK - SMEM_STATIC
+def rows_fit(n: int, C: int, ndims: int, coarse_k: int = 0) -> bool:
+    """Whether a block's operator rows (and K3-agg's ``coarse_k`` tiles)
+    fit in its shared memory at C."""
+    return stage_bytes(n, C, ndims, coarse_k) <= SMEM_PER_BLOCK - SMEM_STATIC
 
 
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(algo: str, ndims: int, C: int, n: int,
-                        device: torch.device) -> int:
+                        device: torch.device, coarse_k: int = 0) -> int:
     """How many C-block clusters of the cluster arm of ``algo`` (``"cg"``:
-    K3, ``"cg_coarse"``: K3-coarse, ``"bicgstab"``: K2-mb) over ``n``-cell
-    lanes the card holds at once: ``cudaOccupancyMaxActiveClusters`` (C's
-    rows must fit, ``rows_fit``)."""
+    K3, ``"cg_coarse"``: K3-coarse, or K3-agg over ``coarse_k`` > 0 tiles,
+    ``"bicgstab"``: K2-mb) over ``n``-cell lanes the card holds at once:
+    ``cudaOccupancyMaxActiveClusters`` (C's rows must fit, ``rows_fit``)."""
     lib = _build.library()
-    entry = {"cg": lib.fg_cg_mb_cluster_occupancy,
-             "cg_coarse": lib.fg_cg_mb_coarse_cluster_occupancy,
-             "bicgstab": lib.fg_bicgstab_mb_cluster_occupancy}[algo]
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        status = entry(ndims, C, n, ctypes.addressof(out))
+        if algo == "cg_coarse":
+            status = lib.fg_cg_mb_coarse_cluster_occupancy(
+                ndims, C, n, coarse_k, ctypes.addressof(out))
+        else:
+            entry = {"cg": lib.fg_cg_mb_cluster_occupancy,
+                     "bicgstab": lib.fg_bicgstab_mb_cluster_occupancy}[algo]
+            status = entry(ndims, C, n, ctypes.addressof(out))
     _build.check(status, f"{algo} cluster occupancy at C = {C}")
     return out.value
 
 
-@functools.lru_cache(maxsize=None)
-def max_active_agg_clusters(ndims: int, C: int, n: int, K: int,
-                            device: torch.device) -> int:
-    """``max_active_clusters`` of K3-agg's cluster arm over ``K`` tiles (its
-    shared memory holds 2 K floats beside the rows)."""
-    lib = _build.library()
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        status = lib.fg_cg_mb_agg_cluster_occupancy(ndims, C, n, K,
-                                                    ctypes.addressof(out))
-    _build.check(status, f"cg_agg cluster occupancy at C = {C}")
-    return out.value
-
-
 def default_cluster(lanes: int, n: int, ndims: int, chunk: int, device,
-                    algo: str = "cg", agg_k: int = 0) -> int:
+                    algo: str = "cg", coarse_k: int = 0) -> int:
     """Blocks per lane of a merged-frame solve of ``lanes`` lanes of ``n``
     cells: the largest C in ``CLUSTER_SIZES`` with one lane per cluster
     (``chunk == 1``), every lane's cluster co-resident on the card
@@ -419,20 +408,18 @@ def default_cluster(lanes: int, n: int, ndims: int, chunk: int, device,
     shared memory (``stage_bytes``), and at least ``MIN_CELLS_PER_BLOCK``
     cells per block; else 1 (the chunk grid), as on the CPU.  A dispatch by
     shape: 1 stays the shape of a batch with more lanes than the card holds
-    clusters.  ``pinned_cluster`` overrides it.  ``agg_k``: K3-agg's tiles
-    (``algo="cg_agg"``), whose two floats per tile share the rows' memory."""
+    clusters.  ``pinned_cluster`` overrides it.  ``coarse_k``: K3-agg's
+    tiles (``algo="cg_coarse"``; 0: K3-coarse's strips), whose two floats
+    per tile share the rows' memory."""
     if torch.device(device).type != "cuda" or chunk != 1:
         return 1
     if _PINNED is not None:
         return _PINNED
     for C in CLUSTER_SIZES:
-        if n < MIN_CELLS_PER_BLOCK * C or not rows_fit(n, C, ndims, agg_k):
+        if n < MIN_CELLS_PER_BLOCK * C or not rows_fit(n, C, ndims, coarse_k):
             continue
-        dev = torch.device(device)
-        held = (max_active_agg_clusters(ndims, C, n, agg_k, dev)
-                if algo == "cg_agg" else
-                max_active_clusters(algo, ndims, C, n, dev))
-        if held >= lanes:
+        if max_active_clusters(algo, ndims, C, n, torch.device(device),
+                               coarse_k) >= lanes:
             return C
     return 1
 
@@ -454,10 +441,10 @@ def pinned_cluster(C: int | None):
 
 
 def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
-               algo: str = "cg", coarse: bool = False,
-               agg_k: int = 0) -> MergedArm:
-    """The arm of a merged-frame solve (K3: ``algo="cg"``, K2-mb:
-    ``"bicgstab"``) of ``lanes`` lanes of ``n`` cells: ``(C, G,
+               algo: str = "cg", coarse_k: int = 0) -> MergedArm:
+    """The arm of a merged-frame solve (K3: ``algo="cg"``, K3-coarse and
+    K3-agg: ``"cg_coarse"``, K2-mb: ``"bicgstab"``) of ``lanes`` lanes of
+    ``n`` cells: ``(C, G,
     per_lane)``.  The cluster rule first (``default_cluster``): a lane it
     spreads over C > 1 blocks keeps the cluster arm (the 2D cylinder at
     C = 8 or 16, the airfoil at 16).  Else, for a 3D plan with one lane per
@@ -468,19 +455,15 @@ def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
     with ``SPLIT_BLOCKS_PER_LANE`` blocks per lane of the solve, the lanes
     go one per launch at that G (``per_lane``: CylinderJet3D-hard's 3
     velocity lanes of 2,481,408 cells at G = 128); each lane stops on its
-    own, so that is the chunk grid's bits.  K3-coarse (``coarse``, 2D
-    plans only) asks the cluster rule over its own instance
-    (``"cg_coarse"``) and has no spread arm; K3-agg (``agg_k`` tiles, 2D
-    plans only) likewise over ``"cg_agg"``.  ``(1, 0, False)`` is the
+    own, so that is the chunk grid's bits.  The coarse forms (2D plans
+    only) ask the cluster rule over their own instance (K3-coarse's strips:
+    ``coarse_k = 0``; K3-agg: ``coarse_k`` tiles) and have no spread arm.
+    ``(1, 0, False)`` is the
     chunk grid: the answer on the CPU, for chunks of several lanes, in 2D
     where no cluster fits, and with ``pinned_spread(0)``."""
-    if agg_k:
+    if algo == "cg_coarse":
         return MergedArm(default_cluster(lanes, n, ndims, chunk, device,
-                                         "cg_agg", agg_k) if ndims == 2 else 1,
-                         0, False)
-    if coarse:
-        return MergedArm(default_cluster(lanes, n, ndims, chunk, device,
-                                         "cg_coarse") if ndims == 2 else 1,
+                                         algo, coarse_k) if ndims == 2 else 1,
                          0, False)
     C = default_cluster(lanes, n, ndims, chunk, device, algo)
     if C > 1 or ndims != 3:
@@ -756,14 +739,14 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     check_merged_spread(spread, chunk, cluster, coarse is not None, ndims,
                         chains)
     agg = coarse is not None and isinstance(coarse[0], AggSpace)
-    agg_k = coarse[0].K if agg else 0
-    if agg and (ndims != 2 or not 1 <= agg_k <= AGG_MAX_K):
+    coarse_k = coarse[0].K if agg else 0
+    if agg and (ndims != 2 or not 1 <= coarse_k <= AGG_MAX_K):
         raise ValueError(f"K3-agg takes 2D plans and 1 to {AGG_MAX_K} tiles, "
-                         f"got ndims {ndims}, K = {agg_k}")
-    if cluster > 1 and not rows_fit(n, cluster, ndims, agg_k):
+                         f"got ndims {ndims}, K = {coarse_k}")
+    if cluster > 1 and not rows_fit(n, cluster, ndims, coarse_k):
         raise ValueError(f"a block's operator rows "
-                         f"({stage_bytes(n, cluster, ndims, agg_k)} B) do not "
-                         f"fit in shared memory at cluster {cluster}")
+                         f"({stage_bytes(n, cluster, ndims, coarse_k)} B) do "
+                         f"not fit in shared memory at cluster {cluster}")
     nbr = neighbor_table(plan, b.device)
     b = b.contiguous()
     diag = diag.contiguous()
@@ -869,9 +852,10 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
         c = default_chunk(b.shape[0], b.device) if chunk is None else chunk
         coarse = None if einv is None else (sp, einv)
         if cluster is None:
-            cl, G, per_lane = merged_arm(b.shape[0], n, plan.ndims, c,
-                                         b.device, coarse=coarse is not None,
-                                         agg_k=0 if agg is None else agg.K)
+            cl, G, per_lane = merged_arm(
+                b.shape[0], n, plan.ndims, c, b.device,
+                "cg" if coarse is None else "cg_coarse",
+                0 if agg is None else agg.K)
         else:
             cl, G, per_lane = cluster, 0, False
         check_cluster(cl, c)

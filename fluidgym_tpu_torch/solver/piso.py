@@ -282,9 +282,9 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
     guess (a warm start or the deflation guess).  ``coarse_strips``: the
     strip-coarse preconditioner, on the merged pressure kernel only (K3-coarse;
     K1 takes none, as the JAX package's ``fused_cg``).  ``agg``: an
-    ``AggCoarse``, the aggregation coarse space added to the preconditioner
-    (K3-agg on a merged plan; a system without one takes ``linsolve.cg``,
-    CPU tensors only).  Returns ``(x, SolveInfo)``."""
+    ``AggCoarse``, the aggregation coarse space added to the preconditioner,
+    on the merged pressure kernel only (K3-agg; a system without a merge
+    plan raises).  Returns ``(x, SolveInfo)``."""
 
     def mv(xs):
         return st.domain_apply(ops, xs, topo)
@@ -292,21 +292,19 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
     dtype = b[0].dtype
     tol_resolved = tol if tol is not None else linsolve.default_tolerance(dtype)
     precond_fn = None
-    inv_diag = tuple(1.0 / op.diag for op in ops) if precondition else None
-    if agg is not None:
-        coarse = agg_coarse_fn(agg)
+    if precondition:
+        inv_diag = tuple(1.0 / op.diag for op in ops)
 
-        # never the coarse solve alone (singular outside the coarse space)
-        def precond_fn(rs):
-            zs = (tuple(d * r for d, r in zip(inv_diag, rs)) if precondition
-                  else rs)
-            return tuple(z + c for z, c in zip(zs, coarse(rs)))
-    elif precondition:
         def precond_fn(rs):
             return tuple(d * r for d, r in zip(inv_diag, rs))
 
     single = agg is None and _kernel_operand_ok(ops, topo)
     mplan = None if single else _merged_plan(ops, topo)
+    if agg is not None and agg.plan != mplan:
+        raise NotImplementedError(
+            "the aggregation coarse space runs in the merged pressure solve "
+            "only: this system has no merge plan, or the data was built for "
+            "another one")
     if b[0].is_cuda and not single and mplan is None:
         raise NotImplementedError(
             "no CUDA kernel for this system (no merge plan, or a "
@@ -328,9 +326,6 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
         if mplan is not None:
             from fluidgym_tpu_torch.ops import cg_cuda_mb
 
-            if agg is not None and agg.plan != mplan:
-                raise ValueError("the aggregation data was built for another "
-                                 "merge plan")
             if agg is not None:
                 kw["agg"] = agg.space
             mops = block_merge.pack_ops(mplan, ops)
@@ -436,21 +431,19 @@ def _make_deflation_x0(p_ops, topo: DomainTopo, dtype, coarse=None):
 
 class AggCoarse(NamedTuple):
     """The aggregation coarse space of one pressure operator
-    (``build_agg_coarse``).  ``einv = diag(d) pinv(diag(d) E diag(d))
-    diag(d)``, folded in float64 and cast to the solve dtype: ``W einv W^T``
-    is the JAX package's ``W d (E_n^+ (d W^T r))``.  ``space`` is the merged
-    frame's view for the pressure kernel (``cg_cuda_mb.agg_space``; None
-    without a merge plan)."""
+    (``build_agg_coarse``).  ``space`` is the merged frame's view for the
+    pressure kernel (``cg_cuda_mb.AggSpace``), and holds the tile count
+    ``K`` and ``einv = diag(d) pinv(diag(d) E diag(d)) diag(d)``, folded in
+    float64 and cast to the solve dtype: ``W einv W^T`` is the JAX
+    package's ``W d (E_n^+ (d W^T r))``."""
 
     key: tuple          # (topo, tile, dt, upwind blend, non_orthogonal)
     nu: float           # the viscosity E was built at
     specs: tuple        # _agg_tile_specs
     tile: int
-    k: int
-    einv: Tensor        # (k, k), solve dtype
     tile_ids: tuple     # per block (*shape) int64: each cell's tile
-    plan: Any           # block_merge.merge_plan(topo) or None
-    space: Any          # cg_cuda_mb.AggSpace or None
+    plan: Any           # block_merge.merge_plan(topo)
+    space: Any          # cg_cuda_mb.AggSpace
 
 
 def _agg_key(topo: DomainTopo, cfg: SimConfig) -> tuple:
@@ -529,12 +522,19 @@ def build_agg_coarse(state: DomainState, geoms, topo: DomainTopo,
     ``chunk`` indicator columns at a time (``domain_apply`` over a leading
     column axis, then the restriction), in the solve dtype; then in float64
     symmetrized, ``d = 1 / sqrt(|diag E| + 1e-30)`` and the pseudo-inverse
-    of ``diag(d) E diag(d)`` with numpy's ``rcond = 1e-7``."""
+    of ``diag(d) E diag(d)`` with numpy's ``rcond = 1e-7``.  The space runs
+    in the merged pressure solve only: a topology without a merge plan
+    raises."""
     from fluidgym_tpu_torch.ops import cg_cuda_mb
 
     tile = int(cfg.pressure_coarse_tile)
     if tile <= 0:
         raise ValueError("build_agg_coarse needs pressure_coarse_tile > 0")
+    plan = block_merge.merge_plan(topo) if len(topo.blocks) > 1 else None
+    if plan is None:
+        raise NotImplementedError(
+            "the aggregation coarse space runs in the merged pressure solve "
+            "only, and this topology has no merge plan")
     specs, k = _agg_tile_specs(topo, tile)
     blk0 = state.blocks[0].pressure
     dtype, device = blk0.dtype, blk0.device
@@ -561,24 +561,21 @@ def build_agg_coarse(state: DomainState, geoms, topo: DomainTopo,
     d = 1.0 / np.sqrt(np.abs(np.diagonal(E)) + 1e-30)
     En_inv = np.linalg.pinv(E * d[:, None] * d[None, :], rcond=1e-7)
     einv = torch.from_numpy(d[:, None] * En_inv * d[None, :]).to(device, dtype)
-    plan = block_merge.merge_plan(topo) if len(topo.blocks) > 1 else None
-    space = (None if plan is None
-             else cg_cuda_mb.agg_space(plan, tuple(tile_ids), einv))
     return AggCoarse(key=_agg_key(topo, cfg), nu=float(state.viscosity),
-                     specs=specs, tile=tile, k=k, einv=einv,
-                     tile_ids=tuple(tile_ids), plan=plan, space=space)
+                     specs=specs, tile=tile, tile_ids=tuple(tile_ids),
+                     plan=plan,
+                     space=cg_cuda_mb.agg_space(plan, tuple(tile_ids), einv))
 
 
 def ensure_agg_coarse(prev: AggCoarse | None, state: DomainState, geoms,
-                      topo: DomainTopo, cfg: SimConfig, *,
-                      force: bool = False) -> AggCoarse | None:
+                      topo: DomainTopo, cfg: SimConfig) -> AggCoarse | None:
     """``prev`` while it holds for this operator (the same key and a
     viscosity within 1e-6 relative, as the JAX package reuses its cache
     entry), else ``build_agg_coarse`` anew; None without a tile space."""
     if cfg.pressure_coarse_tile <= 0:
         return None
     nu = float(state.viscosity)
-    if (prev is not None and not force and prev.key == _agg_key(topo, cfg)
+    if (prev is not None and prev.key == _agg_key(topo, cfg)
             and abs(prev.nu - nu) <= 1e-6 * max(abs(nu), 1e-30)):
         return prev
     return build_agg_coarse(state, geoms, topo, cfg)
@@ -590,7 +587,7 @@ def agg_coarse_fn(agg: AggCoarse):
     ``torch.matmul``."""
     def coarse(rs):
         rc = _agg_restrict(rs, agg.specs, agg.tile)
-        return _agg_prolong(agg.einv @ rc, agg.specs, agg.tile)
+        return _agg_prolong(agg.space.einv @ rc, agg.specs, agg.tile)
 
     return coarse
 

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""The JAX package's own uncontrolled cylinder episode on the host, against
-its bundled reference trace: what the reference itself holds on a backend
-other than the one that recorded the trace.
+"""The JAX package's own uncontrolled cylinder or airfoil episode on the
+host, against its bundled reference trace: what the reference itself holds
+on a backend other than the one that recorded the trace.
 
-    JAX_PLATFORMS=cpu python3 scripts/jax_cylinder_uncontrolled.py \
-        [--env CylinderJet2D-hard-v0] [--steps 20]
+    JAX_PLATFORMS=cpu python3 scripts/jax_uncontrolled.py \
+        [--env CylinderJet2D-hard-v0 | Airfoil2D-hard-v0 | ...] [--steps 20]
 
 Resets the JAX package's env to the bundled ``test_00`` snapshot at the
 registered defaults of ``--env`` (no randomization; float32), takes
 ``--steps`` zero-action steps and prints one JSON object per step: |delta
-cd| against ``test_00_uncontrolled_episode.csv`` and the pressure
-iterations beside the trace's.  Compare with
-``scripts/port_cylinder_uncontrolled.py --device cpu`` (the port on the
+cd| and |delta cl| against ``test_00_uncontrolled_episode.csv``, the
+pressure iterations beside the trace's and the seconds since reset.
+Compare with ``scripts/port_cylinder_uncontrolled.py`` /
+``scripts/port_airfoil_uncontrolled.py --device cpu`` (the port on the
 same host).  Runs on the CPU only; the port does not import it.
 """
 
@@ -20,6 +21,7 @@ import csv
 import json
 import os
 import sys
+import time
 
 
 def main() -> int:
@@ -43,6 +45,7 @@ def main() -> int:
     with open(path, newline="") as fh:
         rows = list(csv.DictReader(fh))
     zero = np.zeros(env.action_space.shape, np.float32)
+    t0 = time.perf_counter()
     for i in range(min(args.steps, len(rows))):
         _, _, _, _, info = env.step(zero)
         ref_its = rows[i].get("pressure_iterations")
@@ -50,9 +53,12 @@ def main() -> int:
             "env": args.env, "step": i + 1,
             "abs_dcd": abs(float(np.asarray(info["drag"]))
                            - float(rows[i]["drag"])),
+            "abs_dcl": abs(float(np.asarray(info["lift"]))
+                           - float(rows[i]["lift"])),
             "pressure_iterations": int(np.asarray(info["pressure_iterations"])),
             "ref_pressure_iterations": (None if ref_its is None
-                                        else int(float(ref_its)))}),
+                                        else int(float(ref_its))),
+            "seconds": round(time.perf_counter() - t0, 1)}),
             flush=True)
     return 0
 

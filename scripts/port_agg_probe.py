@@ -61,9 +61,11 @@ def main() -> int:
                   coarse=(space, einv), chunk=1)
         sizes = [C for C in cg_cuda_mb.CLUSTER_SIZES
                  if cg_cuda_mb.rows_fit(n, C, 2, space.K)]
-        occ = {C: cg_cuda_mb.max_active_agg_clusters(2, C, n, space.K, dev)
+        occ = {C: cg_cuda_mb.max_active_clusters("cg_coarse", 2, C, n, dev,
+                                                  space.K)
                for C in sizes}
-        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, agg_k=space.K)[0]
+        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, "cg_coarse",
+                                      space.K)[0]
         print(f"{system}: n = {n}, K = {space.K}, occupancy {occ}, rule "
               f"C = {rule}", flush=True)
         for start, x0 in (("cold", None), ("warm", guess)):

@@ -154,8 +154,8 @@ def parent_check(dev, root: str) -> dict:
             kw = dict(maxiter=5000, stall_iters=250, precondition=True,
                       return_best=algo == "cg")
             tol2 = cg_cuda.tol2_sum_f32(tol, n)
-            rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, algo,
-                                         coarse is not None)[0]
+            rule = cg_cuda_mb.merged_arm(
+                L, n, 2, 1, dev, algo if coarse is None else "cg_coarse")[0]
             here = {C: cg_cuda_mb.merged_launcher(
                 algo, plan, diag, off, b, x0, tol2_sum=tol2, chunk=1,
                 cluster=C, coarse=coarse, **kw) for C in sorted({1, rule})}

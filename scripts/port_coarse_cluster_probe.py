@@ -61,7 +61,7 @@ def main() -> int:
                  if cg_cuda_mb.rows_fit(n, C, 2)]
         occ = {C: cg_cuda_mb.max_active_clusters("cg_coarse", 2, C, n, dev)
                for C in sizes}
-        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, coarse=True)[0]
+        rule = cg_cuda_mb.merged_arm(1, n, 2, 1, dev, "cg_coarse")[0]
         print(f"{system}: K = {sp.K}, occupancy {occ}, rule C = {rule}",
               flush=True)
         ref = None

@@ -133,7 +133,7 @@ def test_coarse_matches_jax(cyl):
     scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
     for a, b in zip(got, want):
         assert np.abs(a.numpy() - np.asarray(b)).max() <= 1e-6 * scale
-    assert agg.k == jpiso._agg_tile_specs(t._topo, TILE)[1]
+    assert agg.space.K == jpiso._agg_tile_specs(t._topo, TILE)[1]
 
 
 def test_agg_coarse_cuts_iterations_and_matches_solution(cyl):
@@ -204,10 +204,9 @@ def test_rebuild_on_viscosity_change(cyl):
     new = piso.ensure_agg_coarse(agg, far, t._geoms, t._topo, cfg)
     assert new is not agg
     assert abs(new.nu - float(nu0) * 2.0) <= 1e-12
-    assert not torch.equal(new.einv, agg.einv)
-    forced = piso.ensure_agg_coarse(agg, t._state, t._geoms, t._topo, cfg,
-                                    force=True)
-    assert forced is not agg and torch.equal(forced.einv, agg.einv)
+    assert not torch.equal(new.space.einv, agg.space.einv)
+    fresh = piso.build_agg_coarse(t._state, t._geoms, t._topo, cfg)
+    assert fresh is not agg and torch.equal(fresh.space.einv, agg.space.einv)
 
 
 def test_env_step_with_agg_coarse_matches_plain():
@@ -236,7 +235,7 @@ def test_airfoil_space_covers_every_cell_once(airfoil):
     (the wake cut a flip seam) the tile lists hold every one of the 73,456
     cells once, each under its own tile, at most 64 to a tile."""
     agg, t = airfoil["agg"], airfoil["t"]
-    assert agg.tile == 8 and agg.k == 1194
+    assert agg.tile == 8 and agg.space.K == 1194
     sp = agg.space
     n = sum(int(np.prod(b.shape)) for b in t._topo.blocks)
     assert n == 73456 and sp.K == 1194 and sp.cidx.numel() == n
@@ -313,7 +312,7 @@ def test_env_keeps_its_data_across_resets(airfoil):
                                   **AIRFOIL)
     env.load_initial_domain(EnvMode.TRAIN, 0)
     first = env._cfg.pressure_agg
-    assert first is not None and first.k == 1194
+    assert first is not None and first.space.K == 1194
     env.reset(seed=0)
     assert env._cfg.pressure_agg is first
     env.reset(seed=1)
@@ -337,16 +336,15 @@ H100_AGG = {16: 7, 8: 15, 4: 30, 2: 60}
 
 @pytest.fixture
 def agg_occupancy(monkeypatch):
-    """Stub both occupancy queries; record K3-agg's."""
+    """Stub the occupancy query; record its coarse instance's questions."""
     asked = []
 
-    def agg(ndims, C, n, K, device):
-        asked.append((ndims, C, n, K))
+    def occupancy(algo, ndims, C, n, device, coarse_k=0):
+        if algo == "cg_coarse":
+            asked.append((ndims, C, n, coarse_k))
         return H100_AGG[C]
 
-    monkeypatch.setattr(cg_cuda_mb, "max_active_agg_clusters", agg)
-    monkeypatch.setattr(cg_cuda_mb, "max_active_clusters",
-                        lambda algo, ndims, C, n, device: H100_AGG[C])
+    monkeypatch.setattr(cg_cuda_mb, "max_active_clusters", occupancy)
     return asked
 
 
@@ -359,7 +357,7 @@ def agg_occupancy(monkeypatch):
     (1, 14_232, 228, (8, 0, False)),        # C = 16 would leave < 1024 cells
 ])
 def test_agg_rule_on_the_main_path_shapes(agg_occupancy, lanes, n, K, expected):
-    arm = cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA, agg_k=K)
+    arm = cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA, "cg_coarse", K)
     assert arm == expected
     if arm.cluster > 1:
         assert cg_cuda_mb.rows_fit(n, arm.cluster, 2, K)
@@ -370,13 +368,45 @@ def test_agg_rule_on_the_main_path_shapes(agg_occupancy, lanes, n, K, expected):
 
 
 def test_agg_rule_off_the_card_chunks_and_3d(agg_occupancy):
-    assert cg_cuda_mb.merged_arm(1, AIRFOIL_N, 2, 1, "cpu", agg_k=1194) == (1, 0, False)
-    assert cg_cuda_mb.merged_arm(1, AIRFOIL_N, 2, 2, CUDA, agg_k=1194) == (1, 0, False)
-    assert cg_cuda_mb.merged_arm(1, 341_568, 3, 1, CUDA, agg_k=1194) == (1, 0, False)
+    def arm(lanes, n, nd, chunk, dev):
+        return cg_cuda_mb.merged_arm(lanes, n, nd, chunk, dev, "cg_coarse", 1194)
+
+    assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0, False)
+    assert arm(1, AIRFOIL_N, 2, 2, CUDA) == (1, 0, False)
+    assert arm(1, 341_568, 3, 1, CUDA) == (1, 0, False)
     assert not agg_occupancy
     with cg_cuda_mb.pinned_cluster(1):
-        assert cg_cuda_mb.merged_arm(1, AIRFOIL_N, 2, 1, CUDA,
-                                     agg_k=1194) == (1, 0, False)
+        assert arm(1, AIRFOIL_N, 2, 1, CUDA) == (1, 0, False)
+
+
+@pytest.mark.parametrize("K", [0, 1194])
+def test_max_active_clusters_hands_k_to_the_coarse_entry(monkeypatch, K):
+    """One occupancy entry serves both coarse instances: K3-coarse's strips
+    ask with K = 0, K3-agg with its tile count."""
+    import contextlib
+    import ctypes
+    from types import SimpleNamespace
+
+    from fluidgym_tpu_torch.ops import _build
+
+    asked = []
+
+    def occupancy(ndims, C, n, K_, out):
+        asked.append((ndims, C, n, K_))
+        ctypes.c_int.from_address(out).value = 7
+        return 0
+
+    lib = SimpleNamespace(fg_cg_mb_coarse_cluster_occupancy=occupancy)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    cg_cuda_mb.max_active_clusters.cache_clear()
+    try:
+        assert cg_cuda_mb.max_active_clusters("cg_coarse", 2, 16, AIRFOIL_N,
+                                              CUDA, K) == 7
+    finally:
+        cg_cuda_mb.max_active_clusters.cache_clear()
+    assert asked == [(2, 16, AIRFOIL_N, K)]
 
 
 def _c_params(entry):
@@ -393,10 +423,11 @@ def _c_params(entry):
 
 
 @pytest.mark.parametrize("entry", ["fg_cg_mb_agg_solve",
-                                   "fg_cg_mb_agg_cluster_occupancy"])
+                                   "fg_cg_mb_coarse_cluster_occupancy"])
 def test_agg_entry_signature_matches_the_ctypes_argtypes(entry):
     """The loader's argtypes follow the C signature one for one; the solve
-    takes the coarse solve's order, the occupancy query K after n."""
+    takes the coarse solve's order, the coarse forms' occupancy query K
+    after n (0: the strips)."""
     from fluidgym_tpu_torch.ops import _build
 
     params = _c_params(entry)

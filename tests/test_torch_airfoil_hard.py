@@ -89,7 +89,7 @@ def test_one_step_matches_jax_float64(env_id):
         for k in ("velocity", "pressure"):
             assert _rel(_np(to[k]), np.asarray(jo[k])) <= BAR, ("reset", k)
         agg = tenv._cfg.pressure_agg
-        assert agg is not None and agg.k == 1194
+        assert agg is not None and agg.space.K == 1194
         calls = cg_cuda_mb.fused_cg_mb_plain.calls
         j, t = _step(jenv), _step(tenv)
     # every pressure corrector went through K3-agg's plain version

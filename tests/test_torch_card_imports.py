@@ -273,7 +273,7 @@ def test_airfoil_medium_imports_and_steps_without_card_packages():
             "Airfoil2D-medium-v0", device="cpu", randomize_initial_state=False,
             step_length=0.01, dt=0.01)
         obs, _ = env.reset(seed=0)
-        assert env._cfg.pressure_agg.k == 1194
+        assert env._cfg.pressure_agg.space.K == 1194
         obs, reward, *_ , info = env.step(np.array([1.0, -0.5, -0.5], np.float32))
         assert obs["velocity"].shape == (209, 2)
         assert all(bool(torch.isfinite(v).all()) for v in obs.values())

@@ -43,7 +43,7 @@ def occupancy(monkeypatch):
     instance); records every query."""
     state = {"table": dict(H100_CLUSTERS), "by_algo": {}, "calls": []}
 
-    def fake(algo, ndims, C, n, device):
+    def fake(algo, ndims, C, n, device, coarse_k=0):
         state["calls"].append((algo, ndims, C, n))
         return state["by_algo"].get(algo, state["table"])[C]
 
@@ -133,7 +133,7 @@ def test_coarse_rule_on_the_main_path_shapes(occupancy, what, lanes, n,
     clusters the chunk grid; the rule asks the card about the coarse
     instance only, only at sizes whose rows fit, and the chosen C's staged
     rows and chain terms fit beside the instance's static arrays."""
-    assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA, "cg", coarse=True) \
+    assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA, "cg_coarse") \
         == (expected, 0, False), what
     assert occupancy["calls"]
     assert all(a == "cg_coarse" and nd == 2 and cg_cuda_mb.rows_fit(n_, C, nd)
@@ -154,8 +154,8 @@ def test_coarse_rule_reads_the_coarse_instances_answer(occupancy):
     """The coarse instance's own occupancy decides K3-coarse's C, and K3's
     decides K3's: fewer coarse clusters leave K3 where it was."""
     occupancy["by_algo"]["cg_coarse"] = {16: 0, 8: 1, 4: 33, 2: 66}
-    arm = lambda lanes, n, **kw: cg_cuda_mb.merged_arm(lanes, n, 2, 1, CUDA,
-                                                       "cg", **kw)
+    arm = lambda lanes, n, coarse=False: cg_cuda_mb.merged_arm(
+        lanes, n, 2, 1, CUDA, "cg_coarse" if coarse else "cg")
     # at C = 8 the airfoil's rows (9,184 cells x 36 B) do not fit: one block
     assert arm(1, AIRFOIL_N, coarse=True) == (1, 0, False)
     assert arm(1, AIRFOIL_N) == (16, 0, False)
@@ -169,7 +169,7 @@ def test_coarse_rule_off_the_card_for_chunks_and_pinned(occupancy):
     plan) take the chunk grid without asking the card; ``pinned_cluster``
     pins K3-coarse's C as K3's."""
     arm = lambda lanes, n, nd, chunk, dev: cg_cuda_mb.merged_arm(
-        lanes, n, nd, chunk, dev, "cg", coarse=True)
+        lanes, n, nd, chunk, dev, "cg_coarse")
     assert arm(1, AIRFOIL_N, 2, 1, "cpu") == (1, 0, False)
     assert arm(3, CYLINDER_N, 2, 3, CUDA) == (1, 0, False)
     assert arm(1, 341_568, 3, 1, CUDA) == (1, 0, False)
@@ -193,9 +193,9 @@ def test_max_active_clusters_asks_each_instance(monkeypatch):
     asked = []
 
     def entry(name):
-        def occupancy(ndims, C, n, out):
+        def occupancy(ndims, C, n, *k_out):
             asked.append(name)
-            ctypes.c_int.from_address(out).value = 100 + C
+            ctypes.c_int.from_address(k_out[-1]).value = 100 + C
             return 0
         return occupancy
 
@@ -236,7 +236,7 @@ def test_coarse_entry_signature_matches_the_ctypes_argtypes(entry):
             == [kinds.get(t, "c_void_p") for t, _ in params])
     names = [nm for _, nm in params]
     if "occupancy" in entry:
-        assert names == ["ndims", "cluster", "n", "out"]
+        assert names == ["ndims", "cluster", "n", "K", "out"]
     else:
         i = names.index("cluster")
         assert names[i - 2:i + 6] == ["lanes", "chunk", "cluster", "n",

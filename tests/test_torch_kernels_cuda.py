@@ -938,7 +938,7 @@ def test_coarse_cluster_arm_bit_equal_to_chunk_grid(case):
             f"C={C}: not bit-equal to the chunk grid (iterations "
             f"{got[1].tolist()} vs {ref[1].tolist()})")
     # the wrapper: the rule's C, its own Einv (the same computation)
-    rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, coarse=True)[0]
+    rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, "cg_coarse")[0]
     assert rule in taken, (rule, taken)
     before = (cg_cuda_mb.fused_cg_mb.cluster_launches,
               cg_cuda_mb.fused_cg_mb.coarse_launches
@@ -1000,10 +1000,10 @@ def test_coarse_cluster_arm_refusals_and_batches():
     torch.cuda.synchronize()
     for system in ("cylinder", "airfoil"):
         n_s = _strips_system(system, dev)[3].shape[1]
-        assert cg_cuda_mb.merged_arm(1, n_s, 2, 1, dev, coarse=True)[0] > 1
+        assert cg_cuda_mb.merged_arm(1, n_s, 2, 1, dev, "cg_coarse")[0] > 1
         for lanes in (64, 130):
             assert cg_cuda_mb.merged_arm(lanes, n_s, 2, 1, dev,
-                                         coarse=True) == (1, 0, False), (system, lanes)
+                                         "cg_coarse") == (1, 0, False), (system, lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -1864,14 +1864,15 @@ def test_k3_agg_kernel_matches_plain_and_every_cluster_size(case):
         assert bool((ref[0][2] == 0).all())
     taken = [C for C in cg_cuda_mb.CLUSTER_SIZES
              if cg_cuda_mb.rows_fit(n, C, 2, space.K)
-             and cg_cuda_mb.max_active_agg_clusters(2, C, n, space.K, dev) >= L]
+             and cg_cuda_mb.max_active_clusters("cg_coarse", 2, C, n, dev,
+                                                    space.K) >= L]
     assert taken, "the card holds no K3-agg cluster of any size"
     for C in taken:
         got = run(C)
         assert all(torch.equal(u, v) for u, v in zip(got, ref)), (
             f"C={C}: not bit-equal to the chunk grid (iterations "
             f"{got[1].tolist()} vs {ref[1].tolist()})")
-    rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, agg_k=space.K)[0]
+    rule = cg_cuda_mb.merged_arm(L, n, 2, 1, dev, "cg_coarse", space.K)[0]
     assert rule in taken, (rule, taken)
     k3 = cg_cuda_mb.fused_cg_mb
     form = "agg_launches" if plan.identity_seams else "agg_flip_launches"
@@ -1929,10 +1930,16 @@ def test_k3_agg_refusals():
                                          (1, 1, 3, 1194, 2), (2, 2, 16, 1194, 2),
                                          (1, 1, 16, 0, 2), (1, 1, 1, 1194, 3)):
         assert status(lanes, chunk, cluster, K, nd) == invalid, (chunk, cluster, K)
-    occ = lib.fg_cg_mb_agg_cluster_occupancy
+    # one occupancy entry for both coarse instances: K = 0 the strips,
+    # 1..2048 the tiles
+    occ = lib.fg_cg_mb_coarse_cluster_occupancy
     import ctypes
     out = ctypes.c_int(0)
     assert occ(2, 16, n, 2049, ctypes.addressof(out)) == invalid
+    assert occ(2, 16, n, -1, ctypes.addressof(out)) == invalid
+    for K in (0, space.K):
+        out.value = 0
+        assert occ(2, 16, n, K, ctypes.addressof(out)) == 0 and out.value >= 1, K
     torch.cuda.synchronize()
     kw = dict(tol2_sum=1.0, maxiter=10, stall_iters=250, precondition=True,
               return_best=True, chunk=1)
@@ -1948,10 +1955,10 @@ def test_k3_agg_refusals():
         cg_cuda_mb.fused_cg_mb(plan, diags, offs,
                                cg_cuda_mb.unflatten_fields(plan, b), tol=1e-7,
                                agg=space, chunk=2, cluster=16)
-    assert cg_cuda_mb.merged_arm(1, n, 2, 1, dev, agg_k=space.K)[0] > 1
+    assert cg_cuda_mb.merged_arm(1, n, 2, 1, dev, "cg_coarse", space.K)[0] > 1
     for lanes in (64, 130):
-        assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, dev,
-                                     agg_k=space.K) == (1, 0, False), lanes
+        assert cg_cuda_mb.merged_arm(lanes, n, 2, 1, dev, "cg_coarse",
+                                     space.K) == (1, 0, False), lanes
 
 
 def test_airfoil_medium_full_width_step_takes_k3_agg_flip():
@@ -1978,7 +1985,7 @@ def test_airfoil_medium_full_width_step_takes_k3_agg_flip():
                                   randomize_initial_state=False,
                                   step_length=0.05, episode_length=2)
     env.reset(seed=0)
-    assert env._cfg.pressure_agg.k == 1194
+    assert env._cfg.pressure_agg.space.K == 1194
     before = keys()
     piso.piso_substep_info = counted
     try:

@@ -63,13 +63,15 @@ def h100(monkeypatch):
     monkeypatch.setattr(cg_cuda, "_sm_count", lambda device: H100_SMS)
     monkeypatch.setattr(cg_cuda, "spread_capacity", capacity)
     monkeypatch.setattr(cg_cuda_mb, "max_active_clusters",
-                        lambda algo, ndims, C, n, device: H100_CLUSTERS[C])
+                        lambda algo, ndims, C, n, device, coarse_k=0:
+                        H100_CLUSTERS[C])
     return asked
 
 
 def _arm(lanes, n, ndims, algo="cg", chunk=None, device=CUDA, coarse=False):
     c = cg_cuda.default_chunk(lanes, device) if chunk is None else chunk
-    return cg_cuda_mb.merged_arm(lanes, n, ndims, c, device, algo, coarse)
+    return cg_cuda_mb.merged_arm(lanes, n, ndims, c, device,
+                                 "cg_coarse" if coarse else algo)
 
 
 # ---------------------------------------------------------------------------
