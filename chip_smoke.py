@@ -242,7 +242,7 @@ Phases, each printed with its elapsed seconds:
    raw launch in turns; ms, us per iteration, the bound and the streamed
    bound;
 42. ``Airfoil2D-medium-v0`` and ``-hard-v0`` at their registered defaults
-   from the bundled ``train_00`` (no randomization): reset and 2 steps
+   from the bundled ``train_00`` (no randomization): reset and 1 step
    each; counters zeroed before ``make`` and read after every step: per
    substep 2 K3-agg-flip and 1 K2-mb-flip launches, every one on the
    cluster arm, no other kernel form, plain version or ``linsolve`` loop;
@@ -250,7 +250,34 @@ Phases, each printed with its elapsed seconds:
    substeps and pressure iterations per env step;
 43. the card against the host for ``Airfoil2D-medium-v0``: 1 sim step of
    0.01 from ``train_00``; velocity obs and reward to 1e-4, pressure obs
-   to 1e-3 (phase 13's bars).
+   to 1e-3 (phase 13's bars);
+44. K1-3D and K2-3D on the first substep's solves of
+   ``TCFSmall3D-bottom-easy-v0`` from its bundled ``train_01`` and
+   ``TCFLarge3D-bottom-easy-v0`` from its generated state (Reichardt
+   profile plus curl noise), captured at the wrappers: K1 on the pressure
+   system and on a random right-hand side of its operator, K2 on the
+   velocity system warm (as the solver starts it) and cold, against their
+   plain versions with phase 25's bars; the rule's arm bit-equal to the
+   chunk grid twice, both per raw launch in turns; at TCFLarge's width
+   K2-3D's 3 lanes one per launch at G = 128 (no G holds them at once:
+   the card's co-residency per G is printed); ms, us per iteration, the
+   bound and the streamed bound;
+45. ``TCFSmall3D-bottom-easy-v0`` and ``TCFSmall3D-both-easy-v0`` at their
+   registered defaults (MARL, a randomized reset from the bundled
+   snapshot): reset and 2 steps each; counters zeroed before ``make`` and
+   read after every step: per substep 2 K1-3D and 1 K2-3D launches, every
+   one on the spread arm, no chunk grid, other kernel form, plain version
+   or ``linsolve`` loop; obs, rewards and wall stresses finite, every
+   pressure solve converged; ms, substeps and pressure iterations per env
+   step;
+46. ``TCFLarge3D-bottom-easy-v0`` and ``TCFSmall3D-bottom-hard-v0`` from
+   their generated states, 1 step each with phase 45's checks (TCFLarge:
+   3 K2-3D spread launches per substep, one per velocity lane);
+47. the card against the host for ``TCFSmall3D-bottom-easy-v0`` (SARL):
+   1 env step (10 sim steps: the channel's dt is a tenth of its step)
+   from ``train_01``, no randomization; velocity obs and wall stresses to
+   1e-4, pressure obs to 1e-3 (phase 34 found that the host alone moves a
+   3D float32 pressure obs by ~5e-5).
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -785,6 +812,7 @@ def _run(dev) -> int:
     _cyl3d_phases(dev, kernels, compare, piso, linsolve)
     _blend_phases(dev, kernels, piso, linsolve)
     _agg_phases(dev, kernels, piso, linsolve)
+    _tcf_phases(dev, kernels, compare, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -2213,6 +2241,16 @@ def _capture_solves(dev, env_id, step_length, wrappers,
                                   step_length=step_length, episode_length=2)
     env.mode = EnvMode(split)
     env.reset(seed=0)
+    a_shape = ((env.n_agents, 1) if env.use_marl
+               else tuple(env.action_space.shape))
+    return capture_calls(lambda: env.step(np.zeros(a_shape, np.float32)),
+                         wrappers)
+
+
+def capture_calls(run, wrappers) -> dict:
+    """Every call of the wrappers ``wrappers`` (name -> ``(module,
+    attribute)``) while ``run()`` runs, as ``(args, kwargs)`` with the
+    tensors cloned, in order."""
     seen = {k: [] for k in wrappers}
     def keep(v):
         if isinstance(v, tuple):  # a named tuple keeps its type
@@ -2229,10 +2267,8 @@ def _capture_solves(dev, env_id, step_length, wrappers,
         # holds: share the counters with it
         capture.__dict__ = fns[k].__dict__
         setattr(mod, attr, capture)
-    a_shape = ((env.n_agents, 1) if env.use_marl
-               else tuple(env.action_space.shape))
     try:
-        env.step(np.zeros(a_shape, np.float32))
+        run()
     finally:
         for k, (mod, attr) in wrappers.items():
             setattr(mod, attr, fns[k])
@@ -3707,6 +3743,9 @@ def _blend_phases(dev, kernels, piso, linsolve) -> None:
 #: the aggregation-coarse airfoil ids (Re 3000 and 5000: the blend 0.3 and
 #: 8 x 8 tiles, k = 1,194)
 AGG_IDS = ("Airfoil2D-medium-v0", "Airfoil2D-hard-v0")
+#: phase 42's env steps per id (2 until phases 44-47 took their time: a
+#: medium step is ~60-80 s of host-bound substeps)
+AGG_STEPS = 1
 
 
 def _agg_kernel_phase(dev, kernels) -> None:
@@ -3817,13 +3856,13 @@ def _agg_kernel_phase(dev, kernels) -> None:
 def _agg_main_path(dev, kernels, piso, linsolve) -> None:
     """Phase 42: Airfoil2D-medium-v0 and -hard-v0 at their registered
     defaults from the bundled ``train_00`` (no randomization):
-    ``reset(seed=0)`` and 2 steps with a fixed action.  Counters zeroed
-    just before ``make`` and read after each step: in every step each
-    substep launches K3-agg-flip twice (its two pressure correctors) and
-    K2-mb-flip once, every one on the cluster arm, and no other kernel
-    form, plain version or ``linsolve`` loop runs; obs, reward, drag and
-    lift finite, every pressure solve converged; ms, substeps and pressure
-    iterations per env step."""
+    ``reset(seed=0)`` and ``AGG_STEPS`` steps with a fixed action.
+    Counters zeroed just before ``make`` and read after each step: in every
+    step each substep launches K3-agg-flip twice (its two pressure
+    correctors) and K2-mb-flip once, every one on the cluster arm, and no
+    other kernel form, plain version or ``linsolve`` loop runs; obs,
+    reward, drag and lift finite, every pressure solve converged; ms,
+    substeps and pressure iterations per env step."""
     import numpy as np
     import torch
 
@@ -3865,7 +3904,7 @@ def _agg_main_path(dev, kernels, piso, linsolve) -> None:
                   and env._cfg.advection_upwind_blend == 0.3,
                   f"{env_id}: not the blend and the 1,194-tile space")
             a = np.array([0.5, -0.2, -0.3], np.float32)
-            for i in range(2):
+            for i in range(AGG_STEPS):
                 c0 = counts()
                 t = time.perf_counter()
                 obs, reward, _, _, info = env.step(a)
@@ -3962,6 +4001,365 @@ def _agg_phases(dev, kernels, piso, linsolve) -> None:
     _agg_kernel_phase(dev, kernels)
     _agg_main_path(dev, kernels, piso, linsolve)
     _agg_card_vs_host(dev)
+
+
+# ---------------------------------------------------------------------------
+# phases 44-47: the turbulent channel flow, K1-3D and K2-3D
+# ---------------------------------------------------------------------------
+
+TCF_SMALL, TCF_LARGE = "TCFSmall3D-bottom-easy-v0", "TCFLarge3D-bottom-easy-v0"
+#: the bundled snapshot of phases 44, 45 and 47 (the ``*_00`` snapshots of
+#: the Re_tau 180 box relaminarized; ``train_01`` is turbulent)
+TCF_SNAPSHOT = ("train", 1)
+
+
+def _tcf_env(dev, env_id, **kw):
+    """``make(env_id)`` on ``dev`` with no randomization: the small box
+    loaded from ``TCF_SNAPSHOT``, any other from its generated state."""
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.types import EnvMode
+
+    if env_id.startswith("TCFSmall") and "easy" in env_id:
+        env = fluidgym_tpu_torch.make(env_id, device=dev,
+                                      randomize_initial_state=False, **kw)
+        env.seed(0)
+        env.load_initial_domain(EnvMode(TCF_SNAPSHOT[0]), TCF_SNAPSHOT[1])
+        return env
+    env = fluidgym_tpu_torch.make(env_id, device=dev, load_initial_domain=False,
+                                  randomize_initial_state=False, **kw)
+    env.reset(seed=0)
+    return env
+
+
+def _tcf_kernel_phase(dev, kernels, compare) -> dict:
+    """Phase 44: K1-3D and K2-3D on the solves of the first substep of one
+    sim step of ``TCF_SMALL`` (from ``TCF_SNAPSHOT``) and ``TCF_LARGE``
+    (from its generated state), captured at the wrappers: K1 on the
+    pressure system and on a random right-hand side of its operator, K2 on
+    the velocity system warm (as the solver starts it) and cold, against
+    their plain versions with phase 25's bars.  On each the rule's arm
+    (``cg_cuda.roll_arm`` / ``cg_cuda_mb.roll_form_arm``) must return the
+    chunk grid's x, iterations and residual bit for bit, twice, and is
+    timed against it per raw launch in turns; at TCFLarge's width K2's 3
+    lanes go one per launch at G = 128.  Returns the rows by width."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t0 = time.perf_counter()
+    out = {}
+    for width, env_id in (("tcf_small", TCF_SMALL), ("tcf_large", TCF_LARGE)):
+        env = _tcf_env(dev, env_id)
+        seen = capture_calls(env._run_single_step, {
+            "K1": (cg_cuda, "fused_cg"), "K2": (cg_cuda_mb, "fused_bicgstab_mb")})
+        (diag, off, p_rhs, _), kw1 = seen["K1"][0]
+        kw1 = dict(kw1)
+        tol1 = kw1.pop("tol")
+        (plan, diags, offs, bs), kw2 = seen["K2"][0]
+        kw2 = dict(kw2)
+        tol2, x0s = kw2.pop("tol"), kw2.pop("x0s")
+        shape = tuple(p_rhs.shape[1:])
+        n = math.prod(shape)
+        check(kw1["ndims"] == 3 and bs[0].shape[0] == 3 and x0s is not None,
+              f"{env_id}: the captured solves are not a 3D pressure solve and "
+              f"a warm 3-lane velocity solve")
+        cap = {G: cg_cuda.spread_capacity(a, 3, G,
+                                          cg_cuda.spread_chains(n, G, 3), n, dev)
+               for a in ("cg", "bicgstab") for G in cg_cuda.SPREAD_SIZES
+               if cg_cuda.spread_fits(n, G)}
+        arm1 = cg_cuda.roll_arm(1, n, 3, 1, dev)
+        arm2 = cg_cuda_mb.roll_form_arm(3, n, 3, 1, dev)
+        log(f"  {env_id} {shape} = {n} cells: spread blocks co-resident per "
+            f"G {cap}; chain terms per block {dict((G, cg_cuda.spread_bytes(n, G)) for G in cg_cuda.SPREAD_SIZES)} B; "
+            f"K1 arm {arm1}, K2 velocity arm {arm2}")
+        want2 = (False, 128, True) if n > 262144 else (False, 32, False)
+        check(arm1 == (False, 128) and arm2 == want2,
+              f"{env_id}: the rule picks K1 {arm1}, K2 {arm2}, not G = 128 "
+              f"and K2 {want2}")
+        g = torch.Generator().manual_seed(44)
+        other = torch.randn(shape, generator=g).to(dev) * 1e-3
+        mv_p = lambda v: cg_cuda.roll_matvec(diag[None], off[None], v, 3)
+        d, o, b2, x0 = diags[0], offs[0], bs[0], x0s[0]
+        mv_a = lambda v: cg_cuda.roll_matvec(d[None], o[None], v, 3)
+        t1, t2 = cg_cuda.tol2_sum_f32(tol1, n), cg_cuda.tol2_sum_f32(tol2, n)
+        rows = {}
+        for key, b in (("pressure", p_rhs), ("random rhs", (other - other.mean())[None])):
+            def call(b=b):
+                x, inf = cg_cuda.fused_cg(diag, off, b, tol=tol1, **kw1)
+                return x, inf.iterations, inf.residual ** 2 * n
+
+            def plain(b=b):
+                return cg_cuda.fused_cg_plain(diag[None], off[None], b, None,
+                                              tol2_sum=t1, chunk=1, **kw1)
+
+            err, its = compare(f"K1-3D {width} {key} {tuple(b.shape)}", call,
+                               plain, b, tol1, 1e-3, 3, mv_p)
+            mk = lambda G, b=b: cg_cuda.launcher(
+                diag[None], off[None], b, None, chunk=1, spread=G, tol2_sum=t1,
+                **kw1)
+            arms = {"grid": mk(0), f"G={arm1[1]}": mk(arm1[1])}
+            rows[f"K1-3D {key}"] = _tcf_row(torch, call, plain, arms, err, its,
+                                            n, 1, "cg", False)
+        for key, x0_ in (("velocity warm", x0), ("velocity cold", None)):
+            def call(x0_=x0_):
+                xs, inf = cg_cuda_mb.fused_bicgstab_mb(
+                    plan, (d,), (o,), (b2,), None if x0_ is None else (x0_,),
+                    tol=tol2, **kw2)
+                return xs[0], inf.iterations.repeat(3), None
+
+            def plain(x0_=x0_):
+                return cg_cuda_mb.fused_bicgstab_plain(
+                    d[None], o[None], b2, x0_, ndims=3, tol2_sum=t2, **kw2)
+
+            f = cg_cuda_mb.fused_bicgstab_mb
+            before = (f.launches_3d, f.spread_launches)
+            err, its = compare(f"K2-3D {width} {key} {tuple(b2.shape)}", call,
+                               plain, b2, tol2, 1e-4, 2, mv_a, plain_bar=True)
+            k = 3 if arm2[2] else 1
+            check((f.launches_3d - before[0], f.spread_launches - before[1])
+                  == (k, k), f"{env_id} K2 {key}: the wrapper did not count "
+                  f"{k} spread launch(es)")
+
+            def mk(sl, G, x0_=x0_):
+                return cg_cuda_mb.launcher(
+                    d[None], o[None], b2[sl], None if x0_ is None else x0_[sl],
+                    ndims=3, chunk=1, spread=G, tol2_sum=t2, **kw2)
+            if arm2[2]:
+                lanes = [mk(slice(l, l + 1), arm2[1]) for l in range(3)]
+                rule = {f"G={arm2[1]} one lane per launch": lambda lanes=lanes:
+                        tuple(torch.cat(t) for t in zip(*[f_() for f_ in lanes]))}
+            else:
+                rule = {f"G={arm2[1]}": mk(slice(None), arm2[1])}
+            rows[f"K2-3D {key}"] = _tcf_row(torch, call, plain,
+                                            {"grid": mk(slice(None), 0), **rule},
+                                            err, its, n, 3, "bicgstab",
+                                            x0_ is not None)
+        for k, r in rows.items():
+            log(f"  {width} {k}: {r['ms']:.3f} ms per wrapper call; raw launch "
+                f"{r['rule']} {r['raw_ms']:.3f} ms = {r['us_per_it']:.2f} "
+                f"us/iteration, chunk grid {r['raw_ms_grid']:.3f} ms = "
+                f"{r['us_per_it_grid']:.2f} ({r['raw_ms_grid'] / r['raw_ms']:.2f}x)"
+                f" at {r['iterations']} iterations; bit-equal twice (plain "
+                f"{r['plain_ms']:.3f} ms; bound {r['bound_ms'] * 1e3:.3f} us by "
+                f"{r['bound_by']}, streaming {r['stream_ms'] * 1e3:.3f} us)")
+        out[width] = dict(env_id=env_id, shape=shape, cells=n,
+                          spread_capacity={str(G): c for G, c in cap.items()},
+                          k1_arm=list(arm1), k2_arm=list(arm2), systems=rows)
+        del env, seen
+    log(f"phase 44 K1-3D and K2-3D on the channel's captured solves ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _tcf_row(torch, call, plain, arms, err, its, n, lanes, algo, warm) -> dict:
+    """One phase 44 system: the arms bit for bit and timed in turns, ms per
+    wrapper call, the plain version's ms, the bound."""
+    turns = arms_in_turns(torch, arms, 2)
+    rule = [k for k in arms if k != "grid"][0]
+    raw, grid = turns["raw_ms"][rule], turns["raw_ms"]["grid"]
+    b_ms, by, stream = bound_ms(n, lanes, 3, its, algo, warm, True)
+    return dict(lanes=lanes, iterations=its, max_abs_err=err, rule=rule,
+                ms=cuda_ms(torch, call, 2), plain_ms=cuda_ms(torch, plain, 1),
+                raw_ms=raw, raw_ms_grid=grid,
+                us_per_it=raw * 1e3 / max(its, 1),
+                us_per_it_grid=grid * 1e3 / max(its, 1),
+                bound_ms=b_ms, bound_by=by, stream_ms=stream)
+
+
+def _tcf_main_path(dev, piso, linsolve, env_id, steps, ph, make_env) -> dict:
+    """``make_env()`` on the card (the counters zeroed just before), then
+    ``steps`` steps with seeded numpy actions; the counters read after each
+    step.  In every step each substep launches K1-3D twice (its two
+    pressure correctors) and K2-3D once, or once per velocity lane where
+    ``roll_form_arm`` sends the lanes one per launch; every launch on the
+    spread arm; no other kernel form, plain version or ``linsolve`` loop;
+    obs of the space's shapes, obs, rewards and wall stresses finite, every
+    pressure solve converged."""
+    import numpy as np
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
+    launches, plains = _counters()
+    extra = [(k, a) for k in (k1, k2)
+             for a in ("launches_3d", "resident_launches", "spread_launches")]
+    calls, restore = count_calls(piso, linsolve)
+
+    def counts():
+        out = {"K1": k1.launches, "K2": k2.launches, "K1 3d": k1.launches_3d,
+               "K2 3d": k2.launches_3d, "K1 spread": k1.spread_launches,
+               "K2 spread": k2.spread_launches,
+               "resident": k1.resident_launches + k2.resident_launches}
+        out["other"] = sum(getattr(*c) for c in launches) - out["K1"] - out["K2"]
+        out["plain"] = sum(getattr(*c) for c in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["substeps"] = calls["piso_substep_info"]
+        return out
+
+    for c in launches + plains + extra:
+        setattr(*c, 0)
+    torch.cuda.synchronize()
+    rows = []
+    try:
+        t = time.perf_counter()
+        env = make_env()
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        reset = counts()
+        shape = env._topo.blocks[0].shape
+        n = math.prod(shape)
+        per_lane = cg_cuda_mb.roll_form_arm(3, n, 3, 1, dev)[2]
+        k2_sub = 3 if per_lane else 1
+        rng = np.random.default_rng(ph)
+        a_shape = tuple(env._zero_action.shape)
+        for i in range(steps):
+            a = rng.uniform(-1, 1, a_shape).astype(np.float32)
+            c0 = counts()
+            t = time.perf_counter()
+            obs, reward, _, _, info = env.step(a)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t
+            d = {k: v - c0[k] for k, v in counts().items()}
+            sub = d["substeps"]
+            expect = {"K1": 2 * sub, "K2": k2_sub * sub}
+            expect.update({"K1 3d": expect["K1"], "K1 spread": expect["K1"],
+                           "K2 3d": expect["K2"], "K2 spread": expect["K2"],
+                           "resident": 0, "other": 0, "plain": 0,
+                           "linsolve": 0})
+            check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+                  f"{env_id} step {i}: launches {d}, expected {expect}")
+            for k, v in obs.items():
+                want = env.observation_space[k].shape
+                if env.use_marl:
+                    want = (env.n_agents,) + tuple(want)
+                check(tuple(v.shape) == tuple(want), f"{env_id} obs {k} shape "
+                      f"{tuple(v.shape)} != {want}")
+                check(bool(torch.isfinite(v).all()), f"{env_id} obs {k} not finite")
+            taus = {k: float(info[k]) for k in env.metrics}
+            check(bool(torch.isfinite(reward).all())
+                  and all(math.isfinite(v) and v > 0 for v in taus.values()),
+                  f"{env_id}: reward or wall stresses {taus} not finite")
+            check(bool(info["pressure_converged"]),
+                  f"{env_id} step {i}: a pressure solve did not converge")
+            rows.append(dict(s=step_s, substeps=sub, K1=d["K1"], K2=d["K2"],
+                             pressure_iterations=int(info["pressure_iterations"]),
+                             wall_stress_bottom=taus["wall_stress_bottom"]))
+    finally:
+        restore()
+    total = counts()
+    out = dict(env_id=env_id, shape=tuple(shape), cells=n, marl=env.use_marl,
+               n_agents=env.n_agents, k2_per_substep=k2_sub, reset_s=reset_s,
+               reset_launches={k: reset[k] for k in ("K1", "K2")},
+               ms_step=1e3 * sum(r["s"] for r in rows) / len(rows),
+               step_ms=[1e3 * r["s"] for r in rows],
+               substeps=[r["substeps"] for r in rows],
+               pressure_iterations=[r["pressure_iterations"] for r in rows],
+               wall_stress_bottom=[r["wall_stress_bottom"] for r in rows],
+               launches={k: total[k] for k in ("K1", "K2", "K1 3d", "K2 3d",
+                                               "K1 spread", "K2 spread")},
+               step_launches=[{k: r[k] for k in ("K1", "K2")} for r in rows])
+    log(f"phase {ph} {env_id} {out['shape']} "
+        f"({'MARL, ' + str(env.n_agents) + ' agents' if env.use_marl else 'SARL'}): "
+        f"reset {reset_s:.2f}s (launches {out['reset_launches']}), steps "
+        f"{[round(r['s'], 3) for r in rows]} s = {out['ms_step']:.1f} ms/env "
+        f"step, substeps {out['substeps']}, pressure iterations "
+        f"{out['pressure_iterations']}, wall stress bottom "
+        f"{[f'{v:.6e}' for v in out['wall_stress_bottom']]}, per-step launches "
+        f"{out['step_launches']}, totals {out['launches']}; every K1-3D / "
+        f"K2-3D launch on the spread arm ({k2_sub} K2 per substep), no other "
+        f"form, plain version or linsolve loop")
+    return out
+
+
+def _tcf_card_vs_host(dev) -> dict:
+    """Phase 47: ``TCF_SMALL`` (SARL) from ``TCF_SNAPSHOT``, 1 env step (10
+    sim steps) with a fixed action on the card and on the host: velocity
+    obs and wall stresses within 1e-4 of each quantity's scale, pressure
+    obs within 1e-3."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    outs, its = {}, {}
+    for where in (dev, torch.device("cpu")):
+        e = _tcf_env(where, TCF_SMALL, use_marl=False, episode_length=2)
+        a = np.linspace(-1, 1, e.n_agents, dtype=np.float32).reshape(-1, 1)
+        o, _, _, _, info = e.step(a)
+        outs[where.type] = {k: v.cpu().reshape(-1) for k, v in dict(
+            o, **{k: info[k] for k in e.metrics}).items()}
+        its[where.type] = int(info["pressure_iterations"])
+    og, oc = outs[dev.type], outs["cpu"]
+    diffs = {k: float((og[k] - oc[k]).abs().max()
+                      / oc[k].abs().max().clamp(min=1e-30)) for k in og}
+    bars = {k: 1e-3 if k == "pressure" else 1e-4 for k in og}
+    log(f"phase 47 {TCF_SMALL} (SARL) full width, 1 env step from "
+        f"{TCF_SNAPSHOT[0]}_{TCF_SNAPSHOT[1]:02d} (pressure iterations {its}), "
+        f"card vs host: relative diffs {diffs} (bars {bars}) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    check(all(v <= bars[k] for k, v in diffs.items()),
+          f"card and host disagree on {TCF_SMALL}: {diffs}")
+    return dict(diffs=diffs, pressure_iterations=its)
+
+
+def _tcf_phases(dev, kernels, compare, piso, linsolve) -> None:
+    """Phases 44-47: K1-3D and K2-3D on the channel's captured solves (44),
+    the small box's main paths at their registered defaults (45), TCFLarge
+    and the Re_tau 550 small box from their generated states (46), card
+    against host (47).  K1-3D and K2-3D gain ``tcf_small`` and
+    ``tcf_large`` entries: the phase 44 rows of the main solve, and the
+    launches of phases 45 and 46 at each width."""
+    rows = _tcf_kernel_phase(dev, kernels, compare)
+    t0 = time.perf_counter()
+    small = [_tcf_main_path(dev, piso, linsolve, env_id, 2, 45,
+                            lambda env_id=env_id: _tcf_default_reset(env_id))
+             for env_id in (TCF_SMALL, "TCFSmall3D-both-easy-v0")]
+    log(f"phase 45 the small channel at its registered defaults ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    gen = [_tcf_main_path(dev, piso, linsolve, env_id, 1, 46,
+                          lambda env_id=env_id: _tcf_env(dev, env_id))
+           for env_id in (TCF_LARGE, "TCFSmall3D-bottom-hard-v0")]
+    check(gen[0]["k2_per_substep"] == 3 and gen[0]["cells"] == 1048576,
+          f"{TCF_LARGE}: the velocity lanes did not go one per launch")
+    log(f"phase 46 the channel from generated states ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+    host = _tcf_card_vs_host(dev)
+    main = {"K1-3D": "K1-3D random rhs", "K2-3D": "K2-3D velocity warm"}
+    for name, k in (("K1-3D", "K1"), ("K2-3D", "K2")):
+        for width, runs in (("tcf_small", small + gen[1:]),
+                            ("tcf_large", gen[:1])):
+            r = rows[width]["systems"][main[name]]
+            steps = [d[k] for run in runs for d in run["step_launches"]]
+            kernels[name][width] = dict(
+                {x: r[x] for x in ("lanes", "iterations", "max_abs_err", "rule",
+                                   "ms", "plain_ms", "raw_ms", "raw_ms_grid",
+                                   "us_per_it", "us_per_it_grid", "bound_ms",
+                                   "bound_by", "stream_ms")},
+                env_id=rows[width]["env_id"], shape=rows[width]["shape"],
+                system=main[name], systems=rows[width]["systems"],
+                spread_capacity=rows[width]["spread_capacity"],
+                launches=sum(run["launches"][f"{k} spread"] for run in runs),
+                launches_per_env_step=sum(steps) / len(steps),
+                main_path={run["env_id"]: {x: run[x] for x in (
+                    "ms_step", "step_ms", "reset_s", "substeps",
+                    "pressure_iterations", "k2_per_substep")} for run in runs},
+                card_vs_host=host["diffs"] if width == "tcf_small" else None)
+            kernels[name]["max_abs_err"] = max(
+                [kernels[name]["max_abs_err"]]
+                + [v["max_abs_err"] for s_, v in rows[width]["systems"].items()
+                   if s_.startswith(name)])
+
+
+def _tcf_default_reset(env_id):
+    """``make(env_id)`` at its registered defaults on the card and
+    ``reset(seed=0)`` (randomized: noise and a few uncontrolled sim steps
+    from a bundled snapshot)."""
+    import fluidgym_tpu_torch
+
+    env = fluidgym_tpu_torch.make(env_id)
+    env.reset(seed=0)
+    return env
 
 
 if __name__ == "__main__":

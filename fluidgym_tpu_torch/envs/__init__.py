@@ -1,8 +1,8 @@
 """Environment families and registration.  This port registers the 12
 RBC ids (2D and 3D), the three CylinderJet2D ids, the three CylinderRot2D
-ids, the three CylinderJet3D ids and the three Airfoil2D ids: 24 of the JAX
-package's 39 ids, with the same merged defaults; the other ids follow
-slice by slice."""
+ids, the three CylinderJet3D ids, the 12 TCF ids and the three Airfoil2D
+ids: 36 of the JAX package's 39 ids, with the same merged defaults; the
+Airfoil3D ids follow in a later slice."""
 
 from fluidgym_tpu_torch.envs.fluid_env import EnvState, FluidEnv
 from fluidgym_tpu_torch.registry import register
@@ -70,6 +70,22 @@ def _register_cylinder() -> None:
              CYLINDER_ROT_2D_DEFAULT_CONFIG, reynolds_number=500, resolution=32)
 
 
+def _register_tcf() -> None:
+    from fluidgym_tpu_torch.envs.tcf import (LARGE_TCF_3D_DEFAULT_CONFIG,
+                                             SMALL_TCF_3D_DEFAULT_CONFIG,
+                                             TCF3DBothEnv, TCF3DBottomEnv)
+
+    for diff, re_wall in (("easy", 180), ("medium", 330), ("hard", 550)):
+        register(f"TCFSmall3D-bottom-{diff}-v0", TCF3DBottomEnv,
+                 SMALL_TCF_3D_DEFAULT_CONFIG, reynolds_number_wall=re_wall)
+        register(f"TCFSmall3D-both-{diff}-v0", TCF3DBothEnv,
+                 SMALL_TCF_3D_DEFAULT_CONFIG, reynolds_number_wall=re_wall)
+        register(f"TCFLarge3D-bottom-{diff}-v0", TCF3DBottomEnv,
+                 LARGE_TCF_3D_DEFAULT_CONFIG, reynolds_number_wall=re_wall)
+        register(f"TCFLarge3D-both-{diff}-v0", TCF3DBothEnv,
+                 LARGE_TCF_3D_DEFAULT_CONFIG, reynolds_number_wall=re_wall)
+
+
 def _register_airfoil() -> None:
     from fluidgym_tpu_torch.envs.airfoil import (
         AIRFOIL_2D_DEFAULT_CONFIG, AirfoilEnv2D)
@@ -84,4 +100,5 @@ def _register_airfoil() -> None:
 
 _register_rbc()
 _register_cylinder()
+_register_tcf()
 _register_airfoil()

@@ -1,12 +1,13 @@
 """Observation extraction: per-agent moving windows (counterpart of
-``fluidgym_tpu/envs/util/obs_extraction.py``: the 2D window of RBC2D and
-the 3D window of RBC3D)."""
+``fluidgym_tpu/envs/util/obs_extraction.py``: the 2D window of RBC2D, the
+3D window of RBC3D and the per-agent-mean windows of the channel flow)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["extract_moving_window_2d", "extract_moving_window_3d"]
+__all__ = ["extract_moving_window_2d", "extract_moving_window_2d_x_z",
+           "extract_moving_window_3d"]
 
 
 def extract_moving_window_2d(field: torch.Tensor, n_agents: int,
@@ -33,6 +34,32 @@ def extract_moving_window_2d(field: torch.Tensor, n_agents: int,
         for i in range(n_agents)
     ]
     return torch.stack(windows, dim=0)
+
+
+def extract_moving_window_2d_x_z(field: torch.Tensor, n_agents_x: int,
+                                 n_agents_z: int, agent_width: int,
+                                 n_agents_per_window_x: int,
+                                 n_agents_per_window_z: int, pad_x: int = 0,
+                                 pad_z: int = 0) -> torch.Tensor:
+    """Circular windows of PER-AGENT MEANS over a (z, x) agent tiling: the
+    field ``(Z, X)`` is reduced to one mean per agent block, rolled by
+    ``(pad_z, pad_x)`` agents, and unfolded into ``(n_agents_x * n_agents_z,
+    Wz, Wx)`` windows, agent order x-major."""
+    Z, X = field.shape
+    if X != n_agents_x * agent_width or Z != n_agents_z * agent_width:
+        raise ValueError("field shape must match agent tiling")
+    if not (0 <= pad_x <= n_agents_per_window_x):
+        raise ValueError("pad_x must be in range [0, n_agents_per_window_x]")
+    if not (0 <= pad_z <= n_agents_per_window_z):
+        raise ValueError("pad_z must be in range [0, n_agents_per_window_z]")
+    blocks = field.reshape(n_agents_z, agent_width, n_agents_x, agent_width)
+    means = torch.roll(blocks.mean(dim=(1, 3)), (pad_z, pad_x), dims=(0, 1))
+    dev = field.device
+    ixs = torch.arange(n_agents_x, device=dev).repeat_interleave(n_agents_z)
+    izs = torch.arange(n_agents_z, device=dev).repeat(n_agents_x)
+    z_idx = (izs[:, None] + torch.arange(n_agents_per_window_z, device=dev)) % n_agents_z
+    x_idx = (ixs[:, None] + torch.arange(n_agents_per_window_x, device=dev)) % n_agents_x
+    return means[z_idx[:, :, None], x_idx[:, None, :]]
 
 
 def extract_moving_window_3d(field: torch.Tensor, n_agents: int,

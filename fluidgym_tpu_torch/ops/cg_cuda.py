@@ -69,7 +69,7 @@ __all__ = ["fused_cg", "fused_cg_plain", "cg_lockstep", "roll_matvec",
            "resident_bytes", "resident_fits", "launcher", "default_spread",
            "pinned_spread", "spread_bytes", "spread_fits", "spread_capacity",
            "block_ranges", "chain_cells", "roll_arm", "spread_chains",
-           "SPREAD_SIZES"]
+           "split_spread", "SPREAD_SIZES", "SPLIT_BLOCKS_PER_LANE"]
 
 _TINY = 1e-30
 MAX_LANES = 64  # FG_MAX_LANES in csrc/krylov.cuh: lanes of one thread block
@@ -285,6 +285,31 @@ def spread_chains(n: int, G: int, ndims: int, merged: bool = False) -> bool:
         return True
     return not (ndims == 3 and G == 128
                 and n >= SPREAD_RANGE_CELLS * THREADS * G)
+
+
+#: a solve whose lanes no G holds at once goes one lane per launch at the G
+#: that holds one lane, while that G gives each lane at least this many
+#: blocks: on the H100 a merged lane over 128 blocks ran 15-21x faster per
+#: iteration than on the chunk grid's one block (K3-3D, 341,568 and 749,568
+#: cells), so up to 16 lanes in turn beat the chunk grid's concurrent lanes,
+#: and a batch keeps the chunk grid
+SPLIT_BLOCKS_PER_LANE = 8
+
+
+def split_spread(lanes: int, n: int, ndims: int, chunk: int, device,
+                 algo: str = "cg") -> int:
+    """G of the spread arm with the lanes one per launch, for ``lanes`` lanes
+    of ``n`` cells that ``default_spread`` holds at no G at once: the G
+    that holds a single lane, where it gives every lane of the solve at
+    least ``SPLIT_BLOCKS_PER_LANE`` blocks; else 0 (the chunk grid).
+    TCFLarge's 3 velocity lanes of 1,048,576 cells (K2-3D) and
+    CylinderJet3D-hard's of 2,481,408 (K2-mb-3D) go at G = 128.  Each lane
+    stops on its own, so that is the chunk grid's bits.  ``pinned_spread(0)``
+    pins the chunk grid here too."""
+    if lanes < 2:
+        return 0
+    G1 = default_spread(1, n, ndims, chunk, device, algo)
+    return G1 if G1 and lanes * SPLIT_BLOCKS_PER_LANE <= G1 else 0
 
 
 def roll_arm(lanes: int, n: int, ndims: int, chunk: int, device,

@@ -131,8 +131,9 @@ from fluidgym_tpu_torch.ops.cg_cuda import (SMEM_PER_BLOCK, SMEM_STATIC,
                                             default_chunk, default_spread,
                                             device_kind, guard,
                                             lockstep_chunks, roll_arm,
-                                            roll_matvec, spread_buffers,
-                                            spread_chains, tol2_sum_f32)
+                                            roll_matvec, split_spread,
+                                            spread_buffers, spread_chains,
+                                            tol2_sum_f32)
 from fluidgym_tpu_torch.solver import coarse_strips as cs
 from fluidgym_tpu_torch.solver.block_merge import (MergePlan, fixup_slabs,
                                                    merged_apply)
@@ -144,7 +145,7 @@ __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "flatten_fields", "unflatten_fields", "flatten_ops",
            "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
            "max_active_clusters", "rows_fit", "CLUSTER_SIZES", "merged_arm",
-           "MergedArm", "merged_launcher"]
+           "MergedArm", "merged_launcher", "roll_form_arm"]
 
 
 # ---------------------------------------------------------------------------
@@ -338,13 +339,6 @@ CLUSTER_SIZES = (16, 8, 4, 2)
 MIN_CELLS_PER_BLOCK = 1024
 
 _PINNED: int | None = None
-#: a 3D merged solve whose lanes no G holds at once goes one lane per
-#: launch at the G that holds one lane, while that G gives each lane at
-#: least this many blocks: on the H100 a merged lane over 128 blocks ran
-#: 15-21x faster per iteration than on the chunk grid's one block (K3-3D,
-#: 341,568 and 749,568 cells), so up to 16 lanes in turn beat the chunk
-#: grid's concurrent lanes, and a batch keeps the chunk grid
-SPLIT_BLOCKS_PER_LANE = 8
 
 
 class MergedArm(NamedTuple):
@@ -469,12 +463,28 @@ def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
     if C > 1 or ndims != 3:
         return MergedArm(C, 0, False)
     G = default_spread(lanes, n, ndims, chunk, device, algo + "_mb")
-    if G or lanes == 1:
+    if G:
         return MergedArm(1, G, False)
-    G1 = default_spread(1, n, ndims, chunk, device, algo + "_mb")
-    if G1 and lanes * SPLIT_BLOCKS_PER_LANE <= G1:
-        return MergedArm(1, G1, True)
-    return MergedArm(1, 0, False)
+    G1 = split_spread(lanes, n, ndims, chunk, device, algo + "_mb")
+    return MergedArm(1, G1, G1 > 0)
+
+
+def roll_form_arm(lanes: int, n: int, ndims: int, chunk: int,
+                  device) -> tuple[bool, int, bool]:
+    """The arm of K2 over the trivial plan (RBC's and the channel's
+    solves) of ``lanes`` lanes of ``n`` cells: ``(resident, G,
+    per_lane)``.  ``cg_cuda.roll_arm`` first (the resident arm, then the
+    spread arm with every lane at once); where it answers the chunk grid,
+    ``cg_cuda.split_spread`` may send the lanes one per launch at the G that
+    holds one lane (TCFLarge's 3 velocity lanes of 1,048,576 cells at G =
+    128: a block's chain terms need 262,144 B at G = 32, over its shared
+    memory, and 3 lanes at G = 64 need 192 co-resident blocks).  K2 stops
+    per component, so that is the chunk grid's bits."""
+    res, G = roll_arm(lanes, n, ndims, chunk, device, "bicgstab")
+    if res or G:
+        return res, G, False
+    G = split_spread(lanes, n, ndims, chunk, device, "bicgstab")
+    return False, G, G > 0
 
 
 def check_cluster(cluster: int, chunk: int, arm_ok: bool = True) -> None:
@@ -627,10 +637,16 @@ def _check_operands(b, diag, off, x0, L, chunk):
     return op_per_lane
 
 
-def _launch(diag, off, b, x0, **kw):
-    """One K2 launch over the trivial plan (``launcher``): ``(x,
-    iterations, residual_sum)``."""
-    return launcher(diag, off, b, x0, **kw)()
+def _launch(diag, off, b, x0, per_lane: bool = False, **kw):
+    """K2 over the trivial plan: one launch of ``launcher``, or with
+    ``per_lane`` one launch per lane in turn (``cg_cuda.split_spread``).
+    Returns ``(x, iterations, residual_sum)``."""
+    if not per_lane:
+        return launcher(diag, off, b, x0, **kw)()
+    one = lambda t, l: t if t is None or t.shape[0] == 1 else t[l:l + 1]
+    outs = [launcher(one(diag, l), one(off, l), b[l:l + 1], one(x0, l), **kw)()
+            for l in range(b.shape[0])]
+    return tuple(torch.cat(t) for t in zip(*outs))
 
 
 def launcher(diag, off, b, x0, *, ndims, tol2_sum, maxiter, stall_iters,
@@ -922,7 +938,8 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
     cluster arm or, over a 3D plan, the spread arm; the
     single-super-block form takes 1, and at one lane per block the
     resident arm where a lane fits, ``cg_cuda.default_resident``, else the
-    spread arm where ``cg_cuda.default_spread`` gives G).
+    spread arm where ``cg_cuda.default_spread`` gives G, or one lane per
+    launch where ``cg_cuda.split_spread`` does: ``roll_form_arm``).
     Returns ``(xs, SolveInfo)`` with the info aggregated over components
     (converged = all, iterations = max,
     residual = joint RMSE).  Under ``torch.func.vmap`` the batch folds onto
@@ -958,14 +975,15 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
                                         plan=None if single else plan,
                                         chunk=c, **kw)
         if single:
-            res, G = roll_arm(b.shape[0], n_lane, ndims, c, b.device,
-                              "bicgstab")
-            out = _launch(diag, off, b, x0, ndims=ndims, chunk=c,
+            res, G, per_lane = roll_form_arm(b.shape[0], n_lane, ndims, c,
+                                             b.device)
+            out = _launch(diag, off, b, x0, per_lane, ndims=ndims, chunk=c,
                           resident=res, spread=G, **kw)
-            fused_bicgstab_mb.launches += 1
-            fused_bicgstab_mb.launches_3d += int(ndims == 3)
+            k = b.shape[0] if per_lane else 1  # launches
+            fused_bicgstab_mb.launches += k
+            fused_bicgstab_mb.launches_3d += k * int(ndims == 3)
             fused_bicgstab_mb.resident_launches += int(res)
-            fused_bicgstab_mb.spread_launches += int(G > 0)
+            fused_bicgstab_mb.spread_launches += k * int(G > 0)
         else:
             out = _launch_merged("bicgstab", plan, diag, off, b, x0, per_lane,
                                  chunk=c, cluster=cl, spread=G, **kw)

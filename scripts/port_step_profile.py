@@ -3,7 +3,7 @@
 
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
         [--strips] [--k4] [--batch N] [--cluster C] [--resident 0|1]
-        [--spread 0|1] [--cuda-only] [--warmup 1]
+        [--spread 0|1] [--cuda-only] [--warmup 1] [--generated]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
@@ -23,7 +23,10 @@ and K2 and of K3 and K2-mb over a 3D merged plan (CylinderJet3D)
 (``kineto_results``), with no host operator table: minutes faster on a
 step of hundreds of substeps (Airfoil2D-medium's ~420), whose event tree
 the full profile walks for tens of minutes.  ``--warmup`` sets the steps
-taken before the profiled ones (default 1).  Prints one JSON object:
+taken before the profiled ones (default 1).  ``--generated`` starts from
+the env's generated state (``load_initial_domain=False``) instead of a
+bundled snapshot: for an id whose snapshots the copy does not hold
+(TCFLarge3D).  Prints one JSON object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise (``env_steps_per_s``: envs x steps over that time);
@@ -99,6 +102,7 @@ def main() -> int:
     ap.add_argument("--spread", type=int, choices=(0, 1), default=None)
     ap.add_argument("--cuda-only", action="store_true")
     ap.add_argument("--warmup", type=int, default=1)
+    ap.add_argument("--generated", action="store_true")
     args = ap.parse_args()
     if args.batch and args.strips:
         print("port_step_profile: the batched path runs without the strips",
@@ -141,7 +145,8 @@ def _profile(args) -> int:
         env = stepper.env
         shape = (args.batch,) + tuple(env.action_space.shape)
     else:
-        env = stepper = fluidgym_tpu_torch.make(args.env)
+        env = stepper = fluidgym_tpu_torch.make(
+            args.env, **({"load_initial_domain": False} if args.generated else {}))
         env.reset(seed=0)
         env._cfg = dataclasses.replace(env._cfg,
                                        pressure_coarse_strips=args.strips)

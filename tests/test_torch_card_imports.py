@@ -286,3 +286,31 @@ def test_airfoil_medium_imports_and_steps_without_card_packages():
     """)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "OK" in out.stdout
+
+
+def test_tcf_imports_and_steps_without_card_packages():
+    """TCFSmall3D-both (slice 15) at a tiny size: the channel grid, the curl
+    noise, the forcing hook and the mean windows need none of the refused
+    packages."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        env = fluidgym_tpu_torch.make(
+            "TCFSmall3D-both-easy-v0", device="cpu", resolution_y=9,
+            resolution_x_z=8, actor_size=2, load_initial_domain=False,
+            load_domain_statistics=False, randomize_initial_state=False)
+        obs, _ = env.reset(seed=0)
+        obs, reward, *_ , info = env.step(np.full((32, 1), 0.5, np.float32))
+        assert obs["velocity"].shape == (32, 1, 1, 2)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert np.isfinite(float(info["wall_stress"])) and reward.shape == (32,)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout

@@ -1999,3 +1999,61 @@ def test_airfoil_medium_full_width_step_takes_k3_agg_flip():
     assert bool(info["pressure_converged"])
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
     assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+
+
+# ---------------------------------------------------------------------------
+# the channel flow: K2-3D one lane per launch at TCFLarge's width
+# ---------------------------------------------------------------------------
+
+def test_tcf_large_velocity_solve_one_lane_per_launch_bit_equal_to_chunk_grid():
+    """TCFLarge3D's velocity system as the first substep of a step from the
+    generated state hands it to K2 (3 lanes of (128, 64, 128) = 1,048,576
+    cells, warm from the velocity): no G holds the 3 lanes at once, so
+    ``roll_form_arm`` launches them one at a time at G = 128.  Each lane's
+    raw spread launch equals its lane of the 3-lane chunk grid (x,
+    iterations, residual); the wrapper's x and iterations equal the chunk
+    grid's, twice, and count 3 K2-3D launches on the spread arm;
+    ``pinned_spread(0)`` gives the same x on the chunk grid."""
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    dev = require_cuda()
+    env = fluidgym_tpu_torch.make(
+        "TCFLarge3D-bottom-easy-v0", load_initial_domain=False,
+        load_domain_statistics=False, randomize_initial_state=False)
+    env.reset(seed=0)
+    topo, geoms, state = env._topo, env._geoms, env._state
+    state = piso._run_hooks(env._hooks, "PRE", state)
+    dt = piso._cfl_ts(state, geoms, topo, env._cfg,
+                      torch.tensor(env._cfg.dt, device=dev))
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    rhs = st.advection_rhs_velocity(state, geoms, topo, state.viscosity, dt)
+    shape = topo.blocks[0].shape
+    n = int(np.prod(shape))
+    assert shape == (128, 64, 128) and n == 1_048_576
+    assert cg_cuda_mb.roll_form_arm(3, n, 3, 1, dev) == (False, 128, True)
+    d, o, b, x0 = adv[0].diag, adv[0].off, rhs[0], state.blocks[0].velocity
+    kw = dict(maxiter=5000, stall_iters=250, precondition=True,
+              return_best=False)
+    tol2 = cg_cuda.tol2_sum_f32(1e-6, n)
+    grid = tuple(v.clone() for v in cg_cuda_mb.launcher(
+        d[None], o[None], b, x0, ndims=3, tol2_sum=tol2, chunk=1, **kw)())
+    assert int(grid[1].min()) > 0
+    for lane in range(3):
+        one = cg_cuda_mb.launcher(
+            d[None], o[None], b[lane:lane + 1], x0[lane:lane + 1], ndims=3,
+            tol2_sum=tol2, chunk=1, spread=128, **kw)()
+        assert all(torch.equal(a, c[lane:lane + 1]) for a, c in zip(one, grid))
+    f = cg_cuda_mb.fused_bicgstab_mb
+    plan = block_merge.trivial_plan(topo)
+    for _ in range(2):
+        before = (f.launches_3d, f.spread_launches)
+        xs, info = f(plan, (d,), (o,), (b,), (x0,), tol=1e-6, **kw)
+        torch.cuda.synchronize()
+        assert (f.launches_3d - before[0], f.spread_launches - before[1]) == (3, 3)
+        assert torch.equal(xs[0], grid[0])
+        assert int(info.iterations) == int(grid[1].max())
+    with cg_cuda.pinned_spread(0):
+        before = f.spread_launches
+        xs, _ = f(plan, (d,), (o,), (b,), (x0,), tol=1e-6, **kw)
+        assert f.spread_launches == before
+        assert torch.equal(xs[0], grid[0])

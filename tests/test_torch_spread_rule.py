@@ -464,3 +464,135 @@ def test_cpu_k2_runs_the_plain_version_whatever_the_pin(G, C, warm):
     assert bool(ij.converged) and bool(it.converged)
     assert abs(int(it.iterations) - int(ij.iterations)) <= 2
     assert_rel(xt[0].numpy(), np.asarray(xj[0]), 1e-4, f"C={C} warm={warm}")
+
+
+# ---------------------------------------------------------------------------
+# the channel's solves, and K2's roll form one lane per launch
+# ---------------------------------------------------------------------------
+
+TCF_SMALL = (64, 64, 64)       # TCFSmall3D-*: 262,144 cells
+TCF_LARGE = (128, 64, 128)     # TCFLarge3D-*: 1,048,576 cells
+
+
+def _roll_form(lanes, shape, chunk=None, device=CUDA):
+    n, nd = int(np.prod(shape)), len(shape)
+    c = cg_cuda.default_chunk(lanes, device) if chunk is None else chunk
+    return cg_cuda_mb.roll_form_arm(lanes, n, nd, c, device)
+
+
+@pytest.mark.parametrize("what,lanes,algo,G", [
+    ("K1-3D pressure", 1, "cg", 128),
+    ("K2-3D velocity (3 components)", 3, "bicgstab", 32),
+])
+def test_tcf_small_takes_the_spread_arm_at_once(h100, what, lanes, algo, G):
+    """TCFSmall's (64, 64, 64) lanes fit as RBC3D's do: the pressure at G =
+    128, the 3 velocity lanes together at G = 32, no launch per lane."""
+    assert _arm(lanes, TCF_SMALL, algo) == (False, G), what
+    if algo == "bicgstab":
+        assert _roll_form(lanes, TCF_SMALL) == (False, G, False)
+
+
+def test_tcf_large_velocity_goes_one_lane_per_launch(h100):
+    """TCFLarge's 3 velocity lanes of 1,048,576 cells: a block's chain terms
+    need 262,144 B at G = 32 (over its 224,256 B), and 3 lanes at G = 64 or
+    128 need 192 or 384 co-resident blocks of the card's 132; so no G holds
+    them at once, and the lanes go one per launch at G = 128, where a
+    single lane has its 128 blocks.  The pressure lane takes G = 128 as
+    before; ``pinned_spread(0)`` still pins the chunk grid and a pinned G is
+    taken as given."""
+    n = int(np.prod(TCF_LARGE))
+    assert n == 1_048_576
+    assert cg_cuda.spread_bytes(n, 32) == 262_144
+    assert not cg_cuda.spread_fits(n, 32)
+    assert cg_cuda.spread_fits(n, 64) and cg_cuda.spread_fits(n, 128)
+    assert _arm(3, TCF_LARGE, "bicgstab") == (False, 0)
+    assert cg_cuda.split_spread(3, n, 3, 1, CUDA, "bicgstab") == 128
+    assert _roll_form(3, TCF_LARGE) == (False, 128, True)
+    assert _arm(1, TCF_LARGE, "cg") == (False, 128)
+    assert _roll_form(1, TCF_LARGE) == (False, 128, False)
+    with cg_cuda.pinned_spread(0):
+        assert _roll_form(3, TCF_LARGE) == (False, 0, False)
+        assert cg_cuda.split_spread(3, n, 3, 1, CUDA, "bicgstab") == 0
+    with cg_cuda.pinned_spread(128):
+        assert _roll_form(3, TCF_LARGE) == (False, 128, False)
+    # 17 lanes would leave each fewer than SPLIT_BLOCKS_PER_LANE blocks; a
+    # chunk of several lanes, and the CPU, keep the chunk grid
+    assert cg_cuda.SPLIT_BLOCKS_PER_LANE == 8
+    assert _roll_form(16, TCF_LARGE) == (False, 128, True)
+    assert _roll_form(17, TCF_LARGE) == (False, 0, False)
+    assert _roll_form(3, TCF_LARGE, chunk=3) == (False, 0, False)
+    assert _roll_form(3, TCF_LARGE, device="cpu") == (False, 0, False)
+
+
+@pytest.mark.parametrize("shape,lanes,want", [
+    (RBC3D, 1, (False, 128, False)), (RBC3D, 3, (False, 32, False)),
+    (RBC3D_WIDE, 1, (False, 128, False)), (RBC3D_WIDE, 3, (False, 32, False)),
+    (RBC_WIDE, 2, (False, 32, False)), (RBC, 2, (True, 0, False)),
+    (RBC3D, 5, (False, 128, True)), (RBC3D, 192, (False, 0, False)),
+])
+def test_roll_form_keeps_the_rbc_answers(h100, shape, lanes, want):
+    """RBC3D (K2 at G = 32 for its velocity), RBC3D-wide, RBC2D-wide and
+    RBC2D-easy (resident) keep their answers.  5 lanes of RBC3D, which no G
+    holds at once, go one per launch at G = 128 (5 x 8 <= 128 blocks); a
+    batch of 64 velocity solves keeps the chunk grid."""
+    assert _roll_form(lanes, shape) == want
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_roll_form_per_lane_launches_are_the_chunk_grids_lanes(monkeypatch, warm):
+    """The wrapper's one-lane-per-launch path of K2 over the trivial plan on
+    the host, with the card's pieces stubbed: ``roll_form_arm`` answers
+    ``(False, 128, True)``, the tensors count as the card's, and each
+    launch runs the plain version of the lane it is given.  The wrapper
+    must launch each lane alone at G = 128 (the operator shared), in order,
+    count every launch as K2-3D on the spread arm, and return what the
+    plain version returns for the lanes in chunks of one, bit for bit."""
+    shape = (8, 6, 8)
+    d, o = nonsym_stencil(shape, 3, seed=90)
+    rng = np.random.default_rng(91)
+    b = rng.normal(size=(3,) + shape).astype(np.float32)
+    b[1] *= 1e-3
+    x0 = (0.3 * b).astype(np.float32) if warm else None
+    launched = []
+
+    def launcher(diag, off, b_, x0_, *, ndims, tol2_sum, maxiter, stall_iters,
+                 precondition, return_best, chunk, resident=False, spread=0,
+                 chains=None):
+        launched.append((tuple(b_.shape), diag.shape[0], off.shape[0], chunk,
+                         resident, spread, x0_ is None))
+        return lambda: cg_cuda_mb.fused_bicgstab_plain(
+            diag, off, b_, x0_, ndims=ndims, tol2_sum=tol2_sum, maxiter=maxiter,
+            stall_iters=stall_iters, precondition=precondition,
+            return_best=return_best, chunk=1)
+
+    monkeypatch.setattr(cg_cuda_mb, "roll_form_arm",
+                        lambda *a, **k: (False, 128, True))
+    monkeypatch.setattr(cg_cuda_mb, "device_kind", lambda b_, what: "cuda")
+    monkeypatch.setattr(cg_cuda_mb, "launcher", launcher)
+    f = cg_cuda_mb.fused_bicgstab_mb
+    counters = ("launches", "launches_3d", "spread_launches", "resident_launches")
+    before = [getattr(f, c) for c in counters]
+    T = torch.from_numpy
+    plan = block_merge.trivial_plan(_single_block_topo(shape))
+    kw = dict(maxiter=400, stall_iters=250, precondition=True, return_best=False)
+    xs, info = f(plan, (T(d),), (T(o),), (T(b),),
+                 None if x0 is None else (T(x0),), tol=1e-6, **kw)
+    assert [getattr(f, c) - v for c, v in zip(counters, before)] == [3, 3, 3, 0]
+    assert launched == [((1,) + shape, 1, 1, 1, False, 128, not warm)] * 3
+    xp, ip, rp = cg_cuda_mb.fused_bicgstab_plain(
+        T(d)[None], T(o)[None], T(b), None if x0 is None else T(x0), ndims=3,
+        tol2_sum=cg_cuda.tol2_sum_f32(1e-6, int(np.prod(shape))), chunk=1, **kw)
+    assert torch.equal(xs[0], xp)
+    assert int(info.iterations) == int(ip.max())
+    assert bool(info.converged) == bool((rp <= cg_cuda.tol2_sum_f32(
+        1e-6, int(np.prod(shape)))).all())
+
+
+def _single_block_topo(shape):
+    """The topology of one periodic 3D block of ``shape`` (z, y, x)."""
+    nz, ny, nx = shape
+    grid = geometry.extrude_grid_z(
+        geometry.make_uniform_grid((nx, ny), (0.0, 0.0), (1.0, 1.0)), nz)
+    dom = DomainBuilder(ndims=3, viscosity=0.01)
+    dom.create_block(grid)
+    return dom.build()[0]

@@ -237,6 +237,9 @@ def _dev_kwargs(env_id: str) -> dict:
         if "3D" in env_id:
             kw["n_jets"] = 4
         return kw
+    if env_id.startswith("TCF"):
+        return dict(COMMON, resolution_y=9, resolution_x_z=8, actor_size=2,
+                    step_length=0.6)
     if env_id.startswith("Airfoil"):
         return dict(COMMON, load_initial_domain=True, step_length=0.05,
                     dt=0.05)
@@ -245,8 +248,8 @@ def _dev_kwargs(env_id: str) -> dict:
 
 def test_port_registers_22_ids():
     # 22 ids when this test was written; the airfoil's medium and hard
-    # tiers (the aggregation coarse space) make 24
-    assert len(PORT_IDS) == 24
+    # tiers (the aggregation coarse space) made 24, the 12 TCF ids 36
+    assert len(PORT_IDS) == 36
     assert set(PORT_IDS) <= set(fluidgym_tpu.registry.ids())
 
 
