@@ -106,8 +106,8 @@ Phases, each printed with its elapsed seconds:
    version, ``linsolve`` loop or vmap
    per-lane fallback runs; lanes 0 and 63 against single envs reset from
    the same seeds (see ``BATCH_CASES`` for the bars);
-21. the same for ``CylinderJet2D-easy-v0``, 2 steps: K3 2 and K2-mb 1 per
-   round;
+21. the same for ``CylinderJet2D-easy-v0``, 2 steps, its resets from the
+   bundled snapshot without randomization: K3 2 and K2-mb 1 per round;
 22. batched env-steps/s beside the single env's, measured in the same run;
 23. the cluster arm of K3 and K2-mb (one lane over a thread-block cluster,
    ``csrc/krylov.cuh``): K3, K3-flip, K2-mb and K2-mb-flip at their
@@ -243,7 +243,8 @@ Phases, each printed with its elapsed seconds:
    bound;
 42. ``Airfoil2D-medium-v0`` and ``-hard-v0`` at their registered defaults
    from the bundled ``train_00`` (no randomization): reset and 1 step
-   each; counters zeroed before ``make`` and read after every step: per
+   each, shortened to one sim step (``step_length`` = dt); counters zeroed
+   before ``make`` and read after every step: per
    substep 2 K3-agg-flip and 1 K2-mb-flip launches, every one on the
    cluster arm, no other kernel form, plain version or ``linsolve`` loop;
    obs, reward, drag and lift finite, every pressure solve converged; ms,
@@ -277,7 +278,33 @@ Phases, each printed with its elapsed seconds:
    1 env step (10 sim steps: the channel's dt is a tenth of its step)
    from ``train_01``, no randomization; velocity obs and wall stresses to
    1e-4, pressure obs to 1e-3 (phase 34 found that the host alone moves a
-   3D float32 pressure obs by ~5e-5).
+   3D float32 pressure obs by ~5e-5);
+48. K3-3D-flip and K2-mb-3D-flip (K3 and K2-mb over the 3D merge plan of
+   the Airfoil3D C-grid, whose wake cut reverses x) on the first substep's
+   solves of phase 49 at full width (7,051,776 cells): the spread arm with
+   its chain terms in global memory (no G's terms fit shared memory there;
+   the 3 velocity lanes one per launch) against the plain versions with
+   phase 32's bars, bit-equal to the chunk grid twice, both timed per raw
+   launch in turns at 100 iterations (ms, us per iteration, the bound, the
+   streamed bound, the scratch bytes); the same forms on phase 50's card
+   solves at ``_res_z`` 8 (587,648 cells) on the shared-memory spread arm,
+   bit-equal to the chunk grid; CylinderJet3D-easy's captured 341,568-cell
+   solves with the chain terms pinned to global memory, bit-equal to the
+   shared-memory arm;
+49. ``Airfoil3D-easy-v0`` at its registered defaults but
+   ``load_initial_domain=False`` (no 3D set is bundled: the 2D warm start
+   from ``airfoil_2D_Re1000/train_00``, drawn by seed 23), no
+   randomization and ``step_length`` = dt: ``reset(seed=23)`` and one sim
+   step; per substep 2 K3-3D-flip and 3 K2-mb-3D-flip launches, every one
+   on the spread arm with its chain terms in global memory, no chunk grid,
+   plain version or ``linsolve`` loop; the warm start applied to every
+   block; obs, reward and per-slice drag and lift finite, every pressure
+   solve converged; ms, substeps and iterations;
+50. the card against the host for ``Airfoil3D-easy-v0`` at ``_res_z`` 8:
+   one sim step of 0.01 from ``reset(seed=23)``; velocity obs and reward
+   to 1e-4, pressure obs to 1e-3 (phase 43's bars).
+Phases 48-50 run in the order 49, 50, 48: phase 48 holds the solves the
+other two capture.
 
 Phases 9 and 12 also hold every K3 and K2-mb launch of the single env's
 main path to the cluster arm (``.cluster_launches`` equal to the form
@@ -813,13 +840,15 @@ def _run(dev) -> int:
     _blend_phases(dev, kernels, piso, linsolve)
     _agg_phases(dev, kernels, piso, linsolve)
     _tcf_phases(dev, kernels, compare, piso, linsolve)
+    _airfoil3d_phases(dev, kernels, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "K1", "K2", "K2-mb", "K3", "K3-flip", "K2-mb-flip", "K4", "K3-coarse",
         "K3-coarse-flip", "K1 lanes", "K2 lanes", "K3 lanes", "K2-mb lanes",
-        "K1-3D", "K2-3D", "K3-3D", "K2-mb-3D", "K3-agg-flip")]}),
+        "K1-3D", "K2-3D", "K3-3D", "K2-mb-3D", "K3-agg-flip", "K3-3D-flip",
+        "K2-mb-3D-flip")]}),
         flush=True)
     log(f"total {time.perf_counter() - T0:.1f}s (build {build_s:.1f}s)")
     print(json.dumps({"ok": True, "device": {
@@ -1856,8 +1885,12 @@ BATCH_CASES = (
                     "K2": ("fused_bicgstab_mb", "launches", 2)},
          # every launch on the resident arm (one lane per block)
          resident=("K1", "K2")),
+    # the cylinder from the bundled snapshot without randomization: 64
+    # randomized resets (noise, then uncontrolled sim steps) took 154 s of
+    # a run that must stay under its time limit; the lanes part with their
+    # seeded per-lane actions from the first step on
     dict(env_id="CylinderJet2D-easy-v0", phase=21, steps=2, metric="drag",
-         obs_bar=1e-4, reward_bar=1e-4,
+         obs_bar=1e-4, reward_bar=1e-4, randomize=False,
          per_round={"K3": ("fused_cg_mb", "launches", 2),
                     "K2-mb": ("fused_bicgstab_mb", "merged_launches", 1)}),
 )
@@ -1906,7 +1939,7 @@ def _batched_phase(dev, kernels, piso, linsolve, case) -> dict:
     t = time.perf_counter()
     try:
         benv = BatchedFluidEnv(env_id, BATCH)
-        obs, _ = benv.reset(seed=0)
+        obs, _ = benv.reset(seed=0, randomize=case.get("randomize"))
         torch.cuda.synchronize()
         reset_s = time.perf_counter() - t
         rng = np.random.default_rng(case["phase"])
@@ -1961,7 +1994,7 @@ def _batched_phase(dev, kernels, piso, linsolve, case) -> dict:
     worst, host, single_s, its = {}, {}, [], []
     for l in (0, BATCH - 1):
         env = fluidgym_tpu_torch.make(env_id)
-        env.reset(seed=l)
+        env.reset(seed=l, randomize=case.get("randomize"))
         if l == 0:
             twin = fluidgym_tpu_torch.make(env_id, device="cpu")
             twin.reset(seed=0, randomize=False)
@@ -2247,10 +2280,12 @@ def _capture_solves(dev, env_id, step_length, wrappers,
                          wrappers)
 
 
-def capture_calls(run, wrappers) -> dict:
+def capture_calls(run, wrappers, first: bool = False) -> dict:
     """Every call of the wrappers ``wrappers`` (name -> ``(module,
     attribute)``) while ``run()`` runs, as ``(args, kwargs)`` with the
-    tensors cloned, in order."""
+    tensors cloned, in order; with ``first``, only the first call of each
+    (later calls pass through uncopied: a full-width Airfoil3D sim step
+    makes ~90 calls of ~250 MB of operands each)."""
     seen = {k: [] for k in wrappers}
     def keep(v):
         if isinstance(v, tuple):  # a named tuple keeps its type
@@ -2260,7 +2295,8 @@ def capture_calls(run, wrappers) -> dict:
     fns = {k: getattr(mod, attr) for k, (mod, attr) in wrappers.items()}
     for k, (mod, attr) in wrappers.items():
         def capture(*a, _fn=fns[k], _k=k, **kw):
-            seen[_k].append((keep(a), {n: keep(v) for n, v in kw.items()}))
+            if not (first and seen[_k]):
+                seen[_k].append((keep(a), {n: keep(v) for n, v in kw.items()}))
             return _fn(*a, **kw)
 
         # the wrapper counts its launches on the object its module's name
@@ -3744,8 +3780,11 @@ def _blend_phases(dev, kernels, piso, linsolve) -> None:
 #: 8 x 8 tiles, k = 1,194)
 AGG_IDS = ("Airfoil2D-medium-v0", "Airfoil2D-hard-v0")
 #: phase 42's env steps per id (2 until phases 44-47 took their time: a
-#: medium step is ~60-80 s of host-bound substeps)
+#: medium step is ~60-80 s of host-bound substeps), each shortened to one
+#: sim step (``step_length`` = dt = 0.05, a fifth of the registered step)
+#: since phases 48-50 took theirs
 AGG_STEPS = 1
+AGG_STEP_LENGTH = 0.05
 
 
 def _agg_kernel_phase(dev, kernels) -> None:
@@ -3855,8 +3894,9 @@ def _agg_kernel_phase(dev, kernels) -> None:
 
 def _agg_main_path(dev, kernels, piso, linsolve) -> None:
     """Phase 42: Airfoil2D-medium-v0 and -hard-v0 at their registered
-    defaults from the bundled ``train_00`` (no randomization):
-    ``reset(seed=0)`` and ``AGG_STEPS`` steps with a fixed action.
+    defaults from the bundled ``train_00`` (no randomization), each step
+    shortened to one sim step (``AGG_STEP_LENGTH``): ``reset(seed=0)`` and
+    ``AGG_STEPS`` steps with a fixed action.
     Counters zeroed just before ``make`` and read after each step: in every
     step each substep launches K3-agg-flip twice (its two pressure
     correctors) and K2-mb-flip once, every one on the cluster arm, and no
@@ -3894,7 +3934,8 @@ def _agg_main_path(dev, kernels, piso, linsolve) -> None:
         per_step, step_s, p_its, drags, lifts = [], [], [], [], []
         try:
             t = time.perf_counter()
-            env = fluidgym_tpu_torch.make(env_id, randomize_initial_state=False)
+            env = fluidgym_tpu_torch.make(env_id, randomize_initial_state=False,
+                                          step_length=AGG_STEP_LENGTH)
             env.reset(seed=0)
             torch.cuda.synchronize()
             reset_s = time.perf_counter() - t
@@ -4361,6 +4402,393 @@ def _tcf_default_reset(env_id):
     env.reset(seed=0)
     return env
 
+
+
+# ---------------------------------------------------------------------------
+# phases 48-50: Airfoil3D-easy, the 3D flip forms K3-3D-flip and K2-mb-3D-flip
+# ---------------------------------------------------------------------------
+
+AIRFOIL3D = "Airfoil3D-easy-v0"
+#: the registered config but for two settings: no ``airfoil_3D_*`` set is
+#: bundled (``load_initial_domain=True`` raises), so the reset builds the
+#: flow and warm-starts it from the 2D ``airfoil_2D_Re1000/train_{idx}``
+#: (seed 23 draws idx 0, the one train file the chip copy holds); and no
+#: randomization, whose 6-10 uncontrolled sim steps would take minutes at
+#: 7,051,776 cells
+AIRFOIL3D_KW = dict(load_initial_domain=False, randomize_initial_state=False)
+AIRFOIL3D_SEED = 23
+#: phase 50's span: 8 cells (587,648 in all), whose chain terms fit shared
+#: memory, small enough for the host's plain versions
+AIRFOIL3D_HOST_RES_Z = 8
+#: iterations of phase 48's raw launches at full width (the chunk grid
+#: takes ~20 ms per iteration there): enough for the bit-for-bit check and
+#: the time per iteration
+AIRFOIL3D_RAW_ITERS = 100
+
+
+def _first_solves(run):
+    """``(run(), seen)``: the first call of ``fused_cg_mb`` (``"K3"``) and of
+    ``fused_bicgstab_mb`` (``"K2"``) while ``run()`` runs (the first
+    substep's pressure and velocity solves), captured by
+    ``capture_calls``."""
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    out = []
+    seen = capture_calls(lambda: out.append(run()), {
+        "K3": (cg_cuda_mb, "fused_cg_mb"),
+        "K2": (cg_cuda_mb, "fused_bicgstab_mb")}, first=True)
+    return out[0], {k: v[0] for k, v in seen.items() if v}
+
+
+def _airfoil3d_main_path(dev, piso, linsolve) -> dict:
+    """Phase 49: ``Airfoil3D-easy-v0`` at its registered defaults but
+    ``AIRFOIL3D_KW`` and ``step_length`` = dt (one sim step),
+    ``reset(seed=23)`` and one env step with a seeded action.  Counters
+    zeroed just before ``make`` and read after the reset and the step: per
+    substep 2 K3-3D-flip and 3 K2-mb-3D-flip launches (the velocity lanes
+    one per launch), every one on the spread arm with its chain terms in
+    global memory, no chunk grid, cluster, other kernel form, plain version
+    or ``linsolve`` loop.  The 2D warm start applied to all six blocks (no
+    uniform fallback); obs, reward and per-slice drag and lift finite, every
+    pressure solve converged.  The first substep's solves are captured for
+    phase 48."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    launches, plains = _counters()
+    extra = [(k3, "flip_launches_3d"), (k2, "merged_flip_launches_3d"),
+             (k3, "spread_launches"), (k2, "merged_spread_launches"),
+             (k3, "global_terms_launches"), (k2, "merged_global_terms_launches"),
+             (k3, "cluster_launches"), (k2, "cluster_launches")]
+    calls, restore = count_calls(piso, linsolve)
+
+    def counts():
+        out = {"K3-3D-flip": k3.flip_launches_3d,
+               "K2-mb-3D-flip": k2.merged_flip_launches_3d,
+               "K3 global": k3.global_terms_launches,
+               "K2-mb global": k2.merged_global_terms_launches,
+               "K3 spread": k3.spread_launches,
+               "K2-mb spread": k2.merged_spread_launches,
+               "cluster": k3.cluster_launches + k2.cluster_launches}
+        out["other"] = (sum(getattr(*c) for c in launches)
+                        - k3.flip_launches - k2.merged_flip_launches)
+        out["plain"] = sum(getattr(*c) for c in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["substeps"] = calls["piso_substep_info"]
+        return out
+
+    warned = []
+
+    class Seen(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    handler = Seen(level=logging.WARNING)
+    logging.getLogger("AirfoilEnv3D").addHandler(handler)
+    for c in launches + plains + extra:
+        setattr(*c, 0)
+    torch.cuda.synchronize()
+    warm = {}
+    try:
+        t = time.perf_counter()
+        env = fluidgym_tpu_torch.make(AIRFOIL3D, step_length=0.05, **AIRFOIL3D_KW)
+        apply_2d = env._apply_2d_initial_state
+
+        def recorded(state):
+            out = apply_2d(state)
+            warm["blocks"] = [not torch.equal(a.velocity, b.velocity)
+                              for a, b in zip(out.blocks, state.blocks)]
+            return out
+
+        env._apply_2d_initial_state = recorded
+        obs, _ = env.reset(seed=AIRFOIL3D_SEED)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        reset = counts()
+        cells = sum(math.prod(b.shape) for b in env._topo.blocks)
+        check(cells == 7051776, f"{AIRFOIL3D} has {cells} cells, not 7,051,776")
+        check(warm.get("blocks") == [True] * 6 and not any(
+            "2D" in w for w in warned),
+              f"{AIRFOIL3D}: the 2D warm start did not apply to every block "
+              f"({warm}, warnings {warned})")
+        a = np.random.default_rng(49).uniform(
+            -1, 1, tuple(env.action_space.shape)).astype(np.float32)
+        c0 = counts()
+        t = time.perf_counter()
+        (obs, reward, _, _, info), seen = _first_solves(lambda: env.step(a))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        d = {k: v - c0[k] for k, v in counts().items()}
+    finally:
+        restore()
+        logging.getLogger("AirfoilEnv3D").removeHandler(handler)
+    sub = d["substeps"]
+    expect = {"K3-3D-flip": 2 * sub, "K3 global": 2 * sub, "K3 spread": 2 * sub,
+              "K2-mb-3D-flip": 3 * sub, "K2-mb global": 3 * sub,
+              "K2-mb spread": 3 * sub, "cluster": 0, "other": 0, "plain": 0,
+              "linsolve": 0}
+    check(sub > 0 and all(d[k] == v for k, v in expect.items()),
+          f"{AIRFOIL3D} step: launches {d}, expected {expect}")
+    check(reset["plain"] == 0 and reset["linsolve"] == 0
+          and reset["K3-3D-flip"] == reset["K3 global"] > 0,
+          f"{AIRFOIL3D} reset: launches {reset}")
+    for k, v in obs.items():
+        check(tuple(v.shape) == tuple(env.observation_space[k].shape),
+              f"{AIRFOIL3D} obs {k} shape {tuple(v.shape)}")
+        check(bool(torch.isfinite(v).all()), f"{AIRFOIL3D} obs {k} not finite")
+    cds, cls = info["all_cds"], info["all_cls"]
+    check(tuple(cds.shape) == (96,) and bool(torch.isfinite(cds).all())
+          and bool(torch.isfinite(cls).all())
+          and bool(torch.isfinite(reward).all()),
+          f"{AIRFOIL3D}: reward or per-slice drag / lift not finite")
+    check(bool(info["pressure_converged"].all()),
+          f"{AIRFOIL3D}: a pressure solve did not converge "
+          f"(residual {float(info['pressure_residual'].max()):.3e})")
+    check(set(seen) == {"K3", "K2"}, f"{AIRFOIL3D}: solves captured {set(seen)}")
+    r = dict(cells=cells, reset_s=reset_s, ms_step=1e3 * step_s, substeps=sub,
+             pressure_iterations=int(info["pressure_iterations"]),
+             pressure_converged=bool(info["pressure_converged"].all()),
+             drag=float(info["drag"]), lift=float(info["lift"]),
+             reset_launches={k: reset[k] for k in ("K3-3D-flip", "K2-mb-3D-flip")},
+             step_launches={k: d[k] for k in ("K3-3D-flip", "K2-mb-3D-flip")},
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"phase 49 {AIRFOIL3D} {[b.shape for b in env._topo.blocks]} = {cells} "
+        f"cells (SARL, {env.n_agents} segments; 2D warm start from train_00): "
+        f"reset {reset_s:.2f}s (launches {r['reset_launches']}), 1 sim step "
+        f"{step_s:.3f} s, substeps {sub}, pressure iterations "
+        f"{r['pressure_iterations']} (converged), drag {r['drag']:.5f}, lift "
+        f"{r['lift']:.5f}, launches {d}; every K3-3D-flip / K2-mb-3D-flip "
+        f"launch on the spread arm with its chain terms in global memory; peak "
+        f"device memory {r['peak_gb']:.2f} GB")
+    return dict(r, seen=seen)
+
+
+def _airfoil3d_card_vs_host(dev) -> dict:
+    """Phase 50: ``Airfoil3D-easy-v0`` with ``_res_z`` = 8 (587,648 cells),
+    ``AIRFOIL3D_KW``, one sim step of 0.01 (``step_length`` = dt = 0.01)
+    from ``reset(seed=23)`` on the card and on the host: velocity obs and
+    reward within 1e-4, pressure obs within 1e-3 (phase 43's bars).  The
+    card's first substep solves are captured for phase 48."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.envs.airfoil.airfoil_env_3d import AirfoilEnv3D
+
+    t = time.perf_counter()
+    outs, its, seen = {}, {}, {}
+    span = AirfoilEnv3D._res_z
+    AirfoilEnv3D._res_z = AIRFOIL3D_HOST_RES_Z
+    try:
+        for where, side in ((dev, "card"), (torch.device("cpu"), "host")):
+            e = fluidgym_tpu_torch.make(AIRFOIL3D, device=where,
+                                        load_domain_statistics=False,
+                                        step_length=0.01, dt=0.01,
+                                        **AIRFOIL3D_KW)
+            e.reset(seed=AIRFOIL3D_SEED)
+            cells = sum(math.prod(b.shape) for b in e._topo.blocks)
+            a = np.linspace(-0.8, 0.8, 12, dtype=np.float32).reshape(4, 3)
+            if side == "card":
+                (o, r, _, _, info), seen = _first_solves(lambda: e.step(a))
+            else:
+                o, r, _, _, info = e.step(a)
+            outs[side] = {k: v.cpu() for k, v in dict(o, reward=r).items()}
+            its[side] = int(info["pressure_iterations"])
+    finally:
+        AirfoilEnv3D._res_z = span
+    og, oc = outs["card"], outs["host"]
+    diffs = {k: float((og[k] - oc[k]).abs().max()
+                      / oc[k].abs().max().clamp(min=1e-30)) for k in og}
+    bars = {"velocity": 1e-4, "reward": 1e-4, "pressure": 1e-3}
+    log(f"phase 50 {AIRFOIL3D} at _res_z {AIRFOIL3D_HOST_RES_Z} ({cells} cells), "
+        f"1 sim step of 0.01 from reset(seed={AIRFOIL3D_SEED}) (pressure "
+        f"iterations {its}), card vs host: relative diffs {diffs} (bars "
+        f"{bars}) in {time.perf_counter() - t:.2f}s")
+    check(all(v <= bars[k] for k, v in diffs.items()),
+          f"card and host disagree on {AIRFOIL3D}: {diffs}")
+    check(set(seen) == {"K3", "K2"}, f"res_z 8: solves captured {set(seen)}")
+    return dict(diffs=diffs, pressure_iterations=its, seen=seen)
+
+
+def _flip3d_system(name, algo, sy, key, global_terms, raw_iters=None) -> dict:
+    """One captured 3D flip solve (``merged_system``): the wrapper (the
+    rule's arm) against the plain version, then the chunk grid and the
+    spread arm at the rule's G (one launch per lane where the rule sends
+    the lanes one per launch), its chain terms in global memory or not,
+    bit for bit twice and per raw launch in turns; ``raw_iters`` caps the
+    raw launches' iterations (the chunk grid's time at full width)."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    dev = torch.device("cuda")
+    plan, diags, offs, bs, x0s, tol, kw = _captured_lanes(sy, key)
+    L = bs[0].shape[0]
+    n = sum(math.prod(sb.shape) for sb in plan.superblocks)
+    check(plan.ndims == 3 and not plan.identity_seams
+          and L == (1 if algo == "cg" else 3),
+          f"the captured {name} solve is not the {L}-lane 3D flip solve")
+    arm = cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo)
+    G = arm.spread
+    check(G > 0 and arm.cluster == 1, f"{name}: merged_arm {arm} takes no "
+          "spread arm")
+    one = 1 if arm.per_lane else L
+    check(cg_cuda.spread_global_terms(one, n, 3) == global_terms,
+          f"{name}: the rule keeps the chain terms "
+          f"{'in shared' if global_terms else 'in global'} memory")
+    rkw = dict(kw, maxiter=raw_iters) if raw_iters else kw
+    where = "global" if global_terms else "shared"
+
+    def arms(diag, off, b, x0, t2):
+        def mk(sl, G):
+            one_ = lambda t: t if t is None or t.shape[0] == 1 else t[sl]
+            return cg_cuda_mb.merged_launcher(
+                algo, plan, one_(diag), one_(off), b[sl], one_(x0),
+                tol2_sum=t2, chunk=1, spread=G, **rkw)
+        if not arm.per_lane:
+            return {"grid": mk(slice(None), 0),
+                    f"G={G} {where}": mk(slice(None), G)}
+        lanes = [mk(slice(l, l + 1), G) for l in range(L)]
+        return {"grid": mk(slice(None), 0),
+                f"G={G} {where} one lane per launch": lambda: tuple(
+                    torch.cat(t) for t in zip(*[f() for f in lanes]))}
+
+    rel, it_tol = (1e-3, 3) if algo == "cg" else (1e-4, 2)
+    r = merged_system(f"{name} ({L}, {n})", algo, plan, diags, offs, bs, x0s,
+                      tol, kw, arms, rel, it_tol, 1 if raw_iters else 3)
+    rule = [k for k in r["raw_ms"] if k != "grid"][0]
+    raw, grid = r["raw_ms"][rule], r["raw_ms"]["grid"]
+    raw_its = min(r["iterations"], raw_iters) if raw_iters else r["iterations"]
+    scratch = (L * G * cg_cuda.spread_bytes(n, G) if global_terms else 0)
+    b_raw, by_raw, stream_raw = bound_ms(n, L, 3, raw_its, algo,
+                                         x0s is not None, True,
+                                         _seam_cells(plan))
+    r.update(rule=rule, G=G, per_lane=arm.per_lane, raw_ms_rule=raw,
+             raw_ms_grid=grid, raw_iterations=raw_its,
+             us_per_it=raw * 1e3 / max(raw_its, 1),
+             us_per_it_grid=grid * 1e3 / max(raw_its, 1),
+             raw_bound_ms=b_raw, raw_stream_ms=stream_raw,
+             scratch_bytes=scratch, global_terms=global_terms)
+    log(f"  {name} ({L}, {n}): {r['ms']:.3f} ms per wrapper call at "
+        f"{r['iterations']} iterations (plain {r['plain_ms']:.3f} ms; bound "
+        f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, streaming "
+        f"{r['stream_ms'] * 1e3:.3f} us); raw launch {rule} {raw:.3f} ms = "
+        f"{r['us_per_it']:.2f} us/iteration, chunk grid {grid:.3f} ms = "
+        f"{r['us_per_it_grid']:.2f} ({grid / raw:.2f}x) at {raw_its} "
+        f"iterations, bit-equal twice; chain-term scratch {scratch} B")
+    return r
+
+
+def _airfoil3d_kernel_phase(dev, kernels, full, small) -> None:
+    """Phase 48: K3-3D-flip and K2-mb-3D-flip on the first substep's solves
+    of phase 49 (full width, 7,051,776 cells): the wrapper (the spread arm,
+    chain terms in global memory) against the plain version with phase
+    32's bars and the same converged flags; the arm bit-equal to the chunk
+    grid twice, both timed per raw launch in turns at ``AIRFOIL3D_RAW_ITERS``
+    iterations: ms, us per iteration, the bound, the streamed bound and the
+    scratch bytes.  The same forms on phase 50's card solves at ``_res_z``
+    8 (587,648 cells), whose terms fit: the shared-memory spread arm
+    bit-equal to the chunk grid.  And CylinderJet3D-easy's captured
+    341,568-cell solves with the chain terms pinned to global memory
+    (``cg_cuda.pinned_global_terms``): bit-equal to the shared-memory
+    spread arm twice, both timed in turns."""
+    import torch
+
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t0 = time.perf_counter()
+    rows = {}
+    for key, algo, name in (("K3", "cg", "K3-3D-flip"),
+                            ("K2", "bicgstab", "K2-mb-3D-flip")):
+        sy = {k: v for k, v in full["seen"].items()}
+        rows[name] = {"full": _flip3d_system(name, algo, sy, key, True,
+                                             AIRFOIL3D_RAW_ITERS)}
+        rows[name]["res_z 8"] = _flip3d_system(name, algo, small["seen"], key,
+                                               False)
+    # the pin on CylinderJet3D-easy: global against shared memory
+    sy = _captured_merged(dev, CYL3D_EASY)
+    pinned = {}
+    for key, algo, name in (("K3", "cg", "K3-3D"), ("K2", "bicgstab", "K2-mb-3D")):
+        plan, diags, offs, bs, x0s, tol, kw = _captured_lanes(sy, key)
+        diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+        b = cg_cuda_mb.flatten_fields(plan, bs)
+        x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
+        L, n = b.shape
+        G = cg_cuda_mb.merged_arm(L, n, 3, 1, torch.device("cuda"), algo).spread
+        with cg_cuda.pinned_global_terms(True):
+            check(cg_cuda.spread_global_terms(L, n, 3),
+                  "the pin does not put the chain terms in global memory")
+        t2 = cg_cuda.tol2_sum_f32(tol, n)
+        mk = lambda gt: cg_cuda_mb.merged_launcher(
+            algo, plan, diag, off, b, x0, tol2_sum=t2, chunk=1, spread=G,
+            global_terms=gt, **kw)
+        turns = arms_in_turns(torch, {f"G={G} shared": mk(False),
+                                      f"G={G} global (pinned)": mk(True)}, 5)
+        ms = turns["raw_ms"]
+        pinned[name] = dict(cells=n, lanes=L, G=G,
+                            iterations=turns["iterations"], raw_ms=ms,
+                            scratch_bytes=L * G * cg_cuda.spread_bytes(n, G))
+        log(f"  {name} on {CYL3D_EASY}'s captured solve ({L}, {n}) at G = {G}: "
+            f"chain terms in global memory (pinned) bit-equal to shared memory "
+            f"twice; per raw launch {ms} ms at {turns['iterations']} "
+            f"iterations")
+    for name, algo_src, rep in (("K3-3D-flip", "cg.cu", 284),
+                                ("K2-mb-3D-flip", "bicgstab_mb.cu", 458)):
+        r = rows[name]["full"]
+        what = "Jacobi-PCG" if name.startswith("K3") else "right-Jacobi BiCGStab"
+        kernels[name] = dict(
+            name=f"{name} ({what}, 3D merged frame with the reflected wake "
+                 f"cut, periodic z; the spread arm {r['rule']}, chain terms "
+                 "in global memory)",
+            route="cuda",
+            source=f"fluidgym_tpu_torch/csrc/{algo_src} + "
+                   "fluidgym_tpu_torch/csrc/merged.cuh + "
+                   "fluidgym_tpu_torch/csrc/krylov.cuh",
+            replaces=f"fluidgym_tpu/ops/cg_pallas_mb.py:{rep}",
+            max_abs_err=max(v["max_abs_err"] for v in rows[name].values()),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, stream_ms=r["stream_ms"],
+            iterations=r["iterations"], shape=f"({r['lanes']}, {r['cells']})",
+            arm=r["rule"], raw_ms=r["raw_ms_rule"],
+            raw_iterations=r["raw_iterations"], us_per_it=r["us_per_it"],
+            raw_ms_grid=r["raw_ms_grid"], us_per_it_grid=r["us_per_it_grid"],
+            raw_bound_ms=r["raw_bound_ms"], raw_stream_ms=r["raw_stream_ms"],
+            scratch_bytes=r["scratch_bytes"],
+            res_z_8={x: rows[name]["res_z 8"][x] for x in (
+                "cells", "iterations", "ms", "plain_ms", "rule", "raw_ms_rule",
+                "raw_ms_grid", "us_per_it", "us_per_it_grid", "bound_ms",
+                "bound_by", "stream_ms", "max_abs_err")},
+            pinned_on_cylinder3d_easy=pinned[name[:-5]])
+    log(f"phase 48 K3-3D-flip and K2-mb-3D-flip ok: the spread arm with its "
+        f"chain terms in global memory bit-equal to the chunk grid at "
+        f"7,051,776 cells and to the shared-memory spread arm at 341,568; the "
+        f"shared-memory arm bit-equal to the chunk grid at 587,648, in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def _airfoil3d_phases(dev, kernels, piso, linsolve) -> None:
+    """Phases 48-50, run as 49, 50, 48: the full-width main path (49) and
+    the card against the host at ``_res_z`` 8 (50) capture the first
+    substep's solves that phase 48 holds against the plain versions and
+    the chunk grid, so their launches stay out of phase 49's counts."""
+    full = _airfoil3d_main_path(dev, piso, linsolve)
+    small = _airfoil3d_card_vs_host(dev)
+    _airfoil3d_kernel_phase(dev, kernels, full, small)
+    for name in ("K3-3D-flip", "K2-mb-3D-flip"):
+        kernels[name].update(
+            launches=full["step_launches"][name],
+            launches_per_env_step=full["step_launches"][name],
+            main_path={x: full[x] for x in (
+                "cells", "reset_s", "ms_step", "substeps",
+                "pressure_iterations", "pressure_converged", "drag", "lift",
+                "reset_launches", "peak_gb")},
+            card_vs_host=small["diffs"])
 
 if __name__ == "__main__":
     try:

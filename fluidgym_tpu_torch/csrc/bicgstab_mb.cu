@@ -88,7 +88,12 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!SPREAD || (!CLUSTER && !RESIDENT && (!TABLE || ND == 3)),
                 "spread arm: K2 over the trivial plan, and over a 3D merged "
                 "plan");
-  constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
+  static_assert(SPREAD != FG_ARM_CHAINS_GLOBAL || (TABLE && ND == 3),
+                "chain terms in global memory: K2-mb over a 3D plan");
+  constexpr int ARM = SPREAD == FG_ARM_CHAINS_GLOBAL ? FG_ARM_CHAINS
+                     : SPREAD                        ? SPREAD
+                     : CLUSTER                       ? FG_ARM_CLUSTER
+                                                     : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
@@ -134,7 +139,8 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     L.slot = s_chain;
     __syncthreads();
   }
-  if constexpr (SPREAD) L.buf = s_rows;  // the chain terms alone
+  // the chain terms alone, in shared or global memory
+  if constexpr (SPREAD) L.buf = fg_spread_buf<SPREAD>(sp, s_rows, n);
   // the resident arm (one lane, chunk 1): the lane's rows, the two gathered
   // vectors p_hat and s_hat, and r and v (the own-cell vectors read most)
   // in shared memory for the whole solve
@@ -379,7 +385,8 @@ extern "C" int fg_bicgstab_solve(const float* b, const float* diag,
 extern "C" int fg_bicgstab_spread_capacity(int ndims, int spread, int chains,
                                            int n, int* out) {
   if ((ndims != 2 && ndims != 3) || !fg_spread_ok(spread) ||
-      !fg_spread_layout_ok(ndims, chains))
+      !fg_spread_layout_ok(ndims, chains) ||
+      chains == FG_CHAINS_GLOBAL)
     return (int)cudaErrorInvalidValue;
   return (int)fg_resident_blocks(
       fg_bicg_roll_kernel(ndims, 0, spread, chains),
@@ -392,13 +399,16 @@ extern "C" int fg_bicgstab_spread_capacity(int ndims, int spread, int chains,
 // lane's dot products are joint over the super-blocks.  Semantics as above.
 // `cluster`, `spread`, `chains`, `bar` and `slot` as in cg.cu
 // fg_cg_mb_solve: 1 and 0 is the chunk grid, C in 2, 4, 8, 16 (chunk 1) the
-// cluster arm, G in 32, 64, 128 (chunk 1, a 3D plan) the spread arm.
+// cluster arm, G in 32, 64, 128 (chunk 1, a 3D plan) the spread arm (its
+// chain terms in global memory with `chains` = FG_CHAINS_GLOBAL).
 static FgBicgKernel fg_bicg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_bicg_kernel<2, true, true>
                     : fg_bicg_kernel<3, true, true>;
 }
 
 static FgBicgKernel fg_bicg_mb_spread_kernel(int chains) {
+  if (chains == FG_CHAINS_GLOBAL)
+    return fg_bicg_kernel<3, true, false, false, FG_ARM_CHAINS_GLOBAL>;
   return chains ? fg_bicg_kernel<3, true, false, false, FG_ARM_CHAINS>
                 : fg_bicg_kernel<3, true, false, false, FG_ARM_RANGE>;
 }
@@ -424,10 +434,10 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
   if (spread)
     return (int)fg_launch_spread(
         fg_bicg_mb_spread_kernel(chains), lanes, spread,
-        fg_spread_bytes(n, spread), bar, s, b, diag, off, nbr, x0, x, iters,
-        rs, r, rhat, p, phat, v, shat, t, best, lanes, 1, g, op_per_lane,
-        tol2, maxiter, stall_iters, precondition, return_best, warm_start,
-        FgSpread{bar, reinterpret_cast<float2*>(slot), spread});
+        fg_spread_smem(n, spread, chains), bar, s, b, diag, off, nbr, x0, x,
+        iters, rs, r, rhat, p, phat, v, shat, t, best, lanes, 1, g,
+        op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+        warm_start, fg_spread_mem(bar, slot, lanes, spread, chains));
   if (cluster > 1) {
     return (int)fg_launch_clusters(
         fg_bicg_cluster_kernel(ndims), lanes, cluster,
@@ -458,7 +468,7 @@ extern "C" int fg_bicgstab_mb_spread_capacity(int ndims, int spread,
       !fg_spread_layout_ok(ndims, chains))
     return (int)cudaErrorInvalidValue;
   return (int)fg_resident_blocks(fg_bicg_mb_spread_kernel(chains),
-                                 fg_spread_bytes(n, spread), out);
+                                 fg_spread_smem(n, spread, chains), out);
 }
 
 // How many C-block clusters of K2-mb's cluster arm the card holds at once,

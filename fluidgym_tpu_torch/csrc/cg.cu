@@ -380,9 +380,14 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!SPREAD || (!COARSE && !CLUSTER && !RESIDENT &&
                             (!TABLE || ND == 3)),
                 "spread arm: K1, and K3 over a 3D plan");
+  static_assert(SPREAD != FG_ARM_CHAINS_GLOBAL || (TABLE && ND == 3),
+                "chain terms in global memory: K3 over a 3D plan");
   static_assert(!AGG || (COARSE && TABLE && ND == 2 && !RESIDENT && !SPREAD),
                 "K3-agg: the merged frame in 2D");
-  constexpr int ARM = SPREAD ? SPREAD : CLUSTER ? FG_ARM_CLUSTER : FG_ARM_BLOCK;
+  constexpr int ARM = SPREAD == FG_ARM_CHAINS_GLOBAL ? FG_ARM_CHAINS
+                     : SPREAD                        ? SPREAD
+                     : CLUSTER                       ? FG_ARM_CLUSTER
+                                                     : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
@@ -428,7 +433,8 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     L.slot = s_chain;
     __syncthreads();
   }
-  if constexpr (SPREAD) L.buf = s_rows;  // the chain terms alone
+  // the chain terms alone, in shared or global memory
+  if constexpr (SPREAD) L.buf = fg_spread_buf<SPREAD>(sp, s_rows, n);
   // the coarse vectors: K3-coarse's static arrays, or K3-agg's 2 K floats
   // after the cluster arm's rows and chain terms (fg_agg_bytes)
   float* rc_buf = s_rc;
@@ -700,7 +706,8 @@ extern "C" int fg_cg_solve(const float* b, const float* diag, const float* off,
 extern "C" int fg_cg_spread_capacity(int ndims, int spread, int chains, int n,
                                      int* out) {
   if ((ndims != 2 && ndims != 3) || !fg_spread_ok(spread) ||
-      !fg_spread_layout_ok(ndims, chains))
+      !fg_spread_layout_ok(ndims, chains) ||
+      chains == FG_CHAINS_GLOBAL)
     return (int)cudaErrorInvalidValue;
   return (int)fg_resident_blocks(fg_cg_roll_kernel(ndims, 0, spread, chains),
                                  fg_spread_bytes(n, spread), out);
@@ -718,13 +725,18 @@ extern "C" int fg_cg_spread_capacity(int ndims, int spread, int chains, int n,
 // fails); `spread` = G in 32, 64, 128 (chunk 1, cluster 1, a 3D plan):
 // the spread arm as K1's, the rows and the table read from L2, `chains`,
 // `bar` and `slot` as in fg_cg_solve (a grid the card cannot hold at once
-// is refused).
+// is refused), and `chains` = FG_CHAINS_GLOBAL the chains layout with its
+// chain terms in global memory, after the slots in `slot` (lanes x 2 x
+// 1024 float2, then lanes x G x fg_chain_floats(n, G) floats): no dynamic
+// shared memory, for a lane whose terms no block's shared memory holds.
 static FgCgKernel fg_cg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_cg_kernel<2, true, false, true>
                     : fg_cg_kernel<3, true, false, true>;
 }
 
 static FgCgKernel fg_cg_mb_spread_kernel(int chains) {
+  if (chains == FG_CHAINS_GLOBAL)
+    return fg_cg_kernel<3, true, false, false, false, FG_ARM_CHAINS_GLOBAL>;
   return chains ? fg_cg_kernel<3, true, false, false, false, FG_ARM_CHAINS>
                 : fg_cg_kernel<3, true, false, false, false, FG_ARM_RANGE>;
 }
@@ -747,10 +759,10 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
   if (spread)
     return (int)fg_launch_spread(
         fg_cg_mb_spread_kernel(chains), lanes, spread,
-        fg_spread_bytes(n, spread), bar, s, b, diag, off, nbr, x0, x, iters,
-        rs, r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter,
+        fg_spread_smem(n, spread, chains), bar, s, b, diag, off, nbr, x0, x,
+        iters, rs, r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter,
         stall_iters, precondition, return_best, warm_start, FgCoarse{},
-        FgSpread{bar, reinterpret_cast<float2*>(slot), spread});
+        fg_spread_mem(bar, slot, lanes, spread, chains));
   if (cluster > 1) {
     return (int)fg_launch_clusters(
         fg_cg_cluster_kernel(ndims), lanes, cluster,
@@ -782,7 +794,7 @@ extern "C" int fg_cg_mb_spread_capacity(int ndims, int spread, int chains,
       !fg_spread_layout_ok(ndims, chains))
     return (int)cudaErrorInvalidValue;
   return (int)fg_resident_blocks(fg_cg_mb_spread_kernel(chains),
-                                 fg_spread_bytes(n, spread), out);
+                                 fg_spread_smem(n, spread, chains), out);
 }
 
 // How many C-block clusters of K3's cluster arm (ndims, over n cells) the

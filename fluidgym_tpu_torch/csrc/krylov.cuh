@@ -205,7 +205,12 @@ __device__ __forceinline__ float fg_apply(const FgRows& R,
 //                   rows (and the neighbour table) read from global memory
 //                   (L2);
 //   FG_ARM_CHAINS   the same launch (2D or 3D), each block the cells of its
-//                   sum chains (below) instead of a range.
+//                   sum chains (below) instead of a range; its chain terms
+//                   in dynamic shared memory, or (the kernels' SPREAD =
+//                   FG_ARM_CHAINS_GLOBAL, 3D merged forms) in a scratch
+//                   buffer in global memory, for lanes whose terms no
+//                   block's shared memory holds (Airfoil3D's 7,051,776
+//                   cells: 440,768 B per block at G = 128).
 // In every arm the per-cell arithmetic is the one-block form's, and every
 // dot product is the one-block form's sum, bit for bit (fg_lane_sum2), so
 // every block holds the same bits of every scalar and takes the same
@@ -221,6 +226,15 @@ __device__ __forceinline__ float fg_apply(const FgRows& R,
 #define FG_ARM_CLUSTER 1
 #define FG_ARM_RANGE 2
 #define FG_ARM_CHAINS 3
+// the kernels' SPREAD for FG_ARM_CHAINS with the chain terms in global
+// memory (entries: `chains` = FG_CHAINS_GLOBAL)
+#define FG_ARM_CHAINS_GLOBAL 4
+
+// the spread arm's layouts, the entries' `chains`: a contiguous range, the
+// sum chains with their terms in shared memory, or in global memory
+#define FG_CHAINS_RANGE 0
+#define FG_CHAINS_SHARED 1
+#define FG_CHAINS_GLOBAL 2
 
 // cells per block of a lane over C blocks in a range arm (ops/cg_cuda.py
 // `block_ranges` mirrors it)
@@ -254,6 +268,11 @@ __host__ __device__ inline size_t fg_spread_bytes(int n, int G) {
   return (size_t)fg_chain_floats(n, G) * 4;
 }
 
+// the same for a layout: none where the terms live in global memory
+inline size_t fg_spread_smem(int n, int G, int chains) {
+  return chains == FG_CHAINS_GLOBAL ? 0 : fg_spread_bytes(n, G);
+}
+
 // A blocks-per-lane count the spread arm takes: 32, 64 or 128 (a power of
 // two, so a block's chains are T/G of them), one lane per G blocks.
 inline bool fg_spread_ok(int G) { return G == 32 || G == 64 || G == 128; }
@@ -261,12 +280,40 @@ inline bool fg_spread_ok(int G) { return G == 32 || G == 64 || G == 128; }
 // The spread arm's memory in global memory, allocated by the wrapper:
 // `bar` (lanes) the arrivals at each lane's barrier, zeroed on the stream
 // before every launch (fg_launch_spread); `slot` (lanes, 2, T) each lane's
-// chains of its current sum, two buffers used in turns.
+// chains of its current sum, two buffers used in turns; `terms` (the
+// FG_CHAINS_GLOBAL layout, else null) every block's chain terms,
+// fg_chain_floats(n, G) floats per block in grid order, right after the
+// slots in the wrapper's buffer (fg_spread_mem).
 struct FgSpread {
   unsigned* bar;
   float2* slot;
   int G;
+  float* terms;
 };
+
+// The spread arm's global memory from the entries' `bar` and `slot`
+// buffers: the FG_CHAINS_GLOBAL layout's terms follow the lanes' slots.
+inline FgSpread fg_spread_mem(unsigned* bar, float* slot, int lanes, int G,
+                              int chains) {
+  float2* s2 = reinterpret_cast<float2*>(slot);
+  return FgSpread{bar, s2, G,
+                  chains == FG_CHAINS_GLOBAL
+                      ? reinterpret_cast<float*>(s2 + (size_t)lanes * 2 *
+                                                          FG_THREADS)
+                      : nullptr};
+}
+
+// Where a spread-arm block keeps its chain terms (L.buf): its dynamic
+// shared memory, or (FG_ARM_CHAINS_GLOBAL) its part of `terms`.  Only the
+// block writes and reads its part, a block barrier between, so the global
+// form runs the shared form's arithmetic in the same order.
+template <int SPREAD>
+__device__ __forceinline__ float* fg_spread_buf(const FgSpread& sp,
+                                                float* smem, int n) {
+  if constexpr (SPREAD == FG_ARM_CHAINS_GLOBAL)
+    return sp.terms + (size_t)blockIdx.x * fg_chain_floats(n, sp.G);
+  else return smem;
+}
 
 // One block's view of its lane: what stays live over the solve (fg_chains
 // forms the rest where a sum needs it, as registers are what a 1024-thread
@@ -571,8 +618,12 @@ inline bool fg_resident_ok(int n, int nd, int chunk) {
 }
 
 // whether the spread arm has a layout for ndims: the range layout is built
-// for 3D only (the rule picks it only for lanes of 524,288 cells and more)
+// for 3D only (the rule picks it only for lanes of 524,288 cells and more),
+// and so are the chains with their terms in global memory (the roll forms
+// refuse that layout: fg_roll_args_ok)
 inline bool fg_spread_layout_ok(int ndims, int chains) {
+  if (chains < FG_CHAINS_RANGE || chains > FG_CHAINS_GLOBAL) return false;
+  if (chains == FG_CHAINS_GLOBAL) return ndims == 3;
   return ndims == 3 || (ndims == 2 && chains);
 }
 
@@ -586,7 +637,8 @@ inline bool fg_roll_args_ok(int lanes, int chunk, int resident, int spread,
     return false;
   if (resident && (spread || !fg_resident_ok(n, ndims, chunk))) return false;
   return !spread || (fg_spread_ok(spread) && chunk == 1 && bar != nullptr &&
-                     slot != nullptr && fg_spread_layout_ok(ndims, chains));
+                     slot != nullptr && fg_spread_layout_ok(ndims, chains) &&
+                     chains != FG_CHAINS_GLOBAL);
 }
 
 // The same for the merged-frame entries (K3 in cg.cu, K2-mb in

@@ -1,8 +1,9 @@
 """Environment families and registration.  This port registers the 12
 RBC ids (2D and 3D), the three CylinderJet2D ids, the three CylinderRot2D
-ids, the three CylinderJet3D ids, the 12 TCF ids and the three Airfoil2D
-ids: 36 of the JAX package's 39 ids, with the same merged defaults; the
-Airfoil3D ids follow in a later slice."""
+ids, the three CylinderJet3D ids, the 12 TCF ids, the three Airfoil2D ids
+and Airfoil3D-easy: 37 of the JAX package's 39 ids, with the same merged
+defaults.  Airfoil3D-medium and -hard (Re >= 3000) need the 3D aggregation
+coarse space of the pressure solve and are not registered."""
 
 from fluidgym_tpu_torch.envs.fluid_env import EnvState, FluidEnv
 from fluidgym_tpu_torch.registry import register
@@ -88,7 +89,8 @@ def _register_tcf() -> None:
 
 def _register_airfoil() -> None:
     from fluidgym_tpu_torch.envs.airfoil import (
-        AIRFOIL_2D_DEFAULT_CONFIG, AirfoilEnv2D)
+        AIRFOIL_2D_DEFAULT_CONFIG, AIRFOIL_3D_DEFAULT_CONFIG, AirfoilEnv2D,
+        AirfoilEnv3D)
 
     register("Airfoil2D-easy-v0", AirfoilEnv2D, AIRFOIL_2D_DEFAULT_CONFIG,
              reynolds_number=1e3)
@@ -96,6 +98,8 @@ def _register_airfoil() -> None:
              reynolds_number=3e3)
     register("Airfoil2D-hard-v0", AirfoilEnv2D, AIRFOIL_2D_DEFAULT_CONFIG,
              reynolds_number=5e3)
+    register("Airfoil3D-easy-v0", AirfoilEnv3D, AIRFOIL_3D_DEFAULT_CONFIG,
+             reynolds_number=1e3)
 
 
 _register_rbc()

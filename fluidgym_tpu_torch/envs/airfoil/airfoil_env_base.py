@@ -1,5 +1,5 @@
 """Base class of the NACA 0012 airfoil flow environments (counterpart of
-``fluidgym_tpu/envs/airfoil/airfoil_env_base.py``, 2D).
+``fluidgym_tpu/envs/airfoil/airfoil_env_base.py``), 2D and 3D.
 
 * 6-block C-grid around a NACA 0012 at 0-20 degrees attack angle
   (``grid.py``), merged into 3 super-blocks whose wake cut is a reflected
@@ -7,8 +7,8 @@
 * parabolic inflow, convective outflow on the two tail blocks' +x faces by
   a PRE hook, flux balancing folded into the action application;
 * solver preset: adaptive substeps, non-orthogonal corrections, advection
-  tol 1e-6, pressure tol 1e-7, FD corrector, pressure warm start with
-  deflation, ``make_divergence_free`` at initialization;
+  tol 1e-6, pressure tol 1e-7 (2D) / 1e-8 (3D), FD corrector, pressure
+  warm start with deflation, ``make_divergence_free`` at initialization;
 * wake + surface sensor cloud filtered by the airfoil mask;
 * three synthetic jets on the upper surface at chord 0.2/0.4/0.6, parabolic
   profiles along the local wall normal, zero-mean action;
@@ -23,7 +23,14 @@ takes the upwind blend 0.3 and the pressure solve the aggregation coarse
 space of 8 x 8 tiles (``pressure_coarse_tile``,
 ``pressure_coarse_precondition``), as in the JAX package.
 
-Not ported yet: 3D airfoils, rendering to images and vorticity.
+In 3D the C-grid is extruded over ``_res_z`` cells of a periodic span
+``D`` (``grid.py``), the jets over the whole span, and drag and lift come
+per z-slice.  A 3D config at Re >= 3000 raises: its aggregation coarse
+space (8 x 8 x 8 tiles, 14,328 of them on the medium grid) has no kernel
+form yet.  The uniform render grid's resample plan is built at the first
+``get_velocity`` / ``get_pressure``: in 3D it gathers 13.5 M points.
+
+Not ported yet: rendering to images and vorticity.
 """
 
 from __future__ import annotations
@@ -81,10 +88,12 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     """Base class of the airfoil flow environments."""
 
     _n_jets: int = 3
+    _res_z: int = 96
     U_mean: float = 0.3
     airfoil_length: float = 1.0
     H: float = 1.4
     L: float = 4.5
+    D: float = 1.4
 
     _metrics: list[str] = ["drag", "lift"]
 
@@ -108,8 +117,11 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     ):
         if attack_angle_deg < 0.0 or attack_angle_deg > 20.0:
             raise ValueError("Attack angle must be between 0 and 20 degrees.")
-        if ndims != 2:
-            raise NotImplementedError("3D airfoils are not ported yet")
+        if ndims == 3 and reynolds_number >= 3000:
+            raise NotImplementedError(
+                "3D airfoils at Re >= 3000 need the 3D aggregation coarse "
+                "space of the pressure solve (8 x 8 x 8 tiles), which is not "
+                "ported yet")
         self._reynolds_number = float(reynolds_number)
         self._attack_angle_deg = float(attack_angle_deg)
         self._ndims = ndims
@@ -176,15 +188,23 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     # ------------------------------------------------------------------
     # domain / simulation
     # ------------------------------------------------------------------
+    @property
+    def _tail_grow_mul(self) -> float:
+        """Wake cell growth: finer for the hard 3D case."""
+        if self._ndims == 3 and self._reynolds_number >= 5000:
+            return 1.001
+        return 1.01
+
     def _build_domain(self):
         return make_airfoil_domain(
             ndims=self._ndims,
+            res_z=self._res_z,
             H=self.H,
             L=self.L,
             vel_in=self.U_mean,
             attack_angle_deg=self._attack_angle_deg,
             viscosity=self._viscosity,
-            tail_grow_mul=1.01,
+            tail_grow_mul=self._tail_grow_mul,
             dtype=self._dtype,
             device=self._device,
         )
@@ -211,7 +231,7 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             adaptive_cfl=self._adaptive_cfl,
             corrector_steps=2,
             advection_tol=1e-6,
-            pressure_tol=1e-7,
+            pressure_tol=1e-7 if self._ndims == 2 else 1e-8,
             pressure_return_best_result=True,
             velocity_corrector="FD",
             non_orthogonal=True,
@@ -233,18 +253,19 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             self._state, self._geoms, self._topo, self._cfg)
         if not hasattr(self, "_grid_info"):
             _, self._grid_info = self._build_domain()
-        gi = self._grid_info
         centers = [g.centers.detach().cpu().numpy() for g in self._geoms]
-        self._resample = make_multiblock_plan(
-            centers, self.render_shape[: self._ndims],
-            (gi["x_min"], gi["y_min"]), (gi["x_max"], gi["y_max"]),
-            device=self._device)
+        self._centers_np = centers  # reused by the 3D sensor plan
+        self._resample = None  # built on first use (_render_resample)
         # the sensors gather the physical points outside the airfoil mask
+        # (in 3D on the z = 0 plane)
         pts_all = self._get_sensor_locations_2d()
         grid = self._physical_locations_to_grid_coords(pts_all)
-        keep = ~self._airfoil_mask[grid[1], grid[0]]
+        keep = ~self._airfoil_mask_2d[grid[1], grid[0]]
+        pts = pts_all[:, keep].T
+        if self._ndims == 3:
+            pts = np.concatenate([pts, np.zeros((pts.shape[0], 1))], axis=1)
         self._sensor_sample = make_multiblock_point_plan(
-            centers, pts_all[:, keep].T, device=self._device)
+            centers, pts, device=self._device)
 
         self._prepare_drag_and_lift()
         self._jet_locations_top = get_jet_locations(
@@ -275,6 +296,10 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         ]
 
     @property
+    def _wall_dz(self) -> float:
+        return self.D / self._res_z
+
+    @property
     def _force_scale(self) -> float:
         return 0.5 * self.U_mean ** 2 * self.airfoil_length
 
@@ -283,8 +308,9 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     # ------------------------------------------------------------------
     def _get_base_jet_profiles(self):
         """Per-cell base jet velocity on the top block's wall face
-        ``(2, 1, nx)`` and static 0/1 jet masks ``(n_jets, nx)``; profiles
-        point along the local wall normal."""
+        ``(2, 1, nx)`` (3D: ``(3, nz, 1, nx)``, the 2D profile on every
+        z-slice, no z component) and static 0/1 jet masks ``(n_jets, nx)``;
+        profiles point along the local wall normal."""
         vc = np.asarray(self._blocks_vertex_coords[self._airfoil_top_block_idx])
         n_cells_top = vc.shape[-1] - 1
         base = np.zeros((2, n_cells_top))
@@ -302,7 +328,11 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
             base[:, start:end + 1] = profile[None, :] * n
             masks[i, start:end + 1] = 1.0
         conv = lambda a: torch.as_tensor(a, device=self._device).to(self._dtype)
-        return conv(base[:, None, :]), conv(masks)
+        if self._ndims == 2:
+            return conv(base[:, None, :]), conv(masks)
+        base3 = np.concatenate([base, np.zeros((1, n_cells_top))], axis=0)
+        return (conv(np.repeat(base3[:, None, None, :], self._res_z, axis=1)),
+                conv(masks))
 
     def _pure_action_multiplier(self, control: Tensor) -> Tensor:
         """Zero-mean, max-normalized action -> per-wall-cell multiplier."""
@@ -336,20 +366,33 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
         phys[0] *= self.render_shape[0] / (self.L + 1.5)
         phys[1] += self.H / 2
         phys[1] *= self.render_shape[1] / self.H
+        if phys.shape[0] == 3:
+            phys[2] += self.D / 2
+            phys[2] *= self.render_shape[1] / self.D
         out = np.round(phys).astype(np.int32)
-        limits = (self.render_shape[0] - 1, self.render_shape[1] - 1)
+        limits = (self.render_shape[0] - 1, self.render_shape[1] - 1,
+                  self.render_shape[1] - 1)
         for d in range(phys.shape[0]):
             out[d] = np.clip(out[d], 0, limits[d])
         return out
 
     def _get_airfoil_mask(self) -> np.ndarray:
-        """``(ny, nx)`` bool over the render grid: True inside the airfoil
-        (matplotlib's ``Path.contains_points`` rule, ``points_in_polygon``)."""
+        """``(ny, nx)`` bool over the render grid (3D: ``(nz, ny, nx)``, the
+        same on every z-slice): True inside the airfoil (matplotlib's
+        ``Path.contains_points`` rule, ``points_in_polygon``)."""
         coords = self._physical_locations_to_grid_coords(self._airfoil_coords)
         nx, ny = self.render_shape[0], self.render_shape[1]
         xx, yy = np.meshgrid(np.arange(nx), np.arange(ny))
         pts = np.stack([xx.ravel(), yy.ravel()], axis=1)
-        return points_in_polygon(coords[:2].T, pts).reshape(ny, nx)
+        mask = points_in_polygon(coords[:2].T, pts).reshape(ny, nx)
+        if self._ndims == 3:
+            mask = np.repeat(mask[None], self.render_shape[2], axis=0)
+        return mask
+
+    @property
+    def _airfoil_mask_2d(self) -> np.ndarray:
+        """The airfoil mask of one z-slice, ``(ny, nx)``."""
+        return self._airfoil_mask if self._ndims == 2 else self._airfoil_mask[0]
 
     def _get_sensor_locations_2d(self) -> np.ndarray:
         """Wake + near-surface sensor cloud ``(2, 186)``."""
@@ -367,7 +410,7 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     def _get_sensor_locations(self) -> np.ndarray:
         grid = self._physical_locations_to_grid_coords(
             self._get_sensor_locations_2d())
-        keep = ~self._airfoil_mask[grid[1], grid[0]]
+        keep = ~self._airfoil_mask_2d[grid[1], grid[0]]
         return grid[:, keep]
 
     def _pure_global_obs(self, state: DomainState) -> dict[str, Tensor]:
@@ -378,15 +421,29 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     def _get_global_obs(self) -> dict[str, Tensor]:
         return self._pure_global_obs(self._state)
 
+    def _render_resample(self):
+        """The resample plan to the uniform render grid, built once per
+        reset at first use (3D: over a ``D``-wide span)."""
+        if self._resample is None:
+            gi = self._grid_info
+            lower, upper = (gi["x_min"], gi["y_min"]), (gi["x_max"], gi["y_max"])
+            if self._ndims == 3:
+                lower, upper = lower + (-self.D / 2,), upper + (self.D / 2,)
+            self._resample = make_multiblock_plan(
+                self._centers_np, self.render_shape[: self._ndims], lower,
+                upper, device=self._device)
+        return self._resample
+
     def get_velocity(self) -> Tensor:
         """Velocity resampled to the uniform render grid, zero inside the
         airfoil."""
-        u = self._resample(tuple(b.velocity for b in self._state.blocks))
+        u = self._render_resample()(tuple(b.velocity for b in self._state.blocks))
         mask = torch.as_tensor(self._airfoil_mask, device=u.device)
         return torch.where(mask, torch.zeros_like(u), u)
 
     def get_pressure(self) -> Tensor:
-        return self._resample(tuple(b.pressure for b in self._state.blocks))
+        return self._render_resample()(
+            tuple(b.pressure for b in self._state.blocks))
 
     # ------------------------------------------------------------------
     # stepping

@@ -1,11 +1,12 @@
 """Grid generation for the NACA 0012 airfoil environments (counterpart of
-``fluidgym_tpu/envs/airfoil/grid.py``, 2D): a 6-block C-type decomposition
+``fluidgym_tpu/envs/airfoil/grid.py``): a 6-block C-type decomposition
 around the airfoil -- a rectilinear inflow box, three body-fitted blocks
 wrapping the front / top / bottom surfaces (transfinite grids with the
 airfoil polyline as one border, exponentially refined toward the wall), and
 two wake blocks behind the trailing edge with geometrically growing
 streamwise spacing, meeting along the wake cut with the along-cut axis
-reversed.
+reversed.  In 3D every block is extruded over ``res_z`` cells in z, the z
+faces stay periodic, and the wake cut reverses x and keeps z.
 """
 
 from __future__ import annotations
@@ -42,8 +43,11 @@ def read_airfoil(attack_angle_deg: float) -> np.ndarray:
 def get_jet_locations(top_block_coords: np.ndarray) -> list[list[int]]:
     """[start, end] vertex-index pairs of each jet on the top surface.
     ``top_block_coords`` is the AirfoilTop block's vertex array
-    ``(2, ny+1, nx+1)``; the airfoil surface is its y=0 vertex line."""
+    ``(2, ny+1, nx+1)`` or ``(3, nz+1, ny+1, nx+1)``; the airfoil surface
+    is its y=0 vertex line (of the first z-slice in 3D)."""
     c = np.asarray(top_block_coords)
+    if c.shape[0] == 3:
+        c = c[:2, 0]
     surface_x = c[0, 0, :]
     jets = []
     for center in JET_CENTERS:
@@ -83,11 +87,12 @@ def make_airfoil_domain(
     normal_res: int = 96,
     dtype=None,
     device=None,
+    res_z: int | None = None,
 ):
-    """Build the 6-block airfoil domain on ``device``; returns ``(builder,
-    info)``.  Only ``ndims=2`` is ported."""
-    if ndims != 2:
-        raise NotImplementedError("3D airfoils are not ported yet")
+    """Build the 6-block airfoil domain on ``device`` (3D: extruded over
+    ``res_z`` cells spanning ``[-H/2, H/2]``); returns ``(builder, info)``."""
+    if ndims == 3 and not res_z:
+        raise ValueError("a 3D airfoil domain needs res_z >= 1")
     offset_left = 1.5
     front_x_width = 0.5
     ghh = H / 2
@@ -190,17 +195,24 @@ def make_airfoil_domain(
         x_weights=nw, y_weights=tail_weights,
     )
 
+    grids = [grid_left, grid_front, grid_top, grid_bot,
+             grid_tail_upper, grid_tail_lower]
+    if ndims == 3:
+        grids = [geo.extrude_grid_z(g, res_z=res_z, start_z=-H / 2,
+                                    end_z=H / 2, exp_base=1) for g in grids]
+
     dom = DomainBuilder(ndims=ndims, viscosity=viscosity, scalar_channels=0,
                         name="AirfoilDomain", dtype=dtype, device=device)
 
-    left = dom.create_block(grid_left, name="LeftBlock")
-    front = dom.create_block(grid_front, name="AirfoilFront")
-    top = dom.create_block(grid_top, name="AirfoilTop")
-    bot = dom.create_block(grid_bot, name="AirfoilBot")
-    tail_u = dom.create_block(grid_tail_upper, name="TailUpper")
-    tail_l = dom.create_block(grid_tail_lower, name="TailLower")
+    left = dom.create_block(grids[0], name="LeftBlock")
+    front = dom.create_block(grids[1], name="AirfoilFront")
+    top = dom.create_block(grids[2], name="AirfoilTop")
+    bot = dom.create_block(grids[3], name="AirfoilBot")
+    tail_u = dom.create_block(grids[4], name="TailUpper")
+    tail_l = dom.create_block(grids[5], name="TailLower")
 
-    inflow = get_inflow_profile(h=H, res_y=res_front - 1, n_dims=ndims) * vel_in
+    inflow = get_inflow_profile(h=H, res_y=res_front - 1, n_dims=ndims,
+                                res_z=res_z if ndims == 3 else None) * vel_in
     left.close_boundary("-x", velocity=inflow)
 
     # channel walls
@@ -216,19 +228,32 @@ def make_airfoil_domain(
     bot.close_boundary("+y")
 
     # outflow, initialized with the free-stream velocity (per-cell varying)
-    outflow = np.zeros((ndims, normal_res - 1, 1))
+    out_shape = ((ndims, normal_res - 1, 1) if ndims == 2
+                 else (ndims, res_z, normal_res - 1, 1))
+    outflow = np.zeros(out_shape)
     outflow[0] = vel_in
     tail_u.close_boundary("+x", velocity=outflow)
     tail_l.close_boundary("+x", velocity=outflow.copy())
 
+    # untouched z faces stay periodic
     LB, F, T, B, TU, TL = range(6)
-    dom.connect_blocks(LB, "+x", F, "-x", "-y")
-    dom.connect_blocks(F, "+y", T, "-x", "+y")
-    dom.connect_blocks(F, "-y", B, "-x", "-y")
-    dom.connect_blocks(T, "+x", TU, "-x", "-y")
-    dom.connect_blocks(B, "+x", TL, "-x", "-y")
-    # the wake cut: the two tail blocks meet with the along-cut axis reversed
-    dom.connect_blocks(TU, "-y", TL, "+y", "-x")
+    if ndims == 2:
+        dom.connect_blocks(LB, "+x", F, "-x", "-y")
+        dom.connect_blocks(F, "+y", T, "-x", "+y")
+        dom.connect_blocks(F, "-y", B, "-x", "-y")
+        dom.connect_blocks(T, "+x", TU, "-x", "-y")
+        dom.connect_blocks(B, "+x", TL, "-x", "-y")
+        # the wake cut: the two tail blocks meet with the along-cut axis
+        # reversed
+        dom.connect_blocks(TU, "-y", TL, "+y", "-x")
+    else:
+        dom.connect_blocks(LB, "+x", F, "-x", "-y", "-z")
+        dom.connect_blocks(F, "+y", T, "-x", "-z", "+y")
+        dom.connect_blocks(F, "-y", B, "-x", "-z", "-y")
+        dom.connect_blocks(T, "+x", TU, "-x", "-y", "-z")
+        dom.connect_blocks(B, "+x", TL, "-x", "-y", "-z")
+        # the wake cut reverses x and keeps z
+        dom.connect_blocks(TU, "-y", TL, "+y", "-z", "-x")
 
     info = {
         "block_order": AIRFOIL_BLOCKS,

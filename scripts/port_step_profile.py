@@ -4,6 +4,7 @@
     python3 scripts/port_step_profile.py [--env RBC2D-easy-v0] [--steps 2]
         [--strips] [--k4] [--batch N] [--cluster C] [--resident 0|1]
         [--spread 0|1] [--cuda-only] [--warmup 1] [--generated]
+        [--seed 0] [--step-length S] [--no-randomize]
 
 Makes ``--env`` (a registered id; default RBC2D-easy-v0) at its registered
 defaults on the card, resets it (seed 0), switches on the strip-coarse
@@ -26,7 +27,13 @@ the full profile walks for tens of minutes.  ``--warmup`` sets the steps
 taken before the profiled ones (default 1).  ``--generated`` starts from
 the env's generated state (``load_initial_domain=False``) instead of a
 bundled snapshot: for an id whose snapshots the copy does not hold
-(TCFLarge3D).  Prints one JSON object:
+(TCFLarge3D; Airfoil3D, which has none and warm-starts from a 2D
+snapshot drawn by the seed: ``--seed 23`` draws ``train_00``, the one
+the copy holds).  ``--seed`` sets the reset's seed (default 0),
+``--step-length`` the env's ``step_length`` (one sim step: the id's
+``dt``) and ``--no-randomize`` resets without randomization (Airfoil3D's
+randomized reset runs 6-10 sim steps of 7 M cells).  Prints one JSON
+object:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in a
   device synchronise (``env_steps_per_s``: envs x steps over that time);
@@ -103,6 +110,9 @@ def main() -> int:
     ap.add_argument("--cuda-only", action="store_true")
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--generated", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--step-length", type=float, default=None)
+    ap.add_argument("--no-randomize", action="store_true")
     args = ap.parse_args()
     if args.batch and args.strips:
         print("port_step_profile: the batched path runs without the strips",
@@ -145,9 +155,13 @@ def _profile(args) -> int:
         env = stepper.env
         shape = (args.batch,) + tuple(env.action_space.shape)
     else:
-        env = stepper = fluidgym_tpu_torch.make(
-            args.env, **({"load_initial_domain": False} if args.generated else {}))
-        env.reset(seed=0)
+        kw = {"load_initial_domain": False} if args.generated else {}
+        if args.step_length is not None:
+            kw["step_length"] = args.step_length
+        if args.no_randomize:
+            kw["randomize_initial_state"] = False
+        env = stepper = fluidgym_tpu_torch.make(args.env, **kw)
+        env.reset(seed=args.seed)
         env._cfg = dataclasses.replace(env._cfg,
                                        pressure_coarse_strips=args.strips)
         shape = tuple(env._zero_action.shape)  # (agents, 1) for a MARL id
@@ -183,7 +197,13 @@ def _profile(args) -> int:
                 "K2 spread": cg_cuda_mb.fused_bicgstab_mb.spread_launches,
                 "K3 spread": cg_cuda_mb.fused_cg_mb.spread_launches,
                 "K2-mb spread":
-                    cg_cuda_mb.fused_bicgstab_mb.merged_spread_launches}
+                    cg_cuda_mb.fused_bicgstab_mb.merged_spread_launches,
+                "K3-flip 3d": cg_cuda_mb.fused_cg_mb.flip_launches_3d,
+                "K2-mb-flip 3d":
+                    cg_cuda_mb.fused_bicgstab_mb.merged_flip_launches_3d,
+                "K3 global terms": cg_cuda_mb.fused_cg_mb.global_terms_launches,
+                "K2-mb global terms":
+                    cg_cuda_mb.fused_bicgstab_mb.merged_global_terms_launches}
 
     k0 = counts()
     acts = ([ProfilerActivity.CUDA] if args.cuda_only
@@ -241,6 +261,13 @@ def _profile(args) -> int:
         "spread_launches_per_step": {
             k.split()[0]: (k1[k] - k0[k]) / args.steps
             for k in k0 if "spread" in k},
+        "flip_3d_launches_per_step": {
+            k.split()[0]: (k1[k] - k0[k]) / args.steps
+            for k in k0 if k.endswith("flip 3d")},
+        "global_terms_launches_per_step": {
+            k.split()[0]: (k1[k] - k0[k]) / args.steps
+            for k in k0 if "global terms" in k},
+        "seed": args.seed, "step_length": env.step_length,
         "top_kernels": [
             {"name": n, "calls_per_step": c / args.steps,
              "device_ms_per_step": us / 1e3 / args.steps}

@@ -73,7 +73,9 @@ def test_vertex_coords_and_faces_match_jax(doms):
 
 
 def test_3d_grid_raises():
-    with pytest.raises(NotImplementedError):
+    """A 3D grid needs its span's cells (the 3D grid itself is held against
+    the JAX package in ``tests/test_torch_airfoil3d_ops.py``)."""
+    with pytest.raises(ValueError, match="res_z"):
         tgrid(**{**GRID_KW, "ndims": 3})
 
 

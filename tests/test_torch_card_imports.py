@@ -167,6 +167,38 @@ def test_airfoil_imports_and_steps_without_card_packages():
     assert "OK" in out.stdout
 
 
+def test_airfoil3d_imports_and_steps_without_card_packages():
+    """Airfoil3D-easy (slice 16): the 3D C-grid's flip-seam plan, its 2D
+    warm start from the bundled ``airfoil_2D_Re1000/train_00`` (seed 23)
+    and the per-slice forces, on a span of 2 cells, stepped once with
+    nothing of the refused packages."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        from fluidgym_tpu_torch.envs.airfoil.airfoil_env_3d import AirfoilEnv3D
+        AirfoilEnv3D._res_z = 2
+        env = fluidgym_tpu_torch.make(
+            "Airfoil3D-easy-v0", device="cpu", n_agents=1,
+            load_initial_domain=False, load_domain_statistics=False,
+            randomize_initial_state=False, step_length=0.002, dt=0.002)
+        obs, _ = env.reset(seed=23)
+        obs, reward, *_ , info = env.step(np.array([[1.0, -0.5, -0.5]], np.float32))
+        assert obs["velocity"].shape == (1, 1, 3, 209)
+        assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+        assert info["all_cds"].shape == (2,)
+        assert np.isfinite(float(info["drag"])) and np.isfinite(float(reward))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 def test_batched_env_imports_and_steps_without_card_packages():
     """Slice 5: ``parallel.BatchedFluidEnv`` (torch.func.vmap over the env's
     pieces, the lane-folding solves) needs none of the refused packages."""

@@ -2057,3 +2057,105 @@ def test_tcf_large_velocity_solve_one_lane_per_launch_bit_equal_to_chunk_grid():
         xs, _ = f(plan, (d,), (o,), (b,), (x0,), tol=1e-6, **kw)
         assert f.spread_launches == before
         assert torch.equal(xs[0], grid[0])
+
+
+# ---------------------------------------------------------------------------
+# Airfoil3D: the 3D flip seam (K3-3D-flip, K2-mb-3D-flip) and the spread
+# arm with its chain terms in global memory
+# ---------------------------------------------------------------------------
+
+def _airfoil3d_case(dev, res_z, algo):
+    """``(plan, diags, offs, bs, x0s)`` per super-block of the Airfoil3D
+    C-grid extruded over ``res_z`` cells (3 super-blocks, the wake cut a
+    reflected x seam, periodic z), from a free stream with seeded noise:
+    K3 on one lane (a random x0 against ``A x`` of another random x), K2-mb
+    on the 3 velocity components, warm from a perturbed velocity."""
+    from dataclasses import replace
+
+    from fluidgym_tpu_torch.envs.airfoil.grid import make_airfoil_domain
+    from fluidgym_tpu_torch.solver import stencil as st
+
+    dom, _ = make_airfoil_domain(ndims=3, res_z=res_z, H=1.4, L=4.5,
+                                 vel_in=0.3, attack_angle_deg=10.0,
+                                 viscosity=3e-4, tail_grow_mul=1.01, device=dev)
+    topo, geoms, state = dom.build()
+    plan = block_merge.merge_plan(topo)
+    assert plan.ndims == 3 and not plan.identity_seams
+    g = torch.Generator().manual_seed(res_z)
+    for i, blk in enumerate(state.blocks):
+        u = 0.05 * torch.randn(tuple(blk.velocity.shape), generator=g)
+        u[0] += 0.3
+        state = state.replace_block(i, replace(blk, velocity=u.to(dev)))
+    dt = torch.tensor(0.005, device=dev)
+    adv = st.build_advection_ops(state, geoms, topo, state.viscosity, dt)
+    if algo == "cg":
+        p_ops = st.build_pressure_ops(tuple(o.diag for o in adv), geoms, topo)
+        diags, offs = _packed(plan, p_ops)
+        xs = tuple(torch.randn((1,) + tuple(d.shape), generator=g).to(dev)
+                   for d in diags)
+        bs = block_merge.merged_apply(plan, tuple(zip(diags, offs)), xs)
+        x0s = tuple(torch.randn(x.shape, generator=g).to(dev) for x in xs)
+        return plan, diags, offs, bs, x0s
+    diags, offs = _packed(plan, adv)
+    per_c = [block_merge.pack_fields(plan, tuple(b.velocity[c]
+                                                 for b in state.blocks))
+             for c in range(3)]
+    x0s = tuple(torch.stack([per_c[c][s] for c in range(3)])
+                for s in range(len(plan.superblocks)))
+    bs = tuple(200.0 * x for x in x0s)
+    x0s = tuple(x + 0.1 * torch.randn(x.shape, generator=g).to(dev)
+                for x in x0s)
+    return plan, diags, offs, bs, x0s
+
+
+@pytest.mark.parametrize("res_z", [8, 96])
+@pytest.mark.parametrize("algo", ["cg", "bicgstab"])
+def test_global_terms_arm_bit_equal_to_chunk_grid(res_z, algo):
+    """The Airfoil3D flip plan at ``_res_z`` 8 (587,648 cells) and 96 (the
+    registered 7,051,776): every lane launched alone at G = 128 with its
+    chain terms in global memory returns its chunk-grid lane's x,
+    iterations and residual bit for bit, twice; at 587,648 cells (whose
+    terms fit) the shared-memory spread arm does too.  At full width the
+    rule takes the global terms (K3 one lane at G = 128, K2-mb's 3 lanes one
+    per launch) and the wrappers count K3-3D-flip / K2-mb-3D-flip on it."""
+    dev = require_cuda()
+    plan, diags, offs, bs, x0s = _airfoil3d_case(dev, res_z, algo)
+    cg = algo == "cg"
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    x0 = cg_cuda_mb.flatten_fields(plan, x0s)
+    L, n = b.shape
+    assert n == 73_456 * res_z
+    tol = 1e-6
+    kw = dict(maxiter=60 if cg else 20, stall_iters=250, precondition=True,
+              return_best=cg, tol2_sum=cg_cuda.tol2_sum_f32(tol, n), chunk=1)
+    grid = tuple(v.clone() for v in cg_cuda_mb.merged_launcher(
+        algo, plan, diag, off, b, x0, **kw)())
+    assert int(grid[1].min()) >= 1
+    places = (True, False) if res_z == 8 else (True,)
+    for lane in range(L):
+        want = tuple(v[lane:lane + 1] for v in grid)
+        for gterms in places:
+            launch = cg_cuda_mb.merged_launcher(
+                algo, plan, diag, off, b[lane:lane + 1], x0[lane:lane + 1],
+                spread=128, global_terms=gterms, **kw)
+            for i in range(2):
+                got = launch()
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, c) for a, c in zip(got, want)), (
+                    f"lane {lane} global_terms={gterms} run {i}")
+    if res_z != 96:
+        return
+    assert cg_cuda.spread_global_terms(1, n, 3)
+    assert not cg_cuda.spread_global_terms(3, n, 3)
+    assert cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo) == (
+        (1, 128, False) if cg else (1, 128, True))
+    fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
+    keys = (("flip_launches_3d", "global_terms_launches") if cg else
+            ("merged_flip_launches_3d", "merged_global_terms_launches"))
+    before = [getattr(fn, k) for k in keys]
+    xw, _ = fn(plan, diags, offs, bs, x0s, tol=tol,
+               **{k: v for k, v in kw.items() if k not in ("tol2_sum",
+                                                            "chunk")})
+    assert [getattr(fn, k) - v for k, v in zip(keys, before)] == [L, L]
+    assert torch.equal(cg_cuda_mb.flatten_fields(plan, xw), grid[0])

@@ -312,6 +312,19 @@ def test_spread_sum_is_the_one_block_sum(n, G):
         assert np.array_equal(cg_cuda.chain_cells(n, G, r), c[c < n])
 
 
+def test_spread_sum_past_shared_memory_is_the_one_block_sum():
+    """At Airfoil3D's 7,051,776 cells no G's chain terms fit a block's
+    shared memory (440,768 B at G = 128), so the 3D merged forms keep them
+    in global memory: the chains and their order are the same, so the sum
+    is the one-block form's, bit for bit, at G = 128."""
+    n, G = 7_051_776, 128
+    assert not cg_cuda.spread_fits(n, G)
+    rng = np.random.default_rng(n)
+    terms = (rng.normal(size=n) * 10.0 ** rng.uniform(-6, 3, size=n)
+             ).astype(np.float32)
+    assert _spread(terms, G, _chain_index).tobytes() == _one_block(terms).tobytes()
+
+
 def test_emulation_sees_a_wrong_sum_order():
     """The bars above have teeth: the same terms in another order (a row of
     a chain taken from the next chain) give other bits."""

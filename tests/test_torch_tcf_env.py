@@ -62,7 +62,7 @@ def test_tcf_registry():
     assert len([i for i in ids if i.startswith("TCF")]) == 12
     assert "TCFSmall3D-bottom-easy-v0" in ids
     assert "TCFLarge3D-both-hard-v0" in ids
-    assert len(ids) == 36  # 12 RBC + 9 cylinder + 12 TCF + 3 Airfoil2D
+    assert len(ids) == 37  # 12 RBC + 9 cylinder + 12 TCF + 3 Airfoil2D + 1 Airfoil3D
     assert len(TCF_IDS) == 12
     for want in TCF_IDS:
         tcfg = fluidgym_tpu_torch.registry._entries[want][1]

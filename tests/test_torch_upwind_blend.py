@@ -248,8 +248,9 @@ def _dev_kwargs(env_id: str) -> dict:
 
 def test_port_registers_22_ids():
     # 22 ids when this test was written; the airfoil's medium and hard
-    # tiers (the aggregation coarse space) made 24, the 12 TCF ids 36
-    assert len(PORT_IDS) == 36
+    # tiers (the aggregation coarse space) made 24, the 12 TCF ids 36,
+    # Airfoil3D-easy 37
+    assert len(PORT_IDS) == 37
     assert set(PORT_IDS) <= set(fluidgym_tpu.registry.ids())
 
 
