@@ -282,21 +282,21 @@ Phases, each printed with its elapsed seconds:
 48. K3-3D-flip and K2-mb-3D-flip (K3 and K2-mb over the 3D merge plan of
    the Airfoil3D C-grid, whose wake cut reverses x) on the first substep's
    solves of phase 49 at full width (7,051,776 cells): the spread arm with
-   its chain terms in global memory (no G's terms fit shared memory there;
-   the 3 velocity lanes one per launch) against the plain versions with
-   phase 32's bars, bit-equal to the chunk grid twice, both timed per raw
-   launch in turns at 100 iterations (ms, us per iteration, the bound, the
-   streamed bound, the scratch bytes); the same forms on phase 50's card
-   solves at ``_res_z`` 8 (587,648 cells) on the shared-memory spread arm,
-   bit-equal to the chunk grid; CylinderJet3D-easy's captured 341,568-cell
-   solves with the chain terms pinned to global memory, bit-equal to the
-   shared-memory arm;
+   its chain terms through a ring of tiles in shared memory (no G's terms
+   fit shared memory whole there; the 3 velocity lanes one per launch)
+   against the plain versions with phase 32's bars, bit-equal to the chunk
+   grid twice, both timed per raw launch in turns at 100 iterations (ms, us
+   per iteration, the bound, the streamed bound, the shared memory per
+   block); the same forms on phase 50's card solves at ``_res_z`` 8
+   (587,648 cells) on the shared-memory spread arm, bit-equal to the chunk
+   grid; CylinderJet3D-easy's captured 341,568-cell solves with the ring
+   pinned, bit-equal to the shared-memory arm and timed beside it;
 49. ``Airfoil3D-easy-v0`` at its registered defaults but
    ``load_initial_domain=False`` (no 3D set is bundled: the 2D warm start
    from ``airfoil_2D_Re1000/train_00``, drawn by seed 23), no
    randomization and ``step_length`` = dt: ``reset(seed=23)`` and one sim
    step; per substep 2 K3-3D-flip and 3 K2-mb-3D-flip launches, every one
-   on the spread arm with its chain terms in global memory, no chunk grid,
+   on the spread arm with its chain terms through the ring, no chunk grid,
    plain version or ``linsolve`` loop; the warm start applied to every
    block; obs, reward and per-slice drag and lift finite, every pressure
    solve converged; ms, substeps and iterations;
@@ -4446,8 +4446,8 @@ def _airfoil3d_main_path(dev, piso, linsolve) -> dict:
     ``reset(seed=23)`` and one env step with a seeded action.  Counters
     zeroed just before ``make`` and read after the reset and the step: per
     substep 2 K3-3D-flip and 3 K2-mb-3D-flip launches (the velocity lanes
-    one per launch), every one on the spread arm with its chain terms in
-    global memory, no chunk grid, cluster, other kernel form, plain version
+    one per launch), every one on the spread arm with its chain terms
+    through the ring, no chunk grid, cluster, other kernel form, plain version
     or ``linsolve`` loop.  The 2D warm start applied to all six blocks (no
     uniform fallback); obs, reward and per-slice drag and lift finite, every
     pressure solve converged.  The first substep's solves are captured for
@@ -4464,15 +4464,15 @@ def _airfoil3d_main_path(dev, piso, linsolve) -> dict:
     launches, plains = _counters()
     extra = [(k3, "flip_launches_3d"), (k2, "merged_flip_launches_3d"),
              (k3, "spread_launches"), (k2, "merged_spread_launches"),
-             (k3, "global_terms_launches"), (k2, "merged_global_terms_launches"),
+             (k3, "ring_launches"), (k2, "merged_ring_launches"),
              (k3, "cluster_launches"), (k2, "cluster_launches")]
     calls, restore = count_calls(piso, linsolve)
 
     def counts():
         out = {"K3-3D-flip": k3.flip_launches_3d,
                "K2-mb-3D-flip": k2.merged_flip_launches_3d,
-               "K3 global": k3.global_terms_launches,
-               "K2-mb global": k2.merged_global_terms_launches,
+               "K3 ring": k3.ring_launches,
+               "K2-mb ring": k2.merged_ring_launches,
                "K3 spread": k3.spread_launches,
                "K2-mb spread": k2.merged_spread_launches,
                "cluster": k3.cluster_launches + k2.cluster_launches}
@@ -4529,14 +4529,14 @@ def _airfoil3d_main_path(dev, piso, linsolve) -> dict:
         restore()
         logging.getLogger("AirfoilEnv3D").removeHandler(handler)
     sub = d["substeps"]
-    expect = {"K3-3D-flip": 2 * sub, "K3 global": 2 * sub, "K3 spread": 2 * sub,
-              "K2-mb-3D-flip": 3 * sub, "K2-mb global": 3 * sub,
+    expect = {"K3-3D-flip": 2 * sub, "K3 ring": 2 * sub, "K3 spread": 2 * sub,
+              "K2-mb-3D-flip": 3 * sub, "K2-mb ring": 3 * sub,
               "K2-mb spread": 3 * sub, "cluster": 0, "other": 0, "plain": 0,
               "linsolve": 0}
     check(sub > 0 and all(d[k] == v for k, v in expect.items()),
           f"{AIRFOIL3D} step: launches {d}, expected {expect}")
     check(reset["plain"] == 0 and reset["linsolve"] == 0
-          and reset["K3-3D-flip"] == reset["K3 global"] > 0,
+          and reset["K3-3D-flip"] == reset["K3 ring"] > 0,
           f"{AIRFOIL3D} reset: launches {reset}")
     for k, v in obs.items():
         check(tuple(v.shape) == tuple(env.observation_space[k].shape),
@@ -4564,7 +4564,7 @@ def _airfoil3d_main_path(dev, piso, linsolve) -> dict:
         f"{step_s:.3f} s, substeps {sub}, pressure iterations "
         f"{r['pressure_iterations']} (converged), drag {r['drag']:.5f}, lift "
         f"{r['lift']:.5f}, launches {d}; every K3-3D-flip / K2-mb-3D-flip "
-        f"launch on the spread arm with its chain terms in global memory; peak "
+        f"launch on the spread arm with its chain terms through the ring; peak "
         f"device memory {r['peak_gb']:.2f} GB")
     return dict(r, seen=seen)
 
@@ -4616,13 +4616,14 @@ def _airfoil3d_card_vs_host(dev) -> dict:
     return dict(diffs=diffs, pressure_iterations=its, seen=seen)
 
 
-def _flip3d_system(name, algo, sy, key, global_terms, raw_iters=None) -> dict:
+def _flip3d_system(name, algo, sy, key, ring, raw_iters=None) -> dict:
     """One captured 3D flip solve (``merged_system``): the wrapper (the
     rule's arm) against the plain version, then the chunk grid and the
     spread arm at the rule's G (one launch per lane where the rule sends
-    the lanes one per launch), its chain terms in global memory or not,
-    bit for bit twice and per raw launch in turns; ``raw_iters`` caps the
-    raw launches' iterations (the chunk grid's time at full width)."""
+    the lanes one per launch), its chain terms through the ring or all in
+    shared memory, bit for bit twice and per raw launch in turns;
+    ``raw_iters`` caps the raw launches' iterations (the chunk grid's time
+    at full width)."""
     import torch
 
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
@@ -4639,11 +4640,11 @@ def _flip3d_system(name, algo, sy, key, global_terms, raw_iters=None) -> dict:
     check(G > 0 and arm.cluster == 1, f"{name}: merged_arm {arm} takes no "
           "spread arm")
     one = 1 if arm.per_lane else L
-    check(cg_cuda.spread_global_terms(one, n, 3) == global_terms,
-          f"{name}: the rule keeps the chain terms "
-          f"{'in shared' if global_terms else 'in global'} memory")
+    check(cg_cuda.spread_ring(one, n, 3) == ring,
+          f"{name}: the rule "
+          f"{'keeps all the chain terms in shared memory' if ring else 'takes the ring'}")
     rkw = dict(kw, maxiter=raw_iters) if raw_iters else kw
-    where = "global" if global_terms else "shared"
+    where = "ring" if ring else "shared"
 
     def arms(diag, off, b, x0, t2):
         def mk(sl, G):
@@ -4665,7 +4666,7 @@ def _flip3d_system(name, algo, sy, key, global_terms, raw_iters=None) -> dict:
     rule = [k for k in r["raw_ms"] if k != "grid"][0]
     raw, grid = r["raw_ms"][rule], r["raw_ms"]["grid"]
     raw_its = min(r["iterations"], raw_iters) if raw_iters else r["iterations"]
-    scratch = (L * G * cg_cuda.spread_bytes(n, G) if global_terms else 0)
+    smem = cg_cuda.spread_smem(n, G, cg_cuda.CHAINS_RING if ring else 1)
     b_raw, by_raw, stream_raw = bound_ms(n, L, 3, raw_its, algo,
                                          x0s is not None, True,
                                          _seam_cells(plan))
@@ -4674,30 +4675,31 @@ def _flip3d_system(name, algo, sy, key, global_terms, raw_iters=None) -> dict:
              us_per_it=raw * 1e3 / max(raw_its, 1),
              us_per_it_grid=grid * 1e3 / max(raw_its, 1),
              raw_bound_ms=b_raw, raw_stream_ms=stream_raw,
-             scratch_bytes=scratch, global_terms=global_terms)
+             smem_bytes=smem, ring=ring)
     log(f"  {name} ({L}, {n}): {r['ms']:.3f} ms per wrapper call at "
         f"{r['iterations']} iterations (plain {r['plain_ms']:.3f} ms; bound "
         f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, streaming "
         f"{r['stream_ms'] * 1e3:.3f} us); raw launch {rule} {raw:.3f} ms = "
         f"{r['us_per_it']:.2f} us/iteration, chunk grid {grid:.3f} ms = "
         f"{r['us_per_it_grid']:.2f} ({grid / raw:.2f}x) at {raw_its} "
-        f"iterations, bit-equal twice; chain-term scratch {scratch} B")
+        f"iterations, bit-equal twice; {smem} B of shared memory per block, "
+        f"no chain term in global memory")
     return r
 
 
 def _airfoil3d_kernel_phase(dev, kernels, full, small) -> None:
     """Phase 48: K3-3D-flip and K2-mb-3D-flip on the first substep's solves
     of phase 49 (full width, 7,051,776 cells): the wrapper (the spread arm,
-    chain terms in global memory) against the plain version with phase
+    chain terms through the ring) against the plain version with phase
     32's bars and the same converged flags; the arm bit-equal to the chunk
     grid twice, both timed per raw launch in turns at ``AIRFOIL3D_RAW_ITERS``
     iterations: ms, us per iteration, the bound, the streamed bound and the
-    scratch bytes.  The same forms on phase 50's card solves at ``_res_z``
-    8 (587,648 cells), whose terms fit: the shared-memory spread arm
-    bit-equal to the chunk grid.  And CylinderJet3D-easy's captured
-    341,568-cell solves with the chain terms pinned to global memory
-    (``cg_cuda.pinned_global_terms``): bit-equal to the shared-memory
-    spread arm twice, both timed in turns."""
+    shared memory per block.  The same forms on phase 50's card solves at
+    ``_res_z`` 8 (587,648 cells), whose terms fit: the shared-memory spread
+    arm bit-equal to the chunk grid.  And CylinderJet3D-easy's captured
+    341,568-cell solves with the ring pinned (``cg_cuda.pinned_ring``):
+    bit-equal to the shared-memory spread arm twice, both timed in
+    turns."""
     import torch
 
     from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
@@ -4711,7 +4713,7 @@ def _airfoil3d_kernel_phase(dev, kernels, full, small) -> None:
                                              AIRFOIL3D_RAW_ITERS)}
         rows[name]["res_z 8"] = _flip3d_system(name, algo, small["seen"], key,
                                                False)
-    # the pin on CylinderJet3D-easy: global against shared memory
+    # the pin on CylinderJet3D-easy: the ring against shared memory
     sy = _captured_merged(dev, CYL3D_EASY)
     pinned = {}
     for key, algo, name in (("K3", "cg", "K3-3D"), ("K2", "bicgstab", "K2-mb-3D")):
@@ -4721,21 +4723,20 @@ def _airfoil3d_kernel_phase(dev, kernels, full, small) -> None:
         x0 = None if x0s is None else cg_cuda_mb.flatten_fields(plan, x0s)
         L, n = b.shape
         G = cg_cuda_mb.merged_arm(L, n, 3, 1, torch.device("cuda"), algo).spread
-        with cg_cuda.pinned_global_terms(True):
-            check(cg_cuda.spread_global_terms(L, n, 3),
-                  "the pin does not put the chain terms in global memory")
+        with cg_cuda.pinned_ring(True):
+            check(cg_cuda.spread_ring(L, n, 3),
+                  "the pin does not send the chain terms through the ring")
         t2 = cg_cuda.tol2_sum_f32(tol, n)
-        mk = lambda gt: cg_cuda_mb.merged_launcher(
+        mk = lambda ring: cg_cuda_mb.merged_launcher(
             algo, plan, diag, off, b, x0, tol2_sum=t2, chunk=1, spread=G,
-            global_terms=gt, **kw)
+            ring=ring, **kw)
         turns = arms_in_turns(torch, {f"G={G} shared": mk(False),
-                                      f"G={G} global (pinned)": mk(True)}, 5)
+                                      f"G={G} ring (pinned)": mk(True)}, 5)
         ms = turns["raw_ms"]
         pinned[name] = dict(cells=n, lanes=L, G=G,
-                            iterations=turns["iterations"], raw_ms=ms,
-                            scratch_bytes=L * G * cg_cuda.spread_bytes(n, G))
+                            iterations=turns["iterations"], raw_ms=ms)
         log(f"  {name} on {CYL3D_EASY}'s captured solve ({L}, {n}) at G = {G}: "
-            f"chain terms in global memory (pinned) bit-equal to shared memory "
+            f"the ring (pinned) bit-equal to all terms in shared memory "
             f"twice; per raw launch {ms} ms at {turns['iterations']} "
             f"iterations")
     for name, algo_src, rep in (("K3-3D-flip", "cg.cu", 284),
@@ -4745,7 +4746,7 @@ def _airfoil3d_kernel_phase(dev, kernels, full, small) -> None:
         kernels[name] = dict(
             name=f"{name} ({what}, 3D merged frame with the reflected wake "
                  f"cut, periodic z; the spread arm {r['rule']}, chain terms "
-                 "in global memory)",
+                 "through a ring of tiles in shared memory)",
             route="cuda",
             source=f"fluidgym_tpu_torch/csrc/{algo_src} + "
                    "fluidgym_tpu_torch/csrc/merged.cuh + "
@@ -4759,14 +4760,14 @@ def _airfoil3d_kernel_phase(dev, kernels, full, small) -> None:
             raw_iterations=r["raw_iterations"], us_per_it=r["us_per_it"],
             raw_ms_grid=r["raw_ms_grid"], us_per_it_grid=r["us_per_it_grid"],
             raw_bound_ms=r["raw_bound_ms"], raw_stream_ms=r["raw_stream_ms"],
-            scratch_bytes=r["scratch_bytes"],
+            smem_bytes=r["smem_bytes"],
             res_z_8={x: rows[name]["res_z 8"][x] for x in (
                 "cells", "iterations", "ms", "plain_ms", "rule", "raw_ms_rule",
                 "raw_ms_grid", "us_per_it", "us_per_it_grid", "bound_ms",
                 "bound_by", "stream_ms", "max_abs_err")},
             pinned_on_cylinder3d_easy=pinned[name[:-5]])
     log(f"phase 48 K3-3D-flip and K2-mb-3D-flip ok: the spread arm with its "
-        f"chain terms in global memory bit-equal to the chunk grid at "
+        f"chain terms through the ring bit-equal to the chunk grid at "
         f"7,051,776 cells and to the shared-memory spread arm at 341,568; the "
         f"shared-memory arm bit-equal to the chunk grid at 587,648, in "
         f"{time.perf_counter() - t0:.1f}s")

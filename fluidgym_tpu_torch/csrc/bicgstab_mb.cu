@@ -88,12 +88,11 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!SPREAD || (!CLUSTER && !RESIDENT && (!TABLE || ND == 3)),
                 "spread arm: K2 over the trivial plan, and over a 3D merged "
                 "plan");
-  static_assert(SPREAD != FG_ARM_CHAINS_GLOBAL || (TABLE && ND == 3),
-                "chain terms in global memory: K2-mb over a 3D plan");
-  constexpr int ARM = SPREAD == FG_ARM_CHAINS_GLOBAL ? FG_ARM_CHAINS
-                     : SPREAD                        ? SPREAD
-                     : CLUSTER                       ? FG_ARM_CLUSTER
-                                                     : FG_ARM_BLOCK;
+  static_assert(SPREAD != FG_ARM_RING || (TABLE && ND == 3),
+                "the ring: K2-mb over a 3D plan");
+  constexpr int ARM = SPREAD    ? SPREAD
+                     : CLUSTER ? FG_ARM_CLUSTER
+                               : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
@@ -139,8 +138,8 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     L.slot = s_chain;
     __syncthreads();
   }
-  // the chain terms alone, in shared or global memory
-  if constexpr (SPREAD) L.buf = fg_spread_buf<SPREAD>(sp, s_rows, n);
+  // the chain terms alone, or the ring's tiles
+  if constexpr (SPREAD) L.buf = s_rows;
   // the resident arm (one lane, chunk 1): the lane's rows, the two gathered
   // vectors p_hat and s_hat, and r and v (the own-cell vectors read most)
   // in shared memory for the whole solve
@@ -166,7 +165,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
+    fg_sum_cells<ARM, false, 1>(L, sp, n, [&](int c, int, int e) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
@@ -217,7 +216,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
+      fg_sum_cells<ARM, false, 1>(L, sp, n, [&](int c, int, int e) {
         const float vv = fg_apply<ND, TABLE, CG>(R, phat + o, c, g);
         v[o + c] = vv;
         fg_put<ARM>(L, e, rhat[o + c] * vv, a1);
@@ -249,7 +248,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const FgRows R = rows(l);
       const size_t o = (size_t)l * n;
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
+      fg_sum_cells<ARM, false, 2>(L, sp, n, [&](int c, int, int e) {
         const float tv = fg_apply<ND, TABLE, CG>(R, shat + o, c, g);
         t[o + c] = tv;
         fg_put<ARM>(L, e, tv * tv, tv * r[o + c], a1, a2);
@@ -268,7 +267,7 @@ fg_bicg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l], om = s_omega[l];
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int e) {
+      fg_sum_cells<ARM, false, 2>(L, sp, n, [&](int c, int, int e) {
         x[o + c] = x[o + c] + al * phat[o + c] + om * shat[o + c];
         const float rr = r[o + c] - om * t[o + c];
         r[o + c] = rr;
@@ -386,7 +385,7 @@ extern "C" int fg_bicgstab_spread_capacity(int ndims, int spread, int chains,
                                            int n, int* out) {
   if ((ndims != 2 && ndims != 3) || !fg_spread_ok(spread) ||
       !fg_spread_layout_ok(ndims, chains) ||
-      chains == FG_CHAINS_GLOBAL)
+      chains == FG_CHAINS_RING)
     return (int)cudaErrorInvalidValue;
   return (int)fg_resident_blocks(
       fg_bicg_roll_kernel(ndims, 0, spread, chains),
@@ -400,15 +399,15 @@ extern "C" int fg_bicgstab_spread_capacity(int ndims, int spread, int chains,
 // `cluster`, `spread`, `chains`, `bar` and `slot` as in cg.cu
 // fg_cg_mb_solve: 1 and 0 is the chunk grid, C in 2, 4, 8, 16 (chunk 1) the
 // cluster arm, G in 32, 64, 128 (chunk 1, a 3D plan) the spread arm (its
-// chain terms in global memory with `chains` = FG_CHAINS_GLOBAL).
+// chain terms through the ring with `chains` = FG_CHAINS_RING: cg.cu).
 static FgBicgKernel fg_bicg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_bicg_kernel<2, true, true>
                     : fg_bicg_kernel<3, true, true>;
 }
 
 static FgBicgKernel fg_bicg_mb_spread_kernel(int chains) {
-  if (chains == FG_CHAINS_GLOBAL)
-    return fg_bicg_kernel<3, true, false, false, FG_ARM_CHAINS_GLOBAL>;
+  if (chains == FG_CHAINS_RING)
+    return fg_bicg_kernel<3, true, false, false, FG_ARM_RING>;
   return chains ? fg_bicg_kernel<3, true, false, false, FG_ARM_CHAINS>
                 : fg_bicg_kernel<3, true, false, false, FG_ARM_RANGE>;
 }
@@ -437,7 +436,7 @@ extern "C" int fg_bicgstab_mb_solve(const float* b, const float* diag,
         fg_spread_smem(n, spread, chains), bar, s, b, diag, off, nbr, x0, x,
         iters, rs, r, rhat, p, phat, v, shat, t, best, lanes, 1, g,
         op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
-        warm_start, fg_spread_mem(bar, slot, lanes, spread, chains));
+        warm_start, FgSpread{bar, reinterpret_cast<float2*>(slot), spread});
   if (cluster > 1) {
     return (int)fg_launch_clusters(
         fg_bicg_cluster_kernel(ndims), lanes, cluster,

@@ -82,6 +82,18 @@
 // serial part is each chain: ceil(n / T) dependent adds per sum (164 at
 // (64, 41, 64), 656 at (128, 41, 128)).
 //
+// The ring (K3 and K2-mb over a 3D plan, `chains` = FG_CHAINS_RING): at
+// Airfoil3D's 7,051,776 cells a block's chain terms (440,768 B at G = 128)
+// fit no SM.  Writing them to a scratch in global memory and reading them
+// back through 8 threads per block cost ~0.6 ms per sum of 56.4 MB (few
+// loads in flight, more than L2 holds), most of the arm's time per
+// iteration.  Only the terms' order matters, not where they wait: so a
+// sum pass runs in tiles of FG_RING_J steps, each tile's terms go to one
+// of FG_RING_S stages in shared memory, and while the block produces the
+// next tile the chains' owners add this one in chain order
+// (krylov.cuh fg_sum_cells): the same chains, bit for bit, with no term
+// leaving the SM and one block barrier per tile.
+//
 // K3 over a 3D merged plan (CylinderJet3D: 341,568 or 749,568 cells, whose
 // rows no cluster's shared memory holds) takes the same spread arm (entry
 // fg_cg_mb_solve with spread = G): the matvec goes through the neighbour
@@ -380,14 +392,13 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   static_assert(!SPREAD || (!COARSE && !CLUSTER && !RESIDENT &&
                             (!TABLE || ND == 3)),
                 "spread arm: K1, and K3 over a 3D plan");
-  static_assert(SPREAD != FG_ARM_CHAINS_GLOBAL || (TABLE && ND == 3),
-                "chain terms in global memory: K3 over a 3D plan");
+  static_assert(SPREAD != FG_ARM_RING || (TABLE && ND == 3),
+                "the ring: K3 over a 3D plan");
   static_assert(!AGG || (COARSE && TABLE && ND == 2 && !RESIDENT && !SPREAD),
                 "K3-agg: the merged frame in 2D");
-  constexpr int ARM = SPREAD == FG_ARM_CHAINS_GLOBAL ? FG_ARM_CHAINS
-                     : SPREAD                        ? SPREAD
-                     : CLUSTER                       ? FG_ARM_CLUSTER
-                                                     : FG_ARM_BLOCK;
+  constexpr int ARM = SPREAD    ? SPREAD
+                     : CLUSTER ? FG_ARM_CLUSTER
+                               : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
   __shared__ float sh[64];
@@ -433,8 +444,8 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     L.slot = s_chain;
     __syncthreads();
   }
-  // the chain terms alone, in shared or global memory
-  if constexpr (SPREAD) L.buf = fg_spread_buf<SPREAD>(sp, s_rows, n);
+  // the chain terms alone, or the ring's tiles
+  if constexpr (SPREAD) L.buf = s_rows;
   // the coarse vectors: K3-coarse's static arrays, or K3-agg's 2 K floats
   // after the cluster arm's rows and chain terms (fg_agg_bytes)
   float* rc_buf = s_rc;
@@ -483,7 +494,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int e) {
+    fg_sum_cells<ARM, RESIDENT, 2>(L, sp, n, [&](int c, int k, int e) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
@@ -545,7 +556,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float* src = (recompute ? x : p) + o;
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int e) {
+      fg_sum_cells<ARM, RESIDENT, 1>(L, sp, n, [&](int c, int k, int e) {
         const float av = fg_apply<ND, TABLE, CG>(R, src, c, g);
         q[o + c] = av;
         fg_put<ARM>(L, e, p[o + c] * av, a1);
@@ -567,7 +578,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
       float a1 = 0.0f, a2 = 0.0f;
-      fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int e) {
+      fg_sum_cells<ARM, RESIDENT, 2>(L, sp, n, [&](int c, int k, int e) {
         x[o + c] = x[o + c] + al * p[o + c];
         const float rr =
             recompute ? b[o + c] - q[o + c] : r[o + c] - al * q[o + c];
@@ -707,7 +718,7 @@ extern "C" int fg_cg_spread_capacity(int ndims, int spread, int chains, int n,
                                      int* out) {
   if ((ndims != 2 && ndims != 3) || !fg_spread_ok(spread) ||
       !fg_spread_layout_ok(ndims, chains) ||
-      chains == FG_CHAINS_GLOBAL)
+      chains == FG_CHAINS_RING)
     return (int)cudaErrorInvalidValue;
   return (int)fg_resident_blocks(fg_cg_roll_kernel(ndims, 0, spread, chains),
                                  fg_spread_bytes(n, spread), out);
@@ -725,18 +736,18 @@ extern "C" int fg_cg_spread_capacity(int ndims, int spread, int chains, int n,
 // fails); `spread` = G in 32, 64, 128 (chunk 1, cluster 1, a 3D plan):
 // the spread arm as K1's, the rows and the table read from L2, `chains`,
 // `bar` and `slot` as in fg_cg_solve (a grid the card cannot hold at once
-// is refused), and `chains` = FG_CHAINS_GLOBAL the chains layout with its
-// chain terms in global memory, after the slots in `slot` (lanes x 2 x
-// 1024 float2, then lanes x G x fg_chain_floats(n, G) floats): no dynamic
-// shared memory, for a lane whose terms no block's shared memory holds.
+// is refused), and `chains` = FG_CHAINS_RING the chains layout with its
+// chain terms passed through the ring (krylov.cuh fg_sum_cells): 64 KB of
+// dynamic shared memory whatever the lane, for a lane whose terms no
+// block's shared memory holds.
 static FgCgKernel fg_cg_cluster_kernel(int ndims) {
   return ndims == 2 ? fg_cg_kernel<2, true, false, true>
                     : fg_cg_kernel<3, true, false, true>;
 }
 
 static FgCgKernel fg_cg_mb_spread_kernel(int chains) {
-  if (chains == FG_CHAINS_GLOBAL)
-    return fg_cg_kernel<3, true, false, false, false, FG_ARM_CHAINS_GLOBAL>;
+  if (chains == FG_CHAINS_RING)
+    return fg_cg_kernel<3, true, false, false, false, FG_ARM_RING>;
   return chains ? fg_cg_kernel<3, true, false, false, false, FG_ARM_CHAINS>
                 : fg_cg_kernel<3, true, false, false, false, FG_ARM_RANGE>;
 }
@@ -762,7 +773,7 @@ extern "C" int fg_cg_mb_solve(const float* b, const float* diag,
         fg_spread_smem(n, spread, chains), bar, s, b, diag, off, nbr, x0, x,
         iters, rs, r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter,
         stall_iters, precondition, return_best, warm_start, FgCoarse{},
-        fg_spread_mem(bar, slot, lanes, spread, chains));
+        FgSpread{bar, reinterpret_cast<float2*>(slot), spread});
   if (cluster > 1) {
     return (int)fg_launch_clusters(
         fg_cg_cluster_kernel(ndims), lanes, cluster,

@@ -205,12 +205,14 @@ __device__ __forceinline__ float fg_apply(const FgRows& R,
 //                   rows (and the neighbour table) read from global memory
 //                   (L2);
 //   FG_ARM_CHAINS   the same launch (2D or 3D), each block the cells of its
-//                   sum chains (below) instead of a range; its chain terms
-//                   in dynamic shared memory, or (the kernels' SPREAD =
-//                   FG_ARM_CHAINS_GLOBAL, 3D merged forms) in a scratch
-//                   buffer in global memory, for lanes whose terms no
+//                   sum chains (below) instead of a range, all its chain
+//                   terms of a sum in dynamic shared memory;
+//   FG_ARM_RING     the same cells, for 3D merged lanes whose terms no
 //                   block's shared memory holds (Airfoil3D's 7,051,776
-//                   cells: 440,768 B per block at G = 128).
+//                   cells: 440,768 B per block at G = 128): a sum's terms
+//                   pass through a ring of FG_RING_S tiles in shared memory
+//                   and are added into the chains tile by tile
+//                   (fg_sum_cells), so no term leaves the SM.
 // In every arm the per-cell arithmetic is the one-block form's, and every
 // dot product is the one-block form's sum, bit for bit (fg_lane_sum2), so
 // every block holds the same bits of every scalar and takes the same
@@ -226,15 +228,22 @@ __device__ __forceinline__ float fg_apply(const FgRows& R,
 #define FG_ARM_CLUSTER 1
 #define FG_ARM_RANGE 2
 #define FG_ARM_CHAINS 3
-// the kernels' SPREAD for FG_ARM_CHAINS with the chain terms in global
-// memory (entries: `chains` = FG_CHAINS_GLOBAL)
-#define FG_ARM_CHAINS_GLOBAL 4
+#define FG_ARM_RING 4
 
 // the spread arm's layouts, the entries' `chains`: a contiguous range, the
-// sum chains with their terms in shared memory, or in global memory
+// sum chains with their terms in shared memory, or through the ring
 #define FG_CHAINS_RANGE 0
 #define FG_CHAINS_SHARED 1
-#define FG_CHAINS_GLOBAL 2
+#define FG_CHAINS_RING 2
+
+// The ring: a tile is FG_RING_J steps of a block's chain terms (J T terms,
+// J T / per rows of its chains), two floats each; FG_RING_S tiles of them.
+// Two are enough: every thread meets one block barrier per tile, and the
+// chains' owners add tile i - 1 before they produce their share of tile i,
+// so no thread writes a tile's stage again before it has been added.
+#define FG_RING_J 4
+#define FG_RING_S 2
+#define FG_RING_TILE (FG_RING_J * FG_THREADS)
 
 // cells per block of a lane over C blocks in a range arm (ops/cg_cuda.py
 // `block_ranges` mirrors it)
@@ -268,9 +277,16 @@ __host__ __device__ inline size_t fg_spread_bytes(int n, int G) {
   return (size_t)fg_chain_floats(n, G) * 4;
 }
 
-// the same for a layout: none where the terms live in global memory
+// dynamic shared memory of a ring-layout block: FG_RING_S tiles of two
+// floats per term, whatever the lane (ops/cg_cuda.py `ring_bytes` mirrors
+// it)
+__host__ __device__ inline size_t fg_ring_bytes() {
+  return (size_t)FG_RING_S * 2 * FG_RING_TILE * 4;
+}
+
+// the same for a layout: the ring's tiles, or all of a block's terms
 inline size_t fg_spread_smem(int n, int G, int chains) {
-  return chains == FG_CHAINS_GLOBAL ? 0 : fg_spread_bytes(n, G);
+  return chains == FG_CHAINS_RING ? fg_ring_bytes() : fg_spread_bytes(n, G);
 }
 
 // A blocks-per-lane count the spread arm takes: 32, 64 or 128 (a power of
@@ -280,40 +296,12 @@ inline bool fg_spread_ok(int G) { return G == 32 || G == 64 || G == 128; }
 // The spread arm's memory in global memory, allocated by the wrapper:
 // `bar` (lanes) the arrivals at each lane's barrier, zeroed on the stream
 // before every launch (fg_launch_spread); `slot` (lanes, 2, T) each lane's
-// chains of its current sum, two buffers used in turns; `terms` (the
-// FG_CHAINS_GLOBAL layout, else null) every block's chain terms,
-// fg_chain_floats(n, G) floats per block in grid order, right after the
-// slots in the wrapper's buffer (fg_spread_mem).
+// chains of its current sum, two buffers used in turns.
 struct FgSpread {
   unsigned* bar;
   float2* slot;
   int G;
-  float* terms;
 };
-
-// The spread arm's global memory from the entries' `bar` and `slot`
-// buffers: the FG_CHAINS_GLOBAL layout's terms follow the lanes' slots.
-inline FgSpread fg_spread_mem(unsigned* bar, float* slot, int lanes, int G,
-                              int chains) {
-  float2* s2 = reinterpret_cast<float2*>(slot);
-  return FgSpread{bar, s2, G,
-                  chains == FG_CHAINS_GLOBAL
-                      ? reinterpret_cast<float*>(s2 + (size_t)lanes * 2 *
-                                                          FG_THREADS)
-                      : nullptr};
-}
-
-// Where a spread-arm block keeps its chain terms (L.buf): its dynamic
-// shared memory, or (FG_ARM_CHAINS_GLOBAL) its part of `terms`.  Only the
-// block writes and reads its part, a block barrier between, so the global
-// form runs the shared form's arithmetic in the same order.
-template <int SPREAD>
-__device__ __forceinline__ float* fg_spread_buf(const FgSpread& sp,
-                                                float* smem, int n) {
-  if constexpr (SPREAD == FG_ARM_CHAINS_GLOBAL)
-    return sp.terms + (size_t)blockIdx.x * fg_chain_floats(n, sp.G);
-  else return smem;
-}
 
 // One block's view of its lane: what stays live over the solve (fg_chains
 // forms the rest where a sum needs it, as registers are what a 1024-thread
@@ -324,6 +312,7 @@ struct FgLane {
   int lane;         // the spread arm: its lane in the launch
   int terms;        // FG_ARM_CHAINS: its chains' cells (fg_chains)
   float* buf;       // its chains' terms: 2 * terms floats of shared memory
+                    // (FG_ARM_RING: the ring's tiles)
   float2* slot;     // the cluster arm: its chains, in its shared memory
   unsigned target;  // the spread arm: arrivals its next barrier waits for
   int parity;       // the spread arm: the slot buffer of the next sum
@@ -453,6 +442,12 @@ __device__ __forceinline__ int fg_lane_init(FgLane& L, int& lanes, int chunk,
   }
 }
 
+// The slot buffer of the spread lane's current sum: T chains (float2).
+__device__ __forceinline__ float2* fg_sum_slot(const FgLane& L,
+                                               const FgSpread& sp) {
+  return sp.slot + (size_t)(2 * L.lane + L.parity) * FG_THREADS;
+}
+
 // A lane's two dot products, summed as the one-block form sums them (see
 // above).  One-block form: the caller's per-thread chains a, b go straight
 // into the tree.  Else a block's threads hold pieces of chains, so the
@@ -464,22 +459,30 @@ __device__ __forceinline__ int fg_lane_init(FgLane& L, int& lanes, int chunk,
 //     global memory (read through L2 with __ldcg), into `L.buf`;
 //   * one thread per chain adds its terms in chain order (the serial part:
 //     ceil(n / T) adds) and puts the chain in a slot: the cluster arm's in
-//     its shared memory (`L.slot`), the spread arm's in global memory;
+//     its shared memory (`L.slot`), the spread arm's in global memory
+//     (FG_ARM_RING: the pass did both, tile by tile: fg_sum_cells);
 //   * after a lane barrier, thread t loads chain t (the cluster arm: from its
 //     owner's shared memory; the spread arm: from global memory) and the
 //     block runs the same tree.
 // So every block gets the one-block form's bits, with no float atomics.
 // The cluster arm's slot (T / 2 entries) is written again only after the
 // next sum's first barrier, which no block passes before every block has
-// read this sum; the spread arm's chains layout has no such barrier, so the
-// spread arm uses the lane's two buffers of T chains in turns: a block
+// read this sum; the spread arm's chains layouts have no such barrier, so
+// the spread arm uses the lane's two buffers of T chains in turns: a block
 // writes one again only after the next sum's barrier.  Every thread gets
 // both totals.  Must be reached by all threads of the lane.
 template <int ARM, typename Term>
 __device__ __forceinline__ void fg_lane_sum2(float& a, float& b, float* sh,
                                              FgLane& L, const FgSpread& sp,
                                              int n, Term term) {
-  if constexpr (ARM != FG_ARM_BLOCK) {
+  if constexpr (ARM == FG_ARM_RING) {
+    const float2* chains = fg_sum_slot(L, sp);
+    L.parity ^= 1;
+    fg_lane_sync<ARM>(L, sp);
+    const float2 v = __ldcg(chains + threadIdx.x);
+    a = v.x;
+    b = v.y;
+  } else if constexpr (ARM != FG_ARM_BLOCK) {
     const int T = FG_THREADS;
     const FgChains h = fg_chains<ARM>(L, sp, n);
     float* bu = L.buf;
@@ -501,7 +504,7 @@ __device__ __forceinline__ void fg_lane_sum2(float& a, float& b, float* sh,
     if constexpr (ARM == FG_ARM_CLUSTER) {
       chains = L.slot;  // this block's own chains
     } else {
-      chains = sp.slot + (size_t)(2 * L.lane + L.parity) * T;  // all T
+      chains = fg_sum_slot(L, sp);  // all T
       L.parity ^= 1;
     }
     if ((int)threadIdx.x < h.per) {
@@ -532,13 +535,17 @@ __device__ __forceinline__ void fg_lane_sum2(float& a, float& b, float* sh,
 }
 
 // A cell's terms of the pass's sum: added to this thread's chains a, b, or
-// (FG_ARM_CHAINS) put at e in the block's chain terms for fg_lane_sum2.
+// (FG_ARM_CHAINS) put at e in the block's chain terms for fg_lane_sum2, or
+// (FG_ARM_RING) at e in the ring's current tile (fg_sum_cells).
 template <int ARM>
 __device__ __forceinline__ void fg_put(const FgLane& L, int e, float u,
                                        float w, float& a, float& b) {
   if constexpr (ARM == FG_ARM_CHAINS) {
     L.buf[e] = u;
     L.buf[L.terms + e] = w;
+  } else if constexpr (ARM == FG_ARM_RING) {
+    L.buf[e] = u;
+    L.buf[FG_RING_TILE + e] = w;
   } else {
     a += u;
     b += w;
@@ -546,13 +553,16 @@ __device__ __forceinline__ void fg_put(const FgLane& L, int e, float u,
 }
 
 // The same for a pass with one sum (its second total is 0): the chain b is
-// left alone, not carried through the loop as b + 0.
+// left alone, not carried through the loop as b + 0 (the ring stages no
+// second term: its chain b is 0 + 0 + ... = 0, as fg_sum_cells starts it).
 template <int ARM>
 __device__ __forceinline__ void fg_put(const FgLane& L, int e, float u,
                                        float& a) {
   if constexpr (ARM == FG_ARM_CHAINS) {
     L.buf[e] = u;
     L.buf[L.terms + e] = 0.0f;
+  } else if constexpr (ARM == FG_ARM_RING) {
+    L.buf[e] = u;
   } else {
     a += u;
   }
@@ -619,11 +629,10 @@ inline bool fg_resident_ok(int n, int nd, int chunk) {
 
 // whether the spread arm has a layout for ndims: the range layout is built
 // for 3D only (the rule picks it only for lanes of 524,288 cells and more),
-// and so are the chains with their terms in global memory (the roll forms
-// refuse that layout: fg_roll_args_ok)
+// and so is the ring (the roll forms refuse that layout: fg_roll_args_ok)
 inline bool fg_spread_layout_ok(int ndims, int chains) {
-  if (chains < FG_CHAINS_RANGE || chains > FG_CHAINS_GLOBAL) return false;
-  if (chains == FG_CHAINS_GLOBAL) return ndims == 3;
+  if (chains < FG_CHAINS_RANGE || chains > FG_CHAINS_RING) return false;
+  if (chains == FG_CHAINS_RING) return ndims == 3;
   return ndims == 3 || (ndims == 2 && chains);
 }
 
@@ -638,7 +647,7 @@ inline bool fg_roll_args_ok(int lanes, int chunk, int resident, int spread,
   if (resident && (spread || !fg_resident_ok(n, ndims, chunk))) return false;
   return !spread || (fg_spread_ok(spread) && chunk == 1 && bar != nullptr &&
                      slot != nullptr && fg_spread_layout_ok(ndims, chains) &&
-                     chains != FG_CHAINS_GLOBAL);
+                     chains != FG_CHAINS_RING);
 }
 
 // The same for the merged-frame entries (K3 in cg.cu, K2-mb in
@@ -663,23 +672,40 @@ __device__ __forceinline__ float* fg_resident_vecs(float* smem, int n,
   return smem + (size_t)n * (1 + 2 * nd);
 }
 
+// threadIdx.x.  FG_ARM_RING reads it through a volatile asm, so the
+// compiler forms each pass's per-thread addresses in the pass and cannot
+// hoist them out of the solve's loop: kept live there they spilled K3's
+// instance (88 B; none with this, and the passes ran faster).
+template <int ARM>
+__device__ __forceinline__ int fg_tid() {
+  if constexpr (ARM == FG_ARM_RING) {
+    int t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+  } else {
+    return threadIdx.x;
+  }
+}
+
 // The cells of this block that this thread visits, f(c, k, e) for each:
 // in a range [c0, c1), c = c0 + tid + k T for k = 0, 1, ... (the order of
 // its sum chain); in the resident arm (UNROLLED, at most FG_RESIDENT_CELLS
 // cells) a loop the compiler unrolls, so values kept per cell live in
-// registers indexed by k; in FG_ARM_CHAINS its chain terms e = tid + j T
-// and their cells (fg_chain_cell), e being where fg_put puts their terms.
+// registers indexed by k; in the chains layouts its chain terms e = tid +
+// j T and their cells (fg_chain_cell), e being where fg_put puts their
+// terms in FG_ARM_CHAINS.  A pass that puts terms goes through
+// fg_sum_cells.
 template <int ARM, bool UNROLLED, typename F>
 __device__ __forceinline__ void fg_cells(const FgLane& L, const FgSpread& sp,
                                          int n, F&& f) {
-  const int t = threadIdx.x;
+  const int t = fg_tid<ARM>();
   if constexpr (UNROLLED) {
 #pragma unroll
     for (int k = 0; k < FG_RESIDENT_CELLS; ++k) {
       const int c = L.c0 + t + k * FG_THREADS;
       if (c < L.c1) f(c, k, 0);
     }
-  } else if constexpr (ARM == FG_ARM_CHAINS) {
+  } else if constexpr (ARM == FG_ARM_CHAINS || ARM == FG_ARM_RING) {
     const FgChains h = fg_chains<ARM>(L, sp, n);
     for (int e = t; e < h.terms; e += FG_THREADS) {
       const int c = fg_chain_cell(h, e);
@@ -687,6 +713,56 @@ __device__ __forceinline__ void fg_cells(const FgLane& L, const FgSpread& sp,
     }
   } else {
     for (int c = L.c0 + t; c < L.c1; c += FG_THREADS) f(c, 0, 0);
+  }
+}
+
+// The cells of a pass whose f puts the terms of SUMS sums (1 or 2) with
+// fg_put: fg_cells, but in FG_ARM_RING the block's chain terms go through
+// the ring and never leave the SM.  Tile i is steps [i J, (i + 1) J) of
+// the loop above; its threads put their terms in stage i mod FG_RING_S
+// (e handed to f is the place there) and meet at a block barrier; then,
+// while the block produces tile i + 1, thread t < per adds tile i's rows
+// of chain t0 + t in chain order, u = u + term from 0.0f as fg_lane_sum2
+// adds them, and after the last tile puts the chain in the lane's slot:
+// the one-block form's chains, bit for bit, with one barrier per tile.
+// Must be reached by all threads of the block.
+template <int ARM, bool UNROLLED, int SUMS, typename F>
+__device__ __forceinline__ void fg_sum_cells(const FgLane& L,
+                                             const FgSpread& sp, int n,
+                                             F&& f) {
+  static_assert(SUMS == 1 || SUMS == 2, "a pass puts one or two sums");
+  if constexpr (ARM != FG_ARM_RING) {
+    fg_cells<ARM, UNROLLED>(L, sp, n, f);
+  } else {
+    constexpr int T = FG_THREADS, TILE = FG_RING_TILE;
+    const FgChains h = fg_chains<ARM>(L, sp, n);
+    const int t = fg_tid<ARM>();
+    const int tiles = (h.terms + TILE - 1) / TILE;
+    const int rows = TILE >> h.ps;  // rows of the chains in a tile
+    // chain t0 + t's rows: those whose cell k T + t0 + t is below n
+    const int kmax = t < h.per ? (n - h.t0 - t + T - 1) / T : 0;
+    float u = 0.0f, w = 0.0f;
+    for (int i = 0;; ++i) {
+      if (i > 0 && t < h.per) {
+        const float* st = L.buf + ((i - 1) % FG_RING_S) * 2 * TILE + t;
+        const int m = min(rows, kmax - (i - 1) * rows);
+#pragma unroll 8
+        for (int k = 0; k < m; ++k) {
+          u = u + st[k << h.ps];
+          if constexpr (SUMS == 2) w = w + st[TILE + (k << h.ps)];
+        }
+      }
+      if (i == tiles) break;
+      const int s0 = (i % FG_RING_S) * 2 * TILE;
+#pragma unroll 1
+      for (int j = 0; j < FG_RING_J; ++j) {
+        const int e = i * TILE + j * T + t;
+        const int c = fg_chain_cell(h, e);
+        if (e < h.terms && c < n) f(c, 0, s0 + j * T + t);
+      }
+      __syncthreads();
+    }
+    if (t < h.per) fg_sum_slot(L, sp)[h.t0 + t] = make_float2(u, w);
   }
 }
 

@@ -10,8 +10,8 @@ from a saved 2D initial domain.
 Its pressure solve is K3 over the C-grid's 3D merge plan, whose wake cut is
 a reflected x seam ("K3-3D-flip"), and its velocity solve K2-mb over the
 same plan ("K2-mb-3D-flip"); at the registered 7,051,776 cells both take
-the spread arm with their chain terms in global memory
-(``ops.cg_cuda.spread_global_terms``).
+the spread arm with their chain terms passed through a ring of tiles in
+shared memory (``ops.cg_cuda.spread_ring``).
 """
 
 from __future__ import annotations

@@ -47,9 +47,10 @@ resident rule (``roll_arm``); ``pinned_spread`` pins it;
 ``fused_cg.spread_launches`` counts the launches that took it.  A block
 keeps its chain terms in shared memory, or, for a one-lane launch of a 3D
 merged form whose terms no G's shared memory holds (Airfoil3D's
-7,051,776-cell lanes), in a scratch buffer in global memory
-(``spread_global_terms``, pinned by ``pinned_global_terms``), with the same
-arithmetic in the same order.
+7,051,776-cell lanes), passes them through a ring of tiles in shared memory
+and adds them into its chains tile by tile (``spread_ring``, pinned by
+``pinned_ring``; ``ring_bytes``), with the same arithmetic in the same
+order.
 
 Bound on the H100 and what the design does about it: see the note at the
 top of ``csrc/cg.cu``.
@@ -75,7 +76,8 @@ __all__ = ["fused_cg", "fused_cg_plain", "cg_lockstep", "roll_matvec",
            "pinned_spread", "spread_bytes", "spread_fits", "spread_capacity",
            "block_ranges", "chain_cells", "roll_arm", "spread_chains",
            "split_spread", "SPREAD_SIZES", "SPLIT_BLOCKS_PER_LANE",
-           "spread_global_terms", "pinned_global_terms", "CHAINS_GLOBAL"]
+           "spread_ring", "pinned_ring", "ring_bytes", "spread_smem",
+           "CHAINS_RING", "RING_STEPS", "RING_STAGES"]
 
 _TINY = 1e-30
 MAX_LANES = 64  # FG_MAX_LANES in csrc/krylov.cuh: lanes of one thread block
@@ -102,14 +104,18 @@ SPREAD_MIN_CELLS = 256
 #: the range layout (``spread_chains``)
 SPREAD_RANGE_CELLS = 4
 
-#: the entries' ``chains`` for the chains layout with its chain terms in
-#: global memory (``FG_CHAINS_GLOBAL`` in ``csrc/krylov.cuh``; 0 is the
-#: range layout, 1 the chains with their terms in shared memory)
-CHAINS_GLOBAL = 2
+#: the entries' ``chains`` for the chains layout with its chain terms
+#: through the ring (``FG_CHAINS_RING`` in ``csrc/krylov.cuh``; 0 is the
+#: range layout, 1 the chains with all their terms in shared memory)
+CHAINS_RING = 2
+#: the ring's tiles: steps of a block's chain terms per tile (``FG_RING_J``)
+#: and tiles in shared memory (``FG_RING_S``)
+RING_STEPS = 4
+RING_STAGES = 2
 
 _PINNED_RESIDENT: bool | None = None
 _PINNED_SPREAD: int | None = None
-_PINNED_GLOBAL_TERMS: bool | None = None
+_PINNED_RING: bool | None = None
 
 
 def default_chunk(lanes: int, device) -> int:
@@ -218,6 +224,20 @@ def spread_fits(n: int, G: int) -> bool:
     return spread_bytes(n, G) <= SMEM_PER_BLOCK - SMEM_STATIC
 
 
+def ring_bytes() -> int:
+    """Dynamic shared memory of a ring-layout block: ``RING_STAGES`` tiles
+    of ``RING_STEPS * THREADS`` chain terms, two floats each, whatever the
+    lane (``csrc/krylov.cuh`` ``fg_ring_bytes``): 64 KB."""
+    return RING_STAGES * 2 * RING_STEPS * THREADS * 4
+
+
+def spread_smem(n: int, G: int, layout: int) -> int:
+    """Dynamic shared memory of a spread-arm block in ``layout`` (the
+    entries' ``chains``): the ring's tiles, or all of its chain terms
+    (``csrc/krylov.cuh`` ``fg_spread_smem``)."""
+    return ring_bytes() if layout == CHAINS_RING else spread_bytes(n, G)
+
+
 #: the C entry that answers the spread arm's co-residency, by ``algo``: the
 #: roll forms (K1, K2 over the trivial plan) and the 3D merged forms (K3,
 #: K2-mb), whose instances' registers differ
@@ -262,11 +282,11 @@ def default_spread(lanes: int, n: int, ndims: int, chunk: int, device,
     if _PINNED_SPREAD is not None:
         return _PINNED_SPREAD
     merged = algo.endswith("_mb")
-    gterms = spread_global_terms(lanes, n, ndims, merged)
+    ring = spread_ring(lanes, n, ndims, merged)
     for G in SPREAD_SIZES:
-        if n < SPREAD_MIN_CELLS * G or not (gterms or spread_fits(n, G)):
+        if n < SPREAD_MIN_CELLS * G or not (ring or spread_fits(n, G)):
             continue
-        layout = (CHAINS_GLOBAL if gterms
+        layout = (CHAINS_RING if ring
                   else int(spread_chains(n, G, ndims, merged)))
         if lanes * G <= spread_capacity(algo, ndims, G, layout, n,
                                         torch.device(device)):
@@ -274,41 +294,40 @@ def default_spread(lanes: int, n: int, ndims: int, chunk: int, device,
     return 0
 
 
-def spread_global_terms(lanes: int, n: int, ndims: int,
-                        merged: bool = True) -> bool:
-    """Whether a spread-arm launch of ``lanes`` lanes of ``n`` cells keeps
-    its blocks' chain terms in global memory rather than in shared memory:
-    a one-lane launch of a 3D merged form (K3, K2-mb) whose terms fit a
+def spread_ring(lanes: int, n: int, ndims: int, merged: bool = True) -> bool:
+    """Whether a spread-arm launch of ``lanes`` lanes of ``n`` cells passes
+    its blocks' chain terms through the ring (``ring_bytes`` of shared
+    memory per block) rather than holding them all in shared memory: a
+    one-lane launch of a 3D merged form (K3, K2-mb) whose terms fit a
     block's shared memory at no G (``spread_fits``): Airfoil3D's
     7,051,776-cell lanes, 440,768 B per block at G = 128.  Its sums are the
     shared form's, bit for bit (the arm holds them against the chunk
-    grid).  Every registered lane that fits keeps shared memory (at most
-    2,481,408 cells, CylinderJet3D-hard).  ``pinned_global_terms`` pins
-    the answer for the 3D merged forms; the roll forms have no such
-    layout."""
+    grid).  Every registered lane that fits keeps all its terms in shared
+    memory (at most 2,481,408 cells, CylinderJet3D-hard).  ``pinned_ring``
+    pins the answer for the 3D merged forms; the roll forms have no
+    ring."""
     if not merged or ndims != 3:
         return False
-    if _PINNED_GLOBAL_TERMS is not None:
-        return _PINNED_GLOBAL_TERMS
+    if _PINNED_RING is not None:
+        return _PINNED_RING
     return lanes == 1 and not any(spread_fits(n, G) for G in SPREAD_SIZES)
 
 
 @contextlib.contextmanager
-def pinned_global_terms(arm: bool | None):
-    """Inside the ``with`` block ``spread_global_terms`` answers ``arm`` for
-    the 3D merged forms' spread launches (True: chain terms in global
-    memory, False: in shared memory, None: the rule), and afterwards what
-    it answered before: an A/B of the two places on the main path.  A
-    pinned False on a lane whose terms do not fit leaves it no G (the chunk
-    grid, as before the global form existed)."""
+def pinned_ring(arm: bool | None):
+    """Inside the ``with`` block ``spread_ring`` answers ``arm`` for the 3D
+    merged forms' spread launches (True: the ring, False: all terms in
+    shared memory, None: the rule), and afterwards what it answered before:
+    an A/B of the two layouts on the main path.  A pinned False on a lane
+    whose terms do not fit leaves it no G (the chunk grid)."""
     if arm is not None and not isinstance(arm, bool):
         raise ValueError(f"arm must be True, False or None, got {arm!r}")
-    global _PINNED_GLOBAL_TERMS
-    before, _PINNED_GLOBAL_TERMS = _PINNED_GLOBAL_TERMS, arm
+    global _PINNED_RING
+    before, _PINNED_RING = _PINNED_RING, arm
     try:
         yield
     finally:
-        _PINNED_GLOBAL_TERMS = before
+        _PINNED_RING = before
 
 
 def spread_chains(n: int, G: int, ndims: int, merged: bool = False) -> bool:
@@ -407,21 +426,15 @@ def check_spread(spread: int, chunk: int, resident: bool, ndims: int,
         raise ValueError("the spread arm's range layout is 3D only")
 
 
-def spread_buffers(L: int, spread: int, device, n: int = 0,
-                   global_terms: bool = False) -> tuple:
+def spread_buffers(L: int, spread: int, device) -> tuple:
     """The spread arm's global memory for ``L`` lanes: the barrier counters
     (``L`` int32, zeroed by the entry on the stream before every launch)
-    and the chain slots (``L x 2 x THREADS`` float2), followed, where the
-    chain terms live in global memory, by every block's terms (``L x G``
-    blocks of ``spread_bytes(n, G)``: 56.4 MB for a 7,051,776-cell lane at
-    G = 128); None for the other arms.  Each solve takes its buffers from
-    the caching allocator, so the per-lane launches of a solve reuse one
-    block of scratch."""
+    and the chain slots (``L x 2 x THREADS`` float2); None for the other
+    arms."""
     if not spread:
         return None, None
-    terms = L * spread * spread_bytes(n, spread) // 4 if global_terms else 0
     return (torch.empty(L, dtype=torch.int32, device=device),
-            torch.empty(L * 2 * THREADS * 2 + terms, dtype=torch.float32,
+            torch.empty(L * 2 * THREADS * 2, dtype=torch.float32,
                         device=device))
 
 

@@ -108,10 +108,10 @@ gives a raw launch; ``fused_cg_mb.spread_launches`` and
 ``fused_bicgstab_mb.merged_spread_launches`` count the launches that took
 it, one per lane where the lanes go one per launch.  A one-lane launch whose
 chain terms no G's shared memory holds (Airfoil3D's 7,051,776-cell lanes)
-keeps them in global memory (``cg_cuda.spread_global_terms``, pinned by
-``cg_cuda.pinned_global_terms``; ``merged_launcher(..., global_terms=)``),
-counted in ``fused_cg_mb.global_terms_launches`` and
-``fused_bicgstab_mb.merged_global_terms_launches``.
+passes them through a ring of tiles in shared memory
+(``cg_cuda.spread_ring``, pinned by ``cg_cuda.pinned_ring``;
+``merged_launcher(..., ring=)``), counted in ``fused_cg_mb.ring_launches``
+and ``fused_bicgstab_mb.merged_ring_launches``.
 
 Bound on the H100 and what the design does about it: see the notes at the
 top of ``csrc/cg.cu`` and ``csrc/bicgstab_mb.cu``.
@@ -140,8 +140,8 @@ from fluidgym_tpu_torch.ops.cg_cuda import (SMEM_PER_BLOCK, SMEM_STATIC,
                                             lockstep_chunks, roll_arm,
                                             roll_matvec, split_spread,
                                             spread_buffers, spread_chains,
-                                            spread_global_terms,
-                                            tol2_sum_f32, CHAINS_GLOBAL)
+                                            spread_ring, tol2_sum_f32,
+                                            CHAINS_RING)
 from fluidgym_tpu_torch.solver import coarse_strips as cs
 from fluidgym_tpu_torch.solver.block_merge import (MergePlan, fixup_slabs,
                                                    merged_apply)
@@ -458,9 +458,9 @@ def merged_arm(lanes: int, n: int, ndims: int, chunk: int, device,
     go one per launch at that G (``per_lane``: CylinderJet3D-hard's 3
     velocity lanes of 2,481,408 cells at G = 128); each lane stops on its
     own, so that is the chunk grid's bits.  A one-lane launch whose chain
-    terms fit no G's shared memory takes G = 128 with the terms in global
-    memory (``cg_cuda.spread_global_terms``: Airfoil3D's 7,051,776-cell
-    pressure lane, and its 3 velocity lanes one per launch).  The coarse
+    terms fit no G's shared memory takes G = 128 with the terms through the
+    ring (``cg_cuda.spread_ring``: Airfoil3D's 7,051,776-cell pressure
+    lane, and its 3 velocity lanes one per launch).  The coarse
     forms (2D plans only) ask the cluster rule over their own instance
     (K3-coarse's strips: ``coarse_k = 0``; K3-agg: ``coarse_k`` tiles) and
     have no spread arm.  ``(1, 0, False)`` is the chunk grid: the answer on
@@ -723,16 +723,13 @@ def _launch_merged(algo: str, plan: MergePlan, diag, off, b, x0,
 
 
 def check_merged_spread(spread: int, chunk: int, cluster: int, coarse: bool,
-                        ndims: int, chains: bool,
-                        global_terms: bool = False) -> None:
+                        ndims: int, chains: bool, ring: bool = False) -> None:
     """The merged forms' spread arm: as ``cg_cuda.check_spread``, and with
     no cluster, over a 3D plan (a 2D merged lane keeps the cluster arm),
-    not K3-coarse or K3-agg; chain terms in global memory in the chains
-    layout only."""
+    not K3-coarse or K3-agg; the ring in the chains layout only."""
     check_spread(spread, chunk, False, ndims, chains)
-    if global_terms and not chains:
-        raise ValueError("chain terms in global memory take the chains "
-                         "layout, not a range")
+    if ring and not chains:
+        raise ValueError("the ring takes the chains layout, not a range")
     if spread and cluster > 1:
         raise ValueError("a launch takes the cluster arm or the spread arm, "
                          "not both")
@@ -746,7 +743,7 @@ def check_merged_spread(spread: int, chunk: int, cluster: int, coarse: bool,
 def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
                     maxiter, stall_iters, precondition, return_best, chunk,
                     coarse=None, cluster: int = 1, spread: int = 0,
-                    chains=None, global_terms=None):
+                    chains=None, ring=None):
     """Check and lay out the operands of K3 / K3-coarse / K2-mb on the flat
     merged layout (``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``,
     ``off (1|lanes, 2*ndims, n)``, ``coarse = (sp, einv)`` with ``einv
@@ -759,22 +756,21 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     grid; C > 1: the cluster arm, chunk 1, whose rows must fit).
     ``spread``: G > 0 for the spread arm (chunk 1, cluster 1, a 3D plan,
     not K3-coarse), in the chains layout or not (``chains``; None:
-    ``cg_cuda.spread_chains`` for a merged lane), the chain terms in global
-    memory or not (``global_terms``; None: ``cg_cuda.spread_global_terms``
-    over this launch's lanes)."""
+    ``cg_cuda.spread_chains`` for a merged lane), the chain terms through
+    the ring or all in shared memory (``ring``; None:
+    ``cg_cuda.spread_ring`` over this launch's lanes)."""
     ndims = plan.ndims
     L, n = b.shape
     if ndims not in (2, 3) or off.shape[-2:] != (2 * ndims, n):
         raise ValueError("b must be (lanes, n) and off (1|lanes, 2*ndims, n)")
     op_per_lane = _check_operands(b, diag, off, x0, L, chunk)
     check_cluster(cluster, chunk)
-    gterms = bool(spread) and (
-        spread_global_terms(L, n, ndims) if global_terms is None
-        else bool(global_terms))
+    ring = bool(spread) and (
+        spread_ring(L, n, ndims) if ring is None else bool(ring))
     chains = (spread_chains(n, spread, ndims, merged=True) if chains is None
               else bool(chains))
     check_merged_spread(spread, chunk, cluster, coarse is not None, ndims,
-                        chains, gterms)
+                        chains, ring)
     agg = coarse is not None and isinstance(coarse[0], AggSpace)
     coarse_k = coarse[0].K if agg else 0
     if agg and (ndims != 2 or not 1 <= coarse_k <= AGG_MAX_K):
@@ -816,10 +812,9 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
             entry = lib.fg_cg_mb_coarse_solve
         shape = (L, chunk, cluster, n, ndims, op_per_lane, sp.K)
     else:
-        bufs += spread_buffers(L, spread, b.device, n, gterms)
+        bufs += spread_buffers(L, spread, b.device)
         shape = (L, chunk, cluster, int(spread),
-                 CHAINS_GLOBAL if gterms else int(chains), n, ndims,
-                 op_per_lane)
+                 CHAINS_RING if ring else int(chains), n, ndims, op_per_lane)
         entry = (lib.fg_cg_mb_solve if algo == "cg"
                  else lib.fg_bicgstab_mb_solve)
     what = "fused_cg_mb" if algo == "cg" else "fused_bicgstab_mb"
@@ -907,9 +902,9 @@ def fused_cg_mb(plan: MergePlan, diags, offs, bs, x0s=None, *, tol: float,
         if cl > 1:
             fused_cg_mb.cluster_launches += k
         fused_cg_mb.spread_launches += k * int(G > 0)
-        fused_cg_mb.global_terms_launches += k * int(
-            G > 0 and spread_global_terms(1 if per_lane else b.shape[0], n,
-                                          plan.ndims))
+        fused_cg_mb.ring_launches += k * int(
+            G > 0 and spread_ring(1 if per_lane else b.shape[0], n,
+                                  plan.ndims))
         if coarse is None and plan.identity_seams:
             fused_cg_mb.launches += k
             fused_cg_mb.launches_3d += k * int(plan.ndims == 3)
@@ -948,7 +943,7 @@ fused_cg_mb.agg_flip_launches = 0
 fused_cg_mb.flip_launches_3d = 0
 fused_cg_mb.cluster_launches = 0
 fused_cg_mb.spread_launches = 0
-fused_cg_mb.global_terms_launches = 0
+fused_cg_mb.ring_launches = 0
 
 
 def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
@@ -1019,9 +1014,9 @@ def fused_bicgstab_mb(plan: MergePlan, diags, offs, bs, x0s=None, *,
             if cl > 1:
                 fused_bicgstab_mb.cluster_launches += k
             fused_bicgstab_mb.merged_spread_launches += k * int(G > 0)
-            fused_bicgstab_mb.merged_global_terms_launches += k * int(
-                G > 0 and spread_global_terms(
-                    1 if per_lane else b.shape[0], n_lane, ndims))
+            fused_bicgstab_mb.merged_ring_launches += k * int(
+                G > 0 and spread_ring(1 if per_lane else b.shape[0], n_lane,
+                                      ndims))
             if plan.identity_seams:
                 fused_bicgstab_mb.merged_launches += k
                 fused_bicgstab_mb.merged_launches_3d += k * int(ndims == 3)
@@ -1052,4 +1047,4 @@ fused_bicgstab_mb.cluster_launches = 0
 fused_bicgstab_mb.resident_launches = 0
 fused_bicgstab_mb.spread_launches = 0
 fused_bicgstab_mb.merged_spread_launches = 0
-fused_bicgstab_mb.merged_global_terms_launches = 0
+fused_bicgstab_mb.merged_ring_launches = 0

@@ -54,7 +54,8 @@ def ptxas_log() -> str:
 
 
 #: the spread arm's layouts by template value (FG_ARM_* in csrc/krylov.cuh)
-_SPREAD = {"0": None, "2": "spread range", "3": "spread chains"}
+_SPREAD = {"0": None, "2": "spread range", "3": "spread chains",
+           "4": "spread ring"}
 
 
 def form_and_arm(pretty: str) -> str:

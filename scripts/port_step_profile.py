@@ -201,9 +201,9 @@ def _profile(args) -> int:
                 "K3-flip 3d": cg_cuda_mb.fused_cg_mb.flip_launches_3d,
                 "K2-mb-flip 3d":
                     cg_cuda_mb.fused_bicgstab_mb.merged_flip_launches_3d,
-                "K3 global terms": cg_cuda_mb.fused_cg_mb.global_terms_launches,
-                "K2-mb global terms":
-                    cg_cuda_mb.fused_bicgstab_mb.merged_global_terms_launches}
+                "K3 ring": cg_cuda_mb.fused_cg_mb.ring_launches,
+                "K2-mb ring":
+                    cg_cuda_mb.fused_bicgstab_mb.merged_ring_launches}
 
     k0 = counts()
     acts = ([ProfilerActivity.CUDA] if args.cuda_only
@@ -264,9 +264,9 @@ def _profile(args) -> int:
         "flip_3d_launches_per_step": {
             k.split()[0]: (k1[k] - k0[k]) / args.steps
             for k in k0 if k.endswith("flip 3d")},
-        "global_terms_launches_per_step": {
+        "ring_launches_per_step": {
             k.split()[0]: (k1[k] - k0[k]) / args.steps
-            for k in k0 if "global terms" in k},
+            for k in k0 if k.endswith(" ring")},
         "seed": args.seed, "step_length": env.step_length,
         "top_kernels": [
             {"name": n, "calls_per_step": c / args.steps,

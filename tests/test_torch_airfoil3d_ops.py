@@ -3,7 +3,7 @@
 ``ops.cg_cuda_mb``) against the JAX package on the C-grid extruded over a
 small span (``res_z`` 2 and 4: 146,912 and 293,824 cells), and the rule
 that sends the registered width's lanes (7,051,776 cells) to the spread arm
-with its chain terms in global memory (the card's occupancy stubbed).
+with its chain terms through the ring (the card's occupancy stubbed).
 
 Bars: vertex coordinates exact (the same float64 numpy arithmetic); block
 shapes, faces and connections equal; ``det`` and cell centres within 1e-12
@@ -18,7 +18,7 @@ seam): both converge at tol 1e-8, iterations within 3, ``max|dx| <= 1e-6
 max|x|`` (float64 solves from the same start: what differs is the iterate
 at which each stops).
 The kernels themselves run in ``tests/test_torch_kernels_cuda.py`` on the
-card (``-k global_terms``).
+card (``-k global_terms``, the ring).
 """
 
 import dataclasses
@@ -290,7 +290,7 @@ def test_3d_flip_plain_k2_mb_matches_jax_linsolve(systems):
 
 
 # ---------------------------------------------------------------------------
-# the rule: the spread arm with its chain terms in global memory
+# the rule: the spread arm with its chain terms through the ring
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -308,16 +308,18 @@ def h100(monkeypatch):
 def test_airfoil3d_lanes_take_the_global_terms(h100, n):
     """Past ~3.59 M cells no G's chain terms fit a block's shared memory
     (440,768 B at G = 128 for 7,051,776 cells): the pressure lane goes to
-    G = 128 with its terms in global memory, the 3 velocity lanes one per
-    launch at G = 128, each of those one-lane launches in global memory."""
+    G = 128 with its terms through the ring (64 KB of shared memory per
+    block), the 3 velocity lanes one per launch at G = 128, each of those
+    one-lane launches on the ring too."""
     assert not any(cg_cuda.spread_fits(n, G) for G in cg_cuda.SPREAD_SIZES)
     assert cg_cuda.spread_bytes(EASY_N, 128) == 2 * 8 * 6887 * 4 == 440_768
     assert cg_cuda_mb.merged_arm(1, n, 3, 1, CUDA, "cg") == (1, 128, False)
     assert cg_cuda_mb.merged_arm(3, n, 3, 1, CUDA, "bicgstab") == (1, 128, True)
-    assert cg_cuda.spread_global_terms(1, n, 3)
-    assert not cg_cuda.spread_global_terms(3, n, 3)
+    assert cg_cuda.spread_ring(1, n, 3)
+    assert not cg_cuda.spread_ring(3, n, 3)
+    assert cg_cuda.spread_smem(n, 128, cg_cuda.CHAINS_RING) == 65_536
     # the roll forms have no such layout: such a lane keeps the chunk grid
-    assert not cg_cuda.spread_global_terms(1, n, 3, merged=False)
+    assert not cg_cuda.spread_ring(1, n, 3, merged=False)
     assert cg_cuda.default_spread(1, n, 3, 1, CUDA, "cg") == 0
 
 
@@ -335,7 +337,7 @@ def test_registered_widths_keep_shared_memory(h100, n, lanes, algo, want):
     terms in shared memory."""
     assert cg_cuda_mb.merged_arm(lanes, n, 3, 1, CUDA, algo) == want
     one = 1 if want[2] else lanes
-    assert not cg_cuda.spread_global_terms(one, n, 3)
+    assert not cg_cuda.spread_ring(one, n, 3)
 
 
 @pytest.mark.parametrize("shape", [(64, 64, 64), (128, 64, 128), (64, 41, 64),
@@ -344,31 +346,31 @@ def test_registered_widths_keep_shared_memory(h100, n, lanes, algo, want):
                                         (3, "bicgstab")])
 def test_roll_forms_keep_their_arms(h100, shape, lanes, algo):
     """RBC3D's and the channel's roll-form lanes (K1-3D, K2-3D) never take
-    the global terms."""
+    the ring."""
     n = int(np.prod(shape))
-    assert not cg_cuda.spread_global_terms(lanes, n, 3, merged=False)
-    with cg_cuda.pinned_global_terms(True):
-        assert not cg_cuda.spread_global_terms(lanes, n, 3, merged=False)
+    assert not cg_cuda.spread_ring(lanes, n, 3, merged=False)
+    with cg_cuda.pinned_ring(True):
+        assert not cg_cuda.spread_ring(lanes, n, 3, merged=False)
 
 
 def test_pinned_global_terms_nests_and_restores(h100):
-    """The pin answers for the 3D merged forms at any width (an A/B of the
-    new arm against the shared-memory arm on CylinderJet3D-easy's lane, and,
-    pinned off, of the chunk grid at Airfoil3D's width) and restores what
-    was there; a bad value raises."""
-    assert not cg_cuda.spread_global_terms(1, 341_568, 3)
-    with cg_cuda.pinned_global_terms(True):
-        assert cg_cuda.spread_global_terms(1, 341_568, 3)
-        assert cg_cuda.spread_global_terms(3, 341_568, 3)
-        with cg_cuda.pinned_global_terms(False):
-            assert not cg_cuda.spread_global_terms(1, EASY_N, 3)
+    """The ring's pin answers for the 3D merged forms at any width (an A/B
+    of the ring against the shared-memory arm on CylinderJet3D-easy's lane,
+    and, pinned off, of the chunk grid at Airfoil3D's width) and restores
+    what was there; a bad value raises."""
+    assert not cg_cuda.spread_ring(1, 341_568, 3)
+    with cg_cuda.pinned_ring(True):
+        assert cg_cuda.spread_ring(1, 341_568, 3)
+        assert cg_cuda.spread_ring(3, 341_568, 3)
+        with cg_cuda.pinned_ring(False):
+            assert not cg_cuda.spread_ring(1, EASY_N, 3)
             assert cg_cuda_mb.merged_arm(1, EASY_N, 3, 1, CUDA, "cg") == (
                 1, 0, False)
-        assert cg_cuda.spread_global_terms(1, 341_568, 3)
-    assert cg_cuda.spread_global_terms(1, EASY_N, 3)
-    assert not cg_cuda.spread_global_terms(1, 341_568, 3)
+        assert cg_cuda.spread_ring(1, 341_568, 3)
+    assert cg_cuda.spread_ring(1, EASY_N, 3)
+    assert not cg_cuda.spread_ring(1, 341_568, 3)
     with pytest.raises(ValueError):
-        with cg_cuda.pinned_global_terms(1):
+        with cg_cuda.pinned_ring(1):
             pass
     # the CPU takes no spread arm at all
     assert cg_cuda_mb.merged_arm(1, EASY_N, 3, 1, torch.device("cpu"), "cg") == (
@@ -376,8 +378,8 @@ def test_pinned_global_terms_nests_and_restores(h100):
 
 
 def test_merged_launcher_refuses_global_terms_in_a_range(systems):
-    """Chain terms in global memory take the chains layout: a range with
-    them is refused before anything is built or loaded."""
+    """The ring takes the chains layout: a range with it is refused before
+    anything is built or loaded."""
     plan = systems["tplan"]
     n = sum(int(np.prod(bt.shape)) for bt in systems["tt"].blocks)
     diag, off, b = torch.ones(1, n), torch.zeros(1, 6, n), torch.ones(1, n)
@@ -385,14 +387,16 @@ def test_merged_launcher_refuses_global_terms_in_a_range(systems):
         cg_cuda_mb.merged_launcher(
             "cg", plan, diag, off, b, None, tol2_sum=1e-6, maxiter=10,
             stall_iters=5, precondition=True, return_best=True, chunk=1,
-            spread=128, chains=False, global_terms=True)
+            spread=128, chains=False, ring=True)
 
 
-def test_spread_buffers_hold_the_terms_after_the_slots():
-    """The slot buffer of a global-terms launch: the lanes' 2 x 1024 chain
-    slots (float2), then every block's terms, ``spread_bytes`` each."""
-    bar, slot = cg_cuda.spread_buffers(1, 128, "cpu", EASY_N, True)
-    assert slot.numel() == 2 * 1024 * 2 + 128 * 440_768 // 4
-    assert slot.numel() * 4 - 2 * 1024 * 8 == 56_418_304
-    _, slot = cg_cuda.spread_buffers(3, 32, "cpu", 341_568)
-    assert slot.numel() == 3 * 2 * 1024 * 2
+@pytest.mark.parametrize("L,G", [(1, 128), (3, 32)])
+def test_spread_buffers_hold_the_slots_alone(L, G):
+    """No chain term goes to global memory: the spread arm's buffers are the
+    barrier counters and the lanes' 2 x 1024 chain slots (float2), whatever
+    the lane's width (the 56.4 MB scratch of a 7,051,776-cell lane is
+    gone)."""
+    bar, slot = cg_cuda.spread_buffers(L, G, "cpu")
+    assert bar.numel() == L and bar.dtype == torch.int32
+    assert slot.numel() == L * 2 * 1024 * 2 and slot.dtype == torch.float32
+    assert cg_cuda.spread_buffers(L, 0, "cpu") == (None, None)

@@ -2113,11 +2113,14 @@ def _airfoil3d_case(dev, res_z, algo):
 def test_global_terms_arm_bit_equal_to_chunk_grid(res_z, algo):
     """The Airfoil3D flip plan at ``_res_z`` 8 (587,648 cells) and 96 (the
     registered 7,051,776): every lane launched alone at G = 128 with its
-    chain terms in global memory returns its chunk-grid lane's x,
+    chain terms through the ring returns its chunk-grid lane's x,
     iterations and residual bit for bit, twice; at 587,648 cells (whose
     terms fit) the shared-memory spread arm does too.  At full width the
-    rule takes the global terms (K3 one lane at G = 128, K2-mb's 3 lanes one
-    per launch) and the wrappers count K3-3D-flip / K2-mb-3D-flip on it."""
+    rule takes the ring (K3 one lane at G = 128, K2-mb's 3 lanes one per
+    launch) and the wrappers count K3-3D-flip / K2-mb-3D-flip on it.  And
+    the ring pinned on CylinderJet3D-easy's 341,568-cell lanes (K3 one lane
+    at G = 128, K2-mb 3 lanes at G = 32) returns the shared-memory arm's
+    bits, twice."""
     dev = require_cuda()
     plan, diags, offs, bs, x0s = _airfoil3d_case(dev, res_z, algo)
     cg = algo == "cg"
@@ -2135,27 +2138,64 @@ def test_global_terms_arm_bit_equal_to_chunk_grid(res_z, algo):
     places = (True, False) if res_z == 8 else (True,)
     for lane in range(L):
         want = tuple(v[lane:lane + 1] for v in grid)
-        for gterms in places:
+        for ring in places:
             launch = cg_cuda_mb.merged_launcher(
                 algo, plan, diag, off, b[lane:lane + 1], x0[lane:lane + 1],
-                spread=128, global_terms=gterms, **kw)
+                spread=128, ring=ring, **kw)
             for i in range(2):
                 got = launch()
                 torch.cuda.synchronize()
                 assert all(torch.equal(a, c) for a, c in zip(got, want)), (
-                    f"lane {lane} global_terms={gterms} run {i}")
-    if res_z != 96:
+                    f"lane {lane} ring={ring} run {i}")
+    if res_z == 8:
+        _ring_pinned_on_cylinder3d(dev, cg)
         return
-    assert cg_cuda.spread_global_terms(1, n, 3)
-    assert not cg_cuda.spread_global_terms(3, n, 3)
+    assert cg_cuda.spread_ring(1, n, 3)
+    assert not cg_cuda.spread_ring(3, n, 3)
     assert cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo) == (
         (1, 128, False) if cg else (1, 128, True))
     fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
-    keys = (("flip_launches_3d", "global_terms_launches") if cg else
-            ("merged_flip_launches_3d", "merged_global_terms_launches"))
+    keys = (("flip_launches_3d", "ring_launches") if cg else
+            ("merged_flip_launches_3d", "merged_ring_launches"))
     before = [getattr(fn, k) for k in keys]
     xw, _ = fn(plan, diags, offs, bs, x0s, tol=tol,
                **{k: v for k, v in kw.items() if k not in ("tol2_sum",
                                                             "chunk")})
     assert [getattr(fn, k) - v for k, v in zip(keys, before)] == [L, L]
     assert torch.equal(cg_cuda_mb.flatten_fields(plan, xw), grid[0])
+
+
+def _ring_pinned_on_cylinder3d(dev, cg):
+    """The ring on CylinderJet3D-easy's full-width lanes at the rule's G,
+    the shared-memory arm's x, iterations and residual bit for bit, twice;
+    the pin sends the wrapper there and counts it."""
+    case = "K3-1-warm" if cg else "K2mb-3-warm"
+    algo, plan, diags, offs, bs, x0s, tol = _merged_spread_case(case, "full",
+                                                                dev)
+    diag, off = cg_cuda_mb.flatten_ops(plan, diags, offs)
+    b = cg_cuda_mb.flatten_fields(plan, bs)
+    x0 = cg_cuda_mb.flatten_fields(plan, x0s)
+    L, n = b.shape
+    assert n == 341_568
+    G = cg_cuda_mb.merged_arm(L, n, 3, 1, dev, algo).spread
+    assert G == (128 if cg else 32) and not cg_cuda.spread_ring(L, n, 3)
+    kw = dict(maxiter=2000, stall_iters=250, precondition=True,
+              return_best=cg, tol2_sum=cg_cuda.tol2_sum_f32(tol, n), chunk=1,
+              spread=G)
+    shared = tuple(v.clone() for v in cg_cuda_mb.merged_launcher(
+        algo, plan, diag, off, b, x0, ring=False, **kw)())
+    launch = cg_cuda_mb.merged_launcher(algo, plan, diag, off, b, x0,
+                                        ring=True, **kw)
+    for i in range(2):
+        got = launch()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got, shared)), (
+            f"CylinderJet3D-easy {algo}: the ring run {i}")
+    fn = cg_cuda_mb.fused_cg_mb if cg else cg_cuda_mb.fused_bicgstab_mb
+    key = "ring_launches" if cg else "merged_ring_launches"
+    before = getattr(fn, key)
+    with cg_cuda.pinned_ring(True):
+        xw, _ = fn(plan, diags, offs, bs, x0s, tol=tol, maxiter=2000,
+                   stall_iters=250, precondition=True, return_best=cg)
+    assert getattr(fn, key) == before + 1
+    assert torch.equal(cg_cuda_mb.flatten_fields(plan, xw), shared[0])

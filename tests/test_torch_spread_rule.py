@@ -312,17 +312,124 @@ def test_spread_sum_is_the_one_block_sum(n, G):
         assert np.array_equal(cg_cuda.chain_cells(n, G, r), c[c < n])
 
 
+def _ring(tu, tw, G, J, S, sums=2):
+    """The ring as ``fg_sum_cells`` runs it, the G blocks of a lane side by
+    side: tile i of block r is steps ``[i J, (i + 1) J)`` of its chain terms
+    e = t + j T (cell ``_chain_index``; cells past n put nothing), put at
+    ``e - i J T`` in stage ``i mod S`` (u, then w ``J T`` further; the
+    stages start as NaN, so a place read before it is written shows); then
+    thread t < per adds tile i - 1's rows of chain t0 + t in chain order,
+    while its cell is below n, into u, w from 0 (after the producers of
+    tile i: the latest the block barrier lets it start); one sum
+    (``sums=1``) stages no w.  The chains go to the slot and every block
+    runs the tree: the two totals."""
+    n = tu.size
+    per = T // G
+    tile = J * T
+    rows = tile // per
+    terms = per * -(-n // T)
+    tiles = -(-terms // tile)
+    stage = np.full((S, G, 2, tile), np.nan, np.float32)
+    r = np.arange(G)[:, None]
+    t = np.arange(per)[None, :]
+    u = np.zeros((G, per), np.float32)
+    w = np.zeros((G, per), np.float32)
+    for i in range(tiles + 1):
+        if i < tiles:
+            for j in range(J):
+                e = i * tile + j * T + np.arange(T)[None, :]
+                k = e // per
+                c = k * T + r * per + (e - k * per)
+                ok = (e < terms) & (c < n)
+                rr, pos = np.nonzero(ok)
+                stage[i % S, rr, 0, j * T + pos] = tu[c[ok]]
+                if sums == 2:
+                    stage[i % S, rr, 1, j * T + pos] = tw[c[ok]]
+        if i == 0:
+            continue
+        st = stage[(i - 1) % S]
+        for kk in range(rows):
+            k = (i - 1) * rows + kk
+            ok = k * T + r * per + t < n
+            if not ok.any():
+                break
+            u = np.where(ok, u + st[:, 0, kk * per + t[0]], u)
+            if sums == 2:
+                w = np.where(ok, w + st[:, 1, kk * per + t[0]], w)
+    return _block_tree(u.reshape(T)), _block_tree(w.reshape(T))
+
+
+def _terms(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=n) * 10.0 ** rng.uniform(-6, 3, size=n)
+            ).astype(np.float32)
+
+
 def test_spread_sum_past_shared_memory_is_the_one_block_sum():
     """At Airfoil3D's 7,051,776 cells no G's chain terms fit a block's
-    shared memory (440,768 B at G = 128), so the 3D merged forms keep them
-    in global memory: the chains and their order are the same, so the sum
-    is the one-block form's, bit for bit, at G = 128."""
+    shared memory (440,768 B at G = 128), so the 3D merged forms pass them
+    through the ring: the chains and their order are the same, so the sum
+    is the one-block form's, bit for bit, at G = 128 with the kernel's
+    tiles (the last tile and the last row ragged)."""
     n, G = 7_051_776, 128
     assert not cg_cuda.spread_fits(n, G)
-    rng = np.random.default_rng(n)
-    terms = (rng.normal(size=n) * 10.0 ** rng.uniform(-6, 3, size=n)
-             ).astype(np.float32)
-    assert _spread(terms, G, _chain_index).tobytes() == _one_block(terms).tobytes()
+    tu, tw = _terms(n, n), _terms(n, n + 1)
+    per = T // G
+    assert (per * -(-n // T)) % (cg_cuda.RING_STEPS * T) and n % T
+    got = _ring(tu, tw, G, cg_cuda.RING_STEPS, cg_cuda.RING_STAGES)
+    assert got[0].tobytes() == _one_block(tu).tobytes()
+    assert got[1].tobytes() == _one_block(tw).tobytes()
+
+
+@pytest.mark.parametrize("n,J,S", [
+    (7_051_776, 4, 2), (20_932_416, 4, 2), (7_051_776, 1, 2),
+    (20_932_416, 1, 2), (7_051_776, 3, 2), (7_051_776, 4, 4)])
+def test_ring_sum_is_the_one_block_sum(n, J, S):
+    """The ring's order at Airfoil3D-easy's and -hard's widths, the kernel's
+    tiles, one step per tile, a tile that divides no row count and four
+    stages: both sums bit-equal to the one-block form's; a one-sum pass
+    stages no w and its second total is 0.0, as the one-block form's."""
+    tu, tw = _terms(n, n + J), _terms(n, n + S)
+    got = _ring(tu, tw, 128, J, S)
+    assert got[0].tobytes() == _one_block(tu).tobytes()
+    assert got[1].tobytes() == _one_block(tw).tobytes()
+    if (J, S) == (cg_cuda.RING_STEPS, cg_cuda.RING_STAGES):
+        one = _ring(tu, tw, 128, J, S, sums=1)
+        assert one[0].tobytes() == got[0].tobytes()
+        assert one[1].tobytes() == np.float32(0).tobytes()
+
+
+def test_ring_of_one_stage_is_caught():
+    """The bar has teeth: with one stage the producers of tile i overwrite
+    tile i - 1 before its rows are added, and the sum changes."""
+    n = 7_051_776
+    tu = _terms(n, 3)
+    got = _ring(tu, tu, 128, 4, 1, sums=1)[0]
+    assert got.tobytes() != _one_block(tu).tobytes()
+
+
+def test_ring_bytes_is_the_krylov_formula():
+    """``ring_bytes`` mirrors ``fg_ring_bytes`` (the tiles' steps and stages
+    parsed from ``csrc/krylov.cuh``) and fits a block's shared memory with
+    the static reserve at G = 128 at both Airfoil3D widths, where all the
+    chain terms do not."""
+    src = (CSRC / "krylov.cuh").read_text()
+    J = int(re.search(r"#define FG_RING_J (\d+)", src).group(1))
+    S = int(re.search(r"#define FG_RING_S (\d+)", src).group(1))
+    assert (J, S) == (cg_cuda.RING_STEPS, cg_cuda.RING_STAGES)
+    assert re.search(r"#define FG_RING_TILE \(FG_RING_J \* FG_THREADS\)", src)
+    body = re.search(r"fg_ring_bytes\(\) \{\s*return (.*?);", src,
+                     re.S).group(1)
+    assert body.split() == ["(size_t)FG_RING_S", "*", "2", "*", "FG_RING_TILE",
+                            "*", "4"]
+    assert int(re.search(r"#define FG_CHAINS_RING (\d+)", src).group(1)) == \
+        cg_cuda.CHAINS_RING
+    assert cg_cuda.ring_bytes() == S * 2 * J * T * 4 == 65_536
+    room = cg_cuda.SMEM_PER_BLOCK - cg_cuda.SMEM_STATIC
+    for n in (7_051_776, 20_932_416):
+        assert not cg_cuda.spread_fits(n, 128)
+        assert cg_cuda.spread_smem(n, 128, cg_cuda.CHAINS_RING) <= room
+        assert cg_cuda.spread_smem(n, 128, 1) == cg_cuda.spread_bytes(n, 128)
 
 
 def test_emulation_sees_a_wrong_sum_order():
