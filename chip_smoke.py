@@ -240,7 +240,9 @@ Phases, each printed with its elapsed seconds:
    the wrapper: against its plain version with phase 7's bars and the same
    converged flags; the rule's C (16) bit-equal to C = 1 twice, both per
    raw launch in turns; ms, us per iteration, the bound and the streamed
-   bound;
+   bound; the K3-agg instances' registers and spill bytes (``ptxas -v`` of
+   the build, or of ``cg.cu`` compiled again where the library was cached),
+   the cluster instance's spill stores at most ``AGG_SPILL_LIMIT``;
 42. ``Airfoil2D-medium-v0`` and ``-hard-v0`` at their registered defaults
    from the bundled ``train_00`` (no randomization): reset and 1 step
    each, shortened to one sim step (``step_length`` = dt); counters zeroed
@@ -3787,6 +3789,50 @@ AGG_STEPS = 1
 AGG_STEP_LENGTH = 0.05
 
 
+def agg_ptxas(log: str) -> list:
+    """Registers and spill bytes of the K3-agg instances
+    (``fg_cg_kernel<2, true, true, C, false, 0, true>``: the cluster arm
+    and the chunk grid) in an ``nvcc -Xptxas -v`` build log."""
+    import re
+
+    out = []
+    for m in re.finditer(r"Compiling entry function '(_Z12fg_cg_kernelILi2ELb1E"
+                         r"Lb1ELb(\d)ELb0ELi0ELb1E\S*)'.*?Function properties "
+                         r"for \S+\s*\n\s*(\d+) bytes stack frame, (\d+) bytes "
+                         r"spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+                         r"registers", log, re.S):
+        out.append(dict(instance="cluster" if m.group(2) == "1" else
+                        "chunk grid", stack=int(m.group(3)),
+                        spill_stores=int(m.group(4)),
+                        spill_loads=int(m.group(5)),
+                        registers=int(m.group(6))))
+    return out
+
+
+#: the most bytes of spill stores phase 41 lets the K3-agg cluster instance
+#: have
+AGG_SPILL_LIMIT = 64
+
+
+def agg_build_ptxas() -> list:
+    """``agg_ptxas`` of the kernel library's build log; where the library
+    came from the build cache (no log), of ``csrc/cg.cu`` compiled again
+    with the library's flags into a scratch directory."""
+    import tempfile
+
+    from fluidgym_tpu_torch.ops import _build
+
+    log = _build.build_info()["log"]
+    if not log:
+        with tempfile.TemporaryDirectory() as tmp:
+            log = subprocess.run(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                 os.path.join(tmp, "cg.o"), str(_build.CSRC / "cg.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                check=True).stdout
+    return agg_ptxas(log)
+
+
 def _agg_kernel_phase(dev, kernels) -> None:
     """Phase 41: K3-agg-flip on the first substep's two pressure solves of
     one Airfoil2D-medium sim step from its bundled ``train_00`` at full
@@ -3888,6 +3934,18 @@ def _agg_kernel_phase(dev, kernels) -> None:
         us_per_it=first["us_per_it"], raw_ms_cluster_1=first["raw_ms_c1"],
         us_per_it_cluster_1=first["us_per_it_c1"],
         streamed_ms=first["stream_ms"], solves=rows)
+    sass = {r["instance"]: r for r in agg_build_ptxas()}
+    log(f"  K3-agg-flip instances (ptxas): {list(sass.values())}")
+    cl = sass.get("cluster")
+    if cl is None:
+        raise RuntimeError("no K3-agg cluster instance in the ptxas log")
+    if cl["spill_stores"] > AGG_SPILL_LIMIT:
+        raise RuntimeError(f"the K3-agg cluster instance spills "
+                           f"{cl['spill_stores']} B (at most "
+                           f"{AGG_SPILL_LIMIT})")
+    kernels["K3-agg-flip"].update(
+        registers=cl["registers"], spill_bytes=cl["spill_stores"],
+        ptxas=list(sass.values()))
     log(f"phase 41 K3-agg-flip on Airfoil2D-medium's captured solves ok in "
         f"{time.perf_counter() - t0:.1f}s")
 

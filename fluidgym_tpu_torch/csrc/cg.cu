@@ -200,27 +200,67 @@
 // `_agg_coarse_from_cache`, the Airfoil2D medium and hard tiers), where the
 // port runs every main-path solve on the card in a kernel.  The same z =
 // D^-1 r + W Einv W^T r, with W the indicators of 8 x 8 index-space tiles
-// of every block, so the strips' structure holds with the tiles as strips:
-// per-tile cell lists in CSR form (a flip seam scatters a tile's cells in
-// the merged frame), each cell's tile for the prolongation.  Two things
-// differ.  K is large (1,194 tiles on the airfoil, where the strips stop
-// at FG_MAX_K = 128), so the restricted and coarse vectors live in dynamic
-// shared memory (2 K floats, after the cluster arm's rows and chain
-// terms; K <= FG_MAX_AGG_K, the entry refuses more), and Einv (K x K, 5.7
-// MB at K = 1,194: fixed for the env, built from its state at reset and
-// folded with d in float64 by ops/cg_cuda_mb.py's caller) stays in the 50
-// MB L2.  And Einv rc (1.43 M multiply-adds per iteration there) is not
-// formed in every block: row k is formed by one warp, its lanes strided by
-// 32 over the row (FG_BATCH loads in flight, row-major Einv, coalesced),
-// then the butterfly, on block k mod C of the cluster (the one block of
-// the chunk grid), into its owner's s_xc; a cluster barrier, then every
-// block gathers the K values from their owners' shared memory, as it
-// gathers the tile sums.  A row's order is the same whichever warp or
-// block forms it, so every C returns the chunk grid's x, iterations and
-// residual.  Eight cluster barriers per iteration: K3-coarse's seven and
-// the coarse rows.  What bounds it: per iteration each block of a C = 16
-// cluster streams ~K / 16 rows of Einv (~360 KB at K = 1,194) from L2
-// beside K3-coarse's passes; the field passes are K3-flip's.
+// of every block (fg_agg_precond).  K is large (1,194 tiles on the
+// airfoil, where the strips stop at FG_MAX_K = 128), so the restricted and
+// coarse vectors live in dynamic shared memory (K <= FG_MAX_AGG_K, the
+// entry refuses more), and Einv (K x K, 5.7 MB at K = 1,194: fixed for
+// the env, built from its state at reset and folded with d in float64 by
+// ops/cg_cuda_mb.py's caller) stays in the 50 MB L2, its rows padded by
+// the host to kp floats, a multiple of 4, so that each starts on 16 B (K
+// rounded up to 4: ops/cg_cuda_mb.py `agg_pad`).  Per lane:
+//   * restriction: tile k is summed by one warp, its lanes strided by 32
+//     over the tile's cells in ascending order, then the butterfly.  A
+//     flip seam reverses cells, so a tile is not one run of the merged
+//     frame; the wrapper hands each tile's runs (ops/cg_cuda_mb.py
+//     `agg_space`: at most nruns <= 32 per tile, 8 on the airfoil), and a
+//     lane finds the address of its i-th cell from them (one run per lane,
+//     shuffled): the same cells in the same order as a cell list, with no
+//     index load between a tile and its r;
+//   * coarse solve: row k of Einv rc on one warp, its lanes strided by 32
+//     over the row, then the butterfly: the same bits whichever warp or
+//     block forms it;
+//   * z = D^-1 r plus its tile's coarse value, and <r, z>, <r, r> by
+//     fg_lane_sum2, fused as in K3-coarse.
+// The chunk grid (one block per chunk of lanes) takes the tiles and the
+// rows warp by warp, the rows read from L2 FG_BATCH loads at a time.
+//
+// The cluster arm (the airfoil at C = 16): row k of Einv rc on block k mod
+// C, so per iteration the cluster streams all of Einv from L2 (5.7 MB at
+// K = 1,194, ~360 KB per block); the 16 SMs of one cluster share one GPC's
+// path to L2, which the rows fill at ~0.7 TB/s whether they come by plain
+// loads or by copies, so the design keeps those bytes as they are and takes
+// out what waits around them (fg_agg_precond<FG_ARM_CLUSTER>):
+//   * the rows come by TMA bulk copies (cp.async.bulk, completion on an
+//     mbarrier per stage) into a ring of `stages` rows of shared memory
+//     over the chain terms, which fg_lane_sum2 leaves idle from the end of
+//     pass A's sum to the z pass (ops/cg_cuda_mb.py `agg_ring_stages`
+//     gives the ring what the rows and the coarse vectors leave: 10 rows
+//     on the airfoil).  Einv is fixed, so the first stages are copied as
+//     soon as r is published, and fill while the tiles are summed; the
+//     warp of stage st adds rows st, st + stages, ..., and copies the next
+//     one into its stage as soon as its lanes have read the last;
+//   * the restriction loads no index after the barrier: a tile's cells come
+//     from its runs, found before the barrier's wait;
+//   * a tile sum and a coarse value are pushed by the warp that forms them
+//     into every block's s_rc / s_xc (distributed shared memory), so the
+//     barrier after each leaves nothing to gather;
+//   * the barrier that publishes r is split: a block arrives once its r is
+//     written, then copies the first rows and finds its tiles' cells, and
+//     waits only before it reads other blocks' r;
+//   * D^-1 r is formed by the pass that forms r, and the coarse value is
+//     added by pass C as it reads z (the same operations in the same
+//     order as z = D^-1 r + coarse value);
+//   * the sum of <r, z> and <r, r> needs no barrier to publish z: r is
+//     published and every block holds every coarse value, so each block
+//     forms z of its chains' cells again from r, diag and s_xc, its loads
+//     batched, and puts the terms itself (fg_lane_sum2 with PUT): the same
+//     bits as z itself.
+// Seven cluster barriers per iteration: the loop's top, two for pass A's
+// sum, r, the tile sums, the coarse values and one for the z pass's sum.
+// (Forming in each block the rows of the tiles in its own range would drop
+// the coarse-value barrier instead, but streams 15% more of Einv, 96 rows
+// on the slowest block: on the card that cost more than the barrier.)  Every C returns the chunk grid's x, iterations and
+// residual, bit for bit, as the form with plain loads and gathers did.
 #include "krylov.cuh"
 
 #define FG_MAX_K 128
@@ -229,27 +269,100 @@
 #define FG_MAX_AGG_K 2048
 // loads in flight per thread in the coarse preconditioner's gathers
 #define FG_BATCH 8
+// K3-agg: the most runs of a tile (one per lane of a warp), the most rows
+// of the cluster arm's ring (ops/cg_cuda_mb.py AGG_MAX_RUNS, AGG_RING_MAX),
+// and the tiles per warp whose cells are found before their r is read (all
+// of a warp's at C = 16)
+#define FG_AGG_MAX_RUNS 32
+#define FG_AGG_RING_MAX 16
+#define FG_AGG_TILES 3
 
-// The strip-coarse space of K3's coarse arm (unused when COARSE is false).
+// The coarse space of K3's coarse arm (unused when COARSE is false): the
+// strips (K3-coarse) or the aggregation tiles (K3-agg).
 struct FgCoarse {
-  const float* einv_t;     // (1|lanes, K, K), transposed: [j * K + k] = Einv[k][j]
-                           // (K3-agg: row-major, [k * K + j] = Einv[k][j])
+  const float* einv_t;     // (1|lanes, K, kp); the strips: transposed, kp =
+                           // K, [j * K + k] = Einv[k][j]; K3-agg: row-major,
+                           // [k * kp + j] = Einv[k][j], kp >= K, a
+                           // multiple of 4
   const int* strip_ptr;    // (K + 1): strip k owns strip_cells[ptr[k]:ptr[k+1]]
   const int* strip_cells;  // flat cell indices, ascending within a strip
-  const int* cidx;         // (n): strip of each cell, -1 outside every space
-  int K;
+  const int* cidx;         // (n): strip (tile) of each cell, -1 outside every space
+  const int2* runs;        // K3-agg (K, nruns): tile k's runs of cells in
+                           // ascending order, (end, cell - position): its
+                           // positions [end of run j - 1, end) are cells
+                           // position + (cell - position); unused runs end
+                           // at the tile's size
+  int K, kp, nruns;
+  int stages;              // K3-agg's cluster arm: rows of its ring
   int per_lane;            // einv_t has one matrix per lane
 };
 
-// z = M^-1 r for one lane (Jacobi + strip-coarse, or with AGG Jacobi +
-// aggregation-coarse), written to `dst`; every thread returns <r, z> in a1
-// and <r, r> in a2.  FG_ARM_BLOCK: the whole lane in this block, reached
-// after a block barrier that publishes r.  FG_ARM_CLUSTER: one lane over
-// the cluster (see the notes at the top of this file), this block's range
-// [L.c0, L.c1) of z, its rows `R` staged; it publishes r itself.  `s_rc`,
-// `s_xc`: K floats each of this block's shared memory.  Must be reached by
-// all threads of the lane.
-template <int ARM, bool AGG>
+// shared-memory address of p for the async proxy's operands
+__device__ __forceinline__ unsigned fg_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void fg_mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(fg_smem(bar)),
+               "r"(1)
+               : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed.  A wait of
+// more than 2 s traps (as fg_spread_sync's): a copy that never lands then
+// fails the launch where it would hang the card.
+__device__ __forceinline__ void fg_mbar_wait(unsigned long long* bar,
+                                             unsigned parity) {
+  unsigned long long t_start = 0, now;
+  for (int spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(fg_smem(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (spin == 0) t_start = now;
+      else if (now - t_start > 2000000000ull) __trap();
+    }
+  }
+}
+
+// One thread: copy `bytes` (a multiple of 16, both ends 16 B aligned) from
+// global `src` to shared `dst` by the TMA unit, completion on `bar` (one
+// arrival, the bytes as its transaction count).  The fence orders this
+// thread's and, through the barrier or warp sync before it, the block's
+// earlier generic accesses to `dst` before the copy's writes.
+__device__ __forceinline__ void fg_bulk_load(float* dst, const float* src,
+                                             unsigned bytes,
+                                             unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          fg_smem(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(fg_smem(dst)),
+      "l"(src), "r"(bytes), "r"(fg_smem(bar))
+      : "memory");
+}
+
+// z = M^-1 r for one lane (Jacobi + strip-coarse), written to `dst`; every
+// thread returns <r, z> in a1 and <r, r> in a2.  FG_ARM_BLOCK: the whole
+// lane in this block, reached after a block barrier that publishes r.
+// FG_ARM_CLUSTER: one lane over the cluster (see the notes at the top of
+// this file), this block's range [L.c0, L.c1) of z, its rows `R` staged;
+// it publishes r itself.  `s_rc`, `s_xc`: K floats each of this block's
+// shared memory.  Must be reached by all threads of the lane.
+template <int ARM>
 __device__ __forceinline__ void fg_coarse_precond(
     const float* __restrict__ r, const FgRows& R, float* __restrict__ dst,
     int n, const FgCoarse& cz, int l, int precondition, float* s_rc,
@@ -299,53 +412,19 @@ __device__ __forceinline__ void fg_coarse_precond(
   }
   __syncthreads();
   const float* et = cz.einv_t + (size_t)l * K * K * cz.per_lane;
-  if constexpr (AGG) {
-    // row k of Einv rc on one warp of block k mod C: its lanes strided by
-    // 32 over the row (FG_BATCH loads in flight, added in order), then the
-    // butterfly; into the owner's s_xc
-    int C = 1, rank = 0;
-    if constexpr (ARM == FG_ARM_CLUSTER) {
-      C = (int)cooperative_groups::this_cluster().num_blocks();
-      rank = (int)cooperative_groups::this_cluster().block_rank();
-    }
-    for (int k = rank + C * (tid >> 5); k < K; k += C * nw) {
-      const float* __restrict__ row = et + (size_t)k * K;
-      float s = 0.0f;
-      int j = wl;
-      for (; j + 32 * (FG_BATCH - 1) < K; j += 32 * FG_BATCH) {
-        float e[FG_BATCH];
+  // row k of Einv rc, its loads FG_BATCH at a time, summed in order
+  for (int k = tid; k < K; k += T) {
+    float s = 0.0f;
+    int j = 0;
+    for (; j + FG_BATCH <= K; j += FG_BATCH) {
+      float e[FG_BATCH];
 #pragma unroll
-        for (int u = 0; u < FG_BATCH; ++u) e[u] = row[j + 32 * u];
+      for (int u = 0; u < FG_BATCH; ++u) e[u] = et[(j + u) * K + k];
 #pragma unroll
-        for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + 32 * u];
-      }
-      for (; j < K; j += 32) s = s + row[j] * s_rc[j];
-      s = fg_warp_sum(s);
-      if (wl == 0) s_xc[k] = s;
+      for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + u];
     }
-    if constexpr (ARM == FG_ARM_CLUSTER) {
-      auto cl = cooperative_groups::this_cluster();
-      fg_cluster_sync();  // every row is in its owner's s_xc
-      // as the tile sums above: an owner writes its rows again only after
-      // the sum below has met every block
-      for (int k = tid; k < K; k += T)
-        if (k % C != rank) s_xc[k] = *cl.map_shared_rank(s_xc + k, k % C);
-    }
-  } else {
-    // row k of Einv rc, its loads FG_BATCH at a time, summed in order
-    for (int k = tid; k < K; k += T) {
-      float s = 0.0f;
-      int j = 0;
-      for (; j + FG_BATCH <= K; j += FG_BATCH) {
-        float e[FG_BATCH];
-#pragma unroll
-        for (int u = 0; u < FG_BATCH; ++u) e[u] = et[(j + u) * K + k];
-#pragma unroll
-        for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + u];
-      }
-      for (; j < K; ++j) s = s + et[j * K + k] * s_rc[j];
-      s_xc[k] = s;
-    }
+    for (; j < K; ++j) s = s + et[j * K + k] * s_rc[j];
+    s_xc[k] = s;
   }
   __syncthreads();
   a1 = 0.0f;
@@ -365,6 +444,254 @@ __device__ __forceinline__ void fg_coarse_precond(
     u = rr * __ldcg(dst + c);
     w = rr * rr;
   });
+}
+
+// K3-agg's cells of a tile at positions base + wl and base + 32 + wl of
+// its cell list (-1: past its end) for lane wl, from `run`: run j of the
+// tile on lane j (nruns <= 32 of them, a warp-uniform tile); returns the
+// tile's size.  The run of position p is the count of runs that end at or
+// before p: those ending at or before base by a ballot, the others in the
+// window by a mask of their ends (OR over the warp) counted up to p.
+// Must be reached by the whole warp.
+__device__ __forceinline__ int fg_run_cells(int2 run, int nruns, int base,
+                                            int wl, int& c0, int& c1) {
+  const bool mine = wl < nruns;
+  const int e = run.x - base;
+  const int below = __popc(__ballot_sync(0xffffffffu, mine && e <= 0));
+  const unsigned lo = __reduce_or_sync(
+      0xffffffffu, mine && e > 0 && e < 32 ? 1u << e : 0u);
+  const unsigned hi = __reduce_or_sync(
+      0xffffffffu, mine && e >= 32 && e < 64 ? 1u << (e - 32) : 0u);
+  const int size = __shfl_sync(0xffffffffu, run.x, nruns - 1);
+  const unsigned upto = wl == 31 ? 0xffffffffu : (2u << wl) - 1u;
+  const int j0 = below + __popc(lo & upto);
+  const int j1 = below + __popc(lo) + __popc(hi & upto);
+  // a position past the tile's end counts runs that no position reaches
+  const int d0 = __shfl_sync(0xffffffffu, run.y, min(j0, 31));
+  const int d1 = __shfl_sync(0xffffffffu, run.y, min(j1, 31));
+  const int p0 = base + wl, p1 = base + 32 + wl;
+  c0 = p0 < size ? p0 + d0 : -1;
+  c1 = p1 < size ? p1 + d1 : -1;
+  return size;
+}
+
+// z = M^-1 r for one lane of K3-agg (Jacobi + aggregation-coarse; see the
+// notes at the top of this file), as fg_coarse_precond.  `s_rc`, `s_xc`: K
+// floats each of this block's shared memory.  The cluster arm's ring:
+// `ring` (cz.stages rows of cz.kp floats over the chain terms, 16 B
+// aligned) and its mbarriers `bars`, `calls` this block's earlier calls
+// (each streams the same rows, so a stage's phases follow from it); `dg`
+// the lane's diag in global memory.  The cluster arm finds D^-1 r of its
+// range in `dst` (the pass that formed r put it there) and adds the coarse
+// values to it only with `whole` (the init); the loop's pass C adds them
+// as it reads z.  Must be reached by all threads of the lane.
+template <int ARM>
+__device__ __forceinline__ void fg_agg_precond(
+    const float* __restrict__ r, const FgRows& R,
+    const float* __restrict__ dg, float* __restrict__ dst, int n,
+    const FgCoarse& cz, int l, int precondition, bool whole, float* s_rc,
+    float* s_xc, float* ring, unsigned long long* bars, int& calls,
+    float* sh, FgLane& L, const FgSpread& sp, float& a1, float& a2) {
+  constexpr bool CL = ARM == FG_ARM_CLUSTER;  // r of other blocks: via L2
+  const int tid = fg_tid<ARM, CL>();
+  const int T = blockDim.x;
+  const int wl = tid & 31;
+  const int w = tid >> 5;
+  const int nw = T >> 5;
+  const int K = cz.K, kp = cz.kp, nruns = cz.nruns;
+  const float* einv = cz.einv_t + (size_t)l * K * kp * cz.per_lane;
+  int C = 1, rank = 0;
+  if constexpr (CL) {
+    C = (int)cooperative_groups::this_cluster().num_blocks();
+    rank = (int)cooperative_groups::this_cluster().block_rank();
+  }
+  // the tiles k = rank + C (w + nw j) are this warp's, FG_AGG_TILES at a
+  // time: their cells at positions wl and wl + 32 first (from the runs,
+  // which do not depend on r), then their r, added in cell order
+  int cell[FG_AGG_TILES][2], size[FG_AGG_TILES];
+  auto tile_of = [&](int j) { return rank + C * (w + nw * j); };
+  auto find_cells = [&](int j0) {
+    int2 run[FG_AGG_TILES];
+#pragma unroll
+    for (int u = 0; u < FG_AGG_TILES; ++u) {
+      const int k = tile_of(j0 + u);
+      run[u] = (k < K && wl < nruns) ? __ldg(cz.runs + (size_t)k * nruns + wl)
+                                     : make_int2(0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < FG_AGG_TILES; ++u)
+      size[u] = fg_run_cells(run[u], nruns, 0, wl, cell[u][0], cell[u][1]);
+  };
+  auto sum_tiles = [&](int j0) {
+    float v[FG_AGG_TILES][2];
+#pragma unroll
+    for (int u = 0; u < FG_AGG_TILES; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        v[u][h] = cell[u][h] >= 0 ? fg_ld<CL>(r + cell[u][h]) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < FG_AGG_TILES; ++u) {
+      const int k = tile_of(j0 + u);
+      if (k >= K) break;  // warp-uniform
+      float s = 0.0f;
+      if (cell[u][0] >= 0) s = s + v[u][0];
+      if (cell[u][1] >= 0) s = s + v[u][1];
+      // a tile of more than 64 cells: its further positions, in order
+      if (size[u] > 64) {
+        const int2 run =
+            wl < nruns ? cz.runs[(size_t)k * nruns + wl] : make_int2(0, 0);
+        for (int i = 64; i < size[u]; i += 64) {
+          int c0, c1;
+          fg_run_cells(run, nruns, i, wl, c0, c1);
+          if (c0 >= 0) s = s + fg_ld<CL>(r + c0);
+          if (c1 >= 0) s = s + fg_ld<CL>(r + c1);
+        }
+      }
+      s = fg_warp_sum(s);
+      if constexpr (CL) {
+        // into every block's s_rc: the barrier after the restriction
+        // publishes it, and no block reads s_rc between its r barrier and
+        // that one
+        if (wl < C)
+          *cooperative_groups::this_cluster().map_shared_rank(s_rc + k, wl) =
+              s;
+      } else if (wl == 0) {
+        s_rc[k] = s;
+      }
+    }
+  };
+  auto restrict_rest = [&](int j0) {
+    for (; tile_of(j0) < K; j0 += FG_AGG_TILES) {
+      find_cells(j0);
+      sum_tiles(j0);
+    }
+  };
+
+  if constexpr (CL) {
+    // this block's rows k = rank + C m, m < M: warp st < S takes those of
+    // stage st, m = st, st + S, ... in turn
+    const int S = cz.stages;
+    const int M = (K - rank + C - 1) / C;
+    const unsigned row_bytes = 4u * kp;
+    auto row_of = [&](int m) { return einv + (size_t)(rank + C * m) * kp; };
+    // r of this block's range is written: arrive, and before the wait do
+    // what needs no other block's r
+    __syncwarp();
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    // the first rows into the ring, one per stage (the chain terms under it
+    // are idle until the z pass's sum)
+    if (wl == 0 && w < S && w < M)
+      fg_bulk_load(ring + (size_t)w * kp, row_of(w), row_bytes, bars + w);
+    find_cells(0);
+    __syncwarp();
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    sum_tiles(0);
+    restrict_rest(FG_AGG_TILES);
+    fg_cluster_sync();  // every tile sum is in every block's s_rc
+    // row m is the (calls * uses + m / S)-th phase of its stage's mbarrier
+    // (a wait by parity, never more than one phase ahead); once its lanes
+    // have read it the warp copies row m + S into the stage, then pushes
+    // the row's value into every block's s_xc
+    if (w < S) {
+      const int uses = (M - 1 - w) / S + 1;
+      for (int m = w, u = calls * uses; m < M; m += S, ++u) {
+        fg_mbar_wait(bars + w, (unsigned)u & 1u);
+        const float* __restrict__ e = ring + (size_t)w * kp;
+        float s = 0.0f;
+        for (int j = wl; j < K; j += 32) s = s + e[j] * s_rc[j];
+        __syncwarp();  // every lane has read the stage
+        if (wl == 0 && m + S < M)
+          fg_bulk_load(ring + (size_t)w * kp, row_of(m + S), row_bytes,
+                       bars + w);
+        s = fg_warp_sum(s);
+        if (wl < C)
+          *cooperative_groups::this_cluster().map_shared_rank(
+              s_xc + rank + C * m, wl) = s;
+      }
+    }
+    ++calls;
+    // every coarse value is in every block's s_xc, and r was published
+    // above: the sum needs no barrier of its own to publish z, since each
+    // block forms z of its chains' cells again from r, diag and s_xc
+    fg_cluster_sync();
+    // z of this block's range at the init: D^-1 r plus its tile's coarse
+    // value (the loop's pass C adds it as it reads z)
+    if (whole)
+      for (int c = L.c0 + tid; c < L.c1; c += T) {
+        const int ci = cz.cidx[c];
+        if (ci >= 0) dst[c] = dst[c] + s_xc[ci];
+      }
+    // the chain terms r z and r r of this block's chains (fg_lane_sum2's
+    // layout), U cells a thread at a time (all of them on the airfoil at C
+    // = 16: 4.5 a thread): their loads first, then the terms
+    constexpr int U = 5;
+    const FgChains h = fg_chains<ARM>(L, sp, n);
+    for (int e0 = tid; e0 < h.terms; e0 += U * T) {
+      float rv[U], dv[U];
+      int cv[U], iv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * T;
+        cv[u] = e < h.terms ? fg_chain_cell(h, e) : n;
+        if (cv[u] < n) {
+          rv[u] = __ldcg(r + cv[u]);
+          dv[u] = precondition ? __ldg(dg + cv[u]) : 1.0f;
+          iv[u] = __ldg(cz.cidx + cv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * T;
+        if (e >= h.terms) break;
+        float tu = 0.0f, tw = 0.0f;
+        if (cv[u] < n) {
+          const float rr = rv[u];
+          float zz = precondition ? (1.0f / dv[u]) * rr : rr;
+          if (iv[u] >= 0) zz = zz + s_xc[iv[u]];
+          tu = rr * zz;
+          tw = rr * rr;
+        }
+        L.buf[e] = tu;
+        L.buf[h.terms + e] = tw;
+      }
+    }
+    a1 = 0.0f;
+    a2 = 0.0f;
+    fg_lane_sum2<ARM, true>(a1, a2, sh, L, sp, n, [](int, float&, float&) {});
+  } else {
+    restrict_rest(0);
+    __syncthreads();
+    // row k of Einv rc on warp k mod nw, its lanes strided by 32 over the
+    // row (FG_BATCH loads in flight, added in order), then the butterfly
+    for (int k = w; k < K; k += nw) {
+      const float* __restrict__ row = einv + (size_t)k * kp;
+      float s = 0.0f;
+      int j = wl;
+      for (; j + 32 * (FG_BATCH - 1) < K; j += 32 * FG_BATCH) {
+        float e[FG_BATCH];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) e[u] = row[j + 32 * u];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) s = s + e[u] * s_rc[j + 32 * u];
+      }
+      for (; j < K; j += 32) s = s + row[j] * s_rc[j];
+      s = fg_warp_sum(s);
+      if (wl == 0) s_xc[k] = s;
+    }
+    __syncthreads();
+    a1 = 0.0f;
+    a2 = 0.0f;
+    for (int c = L.c0 + tid; c < L.c1; c += T) {
+      const float rr = r[c];
+      float zz = precondition ? (1.0f / R.dg[c - R.base]) * rr : rr;
+      const int ci = cz.cidx[c];
+      if (ci >= 0) zz = zz + s_xc[ci];
+      dst[c] = zz;
+      a1 += rr * zz;
+      a2 += rr * rr;
+    }
+    fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [](int, float&, float&) {});
+  }
 }
 
 // One 1024-thread block per SM (the second launch bound): without it ptxas
@@ -401,6 +728,12 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                                : FG_ARM_BLOCK;
   // the spread arm reads the vectors other blocks write through L2
   constexpr bool CG = SPREAD != 0;
+  // the passes' thread index through a volatile read (krylov.cuh fg_tid):
+  // the ring's instances and K3-agg's cluster instance
+  constexpr bool VT = ARM == FG_ARM_RING || (AGG && CLUSTER);
+  // K3-agg's cluster arm: the pass that forms r stores D^-1 r in z's place
+  // (fg_agg_precond), and pass C adds the coarse value to it
+  constexpr bool AGG_CL = AGG && CLUSTER;
   __shared__ float sh[64];
   __shared__ float s_rc[COARSE && !AGG ? FG_MAX_K : 1];
   __shared__ float s_xc[COARSE && !AGG ? FG_MAX_K : 1];
@@ -410,6 +743,9 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   __shared__ int s_best_it[FG_MAX_LANES], s_done[FG_MAX_LANES];
   __shared__ int s_better[FG_MAX_LANES];
   __shared__ float2 s_chain[CLUSTER ? FG_THREADS / 2 : 1];  // fg_lane_sum2
+  // K3-agg's ring: one mbarrier per stage
+  __shared__ __align__(8) unsigned long long
+      s_ring_bar[AGG && CLUSTER ? FG_AGG_RING_MAX : 1];
   extern __shared__ __align__(16) float s_rows[];  // staged operator rows
 
   const int tid = threadIdx.x;
@@ -434,7 +770,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   off += lo * nf * op_per_lane;
   iters_out += l0;
   rs_out += l0;
-  if (COARSE) cz.einv_t += (size_t)l0 * cz.K * cz.K * cz.per_lane;
+  if (COARSE) cz.einv_t += (size_t)l0 * cz.K * cz.kp * cz.per_lane;
 
   FgRows staged{};
   if constexpr (CLUSTER) {
@@ -446,15 +782,26 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
   }
   // the chain terms alone, or the ring's tiles
   if constexpr (SPREAD) L.buf = s_rows;
-  // the coarse vectors: K3-coarse's static arrays, or K3-agg's 2 K floats
-  // after the cluster arm's rows and chain terms (fg_agg_bytes)
+  // the coarse vectors: K3-coarse's static arrays, or K3-agg's 2 kp floats
+  // (the chunk grid's whole dynamic shared memory; the cluster arm's after
+  // its rows, with the chain terms and the ring over them after those:
+  // fg_agg_bytes)
   float* rc_buf = s_rc;
   float* xc_buf = s_xc;
+  int agg_calls = 0;  // K3-agg's calls of fg_agg_precond (the ring's phases)
   if constexpr (AGG) {
-    const int C = fg_lane_blocks<ARM>(sp);
-    rc_buf = CLUSTER ? fg_chain_buf(s_rows, n, C, ND) + fg_chain_floats(n, C)
+    rc_buf = CLUSTER ? s_rows + (size_t)fg_cluster_seg(
+                                    n, fg_lane_blocks<ARM>(sp)) * (1 + 4 * ND)
                      : s_rows;
-    xc_buf = rc_buf + cz.K;
+    xc_buf = rc_buf + cz.kp;
+    if constexpr (CLUSTER) {
+      L.buf = xc_buf + cz.kp;
+      if (tid == 0) {
+        for (int st = 0; st < cz.stages; ++st) fg_mbar_init(s_ring_bar + st);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+      __syncthreads();
+    }
   }
   // the resident arm (one lane, chunk 1): the lane's rows and x, r, p, q
   // in shared memory for the whole solve; x goes out to x_out at the end
@@ -494,7 +841,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const FgRows R = rows(l);
     const size_t o = (size_t)l * n;
     float a1 = 0.0f, a2 = 0.0f;
-    fg_sum_cells<ARM, RESIDENT, 2>(L, sp, n, [&](int c, int k, int e) {
+    fg_sum_cells<ARM, RESIDENT, 2, VT>(L, sp, n, [&](int c, int k, int e) {
       float rr, xx;
       if (warm_start) {
         xx = x0[o + c];
@@ -506,6 +853,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       x[o + c] = xx;
       best[o + c] = xx;
       r[o + c] = rr;
+      if (AGG_CL) p[o + c] = precondition ? inv_dg(R, c, k) * rr : rr;
       if (!COARSE) {
         const float zz = precondition ? inv_dg(R, c, k) * rr : rr;
         p[o + c] = zz;
@@ -514,8 +862,13 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     });
     if constexpr (COARSE) {
       if constexpr (!CLUSTER) __syncthreads();  // r of this lane is complete
-      fg_coarse_precond<ARM, AGG>(r + o, R, p + o, n, cz, l, precondition,
-                                  rc_buf, xc_buf, sh, L, sp, a1, a2);
+      if constexpr (AGG)
+        fg_agg_precond<ARM>(r + o, R, gdiag(l), p + o, n, cz, l, precondition,
+                            true, rc_buf, xc_buf, L.buf, s_ring_bar,
+                            agg_calls, sh, L, sp, a1, a2);
+      else
+        fg_coarse_precond<ARM>(r + o, R, p + o, n, cz, l, precondition,
+                               rc_buf, xc_buf, sh, L, sp, a1, a2);
     } else {
       fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
         const float rr = __ldcg(r + o + c);
@@ -556,7 +909,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float* src = (recompute ? x : p) + o;
       float a1 = 0.0f, a2 = 0.0f;
-      fg_sum_cells<ARM, RESIDENT, 1>(L, sp, n, [&](int c, int k, int e) {
+      fg_sum_cells<ARM, RESIDENT, 1, VT>(L, sp, n, [&](int c, int k, int e) {
         const float av = fg_apply<ND, TABLE, CG>(R, src, c, g);
         q[o + c] = av;
         fg_put<ARM>(L, e, p[o + c] * av, a1);
@@ -578,11 +931,12 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float al = s_alpha[l];
       float a1 = 0.0f, a2 = 0.0f;
-      fg_sum_cells<ARM, RESIDENT, 2>(L, sp, n, [&](int c, int k, int e) {
+      fg_sum_cells<ARM, RESIDENT, 2, VT>(L, sp, n, [&](int c, int k, int e) {
         x[o + c] = x[o + c] + al * p[o + c];
         const float rr =
             recompute ? b[o + c] - q[o + c] : r[o + c] - al * q[o + c];
         r[o + c] = rr;
+        if (AGG_CL) q[o + c] = precondition ? inv_dg(R, c, k) * rr : rr;
         if (!COARSE) {
           const float zz =
               precondition ? inv_dg(R, c, k) * rr : rr;
@@ -591,8 +945,13 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       });
       if constexpr (COARSE) {
         if constexpr (!CLUSTER) __syncthreads();  // r of this lane is complete
-        fg_coarse_precond<ARM, AGG>(r + o, R, q + o, n, cz, l, precondition,
-                                    rc_buf, xc_buf, sh, L, sp, a1, a2);
+        if constexpr (AGG)
+          fg_agg_precond<ARM>(r + o, R, gdiag(l), q + o, n, cz, l,
+                              precondition, false, rc_buf, xc_buf, L.buf,
+                              s_ring_bar, agg_calls, sh, L, sp, a1, a2);
+        else
+          fg_coarse_precond<ARM>(r + o, R, q + o, n, cz, l, precondition,
+                                 rc_buf, xc_buf, sh, L, sp, a1, a2);
       } else {
         const float* dg = gdiag(l);
         fg_lane_sum2<ARM>(a1, a2, sh, L, sp, n, [&](int c, float& u, float& w) {
@@ -623,9 +982,13 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
       const size_t o = (size_t)l * n;
       const float be = s_beta[l];
       const int keep = return_best && s_better[l];
-      fg_cells<ARM, RESIDENT>(L, sp, n, [&](int c, int k, int) {
+      fg_cells<ARM, RESIDENT, VT>(L, sp, n, [&](int c, int k, int) {
         float zz;
-        if (COARSE) {
+        if (AGG_CL) {
+          zz = q[o + c];
+          const int ci = cz.cidx[c];
+          if (ci >= 0) zz = zz + xc_buf[ci];
+        } else if (COARSE) {
           zz = q[o + c];
         } else {
           const float rr = r[o + c];
@@ -643,7 +1006,7 @@ fg_cg_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     const size_t o = (size_t)l * n;
     const int use_best = return_best && !(s_rs[l] <= tol2);
     if (RESIDENT || use_best) {
-      fg_cells<ARM, false>(L, sp, n, [&](int c, int, int) {
+      fg_cells<ARM, false, VT>(L, sp, n, [&](int c, int, int) {
         x_out[o + c] = use_best ? best[o + c] : x[o + c];
       });
     }
@@ -842,12 +1205,13 @@ extern "C" int fg_cg_mb_coarse_solve(
       !fg_cluster_ok(cluster, chunk))
     return (int)cudaErrorInvalidValue;
   const FgGrid g = fg_grid(1, 1, n);
-  FgCoarse cz;
+  FgCoarse cz{};
   cz.einv_t = einv_t;
   cz.strip_ptr = strip_ptr;
   cz.strip_cells = strip_cells;
   cz.cidx = cidx;
   cz.K = K;
+  cz.kp = K;
   cz.per_lane = op_per_lane;
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster > 1)
@@ -864,71 +1228,98 @@ extern "C" int fg_cg_mb_coarse_solve(
 }
 
 // K3-agg: K3 with the aggregation coarse space (see the note at the top of
-// this file), 2D plans only: `einv` (1|lanes, K, K) row-major, the tiles'
-// cell lists `tile_ptr` (K + 1) / `tile_cells` and each cell's tile `cidx`
-// (n; -1: none).  `cluster` = 1: the chunk grid; C in 2, 4, 8, 16 (chunk
-// 1): the cluster arm, one lane over C blocks, each block's rows in shared
-// memory beside its 2 K coarse floats (a size that does not fit is
-// refused).  Returns cudaErrorInvalidValue when K exceeds FG_MAX_AGG_K.
+// this file), 2D plans only: `einv` (1|lanes, K, kp) row-major with kp >=
+// K a multiple of 4 (16 B aligned), the tiles' runs `runs` (K, nruns)
+// int2 and each cell's tile `cidx` (n; -1: none).  `cluster` = 1: the
+// chunk grid; C in 2, 4, 8, 16 (chunk 1): the cluster arm, one lane over C
+// blocks, each block's rows in shared memory beside its 2 kp coarse floats
+// and its ring (a size that does not fit is refused).  Returns
+// cudaErrorInvalidValue when K exceeds FG_MAX_AGG_K, nruns is not in 1..32,
+// kp and `stages` are not a layout fg_agg_layout_ok takes, or `einv` is not
+// 16 B aligned.
 static FgCgKernel fg_cg_agg_kernel(int cluster) {
   return cluster > 1 ? fg_cg_kernel<2, true, true, true, false, 0, true>
                      : fg_cg_kernel<2, true, true, false, false, 0, true>;
 }
 
-// dynamic shared memory of a K3-agg block: the cluster arm's rows and
-// chain terms (C > 1), then its s_rc and s_xc (ops/cg_cuda_mb.py
-// `stage_bytes` with coarse_k mirrors the cluster arm's)
-static size_t fg_agg_bytes(int n, int C, int K) {
-  return (C > 1 ? fg_stage_bytes(n, C, 2) : 0) + (size_t)2 * K * sizeof(float);
+// dynamic shared memory of a K3-agg block over rows of kp floats: the
+// chunk grid's s_rc and s_xc (2 kp floats); the cluster arm's rows, then
+// s_rc and s_xc, then its chain terms with the ring's `stages` rows over
+// them (ops/cg_cuda_mb.py `stage_bytes` with coarse_k mirrors it)
+static size_t fg_agg_bytes(int n, int C, int kp, int stages) {
+  if (C == 1) return 2 * (size_t)kp * sizeof(float);
+  const size_t chain = (size_t)fg_chain_floats(n, C);
+  const size_t ring = (size_t)stages * kp;
+  return ((size_t)fg_cluster_seg(n, C) * 9 + 2 * (size_t)kp +
+          (chain > ring ? chain : ring)) *
+         sizeof(float);
+}
+
+// whether kp and stages are a K3-agg layout the kernel takes over K tiles
+// at C: rows of kp >= K floats, a multiple of 4 (each row on 16 B for the
+// TMA), and a ring of 1..FG_AGG_RING_MAX rows on the cluster arm (none on
+// the chunk grid); the host decides both (ops/cg_cuda_mb.py `agg_kp`,
+// `agg_ring_stages`)
+static bool fg_agg_layout_ok(int K, int kp, int C, int stages) {
+  return K >= 1 && kp >= K && kp <= FG_MAX_AGG_K && kp % 4 == 0 &&
+         (C == 1 ? stages == 0 : stages >= 1 && stages <= FG_AGG_RING_MAX);
 }
 
 extern "C" int fg_cg_mb_agg_solve(
     const float* b, const float* diag, const float* off, const int* nbr,
     const float* x0, float* x, int* iters, float* rs, float* r, float* p,
-    float* q, float* best, const float* einv, const int* tile_ptr,
-    const int* tile_cells, const int* cidx, int lanes, int chunk,
-    int cluster, int n, int ndims, int op_per_lane, int K, float tol2,
+    float* q, float* best, const float* einv, const int* runs,
+    const int* cidx, int lanes, int chunk, int cluster, int n, int ndims,
+    int op_per_lane, int K, int kp, int nruns, int stages, float tol2,
     int maxiter, int stall_iters, int precondition, int return_best,
     int warm_start, void* stream) {
   const int blocks = fg_chunk_blocks(lanes, chunk);
-  if (blocks == 0 || ndims != 2 || nbr == nullptr || K < 1 ||
-      K > FG_MAX_AGG_K || !fg_cluster_ok(cluster, chunk))
+  if (blocks == 0 || ndims != 2 || nbr == nullptr ||
+      !fg_cluster_ok(cluster, chunk) ||
+      !fg_agg_layout_ok(K, kp, cluster, stages) || nruns < 1 ||
+      nruns > FG_AGG_MAX_RUNS || ((size_t)einv & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const FgGrid g = fg_grid(1, 1, n);
-  FgCoarse cz;
+  FgCoarse cz{};
   cz.einv_t = einv;
-  cz.strip_ptr = tile_ptr;
-  cz.strip_cells = tile_cells;
+  cz.runs = reinterpret_cast<const int2*>(runs);
   cz.cidx = cidx;
   cz.K = K;
+  cz.kp = kp;
+  cz.nruns = nruns;
+  cz.stages = stages;
   cz.per_lane = op_per_lane;
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster > 1)
     return (int)fg_launch_clusters(
         fg_cg_agg_kernel(cluster), lanes, cluster,
-        fg_agg_bytes(n, cluster, K), s, b, diag, off, nbr, x0, x, iters, rs,
-        r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter, stall_iters,
-        precondition, return_best, warm_start, cz, FgSpread{});
+        fg_agg_bytes(n, cluster, kp, stages), s, b, diag, off, nbr, x0, x,
+        iters, rs, r, p, q, best, lanes, 1, g, op_per_lane, tol2, maxiter,
+        stall_iters, precondition, return_best, warm_start, cz, FgSpread{});
   return (int)fg_launch_smem(
-      fg_cg_agg_kernel(1), blocks, fg_agg_bytes(n, 1, K), s, b, diag, off,
-      nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g, op_per_lane,
-      tol2, maxiter, stall_iters, precondition, return_best, warm_start, cz,
-      FgSpread{});
+      fg_cg_agg_kernel(1), blocks, fg_agg_bytes(n, 1, kp, 0), s, b, diag,
+      off, nbr, x0, x, iters, rs, r, p, q, best, lanes, chunk, g,
+      op_per_lane, tol2, maxiter, stall_iters, precondition, return_best,
+      warm_start, cz, FgSpread{});
 }
 
 // How many C-block clusters of a coarse form's cluster arm (a 2D plan over
 // n cells) the card holds at once, into *out (as
 // fg_cg_mb_cluster_occupancy; each coarse instance's registers and shared
 // memory are its own): K = 0 asks K3-coarse's (the strips, their vectors
-// in static arrays), K in 1..FG_MAX_AGG_K K3-agg's over K tiles.
+// in static arrays; kp and stages 0), K in 1..FG_MAX_AGG_K K3-agg's over K
+// tiles with rows of kp floats and a ring of `stages` rows, as its solve
+// takes them.
 extern "C" int fg_cg_mb_coarse_cluster_occupancy(int ndims, int cluster,
-                                                 int n, int K, int* out) {
-  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1) || K < 0 ||
-      K > FG_MAX_AGG_K)
+                                                 int n, int K, int kp,
+                                                 int stages, int* out) {
+  if (ndims != 2 || cluster < 2 || !fg_cluster_ok(cluster, 1) ||
+      (K == 0 ? kp != 0 || stages != 0
+              : !fg_agg_layout_ok(K, kp, cluster, stages)))
     return (int)cudaErrorInvalidValue;
   if (K == 0)
     return (int)fg_max_clusters(fg_cg_coarse_kernel(cluster), cluster,
                                 fg_stage_bytes(n, cluster, ndims), out);
   return (int)fg_max_clusters(fg_cg_agg_kernel(cluster), cluster,
-                              fg_agg_bytes(n, cluster, K), out);
+                              fg_agg_bytes(n, cluster, kp, stages), out);
 }

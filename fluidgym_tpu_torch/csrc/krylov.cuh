@@ -469,12 +469,17 @@ __device__ __forceinline__ float2* fg_sum_slot(const FgLane& L,
 // next sum's first barrier, which no block passes before every block has
 // read this sum; the spread arm's chains layouts have no such barrier, so
 // the spread arm uses the lane's two buffers of T chains in turns: a block
-// writes one again only after the next sum's barrier.  Every thread gets
-// both totals.  Must be reached by all threads of the lane.
-template <int ARM, typename Term>
+// writes one again only after the next sum's barrier.  PUT (the cluster
+// arm): the caller has put this block's chain terms in `L.buf` itself (and
+// `term` is not called), reading only what a lane barrier after every
+// block's reads of the previous sum's slots had published; so the sum's
+// first barrier is left out.  Every thread gets both totals.  Must be
+// reached by all threads of the lane.
+template <int ARM, bool PUT = false, typename Term>
 __device__ __forceinline__ void fg_lane_sum2(float& a, float& b, float* sh,
                                              FgLane& L, const FgSpread& sp,
                                              int n, Term term) {
+  static_assert(!PUT || ARM == FG_ARM_CLUSTER, "put terms: the cluster arm");
   if constexpr (ARM == FG_ARM_RING) {
     const float2* chains = fg_sum_slot(L, sp);
     L.parity ^= 1;
@@ -487,7 +492,7 @@ __device__ __forceinline__ void fg_lane_sum2(float& a, float& b, float* sh,
     const FgChains h = fg_chains<ARM>(L, sp, n);
     float* bu = L.buf;
     float* bw = L.buf + h.terms;
-    if constexpr (ARM == FG_ARM_CHAINS) {
+    if constexpr (ARM == FG_ARM_CHAINS || PUT) {
       __syncthreads();
     } else {
       fg_lane_sync<ARM>(L, sp);
@@ -672,13 +677,14 @@ __device__ __forceinline__ float* fg_resident_vecs(float* smem, int n,
   return smem + (size_t)n * (1 + 2 * nd);
 }
 
-// threadIdx.x.  FG_ARM_RING reads it through a volatile asm, so the
-// compiler forms each pass's per-thread addresses in the pass and cannot
-// hoist them out of the solve's loop: kept live there they spilled K3's
-// instance (88 B; none with this, and the passes ran faster).
-template <int ARM>
+// threadIdx.x.  FG_ARM_RING (and, by VT, K3-agg's cluster instance) reads
+// it through a volatile asm, so the compiler forms each pass's per-thread
+// addresses in the pass and cannot hoist them out of the solve's loop:
+// kept live there they spilled K3's ring instance and K3-agg's (88 B each;
+// 0 and 8 B with this, and the passes ran faster).
+template <int ARM, bool VT = ARM == FG_ARM_RING>
 __device__ __forceinline__ int fg_tid() {
-  if constexpr (ARM == FG_ARM_RING) {
+  if constexpr (VT) {
     int t;
     asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
     return t;
@@ -695,10 +701,10 @@ __device__ __forceinline__ int fg_tid() {
 // j T and their cells (fg_chain_cell), e being where fg_put puts their
 // terms in FG_ARM_CHAINS.  A pass that puts terms goes through
 // fg_sum_cells.
-template <int ARM, bool UNROLLED, typename F>
+template <int ARM, bool UNROLLED, bool VT = ARM == FG_ARM_RING, typename F>
 __device__ __forceinline__ void fg_cells(const FgLane& L, const FgSpread& sp,
                                          int n, F&& f) {
-  const int t = fg_tid<ARM>();
+  const int t = fg_tid<ARM, VT>();
   if constexpr (UNROLLED) {
 #pragma unroll
     for (int k = 0; k < FG_RESIDENT_CELLS; ++k) {
@@ -726,13 +732,14 @@ __device__ __forceinline__ void fg_cells(const FgLane& L, const FgSpread& sp,
 // adds them, and after the last tile puts the chain in the lane's slot:
 // the one-block form's chains, bit for bit, with one barrier per tile.
 // Must be reached by all threads of the block.
-template <int ARM, bool UNROLLED, int SUMS, typename F>
+template <int ARM, bool UNROLLED, int SUMS, bool VT = ARM == FG_ARM_RING,
+          typename F>
 __device__ __forceinline__ void fg_sum_cells(const FgLane& L,
                                              const FgSpread& sp, int n,
                                              F&& f) {
   static_assert(SUMS == 1 || SUMS == 2, "a pass puts one or two sums");
   if constexpr (ARM != FG_ARM_RING) {
-    fg_cells<ARM, UNROLLED>(L, sp, n, f);
+    fg_cells<ARM, UNROLLED, VT>(L, sp, n, f);
   } else {
     constexpr int T = FG_THREADS, TILE = FG_RING_TILE;
     const FgChains h = fg_chains<ARM>(L, sp, n);

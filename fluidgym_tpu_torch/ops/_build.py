@@ -64,12 +64,12 @@ _ARGTYPES = {
     # strip_cells, cidx, lanes, chunk, cluster, n, ndims, op_per_lane, K,
     # tol2, maxiter, stall, precond, best?, warm, stream
     "fg_cg_mb_coarse_solve": [_P] * 16 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
-    # ndims, cluster, n, K (0: the strips), out (int*)
-    "fg_cg_mb_coarse_cluster_occupancy": [_I] * 4 + [_P],
-    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, einv, tile_ptr,
-    # tile_cells, cidx, lanes, chunk, cluster, n, ndims, op_per_lane, K,
+    # ndims, cluster, n, K (0: the strips), kp, stages, out (int*)
+    "fg_cg_mb_coarse_cluster_occupancy": [_I] * 6 + [_P],
+    # b, diag, off, nbr, x0, x, iters, rs, r, p, q, best, einv, runs, cidx,
+    # lanes, chunk, cluster, n, ndims, op_per_lane, K, kp, nruns, stages,
     # tol2, maxiter, stall, precond, best?, warm, stream
-    "fg_cg_mb_agg_solve": [_P] * 16 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    "fg_cg_mb_agg_solve": [_P] * 15 + [_I] * 10 + [_F] + [_I] * 5 + [_P],
     # diag, off, x, hxm, hxp, hym, hyp, y, k, ny, nx, stream
     "fg_stencil2d_apply": [_P] * 8 + [_I] * 3 + [_P],
 }

@@ -52,9 +52,10 @@ neighbour table built once per plan (``neighbor_table``; see
   ``coarse_fn``): the additive two-level preconditioner ``z = D^-1 r + W
   Einv W^T r`` over the tiles of ``solver/piso.py``'s aggregation space,
   ``Einv`` fixed (built once per env from the state at reset and folded with
-  ``d`` in float64, ``piso.build_agg_coarse``), the restriction through
-  per-tile cell lists and the prolongation through each cell's tile
-  (``agg_space``, built once with the space).  Counted as
+  ``d`` in float64, ``piso.build_agg_coarse``; its rows padded to 16 B
+  for the kernel's TMA copies), the restriction through each tile's runs
+  of cells and the prolongation through each cell's tile (``agg_space``,
+  all built once with the space).  Counted as
   ``fused_cg_mb.agg_launches`` (identity seams) and ``.agg_flip_launches``
   (flip seams: the airfoil's "K3-agg-flip", k = 1,194 tiles).  A single
   env's lane takes the cluster arm (``merged_arm(..., "cg_coarse",
@@ -149,7 +150,8 @@ from fluidgym_tpu_torch.solver.linsolve import SolveInfo
 
 __all__ = ["fused_bicgstab_mb", "fused_bicgstab_plain", "fused_cg_mb",
            "fused_cg_mb_plain", "neighbor_table", "strip_lists",
-           "AggSpace", "agg_space", "AGG_MAX_K",
+           "AggSpace", "agg_space", "AGG_MAX_K", "agg_kp", "agg_pad",
+           "agg_runs", "agg_ring_stages",
            "flatten_fields", "unflatten_fields", "flatten_ops",
            "default_cluster", "cluster_ranges", "stage_bytes", "pinned_cluster",
            "max_active_clusters", "rows_fit", "CLUSTER_SIZES", "merged_arm",
@@ -243,43 +245,97 @@ def strip_lists(plan: MergePlan, device):
 #: shared memory beside the cluster arm's rows (``stage_bytes``;
 #: ``FG_MAX_AGG_K`` in ``csrc/cg.cu``)
 AGG_MAX_K = 2048
+#: the most runs of cells a tile may have (one per lane of a warp;
+#: ``FG_AGG_MAX_RUNS``)
+AGG_MAX_RUNS = 32
+#: the most rows of Einv in the cluster arm's ring (``FG_AGG_RING_MAX``)
+AGG_RING_MAX = 16
 
 
 class AggSpace(NamedTuple):
     """K3-agg's view of an aggregation space in the merged frame of a plan
-    (``agg_space``): every cell's tile and the tiles' cell lists in CSR
-    form, and the fixed ``(K, K)`` coarse inverse."""
+    (``agg_space``): every cell's tile, each tile's runs of cells, and the
+    fixed ``(K, K)`` coarse inverse, kept as rows padded to 16 B for the
+    kernel (``agg_pad``) and read as ``einv``, a view of them."""
 
     cidx: torch.Tensor    # (n,) int32: each flat cell's tile (-1: none)
-    ptr: torch.Tensor     # (K + 1,) int32: tile k owns cells[ptr[k]:ptr[k+1]]
-    cells: torch.Tensor   # (n,) int32: flat cell indices, ascending per tile
-    einv: torch.Tensor    # (K, K)
+    runs: torch.Tensor    # (K, nruns, 2) int32: tile k's runs in ascending
+    #                       cell order, (end, cell - position): positions
+    #                       [end of the run before, end) are those cells;
+    #                       unused runs end at the tile's size
+    rows: torch.Tensor    # (K, agg_kp(K)): Einv's rows, zero-padded
     K: int
+
+    @property
+    def einv(self) -> torch.Tensor:
+        """``(K, K)`` Einv: a view of ``rows``."""
+        return self.rows[:, :self.K]
+
+
+def agg_kp(K: int) -> int:
+    """K3-agg's row length of Einv: K rounded up to 4 floats, so that each
+    row starts on 16 B for the TMA."""
+    return -(-K // 4) * 4
+
+
+def agg_pad(einv: torch.Tensor) -> torch.Tensor:
+    """``einv`` ``(..., K, K)`` as K3-agg's kernel reads it: rows of
+    ``agg_kp(K)`` floats, zero-padded, ``(..., K, agg_kp(K))``."""
+    K = einv.shape[-1]
+    return torch.nn.functional.pad(einv, (0, agg_kp(K) - K))
+
+
+def agg_runs(cidx: np.ndarray, K: int) -> np.ndarray:
+    """``(K, nruns, 2)`` int32: each tile's cells (ascending, as a cell list
+    in CSR form orders them) as maximal runs of consecutive cells, ``(end,
+    cell - position)`` per run, ``end`` the position after its last cell;
+    a tile with fewer runs repeats its size as ``end``.  ``nruns``: the
+    most runs of any tile (at least 1)."""
+    covered = np.flatnonzero(cidx >= 0)
+    # covered ascends, so a stable sort by tile keeps each tile's cells
+    # ascending
+    order = np.argsort(cidx[covered], kind="stable")
+    cells, tiles = covered[order], cidx[covered][order]
+    counts = np.bincount(tiles, minlength=K)
+    first = np.cumsum(counts) - counts  # each tile's first place in cells
+    # a run starts at a tile's first cell and after every gap in its cells
+    start = np.ones(len(cells), bool)
+    start[1:] = (tiles[1:] != tiles[:-1]) | (cells[1:] != cells[:-1] + 1)
+    rs = np.flatnonzero(start)
+    rt = tiles[rs]
+    per = np.bincount(rt, minlength=K)
+    rj = np.arange(len(rs)) - (np.cumsum(per) - per)[rt]  # run within tile
+    nruns = int(per.max()) if len(rs) else 1
+    out = np.zeros((K, max(nruns, 1), 2), np.int64)
+    out[:, :, 0] = counts[:, None]
+    out[rt, rj, 0] = np.append(rs[1:], len(cells)) - first[rt]
+    out[rt, rj, 1] = cells[rs] - (rs - first[rt])
+    return out.astype(np.int32)
 
 
 def agg_space(plan: MergePlan, tile_ids, einv: torch.Tensor) -> AggSpace:
     """The merged frame's view of per-block tile ids (``tile_ids``: per
     block ``(*shape)`` integers in ``[0, K)``): packed like any field
     (``block_merge.pack_fields``; a flip seam reverses cells, so a tile's
-    cells need not be contiguous), then grouped by tile.  Built once per
+    cells need not be contiguous), then each tile's runs of cells, and
+    Einv with its rows padded for the kernel (``agg_pad``).  Built once per
     space, on the device of ``einv``."""
     from fluidgym_tpu_torch.solver.block_merge import pack_fields
 
     K = einv.shape[-1]
     # +1: a cell of a super-block that no block covers packs as 0 -> -1
     packed = pack_fields(plan, tuple(t.to(torch.int64) + 1 for t in tile_ids))
-    cidx = (torch.cat([p.reshape(-1) for p in packed]) - 1).cpu()
+    cidx = (torch.cat([p.reshape(-1) for p in packed]) - 1).cpu().numpy()
     if int(cidx.max()) >= K:
         raise ValueError(f"a tile id is out of range for K = {K}")
-    covered = torch.nonzero(cidx >= 0).reshape(-1)
-    order = torch.argsort(cidx[covered], stable=True)
-    cells = covered[order]
-    counts = torch.bincount(cidx[covered], minlength=K)
-    ptr = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)])
+    runs = agg_runs(cidx, K)
+    if runs.shape[1] > AGG_MAX_RUNS:
+        raise ValueError(f"a tile has {runs.shape[1]} runs of cells in the "
+                         f"merged frame; K3-agg takes at most {AGG_MAX_RUNS}")
     dev = einv.device
-    return AggSpace(cidx=cidx.to(torch.int32).to(dev),
-                    ptr=ptr.to(torch.int32).to(dev),
-                    cells=cells.to(torch.int32).to(dev), einv=einv, K=K)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return AggSpace(cidx=t(cidx.astype(np.int32)), runs=t(runs),
+                    rows=agg_pad(einv), K=K)
 
 
 def _coarse_precond(plan: MergePlan, sp, einv, diag, precondition: bool):
@@ -364,19 +420,41 @@ class MergedArm(NamedTuple):
 cluster_ranges = block_ranges
 
 
+def agg_ring_stages(n: int, C: int, K: int) -> int:
+    """Rows of Einv in the ring of K3-agg's cluster arm at C over K tiles:
+    what a block's dynamic shared memory (``SMEM_PER_BLOCK - SMEM_STATIC``)
+    holds beside its operator rows and its two coarse vectors, at least 1
+    and at most ``AGG_RING_MAX``; 0 for the chunk grid (10 on the airfoil
+    at C = 16).  The kernel's entries take it as ``stages``."""
+    if C == 1:
+        return 0
+    row = 4 * agg_kp(K)
+    fixed = 4 * block_seg(n, C) * 9 + 2 * row
+    budget = SMEM_PER_BLOCK - SMEM_STATIC
+    s = (budget - fixed) // row if fixed < budget else 1
+    return max(1, min(AGG_RING_MAX, s))
+
+
 def stage_bytes(n: int, C: int, ndims: int, coarse_k: int = 0) -> int:
     """Dynamic shared memory of one block in the cluster arm: the operator
     rows of its range (diag, ``2*ndims`` off and ``2*ndims`` int32
     neighbours per cell), then two floats for each cell of its 1024 / C
-    sum chains (``fg_stage_bytes``), then K3-agg's two floats per tile
-    (``coarse_k`` tiles, 0 for the other forms; ``fg_agg_bytes``)."""
+    sum chains (``fg_stage_bytes``).  K3-agg (``coarse_k`` tiles, 0 for the
+    other forms): the rows, its two coarse vectors of ``agg_kp`` floats,
+    then the chain terms with its ring of ``agg_ring_stages`` rows of Einv
+    over them (``fg_agg_bytes``)."""
     chains = 2 * (1024 // C) * -(-n // 1024)
-    return (block_seg(n, C) * (1 + 4 * ndims) + chains + 2 * coarse_k) * 4
+    rows = block_seg(n, C) * (1 + 4 * ndims)
+    if not coarse_k:
+        return (rows + chains) * 4
+    kp = agg_kp(coarse_k)
+    ring = agg_ring_stages(n, C, coarse_k) * kp
+    return (rows + 2 * kp + max(chains, ring)) * 4
 
 
 def rows_fit(n: int, C: int, ndims: int, coarse_k: int = 0) -> bool:
-    """Whether a block's operator rows (and K3-agg's ``coarse_k`` tiles)
-    fit in its shared memory at C."""
+    """Whether a block's operator rows (and K3-agg's ``coarse_k`` tiles and
+    its ring) fit in its shared memory at C."""
     return stage_bytes(n, C, ndims, coarse_k) <= SMEM_PER_BLOCK - SMEM_STATIC
 
 
@@ -391,8 +469,10 @@ def max_active_clusters(algo: str, ndims: int, C: int, n: int,
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         if algo == "cg_coarse":
+            ring = ((agg_kp(coarse_k), agg_ring_stages(n, C, coarse_k))
+                    if coarse_k else (0, 0))
             status = lib.fg_cg_mb_coarse_cluster_occupancy(
-                ndims, C, n, coarse_k, ctypes.addressof(out))
+                ndims, C, n, coarse_k, *ring, ctypes.addressof(out))
         else:
             entry = {"cg": lib.fg_cg_mb_cluster_occupancy,
                      "bicgstab": lib.fg_bicgstab_mb_cluster_occupancy}[algo]
@@ -748,7 +828,8 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
     merged layout (``b``/``x0`` ``(lanes, n)``, ``diag (1|lanes, n)``,
     ``off (1|lanes, 2*ndims, n)``, ``coarse = (sp, einv)`` with ``einv
     (1|lanes, K, K)`` like ``diag``: K3-coarse for a strip plan, K3-agg for
-    an ``AggSpace``),
+    an ``AggSpace``, whose einv is a view of padded rows as
+    ``AggSpace.einv`` is),
     allocate the outputs and scratch once, and return ``launch()``: one
     kernel launch on the current stream into those buffers, returning ``(x,
     iterations, residual_sum)`` (the same tensors on every call; a timing
@@ -803,14 +884,23 @@ def merged_launcher(algo: str, plan: MergePlan, diag, off, b, x0, *, tol2_sum,
             if sp.cidx.device != b.device or sp.cidx.numel() != n:
                 raise ValueError("the aggregation space is not this plan's "
                                  "on this device")
-            # row-major: a warp reads row k of Einv whole
-            bufs += (einv.contiguous(), sp.ptr, sp.cells, sp.cidx)
+            # the kernel copies whole padded rows, the last one's too
+            kp, le = agg_kp(sp.K), einv.shape[0]
+            if (einv.stride()[-2:] != (kp, 1)
+                    or (le > 1 and einv.stride(0) != sp.K * kp)
+                    or einv.untyped_storage().nbytes()
+                    < 4 * (einv.storage_offset() + le * sp.K * kp)):
+                raise ValueError("K3-agg's einv must be a view of rows padded "
+                                 "to agg_kp(K) floats (AggSpace.einv)")
+            bufs += (einv, sp.runs, sp.cidx)
             entry = lib.fg_cg_mb_agg_solve
+            shape = (L, chunk, cluster, n, ndims, op_per_lane, sp.K, kp,
+                     sp.runs.shape[1], agg_ring_stages(n, cluster, sp.K))
         else:
             bufs += (einv.transpose(-1, -2).contiguous(),
                      *strip_lists(plan, b.device))
             entry = lib.fg_cg_mb_coarse_solve
-        shape = (L, chunk, cluster, n, ndims, op_per_lane, sp.K)
+            shape = (L, chunk, cluster, n, ndims, op_per_lane, sp.K)
     else:
         bufs += spread_buffers(L, spread, b.device)
         shape = (L, chunk, cluster, int(spread),

@@ -496,6 +496,19 @@ def _agg_prolong(c: Tensor, specs, tile: int):
     return tuple(outs)
 
 
+def agg_tile_ids(specs, tile: int, device) -> list:
+    """Each block's cells' tile (``_agg_tile_specs``), flat over all blocks
+    (row-major tiles: the order of ``_agg_restrict`` and ``_agg_prolong``):
+    per block ``(*shape)`` int64 on ``device``."""
+    tile_ids = []
+    for shp, cshp, off in specs:
+        grids = np.meshgrid(*[np.arange(n) // tile for n in shp],
+                            indexing="ij")
+        tile_ids.append(torch.from_numpy(
+            np.ravel_multi_index(tuple(grids), cshp) + off).to(device))
+    return tile_ids
+
+
 def build_pressure_ops_like_substep(state: DomainState, geoms, topo: DomainTopo,
                                     cfg: SimConfig):
     """The pressure operator as ``piso_substep_info`` assembles it (the
@@ -540,14 +553,7 @@ def build_agg_coarse(state: DomainState, geoms, topo: DomainTopo,
     dtype, device = blk0.dtype, blk0.device
     with torch.no_grad():
         p_ops = build_pressure_ops_like_substep(state, geoms, topo, cfg)
-        # each block's cells' tile, flat over all blocks (row-major tiles:
-        # the order of _agg_restrict and _agg_prolong)
-        tile_ids = []
-        for shp, cshp, off in specs:
-            grids = np.meshgrid(*[np.arange(n) // tile for n in shp],
-                                indexing="ij")
-            tile_ids.append(torch.from_numpy(
-                np.ravel_multi_index(tuple(grids), cshp) + off).to(device))
+        tile_ids = agg_tile_ids(specs, tile, device)
         E = np.zeros((k, k), np.float64)
         for c0 in range(0, k, chunk):
             js = torch.arange(c0, min(c0 + chunk, k), device=device)

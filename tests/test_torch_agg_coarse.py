@@ -232,28 +232,44 @@ def test_env_step_with_agg_coarse_matches_plain():
 
 def test_airfoil_space_covers_every_cell_once(airfoil):
     """k = 1,194 tiles of 8 x 8 over the 6 blocks; in the merged frame
-    (the wake cut a flip seam) the tile lists hold every one of the 73,456
-    cells once, each under its own tile, at most 64 to a tile."""
+    (the wake cut a flip seam) the tiles' runs of cells hold every one of
+    the 73,456 cells once, each under its own tile, at most 64 to a tile
+    and at most 8 runs to a tile, ascending within a tile."""
     agg, t = airfoil["agg"], airfoil["t"]
     assert agg.tile == 8 and agg.space.K == 1194
     sp = agg.space
     n = sum(int(np.prod(b.shape)) for b in t._topo.blocks)
     assert n == 73456 and sp.K == 1194 and sp.cidx.numel() == n
-    ptr, cells, cidx = sp.ptr.long(), sp.cells.long(), sp.cidx.long()
-    assert int(ptr[0]) == 0 and int(ptr[-1]) == n
+    assert sp.runs.shape[1] <= 8
+    lists = _tile_cells(sp)
+    cells = torch.from_numpy(np.concatenate(lists)).long()
+    sizes = torch.tensor([len(c) for c in lists])
+    cidx = sp.cidx.long()
     assert torch.equal(torch.sort(cells).values, torch.arange(n))
-    sizes = ptr[1:] - ptr[:-1]
     assert int(sizes.min()) >= 1 and int(sizes.max()) <= 64
     owner = torch.repeat_interleave(torch.arange(sp.K), sizes)
     assert torch.equal(cidx[cells], owner)
-    for k in range(sp.K):  # ascending within a tile
-        seg = cells[ptr[k]:ptr[k + 1]]
+    for seg in lists:  # ascending within a tile
         assert bool((seg[1:] > seg[:-1]).all())
     # the packed tile ids are the blocks' tile ids moved into the frame
     back = block_merge.unpack_fields(agg.plan, tuple(
         x[0] for x in cg_cuda_mb.unflatten_fields(agg.plan, cidx[None])))
     for a, b in zip(back, agg.tile_ids):
         assert torch.equal(a.long(), b)
+
+
+def _tile_cells(sp) -> list:
+    """Each tile's cells as the kernel finds them from its runs: position i
+    is in the first run whose end is past i, its cell i + (cell -
+    position) of that run."""
+    runs = sp.runs.cpu().numpy().astype(np.int64)
+    out = []
+    for k in range(sp.K):
+        end, d = runs[k, :, 0], runs[k, :, 1]
+        i = np.arange(end[-1])
+        j = np.searchsorted(end, i, side="right")
+        out.append(i + d[j])
+    return out
 
 
 @pytest.mark.parametrize("case", ["cyl", "airfoil"])
@@ -349,8 +365,8 @@ def agg_occupancy(monkeypatch):
 
 
 @pytest.mark.parametrize("lanes,n,K,expected", [
-    (1, AIRFOIL_N, 1194, (16, 0, False)),   # 212,304 B at C = 16: fits
-    (1, AIRFOIL_N, 2048, (16, 0, False)),   # 219,136 B: the cap still fits
+    (1, AIRFOIL_N, 1194, (16, 0, False)),   # 223,296 B at C = 16: fits
+    (1, AIRFOIL_N, 2048, (16, 0, False)),   # 223,232 B: the cap still fits
     (1, AIRFOIL_N, 2700, (1, 0, False)),    # over the shared memory at C = 16
     (8, AIRFOIL_N, 1194, (1, 0, False)),    # 8 clusters of 16: the card holds 7
     (64, 14_232, 228, (1, 0, False)),
@@ -362,9 +378,14 @@ def test_agg_rule_on_the_main_path_shapes(agg_occupancy, lanes, n, K, expected):
     if arm.cluster > 1:
         assert cg_cuda_mb.rows_fit(n, arm.cluster, 2, K)
         assert agg_occupancy and all(q[3] == K for q in agg_occupancy)
-    # 2 K floats beside the rows and chain terms
+    # the rows, two coarse vectors of K rounded up to 4 floats, then the
+    # chain terms with the ring's rows of Einv over them
+    kp = cg_cuda_mb.agg_kp(K)
+    rows = cg_cuda_mb.stage_bytes(n, 16, 2) // 4 - 2 * 64 * -(-n // 1024)
+    ring = cg_cuda_mb.agg_ring_stages(n, 16, K) * kp
+    assert ring >= kp
     assert (cg_cuda_mb.stage_bytes(n, 16, 2, K)
-            == cg_cuda_mb.stage_bytes(n, 16, 2) + 8 * K)
+            == 4 * (rows + 2 * kp + max(2 * 64 * -(-n // 1024), ring)))
 
 
 def test_agg_rule_off_the_card_chunks_and_3d(agg_occupancy):
@@ -382,7 +403,8 @@ def test_agg_rule_off_the_card_chunks_and_3d(agg_occupancy):
 @pytest.mark.parametrize("K", [0, 1194])
 def test_max_active_clusters_hands_k_to_the_coarse_entry(monkeypatch, K):
     """One occupancy entry serves both coarse instances: K3-coarse's strips
-    ask with K = 0, K3-agg with its tile count."""
+    ask with K = 0, K3-agg with its tile count, its rows' padded length and
+    its ring's rows."""
     import contextlib
     import ctypes
     from types import SimpleNamespace
@@ -391,8 +413,8 @@ def test_max_active_clusters_hands_k_to_the_coarse_entry(monkeypatch, K):
 
     asked = []
 
-    def occupancy(ndims, C, n, K_, out):
-        asked.append((ndims, C, n, K_))
+    def occupancy(ndims, C, n, K_, kp, stages, out):
+        asked.append((ndims, C, n, K_, kp, stages))
         ctypes.c_int.from_address(out).value = 7
         return 0
 
@@ -406,7 +428,9 @@ def test_max_active_clusters_hands_k_to_the_coarse_entry(monkeypatch, K):
                                               CUDA, K) == 7
     finally:
         cg_cuda_mb.max_active_clusters.cache_clear()
-    assert asked == [(2, 16, AIRFOIL_N, K)]
+    ring = (0, 0) if K == 0 else (1196, cg_cuda_mb.agg_ring_stages(
+        AIRFOIL_N, 16, K))
+    assert asked == [(2, 16, AIRFOIL_N, K, *ring)]
 
 
 def _c_params(entry):
@@ -426,8 +450,10 @@ def _c_params(entry):
                                    "fg_cg_mb_coarse_cluster_occupancy"])
 def test_agg_entry_signature_matches_the_ctypes_argtypes(entry):
     """The loader's argtypes follow the C signature one for one; the solve
-    takes the coarse solve's order, the coarse forms' occupancy query K
-    after n (0: the strips)."""
+    takes the coarse solve's order with the tiles' runs and each cell's
+    tile after Einv, the padded row length, the runs per tile and the
+    ring's rows after K; the coarse forms' occupancy query K, the padded
+    row length and the ring's rows after n (K = 0: the strips)."""
     from fluidgym_tpu_torch.ops import _build
 
     params = _c_params(entry)
@@ -436,13 +462,14 @@ def test_agg_entry_signature_matches_the_ctypes_argtypes(entry):
             == [kinds.get(t, "c_void_p") for t, _ in params])
     names = [nm for _, nm in params]
     if "occupancy" in entry:
-        assert names == ["ndims", "cluster", "n", "K", "out"]
+        assert names == ["ndims", "cluster", "n", "K", "kp", "stages", "out"]
     else:
         assert names == [nm for _, nm in _c_params("fg_cg_mb_coarse_solve")][:12] \
-            + ["einv", "tile_ptr", "tile_cells", "cidx"] + names[16:]
+            + ["einv", "runs", "cidx"] + names[15:]
         i = names.index("cluster")
-        assert names[i - 2:i + 6] == ["lanes", "chunk", "cluster", "n",
-                                      "ndims", "op_per_lane", "K", "tol2"]
+        assert names[i - 2:i + 9] == ["lanes", "chunk", "cluster", "n",
+                                      "ndims", "op_per_lane", "K", "kp",
+                                      "nruns", "stages", "tol2"]
 
 
 def test_agg_cap_matches_the_kernel():

@@ -236,7 +236,7 @@ def test_coarse_entry_signature_matches_the_ctypes_argtypes(entry):
             == [kinds.get(t, "c_void_p") for t, _ in params])
     names = [nm for _, nm in params]
     if "occupancy" in entry:
-        assert names == ["ndims", "cluster", "n", "K", "out"]
+        assert names == ["ndims", "cluster", "n", "K", "kp", "stages", "out"]
     else:
         i = names.index("cluster")
         assert names[i - 2:i + 6] == ["lanes", "chunk", "cluster", "n",

@@ -1900,9 +1900,15 @@ def test_k3_agg_kernel_matches_plain_and_every_cluster_size(case):
 
 def test_k3_agg_refusals():
     """The entry refuses K over FG_MAX_AGG_K (2048) or below 1, a cluster
-    size outside 1, 2, 4, 8, 16, C > 1 with a chunk of several lanes and a
-    3D plan; the launcher refuses K over the cap and a space of another
-    plan; a batch of more lanes than the card holds clusters takes C = 1."""
+    size outside 1, 2, 4, 8, 16, C > 1 with a chunk of several lanes, a 3D
+    plan, a padded row length below K or not a multiple of 4, a ring of no
+    rows or more than 16 on the cluster arm or of any on the chunk grid,
+    runs per tile outside 1..32 and an Einv not on 16 B (the ring's TMA
+    copies); the coarse forms' occupancy entry refuses K over the cap or
+    below 0 and reports clusters for the strips (K = 0) and for the tiles
+    with the ring's bytes; the launcher refuses K over the cap and a space
+    of another plan; a batch of more lanes than the card holds clusters
+    takes C = 1."""
     dev = require_cuda()
     from fluidgym_tpu_torch.ops import _build
 
@@ -1913,16 +1919,22 @@ def test_k3_agg_refusals():
     nbr = cg_cuda_mb.neighbor_table(plan, dev)
     bufs = [torch.empty_like(b) for _ in range(6)]
     it = torch.empty(2, dtype=torch.int32, device=dev)
-    einv = torch.zeros(2049 * 2049, device=dev)
+    einv = torch.zeros(2049 * 2052 + 1, device=dev)
+    R = space.runs.shape[1]
 
-    def status(lanes, chunk, cluster, K, ndims=2):
+    def status(lanes, chunk, cluster, K, ndims=2, kp=None, nruns=R, shift=0,
+               stages=None):
+        if stages is None:
+            stages = cg_cuda_mb.agg_ring_stages(n, cluster, max(K, 1))
         return lib.fg_cg_mb_agg_solve(
             b.data_ptr(), diag.data_ptr(), off.data_ptr(), nbr.data_ptr(),
             b.data_ptr(), bufs[0].data_ptr(), it.data_ptr(), bufs[1].data_ptr(),
             bufs[2].data_ptr(), bufs[3].data_ptr(), bufs[4].data_ptr(),
-            bufs[5].data_ptr(), einv.data_ptr(), space.ptr.data_ptr(),
-            space.cells.data_ptr(), space.cidx.data_ptr(), lanes, chunk,
-            cluster, n, ndims, 0, K, 1.0, 1, 250, 1, 1, 0,
+            bufs[5].data_ptr(), einv.data_ptr() + 4 * shift,
+            space.runs.data_ptr(), space.cidx.data_ptr(), lanes, chunk,
+            cluster, n, ndims, 0, K,
+            cg_cuda_mb.agg_kp(max(K, 1)) if kp is None else kp,
+            nruns, stages, 1.0, 1, 250, 1, 1, 0,
             torch.cuda.current_stream(dev).cuda_stream)
 
     invalid = 1  # cudaErrorInvalidValue, before any launch
@@ -1930,20 +1942,29 @@ def test_k3_agg_refusals():
                                          (1, 1, 3, 1194, 2), (2, 2, 16, 1194, 2),
                                          (1, 1, 16, 0, 2), (1, 1, 1, 1194, 3)):
         assert status(lanes, chunk, cluster, K, nd) == invalid, (chunk, cluster, K)
+    for kw in (dict(kp=1194), dict(kp=1192), dict(nruns=0), dict(nruns=33),
+               dict(shift=1), dict(stages=0), dict(stages=17)):
+        assert status(1, 1, 16, 1194, **kw) == invalid, kw
+    assert status(1, 1, 1, 1194, shift=2) == invalid
+    assert status(1, 1, 1, 1194, stages=1) == invalid
     # one occupancy entry for both coarse instances: K = 0 the strips,
-    # 1..2048 the tiles
+    # 1..2048 the tiles with their rows' length and the ring's rows
     occ = lib.fg_cg_mb_coarse_cluster_occupancy
     import ctypes
     out = ctypes.c_int(0)
-    assert occ(2, 16, n, 2049, ctypes.addressof(out)) == invalid
-    assert occ(2, 16, n, -1, ctypes.addressof(out)) == invalid
+    assert occ(2, 16, n, 2049, cg_cuda_mb.agg_kp(2049), 1,
+               ctypes.addressof(out)) == invalid
+    assert occ(2, 16, n, -1, 0, 0, ctypes.addressof(out)) == invalid
     for K in (0, space.K):
+        ring = ((cg_cuda_mb.agg_kp(K), cg_cuda_mb.agg_ring_stages(n, 16, K))
+                if K else (0, 0))
         out.value = 0
-        assert occ(2, 16, n, K, ctypes.addressof(out)) == 0 and out.value >= 1, K
+        assert occ(2, 16, n, K, *ring, ctypes.addressof(out)) == 0 \
+            and out.value >= 1, K
     torch.cuda.synchronize()
     kw = dict(tol2_sum=1.0, maxiter=10, stall_iters=250, precondition=True,
               return_best=True, chunk=1)
-    big = space._replace(einv=torch.zeros(2049, 2049, device=dev), K=2049)
+    big = space._replace(rows=torch.zeros(2049, 2052, device=dev), K=2049)
     with pytest.raises(ValueError, match="tiles"):
         cg_cuda_mb.merged_launcher("cg", plan, diag, off, b, None,
                                    coarse=(big, big.einv[None]), **kw)
