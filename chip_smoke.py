@@ -305,6 +305,27 @@ Phases, each printed with its elapsed seconds:
 50. the card against the host for ``Airfoil3D-easy-v0`` at ``_res_z`` 8:
    one sim step of 0.01 from ``reset(seed=23)``; velocity obs and reward
    to 1e-4, pressure obs to 1e-3 (phase 43's bars).
+51. the differentiable path: ``make("RBC2D-easy-v0", differentiable=True)``
+   at its registered defaults, ``reset(seed=0)``, one env step with an
+   action that requires grad, ``reward.sum().backward()``; counters zeroed
+   before the step and before the backward: per substep 2 K1 and 2 K2
+   launches forward, and as many backward (the transposed solves: K1 on
+   the cotangent, K2 on ``stencil.transpose_ops``), every one on the
+   resident arm, no plain version, no ``linsolve`` loop, no substep in the
+   backward; the action's gradient finite and non-zero; ms forward and
+   backward, peak device memory; then the same step and backward from the
+   same state and action through the plain versions on the card (no
+   launch): the two gradients within ``DIFF_PLAIN_BARS`` of max|g|;
+52. the same for ``CylinderJet2D-easy-v0`` (2 K3 and 1 K2-mb per substep
+   each way, every one on the cluster arm, the deflation guess taken once
+   per forward and once per transposed K3 solve); then
+   ``piso_fixed_steps`` over 2 substeps from the state it left, the state
+   gradient (``diff_tools.state_vjp``) with ``use_remat=True`` bit-equal to
+   the one without, K3 / K2-mb launches 8 / 4 without and 12 / 6 with;
+53. phase 51's gradient at a small RBC2D config: the card in float32
+   through the kernels against the plain versions on the card (within
+   ``DIFF_PLAIN_BARS[53]`` of max|g|) and against the host in float64
+   (within ``DIFF_HOST_BAR``).
 Phases 48-50 run in the order 49, 50, 48: phase 48 holds the solves the
 other two capture.
 
@@ -843,6 +864,7 @@ def _run(dev) -> int:
     _agg_phases(dev, kernels, piso, linsolve)
     _tcf_phases(dev, kernels, compare, piso, linsolve)
     _airfoil3d_phases(dev, kernels, piso, linsolve)
+    _diff_phases(dev, kernels, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -4848,6 +4870,350 @@ def _airfoil3d_phases(dev, kernels, piso, linsolve) -> None:
                 "pressure_iterations", "pressure_converged", "drag", "lift",
                 "reset_launches", "peak_gb")},
             card_vs_host=small["diffs"])
+
+
+#: the differentiable path's ids (phases 51-52) and the kernel forms their
+#: solves take: (wrapper attribute, counter) per form
+DIFF_CASES = (
+    dict(env_id="RBC2D-easy-v0", ph=51, arm="resident_launches",
+         forms={"K1": ("cg", "launches"), "K2": ("bicg", "launches")}),
+    dict(env_id="CylinderJet2D-easy-v0", ph=52, arm="cluster_launches",
+         forms={"K3": ("cg_mb", "launches"),
+                "K2-mb": ("bicg", "merged_launches")}),
+)
+
+
+#: phases 51-53: the largest gap of the action's gradient through the
+#: kernels from the one through their plain versions on the card, relative
+#: to the plain one's max|g|, set from readings on an H100 (PERF.md §6,
+#: scripts/port_diff_fault_check.py): sound 3.8e-7 / 1.9e-7 / 9.0e-6; the
+#: smallest planted fault in the kernel run alone (K1 / K3's adjoint off
+#: by 1%) 2.7e-3 / 3.4e-4 / 1.3e-2, and K2 / K2-mb on A for A^T 2.0 /
+#: 6.0e-3 / 0.13
+DIFF_PLAIN_BARS = {51: 1e-5, 52: 1e-5, 53: 1e-4}
+#: phase 53: the same gap against the host in float64 (sound 2.9e-5; the
+#: faults above 1.3e-2 and 0.13)
+DIFF_HOST_BAR = 1e-3
+
+
+def _plain_on_card(cg_cuda, cg_cuda_mb):
+    """Within: the kernels' wrappers run their plain versions on card
+    tensors (their device test answering "cpu")."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        kind = cg_cuda.device_kind
+        cg_cuda.device_kind = cg_cuda_mb.device_kind = lambda b, what: "cpu"
+        try:
+            yield
+        finally:
+            cg_cuda.device_kind = cg_cuda_mb.device_kind = kind
+    return ctx()
+
+
+def _diff_main_path(dev, kernels, piso, linsolve, case, fault=None) -> dict:
+    """Phase 51 / 52: ``make(id, differentiable=True)`` at the registered
+    defaults, ``reset(seed=0)``, one env step with an action that requires
+    grad, then ``reward.sum().backward()``.  The counters are zeroed before
+    the step and read after it (the forward), zeroed again and read after
+    the backward: per substep the forward launches its forms as the RL
+    path does, and the backward launches each form once per forward solve
+    (the transposed solves: K1 / K3 on A, K2 / K2-mb on ``A^T``), every
+    launch on the single env's arm (resident / cluster); no plain version,
+    no ``linsolve`` loop.  The pressure's deflation guess (the cylinder) is
+    taken once per forward and once per transposed K3 solve (recomputed
+    from the cotangent).  The action's gradient is finite and non-zero;
+    forward and backward ms and the peak device memory above what was
+    allocated before the step are printed.  Then the same step and
+    backward from the same state and action run through the plain
+    versions on the card, with no launch: ``gap_plain`` is the largest gap
+    of the two gradients over the plain one's max|g| (the caller holds it
+    to its bar).  ``fault``: a context manager entered around the kernels'
+    step and backward alone (a planted fault, for the bar's readings)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.core.domain import DomainState, map_state
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    env_id, ph = case["env_id"], case["ph"]
+    wrappers = {"cg": cg_cuda.fused_cg, "cg_mb": cg_cuda_mb.fused_cg_mb,
+                "bicg": cg_cuda_mb.fused_bicgstab_mb}
+    plains = (cg_cuda.fused_cg_plain, cg_cuda_mb.fused_cg_mb_plain,
+              cg_cuda_mb.fused_bicgstab_plain)
+    counted = [(w, a) for w in wrappers.values() for a in (
+        "launches", "merged_launches", "merged_flip_launches", "flip_launches",
+        "resident_launches", "cluster_launches", "coarse_launches",
+        "coarse_flip_launches", "agg_launches", "agg_flip_launches")
+        if hasattr(w, a)]
+    calls, restore = count_calls(piso, linsolve)
+    guesses = {"n": 0}
+    make_x0 = piso._make_deflation_x0
+
+    def counted_x0(*a, **k):
+        fn = make_x0(*a, **k)
+
+        def x0_fn(*aa, **kk):
+            guesses["n"] += 1
+            return fn(*aa, **kk)
+        return x0_fn
+
+    def zero():
+        for w, a in counted:
+            setattr(w, a, 0)
+        for f in plains:
+            f.calls = 0
+        calls.update({k: 0 for k in calls})
+        guesses["n"] = 0
+
+    def read():
+        out = {k: getattr(wrappers[w], a) for k, (w, a) in case["forms"].items()}
+        out["all"] = sum(getattr(w, a) for w, a in counted
+                         if a not in ("resident_launches", "cluster_launches"))
+        out["arm"] = sum(getattr(wrappers[w], case["arm"])
+                         for w in {w for w, _ in case["forms"].values()})
+        out["plain"] = sum(f.calls for f in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        out["substeps"] = calls["piso_substep_info"]
+        out["deflation_guesses"] = guesses["n"]
+        return out
+
+    piso._make_deflation_x0 = counted_x0
+    try:
+        t = time.perf_counter()
+        env = fluidgym_tpu_torch.make(env_id, differentiable=True)
+        env.reset(seed=0)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t
+        check(env._cfg.differentiable, f"{env_id}: the config is not differentiable")
+        rng = np.random.default_rng(0)
+        a = torch.tensor(rng.uniform(-1, 1, env.action_space.shape),
+                         dtype=torch.float32, device=dev, requires_grad=True)
+        carry0 = tuple(map_state(c, torch.Tensor.clone)
+                       if isinstance(c, DomainState) else c.clone()
+                       for c in env._pure_carry())
+        n_steps0 = env._n_steps
+        zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with fault() if fault is not None else contextlib.nullcontext():
+            t = time.perf_counter()
+            obs, reward, _, _, info = env.step(a)
+            torch.cuda.synchronize()
+            fwd_ms = 1e3 * (time.perf_counter() - t)
+            fwd = read()
+            zero()
+            t = time.perf_counter()
+            reward.sum().backward()
+            torch.cuda.synchronize()
+            bwd_ms = 1e3 * (time.perf_counter() - t)
+            bwd = read()
+        # the step's graph and the backward above what earlier phases hold
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # the same step and backward through the plain versions on the card
+        env._set_pure_carry(carry0)
+        env._n_steps = n_steps0
+        a_plain = a.detach().clone().requires_grad_(True)
+        zero()
+        t = time.perf_counter()
+        with _plain_on_card(cg_cuda, cg_cuda_mb):
+            _, r_plain, *_ = env.step(a_plain)
+            r_plain.sum().backward()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        plain = read()
+    finally:
+        piso._make_deflation_x0 = make_x0
+        restore()
+    g = a.grad
+    check(g is not None and bool(torch.isfinite(g).all())
+          and float(g.abs().max()) > 0,
+          f"{env_id}: the action's gradient is not finite and non-zero: {g}")
+    check(bool(torch.isfinite(reward).all()) and reward.requires_grad,
+          f"{env_id}: the reward is not finite or carries no graph")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"{env_id}: obs {k} not finite")
+    check(bool(info["pressure_converged"]) and int(info["pressure_iterations"]) == 0,
+          f"{env_id}: diff-mode info {info['pressure_converged']}, "
+          f"{info['pressure_iterations']} (expected converged, 0 iterations)")
+    n_sub = fwd["substeps"]
+    per_sub = {"K1": 2, "K2": 2, "K3": 2, "K2-mb": 1}
+    for k in case["forms"]:
+        check(fwd[k] == per_sub[k] * n_sub,
+              f"{env_id}: forward {k} launches {fwd[k]} != {per_sub[k]} x "
+              f"{n_sub} substeps")
+        check(bwd[k] == fwd[k],
+              f"{env_id}: backward {k} launches {bwd[k]} != forward {fwd[k]}")
+    for name, c in (("forward", fwd), ("backward", bwd)):
+        forms = sum(c[k] for k in case["forms"])
+        check(c["all"] == forms and c["arm"] == forms,
+              f"{env_id}: {name} launches {c}: another kernel form, or a "
+              f"launch off the {case['arm']} arm")
+        check(c["plain"] == 0 and c["linsolve"] == 0,
+              f"{env_id}: a plain version or a linsolve loop ran in the {name}: {c}")
+    check(bwd["substeps"] == 0, f"{env_id}: the backward ran a substep: {bwd}")
+    check(plain["all"] == 0 and plain["plain"] == sum(
+        fwd[k] + bwd[k] for k in case["forms"]) and plain["linsolve"] == 0,
+        f"{env_id}: the plain run launched a kernel or ran another number of "
+        f"solves: {plain}")
+    g_plain = a_plain.grad
+    check(g_plain is not None and bool(torch.isfinite(g_plain).all()),
+          f"{env_id}: the plain run's gradient is not finite: {g_plain}")
+    gap_plain = float((g - g_plain).abs().max() / g_plain.abs().max())
+    if "K3" in case["forms"]:
+        check(fwd["deflation_guesses"] == fwd["K3"]
+              and bwd["deflation_guesses"] == bwd["K3"],
+              f"{env_id}: deflation guesses forward {fwd['deflation_guesses']}"
+              f" / backward {bwd['deflation_guesses']} against K3 "
+              f"{fwd['K3']} / {bwd['K3']}")
+    log(f"phase {ph} {env_id} differentiable=True: reset {reset_s:.2f}s, "
+        f"one env step forward {fwd_ms:.1f} ms ({n_sub} substeps, "
+        f"{env.n_sim_steps} sim steps), backward {bwd_ms:.1f} ms, peak "
+        f"device memory {peak_gb:.3f} GB above the {base / 1e9:.3f} GB held "
+        f"before the step; launches forward {fwd}, backward "
+        f"{bwd}; d(reward)/d(action) max {float(g.abs().max()):.4e}, "
+        f"against the plain versions on the card (step and backward "
+        f"{plain_s:.2f}s) {gap_plain:.3e} of max|g| (bar "
+        f"{DIFF_PLAIN_BARS[ph]:.0e})")
+    for k in case["forms"]:
+        kernels[k]["diff_launches_per_env_step"] = {"forward": fwd[k],
+                                                    "backward": bwd[k]}
+    return dict(env=env, fwd_ms=fwd_ms, bwd_ms=bwd_ms, peak_gb=peak_gb,
+                fwd=fwd, bwd=bwd, gap_plain=gap_plain, plain_s=plain_s)
+
+
+def _diff_remat_phase(kernels, piso, env) -> None:
+    """Phase 52's remat check: ``piso_fixed_steps`` over 2 substeps from the
+    cylinder's state after phase 52's step, d(sum u^2)/d(state) through
+    ``diff_tools.state_vjp`` with and without ``use_remat``: bit-equal, the
+    remat run launching every forward solve once more in the backward."""
+    import torch
+
+    from fluidgym_tpu_torch.envs.util import diff_tools
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    env.detach()
+    grads, launches, ms = {}, {}, {}
+    for remat in (False, True):
+        def step(s, remat=remat):
+            s = piso.piso_fixed_steps(s, env._geoms, env._topo, env._cfg,
+                                      env.dt, 2, env._hooks, use_remat=remat)
+            return tuple(torch.sum(b.velocity ** 2) for b in s.blocks)
+
+        k3.launches = k2.merged_launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, grads[remat] = diff_tools.state_vjp(step, env._state)
+        torch.cuda.synchronize()
+        ms[remat] = 1e3 * (time.perf_counter() - t)
+        launches[remat] = {"K3": k3.launches, "K2-mb": k2.merged_launches}
+    same = all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))
+    check(same, "phase 52: the gradient with remat differs from the one without")
+    check(all(bool(torch.isfinite(gg).all()) for gg in grads[True]),
+          "phase 52: the remat gradient is not finite")
+    check(launches[False] == {"K3": 8, "K2-mb": 4}
+          and launches[True] == {"K3": 12, "K2-mb": 6},
+          f"phase 52: remat launches {launches} (expected K3 8 / 12, K2-mb "
+          "4 / 6: forward + backward, and with remat the forward again)")
+    log(f"phase 52 piso_fixed_steps(use_remat=True) over 2 substeps: gradient "
+        f"bit-equal to the one without remat; launches {launches}; forward + "
+        f"backward {ms[False]:.1f} / {ms[True]:.1f} ms without / with remat")
+    kernels["K3"]["diff_remat"] = dict(launches=launches, ms=ms)
+
+
+def _diff_card_vs_host(dev, cg_cuda, cg_cuda_mb, fault=None) -> dict:
+    """Phase 53: phase 51's gradient d(reward)/d(action) at a small RBC2D
+    config (16 x 10 cells, one step of 2 sim steps after one step with a
+    fixed action), three ways: the card in float32 through the kernels,
+    the card in float32 through the plain versions (the wrappers' device
+    test answering "cpu"), the host in float64.  Returns the gaps of the
+    first from the other two over their max|g| (the caller holds them to
+    ``DIFF_PLAIN_BARS[53]`` and ``DIFF_HOST_BAR``).  ``fault``: as in
+    ``_diff_main_path``, around the kernels' run alone."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+
+    small = dict(n_heaters=4, resolution=4, load_initial_domain=False,
+                 load_domain_statistics=False, randomize_initial_state=False,
+                 episode_length=5, step_length=0.1, dt=0.05, local_obs_window=3,
+                 differentiable=True)
+
+    def grad(where, dtype, ctx=contextlib.nullcontext):
+        with ctx():
+            e = fluidgym_tpu_torch.make("RBC2D-easy-v0", device=where,
+                                        dtype=dtype, **small)
+            e.reset(seed=1)
+            e.step(np.full(e.action_space.shape, 0.4, np.float32))
+            e.detach()
+            a = torch.tensor(np.linspace(-0.5, 0.5, 4).reshape(
+                e.action_space.shape), dtype=dtype, device=where,
+                requires_grad=True)
+            _, r, *_ = e.step(a)
+            r.sum().backward()
+            return a.grad.double().cpu()
+
+    t = time.perf_counter()
+    launches0 = cg_cuda.fused_cg.launches
+    g_card = grad(dev, torch.float32, fault or contextlib.nullcontext)
+    check(cg_cuda.fused_cg.launches > launches0,
+          "phase 53: the card's run launched no K1")
+    launches1 = cg_cuda.fused_cg.launches
+    plain_calls = cg_cuda.fused_cg_plain.calls
+    g_plain = grad(dev, torch.float32,
+                   lambda: _plain_on_card(cg_cuda, cg_cuda_mb))
+    check(cg_cuda.fused_cg.launches == launches1
+          and cg_cuda.fused_cg_plain.calls > plain_calls,
+          "phase 53: the plain run launched a kernel")
+    g_host = grad(torch.device("cpu"), torch.float64)
+    gap_plain = float((g_card - g_plain).abs().max() / g_plain.abs().max())
+    gap_host = float((g_card - g_host).abs().max() / g_host.abs().max())
+    log(f"phase 53 RBC2D-easy-v0 small (10, 16) d(reward)/d(action), card "
+        f"float32 (kernels) {g_card.flatten().tolist()}: against the plain "
+        f"versions on the card {gap_plain:.3e} of max|g| (bar "
+        f"{DIFF_PLAIN_BARS[53]:.0e}), against the host in float64 "
+        f"{gap_host:.3e} (bar {DIFF_HOST_BAR:.0e}), in "
+        f"{time.perf_counter() - t:.2f}s")
+    return dict(gap_plain=gap_plain, gap_host=gap_host)
+
+
+def _diff_phases(dev, kernels, piso, linsolve) -> None:
+    """Phases 51-53: the differentiable path on the card."""
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+
+    t = time.perf_counter()
+    out = {}
+    for case in DIFF_CASES:
+        out[case["env_id"]] = r = _diff_main_path(dev, kernels, piso, linsolve,
+                                                  case)
+        ph = case["ph"]
+        check(r["gap_plain"] <= DIFF_PLAIN_BARS[ph],
+              f"phase {ph}: the gradient through the kernels is "
+              f"{r['gap_plain']:.3e} of max|g| from the plain versions' "
+              f"(bar {DIFF_PLAIN_BARS[ph]:.0e})")
+        for k in case["forms"]:
+            kernels[k]["diff_ms_per_env_step"] = {"forward": r["fwd_ms"],
+                                                  "backward": r["bwd_ms"]}
+            kernels[k]["diff_gap_plain"] = r["gap_plain"]
+    _diff_remat_phase(kernels, piso, out["CylinderJet2D-easy-v0"]["env"])
+    gaps = _diff_card_vs_host(dev, cg_cuda, cg_cuda_mb)
+    check(gaps["gap_plain"] <= DIFF_PLAIN_BARS[53],
+          f"phase 53: card kernels vs plain {gaps['gap_plain']}")
+    check(gaps["gap_host"] <= DIFF_HOST_BAR,
+          f"phase 53: card vs host float64 {gaps['gap_host']}")
+    for k in ("K1", "K2"):
+        kernels[k]["diff_card_vs"] = gaps
+    log(f"phases 51-53 the differentiable path ok in "
+        f"{time.perf_counter() - t:.1f}s")
 
 if __name__ == "__main__":
     try:

@@ -40,6 +40,12 @@ class CylinderJetEnv2D(CylinderEnvBase):
 
     _jet_angle: float = 10.0  # degrees
 
+    def _differentiable_ported(self) -> bool:
+        # CylinderJet2D-easy (Re 100: no upwind blend) at resolution 24 or
+        # less: K3 / K2-mb at C = 8, forward and transposed
+        return (self._reynolds_number == 100
+                and self._circle_resolution_angular <= 24)
+
     def __init__(self, **kwargs):
         super().__init__(ndims=2, **kwargs)
 

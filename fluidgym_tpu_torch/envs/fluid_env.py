@@ -92,10 +92,12 @@ class FluidEnv(ABC, FluidEnvLike):
         super().__init__()
         if ndims not in (2, 3):
             raise ValueError("ndims must be 2 or 3.")
-        if differentiable:
+        if differentiable and not self._differentiable_ported():
             raise NotImplementedError(
-                "differentiable=True: the differentiable path is not ported "
-                "to fluidgym_tpu_torch yet")
+                f"differentiable=True: the differentiable path is ported for "
+                f"RBC2D-easy and CylinderJet2D-easy (at their registered size "
+                f"or smaller) only, not {type(self).__name__} with these "
+                f"settings yet (ROADMAP Queue 1 item 4)")
         self._device = resolve_device(device)
         self._ndims = ndims
         self._dt = float(dt)
@@ -167,6 +169,12 @@ class FluidEnv(ABC, FluidEnvLike):
 
     def _additional_initialization(self) -> None:
         pass
+
+    def _differentiable_ported(self) -> bool:
+        """Whether this configuration takes ``differentiable=True``: one that
+        was held in diff mode against the JAX package and run on the card
+        (ROADMAP Queue 1 item 4 lists the rest)."""
+        return False
 
     @abstractmethod
     def _apply_action(self, action: Tensor) -> None: ...
@@ -497,6 +505,8 @@ class FluidEnv(ABC, FluidEnvLike):
             obs, reward, terminated, info = self._step_impl(action)
         self._n_steps += 1
         truncated = self._n_steps >= self._episode_length
+        info = {k: v.detach() if torch.is_tensor(v) else v
+                for k, v in info.items()}
         self._check_solver_health(info)
         return obs, reward, terminated, truncated, info
 
@@ -518,6 +528,17 @@ class FluidEnv(ABC, FluidEnvLike):
                 f"Pressure solve produced a non-finite residual at env step "
                 f"{self._n_steps}: the simulation state has diverged. Reduce "
                 f"dt / check boundary conditions, or reset the environment.")
+
+    def detach(self) -> None:
+        """Sever gradient flow between horizons (the JAX package's
+        ``stop_gradient`` of the state): every tensor the step carries (the
+        state and, where the env has one, its smoothed control) leaves the
+        graph.  With ``differentiable=True`` a step's obs and reward carry
+        the graph back to its action and to the state since the last
+        ``detach`` (or reset); its ``info`` is detached."""
+        self._set_pure_carry(tuple(
+            map_state(c, torch.Tensor.detach) if isinstance(c, DomainState)
+            else c.detach() for c in self._pure_carry()))
 
     # ------------------------------------------------------------------
     # state management

@@ -41,6 +41,12 @@ class RBCEnv2D(RBCEnvBase):
 
     _ndims = 2
 
+    def _differentiable_ported(self) -> bool:
+        # RBC2D-easy (Ra 8e4, aspect ratio 1) at its 96-cell width or less:
+        # K1 / K2 on the resident arm, forward and transposed
+        return (self._rayleigh_number == 8e4 and self._aspect_ratio == np.pi
+                and self._x <= 96)
+
     def _get_action_space(self) -> spaces.Box:
         shape = (1,) if self.use_marl else (self._n_heaters, 1)
         return spaces.Box(low=-1.0, high=1.0, shape=shape, dtype=np.float32)

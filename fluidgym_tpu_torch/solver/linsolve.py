@@ -26,7 +26,7 @@ import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["SolveInfo", "default_tolerance", "cg", "bicgstab"]
+__all__ = ["SolveInfo", "default_tolerance", "posthoc_info", "cg", "bicgstab"]
 
 
 class SolveInfo(NamedTuple):
@@ -39,6 +39,26 @@ class SolveInfo(NamedTuple):
 
 def default_tolerance(dtype) -> float:
     return 1e-8 if dtype == torch.float64 else 1e-5
+
+
+def posthoc_info(matvec: Callable, b, x, tol: float) -> SolveInfo:
+    """Convergence metadata recomputed from a returned iterate (the
+    differentiable solve, whose inner solves report none; counterpart of
+    the JAX package's ``piso._posthoc_info``): one matvec at the detached
+    ``x``, ``residual`` the RMSE of ``b - A x`` over every component,
+    ``converged = residual <= tol``, ``iterations = -1`` (not tracked).
+    Nothing here enters the gradient."""
+    with torch.no_grad():
+        bt = _tup(b)
+        r = tuple(bb - ax for bb, ax in zip(
+            bt, _tup(matvec(tuple(xx.detach() for xx in _tup(x))))))
+        n = sum(bb.numel() for bb in bt)
+        rmse = torch.sqrt(_vdot(r, r) / n)
+    return SolveInfo(
+        converged=rmse <= tol,
+        iterations=torch.tensor(-1, dtype=torch.int32, device=bt[0].device),
+        residual=rmse.to(bt[0].dtype),
+    )
 
 
 def _tup(v) -> tuple:

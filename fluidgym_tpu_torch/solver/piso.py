@@ -27,7 +27,13 @@
   over ``single_step_info``: the substep runs under ``torch.func.vmap``
   (every solve folds the batch onto its kernel's lanes), and the adaptive
   loop runs outside it over per-lane ``remaining`` and substep counts, with
-  one host sync per lockstep round.
+  one host sync per lockstep round;
+* the differentiable path (``SimConfig.differentiable``, the JAX package's
+  default): every solve an implicit-function solve (``_ImplicitSolve``,
+  the counterpart of ``lax.custom_linear_solve``) whose backward is one
+  transposed solve on the same kernels, the masked adaptive loop of
+  ``diff_adaptive_max_substeps``, and ``piso_fixed_steps`` with optional
+  checkpointing.
 
 Solves dispatch as in the JAX package's non-differentiable ``_solve``, to
 the whole-solve kernels: single-block scalar stencils to K1 ``fused_cg``
@@ -48,8 +54,12 @@ Here ``build_agg_coarse`` returns an ``AggCoarse`` that the env keeps and
 hands the solver on its ``SimConfig`` (``pressure_agg``), built on every
 path that sets the state (reset and ``load_initial_domain``) and reused
 while the operator's key and viscosity hold; a substep without it, or with
-the data of another operator, raises.  Not ported yet: the differentiable
-path, extra inner non-orthogonal pressure passes (3D), the full-mode
+the data of another operator, raises.  Deliberate difference on the
+differentiable path: the transposed advection solve runs on K2 over
+``stencil.transpose_ops`` (the same kernel and plan as the forward solve),
+where the JAX package runs an XLA ``linsolve.bicgstab`` loop on the
+transposed matvec.  Not ported yet: the differentiable batched step,
+extra inner non-orthogonal pressure passes (3D), the full-mode
 non-orthogonal pressure solve and the JAX package's other opt-in solver
 levers (no ``SimConfig`` field for them).
 """
@@ -57,6 +67,7 @@ levers (no ``SimConfig`` field for them).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import warnings
 from dataclasses import dataclass, field, replace
@@ -64,6 +75,8 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
+from torch.autograd.function import once_differentiable
 
 from fluidgym_tpu_torch.core.domain import (
     BlockGeom,
@@ -80,6 +93,7 @@ Tensor = torch.Tensor
 
 __all__ = ["SimConfig", "Hooks", "StepInfo", "ADAPTIVE", "AggCoarse",
            "piso_substep_info", "piso_adaptive_step_info",
+           "piso_fixed_steps", "piso_fixed_steps_info",
            "single_step", "single_step_info", "batched_step_info",
            "strict_vmap", "make_divergence_free", "combine_infos",
            "solver_info_dict", "build_pressure_ops_like_substep",
@@ -160,6 +174,10 @@ class SimConfig:
     advection_upwind_blend: float = 0.0
     non_orthogonal: bool = False
     max_substeps: int = 1000
+    # True: every solve is an implicit-function solve (_ImplicitSolve, the
+    # JAX package's lax.custom_linear_solve), reverse-differentiable; the
+    # env families that take it pass it (FluidEnv(differentiable=)), the
+    # RL path runs with False (warm-started advection, no graph)
     differentiable: bool = True
     pressure_precondition: bool = True
     pressure_deflation: bool = False
@@ -180,15 +198,15 @@ class SimConfig:
     # env builds it at reset): not part of the config's identity
     pressure_agg: Any = field(default=None, compare=False, hash=False,
                               repr=False)
+    # the bound on CFL substeps per cfg.dt of the differentiable adaptive
+    # loop (the JAX package's masked lax.scan length); the last substeps
+    # stretch past the CFL limit where the loop would not finish in time
+    diff_adaptive_max_substeps: int = 8
 
     def __post_init__(self):
         if self.velocity_corrector not in ("FD",):
             raise NotImplementedError(
                 "only the FD velocity corrector is implemented")
-        if self.differentiable:
-            raise NotImplementedError(
-                "SimConfig.differentiable: the differentiable path is not "
-                "ported to fluidgym_tpu_torch yet")
         if self.pressure_coarse_precondition and self.pressure_coarse_tile <= 0:
             raise NotImplementedError(
                 "pressure_coarse_precondition without pressure_coarse_tile: "
@@ -275,29 +293,37 @@ def _fused_bicg_mb_solve(mplan, ops, b, topo: DomainTopo, *, tol, maxiter,
 
 
 def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
-           x0=None, precondition=False, stall_iters=250, coarse_strips=False,
-           agg=None):
-    """Non-differentiable global linear solve over all blocks: CG for the
-    SPD pressure system (``symmetric``), else BiCGStab.  ``x0``: the initial
-    guess (a warm start or the deflation guess).  ``coarse_strips``: the
-    strip-coarse preconditioner, on the merged pressure kernel only (K3-coarse;
-    K1 takes none, as the JAX package's ``fused_cg``).  ``agg``: an
-    ``AggCoarse``, the aggregation coarse space added to the preconditioner,
-    on the merged pressure kernel only (K3-agg; a system without a merge
-    plan raises).  Returns ``(x, SolveInfo)``."""
+           x0=None, x0_fn=None, precondition=False, stall_iters=250,
+           coarse_strips=False, agg=None, differentiable=False):
+    """Global linear solve over all blocks: CG for the SPD pressure system
+    (``symmetric``), else BiCGStab.  ``x0``: the initial guess (a warm
+    start); ``x0_fn(b)``: a guess computed from the right-hand side (the
+    deflation guess), which takes precedence.  ``coarse_strips``: the
+    strip-coarse preconditioner, on the merged pressure kernel only
+    (K3-coarse; K1 takes none, as the JAX package's ``fused_cg``).
+    ``agg``: an ``AggCoarse``, the aggregation coarse space added to the
+    preconditioner, on the merged pressure kernel only (K3-agg; a system
+    without a merge plan raises).  Returns ``(x, SolveInfo)``.
+
+    ``differentiable``: the JAX package's ``lax.custom_linear_solve`` path
+    (``_ImplicitSolve``): the same kernels solve on detached operands, and
+    the backward is one transposed solve plus the coefficient gradients.
+    As in the JAX package's diff mode, the guesses carry no gradient, the
+    pressure's warm start is gated by one matvec (``|b - A x0|^2 <=
+    |b|^2``, else zero), the advection solve starts cold, and the info is
+    ``linsolve.posthoc_info`` (``iterations = -1``).  It takes no coarse
+    space (``coarse_strips`` or ``agg`` raise)."""
 
     def mv(xs):
         return st.domain_apply(ops, xs, topo)
 
+    if differentiable and (coarse_strips or agg is not None):
+        raise NotImplementedError(
+            "the differentiable solve with a coarse space (strips or "
+            "aggregation) is not ported to fluidgym_tpu_torch yet (ROADMAP "
+            "Queue 1 item 4)")
     dtype = b[0].dtype
     tol_resolved = tol if tol is not None else linsolve.default_tolerance(dtype)
-    precond_fn = None
-    if precondition:
-        inv_diag = tuple(1.0 / op.diag for op in ops)
-
-        def precond_fn(rs):
-            return tuple(d * r for d, r in zip(inv_diag, rs))
-
     single = agg is None and _kernel_operand_ok(ops, topo)
     mplan = None if single else _merged_plan(ops, topo)
     if agg is not None and agg.plan != mplan:
@@ -312,8 +338,12 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
             "tensors only")
     kw = dict(tol=tol_resolved, maxiter=maxiter, stall_iters=stall_iters,
               precondition=precondition, return_best=return_best)
-    if symmetric:
-        if single:
+
+    def run(ops, b, x0, symmetric):
+        """One solve of ``ops`` (A, or A^T for the transposed advection
+        solve) from ``x0`` through the kernels (their plain versions on CPU
+        tensors; ``linsolve``'s loops where no kernel takes the system)."""
+        if symmetric and single:
             from fluidgym_tpu_torch.ops import cg_cuda
 
             x1, inf = cg_cuda.fused_cg(
@@ -323,29 +353,118 @@ def _solve(ops, b, topo: DomainTopo, *, tol, maxiter, symmetric, return_best,
             return (x1[0],), linsolve.SolveInfo(
                 converged=inf.converged[0], iterations=inf.iterations[0],
                 residual=inf.residual[0])
-        if mplan is not None:
+        if symmetric and mplan is not None:
             from fluidgym_tpu_torch.ops import cg_cuda_mb
 
-            if agg is not None:
-                kw["agg"] = agg.space
             mops = block_merge.pack_ops(mplan, ops)
             xs, inf = cg_cuda_mb.fused_cg_mb(
                 mplan, tuple(m[0] for m in mops), tuple(m[1] for m in mops),
                 block_merge.pack_fields(mplan, b),
                 x0s=None if x0 is None else block_merge.pack_fields(mplan, x0),
-                coarse_strips=coarse_strips, **kw)
+                coarse_strips=coarse_strips,
+                **(kw if agg is None else dict(kw, agg=agg.space)))
             return block_merge.unpack_fields(mplan, xs), inf
-        return linsolve.cg(mv, b, x0=x0, tol=tol, maxiter=maxiter,
-                           return_best=return_best, precond=precond_fn,
-                           stall_iters=stall_iters)
+        if single or mplan is not None:
+            return _fused_bicg_mb_solve(
+                block_merge.trivial_plan(topo) if single else mplan, ops, b,
+                topo, x0=x0, **kw)
+        precond_fn = None
+        if precondition:
+            inv_diag = tuple(1.0 / op.diag for op in ops)
 
-    if single or mplan is not None:
-        return _fused_bicg_mb_solve(
-            block_merge.trivial_plan(topo) if single else mplan, ops, b, topo,
-            x0=x0, **kw)
-    return linsolve.bicgstab(mv, b, x0=x0, tol=tol, maxiter=maxiter,
-                             return_best=return_best, stall_iters=stall_iters,
-                             precond=precond_fn)
+            def precond_fn(rs):
+                return tuple(d * r for d, r in zip(inv_diag, rs))
+
+        loop = linsolve.cg if symmetric else linsolve.bicgstab
+        return loop(lambda xs: st.domain_apply(ops, xs, topo), b, x0=x0,
+                    tol=tol, maxiter=maxiter, return_best=return_best,
+                    precond=precond_fn, stall_iters=stall_iters)
+
+    if not differentiable:
+        return run(ops, b, x0_fn(b) if x0_fn is not None else x0, symmetric)
+
+    def guess(ops, bb):
+        """The JAX package's ``diff_guess``: the deflation guess of ``bb``,
+        or the warm start where one matvec shows it no worse than zero;
+        None for the advection solve (cold)."""
+        if not symmetric:
+            return None
+        if x0_fn is not None:
+            return x0_fn(bb)
+        if x0 is None:
+            return None
+        g = tuple(t.detach() for t in x0)
+        r = tuple(y - ay for y, ay in zip(bb, st.domain_apply(ops, g, topo)))
+        ok = (sum(torch.sum(rr * rr) for rr in r)
+              <= sum(torch.sum(y * y) for y in bb))
+        return tuple(torch.where(ok, gg, torch.zeros_like(gg)) for gg in g)
+
+    def solve(ops, bb):
+        return run(ops, bb, guess(ops, bb), symmetric)[0]
+
+    def solve_t(ops, ct):
+        if symmetric:
+            return solve(ops, ct)
+        return run(st.transpose_ops(ops, topo), ct, None, False)[0]
+
+    n = len(ops)
+    x = _ImplicitSolve.apply(
+        _Adjoint(solve, solve_t, topo, n),
+        *(op.diag for op in ops), *(op.off for op in ops), *b)
+    return tuple(x), linsolve.posthoc_info(mv, b, x, tol_resolved)
+
+
+class _Adjoint(NamedTuple):
+    """What ``_ImplicitSolve`` runs: ``solve(ops, b)`` and the transposed
+    ``solve_t(ops, ct)`` (both on detached operands, no graph), over the
+    ``nblocks`` blocks of ``topo``."""
+
+    solve: Callable
+    solve_t: Callable
+    topo: DomainTopo
+    nblocks: int
+
+
+def _detached_ops(diags, offs) -> tuple:
+    return tuple(st.StencilOp(diag=d.detach(), off=o.detach())
+                 for d, o in zip(diags, offs))
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """``x = A^-1 b`` with the implicit-function VJP, the counterpart of
+    ``lax.custom_linear_solve``: ``_ImplicitSolve.apply(adj, *diags,
+    *offs, *bs) -> xs`` (per block).  The forward is ``adj.solve`` on
+    detached operands (a kernel launch, never a recorded Krylov loop); the
+    backward solves ``A^T lam = g`` (``adj.solve_t``: the same SPD solve,
+    or K2 on ``stencil.transpose_ops``), and returns ``lam`` for ``b`` and
+    the VJP of ``domain_apply(ops, x)`` at ``-lam`` for the coefficients.
+    No gradient reaches a guess or a coarse space."""
+
+    @staticmethod
+    def forward(ctx, adj: _Adjoint, *tensors):
+        n = adj.nblocks
+        ops = _detached_ops(tensors[:n], tensors[n:2 * n])
+        xs = tuple(adj.solve(ops, tuple(t.detach() for t in tensors[2 * n:])))
+        ctx.adj = adj
+        ctx.save_for_backward(*tensors[:2 * n], *xs)
+        return xs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        adj = ctx.adj
+        n = adj.nblocks
+        saved = ctx.saved_tensors
+        ops = _detached_ops(saved[:n], saved[n:2 * n])
+        xs = saved[2 * n:]
+        cts = tuple(torch.zeros_like(x) if g is None else g
+                    for g, x in zip(grads, xs))
+        lam = tuple(adj.solve_t(ops, cts))
+        gd = go = (None,) * n
+        if any(ctx.needs_input_grad[1:2 * n + 1]):
+            gd, go = st.coefficient_vjp(ops, xs, tuple(-l for l in lam),
+                                        adj.topo)
+        return (None, *gd, *go, *lam)
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +771,7 @@ def _advect_scalars(state: DomainState, geoms, topo: DomainTopo,
             symmetric=False, return_best=False,
             x0=tuple(blk.scalar[c] for blk in state.blocks)
             if cfg.warm_start else None,
+            differentiable=cfg.differentiable,
         )
         converged = converged & s_info.converged
         for b in range(nblocks):
@@ -708,6 +828,7 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
         symmetric=False, return_best=False,
         x0=tuple(blk.velocity for blk in state.blocks)
         if cfg.warm_start else None,
+        differentiable=cfg.differentiable,
     )
     info = info._replace(
         advection_converged=info.advection_converged & v_info.converged)
@@ -720,7 +841,11 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     inv_a = tuple(1.0 / a for a in adiags)
     pressures = tuple(blk.pressure for blk in state.blocks)
     agg = _agg_for(cfg, topo)
-    defl = (_make_deflation_x0(p_ops, topo, dtype,
+    # the guess's setup carries no gradient (the JAX package stop-gradients
+    # it): the solution does not depend on the guess
+    defl = (_make_deflation_x0(_detached_ops([o.diag for o in p_ops],
+                                             [o.off for o in p_ops]),
+                               topo, dtype,
                                None if agg is None else agg_coarse_fn(agg))
             if cfg.pressure_deflation else None)
     p_agg = agg if cfg.pressure_coarse_precondition else None
@@ -740,13 +865,14 @@ def piso_substep_info(state: DomainState, geoms: tuple[BlockGeom, ...],
             rhs_mean = _global_mean(rhs_p)
             rhs_p = tuple(r - rhs_mean for r in rhs_p)
         base = pressures if cfg.pressure_warm_start else None
-        guess = defl(rhs_p, base=base) if defl is not None else base
         pressures, p_info = _solve(
             p_ops, rhs_p, topo,
             tol=cfg.pressure_tol, maxiter=cfg.pressure_maxiter,
             symmetric=True,
             return_best=cfg.pressure_return_best_result,
-            x0=guess,
+            x0=base if defl is None else None,
+            x0_fn=None if defl is None else functools.partial(defl, base=base),
+            differentiable=cfg.differentiable,
             precondition=cfg.pressure_precondition,
             stall_iters=cfg.pressure_stall_iters,
             coarse_strips=cfg.pressure_coarse_strips,
@@ -799,13 +925,33 @@ def piso_adaptive_step_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     non-differentiable ``lax.while_loop`` (run while ``remaining > 1e-6 *
     time_target`` and fewer than ``max_substeps`` substeps were taken), in
     the solve dtype.  ``dt_log``, when given, receives each substep's dt (a
-    0-d tensor)."""
+    0-d tensor).
+
+    With ``cfg.differentiable`` the JAX package's masked ``lax.scan``: at
+    most ``cfg.diff_adaptive_max_substeps`` substeps, substep ``i`` of ``n``
+    taking ``max(cfl_ts, remaining / (n - i))`` (the last ones stretch past
+    the CFL limit rather than drop time), ``remaining`` clamped at 0; a
+    finished iteration is the identity, so the loop stops there.  ``ts``
+    stays in the graph, as in the JAX package."""
     blk0 = state.blocks[0].velocity
     dtype, device = blk0.dtype, blk0.device
     time_target = torch.as_tensor(time_target, dtype=dtype, device=device)
     eps = 1e-6 * time_target
     remaining = time_target
     info = _info_identity(dtype, device)
+    if cfg.differentiable:
+        n_scan = cfg.diff_adaptive_max_substeps
+        for i in range(n_scan):
+            if bool(remaining <= eps):
+                break
+            ts = torch.maximum(_cfl_ts(state, geoms, topo, cfg, remaining),
+                               remaining / (n_scan - i))
+            state, si = piso_substep_info(state, geoms, topo, cfg, ts, hooks)
+            if dt_log is not None:
+                dt_log.append(ts)
+            remaining = torch.clamp(remaining - ts, min=0.0)
+            info = _info_merge(info, si)
+        return state, info
     it = 0
     while it < cfg.max_substeps and bool(remaining > eps):
         ts = _cfl_ts(state, geoms, topo, cfg, remaining)
@@ -839,6 +985,41 @@ def single_step_info(state: DomainState, geoms: tuple[BlockGeom, ...],
 
 def single_step(state, geoms, topo, cfg, hooks=None) -> DomainState:
     return single_step_info(state, geoms, topo, cfg, hooks)[0]
+
+
+def piso_fixed_steps_info(state: DomainState, geoms: tuple[BlockGeom, ...],
+                          topo: DomainTopo, cfg: SimConfig, dt, n_steps: int,
+                          hooks: Hooks | None = None,
+                          use_remat: bool = False):
+    """``n_steps`` uniform substeps of size ``dt``, reverse-differentiable
+    (the JAX package's ``lax.scan``); returns ``(state, StepInfo)``.
+    ``use_remat``: each substep runs under
+    ``torch.utils.checkpoint.checkpoint`` (``use_reentrant=False``, the
+    counterpart of ``jax.checkpoint``), which keeps only the substep's
+    inputs and runs it again in the backward: its solves launch their
+    kernels again, and being deterministic return the same x."""
+    blk0 = state.blocks[0].velocity
+    dt = torch.as_tensor(dt, dtype=blk0.dtype, device=blk0.device)
+    info = _info_identity(blk0.dtype, blk0.device)
+
+    def substep(s):
+        return piso_substep_info(s, geoms, topo, cfg, dt, hooks)
+
+    for _ in range(n_steps):
+        if use_remat:
+            state, si = torch.utils.checkpoint.checkpoint(
+                substep, state, use_reentrant=False)
+        else:
+            state, si = substep(state)
+        info = _info_merge(info, si)
+    return state, info
+
+
+def piso_fixed_steps(state, geoms, topo, cfg, dt, n_steps: int, hooks=None,
+                     use_remat: bool = False) -> DomainState:
+    """``piso_fixed_steps_info`` without the info."""
+    return piso_fixed_steps_info(state, geoms, topo, cfg, dt, n_steps, hooks,
+                                 use_remat)[0]
 
 
 @contextlib.contextmanager
@@ -876,6 +1057,10 @@ def batched_step_info(state: DomainState, geoms: tuple[BlockGeom, ...],
     if cfg.pressure_coarse_tile:
         raise NotImplementedError(
             "the aggregation coarse space is not ported to the batched step")
+    if cfg.differentiable:
+        raise NotImplementedError(
+            "the differentiable batched step is not ported to "
+            "fluidgym_tpu_torch yet (ROADMAP Queue 1 item 4)")
     leaves = state_leaves(state)
     blk0 = state.blocks[0].velocity
     B, dtype, device = blk0.shape[0], blk0.dtype, blk0.device
@@ -953,6 +1138,7 @@ def make_divergence_free(state: DomainState, geoms: tuple[BlockGeom, ...],
                 return_best=cfg.pressure_return_best_result,
                 precondition=cfg.pressure_precondition,
                 coarse_strips=cfg.pressure_coarse_strips,
+                differentiable=cfg.differentiable,
             )
             if cfg.normalize_pressure_result:
                 mean = _global_mean(pressures)

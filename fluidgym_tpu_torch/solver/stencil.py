@@ -63,6 +63,8 @@ __all__ = [
     "stencil_off_apply",
     "domain_apply",
     "domain_off_apply",
+    "transpose_ops",
+    "coefficient_vjp",
     "contravariant",
     "build_advection_ops",
     "advection_rhs_velocity",
@@ -244,9 +246,11 @@ def domain_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
     columns are written out as a leading axis of ``(k, ny, nx)``, which K4
     takes as k columns of the shared stencil; on the card's main path those
     (the deflation setup) and the scalar warm-start gates are the only
-    callers.  The one apply with a leading velocity-component axis is the
-    matvec of ``linsolve``'s loops, which run on CPU tensors only: there the
-    column form computes the roll formulation's numbers bit for bit."""
+    callers on the RL path.  An apply with a leading velocity-component
+    axis is the matvec of ``linsolve``'s loops, which run on CPU tensors
+    only, or, on the differentiable path, the post-hoc residual of a
+    velocity solve: the column form computes the roll formulation's
+    numbers bit for bit."""
     from fluidgym_tpu_torch.ops import stencil_cuda
 
     if (stencil_cuda.stencil_kernel_enabled() and topo.ndims == 2
@@ -264,6 +268,60 @@ def domain_apply(ops: tuple[StencilOp, ...], xs: BlockVec,
             y = y + op.off[f] * _neighbor_field(xs, b, f, topo)
         out.append(y)
     return tuple(out)
+
+
+def transpose_ops(ops: tuple[StencilOp, ...],
+                  topo: DomainTopo) -> tuple[StencilOp, ...]:
+    """The stencils of ``A^T`` for the ``A`` that ``domain_apply(ops, .)``
+    applies, over the same topology: ``domain_apply(transpose_ops(ops),
+    y)`` is ``A^T y`` (the advection system's transposed solve runs on the
+    same kernels as its forward solve).
+
+    ``A x = diag x + sum_f off_f P_f x``, ``P_f`` the roll of face f whose
+    boundary layer a CONNECTED face overwrites with the neighbour block's
+    halo.  Each entry of ``A`` moves to the face it is seen from at the
+    other end: a roll entry (interior or wrapped) to the opposite face,
+    ``offT[g] = P_g(off[g ^ 1])``; a halo entry to the neighbour's partner
+    face, the face ``spec.axes[0]`` that ``_halo`` reads, so on a CONNECTED
+    face ``g`` the boundary layer of ``offT[g]`` is the halo of the
+    neighbour's ``off[spec.axes[0]]``.  Where face ``g ^ 1`` is CONNECTED
+    its layer takes no wrapped entry, so the wrapped layer of ``offT[g]``
+    is zero; the wrapped entry of a FIXED face ``g`` opposite a CONNECTED
+    one has no place in ``A^T``'s stencil, and ``build_advection_ops`` /
+    ``build_pressure_ops`` set it to zero (off = 0 at FIXED faces)."""
+    nd = topo.ndims
+    out = []
+    for b, op in enumerate(ops):
+        faces = topo.blocks[b].faces
+        off_t = []
+        for g in range(2 * nd):
+            v = _roll_nbr(op.off[g ^ 1], g)
+            spec = faces[g]
+            slab = _face_slab(v.dim(), g)
+            if spec.kind == BoundKind.CONNECTED:
+                partner = ops[spec.connected_block].off[spec.axes[0]]
+                v = _set(v, slab, _halo(partner, spec, g, nd))
+            elif faces[g ^ 1].kind == BoundKind.CONNECTED:
+                v = _set(v, slab, 0.0)
+            off_t.append(v)
+        out.append(StencilOp(diag=op.diag, off=torch.stack(off_t)))
+    return tuple(out)
+
+
+def coefficient_vjp(ops: tuple[StencilOp, ...], xs: BlockVec, cts: BlockVec,
+                    topo: DomainTopo) -> tuple[BlockVec, BlockVec]:
+    """The VJP of ``domain_apply(ops, xs)`` with respect to the coefficients
+    at cotangent ``cts``: per block ``sum(ct * x)`` for ``diag`` and ``sum(ct
+    * P_f x)`` for ``off[f]``, summed over the leading channel axes of
+    ``xs`` (the velocity's components share one stencil)."""
+    gd, go = [], []
+    for b, (op, x, ct) in enumerate(zip(ops, xs, cts)):
+        lead = tuple(range(x.dim() - op.diag.dim()))
+        red = (lambda t: t.sum(dim=lead)) if lead else (lambda t: t)
+        gd.append(red(ct * x))
+        go.append(torch.stack([red(ct * _neighbor_field(xs, b, f, topo))
+                               for f in range(2 * topo.ndims)]))
+    return tuple(gd), tuple(go)
 
 
 def domain_off_apply(ops: tuple[StencilOp, ...], xs: BlockVec,

@@ -74,6 +74,19 @@ for every K3 and K2-mb launch.  Only these:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py \
         -k "merged_spread or cylinder3d or rot2d"
+The differentiable solve (``piso._solve(..., differentiable=True)``) on
+the four forms of the RBC2D and CylinderJet2D main paths (K1 and K2 over
+the trivial plan on the RBC2D-easy block, K3 at the rule's C = 8 and K2-mb
+on the cylinder's full-width systems): the value and the gradients in
+``b``, ``diag`` and ``off`` of ``sum(w * x)`` against the same solve
+through the plain versions on the card (the wrappers' device test
+answering "cpu"), x and d/db within 1e-3 of max, the coefficient
+gradients (products of the two solves) within 2e-3; one forward and one
+transposed launch of the form, both on the single lane's arm.  Only
+these:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py \
+        -k "diff_solve"
 """
 
 import numpy as np
@@ -2220,3 +2233,81 @@ def _ring_pinned_on_cylinder3d(dev, cg):
                    stall_iters=250, precondition=True, return_best=cg)
     assert getattr(fn, key) == before + 1
     assert torch.equal(cg_cuda_mb.flatten_fields(plan, xw), shared[0])
+
+
+# ---------------------------------------------------------------------------
+# the differentiable solve: forward and transposed solves on the kernels
+# ---------------------------------------------------------------------------
+
+def _diff_system(form, dev):
+    """``(topo, ops, right-hand side shapes, solve kw, (wrapper, form
+    counter, arm counter))`` of one form of the diff-mode main paths."""
+    if form in ("K1", "K2"):
+        dom = DomainBuilder(ndims=2, viscosity=0.01)
+        dom.create_block(geometry.make_uniform_grid((SHAPE[1], SHAPE[0]),
+                                                    (0, 0), (1.0, 1.0)))
+        topo = dom.build()[0]
+        make = spd_stencil if form == "K1" else nonsym_stencil
+        diag, off = (torch.from_numpy(a).to(dev) for a in make(SHAPE, 2, 3))
+        ops = (StencilOp(diag=diag, off=off),)
+        if form == "K1":
+            return (topo, ops, [SHAPE], dict(symmetric=True, precondition=True),
+                    (cg_cuda.fused_cg, "launches", "resident_launches"))
+        return (topo, ops, [(2,) + SHAPE], dict(symmetric=False,
+                                                precondition=False),
+                (cg_cuda_mb.fused_bicgstab_mb, "launches", "resident_launches"))
+    topo, _, _, adv, p_ops = _cylinder_systems(dev)
+    if form == "K3":
+        # the all-Neumann system shifted by 1% of its mean diagonal: the
+        # cotangent of sum(w * x) is no consistent right-hand side of it
+        shift = 0.01 * float(torch.cat([o.diag.reshape(-1) for o in p_ops]).mean())
+        ops = tuple(StencilOp(diag=o.diag + shift, off=o.off) for o in p_ops)
+        return (topo, ops, [tuple(b.shape) for b in topo.blocks],
+                dict(symmetric=True, precondition=True),
+                (cg_cuda_mb.fused_cg_mb, "launches", "cluster_launches"))
+    return (topo, adv, [(2,) + tuple(b.shape) for b in topo.blocks],
+            dict(symmetric=False, precondition=False),
+            (cg_cuda_mb.fused_bicgstab_mb, "merged_launches", "cluster_launches"))
+
+
+@pytest.mark.parametrize("form", ["K1", "K2", "K3", "K2-mb"])
+def test_diff_solve_matches_plain(form, monkeypatch):
+    dev = require_cuda()
+    topo, ops, shapes, kw, (wrapper, count, arm) = _diff_system(form, dev)
+    rng = np.random.default_rng(5)
+    rand = lambda: [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+                    for s in shapes]
+    b, w = rand(), rand()
+    n = len(ops)
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in
+                  [o.diag for o in ops] + [o.off for o in ops] + b]
+        sys_ops = tuple(StencilOp(diag=leaves[i], off=leaves[n + i])
+                        for i in range(n))
+        x, info = piso._solve(sys_ops, tuple(leaves[2 * n:]), topo, tol=1e-6,
+                              maxiter=3000, return_best=True,
+                              differentiable=True, **kw)
+        torch.sum(torch.stack([torch.sum(wi * xi) for wi, xi in zip(w, x)])
+                  ).backward()
+        torch.cuda.synchronize()
+        # the post-hoc residual in float32: within twice the tolerance
+        assert int(info.iterations) == -1 and float(info.residual) <= 2e-6
+        return [xi.detach() for xi in x], [leaf.grad for leaf in leaves]
+
+    c0, a0 = getattr(wrapper, count), getattr(wrapper, arm)
+    with cg_cuda_mb.pinned_cluster(8 if form == "K3" else None):
+        xk, gk = run()
+    assert getattr(wrapper, count) - c0 == 2
+    assert getattr(wrapper, arm) - a0 == 2
+    monkeypatch.setattr(cg_cuda, "device_kind", lambda b_, what: "cpu")
+    monkeypatch.setattr(cg_cuda_mb, "device_kind", lambda b_, what: "cpu")
+    c1 = getattr(wrapper, count)
+    xp, gp = run()
+    assert getattr(wrapper, count) == c1
+    for a, c in zip(xk, xp):
+        assert_rel(a.cpu().numpy(), c.cpu().numpy(), 1e-3, f"{form} x")
+    names = ["diag"] * n + ["off"] * n + ["b"] * n
+    for name, a, c in zip(names, gk, gp):
+        assert_rel(a.cpu().numpy(), c.cpu().numpy(),
+                   1e-3 if name == "b" else 2e-3, f"{form} d/d{name}")
