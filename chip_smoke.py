@@ -325,7 +325,26 @@ Phases, each printed with its elapsed seconds:
 53. phase 51's gradient at a small RBC2D config: the card in float32
    through the kernels against the plain versions on the card (within
    ``DIFF_PLAIN_BARS[53]`` of max|g|) and against the host in float64
-   (within ``DIFF_HOST_BAR``).
+   (within ``DIFF_HOST_BAR``);
+54. the SB3 recipe: ``VecFluidEnv(FlattenObservation(make("RBC2D-easy-v0",
+   use_marl=True, load_initial_domain=False, load_domain_statistics=False,
+   episode_length=2)))`` at (61, 96) for 3 steps (one auto-reset) in turns
+   with the bare env on the same actions: obs and rewards bit for bit, the
+   K1 / K2 launches of each step equal and all on the resident arm, no
+   plain version, no ``linsolve`` loop; ms per env step of both; then each
+   layer's own host ms per step over a replay of the last step;
+55. ``GymFluidEnv(ActionNoise(SensorNoise(ObsExtraction(make(
+   "CylinderJet2D-easy-v0"), ["pressure"]))))`` (the adapter's ``object``
+   base where gymnasium is absent), reset and 2 steps in turns with a bare
+   env into which the same noise draws are replayed: obs and reward bit
+   for bit, tensors on the card below the adapter and numpy above it, K3 /
+   K2-mb launches of each step equal and all on the cluster arm; ms per
+   env step; each layer's own host ms per step;
+56. the render fields (RBC2D-easy's scaled temperature, CylinderJet2D-easy's
+   vorticity, on their render grids) of phases 54-55's envs on the card
+   against a CPU env on the same state (``get_state`` ->
+   ``env_state_to_numpy`` -> ``env_state_from_numpy``), within
+   ``RENDER_BAR`` of each field's max; the colormap step is not run.
 Phases 48-50 run in the order 49, 50, 48: phase 48 holds the solves the
 other two capture.
 
@@ -865,6 +884,7 @@ def _run(dev) -> int:
     _tcf_phases(dev, kernels, compare, piso, linsolve)
     _airfoil3d_phases(dev, kernels, piso, linsolve)
     _diff_phases(dev, kernels, piso, linsolve)
+    _rl_surface_phases(dev, kernels, piso, linsolve)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -5213,6 +5233,385 @@ def _diff_phases(dev, kernels, piso, linsolve) -> None:
     for k in ("K1", "K2"):
         kernels[k]["diff_card_vs"] = gaps
     log(f"phases 51-53 the differentiable path ok in "
+        f"{time.perf_counter() - t:.1f}s")
+
+
+#: phase 54's episode: ``episode_length`` + 1 steps cross one auto-reset
+RL_EPISODE = 2
+#: phase 55's noise: (sigma, seed) of the sensor and the action noise
+RL_SENSOR_NOISE, RL_ACTION_NOISE = (0.01, 5), (0.1, 6)
+#: phase 56's bar: render fields on the card against the host, relative to
+#: each field's max
+RENDER_BAR = 1e-5
+
+
+def _rl_counts(piso, linsolve, forms):
+    """``(zero, read, restore)`` over the launch counters of ``forms``
+    (name -> (wrapper, attribute)), every plain version and ``linsolve``'s
+    loops; ``restore`` unwraps the counted ``linsolve`` functions."""
+    launches, plains = _counters()
+    calls, restore = count_calls(piso, linsolve)
+    extra = [c for c in forms.values() if c not in launches]
+
+    def zero():
+        for w, a in launches + plains + extra:
+            setattr(w, a, 0)
+        calls.update({k: 0 for k in calls})
+
+    def read():
+        out = {k: getattr(w, a) for k, (w, a) in forms.items()}
+        out["all"] = sum(getattr(w, a) for w, a in launches)
+        out["plain"] = sum(getattr(w, a) for w, a in plains)
+        out["linsolve"] = calls["cg"] + calls["bicgstab"]
+        return out
+
+    return zero, read, restore
+
+
+def _in_turns(torch, arms, i, zero, read):
+    """Run ``arms`` (name -> call) once each, the order alternating with
+    ``i``; each run's host ms (ending in a synchronise), its counts and
+    what it returned."""
+    out = {}
+    names = list(arms) if i % 2 == 0 else list(arms)[::-1]
+    for name in names:
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = arms[name]()
+        torch.cuda.synchronize()
+        out[name] = dict(ms=1e3 * (time.perf_counter() - t), counts=read(),
+                         result=res)
+    return out
+
+
+class _ReplayEnv:
+    """Hands back one recorded step's outputs (tensors on the card) at no
+    cost, so that a wrapper stack over it times only its own layers."""
+
+    def __init__(self, env, out):
+        self.observation_space = env.observation_space
+        self.action_space = env.action_space
+        self.use_marl, self.n_agents = env.use_marl, env.n_agents
+        self.device, self._dtype = env.device, env._dtype
+        self._out = out
+
+    def step(self, action):
+        obs, reward, _, _, info = self._out
+        return dict(obs), reward, False, False, dict(info)
+
+    def reset(self, seed=None, randomize=None):
+        return dict(self._out[0]), {}
+
+
+#: calls per stack in the layer timings of phases 54-55
+LAYER_REPS = 200
+
+
+def layer_ms(torch, stacks, action) -> dict:
+    """Host ms per ``step`` of each wrapper stack over a ``_ReplayEnv`` (name
+    -> stack, the bare replay first), ``LAYER_REPS`` calls each ending in a
+    synchronise, every stack twice in turns (forward, then backward)."""
+    out = {k: 0.0 for k in stacks}
+    for names in (list(stacks), list(stacks)[::-1]):
+        for k in names:
+            stacks[k].step(action)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(LAYER_REPS):
+                stacks[k].step(action)
+            torch.cuda.synchronize()
+            out[k] += 1e3 * (time.perf_counter() - t) / LAYER_REPS / 2
+    return out
+
+
+def _vec_env_phase(dev, kernels, piso, linsolve) -> dict:
+    """Phase 54: the SB3 recipe of ``examples/interfaces/sb3_vec_env.py``,
+    ``VecFluidEnv(FlattenObservation(make("RBC2D-easy-v0", use_marl=True,
+    load_initial_domain=False, load_domain_statistics=False)))`` at (61,
+    96), ``episode_length`` = ``RL_EPISODE``, for ``RL_EPISODE`` + 1 steps
+    (one auto-reset, randomized as registered), and the bare env on the
+    same actions beside it, the two in turns: obs and rewards bit for bit,
+    ``terminated_observation`` the bare env's last obs, K1 / K2 launches per
+    env step equal and all on the resident arm, no plain version and no
+    ``linsolve`` loop."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.integration.sb3 import VecFluidEnv
+    from fluidgym_tpu_torch.ops import cg_cuda, cg_cuda_mb
+    from fluidgym_tpu_torch.wrappers import FlattenObservation
+
+    k1, k2 = cg_cuda.fused_cg, cg_cuda_mb.fused_bicgstab_mb
+    forms = {"K1": (k1, "launches"), "K2": (k2, "launches"),
+             "K1 resident": (k1, "resident_launches"),
+             "K2 resident": (k2, "resident_launches")}
+    zero, read, restore = _rl_counts(piso, linsolve, forms)
+    kw = dict(use_marl=True, load_initial_domain=False,
+              load_domain_statistics=False, episode_length=RL_EPISODE)
+    t0 = time.perf_counter()
+    venv = VecFluidEnv(FlattenObservation(fluidgym_tpu_torch.make("RBC2D-easy-v0", **kw)))
+    bare = fluidgym_tpu_torch.make("RBC2D-easy-v0", **kw)
+    keys = ("temperature", "velocity")
+
+    def flat(o):
+        return torch.cat([o[k].reshape(bare.n_agents, -1) for k in keys],
+                         dim=1).cpu().numpy()
+
+    try:
+        o = venv.reset(seed=0)
+        ob, _ = bare.reset(seed=0)
+        check(bare._topo.blocks[0].shape == (61, 96),
+              f"phase 54: block {bare._topo.blocks[0].shape}")
+        check(np.array_equal(o, flat(ob)), "phase 54: reset obs differ")
+        rng = np.random.default_rng(54)
+        rows, resets = [], []
+        for i in range(RL_EPISODE + 1):
+            a = rng.uniform(-1, 1, (venv.num_envs, 1)).astype(np.float32)
+
+            def bare_step(a=a):
+                r = bare.step(a)
+                done = bool(r[2] or r[3])
+                return r, (bare.reset() if done else None)
+
+            turn = _in_turns(torch, {"wrapped": lambda a=a: venv.step(a),
+                                     "bare": bare_step}, i, zero, read)
+            (o, r, dones, infos) = turn["wrapped"]["result"]
+            (ob, rb, te, tr, _), reset = turn["bare"]["result"]
+            check(isinstance(o, np.ndarray) and isinstance(r, np.ndarray),
+                  "phase 54: the adapter did not return numpy")
+            check(np.array_equal(r, rb.cpu().numpy()),
+                  f"phase 54 step {i}: rewards differ")
+            check(dones.tolist() == [bool(te or tr)] * bare.n_agents,
+                  f"phase 54 step {i}: dones {dones.tolist()}")
+            if reset is not None:
+                resets.append(i)
+                check(np.array_equal(np.stack([f["terminated_observation"]
+                                               for f in infos]), flat(ob)),
+                      "phase 54: terminated_observation differs")
+                ob = reset[0]
+            check(np.array_equal(o, flat(ob)), f"phase 54 step {i}: obs differ")
+            cw, cb = turn["wrapped"]["counts"], turn["bare"]["counts"]
+            for c in (cw, cb):
+                check(c["K1"] > 0 and c["K2"] > 0
+                      and c["K1 resident"] == c["K1"]
+                      and c["K2 resident"] == c["K2"],
+                      f"phase 54 step {i}: K1 / K2 not all on the resident "
+                      f"arm: {c}")
+                check(c["plain"] == 0 and c["linsolve"] == 0,
+                      f"phase 54 step {i}: plain versions or linsolve ran: {c}")
+            check(cw == cb, f"phase 54 step {i}: launches wrapped {cw} != "
+                  f"bare {cb}")
+            rows.append(dict(step=i, auto_reset=reset is not None,
+                             ms=turn["wrapped"]["ms"], bare_ms=turn["bare"]["ms"],
+                             K1=cw["K1"], K2=cw["K2"]))
+        check(resets == [RL_EPISODE - 1], f"phase 54: auto-resets at {resets}")
+    finally:
+        restore()
+    replay = _ReplayEnv(bare, turn["bare"]["result"][0])
+    flat_replay = FlattenObservation(replay)
+    layers = layer_ms(torch, {"replay": replay, "FlattenObservation": flat_replay,
+                              "VecFluidEnv(FlattenObservation)":
+                              VecFluidEnv(flat_replay)}, a)
+    steps = [r for r in rows if not r["auto_reset"]]
+    out = dict(per_step=rows, layers_ms=layers, launches_per_env_step={
+        "K1": steps[0]["K1"], "K2": steps[0]["K2"]},
+        ms=[r["ms"] for r in steps], bare_ms=[r["bare_ms"] for r in steps])
+    for k in ("K1", "K2"):
+        kernels[k]["wrapped_launches_per_env_step"] = {
+            "VecFluidEnv(FlattenObservation(RBC2D-easy MARL))":
+            [r[k] for r in steps]}
+    log(f"phase 54 VecFluidEnv(FlattenObservation(RBC2D-easy-v0 MARL)) ok: "
+        f"{RL_EPISODE + 1} steps in turns with the bare env, obs / rewards "
+        f"bit-equal, auto-reset at step {resets[0]}; ms per env step wrapped "
+        f"{[round(r['ms'], 1) for r in rows]} vs bare "
+        f"{[round(r['bare_ms'], 1) for r in rows]} (the auto-reset's step "
+        f"includes the reset); K1 / K2 launches per step "
+        f"{[(r['K1'], r['K2']) for r in rows]}, equal and all resident, no "
+        f"plain version or linsolve loop; each stack's own host ms per step "
+        f"over a replay of the last step (card tensors, {LAYER_REPS} calls x "
+        f"2 in turns) {json.dumps({k: round(v, 4) for k, v in layers.items()})}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    out["env"] = bare
+    return out
+
+
+def _gym_noise_phase(dev, kernels, piso, linsolve) -> dict:
+    """Phase 55: ``GymFluidEnv(ActionNoise(SensorNoise(ObsExtraction(
+    make("CylinderJet2D-easy-v0", randomize_initial_state=False),
+    ["pressure"]))))`` (the adapter on its ``object`` base where gymnasium
+    is absent, as on the card), reset and 2 steps, in turns with a bare env
+    into which the same noise draws (generators on the card, seeded as the
+    wrappers') are replayed: obs and reward bit for bit; every layer below
+    the adapter hands back tensors on the card, the adapter numpy; K3 /
+    K2-mb launches per env step equal and all on the cluster arm."""
+    import numpy as np
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.integration.gymnasium import GymFluidEnv
+    from fluidgym_tpu_torch.ops import cg_cuda_mb
+    from fluidgym_tpu_torch.wrappers import ActionNoise, ObsExtraction, SensorNoise
+
+    k3, k2 = cg_cuda_mb.fused_cg_mb, cg_cuda_mb.fused_bicgstab_mb
+    forms = {"K3": (k3, "launches"), "K2-mb": (k2, "merged_launches"),
+             "K3 cluster": (k3, "cluster_launches"),
+             "K2-mb cluster": (k2, "cluster_launches")}
+    zero, read, restore = _rl_counts(piso, linsolve, forms)
+    kw = dict(randomize_initial_state=False)
+    (ss, seed_s), (sa, seed_a) = RL_SENSOR_NOISE, RL_ACTION_NOISE
+    t0 = time.perf_counter()
+    inner = ActionNoise(SensorNoise(ObsExtraction(
+        fluidgym_tpu_torch.make("CylinderJet2D-easy-v0", **kw), ["pressure"]),
+        ss, seed_s), sa, seed_a)
+    g = GymFluidEnv(inner)
+    bare = fluidgym_tpu_torch.make("CylinderJet2D-easy-v0", **kw)
+    gs = torch.Generator(device=dev).manual_seed(seed_s)
+    ga = torch.Generator(device=dev).manual_seed(seed_a)
+    below = []
+    step_inner = inner.step
+
+    def spy(action):
+        res = step_inner(action)
+        below.append((res[0]["pressure"], res[1]))
+        return res
+
+    inner.step = spy
+
+    def sensed(o):
+        p = o["pressure"]
+        return (p + torch.randn(p.shape, generator=gs, device=p.device,
+                                dtype=p.dtype) * ss).cpu().numpy()
+
+    try:
+        o, _ = g.reset(seed=0)
+        ob, _ = bare.reset(seed=0)
+        check(np.array_equal(o["pressure"], sensed(ob)),
+              "phase 55: reset obs differ")
+        rows = []
+        for i, a in enumerate((np.array([0.5], np.float32),
+                               np.array([-0.3], np.float32))):
+            def bare_step(a=a):
+                at = torch.as_tensor(a, device=dev)
+                return bare.step(at + torch.randn(at.shape, generator=ga,
+                                                  device=dev, dtype=at.dtype) * sa)
+
+            turn = _in_turns(torch, {"wrapped": lambda a=a: g.step(a),
+                                     "bare": bare_step}, i, zero, read)
+            o, r, te, tr, info = turn["wrapped"]["result"]
+            ob, rb, *_ = turn["bare"]["result"]
+            check(isinstance(o["pressure"], np.ndarray) and isinstance(r, float)
+                  and all(isinstance(v, np.ndarray) for v in info.values()),
+                  "phase 55: the adapter did not return numpy")
+            p_below, r_below = below[-1]
+            check(torch.is_tensor(p_below) and p_below.device.type == dev.type
+                  and torch.is_tensor(r_below) and r_below.device.type == dev.type,
+                  "phase 55: a layer below the adapter left the card")
+            check(np.array_equal(o["pressure"], sensed(ob)),
+                  f"phase 55 step {i}: obs differ")
+            check(r == float(rb.reshape(-1)[0]), f"phase 55 step {i}: reward differs")
+            cw, cb = turn["wrapped"]["counts"], turn["bare"]["counts"]
+            for c in (cw, cb):
+                check(c["K3"] > 0 and c["K2-mb"] > 0
+                      and c["K3 cluster"] == c["K3"]
+                      and c["K2-mb cluster"] == c["K2-mb"],
+                      f"phase 55 step {i}: K3 / K2-mb not all on the cluster "
+                      f"arm: {c}")
+                check(c["plain"] == 0 and c["linsolve"] == 0,
+                      f"phase 55 step {i}: plain versions or linsolve ran: {c}")
+            check(cw == cb, f"phase 55 step {i}: launches wrapped {cw} != bare {cb}")
+            rows.append(dict(step=i, ms=turn["wrapped"]["ms"],
+                             bare_ms=turn["bare"]["ms"], K3=cw["K3"],
+                             K2_mb=cw["K2-mb"]))
+    finally:
+        inner.step = step_inner
+        restore()
+    replay = _ReplayEnv(bare, turn["bare"]["result"])
+    ext = ObsExtraction(replay, ["pressure"])
+    sensor = SensorNoise(ext, ss, seed_s)
+    action = ActionNoise(sensor, sa, seed_a)
+    layers = layer_ms(torch, {"replay": replay, "ObsExtraction": ext,
+                              "SensorNoise(ObsExtraction)": sensor,
+                              "ActionNoise(SensorNoise(ObsExtraction))": action,
+                              "GymFluidEnv(ActionNoise(SensorNoise(ObsExtraction)))":
+                              GymFluidEnv(action)}, a)
+    for k, c in (("K3", "K3"), ("K2-mb", "K2_mb")):
+        kernels[k]["wrapped_launches_per_env_step"] = {
+            "GymFluidEnv(ActionNoise(SensorNoise(ObsExtraction("
+            "CylinderJet2D-easy))))": [r[c] for r in rows]}
+    log(f"phase 55 GymFluidEnv (base {type(g).__mro__[1].__name__}) over "
+        f"ActionNoise(SensorNoise(ObsExtraction(CylinderJet2D-easy-v0))) ok: "
+        f"obs / reward bit-equal to the bare env on the replayed draws, "
+        f"numpy only at the adapter; ms per env step wrapped "
+        f"{[round(r['ms'], 1) for r in rows]} vs bare "
+        f"{[round(r['bare_ms'], 1) for r in rows]} in turns; K3 / K2-mb "
+        f"launches per step {[(r['K3'], r['K2_mb']) for r in rows]}, equal "
+        f"and all on the cluster arm, no plain version or linsolve loop; "
+        f"each stack's own host ms per step over a replay of the last step "
+        f"(card tensors, {LAYER_REPS} calls x 2 in turns) "
+        f"{json.dumps({k: round(v, 4) for k, v in layers.items()})}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return dict(per_step=rows, layers_ms=layers, env=bare)
+
+
+def _render_card_vs_host(dev, envs) -> dict:
+    """Phase 56: the render fields (``render_fields``: RBC2D-easy's scaled
+    temperature and CylinderJet2D-easy's vorticity on their render grids)
+    of phases 54 and 55's bare envs on the card against a CPU env on the
+    same state (``get_state`` -> ``env_state_to_numpy`` ->
+    ``env_state_from_numpy``), within ``RENDER_BAR`` of each field's max.
+    The colormap step (matplotlib) is not run."""
+    import torch
+
+    import fluidgym_tpu_torch
+    from fluidgym_tpu_torch.envs.fluid_env import (env_state_from_numpy,
+                                                   env_state_to_numpy)
+
+    out = {}
+    for env_id, env, kw in envs:
+        t = time.perf_counter()
+        host = fluidgym_tpu_torch.make(env_id, device="cpu", **kw)
+        host.set_state(env_state_from_numpy(env_state_to_numpy(env.get_state())))
+        ms = []
+        for where in (env, env, host, host):  # the first call builds the plan
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fields = where.render_fields()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            card, ref = (fields, None) if where is env else (card, fields)
+        card_ms, host_ms = ms[1], ms[3]
+        for k, v in card.items():
+            check(v.device.type == dev.type, f"phase 56: {k} is not on the card")
+            err = float((v.cpu() - ref[k]).abs().max()
+                        / ref[k].abs().max().clamp(min=1e-30))
+            check(tuple(v.shape) == tuple(ref[k].shape) and err <= RENDER_BAR,
+                  f"phase 56 {env_id} {k}: card vs host {err:.3e} "
+                  f"(bar {RENDER_BAR:g})")
+            out[f"{env_id} {k}"] = dict(shape=tuple(v.shape), rel_err=err,
+                                        card_ms=card_ms, host_ms=host_ms)
+            log(f"phase 56 {env_id} {k} {tuple(v.shape)} on the render grid: "
+                f"card vs host {err:.3e} of max (bar {RENDER_BAR:g}); "
+                f"render_fields {card_ms:.2f} ms on the card, {host_ms:.2f} ms "
+                f"on the host (first calls, building the plan: {ms[0]:.1f} / "
+                f"{ms[2]:.1f} ms); "
+                f"{time.perf_counter() - t:.1f}s")
+    return out
+
+
+def _rl_surface_phases(dev, kernels, piso, linsolve) -> None:
+    """Phases 54-56: the RL-framework surface on the card."""
+    t = time.perf_counter()
+    vec = _vec_env_phase(dev, kernels, piso, linsolve)
+    gym = _gym_noise_phase(dev, kernels, piso, linsolve)
+    _render_card_vs_host(dev, [
+        ("RBC2D-easy-v0", vec["env"],
+         dict(use_marl=True, load_initial_domain=False,
+              load_domain_statistics=False, episode_length=RL_EPISODE)),
+        ("CylinderJet2D-easy-v0", gym["env"],
+         dict(randomize_initial_state=False))])
+    log(f"phases 54-56 the RL-framework surface ok in "
         f"{time.perf_counter() - t:.1f}s")
 
 if __name__ == "__main__":

@@ -58,6 +58,9 @@ AIRFOIL_3D_DEFAULT_CONFIG = {
 class AirfoilEnv3D(AirfoilEnvBase):
     """3D NACA 0012 with spanwise-segmented upper-surface jets."""
 
+    _default_render_key: str = "x-y-vorticity"
+    #: iso level of the 3D render's |vorticity| per Reynolds number
+    VORTICITY_RENDER_LEVELS = {1000: 2.0, 3000: 3.5, 5000: 4.5}
     _n_sensors_per_agent: int = 1
     _supports_marl = True
 
@@ -269,6 +272,33 @@ class AirfoilEnv3D(AirfoilEnvBase):
                 "2D initial domain not found on disk; starting the 3D flow "
                 "from the uniform initial state instead.")
         return topo, geoms, state
+
+    def _get_render_data(self, render_3d: bool, output_path=None):
+        """The mid-plane slice always; with ``render_3d`` also an
+        iso-surface of |vorticity| coloured by |u| (15 cells at the top and
+        bottom boundaries cleared of noise)."""
+        data = super()._get_render_data(render_3d, output_path)
+        if render_3d:
+            from fluidgym_tpu_torch.envs.util.visualization import render_3d_iso
+
+            u = self.get_velocity().detach().cpu().numpy()
+            vort = self.get_vorticity().detach().cpu().numpy()
+            curl = np.abs(vort).transpose(2, 1, 0)
+            umag = np.linalg.norm(u, axis=0).transpose(2, 1, 0)
+            curl[:, :15, :] = 0.0
+            curl[:, -15:, :] = 0.0
+            out = None
+            if output_path is not None:
+                out = output_path / f"vorticity_{self._n_episodes}_{self._n_steps}.png"
+            data["3d_vorticity"] = render_3d_iso(
+                iso_field=curl,
+                iso=[self.VORTICITY_RENDER_LEVELS.get(int(self._reynolds_number), 3.5)],
+                color_field=umag, color_range=(0.0, float(umag.max()) or 1.0),
+                output_path=out,
+                extent=((-1.5, self.L), (-self.H / 2, self.H / 2),
+                        (-self.D / 2, self.D / 2)),
+                view_kwargs={"elev": 10, "azim": 60})
+        return data
 
     def _apply_2d_initial_state(self, state: DomainState) -> DomainState:
         """Broadcast a saved 2D initial domain's velocity over the span (no

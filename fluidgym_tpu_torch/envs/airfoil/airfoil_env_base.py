@@ -28,9 +28,9 @@ In 3D the C-grid is extruded over ``_res_z`` cells of a periodic span
 per z-slice.  A 3D config at Re >= 3000 raises: its aggregation coarse
 space (8 x 8 x 8 tiles, 14,328 of them on the medium grid) has no kernel
 form yet.  The uniform render grid's resample plan is built at the first
-``get_velocity`` / ``get_pressure``: in 3D it gathers 13.5 M points.
-
-Not ported yet: rendering to images and vorticity.
+``get_velocity`` / ``get_pressure`` / ``get_vorticity``: in 3D it gathers
+13.5 M points.  Frames show the z-vorticity (the mid z-slice in 3D) in
+``coolwarm`` over the Reynolds number's ``VORTICITY_RENDER_RANGE``.
 """
 
 from __future__ import annotations
@@ -84,8 +84,14 @@ def points_in_polygon(polygon: np.ndarray, points: np.ndarray) -> np.ndarray:
     return inside
 
 
+#: colour range of the rendered vorticity per Reynolds number
+VORTICITY_RENDER_RANGE = {1000: (-10, 10), 3000: (-12.5, 12.5), 5000: (-15, 15)}
+
+
 class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     """Base class of the airfoil flow environments."""
+
+    _default_render_key: str = "vorticity"
 
     _n_jets: int = 3
     _res_z: int = 96
@@ -444,6 +450,25 @@ class AirfoilEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     def get_pressure(self) -> Tensor:
         return self._render_resample()(
             tuple(b.pressure for b in self._state.blocks))
+
+    def get_vorticity(self) -> Tensor:
+        """z-vorticity on the render grid, zero inside the airfoil."""
+        u = self._render_resample()(tuple(b.velocity for b in self._state.blocks))
+        return self._z_vorticity(u, (self.L + 1.5) / self.render_shape[0],
+                                 self.H / self.render_shape[1], self._airfoil_mask)
+
+    def render_fields(self) -> dict[str, Tensor]:
+        return {"vorticity": self.get_vorticity()}
+
+    def _get_render_data(self, render_3d: bool, output_path=None):
+        vort = self._render_fields_np()["vorticity"]
+        vmin, vmax = VORTICITY_RENDER_RANGE.get(int(self._reynolds_number),
+                                                (-10, 10))
+        if self._ndims == 3:
+            vort = vort[vort.shape[0] // 2]
+        img = self._format_render_data(np.flip(vort, (-2, -1)), v_min=vmin,
+                                       v_max=vmax, cmap="coolwarm")
+        return {"vorticity" if self._ndims == 2 else "x-y-vorticity": img}
 
     # ------------------------------------------------------------------
     # stepping

@@ -18,9 +18,11 @@
 * domain randomization: field noise (numpy draws per block, velocity then
   pressure) + a random number of uncontrolled steps.
 
-Not ported yet: rendering to images.  The uniform render grid's resample plan is built on
-the first ``get_velocity`` / ``get_pressure`` call, not at every reset (at
-3D widths it is millions of targets and only rendering reads it).
+The uniform render grid's resample plan is built on the first
+``get_velocity`` / ``get_pressure`` / ``get_vorticity`` call, not at every
+reset (at 3D widths it is millions of targets and only rendering reads it).
+Frames show the z-vorticity (the mid z-slice in 3D) in ``coolwarm`` over
+``VORTICITY_RENDER_RANGE``.
 """
 
 from __future__ import annotations
@@ -48,8 +50,14 @@ from fluidgym_tpu_torch.solver.piso import ADAPTIVE, Hooks, SimConfig
 Tensor = torch.Tensor
 
 
+#: colour range of the rendered vorticity
+VORTICITY_RENDER_RANGE = (-10, 10)
+
+
 class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
     """Base class of the cylinder flow environments."""
+
+    _default_render_key: str = "vorticity"
 
     H: float = 4.1
     L: float = 22.0
@@ -329,6 +337,28 @@ class CylinderEnvBase(SmoothedControlMixin, WallForcesMixin, FluidEnv):
 
     def get_pressure(self) -> Tensor:
         return self._render_resample()(tuple(b.pressure for b in self._state.blocks))
+
+    def get_vorticity(self) -> Tensor:
+        """z-vorticity on the render grid, zero inside the cylinder."""
+        u = self._render_resample()(tuple(b.velocity for b in self._state.blocks))
+        return self._z_vorticity(u, (self.L - 2.0) / self.render_shape[0],
+                                 self.H / self.render_shape[1], self._cylinder_mask)
+
+    def render_fields(self) -> dict[str, Tensor]:
+        return {"vorticity": self.get_vorticity()}
+
+    def _get_render_data(self, render_3d: bool, output_path=None):
+        vort = self._render_fields_np()["vorticity"]
+        vmin, vmax = VORTICITY_RENDER_RANGE
+        if self._ndims == 2:
+            img = self._format_render_data(np.flip(vort, -1), v_min=vmin,
+                                           v_max=vmax, cmap="coolwarm")
+            img[self._cylinder_mask] = 0
+            return {"vorticity": img}
+        img = self._format_render_data(np.flip(vort[vort.shape[0] // 2], -1),
+                                       v_min=vmin, v_max=vmax, cmap="coolwarm")
+        img[self._cylinder_mask[0]] = 0
+        return {"x-y-vorticity": img}
 
     # ------------------------------------------------------------------
     # stepping

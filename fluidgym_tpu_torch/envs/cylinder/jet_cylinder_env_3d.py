@@ -50,6 +50,7 @@ CYLINDER_JET_3D_DEFAULT_CONFIG = {
 class CylinderJetEnv3D(CylinderEnvBase):
     """3D cylinder with ``n_jets`` independently controlled jet segments."""
 
+    _default_render_key: str = "x-y-vorticity"
     _jet_angle: float = 10.0  # degrees
     _n_sensors_per_agent: int = 2
     _supports_marl = True
@@ -270,6 +271,28 @@ class CylinderJetEnv3D(CylinderEnvBase):
         if self._local_reward_weight is None:
             raise ValueError("local_reward_weight must be set for multi-agent step.")
         return super()._step_marl_impl(actions)
+
+    def _get_render_data(self, render_3d: bool, output_path=None):
+        """The mid-plane slice always; with ``render_3d`` also an
+        iso-surface of |vorticity| = 2 coloured by |u|."""
+        data = super()._get_render_data(render_3d, output_path)
+        if render_3d:
+            from fluidgym_tpu_torch.envs.util.visualization import render_3d_iso
+
+            u = self.get_velocity().detach().cpu().numpy()
+            vort = self.get_vorticity().detach().cpu().numpy()
+            curl = np.abs(vort).transpose(2, 1, 0)  # (X, Y, Z)
+            umag = np.linalg.norm(u, axis=0).transpose(2, 1, 0)
+            out = None
+            if output_path is not None:
+                out = output_path / f"vorticity_{self._n_episodes}_{self._n_steps}.png"
+            data["3d_vorticity"] = render_3d_iso(
+                iso_field=curl, iso=[2.0], color_field=umag,
+                color_range=(0.0, float(umag.max()) or 1.0), output_path=out,
+                extent=((-2.0, self.L - 2.0), (-self.H / 2, self.H / 2),
+                        (-self.D / 2, self.D / 2)),
+                view_kwargs={"elev": 10, "azim": 60})
+        return data
 
     @property
     def id(self) -> str:

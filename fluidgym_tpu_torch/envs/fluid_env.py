@@ -12,16 +12,25 @@ from the same seed) and a ``torch.Generator`` for ``sample_action``.
 
 Environment surface: ``reset/step/seed/sample_action/get_state/set_state/
 train/val/test``, Dict observation spaces, SARL/MARL dispatch, truncation at
-``episode_length``, metric statistics.  Not ported yet: ``render``,
-``save_gif``, ``init`` (dataset generation), ``plot_grid``, field image
-dumps and the uncontrolled-episode DataFrame.
+``episode_length``, metric statistics, the uncontrolled-episode DataFrame.
+
+Rendering comes in two steps.  ``render_fields()`` computes the fields a
+frame is drawn from (the resample onto the render grid, the vorticity) on
+the env's device, with no host copy; ``_get_render_data`` moves them to
+the host and colours them (``_format_render_data``, which imports
+matplotlib inside: the card's machine has none, so there the fields are
+the end of the line).  ``render``, ``save_gif`` (PIL), ``plot_grid`` and
+``save_field_images`` (``utils/field_io.py``) build on those.  Not ported
+yet: ``init`` (dataset generation).
 """
 
 from __future__ import annotations
 
 import logging
 from abc import ABC, abstractmethod
+from collections import defaultdict
 from dataclasses import dataclass, replace
+from pathlib import Path
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -69,6 +78,9 @@ class EnvState:
 class FluidEnv(ABC, FluidEnvLike):
     """Abstract base class for the port's environments."""
 
+    metadata = {"render_modes": ["rgb_array"], "render_fps": 24}
+
+    _default_render_key: str
     _ndims: int
     _supports_marl: bool = False
     _metrics: list[str] = []
@@ -122,6 +134,7 @@ class FluidEnv(ABC, FluidEnvLike):
         self._n_episodes = 0
         self._n_steps = 0
         self._mode: EnvMode = EnvMode.TRAIN
+        self._frames: dict[str, list] = defaultdict(list)
         self._metrics_stats: dict[str, Stats] = {}
         self._uncontrolled_episode: list[dict] | None = None
 
@@ -188,6 +201,16 @@ class FluidEnv(ABC, FluidEnvLike):
     @abstractmethod
     def _randomize_domain(self) -> None: ...
 
+    @abstractmethod
+    def render_fields(self) -> dict[str, Tensor]:
+        """The fields a frame is drawn from, as tensors on the env's device
+        (no host copy, no colormap)."""
+
+    @abstractmethod
+    def _get_render_data(self, render_3d: bool,
+                         output_path: Path | None = None) -> dict[str, np.ndarray]:
+        """Frames ``name -> (h, w, 3) uint8`` from ``render_fields``."""
+
     # ------------------------------------------------------------------
     # properties
     # ------------------------------------------------------------------
@@ -230,6 +253,10 @@ class FluidEnv(ABC, FluidEnvLike):
     @property
     def ndims(self) -> int:
         return self._ndims
+
+    @property
+    @abstractmethod
+    def render_shape(self) -> tuple[int, ...]: ...
 
     @property
     def metrics(self) -> list[str]:
@@ -470,7 +497,8 @@ class FluidEnv(ABC, FluidEnvLike):
     # core loop
     # ------------------------------------------------------------------
     def reset(self, seed: int | None = None, randomize: bool | None = None):
-        """Reset to an initial state."""
+        """Reset to an initial state (the rendered frames are dropped)."""
+        self._frames = defaultdict(list)
         if seed is None:
             if self._seed_value is None:
                 raise ValueError(
@@ -584,6 +612,142 @@ class FluidEnv(ABC, FluidEnvLike):
                 "Domain statistics not found for %s; metrics will use defaults.",
                 self.initial_domain_id)
             self._metrics_stats = {}
+
+    def get_uncontrolled_episode_metrics(self):
+        """Per-step metrics of the uncontrolled episode of the loaded
+        (non-randomized) initial domain, as a pandas DataFrame of numbers,
+        or None where the dataset has none.  Deliberate difference: the JAX
+        package keeps the CSV's strings, which plot as categories."""
+        ep = self._uncontrolled_episode
+        if ep is None:
+            return None
+        import pandas as pd
+
+        return pd.DataFrame(ep).astype(np.float64)
+
+    # ------------------------------------------------------------------
+    # rendering and field output
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _format_render_data(data: np.ndarray, v_min=None, v_max=None,
+                            cmap: str = "viridis") -> np.ndarray:
+        """Normalize and colormap a host field to uint8 RGB (rows flipped
+        along axis 1, as the JAX package does)."""
+        import matplotlib
+
+        _v_min = np.min(data) if v_min is None else v_min
+        _v_max = np.max(data) if v_max is None else v_max
+        data = np.flip(data, axis=1)
+        data = np.clip((data - _v_min) / (_v_max - _v_min + 1e-30), 0.0, 1.0)
+        return (matplotlib.colormaps[cmap](data)[..., :3] * 255).astype(np.uint8)
+
+    @staticmethod
+    def _z_vorticity(u: Tensor, hx: float, hy: float, mask: np.ndarray) -> Tensor:
+        """dv/dx - du/dy of a velocity ``u`` on the uniform render grid
+        (central differences, one-sided at the edges, as ``np.gradient``),
+        zero where ``mask`` (the body) is set."""
+        w = (torch.gradient(u[1], spacing=hx, dim=-1)[0]
+             - torch.gradient(u[0], spacing=hy, dim=-2)[0])
+        return torch.where(torch.as_tensor(mask, device=w.device),
+                           torch.zeros_like(w), w)
+
+    def _render_fields_np(self) -> dict[str, np.ndarray]:
+        """``render_fields`` copied to the host (the one host crossing of
+        a render)."""
+        return {k: v.detach().cpu().numpy() for k, v in self.render_fields().items()}
+
+    def render(self, save: bool = False, render_3d: bool = False,
+               filename: str | None = None,
+               output_path: Path | None = None) -> np.ndarray:
+        """Render the current state; the frames are kept for ``save_gif``
+        and the default key's frame is returned."""
+        output_path = Path(output_path) if output_path else Path(".")
+        render_data = self._get_render_data(
+            render_3d=render_3d, output_path=output_path if save else None)
+        for name, frame in render_data.items():
+            self._frames[name].append(frame)
+            if save:
+                from PIL import Image
+
+                output_path.mkdir(parents=True, exist_ok=True)
+                fname = filename or f"frame_{self._n_steps:04d}"
+                Image.fromarray(frame).save(output_path / f"{fname}_{name}.png")
+        return render_data[self._default_render_key]
+
+    def save_gif(self, filename: str = "episode", output_path: Path | None = None,
+                 fps: int | None = None) -> None:
+        """Write the frames rendered since the last reset as GIF(s), one per
+        frame name, and drop them."""
+        from PIL import Image
+
+        output_path = Path(output_path) if output_path else Path(".")
+        output_path.mkdir(parents=True, exist_ok=True)
+        fps = fps or self.metadata["render_fps"]
+        for name, frames in self._frames.items():
+            if not frames:
+                continue
+            imgs = [Image.fromarray(f) for f in frames]
+            imgs[0].save(output_path / f"{filename}_{name}.gif", save_all=True,
+                         append_images=imgs[1:], duration=int(1000 / fps),
+                         loop=0)
+        self._frames = defaultdict(list)
+
+    def plot_grid(self, output_path=None, name: str | None = None,
+                  linewidth: float = 0.5):
+        """Plot the multi-block mesh wireframe of the family's
+        ``_blocks_vertex_coords`` (3D grids as their z = 0 slice); with
+        ``output_path`` saved as ``<name>_grid.pdf``.  Returns ``(fig,
+        ax)``."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        grids = [np.asarray(g) for g in self._blocks_vertex_coords]
+        if self._ndims == 3:
+            grids = [g[:2, 0] for g in grids]
+        fig, ax = plt.subplots(figsize=(10, 4))
+        colors = plt.cm.tab10.colors
+        for i, g in enumerate(grids):
+            c = colors[i % len(colors)]
+            for r in range(g.shape[1]):
+                ax.plot(g[0, r, :], g[1, r, :], color=c, linewidth=linewidth)
+            for col in range(g.shape[2]):
+                ax.plot(g[0, :, col], g[1, :, col], color=c, linewidth=linewidth)
+        ax.set_aspect("equal")
+        if output_path is not None:
+            p = Path(output_path)
+            p.mkdir(parents=True, exist_ok=True)
+            fig.savefig(p / f"{name or self.id}_grid.pdf")
+            plt.close(fig)
+        return fig, ax
+
+    def save_field_images(self, output_path, prefix: str | None = None,
+                          cmap: str = "viridis") -> list:
+        """Dump every resampled field the env exposes (velocity, pressure,
+        vorticity, temperature) as per-channel PNGs plus one float32 npz
+        (``utils/field_io.py``).  Returns the written paths."""
+        from fluidgym_tpu_torch.utils.field_io import save_field_images
+
+        fields = {}
+        for name, getter in (("velocity", "get_velocity"),
+                             ("pressure", "get_pressure"),
+                             ("vorticity", "get_vorticity"),
+                             ("temperature", "get_temperature")):
+            fn = getattr(self, getter, None)
+            if fn is not None:
+                fields[name] = fn().detach().cpu().numpy()
+        if not fields:
+            raise NotImplementedError(
+                f"{self.__class__.__name__} exposes no resampled field getters "
+                "(get_velocity/get_pressure/...)")
+        return save_field_images(
+            fields, output_path,
+            prefix=prefix or f"{self.id}_e{self._n_episodes}_s{self._n_steps}",
+            cmap=cmap,
+            # the getters pre-select scalar channels; only velocity keeps a
+            # component axis
+            channel_fields=("velocity",))
 
 
 def env_state_from_numpy(tree, device=None, dtype=None) -> EnvState:

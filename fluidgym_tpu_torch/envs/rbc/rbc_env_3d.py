@@ -41,6 +41,7 @@ class RBCEnv3D(RBCEnvBase):
     """3D RBC with a (z, x) grid of bottom-plate heaters."""
 
     _ndims = 3
+    _default_render_key: str = "x-y-temperature"
 
     def _get_action_space(self) -> spaces.Box:
         shape = (1,) if self.use_marl else (self._n_heaters, self._n_heaters, 1)

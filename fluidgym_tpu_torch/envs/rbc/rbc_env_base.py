@@ -34,6 +34,7 @@ class RBCEnvBase(FluidEnv):
     """Abstract base class for RBC environments."""
 
     _supports_marl = True
+    _default_render_key: str = "temperature"
 
     _T_cold: float = 0.0
     _T_hot: float = 1.0
@@ -282,6 +283,32 @@ class RBCEnvBase(FluidEnv):
 
     def get_pressure(self) -> Tensor:
         return self._resample_plan(self._state.blocks[0].pressure)
+
+    # ------------------------------------------------------------------
+    # rendering
+    # ------------------------------------------------------------------
+    @property
+    def _blocks_vertex_coords(self):
+        return [self._make_vertex_grid()]
+
+    def render_fields(self) -> dict[str, Tensor]:
+        """The temperature on the render grid, scaled so that the plates'
+        range [T_cold, T_hot + heater_limit] maps to [0, 1]."""
+        lo, hi = self._T_cold, self._T_hot + self._heater_limit
+        return {"temperature": (self.get_temperature() - lo) / (hi - lo)}
+
+    def _get_render_data(self, render_3d: bool, output_path=None):
+        T = self._render_fields_np()["temperature"]
+        fmt = self._format_render_data
+        if self._ndims == 2:
+            return {"temperature": np.flipud(fmt(T, 0.0, 1.0, "rainbow"))}
+        return {
+            "x-y-temperature": np.flipud(fmt(T[T.shape[0] // 2], 0.0, 1.0,
+                                             "rainbow")),
+            "x-z-temperature": fmt(T[:, T.shape[1] // 2, :], 0.0, 1.0, "rainbow"),
+            "y-z-temperature": fmt(T[:, :, T.shape[2] // 2], 0.0, 1.0,
+                                   "rainbow").transpose(1, 0, 2),
+        }
 
     def _pure_nusselt(self, state: DomainState) -> Tensor:
         blk = state.blocks[0]

@@ -101,14 +101,21 @@ def _info(grid: np.ndarray, n_dims: int) -> dict:
     }
 
 
+def channel_grid(H: float, L: float, D: float, x: int, y: int, z: int,
+                 refinement_strength: int, n_dims: int) -> np.ndarray:
+    """The channel's vertex grid (the one ``make_channel_flow_domain``
+    builds the block on)."""
+    return _make_grid(H=H, L=L, D=D, x=x, y_half=y // 2,
+                      yN=refinement_strength, z=z, dims=n_dims)
+
+
 def channel_info(H: float, L: float, D: float, x: int, y: int, z: int,
                  refinement_strength: int, n_dims: int) -> dict:
     """The channel's static geometry info (``y_centers`` and the wall
     distances ``d_y`` of the first and last cell centres), from the grid
     alone: what ``make_channel_flow_domain`` returns beside the domain."""
-    grid = _make_grid(H=H, L=L, D=D, x=x, y_half=y // 2,
-                      yN=refinement_strength, z=z, dims=n_dims)
-    return _info(grid, n_dims)
+    return _info(channel_grid(H, L, D, x, y, z, refinement_strength, n_dims),
+                 n_dims)
 
 
 def make_channel_flow_domain(

@@ -18,7 +18,8 @@
 * ``TCF3DBothEnv`` actuates and observes both walls, with mirrored
   top-wall frames.
 
-Rendering stays out, as for every family of the port.
+Frames show |u| on the mid z-plane of the channel grid (``viridis``); with
+``render_3d`` also an iso-surface of the Q-criterion.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from fluidgym_tpu_torch import spaces
 from fluidgym_tpu_torch.core.domain import DomainState
 from fluidgym_tpu_torch.envs.fluid_env import FluidEnv
 from fluidgym_tpu_torch.envs.tcf import tools as TCF_tools
-from fluidgym_tpu_torch.envs.tcf.grid import (channel_info,
+from fluidgym_tpu_torch.envs.tcf.grid import (channel_grid, channel_info,
                                               make_channel_flow_domain,
                                               make_dynamic_forcing_hook,
                                               van_driest_sqr_from_centers)
@@ -82,6 +83,7 @@ class TCF3DBottomEnv(FluidEnv):
     """Turbulent channel flow with bottom-wall blowing and suction."""
 
     _actuation: str = "bottom"
+    _default_render_key: str = "x-y-velocity"
     _supports_marl = True
     _scale_actions: bool = True
     _delta: float = 1.0
@@ -176,6 +178,15 @@ class TCF3DBottomEnv(FluidEnv):
         reset calls it before ``_additional_initialization``."""
         if self._channel_info is None:
             self._channel_info = channel_info(**self._channel_kw())
+
+    @property
+    def render_shape(self) -> tuple[int, ...]:
+        xr = 2 * self._x
+        return (xr, int(xr / self._L * self._H), int(xr / self._L * self._D))
+
+    @property
+    def _blocks_vertex_coords(self):
+        return [channel_grid(**self._channel_kw())]
 
     def _get_y_obs_idx(self, y_wall: float) -> int:
         """The cell row nearest to the wall distance ``y_wall`` (wall units)
@@ -428,6 +439,31 @@ class TCF3DBottomEnv(FluidEnv):
         S = 0.5 * (G + Gt)
         O = 0.5 * (G - Gt)
         return 0.5 * (torch.sum(O**2, dim=(0, 1)) - torch.sum(S**2, dim=(0, 1)))
+
+    def render_fields(self) -> dict[str, Tensor]:
+        """|u| on the channel grid."""
+        return {"velocity_magnitude":
+                torch.linalg.vector_norm(self._state.blocks[0].velocity, dim=0)}
+
+    def _get_render_data(self, render_3d: bool, output_path=None):
+        u_mag = self._render_fields_np()["velocity_magnitude"]
+        data = {"x-y-velocity": self._format_render_data(
+            u_mag[u_mag.shape[0] // 2], cmap="viridis")}
+        if render_3d:
+            from fluidgym_tpu_torch.envs.util.visualization import render_3d_iso
+
+            q = self.get_q_criterion().detach().cpu().numpy().transpose(2, 1, 0)
+            umag = u_mag.transpose(2, 1, 0)
+            out = None
+            if output_path is not None:
+                out = output_path / f"q_criterion_{self._n_episodes}_{self._n_steps}.png"
+            data["3d_q_criterion"] = render_3d_iso(
+                iso_field=q, iso=[float(np.percentile(np.abs(q), 98)) or 1.0],
+                color_field=umag, color_range=(0.0, float(umag.max()) or 1.0),
+                output_path=out,
+                extent=((0.0, self._L), (-1.0, 1.0), (0.0, self._D)),
+                view_kwargs={"elev": 20, "azim": 45})
+        return data
 
     # ------------------------------------------------------------------
     # opposition-control episodes (Choi et al. 1994), archived beside the

@@ -1,1 +1,2 @@
-"""Framework utilities: initial-domain data access."""
+"""Framework utilities: initial-domain data access, field output, logging
+and seeding."""

@@ -1,11 +1,13 @@
 """The port imports and runs with only the packages the card's machine has.
 
 That machine has PyTorch, numpy and the CUDA toolkit but no ``jax``,
-``gymnasium``, ``matplotlib``, ``pandas`` or ``huggingface_hub``; a
-development host with the JAX package's dependencies has them all, so a
-stray import would pass every other CPU test and die on the card.  A subprocess installs a ``sys.meta_path`` finder that
-refuses those packages (and the JAX package itself), then imports the port
-and ``chip_smoke`` and drives ``make`` / ``reset`` / ``step`` on the CPU.
+``gymnasium``, ``pettingzoo``, ``stable_baselines3``, ``torchrl``,
+``tensordict``, ``matplotlib``, ``pandas``, ``PIL`` or ``huggingface_hub``;
+a development host with the JAX package's dependencies has most of them, so
+a stray import would pass every other CPU test and die on the card.  A
+subprocess installs a ``sys.meta_path`` finder that refuses those packages
+(and the JAX package itself), then imports the port and ``chip_smoke`` and
+drives ``make`` / ``reset`` / ``step`` on the CPU.
 """
 
 import os
@@ -22,8 +24,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKER = textwrap.dedent("""
     import sys
 
-    REFUSED = ("jax", "jaxlib", "fluidgym_tpu", "gymnasium", "matplotlib",
-               "pandas", "huggingface_hub")
+    REFUSED = ("jax", "jaxlib", "fluidgym_tpu", "gymnasium", "pettingzoo",
+               "stable_baselines3", "torchrl", "tensordict", "matplotlib",
+               "pandas", "PIL", "huggingface_hub")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -338,6 +341,70 @@ def test_tcf_imports_and_steps_without_card_packages():
         assert obs["velocity"].shape == (32, 1, 1, 2)
         assert all(bool(torch.isfinite(v).all()) for v in obs.values())
         assert np.isfinite(float(info["wall_stress"])) and reward.shape == (32,)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
+               and not m.startswith("fluidgym_tpu_torch.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
+def test_rl_surface_imports_and_steps_without_card_packages():
+    """The wrappers, the adapters (on their ``object`` bases, with the
+    port's own spaces), field output and logging import with every optional
+    package refused; phase 54's stack (``VecFluidEnv(FlattenObservation(
+    make(..., use_marl=True)))``) steps once, phase 55's
+    (``GymFluidEnv(ActionNoise(SensorNoise(ObsExtraction(...))))``) resets
+    and steps once, the render fields are computed, and the colormap step
+    and the gates raise ``ImportError`` naming their package."""
+    out = _run("""
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import fluidgym_tpu_torch
+        from fluidgym_tpu_torch import spaces
+        import fluidgym_tpu_torch.wrappers as W
+        import fluidgym_tpu_torch.integration as I
+        import fluidgym_tpu_torch.integration.sb3 as S
+        from fluidgym_tpu_torch.integration import pettingzoo as P
+        from fluidgym_tpu_torch.integration import torchrl as T
+        from fluidgym_tpu_torch.utils import field_io, helpers, logging  # noqa: F401
+        from fluidgym_tpu_torch.envs.util import visualization  # noqa: F401
+        assert I.GymFluidEnv.__mro__[1] is object
+        assert P.PettingZooFluidEnv.__mro__[1] is object
+        assert S.VecFluidEnv.__mro__[1] is object
+        kw = dict(device="cpu", resolution=4, n_heaters=4,
+                  load_initial_domain=False, load_domain_statistics=False,
+                  randomize_initial_state=False, episode_length=3,
+                  step_length=0.1, dt=0.05, local_obs_window=3)
+        venv = S.VecFluidEnv(W.FlattenObservation(
+            fluidgym_tpu_torch.make("RBC2D-easy-v0", use_marl=True, **kw)))
+        assert isinstance(venv.observation_space, spaces.Box)
+        obs = venv.reset(seed=0)
+        obs, rew, dones, infos = venv.step(np.zeros((4, 1), np.float32))
+        assert isinstance(obs, np.ndarray) and obs.shape == (4, 288)
+        assert np.isfinite(rew).all() and rew.shape == (4,)
+        env = fluidgym_tpu_torch.make("RBC2D-easy-v0", **kw)
+        g = I.GymFluidEnv(W.ActionNoise(W.SensorNoise(
+            W.ObsExtraction(env, keys=["temperature"]), 0.05, 1), 0.1, 2))
+        assert isinstance(g.action_space, spaces.Box)
+        o, _ = g.reset(seed=0)
+        o, r, te, tr, info = g.step(np.zeros((4, 1), np.float32))
+        assert list(o) == ["temperature"] and isinstance(r, float)
+        fields = env.render_fields()
+        assert tuple(fields["temperature"].shape) == (25, 80)
+        for call, name in ((env.render, "matplotlib"),
+                           (lambda: T.TorchRLFluidEnv(env), "torchrl"),
+                           (lambda: S.EvalCallback(venv, venv, 1, 1),
+                            "stable-baselines3")):
+            try:
+                call()
+            except ImportError as err:
+                assert name in str(err), err
+            else:
+                raise AssertionError(f"no ImportError for {name}")
         bad = [m for m in sys.modules
                if m.split(".")[0] in REFUSED and m != "fluidgym_tpu_torch"
                and not m.startswith("fluidgym_tpu_torch.")]
